@@ -1,0 +1,23 @@
+"""pygpa_tpu_torch — Geometric Phase Analysis on PyTorch and CUDA.
+
+The PyTorch port of ``pygpa_tpu``'s production displacement extractor,
+for NVIDIA Hopper cards (sm_90a). The layout mirrors ``pygpa_tpu``
+(``config``, ``core``, ``lattices``, ``ops``, ``solvers``, ``gpa``) so
+each module's counterpart is found by name. The package imports torch
+and numpy only.
+
+Every kernel the JAX package wrote in Pallas for the TPU is a CUDA C++
+kernel here (``csrc/*.cu``, built with nvcc at first use by
+``ops._build``). Each sits behind a wrapper in ``ops/`` with a plain
+PyTorch twin: a CPU tensor goes to the twin, a CUDA tensor to the
+kernel.
+
+Entry point::
+
+    from pygpa_tpu_torch.gpa.pipeline import make_displacement_extractor
+    fn = make_displacement_extractor(image.shape, ks[:3], unwrap_coarse=4,
+                                     device="cuda")
+    u = fn(image)
+"""
+
+__version__ = "0.1.0"

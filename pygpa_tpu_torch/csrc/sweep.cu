@@ -1,0 +1,335 @@
+// Grouped banded WFR sweep with reconstruction-prologue (uv) emission.
+//
+// Replaces the TPU kernel pygpa_tpu/ops/pallas_sweep.py _grouped_kernel
+// (entry fused_zoom_sweep_grouped, uv_ks + col_groups path). Wrapper and
+// plain twin: pygpa_tpu_torch/ops/sweep.py.
+//
+// The TPU kernel ran stage 1, stage 2, the argmax tournament and the uv
+// epilogue in one grid whose steps ran in order, carrying phase/weight
+// rows and columns from step to step. Blocks here run in parallel and
+// in no order, so the op is three launches:
+//   sweep_stage1: T[g,i] = ((A0c + i A0s) . gx_i) @ (Sr + i Si)_run(i),
+//                 times gy_i, stored as [Re | Im] rows (G, P, n, 2 Wb);
+//   sweep_stage2: per 64x64 pixel tile of group g, M_i = T_i @ A1^T for
+//                 every candidate i with the running best |M|^2 (strict
+//                 '>', candidate 0 first) in registers; emits the winner
+//                 phase (atan2 + banded column ramp) and the rim-masked
+//                 weight, (G, n, m) each;
+//   sweep_uv:     one thread per pixel: wrapped shifted diffs against the
+//                 left / upper neighbour and the 2x2 weighted lstsq.
+// Bound on an H100: stage 2's G*P*n*m*Wb complex MACs in fp32 FMA
+// (1.86 TFLOP at the 4096^2 bench; no tensor cores). Each thread owns a
+// 4x4 pixel patch; the column basis of the tile (2 x Wb x 64 floats)
+// stays in shared memory for all P candidates, and T streams through
+// shared memory in 16-deep chunks.
+// Everything is float32; the TPU's bf16 operand splits and polynomial
+// atan2 were Mosaic workarounds and are not carried over.
+#include <cuda_runtime.h>
+#include <math.h>
+
+namespace {
+
+constexpr int TILE = 64;   // output tile edge (rows and columns)
+constexpr int BK = 16;     // contraction chunk
+constexpr int APAD = TILE + 4;
+constexpr int NT = 256;    // 16 x 16 threads, 4 x 4 outputs each
+
+constexpr float PI_F = 3.14159265358979f;
+constexpr float TWO_PI_F = 6.283185307179586f;
+
+__device__ __forceinline__ float wrap_pi(float x) {
+  // (x + pi) mod 2 pi - pi, floor modulo; no FMA contraction so the
+  // rounding matches the twin's separate torch ops
+  float t = __fadd_rn(x, PI_F);
+  float q = floorf(__fdiv_rn(t, TWO_PI_F));
+  return __fsub_rn(__fsub_rn(t, __fmul_rn(TWO_PI_F, q)), PI_F);
+}
+
+// x - 2 pi floor(x / 2 pi + 1/2): wrap_pi in exact arithmetic, but an x
+// with |x| < pi comes back exactly. The phase differences of the uv
+// epilogue are small; wrap_pi's x + pi would round them to the float32
+// spacing at pi (2.4e-7 rad), a bias the unwrap integrates.
+__device__ __forceinline__ float wrap_diff(float x) {
+  const float q = floorf(__fadd_rn(__fdiv_rn(x, TWO_PI_F), 0.5f));
+  return __fsub_rn(x, __fmul_rn(TWO_PI_F, q));
+}
+
+// acc(4x4 complex) += a(4, complex column slice) x b(4, complex row slice)
+__device__ __forceinline__ void cmac(const float* ar_s, const float* ai_s,
+                                     const float* br_s, const float* bi_s,
+                                     float accr[4][4], float acci[4][4]) {
+  const float4 ar = *reinterpret_cast<const float4*>(ar_s);
+  const float4 ai = *reinterpret_cast<const float4*>(ai_s);
+  const float4 br = *reinterpret_cast<const float4*>(br_s);
+  const float4 bi = *reinterpret_cast<const float4*>(bi_s);
+  const float a_r[4] = {ar.x, ar.y, ar.z, ar.w};
+  const float a_i[4] = {ai.x, ai.y, ai.z, ai.w};
+  const float b_r[4] = {br.x, br.y, br.z, br.w};
+  const float b_i[4] = {bi.x, bi.y, bi.z, bi.w};
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      accr[a][b] = fmaf(a_r[a], b_r[b], accr[a][b]);
+      accr[a][b] = fmaf(-a_i[a], b_i[b], accr[a][b]);
+      acci[a][b] = fmaf(a_r[a], b_i[b], acci[a][b]);
+      acci[a][b] = fmaf(a_i[a], b_r[b], acci[a][b]);
+    }
+  }
+}
+
+// grid (Wb/64, n/64, G*P)
+__global__ void __launch_bounds__(NT) stage1_kernel(
+    const float* __restrict__ Sr, const float* __restrict__ Si,
+    const float* __restrict__ gx, const float* __restrict__ gy,
+    const float* __restrict__ A0c, const float* __restrict__ A0s,
+    const int* __restrict__ run, float* __restrict__ T,
+    int H, int P, int n, int W0, int Wb) {
+  __shared__ __align__(16) float Ar[BK][APAD];
+  __shared__ __align__(16) float Ai[BK][APAD];
+  __shared__ __align__(16) float Br[BK][TILE];
+  __shared__ __align__(16) float Bi[BK][TILE];
+  const int c0 = blockIdx.x * TILE;
+  const int r0 = blockIdx.y * TILE;
+  const int gi = blockIdx.z;  // g * P + i
+  const int g = gi / P;
+  const int h = run[gi];
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const float* a0c = A0c + (size_t)g * n * W0;
+  const float* a0s = A0s + (size_t)g * n * W0;
+  const float* gxi = gx + (size_t)gi * W0;
+  const size_t so = ((size_t)g * H + h) * W0 * Wb;
+  const float* sr = Sr + so;
+  const float* si = Si + so;
+
+  float accr[4][4], acci[4][4];
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int b = 0; b < 4; ++b) accr[a][b] = acci[a][b] = 0.f;
+
+  for (int k0 = 0; k0 < W0; k0 += BK) {
+    for (int e = threadIdx.x; e < TILE * BK; e += NT) {
+      const int r = e / BK, k = e % BK;
+      const float gk = gxi[k0 + k];
+      const size_t idx = (size_t)(r0 + r) * W0 + k0 + k;
+      Ar[k][r] = a0c[idx] * gk;
+      Ai[k][r] = a0s[idx] * gk;
+    }
+    for (int e = threadIdx.x; e < TILE * BK; e += NT) {
+      const int k = e / TILE, c = e % TILE;
+      const size_t idx = (size_t)(k0 + k) * Wb + c0 + c;
+      Br[k][c] = sr[idx];
+      Bi[k][c] = si[idx];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < BK; ++k)
+      cmac(&Ar[k][ty * 4], &Ai[k][ty * 4], &Br[k][tx * 4], &Bi[k][tx * 4],
+           accr, acci);
+    __syncthreads();
+  }
+  const float* gyi = gy + (size_t)gi * Wb;
+  const size_t ld = 2 * (size_t)Wb;
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    float* trow = T + ((size_t)gi * n + r0 + ty * 4 + a) * ld;
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      const int c = c0 + tx * 4 + b;
+      const float gyv = gyi[c];
+      trow[c] = accr[a][b] * gyv;
+      trow[Wb + c] = acci[a][b] * gyv;
+    }
+  }
+}
+
+// grid (m/64, n/64, G); dynamic smem 2*Wb*64 + 2*BK*APAD floats
+__global__ void __launch_bounds__(NT, 2) stage2_kernel(
+    const float* __restrict__ T, const float* __restrict__ A1cT,
+    const float* __restrict__ A1sT, const int* __restrict__ off,
+    float* __restrict__ ph, float* __restrict__ wt,
+    int P, int n, int m, int Wb, int dr, int banded) {
+  extern __shared__ __align__(16) float smem[];
+  float* Bc = smem;                  // [Wb][TILE]
+  float* Bs = Bc + Wb * TILE;        // [Wb][TILE]
+  float* Tr = Bs + Wb * TILE;        // [BK][APAD]
+  float* Ti = Tr + BK * APAD;        // [BK][APAD]
+  const int c0 = blockIdx.x * TILE;
+  const int r0 = blockIdx.y * TILE;
+  const int g = blockIdx.z;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+
+  for (int e = threadIdx.x; e < Wb * TILE; e += NT) {
+    const int k = e / TILE, c = e % TILE;
+    const size_t idx = ((size_t)g * Wb + k) * m + c0 + c;
+    Bc[e] = A1cT[idx];
+    Bs[e] = A1sT[idx];
+  }
+
+  float ba[4][4], br[4][4], bi[4][4];
+  int bo[4][4];
+  const size_t ld = 2 * (size_t)Wb;
+  for (int i = 0; i < P; ++i) {
+    const float* Tg = T + ((size_t)(g * P + i) * n + r0) * ld;
+    float accr[4][4], acci[4][4];
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int b = 0; b < 4; ++b) accr[a][b] = acci[a][b] = 0.f;
+    for (int k0 = 0; k0 < Wb; k0 += BK) {
+      __syncthreads();
+      for (int e = threadIdx.x; e < TILE * BK; e += NT) {
+        const int r = e / BK, k = e % BK;
+        Tr[k * APAD + r] = Tg[(size_t)r * ld + k0 + k];
+        Ti[k * APAD + r] = Tg[(size_t)r * ld + Wb + k0 + k];
+      }
+      __syncthreads();
+#pragma unroll
+      for (int k = 0; k < BK; ++k) {
+        // M_r = Tr A1c - Ti A1s, M_i = Tr A1s + Ti A1c
+        cmac(&Tr[k * APAD + ty * 4], &Ti[k * APAD + ty * 4],
+             &Bc[(k0 + k) * TILE + tx * 4], &Bs[(k0 + k) * TILE + tx * 4],
+             accr, acci);
+      }
+    }
+    const int oi = off[g * P + i];
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        const float mr = accr[a][b], mi = acci[a][b];
+        const float absq = __fadd_rn(__fmul_rn(mr, mr), __fmul_rn(mi, mi));
+        if (i == 0 || absq > ba[a][b]) {
+          ba[a][b] = absq;
+          br[a][b] = mr;
+          bi[a][b] = mi;
+          bo[a][b] = oi;
+        }
+      }
+    }
+  }
+
+  const float inv_m = (float)(1.0 / (double)m);
+  const float ramp = (float)(6.283185307179586 / (double)m);
+  const float inside = (float)(1.0 + 1e-6);
+  const float rim = 1e-6f;
+  const size_t plane = (size_t)g * n * m;
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const int r = r0 + ty * 4 + a;
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      const int c = c0 + tx * 4 + b;
+      float pht = atan2f(bi[a][b], br[a][b]);
+      if (banded) {
+        // winner lock-in = base-band value x e^{2 pi i c off / m};
+        // off * c < 2^24 is exact in float32
+        float rr = __fmul_rn((float)bo[a][b], (float)c);
+        rr = __fsub_rn(rr, __fmul_rn((float)m, floorf(__fmul_rn(rr, inv_m))));
+        pht = wrap_pi(__fadd_rn(pht, __fmul_rn(rr, ramp)));
+      }
+      const bool interior = r >= dr && r < n - dr && c >= dr && c < m - dr;
+      const size_t o = plane + (size_t)r * m + c;
+      ph[o] = pht;
+      wt[o] = __fmul_rn(sqrtf(fmaxf(ba[a][b], 0.f)), interior ? inside : rim);
+    }
+  }
+}
+
+// one thread per pixel; kc = (G, 5): k0, k1, k0*k0, k0*k1, k1*k1
+__global__ void __launch_bounds__(NT) uv_kernel(
+    const float* __restrict__ ph, const float* __restrict__ wt,
+    const float* __restrict__ kc, float* __restrict__ ux,
+    float* __restrict__ uy, float* __restrict__ wn, int G, int n, int m) {
+  const size_t nm = (size_t)n * m;
+  const size_t idx = (size_t)blockIdx.x * NT + threadIdx.x;
+  if (idx >= nm) return;
+  const int r = (int)(idx / m), c = (int)(idx % m);
+  float a00x = 0.f, a01x = 0.f, a11x = 0.f, r0x = 0.f, r1x = 0.f;
+  float a00y = 0.f, a01y = 0.f, a11y = 0.f, r0y = 0.f, r1y = 0.f;
+  float wsq = 0.f;
+  for (int g = 0; g < G; ++g) {
+    const float* p = ph + g * nm;
+    const float* w = wt + g * nm;
+    const float k0 = kc[g * 5 + 0], k1 = kc[g * 5 + 1];
+    const float k00 = kc[g * 5 + 2], k01 = kc[g * 5 + 3], k11 = kc[g * 5 + 4];
+    const float pc = p[idx], wc = w[idx];
+    if (c > 0) {
+      const float wl = w[idx - 1];
+      const float d = wrap_diff(__fadd_rn(__fsub_rn(pc, p[idx - 1]), k1));
+      const float ww = __fmul_rn(wl, wl);
+      a00x = __fadd_rn(a00x, __fmul_rn(ww, k00));
+      a01x = __fadd_rn(a01x, __fmul_rn(ww, k01));
+      a11x = __fadd_rn(a11x, __fmul_rn(ww, k11));
+      r0x = __fadd_rn(r0x, __fmul_rn(__fmul_rn(ww, k0), d));
+      r1x = __fadd_rn(r1x, __fmul_rn(__fmul_rn(ww, k1), d));
+    }
+    if (r > 0) {
+      const float wu = w[idx - m];
+      const float d = wrap_diff(__fadd_rn(__fsub_rn(pc, p[idx - m]), k0));
+      const float ww = __fmul_rn(wu, wu);
+      a00y = __fadd_rn(a00y, __fmul_rn(ww, k00));
+      a01y = __fadd_rn(a01y, __fmul_rn(ww, k01));
+      a11y = __fadd_rn(a11y, __fmul_rn(ww, k11));
+      r0y = __fadd_rn(r0y, __fmul_rn(__fmul_rn(ww, k0), d));
+      r1y = __fadd_rn(r1y, __fmul_rn(__fmul_rn(ww, k1), d));
+    }
+    wsq = __fadd_rn(wsq, __fmul_rn(wc, wc));
+  }
+  float ux0 = 0.f, ux1 = 0.f, uy0 = 0.f, uy1 = 0.f;
+  if (c > 0) {
+    const float det = fmaxf(
+        __fsub_rn(__fmul_rn(a00x, a11x), __fmul_rn(a01x, a01x)), 1e-30f);
+    ux0 = __fdiv_rn(__fsub_rn(__fmul_rn(a11x, r0x), __fmul_rn(a01x, r1x)), det);
+    ux1 = __fdiv_rn(__fsub_rn(__fmul_rn(a00x, r1x), __fmul_rn(a01x, r0x)), det);
+  }
+  if (r > 0) {
+    const float det = fmaxf(
+        __fsub_rn(__fmul_rn(a00y, a11y), __fmul_rn(a01y, a01y)), 1e-30f);
+    uy0 = __fdiv_rn(__fsub_rn(__fmul_rn(a11y, r0y), __fmul_rn(a01y, r1y)), det);
+    uy1 = __fdiv_rn(__fsub_rn(__fmul_rn(a00y, r1y), __fmul_rn(a01y, r0y)), det);
+  }
+  ux[idx] = ux0;
+  ux[nm + idx] = ux1;
+  uy[idx] = uy0;
+  uy[nm + idx] = uy1;
+  wn[idx] = sqrtf(wsq);
+}
+
+}  // namespace
+
+extern "C" {
+
+int sweep_stage1(const float* Sr, const float* Si, const float* gx,
+                 const float* gy, const float* A0c, const float* A0s,
+                 const int* run, float* T, int G, int H, int P, int n, int W0,
+                 int Wb, cudaStream_t stream) {
+  dim3 grid(Wb / TILE, n / TILE, G * P);
+  stage1_kernel<<<grid, NT, 0, stream>>>(Sr, Si, gx, gy, A0c, A0s, run, T, H,
+                                         P, n, W0, Wb);
+  return (int)cudaGetLastError();
+}
+
+int sweep_stage2(const float* T, const float* A1cT, const float* A1sT,
+                 const int* off, float* ph, float* wt, int G, int P, int n,
+                 int m, int Wb, int dr, int banded, cudaStream_t stream) {
+  const size_t smem = (2 * (size_t)Wb * TILE + 2 * BK * APAD) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      stage2_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(m / TILE, n / TILE, G);
+  stage2_kernel<<<grid, NT, smem, stream>>>(T, A1cT, A1sT, off, ph, wt, P, n,
+                                            m, Wb, dr, banded);
+  return (int)cudaGetLastError();
+}
+
+int sweep_uv(const float* ph, const float* wt, const float* kc, float* ux,
+             float* uy, float* wn, int G, int n, int m, cudaStream_t stream) {
+  const size_t nm = (size_t)n * m;
+  const unsigned blocks = (unsigned)((nm + NT - 1) / NT);
+  uv_kernel<<<blocks, NT, 0, stream>>>(ph, wt, kc, ux, uy, wn, G, n, m);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

@@ -1,0 +1,139 @@
+"""Build and load the package's CUDA kernels.
+
+Every ``csrc/*.cu`` source is compiled by one ``nvcc`` call into one
+shared library with a plain C interface, at first use, into
+``pygpa_tpu_torch/_build/`` (listed in .gitignore). The library's file
+name carries a hash of the sources and of the nvcc command, so an edit
+rebuilds and a stale library is never loaded. It is bound with
+``ctypes``: each launcher takes raw device pointers (``data_ptr()``)
+and the caller's CUDA stream, launches on that stream without
+synchronising, and returns ``cudaGetLastError()``; :func:`check`
+raises on a non-zero code.
+
+No source includes PyTorch's headers, so the build takes seconds, not
+the minutes of ``torch.utils.cpp_extension.load``.
+"""
+import collections
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+SRC_DIR = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+CUDA_HOMES = ("/usr/local/cuda",)
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
+
+_lib = None
+build_seconds = None
+build_log = ""
+
+# kernel launches per wrapper name; a wrapper adds one where it
+# launches its kernel and nowhere else (a run shows which kernels its
+# main path went through by clearing this and reading it afterwards)
+launches = collections.Counter()
+
+
+def find_nvcc():
+    """Path of nvcc: $CUDACXX, then PATH, then $CUDA_HOME/bin,
+    $CUDA_PATH/bin and the toolkit's default homes. Returns None when
+    there is none."""
+    cand = [os.environ.get("CUDACXX"), shutil.which("nvcc")]
+    for home in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH"),
+                 *CUDA_HOMES):
+        if home:
+            cand.append(os.path.join(home, "bin", "nvcc"))
+    for c in cand:
+        if c and os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    return None
+
+
+def sources():
+    return sorted(SRC_DIR.glob("*.cu"))
+
+
+def _digest(nvcc, flags):
+    h = hashlib.sha256()
+    h.update(" ".join([nvcc] + flags).encode())
+    for p in sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build():
+    """Compile csrc/*.cu into BUILD_DIR (unless the same sources were
+    already built) and return the library path. Raises RuntimeError
+    when nvcc is missing or the compile fails."""
+    global build_seconds, build_log
+    nvcc = find_nvcc()
+    if nvcc is None:
+        raise RuntimeError(
+            "pygpa_tpu_torch: the CUDA kernels need nvcc (CUDA toolkit "
+            "with sm_90a support) and none was found on PATH, $CUDACXX, "
+            "$CUDA_HOME or /usr/local/cuda; CUDA tensors cannot be "
+            "processed without them")
+    lib_path = BUILD_DIR / f"libpygpa_kernels_{_digest(nvcc, NVCC_FLAGS)}.so"
+    if lib_path.exists():
+        return lib_path
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cu = [str(p) for p in sources()]
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run([nvcc] + NVCC_FLAGS + ["-o", tmp] + cu,
+                              capture_output=True, text=True)
+        build_log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError("pygpa_tpu_torch: nvcc failed "
+                               f"(exit {proc.returncode}):\n{build_log}")
+        os.replace(tmp, lib_path)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    build_seconds = time.perf_counter() - t0
+    return lib_path
+
+
+def load():
+    """The loaded kernel library (built on first call)."""
+    global _lib
+    if _lib is None:
+        _lib = ctypes.CDLL(str(build()))
+    return _lib
+
+
+def bind(name, layout):
+    """ctypes function `name` of the library with its argument types
+    declared: `layout` is a string of 'p' (device pointer or stream),
+    'i' (int) and 'f' (float) codes, in order."""
+    fn = getattr(load(), name)
+    types = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
+    fn.argtypes = [types[c] for c in layout]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def check(code, name):
+    """Raise if a launcher returned a CUDA error code."""
+    if code != 0:
+        raise RuntimeError(f"pygpa_tpu_torch: CUDA kernel {name} failed "
+                           f"to launch (cudaError {code})")
+
+
+def check_tensor(op, name, t, shape, dtype, device):
+    """Raise unless `t` is a contiguous `dtype` tensor of `shape` on
+    `device` (what a launcher may be handed)."""
+    if t.dtype != dtype or tuple(t.shape) != tuple(shape) \
+            or not t.is_contiguous() or t.device != device:
+        raise ValueError(f"{op}: {name} must be a contiguous {dtype} tensor "
+                         f"of shape {tuple(shape)} on {device}, got "
+                         f"{t.dtype} {tuple(t.shape)} on {t.device}")

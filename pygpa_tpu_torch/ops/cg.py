@@ -1,0 +1,105 @@
+"""Fixed-iteration DCT-preconditioned CG on the weighted Poisson system.
+
+Replaces the TPU kernel ``pygpa_tpu/ops/pallas_cg.py`` ``_cg_kernel``
+(entry ``cg_poisson``), which the multigrid unwrap runs for its coarse
+solve and for the V-branch's coarse-grid correction (both 1024^2 at the
+4096^2 bench shapes, kmax 6 and 4).
+
+Each iteration: z = P^-1 r with the unweighted-Poisson preconditioner
+idct2n(dct2n(r) / eigenvalues), rz = <r, z>, beta = rz / rzprev
+(0 when rzprev == 0), p = z (first iteration) or z + beta p,
+Qp = A^T (W^T W) A p with the aligned cyclic stencil, alpha = rz /
+<p, Qp> (0 when the denominator is 0), phi += alpha p, r -= alpha Qp.
+The guarded coefficients make post-convergence iterations no-ops, so
+the loop runs a fixed kmax like the TPU kernel.
+
+CUDA route (``csrc/cg.cu``): per iteration four hand-written tiled
+fp32 GEMMs against dense DCT matrices built on the device, then
+stencil / update kernels with fixed-order block-partial reductions;
+alpha and beta stay on the device (no host sync inside the loop).
+Bound on an H100 by the 4 x 2 x n^3 GEMM FLOPs per plane and
+iteration. The plain twin uses the FFT-based DCT pair of core.fourier.
+
+rk0 carries a batch axis (..., n, m); WWx, WWy are (n, m), shared by
+the batch. Returns phi shaped like rk0.
+"""
+import ctypes
+
+import torch
+
+from . import _build
+from .vcycle import _q as _apply_q
+from ..core.fourier import dct2n, idct2n
+
+_NT_RED = 256 * 16   # elements per reduction block (csrc/cg.cu)
+
+
+def _poisson_scale(n, m, dtype, device):
+    i = torch.arange(n, dtype=dtype, device=device)[:, None]
+    j = torch.arange(m, dtype=dtype, device=device)[None, :]
+    scale = 2.0 * (torch.cos(torch.pi * i / n) + torch.cos(torch.pi * j / m)
+                   - 2.0)
+    scale[0, 0] = 1.0
+    return scale
+
+
+def cg_poisson_plain(rk0, WWx, WWy, kmax):
+    """Plain PyTorch twin of the CG kernel."""
+    n, m = rk0.shape[-2:]
+    scale = _poisson_scale(n, m, rk0.dtype, rk0.device)
+    lead = rk0.shape[:-2]
+    one = torch.ones(lead + (1, 1), dtype=rk0.dtype, device=rk0.device)
+    zero = torch.zeros_like(one)
+    phi = torch.zeros_like(rk0)
+    rk = rk0
+    pk = torch.zeros_like(rk0)
+    rzprev = one
+    for k in range(int(kmax)):
+        zk = idct2n(dct2n(rk) / scale)
+        rz = (rk * zk).sum((-2, -1), keepdim=True)
+        beta = torch.where(rzprev != 0,
+                           rz / torch.where(rzprev != 0, rzprev, one), zero)
+        pk = zk if k == 0 else zk + beta * pk
+        Qpk = _apply_q(pk, WWx, WWy)
+        pq = (pk * Qpk).sum((-2, -1), keepdim=True)
+        alpha = torch.where(pq != 0, rz / torch.where(pq != 0, pq, one),
+                            zero)
+        phi = phi + alpha * pk
+        rk = rk - alpha * Qpk
+        rzprev = rz
+    return phi
+
+
+def cg_poisson(rk0, WWx, WWy, kmax):
+    """`kmax` preconditioned CG iterations from phi = 0 (see module
+    docstring); CPU tensors run the twin, CUDA tensors the kernel."""
+    if rk0.device.type == "cpu":
+        return cg_poisson_plain(rk0, WWx, WWy, kmax)
+    if rk0.device.type != "cuda":
+        raise ValueError(f"cg_poisson: unsupported device {rk0.device}")
+    n, m = rk0.shape[-2:]
+    kmax = int(kmax)
+    if n % 128 or m % 128 or (n * m) % _NT_RED or kmax < 1:
+        raise ValueError(f"cg_poisson kernel needs n, m multiples of 128 "
+                         f"and kmax >= 1 (got n={n}, m={m}, kmax={kmax})")
+    rk_b = rk0.reshape((-1, n, m)).contiguous()
+    B = rk_b.shape[0]
+    _build.check_tensor("cg_poisson", "rk0", rk_b, (B, n, m),
+                        torch.float32, rk0.device)
+    for name, t in (("WWx", WWx), ("WWy", WWy)):
+        _build.check_tensor("cg_poisson", name, t, (n, m), torch.float32,
+                            rk0.device)
+    phi = torch.empty_like(rk_b)
+    with torch.cuda.device(rk0.device):
+        size = _build.load().cg_workspace_floats
+        size.argtypes = [ctypes.c_int] * 4
+        size.restype = ctypes.c_longlong
+        ws = torch.empty(int(size(B, n, m, kmax)), dtype=torch.float32,
+                         device=rk0.device)
+        fn = _build.bind("cg_poisson", "pppppiiiip")
+        _build.check(fn(rk_b.data_ptr(), WWx.data_ptr(), WWy.data_ptr(),
+                        phi.data_ptr(), ws.data_ptr(), B, n, m, kmax,
+                        torch.cuda.current_stream(rk0.device).cuda_stream),
+                     "cg_poisson")
+    _build.launches["cg_poisson"] += 1
+    return phi.reshape(rk0.shape)

@@ -1,0 +1,240 @@
+"""Grouped banded WFR sweep with reconstruction-prologue emission.
+
+Replaces the TPU kernel ``pygpa_tpu/ops/pallas_sweep.py``
+``_grouped_kernel`` (uv emission, banded column groups), reached through
+``fused_zoom_sweep_grouped``. For G Bragg peaks x P candidates it
+evaluates every candidate's full-resolution lock-in as two skinny DFT
+products of its spectrum window, keeps the per-pixel argmax of |M|^2
+(strict '>', candidate 0 first), emits the winner's phase (with the
+banded column ramp) and rim-masked weight, and reduces them to the
+shifted per-pixel weighted-lstsq displacement gradients
+``dudx_s``/``dudy_s`` (2, n, m) and the weight norm ``wnorm`` (n, m).
+
+CUDA route (``csrc/sweep.cu``), three launches on the current stream:
+
+1. stage 1: T[g, i] = ((A0 . gx_i) @ S_run(i)) . gy_i as [Re | Im]
+   rows into a (G, P, n, 2*Wb) float32 scratch;
+2. stage 2 + tournament: M_i = T_i @ [A1c | -A1s], [A1s | A1c] per
+   64x64 pixel tile, looped over the candidates with the running best
+   kept in registers; emits the phase and weight planes (G, n, m);
+3. the uv epilogue, one thread per pixel reading its left and upper
+   neighbours from device memory.
+
+What bounds it on an H100: stage 2 is G*P*n*m*Wb complex
+multiply-adds (1.86 TFLOP at the 4096^2 bench shapes) in float32 FMA
+outside the tensor cores. The design keeps the (G, P, n, m) candidate
+planes out of memory entirely (the tournament never leaves registers)
+and schedules the column tiles of one 64-row band next to each other,
+so the band's slice of T (2.4 MB per peak) is re-read from L2 rather
+than device memory; tensor cores and fusing stage 3 into stage 2 are
+later work.
+
+The uv epilogue wraps its phase differences with :func:`wrap_diff`,
+not the reference's (x + pi) form, which rounds a near-zero float32
+difference to the spacing at pi: a coherent bias that the unwrap
+integrates into a ~1e-3 px ripple on the bench fixture.
+
+The plain twin :func:`sweep_uv_plain` runs the same three stages with
+torch ops; :func:`sweep_uv` sends a CPU tensor there and a CUDA tensor
+to the kernels.
+"""
+import torch
+
+from . import _build
+
+_PI = 3.14159265358979
+_TWO_PI = 6.283185307179586
+TILE = 64          # stage-1/2 output tile (rows x columns), csrc/sweep.cu
+MAX_WB = 256       # stage 2 keeps the (2, Wb, 64) column basis in smem
+
+
+def wrap_pi(x):
+    """(x + pi) mod 2 pi - pi with the kernel's float32 constants."""
+    t = x + _PI
+    return t - _TWO_PI * torch.floor(t / _TWO_PI) - _PI
+
+
+def wrap_diff(x):
+    """x wrapped to [-pi, pi) as x - 2 pi floor(x / 2 pi + 1/2): equal
+    to wrap_pi in exact arithmetic, but a float32 x with |x| < pi comes
+    back unchanged. The (x + pi) form rounds a small phase difference
+    to the float32 spacing at pi (2.4e-7 rad), a bias the unwrap
+    integrates across the image."""
+    return x - _TWO_PI * torch.floor(x / _TWO_PI + 0.5)
+
+
+def _stage1_plain(Sr, Si, gx, gy, A0c, A0s, run):
+    G, P = gx.shape[:2]
+    Ts = []
+    for g in range(G):
+        sr = Sr[g][run[g].long()]                 # (P, W0, Wb)
+        si = Si[g][run[g].long()]
+        ac = A0c[g][None] * gx[g][:, None, :]     # (P, n, W0)
+        as_ = A0s[g][None] * gx[g][:, None, :]
+        gyi = gy[g][:, None, :]
+        tr = (ac @ sr - as_ @ si) * gyi
+        ti = (ac @ si + as_ @ sr) * gyi
+        Ts.append(torch.cat([tr, ti], dim=-1))
+    return torch.stack(Ts)                        # (G, P, n, 2 Wb)
+
+
+def _stage2_plain(T, A1cT, A1sT, off, dr, banded):
+    G, P, n, _ = T.shape
+    m = A1cT.shape[2]
+    dev = T.device
+    ii = torch.arange(n, device=dev)[:, None]
+    jj = torch.arange(m, device=dev)[None, :]
+    interior = (ii >= dr) & (ii < n - dr) & (jj >= dr) & (jj < m - dr)
+    mask = torch.where(interior, torch.tensor(1.0 + 1e-6, device=dev),
+                       torch.tensor(1e-6, device=dev)).to(T.dtype)
+    phs, wts = [], []
+    for g in range(G):
+        B1r = torch.cat([A1cT[g], -A1sT[g]], dim=0)   # (2 Wb, m)
+        B1i = torch.cat([A1sT[g], A1cT[g]], dim=0)
+        offg = off[g].to(T.dtype)
+        for i in range(P):
+            mr = T[g, i] @ B1r
+            mi = T[g, i] @ B1i
+            absq = mr * mr + mi * mi
+            if i == 0:
+                ba, br, bi = absq, mr, mi
+                bo = torch.full_like(absq, float(offg[0]))
+                continue
+            sel = absq > ba
+            ba = torch.where(sel, absq, ba)
+            br = torch.where(sel, mr, br)
+            bi = torch.where(sel, mi, bi)
+            bo = torch.where(sel, offg[i], bo)
+        pht = torch.atan2(bi, br)
+        if banded:
+            # the winner's true lock-in is its base-band value times the
+            # column ramp e^{2 pi i c off / m}; off*c is float32-exact
+            rr = bo * jj.to(T.dtype)
+            rr = rr - m * torch.floor(rr * (1.0 / m))
+            pht = wrap_pi(pht + rr * (_TWO_PI / m))
+        phs.append(pht)
+        wts.append(torch.sqrt(torch.clamp(ba, min=0.0)) * mask)
+    return torch.stack(phs), torch.stack(wts)
+
+
+def _uv_plain(ph, wt, kconst):
+    G, n, m = ph.shape
+    dt = ph.dtype
+    zx = torch.zeros((n, m - 1), dtype=dt, device=ph.device)
+    zy = torch.zeros((n - 1, m), dtype=dt, device=ph.device)
+    a00x = a01x = a11x = r0x = r1x = zx
+    a00y = a01y = a11y = r0y = r1y = zy
+    wsq = torch.zeros((n, m), dtype=dt, device=ph.device)
+    for g in range(G):
+        k0, k1, k00, k01, k11 = (kconst[g, j] for j in range(5))
+        # position j holds the diff ENDING at j; its weight is w[j-1]
+        dbdx = wrap_diff(ph[g, :, 1:] - ph[g, :, :-1] + k1)
+        dbdy = wrap_diff(ph[g, 1:, :] - ph[g, :-1, :] + k0)
+        wwx = wt[g, :, :-1] * wt[g, :, :-1]
+        wwy = wt[g, :-1, :] * wt[g, :-1, :]
+        a00x = a00x + wwx * k00
+        a01x = a01x + wwx * k01
+        a11x = a11x + wwx * k11
+        r0x = r0x + wwx * k0 * dbdx
+        r1x = r1x + wwx * k1 * dbdx
+        a00y = a00y + wwy * k00
+        a01y = a01y + wwy * k01
+        a11y = a11y + wwy * k11
+        r0y = r0y + wwy * k0 * dbdy
+        r1y = r1y + wwy * k1 * dbdy
+        wsq = wsq + wt[g] * wt[g]
+    # clamp the Gram determinant away from the f32 underflow of rim
+    # pixels (weights ~1e-6 enter to the fourth power)
+    detx = torch.clamp(a00x * a11x - a01x * a01x, min=1e-30)
+    dety = torch.clamp(a00y * a11y - a01y * a01y, min=1e-30)
+    ux = torch.zeros((2, n, m), dtype=dt, device=ph.device)
+    uy = torch.zeros((2, n, m), dtype=dt, device=ph.device)
+    ux[0, :, 1:] = (a11x * r0x - a01x * r1x) / detx
+    ux[1, :, 1:] = (a00x * r1x - a01x * r0x) / detx
+    uy[0, 1:, :] = (a11y * r0y - a01y * r1y) / dety
+    uy[1, 1:, :] = (a00y * r1y - a01y * r0y) / dety
+    return ux, uy, torch.sqrt(wsq)
+
+
+def sweep_uv_plain(Sr, Si, gx, gy, A0c, A0s, A1cT, A1sT, run, off, kconst,
+                   dr, banded):
+    """Plain PyTorch twin of the CUDA sweep (same arguments as
+    :func:`sweep_uv`)."""
+    T = _stage1_plain(Sr, Si, gx, gy, A0c, A0s, run)
+    ph, wt = _stage2_plain(T, A1cT, A1sT, off, int(dr), bool(banded))
+    return _uv_plain(ph, wt, kconst)
+
+
+def _sweep_uv_cuda(Sr, Si, gx, gy, A0c, A0s, A1cT, A1sT, run, off, kconst,
+                   dr, banded):
+    G, H, W0, Wb = Sr.shape
+    P = gx.shape[1]
+    n = A0c.shape[1]
+    m = A1cT.shape[2]
+    f32, i32 = torch.float32, torch.int32
+    for name, t, shape, dt in (
+            ("Sr", Sr, (G, H, W0, Wb), f32), ("Si", Si, (G, H, W0, Wb), f32),
+            ("gx", gx, (G, P, W0), f32), ("gy", gy, (G, P, Wb), f32),
+            ("A0c", A0c, (G, n, W0), f32), ("A0s", A0s, (G, n, W0), f32),
+            ("A1cT", A1cT, (G, Wb, m), f32), ("A1sT", A1sT, (G, Wb, m), f32),
+            ("run", run, (G, P), i32), ("off", off, (G, P), i32),
+            ("kconst", kconst, (G, 5), f32)):
+        _build.check_tensor("sweep_uv", name, t, shape, dt, Sr.device)
+    if n % TILE or m % TILE or W0 % 16 or Wb % TILE or Wb > MAX_WB:
+        raise ValueError(
+            f"sweep_uv kernel needs n, m, Wb multiples of {TILE}, W0 a "
+            f"multiple of 16 and Wb <= {MAX_WB} (got n={n}, m={m}, "
+            f"W0={W0}, Wb={Wb})")
+    dev = Sr.device
+    T = torch.empty((G, P, n, 2 * Wb), dtype=f32, device=dev)
+    ph = torch.empty((G, n, m), dtype=f32, device=dev)
+    wt = torch.empty((G, n, m), dtype=f32, device=dev)
+    ux = torch.empty((2, n, m), dtype=f32, device=dev)
+    uy = torch.empty((2, n, m), dtype=f32, device=dev)
+    wn = torch.empty((n, m), dtype=f32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        s1 = _build.bind("sweep_stage1", "ppppppppiiiiip")
+        _build.check(s1(Sr.data_ptr(), Si.data_ptr(), gx.data_ptr(),
+                        gy.data_ptr(), A0c.data_ptr(), A0s.data_ptr(),
+                        run.data_ptr(), T.data_ptr(),
+                        G, H, P, n, W0, Wb, stream), "sweep_stage1")
+        s2 = _build.bind("sweep_stage2", "ppppppiiiiiiip")
+        _build.check(s2(T.data_ptr(), A1cT.data_ptr(), A1sT.data_ptr(),
+                        off.data_ptr(), ph.data_ptr(), wt.data_ptr(),
+                        G, P, n, m, Wb, int(dr), int(bool(banded)),
+                        stream), "sweep_stage2")
+        s3 = _build.bind("sweep_uv", "ppppppiiip")
+        _build.check(s3(ph.data_ptr(), wt.data_ptr(), kconst.data_ptr(),
+                        ux.data_ptr(), uy.data_ptr(), wn.data_ptr(),
+                        G, n, m, stream), "sweep_uv")
+    return ux, uy, wn
+
+
+def sweep_uv(Sr, Si, gx, gy, A0c, A0s, A1cT, A1sT, run, off, kconst, dr,
+             banded):
+    """Grouped banded sweep -> (dudx_s (2, n, m), dudy_s (2, n, m),
+    wnorm (n, m)), float32.
+
+    Sr, Si : (G, H, W0, Wb) spectrum windows (pre-scaled by 1/(n*m)),
+        band-sliced per run h.
+    gx : (G, P, W0) row Gaussian factors; gy : (G, P, Wb) column
+        factors band-sliced per candidate.
+    A0c, A0s : (G, n, W0) row inverse-DFT bases.
+    A1cT, A1sT : (G, Wb, m) base-band column bases, transposed.
+    run, off : (G, P) int32 run index and band offset per candidate
+        (candidates wy-sorted, runs consecutive).
+    kconst : (G, 5) float32 (k0, k1, k0*k0, k0*k1, k1*k1) with
+        (k0, k1) = 2 pi k_nominal (row, column).
+    dr : interior-mask border; banded : apply the column ramp.
+
+    Column 0 of dudx_s and row 0 of dudy_s hold no diff and are 0."""
+    if Sr.device.type == "cpu":
+        return sweep_uv_plain(Sr, Si, gx, gy, A0c, A0s, A1cT, A1sT, run,
+                              off, kconst, dr, banded)
+    if Sr.device.type != "cuda":
+        raise ValueError(f"sweep_uv: unsupported device {Sr.device}")
+    out = _sweep_uv_cuda(Sr, Si, gx, gy, A0c, A0s, A1cT, A1sT, run, off,
+                         kconst, dr, banded)
+    _build.launches["sweep_uv"] += 1
+    return out

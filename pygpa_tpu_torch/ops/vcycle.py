@@ -1,0 +1,150 @@
+"""Fused V-branch stencil passes of the multigrid unwrap.
+
+Replaces the TPU kernels ``pygpa_tpu/ops/pallas_vcycle.py``
+``_presmooth_kernel`` (entry ``presmooth``) and ``_applyq_kernel``
+(entry ``applyq``). Both implement the aligned cyclic stencils of
+solvers/unwrap.py entry for entry: every wrap-around term is killed by
+a structural zero tail or the global-edge row mask, so the cyclic
+neighbour IS the reference semantics.
+
+- presmooth(phi, dxc, dyc, w, cr, omega) -> (r, d, Dinv, rrow):
+  residual gradients of phi, min-neighbour weights, weighted residual
+  rk, Dinv = omega / diag(Q) (|diag| <= 1e-8 gated to 0), d = Dinv rk,
+  r = rk - Q d, and rrow = r with rows block-averaged by `cr` (the row
+  half of the restriction; the caller finishes the columns).
+- applyq(p, w) -> Q p with the weights rebuilt from w.
+
+CUDA route (``csrc/vcycle.cu``): presmooth works on 16 x 32 output
+tiles with a 2-pixel halo staged in shared memory (the chain needs
+neighbours of neighbours); applyq is one thread per pixel reading its
+five-point neighbourhood through the cache. Both are bound by device
+memory (a few float32 planes read and written once per pass) and use
+round-to-nearest intrinsics without FMA contraction, so the kernel's
+arithmetic is the twin's, operation for operation.
+
+phi, dxc, dyc and p carry a batch axis (the displacement components);
+w is one (n, m) plane shared by the batch.
+"""
+import torch
+
+from . import _build
+
+PRESMOOTH_ROWS = 16   # presmooth output tile rows (csrc/vcycle.cu)
+PRESMOOTH_COLS = 32
+
+
+def _masks(n, m, device):
+    lane = torch.arange(m, device=device)[None, :] < (m - 1)
+    row = torch.arange(n, device=device)[:, None] != (n - 1)
+    return lane, row
+
+
+def _weights(w, lane, row):
+    zero = torch.zeros((), dtype=w.dtype, device=w.device)
+    WW = w * w
+    WWx = torch.where(lane, torch.minimum(WW, torch.roll(WW, -1, -1)), zero)
+    WWy = torch.where(row, torch.minimum(WW, torch.roll(WW, -1, -2)), zero)
+    return WWx, WWy
+
+
+def _q(p, WWx, WWy):
+    tx = WWx * (torch.roll(p, -1, -1) - p)
+    ty = WWy * (torch.roll(p, -1, -2) - p)
+    return tx - torch.roll(tx, 1, -1) + ty - torch.roll(ty, 1, -2)
+
+
+def presmooth_plain(phi, dxc, dyc, w, cr, omega):
+    """Plain PyTorch twin of the presmooth kernel."""
+    n, m = phi.shape[-2:]
+    lane, row = _masks(n, m, phi.device)
+    zero = torch.zeros((), dtype=phi.dtype, device=phi.device)
+    WWx, WWy = _weights(w, lane, row)
+    rdx = dxc - torch.where(lane, torch.roll(phi, -1, -1) - phi, zero)
+    rdy = dyc - torch.where(row, torch.roll(phi, -1, -2) - phi, zero)
+    WWdx = WWx * rdx
+    WWdy = WWy * rdy
+    rk = WWdx - torch.roll(WWdx, 1, -1) + WWdy - torch.roll(WWdy, 1, -2)
+    D = -(WWx + torch.roll(WWx, 1, -1) + WWy + torch.roll(WWy, 1, -2))
+    one = torch.ones((), dtype=phi.dtype, device=phi.device)
+    dinv = torch.where(D.abs() > 1e-8,
+                       float(omega) / torch.where(D != 0, D, one), zero)
+    d = rk * dinv
+    r = rk - _q(d, WWx, WWy)
+    rrow = r.reshape(r.shape[:-2] + (n // cr, cr, m)).mean(-2)
+    return r, d, dinv, rrow
+
+
+def applyq_plain(p, w):
+    """Plain PyTorch twin of the applyq kernel."""
+    n, m = p.shape[-2:]
+    lane, row = _masks(n, m, p.device)
+    WWx, WWy = _weights(w, lane, row)
+    return _q(p, WWx, WWy)
+
+
+def _batched(x, n, m):
+    """(B, n, m) contiguous view of a (..., n, m) tensor."""
+    return x.reshape((-1, n, m)).contiguous()
+
+
+def presmooth(phi, dxc, dyc, w, cr, omega):
+    """Fused V-branch pre-smooth: (r, d, Dinv, rrow) with r, d shaped
+    like phi, Dinv (n, m) and rrow (..., n/cr, m)."""
+    if phi.device.type == "cpu":
+        return presmooth_plain(phi, dxc, dyc, w, int(cr), omega)
+    if phi.device.type != "cuda":
+        raise ValueError(f"presmooth: unsupported device {phi.device}")
+    n, m = phi.shape[-2:]
+    cr = int(cr)
+    if (n % PRESMOOTH_ROWS or m % PRESMOOTH_COLS or cr < 1
+            or PRESMOOTH_ROWS % cr or n < 3 or m < 3):
+        raise ValueError(
+            f"presmooth kernel needs n % {PRESMOOTH_ROWS} == 0, m % "
+            f"{PRESMOOTH_COLS} == 0 and cr dividing {PRESMOOTH_ROWS} "
+            f"(got n={n}, m={m}, cr={cr})")
+    lead = phi.shape[:-2]
+    phi_b, dxc_b, dyc_b = (_batched(t, n, m) for t in (phi, dxc, dyc))
+    B = phi_b.shape[0]
+    for name, t, shape in (("phi", phi_b, (B, n, m)), ("dxc", dxc_b,
+                           (B, n, m)), ("dyc", dyc_b, (B, n, m)),
+                           ("w", w, (n, m))):
+        _build.check_tensor("presmooth", name, t, shape, torch.float32,
+                            phi.device)
+    r = torch.empty_like(phi_b)
+    d = torch.empty_like(phi_b)
+    dinv = torch.empty((n, m), dtype=phi.dtype, device=phi.device)
+    rrow = torch.empty((B, n // cr, m), dtype=phi.dtype, device=phi.device)
+    with torch.cuda.device(phi.device):
+        fn = _build.bind("vcycle_presmooth", "ppppppppiiiifp")
+        _build.check(fn(phi_b.data_ptr(), dxc_b.data_ptr(), dyc_b.data_ptr(),
+                        w.data_ptr(), r.data_ptr(), d.data_ptr(),
+                        dinv.data_ptr(), rrow.data_ptr(), B, n, m, cr,
+                        float(omega),
+                        torch.cuda.current_stream(phi.device).cuda_stream),
+                     "vcycle_presmooth")
+    _build.launches["presmooth"] += 1
+    return (r.reshape(lead + (n, m)), d.reshape(lead + (n, m)), dinv,
+            rrow.reshape(lead + (n // cr, m)))
+
+
+def applyq(p, w):
+    """Q p = A^T (W^T W) A p with the aligned min-neighbour weights of
+    `w` (n, m); p is (..., n, m)."""
+    if p.device.type == "cpu":
+        return applyq_plain(p, w)
+    if p.device.type != "cuda":
+        raise ValueError(f"applyq: unsupported device {p.device}")
+    n, m = p.shape[-2:]
+    p_b = _batched(p, n, m)
+    B = p_b.shape[0]
+    _build.check_tensor("applyq", "p", p_b, (B, n, m), torch.float32,
+                        p.device)
+    _build.check_tensor("applyq", "w", w, (n, m), torch.float32, p.device)
+    q = torch.empty_like(p_b)
+    with torch.cuda.device(p.device):
+        fn = _build.bind("vcycle_applyq", "pppiiip")
+        _build.check(fn(p_b.data_ptr(), w.data_ptr(), q.data_ptr(), B, n, m,
+                        torch.cuda.current_stream(p.device).cuda_stream),
+                     "vcycle_applyq")
+    _build.launches["applyq"] += 1
+    return q.reshape(p.shape)

@@ -1,0 +1,149 @@
+"""The port's displacement extractor end to end on the CPU against the
+reference's, its Wiener deconvolution, and the package's boundaries:
+it imports no JAX, and a kernel asked for without nvcc fails loudly
+instead of falling back."""
+import os
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import pygpa_tpu.ops.pallas_sweep as ps
+import pygpa_tpu.ops.wfr as wfr_mod
+import pygpa_tpu.solvers.unwrap as JU
+from pygpa_tpu.gpa import pipeline as jpipe
+from pygpa_tpu.lattices import generate_ks, hexlattice_gen
+from pygpa_tpu_torch.gpa import pipeline as tpipe
+from pygpa_tpu_torch.ops import _build
+from pygpa_tpu_torch.ops import cg as tcg
+from pygpa_tpu_torch.ops import sweep as tsweep
+from pygpa_tpu_torch.ops import vcycle as tvc
+
+torch.set_num_threads(2)
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture
+def kernel_reference(monkeypatch):
+    """The reference extractor on its grouped kernel route (sweep in
+    interpret mode, unwrap kernels forced), as
+    tests/test_lockin_wfr.py runs it off the TPU."""
+    jax.clear_caches()
+    monkeypatch.setattr(wfr_mod, "_use_pallas_sweep", lambda: True)
+    orig = ps.fused_zoom_sweep_grouped
+
+    def interp(*a, **kw):
+        kw["interpret"] = True
+        return orig(*a, **kw)
+
+    monkeypatch.setattr(ps, "fused_zoom_sweep_grouped", interp)
+    monkeypatch.setattr(JU, "_PALLAS_CG", True)
+    monkeypatch.setattr(JU, "_PALLAS_VCYCLE", True)
+    yield
+    jax.clear_caches()
+
+
+def test_extractor_matches_reference(kernel_reference):
+    size, r_k, theta = 256, 0.1, 7.0
+    img = np.array(hexlattice_gen(r_k, theta, order=1, size=size,
+                                  dtype=jnp.float32))
+    ks = np.array(generate_ks(r_k, theta))[:3]
+    want = np.asarray(jpipe.make_displacement_extractor(
+        (size, size), ks, chunk=4, unwrap_coarse=4)(jnp.asarray(img)))
+    fn = tpipe.make_displacement_extractor((size, size), ks, chunk=4,
+                                           unwrap_coarse=4)
+    got = fn(torch.from_numpy(img))
+    assert got.shape == (2, size, size) and got.dtype == torch.float32
+    got = got.numpy()
+    assert np.isfinite(got).all()
+    b = 8
+    assert np.abs(got - want)[:, b:-b, b:-b].max() < 1e-3
+    # the factory's plan is the reference's (same banks, same windows)
+    assert fn.plan.sigma == 10 and fn.plan.dr == 20
+    assert fn.plan.wl.shape == (3, 36, 2)
+
+
+def test_extractor_refuses_unported_routes():
+    ks = np.array(generate_ks(0.1, 7.0))[:3]
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tpipe.make_displacement_extractor((256, 256), ks)    # exact CG
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tpipe.make_displacement_extractor((256, 256), ks, unwrap_coarse=4,
+                                          dtype=torch.float64)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tpipe.make_displacement_extractor((250, 256), ks, unwrap_coarse=4)
+
+
+@pytest.mark.parametrize("shape,sigma,dr", [((2, 96, 80), 6, 12),
+                                            ((2, 256, 256), 10, 20)])
+def test_gaussian_deconvolve_matches(shape, sigma, dr):
+    rng = np.random.default_rng(11)
+    u = rng.normal(size=shape).astype(np.float32)
+    want = np.asarray(jpipe.gaussian_deconvolve(jnp.asarray(u), sigma, dr))
+    got = tpipe.gaussian_deconvolve(torch.from_numpy(u), sigma, dr).numpy()
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, rtol=1e-5,
+                               atol=1e-5 * np.abs(want).max())
+
+
+def test_next_fast_fft_size_matches():
+    for n in list(range(1, 300)) + [4096 + 4 * 102, 4504, 8192 + 408]:
+        assert tpipe._next_fast_fft_size(n) == jpipe._next_fast_fft_size(n)
+
+
+def test_port_imports_no_jax():
+    code = ("import sys, pkgutil, importlib\n"
+            "import pygpa_tpu_torch\n"
+            "for m in pkgutil.walk_packages(pygpa_tpu_torch.__path__, "
+            "'pygpa_tpu_torch.'):\n"
+            "    importlib.import_module(m.name)\n"
+            "bad = [m for m in sys.modules if m == 'jax' or "
+            "m.startswith('jax.') or m == 'pygpa_tpu' or "
+            "m.startswith('pygpa_tpu.')]\n"
+            "assert not bad, bad\n"
+            "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_kernels_without_nvcc_raise(monkeypatch, tmp_path):
+    """No nvcc: building the kernels raises a RuntimeError naming nvcc;
+    nothing falls back to a twin."""
+    for var in ("CUDACXX", "CUDA_HOME", "CUDA_PATH"):
+        monkeypatch.delenv(var, raising=False)
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setattr(_build, "CUDA_HOMES", (str(tmp_path / "cuda"),))
+    monkeypatch.setattr(_build, "_lib", None)
+    assert _build.find_nvcc() is None
+    with pytest.raises(RuntimeError, match="nvcc"):
+        _build.load()
+
+
+def test_wrappers_dispatch_on_device():
+    """A CPU tensor runs the plain twin and counts no launch; a tensor
+    on any other device goes to the kernel path or raises, never to the
+    twin."""
+    _build.launches.clear()
+    p = torch.zeros((2, 32, 32))
+    w = torch.ones((32, 32))
+    assert torch.equal(tvc.applyq(p, w), tvc.applyq_plain(p, w))
+    assert sum(_build.launches.values()) == 0
+    meta = torch.empty((2, 32, 32), device="meta")
+    wm = torch.empty((32, 32), device="meta")
+    with pytest.raises(ValueError, match="device"):
+        tvc.applyq(meta, wm)
+    with pytest.raises(ValueError, match="device"):
+        tvc.presmooth(meta, meta, meta, wm, 4, 0.8)
+    with pytest.raises(ValueError, match="device"):
+        tcg.cg_poisson(meta, wm, wm, 2)
+    args = [torch.empty((1,), device="meta")] * 11
+    with pytest.raises(ValueError, match="device"):
+        tsweep.sweep_uv(*args, 2, True)
+    assert sum(_build.launches.values()) == 0

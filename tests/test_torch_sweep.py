@@ -1,0 +1,226 @@
+"""The port's grouped banded uv sweep (pygpa_tpu_torch.ops.wfr /
+ops.sweep, plain twin on the CPU) against pygpa_tpu.ops.wfr with the
+Pallas kernel in interpret mode. The reference's contraction precision
+is pinned to HIGHEST for the comparisons: the port computes in full
+float32, while HIGH selects winners from a bf16 screen."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import pygpa_tpu.ops.wfr as W
+from pygpa_tpu.lattices import generate_ks, hexlattice_gen
+from pygpa_tpu.ops.pallas_sweep import _wrap_pi
+from pygpa_tpu.solvers.lstsq import weighted_lstsq_stack
+import pygpa_tpu_torch.ops.sweep as TS
+import pygpa_tpu_torch.ops.wfr as TW
+from pygpa_tpu_torch.gpa.pipeline import candidate_banks, plan_from_numpy
+
+torch.set_num_threads(2)
+
+
+def _jax_host_plan(shape, wlists, sigma, dr, ks, gc):
+    """The host plan pygpa_tpu.ops.wfr.wfr_sweep_phase_weight_multi
+    derives on its grouped uv route, step for step."""
+    plans = W._plan_zoom_multi(shape, wlists, float(sigma), gauss_cut=gc)
+    wls = [np.asarray(w) for w in wlists]
+    col_groups = None
+    cg = W._plan_col_groups(wls, plans, shape[1], float(sigma),
+                            gauss_cut=gc)
+    if cg is not None:
+        orders, groups, Wb = cg
+        wls = [w[o] for w, o in zip(wls, orders)]
+        col_groups = (int(Wb), groups)
+    return plan_from_numpy(
+        shape, sigma, dr, np.stack(wls), np.stack([p[0] for p in plans]),
+        np.stack([p[1] for p in plans]), col_groups,
+        tuple((float(k[0]), float(k[1])) for k in np.asarray(ks)))
+
+
+def _assert_same_plan(a, b):
+    assert a.shape == b.shape and a.sigma == b.sigma and a.dr == b.dr
+    np.testing.assert_array_equal(a.wl, b.wl)
+    np.testing.assert_array_equal(a.idx0s, b.idx0s)
+    np.testing.assert_array_equal(a.idx1s, b.idx1s)
+    assert a.col_groups == b.col_groups
+    assert a.uv_ks == b.uv_ks
+
+
+def _bench_banks():
+    ks = np.asarray(generate_ks(0.02, 5.0, kappa=1.005, psi=10.0))[:3]
+    return ks, candidate_banks(ks)
+
+
+def _grid_fixture(size):
+    """The banded fixture of tests/test_lockin_wfr.py (4x4 candidate
+    grids, gauss_cut 10)."""
+    r_k, theta, gc = 0.12, 5.0, 10.0
+    img = np.asarray(hexlattice_gen(r_k, theta, order=1, size=size,
+                                    dtype=jnp.float32))
+    img = img - img.mean()
+    ks = np.asarray(generate_ks(r_k, theta), np.float64)[:3]
+    knorms = np.linalg.norm(ks, axis=1)
+    kw = knorms.mean() / 2.5
+    offs = (np.arange(4) - 1.5) * (2 * kw / 4)
+    wx, wy = np.meshgrid(offs, offs, indexing="ij")
+    grid = np.stack([wx.ravel(), wy.ravel()], -1)
+    wlists = [k[None] + grid for k in ks]
+    sigma = int(np.ceil(1 / knorms.min()))
+    return img, ks, wlists, sigma, 2, gc
+
+
+def _pipeline_fixture(size):
+    """The pipeline's own banks on a 256^2 lattice whose window plan
+    stays unbanded."""
+    r_k, theta = 0.1, 7.0
+    img = np.asarray(hexlattice_gen(r_k, theta, order=1, size=size,
+                                    dtype=jnp.float32))
+    img = img - img.mean()
+    ks = np.asarray(generate_ks(r_k, theta))[:3]
+    sigma = int(np.ceil(1 / np.linalg.norm(ks, axis=1).min()))
+    return img, ks, candidate_banks(ks), sigma, 2 * sigma, 7.0
+
+
+def test_bench_plan_identical():
+    """The 4096^2 bench extractor's plan: both planners give the same
+    windows, band runs and (wy-sorted) banks: sigma 51, dr 102,
+    W0 = W1 = 192, Wb = 128, three runs of 12 candidates per peak."""
+    ks, banks = _bench_banks()
+    jbanks = []
+    knorms = np.linalg.norm(ks, axis=1)
+    kw = knorms.mean() / 2.5
+    steps = kw / 3 * np.arange(6)
+    for pk in ks:
+        wx, wy = np.meshgrid(pk[0] - kw + steps, pk[1] - kw + steps,
+                             indexing="ij")
+        jbanks.append(np.asarray(jnp.asarray(
+            np.stack([wx.ravel(), wy.ravel()], -1), jnp.float32)))
+    for a, b in zip(banks, jbanks):
+        np.testing.assert_array_equal(a, b)
+    sigma = int(np.ceil(1 / knorms.min()))
+    want = _jax_host_plan((4096, 4096), jbanks, sigma, 2 * sigma, ks, 7.0)
+    got = TW.plan_sweep((4096, 4096), banks, sigma, 2 * sigma, ks,
+                        gauss_cut=7.0)
+    _assert_same_plan(got, want)
+    assert (sigma, got.dr) == (51, 102)
+    assert got.idx0s.shape == got.idx1s.shape == (3, 192)
+    Wb, runs = got.col_groups
+    assert Wb == 128 and all(len(r) == 3 and all(c == 12 for c, _ in r)
+                             for r in runs)
+
+
+@pytest.mark.parametrize("size", [256, 512])
+def test_grid_fixture_plan_identical(size):
+    img, ks, wlists, sigma, dr, gc = _grid_fixture(size)
+    want = _jax_host_plan(img.shape, wlists, sigma, dr, ks, gc)
+    got = TW.plan_sweep(img.shape, wlists, sigma, dr, ks, gauss_cut=gc)
+    _assert_same_plan(got, want)
+    assert got.col_groups is not None
+    assert got.col_groups[0] < got.idx1s.shape[1]
+
+
+def test_plan_refuses_unported_routes():
+    img, ks, wlists, sigma, dr, gc = _grid_fixture(256)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TW.plan_sweep((250, 256), wlists, sigma, dr, ks, gauss_cut=gc)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TW.plan_sweep(img.shape, [wlists[0], wlists[1][:-1], wlists[2]],
+                      sigma, dr, ks, gauss_cut=gc)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TW.plan_sweep(img.shape, wlists, sigma, dr, ks, gauss_cut=gc,
+                      dtype=torch.float64)
+    big = [np.concatenate([w] * 4) for w in wlists]      # P = 64 > 48
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TW.plan_sweep(img.shape, big, sigma, dr, ks, gauss_cut=gc)
+
+
+def test_zoom_basis_and_dft_windows_match():
+    img, ks, wlists, sigma, dr, gc = _grid_fixture(256)
+    plan = TW.plan_sweep(img.shape, wlists, sigma, dr, ks, gauss_cut=gc)
+    n, m = img.shape
+    for idx in (plan.idx0s[0], plan.idx1s[2]):
+        jc, js = W._zoom_basis(n, jnp.asarray(idx), jnp.float32)
+        tc, ts = TW._zoom_basis(n, idx)
+        np.testing.assert_allclose(tc.numpy(), np.asarray(jc), atol=2e-6)
+        np.testing.assert_allclose(ts.numpy(), np.asarray(js), atol=2e-6)
+    jr, ji = W._dft_windows(jnp.asarray(img), jnp.asarray(plan.idx0s),
+                            jnp.asarray(plan.idx1s), jnp.float32)
+    sw = TW.UVSweep(plan)
+    tr, ti = TW._dft_windows(torch.from_numpy(img), sw.A0c_flat,
+                             sw.A0s_flat, sw.A1c, sw.A1s)
+    # rtol 1e-4 of the window's peak (bins far off the Bragg peak hold
+    # ~0 and carry only the float32 summation noise of n*m terms)
+    for got, want in ((tr, jr), (ti, ji)):
+        want = np.asarray(want)
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-4,
+                                   atol=1e-4 * np.abs(want).max())
+
+
+def test_uv_epilogue_matches_reference_prologue():
+    """The twin's uv epilogue on its own phase/weight planes equals the
+    reference's XLA reconstruction prologue on the same planes."""
+    img, ks, wlists, sigma, dr, gc = _grid_fixture(256)
+    plan = TW.plan_sweep(img.shape, wlists, sigma, dr, ks, gauss_cut=gc)
+    sw = TW.UVSweep(plan)
+    Sr4, Si4 = sw.windows(torch.from_numpy(img))
+    T = TS._stage1_plain(Sr4, Si4, sw.gx, sw.gy, sw.A0c, sw.A0s, sw.run)
+    ph, wt = TS._stage2_plain(T, sw.A1cT, sw.A1sT, sw.off, dr, True)
+    ux, uy, wn = TS._uv_plain(ph, wt, sw.kconst)
+    ph, wt = jnp.asarray(ph.numpy()), jnp.asarray(wt.numpy())
+    K = 2 * jnp.pi * jnp.asarray(ks, jnp.float32)
+    dbdx = _wrap_pi(jnp.diff(ph, axis=2) + K[:, 1, None, None])
+    dbdy = _wrap_pi(jnp.diff(ph, axis=1) + K[:, 0, None, None])
+    dudx = np.asarray(weighted_lstsq_stack(dbdx, K, wt[:, :, :-1]))
+    dudy = np.asarray(weighted_lstsq_stack(dbdy, K, wt[:, :-1, :]))
+    np.testing.assert_allclose(wn.numpy(), np.asarray(jnp.linalg.norm(
+        wt, axis=0)), rtol=1e-5, atol=1e-7)
+    mx = np.asarray(wt[:, :, :-1]).min(0) > 1e-4
+    my = np.asarray(wt[:, :-1, :]).min(0) > 1e-4
+    assert np.abs((ux.numpy()[:, :, 1:] - dudx)[:, mx]).max() < 1e-4
+    assert np.abs((uy.numpy()[:, 1:, :] - dudy)[:, my]).max() < 1e-4
+    assert (ux[:, :, 0] == 0).all() and (uy[:, 0, :] == 0).all()
+
+
+@pytest.fixture
+def highest(monkeypatch):
+    """Reference sweep contractions at HIGHEST; the jit caches are
+    cleared so the patched module flag is traced, not a cached
+    executable built under the old one."""
+    jax.clear_caches()
+    monkeypatch.setattr(W, "_ZOOM_PRECISION", jax.lax.Precision.HIGHEST)
+    yield
+    jax.clear_caches()
+
+
+@pytest.mark.parametrize("fixture,banded", [(_pipeline_fixture, False),
+                                            (_grid_fixture, True)])
+def test_sweep_twin_matches_interpret_kernel(highest, fixture, banded):
+    img, ks, wlists, sigma, dr, gc = fixture(256)
+    ref = W.wfr_sweep_uv_multi(jnp.asarray(img), wlists, sigma, dr, ks,
+                               gauss_cut=gc, interpret=True)
+    ux0, uy0, wn0 = (np.asarray(a) for a in ref)
+    plan = TW.plan_sweep(img.shape, wlists, sigma, dr, ks, gauss_cut=gc)
+    assert (plan.col_groups is not None) == banded
+    ux1, uy1, wn1 = (a.numpy() for a in TW.wfr_sweep_uv_multi(
+        torch.from_numpy(img), wlists, sigma, dr, ks, gauss_cut=gc))
+    assert np.isfinite(ux1).all() and np.isfinite(uy1).all()
+    # weight norm: rtol 1e-5 (test_lockin_wfr's kernel-vs-XLA bound)
+    np.testing.assert_allclose(wn1, wn0, rtol=1e-5, atol=1e-7)
+    # gradients: the two sweeps sum in different orders, so a near-tie
+    # winner may flip at a few conditioned pixels (all peak weights
+    # > 1e-4); the flip-tolerant bounds of the banded-vs-unbanded
+    # kernel test hold, and off the flips the planes agree to 1e-4
+    sw = TW.UVSweep(plan)
+    Sr4, Si4 = sw.windows(torch.from_numpy(img))
+    T = TS._stage1_plain(Sr4, Si4, sw.gx, sw.gy, sw.A0c, sw.A0s, sw.run)
+    _, wt = TS._stage2_plain(T, sw.A1cT, sw.A1sT, sw.off, dr, sw.banded)
+    wt = wt.numpy()
+    mx = wt[:, :, :-1].min(0) > 1e-4
+    my = wt[:, :-1, :].min(0) > 1e-4
+    dx = np.abs(ux1 - ux0)[:, :, 1:]
+    dy = np.abs(uy1 - uy0)[:, 1:, :]
+    assert (dx[:, mx] > 1e-4).mean() < 1e-3
+    assert (dy[:, my] > 1e-4).mean() < 1e-3
+    assert np.percentile(dx, 99) < 1e-3 and np.percentile(dy, 99) < 1e-3
+    assert (np.abs(wn1 - wn0) / (np.abs(wn0) + 1e-9)).max() < 5e-3
