@@ -20,12 +20,27 @@ Phases, each printed on its own lines:
    deformed < 0.075 px after gaussian_deconvolve); launch counters
    reset just before and read just after show that every kernel ran;
    seconds per image and Mpix/s over 5 runs after warm-up, per-stage
-   CUDA-event times and peak device memory.
+   CUDA-event times and peak device memory;
+5. the README's eager path, extract_displacement_field(img, ks) on the
+   same fixture (one zoom sweep per Bragg peak, the exact CG on the DCT
+   kernels), and
+6. the README's factory at its defaults,
+   make_displacement_extractor((4096, 4096), ks, device="cuda") (the
+   grouped sweep, then the exact CG on the DCT kernels);
+   each with its launch counts, the whole path against the same path
+   on the plain twins (interior p99 |du| < 1e-4 px, max < 1e-2 px), the
+   bench's three gates, seconds per image over 3 runs after warm-up,
+   per-stage CUDA-event times and peak device memory.
+
+Phase 3 also holds the zoom-sweep kernel (all three peaks of the eager
+path) and the four DCT directions (on the exact CG's own residual)
+against their twins.
 
 Any failed check raises and the script exits non-zero. Without a CUDA
 card it fails at once. Its last two lines are the kernels JSON object
 followed by {"ok": true, "device": {...}}.
 """
+import contextlib
 import json
 import os
 import subprocess
@@ -38,7 +53,16 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SIZE = 4096
 R_K, THETA, KAPPA, PSI = 0.02, 5.0, 1.005, 10.0
 GATE_INTERIOR, GATE_DCFREE, GATE_DEFORMED = 0.002, 0.0012, 0.075
+# the bench's k-vectors as bench.py's generate_ks returns them (float32,
+# JAX's default precision): in extract_displacement_field their candidate
+# banks (np.arange endpoints) hold P = 42, 49 and 36, so one peak runs
+# past the reference's 48-candidate chunk; phases 3, 5 and 6 use them
+KS_BENCH_F32 = np.array([[0.019829239696264267, 0.0017598043195903301],
+                         [0.008427001535892487, 0.018130626529455185],
+                         [-0.011402237229049206, 0.01637081988155842]],
+                        np.float32)
 REPS = 5
+REPS_EXACT = 3      # timed runs of phases 5 and 6
 # kernel -> (CUDA source, the TPU kernel it replaces)
 KERNELS = {
     "sweep_uv": ("pygpa_tpu_torch/csrc/sweep.cu",
@@ -49,7 +73,20 @@ KERNELS = {
                "pygpa_tpu/ops/pallas_vcycle.py:217"),
     "cg_poisson": ("pygpa_tpu_torch/csrc/cg.cu",
                    "pygpa_tpu/ops/pallas_cg.py:109"),
+    "zoom_sweep": ("pygpa_tpu_torch/csrc/zoom_sweep.cu",
+                   "pygpa_tpu/ops/pallas_sweep.py:96"),
+    "dct_lane": ("pygpa_tpu_torch/csrc/dct.cu",
+                 "pygpa_tpu/ops/pallas_dct2.py:132"),
+    "dct_sub": ("pygpa_tpu_torch/csrc/dct.cu",
+                "pygpa_tpu/ops/pallas_dct2.py:220"),
 }
+# the path whose counted run a kernel's "launches" reports
+PATH_OF = {"sweep_uv": 4, "presmooth": 4, "applyq": 4, "cg_poisson": 4,
+           "zoom_sweep": 5, "dct_lane": 5, "dct_sub": 5}
+# kernels each driven path must launch
+PATH_KERNELS = {4: ("sweep_uv", "presmooth", "applyq", "cg_poisson"),
+                5: ("zoom_sweep", "dct_lane", "dct_sub"),
+                6: ("sweep_uv", "dct_lane", "dct_sub")}
 
 
 def say(*a):
@@ -82,16 +119,18 @@ def cuda_ms(fn, reps):
 
 class Capture:
     """Swap a module-level kernel wrapper for a recorder that keeps the
-    arguments of every call and forwards it to the wrapper."""
+    arguments of its first `keep` calls (all when None) and forwards
+    every call to the wrapper."""
 
-    def __init__(self, module, name):
-        self.module, self.name = module, name
+    def __init__(self, module, name, keep=None):
+        self.module, self.name, self.keep = module, name, keep
         self.orig = getattr(module, name)
         self.calls = []
 
     def __enter__(self):
         def rec(*args):
-            self.calls.append(args)
+            if self.keep is None or len(self.calls) < self.keep:
+                self.calls.append(args)
             return self.orig(*args)
         setattr(self.module, self.name, rec)
         return self
@@ -198,6 +237,172 @@ def check_cg(cg, calls):
     return mabs
 
 
+ZOOM_AGREE = 0.99      # winner agreement, kernel vs twin
+
+
+def check_zoom(zs, calls, dr):
+    """The zoom-sweep kernel against its twin on each peak's inputs,
+    flip-tolerant (tests/test_lockin_wfr.py's kernel bounds): winners
+    agree on > 99% of pixels; where they agree, |M|^2 within rtol 1e-4
+    (atol 1e-7 of its maximum: float32 sums carry that much absolute
+    noise), Re/Im within 1e-3 of the largest |M|, the weight within
+    rtol 1e-5 (atol 1e-6), and the phase within 1e-5 rad modulo 2 pi
+    where |M| is at least 1e-3 of its maximum (below that atan2
+    amplifies the same absolute noise)."""
+    import torch
+    mabs = 0.0
+    for args in calls:
+        got = zs.zoom_sweep(*args, dr=dr)
+        want = zs.zoom_sweep_plain(*args, dr=dr)
+        torch.cuda.synchronize()
+        same = got[3] == want[3]
+        agree = float(same.float().mean())
+        amax = float(want[0].max())
+        top = amax ** 0.5
+        d = [(g - w).abs() for g, w in zip(got, want)]
+        ex_a = float((d[0] - 1e-4 * want[0].abs())[same].max())
+        ex_w = float((d[5] - 1e-5 * want[5].abs())[same].max())
+        live = same & (want[0] >= 1e-6 * amax)
+        ph = float(torch.remainder(got[4] - want[4] + np.pi, 2 * np.pi)
+                   .sub(np.pi).abs()[live].max())
+        dre, dim = float(d[1][same].max()), float(d[2][same].max())
+        mabs = max(mabs, dre, dim)
+        say(f"  zoom_sweep P={args[2].shape[0]} W0={args[0].shape[0]} "
+            f"W1={args[0].shape[1]} vs twin: winners agree {agree!r}; "
+            f"absq excess over rtol {ex_a / amax!r} of max, re "
+            f"{dre / top!r}, im {dim / top!r} of max |M|, phase {ph!r} "
+            f"rad, weight excess over rtol {ex_w!r}")
+        ok = (agree > ZOOM_AGREE and ex_a <= 1e-7 * amax
+              and dre <= 1e-3 * top and dim <= 1e-3 * top and ph <= 1e-5
+              and ex_w <= 1e-6)
+        if not (ok and all(bool(torch.isfinite(g).all()) for g in got[:3])):
+            raise RuntimeError("zoom_sweep kernel disagrees with its twin")
+    return mabs
+
+
+DCT_BOUND = 1e-5
+
+
+def check_dct(dm, inputs):
+    """Each DCT kernel direction against its FFT twin on the exact CG's
+    own inputs: normwise relative error <= 1e-5 (float32 sums of 4096
+    terms in another order; measured ~1e-6)."""
+    import torch
+    mabs = {}
+    for name, x in inputs.items():
+        got = getattr(dm, name)(x)
+        want = getattr(dm, name + "_plain")(x)
+        torch.cuda.synchronize()
+        e = rel_err(got, want)
+        kern = "dct_lane" if name.endswith("lane") else "dct_sub"
+        mabs[kern] = max(mabs.get(kern, 0.0),
+                         float((got - want).abs().max()))
+        say(f"  {name} {tuple(x.shape)} vs twin: rel err {e!r} "
+            f"(bound {DCT_BOUND})")
+        if not np.isfinite(e) or e > DCT_BOUND:
+            raise RuntimeError(f"{name} kernel disagrees with its twin")
+    return mabs
+
+
+@contextlib.contextmanager
+def plain_versions():
+    """Every kernel wrapper swapped for its plain twin (the DCT route
+    predicate off), to drive a path on the card without its kernels."""
+    from pygpa_tpu_torch.core import fourier
+    from pygpa_tpu_torch.ops import cg, sweep, vcycle, zoom_sweep
+    swaps = [(sweep, "sweep_uv", sweep.sweep_uv_plain),
+             (zoom_sweep, "zoom_sweep", zoom_sweep.zoom_sweep_plain),
+             (vcycle, "presmooth", vcycle.presmooth_plain),
+             (vcycle, "applyq", vcycle.applyq_plain),
+             (cg, "cg_poisson", cg.cg_poisson_plain),
+             (fourier, "dct_kernel_ok", lambda n, dtype: False)]
+    saved = [(m, k, getattr(m, k)) for m, k, _ in swaps]
+    for m, k, v in swaps:
+        setattr(m, k, v)
+    try:
+        yield
+    finally:
+        for m, k, v in saved:
+            setattr(m, k, v)
+
+
+def gate_values(u, ud, u_true, ks):
+    """The bench's three accuracy numbers: interior max |u| and its
+    dc-free form on the zero-displacement fixture, and the deformed
+    fixture's dc-free interior error."""
+    b = 8 * int(np.ceil(1 / np.linalg.norm(ks, axis=1).min()))
+    ui = u[:, b:-b, b:-b]
+    um = ui - ui.mean(dim=(1, 2), keepdim=True)
+    resid = (-ud - u_true)[:, b:-b, b:-b]
+    resid = resid - resid.mean(dim=(1, 2), keepdim=True)
+    return float(ui.abs().max()), float(um.abs().max()), \
+        float(resid.abs().max())
+
+
+def drive_path(num, label, call, call_deconv, img, img_d, u_true, ks):
+    """Phases 5 and 6: one counted run, timed runs, the path against its
+    plain versions, the bench gates, stage times and peak memory.
+    Returns the counted run's launches."""
+    import torch
+    from pygpa_tpu_torch.ops import _build
+    call(img)                                      # warm-up
+    torch.cuda.synchronize()
+    _build.launches.clear()
+    u = call(img)
+    torch.cuda.synchronize()
+    launches = dict(_build.launches)
+    say(f"[{num}] {label}: launches in one run: {launches}")
+    missing = [k for k in PATH_KERNELS[num] if not launches.get(k)]
+    if missing:
+        raise RuntimeError(f"kernels of the path never ran: {missing}")
+    if tuple(u.shape) != (2, SIZE, SIZE) or not torch.isfinite(u).all():
+        raise RuntimeError(f"{label}: output bad, shape {tuple(u.shape)}")
+    t0 = time.perf_counter()
+    for _ in range(REPS_EXACT):
+        call(img)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / REPS_EXACT
+    with plain_versions():
+        up = call(img)
+    b = 8 * int(np.ceil(1 / np.linalg.norm(ks, axis=1).min()))
+    d = (u - up)[:, b:-b, b:-b].abs().flatten()
+    p99 = float(torch.quantile(d[::7], torch.tensor([0.99],
+                                                    device=d.device)))
+    dmax = float(d.max())
+    say(f"    with kernels vs plain versions: interior p99 |du| {p99!r} "
+        f"max {dmax!r} px (bounds 1e-4, 1e-2)")
+    if not (p99 < 1e-4 and dmax < 1e-2):
+        raise RuntimeError(f"{label}: kernels change the result")
+    call_deconv(img_d)
+    events = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    start.record()
+    ud = call_deconv(img_d, events=events)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    stages, prev = {}, start
+    for name, ev in events:
+        stages[name] = prev.elapsed_time(ev)
+        prev = ev
+    g = gate_values(u, ud, u_true, ks)
+    gates = {"u_err_interior_px": g[0], "u_err_interior_dcfree_px": g[1],
+             "u_err_deformed_px": g[2],
+             "gated": f"interior<{GATE_INTERIOR}, dcfree<{GATE_DCFREE}, "
+                      f"deformed<{GATE_DEFORMED}"}
+    say(f"    gates: {json.dumps(gates)}")
+    if not (g[0] < GATE_INTERIOR and g[1] < GATE_DCFREE
+            and g[2] < GATE_DEFORMED):
+        raise RuntimeError(f"{label}: ACCURACY GATE FAILED")
+    say(f"    seconds_per_image {dt!r}, Mpix/s {SIZE * SIZE / 1e6 / dt!r} "
+        f"({REPS_EXACT} runs after warm-up, host clock, synchronized)")
+    say(f"    stage ms (CUDA events, deconvolving run): "
+        f"{json.dumps(stages)}")
+    say(f"    peak device memory {peak / 2**30!r} GiB")
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -205,9 +410,12 @@ def main():
               "False); this check runs only on a GPU", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
+    from pygpa_tpu_torch.core import fourier as fourier_mod
     from pygpa_tpu_torch.gpa import pipeline
     from pygpa_tpu_torch.ops import _build
     from pygpa_tpu_torch.ops import cg as cg_mod
+    from pygpa_tpu_torch.ops import dct as dct_mod
+    from pygpa_tpu_torch.ops import zoom_sweep as zs_mod
     from pygpa_tpu_torch.ops import sweep as sw_mod
     from pygpa_tpu_torch.ops import vcycle as vc_mod
     from pygpa_tpu_torch.ops import wfr as wfr_mod
@@ -267,6 +475,42 @@ def main():
     say(f"    cg_poisson ms (kernel, twin) per call: {cg_ms}")
     rows["cg_poisson"] = dict(max_abs_err=e_cg, ms=cg_ms[0][0],
                               plain_ms=cg_ms[0][1])
+    # the eager path's inputs: one zoom sweep per Bragg peak, and the
+    # first transform of each direction in its exact CG
+    ks32 = KS_BENCH_F32
+    if np.abs(ks32 - ks).max() > 1e-8:
+        raise RuntimeError("KS_BENCH_F32 is not the bench fixture's ks")
+    with Capture(wfr_mod._zoom, "zoom_sweep") as c_zs, \
+            Capture(fourier_mod._dct, "dct_lane", keep=1) as c_dl, \
+            Capture(fourier_mod._dct, "idct_lane", keep=1) as c_il, \
+            Capture(fourier_mod._dct, "dct_sub", keep=1) as c_ds, \
+            Capture(fourier_mod._dct, "idct_sub", keep=1) as c_is:
+        pipeline.extract_displacement_field(img, ks32)
+        torch.cuda.synchronize()
+    say(f"    captured eager-path calls: zoom_sweep P = "
+        f"{[a[2].shape[0] for a in c_zs.calls]}, windows "
+        f"{[tuple(a[0].shape) for a in c_zs.calls]}")
+    dr = 2 * int(np.ceil(1 / np.linalg.norm(ks, axis=1).min()))
+    e_zs = check_zoom(zs_mod, c_zs.calls, dr)
+    zs_ms = [(cuda_ms(lambda a=a: zs_mod.zoom_sweep(*a), 3),
+              cuda_ms(lambda a=a: zs_mod.zoom_sweep_plain(*a), 2))
+             for a in c_zs.calls]
+    say(f"    zoom_sweep ms (kernel, twin) per peak: {zs_ms}")
+    rows["zoom_sweep"] = dict(max_abs_err=e_zs,
+                              ms=sum(k for k, _ in zs_ms),
+                              plain_ms=sum(p for _, p in zs_ms))
+    dct_in = {"dct_lane": c_dl.calls[0][0], "idct_lane": c_il.calls[0][0],
+              "dct_sub": c_ds.calls[0][0], "idct_sub": c_is.calls[0][0]}
+    e_dct = check_dct(dct_mod, dct_in)
+    dct_ms = {name: (cuda_ms(lambda f=getattr(dct_mod, name), x=x: f(x), 10),
+                     cuda_ms(lambda f=getattr(dct_mod, name + "_plain"),
+                             x=x: f(x), 10))
+              for name, x in dct_in.items()}
+    say(f"    DCT ms (kernel, twin) per call: {dct_ms}")
+    for kern, inv in (("dct_lane", "idct_lane"), ("dct_sub", "idct_sub")):
+        rows[kern] = dict(max_abs_err=e_dct[kern],
+                          ms=(dct_ms[kern][0] + dct_ms[inv][0]) / 2,
+                          plain_ms=(dct_ms[kern][1] + dct_ms[inv][1]) / 2)
     for name, r in rows.items():
         say(f"    {name}: kernel {r['ms']!r} ms, twin {r['plain_ms']!r} ms")
 
@@ -298,7 +542,7 @@ def main():
     for name, ev in events:
         stages[name] = prev.elapsed_time(ev)
         prev = ev
-    launches = {k: _build.launches[k] for k in KERNELS}
+    launches = {k: _build.launches[k] for k in PATH_KERNELS[4]}
     say(f"[4] launches in the main-path runs: {launches}")
     if not all(v > 0 for v in launches.values()):
         raise RuntimeError(f"a kernel of the main path never ran: {launches}")
@@ -326,10 +570,33 @@ def main():
     say(f"    stage ms (CUDA events): {json.dumps(stages)}")
     say(f"    peak device memory {peak / 2**30!r} GiB")
 
+    # ---- 5. the README's eager path
+    path_launches = {4: launches}
+    path_launches[5] = drive_path(
+        5, "extract_displacement_field(img, ks)",
+        lambda im, events=None: pipeline.extract_displacement_field(
+            im, ks32, events=events),
+        lambda im, events=None: pipeline.extract_displacement_field(
+            im, ks32, deconvolve=True, events=events),
+        img, img_d, u_true, ks32)
+    if path_launches[5].get("zoom_sweep") != 3:
+        raise RuntimeError("the eager path should run one zoom sweep per "
+                           f"Bragg peak: {path_launches[5]}")
+
+    # ---- 6. the README's factory at its defaults (exact CG)
+    path_launches[6] = drive_path(
+        6, "make_displacement_extractor((4096, 4096), ks) defaults",
+        pipeline.make_displacement_extractor((SIZE, SIZE), ks32,
+                                             device="cuda"),
+        pipeline.make_displacement_extractor((SIZE, SIZE), ks32,
+                                             deconvolve=True, device="cuda"),
+        img, img_d, u_true, ks32)
+
     kernels = []
     for name, (src, rep) in KERNELS.items():
         kernels.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": rep, "launches": launches[name],
+                        "replaces": rep,
+                        "launches": path_launches[PATH_OF[name]][name],
                         **rows[name]})
     say(card_line())
     say(json.dumps({"kernels": kernels}))

@@ -1,7 +1,8 @@
 """pygpa_tpu_torch — Geometric Phase Analysis on PyTorch and CUDA.
 
-The PyTorch port of ``pygpa_tpu``'s production displacement extractor,
-for NVIDIA Hopper cards (sm_90a). The layout mirrors ``pygpa_tpu``
+The PyTorch port of ``pygpa_tpu``'s displacement extraction (the eager
+``extract_displacement_field`` and the ``make_displacement_extractor``
+factory), for NVIDIA Hopper cards (sm_90a). The layout mirrors ``pygpa_tpu``
 (``config``, ``core``, ``lattices``, ``ops``, ``solvers``, ``gpa``) so
 each module's counterpart is found by name. The package imports torch
 and numpy only.
@@ -12,11 +13,12 @@ kernel here (``csrc/*.cu``, built with nvcc at first use by
 PyTorch twin: a CPU tensor goes to the twin, a CUDA tensor to the
 kernel.
 
-Entry point::
+Entry points::
 
-    from pygpa_tpu_torch.gpa.pipeline import make_displacement_extractor
-    fn = make_displacement_extractor(image.shape, ks[:3], unwrap_coarse=4,
-                                     device="cuda")
+    from pygpa_tpu_torch.gpa import pipeline
+    u = pipeline.extract_displacement_field(image, ks[:3])   # image on the card
+    fn = pipeline.make_displacement_extractor(image.shape, ks[:3],
+                                              device="cuda")
     u = fn(image)
 """
 

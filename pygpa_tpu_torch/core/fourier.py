@@ -1,12 +1,15 @@
 """Fourier-domain building blocks (counterpart of a subset of
-pygpa_tpu/core/fourier.py): the scipy-convention DCT-II pair the plain
-CG twin uses as its preconditioner, and the Gaussian multiplier,
-Laplacian transfer and Wiener filter of gaussian_deconvolve. All run on
-torch.fft."""
+pygpa_tpu/core/fourier.py): the scipy-convention 2D DCT-II pair of the
+unwrap's Poisson preconditioner (routed per axis to the ops.dct kernels
+as the reference routes to its Pallas DCT), and the Gaussian
+multiplier, Laplacian transfer and Wiener filter of
+gaussian_deconvolve, on torch.fft."""
 import math
 
 import numpy as np
 import torch
+
+from ..ops import dct as _dct
 
 
 def _fftfreq(n, dtype, device):
@@ -46,40 +49,30 @@ def wiener_deconvolve(image, transfer, balance):
     return torch.fft.ifft2(torch.fft.fft2(image) * filt).real
 
 
-def _dct2_last(x):
-    """Unnormalized DCT-II along the last axis (scipy.fft.dct,
-    norm=None) by Makhoul's single-FFT permutation."""
-    n = x.shape[-1]
-    v = torch.cat([x[..., ::2], x[..., 1::2].flip(-1)], dim=-1)
-    k = torch.arange(n, dtype=x.dtype, device=x.device)
-    w = torch.polar(torch.ones_like(k), -math.pi * k / (2 * n))
-    return 2 * (torch.fft.fft(v) * w).real
-
-
-def _idct2_last(y):
-    """Exact inverse of _dct2_last (scipy.fft.idct, type 2,
-    norm=None)."""
-    n = y.shape[-1]
-    k = torch.arange(n, dtype=y.dtype, device=y.device)
-    ynk = torch.cat([torch.zeros_like(y[..., :1]), y[..., 1:].flip(-1)],
-                    dim=-1)
-    G = torch.complex(y, -ynk) * 0.5
-    F = G * torch.polar(torch.ones_like(k), math.pi * k / (2 * n))
-    v = torch.fft.ifft(F).real
-    half = (n + 1) // 2
-    x = torch.empty_like(y)
-    x[..., ::2] = v[..., :half]
-    x[..., 1::2] = v[..., half:].flip(-1)
-    return x
+def dct_kernel_ok(n, dtype):
+    """The reference's _pallas_dct_ok gate, read for the card: an axis of
+    length n >= 4096 that the single-pass DCT kernels take, in float32
+    (smaller axes ran faster on the XLA transforms on the TPU; the port
+    keeps the same split)."""
+    return n >= 4096 and _dct.supported(n) and dtype == torch.float32
 
 
 def dct2n(x):
-    """2D DCT-II over the last two axes (scipy.fft.dctn, norm=None)."""
-    x = _dct2_last(x)
-    return _dct2_last(x.transpose(-1, -2)).transpose(-1, -2)
+    """2D DCT-II over the last two axes (scipy.fft.dctn, norm=None): the
+    lane axis first, then axis -2, each on the ops.dct kernel where
+    dct_kernel_ok holds and on the FFT twin otherwise."""
+    lane = _dct.dct_lane if dct_kernel_ok(x.shape[-1], x.dtype) \
+        else _dct.dct_lane_plain
+    sub = _dct.dct_sub if dct_kernel_ok(x.shape[-2], x.dtype) \
+        else _dct.dct_sub_plain
+    return sub(lane(x))
 
 
 def idct2n(x):
-    """2D inverse DCT-II over the last two axes (scipy.fft.idctn)."""
-    x = _idct2_last(x.transpose(-1, -2)).transpose(-1, -2)
-    return _idct2_last(x)
+    """2D inverse DCT-II over the last two axes (scipy.fft.idctn), in
+    the reference's order: axis -2 first, then the lane axis."""
+    sub = _dct.idct_sub if dct_kernel_ok(x.shape[-2], x.dtype) \
+        else _dct.idct_sub_plain
+    lane = _dct.idct_lane if dct_kernel_ok(x.shape[-1], x.dtype) \
+        else _dct.idct_lane_plain
+    return lane(sub(x))

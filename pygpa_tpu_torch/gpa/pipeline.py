@@ -1,28 +1,37 @@
-"""The production displacement extractor (counterpart of a subset of
-pygpa_tpu/gpa/pipeline.py: make_displacement_extractor on its fused uv
-route, gaussian_deconvolve and _next_fast_fft_size).
+"""Displacement extraction (counterpart of a subset of
+pygpa_tpu/gpa/pipeline.py: extract_displacement_field,
+make_displacement_extractor, gaussian_deconvolve and
+_next_fast_fft_size).
 
-One call of the extractor runs: mean subtraction -> the grouped banded
-WFR sweep with reconstruction-prologue emission (ops.wfr / ops.sweep)
--> the multigrid unwrap of the two displacement components
-(gpa.reconstruct / solvers.unwrap) -> optional Wiener deconvolution.
+extract_displacement_field, the eager entry: one fft2, one WFR sweep
+per Bragg peak (ops.wfr.wfr_sweep, on the ops.zoom_sweep kernel where
+the reference runs its fused sweep), rebased phases and rim-masked
+weights, then the exact reconstruction (gpa.reconstruct: lstsq + the
+early-stopping CG unwrap, whose DCTs run on the ops.dct kernels at
+4096 px and up).
+
+make_displacement_extractor, the factory: mean subtraction -> the
+grouped banded sweep with reconstruction-prologue emission (ops.sweep)
+where the grouped plan applies, else the per-peak phase/weight sweeps
+-> the multigrid (unwrap_coarse) or exact (unwrap_coarse=None) unwrap
+of the two displacement components -> optional Wiener deconvolution.
 Everything that does not depend on the image (the sweep plan, DFT
 bases, Gaussian factors) is built once by the factory on `device`.
 """
+
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..config import DEFAULTS
 from ..core.fourier import fourier_gaussian_multiplier, wiener_deconvolve
-from ..ops.wfr import SweepPlan, UVSweep, plan_sweep
+from ..ops.sweep import rim_weights
+from ..ops.wfr import (SweepPlan, UVSweep, plan_sweep, wfr_sweep,
+                       wfr_sweep_phase_weight_multi)
 from ..solvers.unwrap import stamp
-from .reconstruct import reconstruct_u_inv_from_uv
-
-_NOT_PORTED_ROUTE = ("is not ported: only the fused uv route with the "
-                     "multigrid unwrap (unwrap_coarse >= 1) runs in "
-                     "pygpa_tpu_torch; the phase/weight route and the "
-                     "exact-CG unwrap are ROADMAP queue 1 work")
+from .reconstruct import (reconstruct_u_inv_from_demod,
+                          reconstruct_u_inv_from_phases,
+                          reconstruct_u_inv_from_uv)
 
 
 def _next_fast_fft_size(n):
@@ -114,27 +123,24 @@ def make_displacement_extractor(shape, kvecs, sigma=None,
                                 unwrap_coarse=None, gauss_cut=None,
                                 dtype=torch.float32, device=None):
     """Build the displacement extractor for a fixed image shape and
-    k-vector set: grouped WFR sweep with fused per-pixel lstsq ->
-    multigrid unwrap (-> optional Wiener deconvolution).
+    k-vector set: WFR sweeps -> per-pixel weighted lstsq -> unwrap (->
+    optional Wiener deconvolution).
 
     Arguments follow pygpa_tpu.gpa.pipeline.make_displacement_extractor;
-    `device` places the precomputed operands and the work. `chunk` only
-    steers the reference's per-peak sweep route, which is not ported.
-    Raises NotImplementedError where the reference would leave the
-    grouped uv route or the multigrid unwrap.
+    `device` places the precomputed operands and the work. The grouped
+    uv sweep runs where its plan applies (float32, sides multiples of
+    128, equal windows, P <= 48); other shapes and float64 take the
+    per-peak phase/weight sweeps (`chunk` candidates per batched product
+    on the plain route). unwrap_coarse selects the multigrid unwrap,
+    None the exact early-stopping CG.
 
     Returns run(image, events=None) -> u (2, n, m). `events`, a list,
     collects (stage name, CUDA event) pairs after each stage (sweep,
-    unwrap levels, deconvolve) for stage timing on the card."""
+    lstsq, unwrap levels, deconvolve) for stage timing on the card."""
     if not DEFAULTS.pipeline_fused_uv:
-        raise NotImplementedError("the phase/weight sweep route "
-                                  + _NOT_PORTED_ROUTE)
-    if not unwrap_coarse:
-        raise NotImplementedError("unwrap_coarse=None (exact CG unwrap) "
-                                  + _NOT_PORTED_ROUTE)
-    if dtype != torch.float32:
-        raise NotImplementedError(f"dtype {dtype}: only float32 "
-                                  + _NOT_PORTED_ROUTE)
+        raise NotImplementedError(
+            "pipeline_fused_uv=False: the grouped phase/weight sweep "
+            "emission is not ported (ROADMAP queue 1 item 7)")
     kvecs_h = np.asarray(kvecs, np.float64)
     knorms = np.linalg.norm(kvecs_h, axis=1)
     if not np.all(knorms > 0):
@@ -143,19 +149,29 @@ def make_displacement_extractor(shape, kvecs, sigma=None,
     dr = 2 * sig
     gc = (DEFAULTS.pipeline_gauss_cut if gauss_cut is None
           else float(gauss_cut))
-    wlists = candidate_banks(kvecs_h, kwscale, ksteps)
+    np_dtype = np.float32 if dtype == torch.float32 else np.float64
+    wlists = candidate_banks(kvecs_h, kwscale, ksteps, dtype=np_dtype)
     plan = plan_sweep(shape, wlists, sig, dr, kvecs_h, gauss_cut=gc,
                       dtype=dtype)
-    sweep = UVSweep(plan, device=device)
+    sweep = UVSweep(plan, device=device) if plan is not None else None
+    kv = torch.tensor(kvecs_h, device=device).to(dtype)
 
     def run(image, events=None):
         image = torch.as_tensor(image, device=device).to(dtype)
         img0 = image - image.mean()
-        uv = sweep(img0)
-        stamp(events, "sweep")
-        u = reconstruct_u_inv_from_uv(*uv, kmax=unwrap_kmax,
-                                      unwrap_coarse=unwrap_coarse,
-                                      events=events)
+        if sweep is not None:
+            uv = sweep(img0)
+            stamp(events, "sweep")
+            u = reconstruct_u_inv_from_uv(*uv, kmax=unwrap_kmax,
+                                          unwrap_coarse=unwrap_coarse,
+                                          events=events)
+        else:
+            ph, wt = wfr_sweep_phase_weight_multi(img0, wlists, sig, dr,
+                                                  chunk=chunk, gauss_cut=gc)
+            stamp(events, "sweep")
+            u = reconstruct_u_inv_from_demod(kv, ph, wt, kmax=unwrap_kmax,
+                                             unwrap_coarse=unwrap_coarse,
+                                             events=events)
         if deconvolve:
             u = gaussian_deconvolve(u, sig, dr)
             stamp(events, "deconvolve")
@@ -164,3 +180,71 @@ def make_displacement_extractor(shape, kvecs, sigma=None,
     run.plan = plan
     run.sigma = sig
     return run
+
+
+def extract_displacement_field(image, kvecs, sigma=None,
+                               kwscale=DEFAULTS.kw_scale,
+                               ksteps=DEFAULTS.ksteps,
+                               return_gs=False, wfr_func=None,
+                               deconvolve=False, with_grad=False,
+                               chunk=8,
+                               unwrap_kmax=DEFAULTS.unwrap_kmax_reconstruct,
+                               events=None):
+    """Extract the displacement field u (2, n, m) of a (moire) lattice
+    image (pygpa_tpu.gpa.pipeline.extract_displacement_field): sigma =
+    ceil(1 / min |k|), sweep range kw = mean |k| / kwscale in steps of
+    kw / ksteps; one WFR sweep per Bragg peak on a shared fft2; phases
+    weighted by the lock-in magnitude with the 2 sigma interior mask
+    (floor 1e-6); exact reconstruction; optional Wiener deconvolution.
+
+    `wfr_func` is the reference's plug-in seam: a callable
+    f(img0, sigma, kx, ky, kw=..., kstep=...) -> {'lockin': ...} that
+    replaces the built-in sweep. The image keeps its dtype and device
+    (a numpy array runs on the CPU). `events`, a list,
+    collects (stage name, CUDA event) pairs after the fft2, the sweeps,
+    the lstsq, the unwrap and the deconvolution. with_grad raises
+    NotImplementedError (ROADMAP queue 1 item 7)."""
+    # the k-vectors keep their dtype: kw, kstep and the np.arange banks
+    # are computed in it, as the reference does (float32 and float64
+    # k-vectors can give banks of different lengths)
+    kvecs_h = np.array(kvecs)
+    knorms = np.linalg.norm(kvecs_h, axis=1)
+    if not np.all(knorms > 0):
+        raise ValueError("all k-vectors must be nonzero (got norms "
+                         f"{knorms})")
+    kw = knorms.mean() / kwscale
+    if sigma is None:
+        sigma = int(np.ceil(1 / knorms.min()))
+    kstep = kw / ksteps
+    if not isinstance(image, torch.Tensor):
+        image = torch.tensor(np.asarray(image))
+    img0 = image - image.mean()
+    gs = []
+    if wfr_func is not None:
+        for pk in kvecs_h:
+            gs.append(wfr_func(img0, sigma, pk[0], pk[1], kw=kw,
+                               kstep=kstep))
+    else:
+        spectrum = torch.fft.fft2(img0)
+        stamp(events, "fft2")
+        for pk in kvecs_h:
+            wxs = np.arange(pk[0] - kw, pk[0] + kw, kstep)
+            wys = np.arange(pk[1] - kw, pk[1] + kw, kstep)
+            wx, wy = np.meshgrid(wxs, wys, indexing="ij")
+            wlist = np.stack([wx.ravel(), wy.ravel()], -1)
+            gs.append(wfr_sweep(img0, wlist, pk, sigma, with_grad=with_grad,
+                                chunk=chunk, spectrum=spectrum))
+    stamp(events, "sweeps")
+    lockins = torch.stack([g["lockin"] for g in gs])
+    phases = torch.angle(lockins)
+    dr = 2 * sigma
+    weights = torch.abs(lockins) * rim_weights(*image.shape, dr, image.dtype,
+                                               image.device)
+    u = reconstruct_u_inv_from_phases(kvecs_h, phases, weights,
+                                      kmax=unwrap_kmax, events=events)
+    if deconvolve:
+        u = gaussian_deconvolve(u, sigma, dr)
+        stamp(events, "deconvolve")
+    if return_gs:
+        return u, gs
+    return u

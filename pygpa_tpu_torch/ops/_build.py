@@ -1,9 +1,10 @@
 """Build and load the package's CUDA kernels.
 
-Every ``csrc/*.cu`` source is compiled by one ``nvcc`` call into one
-shared library with a plain C interface, at first use, into
-``pygpa_tpu_torch/_build/`` (listed in .gitignore). The library's file
-name carries a hash of the sources and of the nvcc command, so an edit
+Every ``csrc/*.cu`` source is compiled by its own ``nvcc`` process (all
+started together) and linked into one shared library with a plain C
+interface, at first use, into ``pygpa_tpu_torch/_build/`` (listed in
+.gitignore). The library's file name carries a hash of the sources, the
+headers they share (``csrc/*.cuh``) and the nvcc command, so an edit
 rebuilds and a stale library is never loaded. It is bound with
 ``ctypes``: each launcher takes raw device pointers (``data_ptr()``)
 and the caller's CUDA stream, launches on that stream without
@@ -28,7 +29,7 @@ SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 CUDA_HOMES = ("/usr/local/cuda",)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
+              "-O3", "-Xcompiler", "-fPIC", "-lineinfo"]
 
 _lib = None
 build_seconds = None
@@ -62,7 +63,7 @@ def sources():
 def _digest(nvcc, flags):
     h = hashlib.sha256()
     h.update(" ".join([nvcc] + flags).encode())
-    for p in sources():
+    for p in sorted(sources() + list(SRC_DIR.glob("*.cuh"))):
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return h.hexdigest()[:16]
@@ -70,7 +71,8 @@ def _digest(nvcc, flags):
 
 def build():
     """Compile csrc/*.cu into BUILD_DIR (unless the same sources were
-    already built) and return the library path. Raises RuntimeError
+    already built), one nvcc process per source run side by side, link
+    them into one library and return its path. Raises RuntimeError
     when nvcc is missing or the compile fails."""
     global build_seconds, build_log
     nvcc = find_nvcc()
@@ -84,21 +86,31 @@ def build():
     if lib_path.exists():
         return lib_path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [str(p) for p in sources()]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
     t0 = time.perf_counter()
-    try:
-        proc = subprocess.run([nvcc] + NVCC_FLAGS + ["-o", tmp] + cu,
-                              capture_output=True, text=True)
-        build_log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError("pygpa_tpu_torch: nvcc failed "
-                               f"(exit {proc.returncode}):\n{build_log}")
-        os.replace(tmp, lib_path)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    # one nvcc per source, all at once, then one link
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        procs = []
+        for src in sources():
+            obj = os.path.join(tmp, src.stem + ".o")
+            procs.append((obj, subprocess.Popen(
+                [nvcc] + NVCC_FLAGS + ["-c", "-o", obj, str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        logs, failed = [], False
+        for _, proc in procs:
+            logs.append(proc.communicate()[0])
+            failed |= proc.returncode != 0
+        if not failed:
+            so = os.path.join(tmp, "lib.so")
+            link = subprocess.run(
+                [nvcc, "-shared", NVCC_FLAGS[0], NVCC_FLAGS[1], "-o", so]
+                + [obj for obj, _ in procs], capture_output=True, text=True)
+            logs.append(link.stdout + link.stderr)
+            failed = link.returncode != 0
+        build_log = "".join(logs)
+        if failed:
+            raise RuntimeError(f"pygpa_tpu_torch: nvcc failed:\n{build_log}")
+        os.replace(so, lib_path)
     build_seconds = time.perf_counter() - t0
     return lib_path
 

@@ -32,9 +32,20 @@ from .vcycle import _q as _apply_q
 from ..core.fourier import dct2n, idct2n
 
 _NT_RED = 256 * 16   # elements per reduction block (csrc/cg.cu)
+# largest side the reference sends to its CG kernel (pallas_cg._MAX_SIDE,
+# a VMEM bound there); larger levels take the early-stopping loop in
+# both packages
+MAX_SIDE = 1024
 
 
-def _poisson_scale(n, m, dtype, device):
+def supported(n, m):
+    """Sides the reference's CG kernel takes (pallas_cg.supported)."""
+    return n % 128 == 0 and m % 128 == 0 and n <= MAX_SIDE and m <= MAX_SIDE
+
+
+def poisson_scale(n, m, dtype, device):
+    """DCT-II eigenvalues of the Neumann 5-point Laplacian with the
+    [0, 0] entry set to 1."""
     i = torch.arange(n, dtype=dtype, device=device)[:, None]
     j = torch.arange(m, dtype=dtype, device=device)[None, :]
     scale = 2.0 * (torch.cos(torch.pi * i / n) + torch.cos(torch.pi * j / m)
@@ -46,7 +57,7 @@ def _poisson_scale(n, m, dtype, device):
 def cg_poisson_plain(rk0, WWx, WWy, kmax):
     """Plain PyTorch twin of the CG kernel."""
     n, m = rk0.shape[-2:]
-    scale = _poisson_scale(n, m, rk0.dtype, rk0.device)
+    scale = poisson_scale(n, m, rk0.dtype, rk0.device)
     lead = rk0.shape[:-2]
     one = torch.ones(lead + (1, 1), dtype=rk0.dtype, device=rk0.device)
     zero = torch.zeros_like(one)

@@ -63,6 +63,18 @@ def wrap_diff(x):
     return x - _TWO_PI * torch.floor(x / _TWO_PI + 0.5)
 
 
+def rim_weights(n, m, dr, dtype, device=None):
+    """The rim factor of the lock-in weights (extract_displacement_field's
+    interior mask + 1e-6): 1 + 1e-6 inside the dr-pixel border, 1e-6 on
+    it; (n, m) of `dtype`."""
+    ii = torch.arange(n, device=device)[:, None]
+    jj = torch.arange(m, device=device)[None, :]
+    interior = (ii >= dr) & (ii < n - dr) & (jj >= dr) & (jj < m - dr)
+    return torch.where(interior,
+                       torch.tensor(1.0 + 1e-6, dtype=dtype, device=device),
+                       torch.tensor(1e-6, dtype=dtype, device=device))
+
+
 def _stage1_plain(Sr, Si, gx, gy, A0c, A0s, run):
     G, P = gx.shape[:2]
     Ts = []
@@ -82,11 +94,8 @@ def _stage2_plain(T, A1cT, A1sT, off, dr, banded):
     G, P, n, _ = T.shape
     m = A1cT.shape[2]
     dev = T.device
-    ii = torch.arange(n, device=dev)[:, None]
     jj = torch.arange(m, device=dev)[None, :]
-    interior = (ii >= dr) & (ii < n - dr) & (jj >= dr) & (jj < m - dr)
-    mask = torch.where(interior, torch.tensor(1.0 + 1e-6, device=dev),
-                       torch.tensor(1e-6, device=dev)).to(T.dtype)
+    mask = rim_weights(n, m, dr, T.dtype, dev)
     phs, wts = [], []
     for g in range(G):
         B1r = torch.cat([A1cT[g], -A1sT[g]], dim=0)   # (2 Wb, m)
@@ -194,7 +203,7 @@ def _sweep_uv_cuda(Sr, Si, gx, gy, A0c, A0s, A1cT, A1sT, run, off, kconst,
     wn = torch.empty((n, m), dtype=f32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        s1 = _build.bind("sweep_stage1", "ppppppppiiiiip")
+        s1 = _build.bind("sweep_stage1", "ppppppppiiiiiip")
         _build.check(s1(Sr.data_ptr(), Si.data_ptr(), gx.data_ptr(),
                         gy.data_ptr(), A0c.data_ptr(), A0s.data_ptr(),
                         run.data_ptr(), T.data_ptr(),

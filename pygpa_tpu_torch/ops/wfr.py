@@ -1,18 +1,26 @@
-"""Windowed-Fourier-ridge sweep planning and the grouped uv sweep
-(counterpart of a subset of pygpa_tpu/ops/wfr.py).
+"""Windowed-Fourier-ridge sweeps (counterpart of pygpa_tpu/ops/wfr.py
+without the gradient and continuity variants).
 
-The sweep evaluates, for every Bragg peak g and candidate reference
-vector w, the full-resolution demodulated lock-in
+A sweep evaluates, for a Bragg peak and every candidate reference
+vector w of its bank, the full-resolution demodulated lock-in
 
     M_w(r) = sum_q F(q) G_sigma(q + w) e^{2 pi i q.r} / (n m)
 
-restricted to the small spectrum window (W0, W1) the Gaussian bandpass
-leaves non-zero, as two skinny inverse-DFT products (ops/sweep.py). The
-host planners here are numpy copies of the reference's, so both
-packages plan the same sweep. Only the production route is ported: all
-peaks in one grouped launch with equal window shapes, P <= 48
-candidates, sides multiples of 128 and float32. Anything else raises
-NotImplementedError (ROADMAP queue 1: the per-peak sweep route).
+and keeps, per pixel, the candidate of largest |M_w|^2. The host
+planners here are numpy copies of the reference's, so both packages
+plan the same sweep. Routes, chosen as the reference chooses them:
+
+- the grouped uv sweep (``wfr_sweep_uv_multi``, ``UVSweep``): all peaks
+  in one launch of ops.sweep, from spectrum windows taken by skinny DFT
+  products; float32, sides multiples of 128, equal window shapes and
+  candidate counts, P <= 48;
+- the per-peak zoom sweep (``_wfr_sweep_zoom``): the Gaussian bandpass
+  confines every candidate to a small window of the full spectrum, and
+  ops.zoom_sweep evaluates the window as two DFT products (the CUDA
+  kernel for float32 with sides multiples of 128, its plain twin
+  otherwise, as the reference's fused/XLA split);
+- the full-FFT sweep (``_wfr_sweep_chunked``), one inverse FFT per
+  candidate, where no zoom window pays off.
 """
 import math
 from dataclasses import dataclass
@@ -21,11 +29,11 @@ import numpy as np
 import torch
 
 from . import sweep as _sweep
+from . import zoom_sweep as _zoom
+from ..core.fourier import _fftfreq
 
-_NOT_PORTED = ("only the grouped single-launch sweep is ported "
-               "(float32, sides multiples of 128, equal window shapes and "
-               "candidate counts, P <= 48, dr >= 1); the per-peak sweep "
-               "route is ROADMAP queue 1 work")
+_NOT_PORTED_GRAD = ("is not ported: the winner phase-gradient and "
+                    "k-continuity sweeps are ROADMAP queue 1 item 7")
 
 
 def _zoom_window(n, center_bin, half_need):
@@ -187,13 +195,10 @@ class SweepPlan:
     uv_ks: tuple
 
 
-def plan_sweep(shape, wlists, sigma, dr, krefs, gauss_cut=None,
-               dtype=torch.float32):
-    """Plan the grouped banded uv sweep exactly as
-    pygpa_tpu.ops.wfr.wfr_sweep_phase_weight_multi(_uv=True) does;
-    raises NotImplementedError where the reference would leave the
-    grouped route."""
-    shape = tuple(int(s) for s in shape)
+def _grouped_plans(shape, wlists, sigma, dr, gauss_cut, dtype):
+    """The per-peak zoom plans when the reference's grouped-sweep gate
+    holds (float32, sides multiples of 128, equal window shapes and
+    candidate counts, P <= 48, dr >= 1), else None."""
     plans = _plan_zoom_multi(shape, wlists, float(sigma),
                              gauss_cut=gauss_cut)
     ok = (all(p is not None for p in plans)
@@ -203,8 +208,19 @@ def plan_sweep(shape, wlists, sigma, dr, krefs, gauss_cut=None,
           and len({np.asarray(w).shape[0] for w in wlists}) == 1
           and np.asarray(wlists[0]).shape[0] <= 48
           and int(dr) >= 1)
-    if not ok:
-        raise NotImplementedError(_NOT_PORTED)
+    return plans if ok else None
+
+
+def plan_sweep(shape, wlists, sigma, dr, krefs, gauss_cut=None,
+               dtype=torch.float32):
+    """Plan the grouped banded uv sweep exactly as
+    pygpa_tpu.ops.wfr.wfr_sweep_phase_weight_multi(_uv=True) does;
+    None where the reference leaves the grouped route (the per-peak
+    route then runs)."""
+    shape = tuple(int(s) for s in shape)
+    plans = _grouped_plans(shape, wlists, sigma, dr, gauss_cut, dtype)
+    if plans is None:
+        return None
     wls = [np.asarray(w, np.float64) for w in wlists]
     col_groups = None
     cg = _plan_col_groups(wls, plans, shape[1], float(sigma),
@@ -326,7 +342,207 @@ def wfr_sweep_uv_multi(image, wlists, sigma, dr, krefs, *, gauss_cut=None):
     """Fused sweep + reconstruction prologue for all Bragg peaks: returns
     (dudx_s (2, N, M), dudy_s (2, N, M), wnorm (N, M)) for a
     mean-subtracted float32 image (pygpa_tpu.ops.wfr.wfr_sweep_uv_multi
-    on its grouped route)."""
+    on its grouped route), or None where the grouped route does not
+    apply."""
     plan = plan_sweep(image.shape, wlists, sigma, dr, krefs,
                       gauss_cut=gauss_cut, dtype=image.dtype)
+    if plan is None:
+        return None
     return UVSweep(plan, device=image.device)(image)
+
+
+def _real_dtype(spectrum):
+    return torch.empty((), dtype=spectrum.dtype).real.dtype
+
+
+def _zoom_operands(spectrum, wlist, idx0, idx1, sigma):
+    """The zoom sweep's operands, as the reference builds them: the
+    (W0, W1) spectrum window pre-scaled by 1/(n m), the Gaussian factors
+    gx (P, W0), gy (P, W1) and the DFT bases A0c/A0s (n, W0), A1c/A1s
+    (m, W1)."""
+    n, m = spectrum.shape
+    rdt = _real_dtype(spectrum)
+    dev = spectrum.device
+    i0 = torch.as_tensor(np.asarray(idx0, np.int64), device=dev)
+    i1 = torch.as_tensor(np.asarray(idx1, np.int64), device=dev)
+    S = spectrum.index_select(0, i0).index_select(1, i1)
+    scale = torch.tensor(1.0 / (n * m), dtype=rdt, device=dev)
+    A0c, A0s = _zoom_basis(n, idx0, rdt, dev)
+    A1c, A1s = _zoom_basis(m, idx1, rdt, dev)
+    f0 = torch.where(i0 < n // 2 + n % 2, i0, i0 - n).to(rdt) / n
+    f1 = torch.where(i1 < m // 2 + m % 2, i1, i1 - m).to(rdt) / m
+    s2 = torch.tensor(2.0 * np.pi ** 2 * sigma ** 2, dtype=rdt, device=dev)
+    w = torch.as_tensor(np.asarray(wlist), device=dev).to(rdt)
+    gx = torch.exp(-s2 * (f0[None, :] + w[:, 0:1]) ** 2)
+    gy = torch.exp(-s2 * (f1[None, :] + w[:, 1:2]) ** 2)
+    return (S.real * scale, S.imag * scale, gx, gy, A0c, A0s, A1c, A1s)
+
+
+def _kernel_route(spectrum):
+    """The reference's fused-sweep gate: float32, sides multiples of
+    128 (ops.zoom_sweep runs the kernel on the card, its twin on the
+    CPU); float64 and other sides take the plain twin."""
+    n, m = spectrum.shape
+    return (_real_dtype(spectrum) == torch.float32
+            and n % 128 == 0 and m % 128 == 0)
+
+
+def _wfr_sweep_zoom(spectrum, wlist, idx0, idx1, sigma, chunk):
+    """Band-limited sweep on the (idx0, idx1) window: (best_absq,
+    best_lockin (complex), best_idx)."""
+    ops = _zoom_operands(spectrum, wlist, idx0, idx1, sigma)
+    if _kernel_route(spectrum):
+        ba, br, bi, bx = _zoom.zoom_sweep(*ops)
+    else:
+        ba, br, bi, bx = _zoom.zoom_sweep_plain(*ops, chunk=int(chunk))
+    return ba, torch.complex(br, bi), bx
+
+
+def _wfr_sweep_zoom_pw(spectrum, wlist, idx0, idx1, sigma, dr):
+    """Zoom sweep emitting the winner phase and rim-masked weight (the
+    float32 kernel route)."""
+    ops = _zoom_operands(spectrum, wlist, idx0, idx1, sigma)
+    return _zoom.zoom_sweep(*ops, dr=int(dr))[4:]
+
+
+def _wfr_sweep_chunked(spectrum, wlist, sigma, chunk):
+    """Full-FFT sweep: one inverse FFT of the Gaussian-bandpassed
+    spectrum per candidate, `chunk` candidates per batched FFT."""
+    n, m = spectrum.shape
+    rdt = _real_dtype(spectrum)
+    dev = spectrum.device
+    fx = _fftfreq(n, rdt, dev)
+    fy = _fftfreq(m, rdt, dev)
+    s2 = torch.tensor(2.0 * np.pi ** 2 * sigma ** 2, dtype=rdt, device=dev)
+    wl = torch.as_tensor(np.asarray(wlist), device=dev).to(rdt)
+    best_absq = torch.zeros((n, m), dtype=rdt, device=dev)
+    best_lockin = torch.zeros((n, m), dtype=spectrum.dtype, device=dev)
+    best_idx = torch.zeros((n, m), dtype=torch.int32, device=dev)
+    for s in range(0, wl.shape[0], chunk):
+        ws = wl[s:s + chunk]
+        gx = torch.exp(-s2 * (fx[None, :] + ws[:, 0:1]) ** 2)
+        gy = torch.exp(-s2 * (fy[None, :] + ws[:, 1:2]) ** 2)
+        G = (gx[:, :, None] * gy[:, None, :]).to(spectrum.dtype)
+        Mw = torch.fft.ifft2(spectrum[None] * G)
+        absq = Mw.real * Mw.real + Mw.imag * Mw.imag
+        for i in range(ws.shape[0]):
+            better = absq[i] > best_absq
+            best_absq = torch.where(better, absq[i], best_absq)
+            best_lockin = torch.where(better, Mw[i], best_lockin)
+            best_idx = torch.where(better, s + i, best_idx)
+    return best_absq, best_lockin, best_idx
+
+
+def wfr_sweep(image, wlist, kref, sigma, *, with_grad=False, with_w=True,
+              continuity_dk=None, chunk=8, spectrum=None, zoom="auto",
+              rebase=True, return_absq=False):
+    """WFR sweep of one Bragg peak over the candidates `wlist` (P, 2),
+    rebased to `kref` (pygpa_tpu.ops.wfr.wfr_sweep).
+
+    image is the mean-subtracted (N, M) image; `spectrum`, its fft2,
+    may be passed to share it across peaks. zoom: "auto" plans the
+    zoom window and falls back to the full-FFT sweep when it would not
+    pay off, True demands it, False forces the full-FFT sweep.
+
+    Returns a dict: 'lockin' (complex (N, M); phase relative to kref, or
+    demodulated when rebase=False), 'w' ((2, N, M) winning candidates)
+    when with_w, 'absq' (winner |M|^2) when return_absq. with_grad and
+    continuity_dk raise NotImplementedError."""
+    if with_grad:
+        raise NotImplementedError("wfr_sweep(with_grad=True) "
+                                  + _NOT_PORTED_GRAD)
+    if continuity_dk is not None:
+        raise NotImplementedError("wfr_sweep(continuity_dk=...) "
+                                  + _NOT_PORTED_GRAD)
+    if spectrum is None:
+        spectrum = torch.fft.fft2(image)
+    shape = tuple(spectrum.shape)
+    rdt = _real_dtype(spectrum)
+    wl_h = np.asarray(wlist)
+    plan = None
+    if zoom == "auto" or zoom is True:
+        plan = _plan_zoom(shape, wl_h, float(sigma))
+        if zoom is True and plan is None:
+            raise ValueError("wfr_sweep(zoom=True): the bandpass window "
+                             "spans most of the spectrum; zoom would not "
+                             "be worthwhile (use zoom='auto' or "
+                             "zoom=False)")
+    chunk = int(min(chunk, wl_h.shape[0]))
+    if plan is not None:
+        best_absq, best_lockin, best_idx = _wfr_sweep_zoom(
+            spectrum, wl_h, plan[0], plan[1], float(sigma), chunk)
+    else:
+        best_absq, best_lockin, best_idx = _wfr_sweep_chunked(
+            spectrum, wl_h, float(sigma), chunk)
+    if rebase:
+        # separable rank-1 plane wave e^{2 pi i kref . r}
+        k = torch.tensor(np.asarray(kref, np.float64),
+                         device=spectrum.device).to(rdt)
+        phx = (2 * np.pi) * (torch.arange(shape[0], dtype=rdt,
+                                          device=spectrum.device) * k[0])
+        phy = (2 * np.pi) * (torch.arange(shape[1], dtype=rdt,
+                                          device=spectrum.device) * k[1])
+        px = torch.complex(torch.cos(phx), torch.sin(phx))
+        py = torch.complex(torch.cos(phy), torch.sin(phy))
+        out = {"lockin": best_lockin * px[:, None] * py[None, :]}
+    else:
+        out = {"lockin": best_lockin}
+    if return_absq:
+        out["absq"] = best_absq
+    if with_w:
+        wl = torch.as_tensor(wl_h, device=spectrum.device).to(rdt)
+        out["w"] = wl[best_idx.long()].permute(2, 0, 1)
+    return out
+
+
+def wfr_sweep_phase_weight(image, wlist, kref, sigma, dr, *, spectrum=None,
+                           chunk=8, gauss_cut=None):
+    """Demodulated winner phase and interior-masked weight sqrt(|M|^2)
+    * (mask + 1e-6) of one peak's sweep, the inputs of
+    reconstruct_u_inv_from_demod. Emitted by the zoom kernel route
+    (float32, sides multiples of 128, P <= 48, a zoom plan at
+    `gauss_cut`); computed from wfr_sweep otherwise."""
+    if int(dr) < 1:
+        raise ValueError("wfr_sweep_phase_weight requires dr >= 1 "
+                         f"(got {dr})")
+    if spectrum is None:
+        spectrum = torch.fft.fft2(image)
+    shape = tuple(spectrum.shape)
+    wl_h = np.asarray(wlist)
+    plan = _plan_zoom(shape, wl_h, float(sigma), gauss_cut=gauss_cut)
+    if plan is not None and _kernel_route(spectrum) and wl_h.shape[0] <= 48:
+        return _wfr_sweep_zoom_pw(spectrum, wl_h, plan[0], plan[1],
+                                  float(sigma), int(dr))
+    g = wfr_sweep(image, wl_h, kref, sigma, with_w=False, rebase=False,
+                  return_absq=True, spectrum=spectrum, chunk=chunk)
+    rdt = _real_dtype(spectrum)
+    return (torch.angle(g["lockin"]).to(rdt), torch.sqrt(g["absq"])
+            * _sweep.rim_weights(*shape, int(dr), rdt, spectrum.device))
+
+
+def wfr_sweep_phase_weight_multi(image, wlists, sigma, dr, *, spectrum=None,
+                                 chunk=8, gauss_cut=None):
+    """Demodulated winner phases and rim-masked weights, (G, N, M) each,
+    for all Bragg peaks, one per-peak sweep each
+    (pygpa_tpu.ops.wfr.wfr_sweep_phase_weight_multi on its per-peak
+    route). Where the reference would run its grouped phase/weight
+    emission instead (the grouped_kernel's emission (a), ROADMAP queue 1
+    item 7) this raises NotImplementedError."""
+    shape = tuple(spectrum.shape if spectrum is not None else image.shape)
+    dtype = image.dtype if spectrum is None else _real_dtype(spectrum)
+    if _grouped_plans(shape, wlists, sigma, dr, gauss_cut,
+                      dtype) is not None:
+        raise NotImplementedError(
+            "the grouped phase/weight sweep emission is not ported "
+            "(ROADMAP queue 1 item 7); the grouped uv route "
+            "(wfr_sweep_uv_multi) and the per-peak route are")
+    if spectrum is None:
+        spectrum = torch.fft.fft2(image)
+    phs, wts = [], []
+    for w in wlists:
+        ph, wt = wfr_sweep_phase_weight(image, w, np.asarray(w)[0], sigma,
+                                        dr, spectrum=spectrum, chunk=chunk,
+                                        gauss_cut=gauss_cut)
+        phs.append(ph)
+        wts.append(wt)
+    return torch.stack(phs), torch.stack(wts)

@@ -1,25 +1,38 @@
-"""Weighted 2D phase unwrapping by multigrid-accelerated PCG
-(counterpart of the aligned-form subset of pygpa_tpu/solvers/unwrap.py:
-``phase_unwrap_prediff_mg`` with its default schedule, which the
-production displacement extractor runs).
+"""Weighted 2D phase unwrapping (Ghiglia-Romero): the exact
+early-stopping DCT-preconditioned CG (counterpart of
+pygpa_tpu/solvers/unwrap.py ``phase_unwrap`` / ``phase_unwrap_prediff``
+and their ``_cg_unwrap``) and the multigrid-accelerated
+``phase_unwrap_prediff_mg`` with its default schedule.
 
-Every plane is kept (..., n, m) with a structurally zero last column
-(x-diffs) or row (y-diffs), so neighbour shifts are cyclic rolls whose
-wrap-around terms vanish: the arithmetic equals the reference
-Ghiglia-Romero stencils entry for entry. Leading axes are batch axes
-(the two displacement components); weights are one shared (n, m)
-plane. The CG solves run in ops.cg with a fixed iteration count (the
-guarded coefficients make post-convergence iterations no-ops, so the
-reference's early stop changes nothing), the V-branch stencil passes
-in ops.vcycle.
+Leading axes are batch axes (the two displacement components); the
+reference vmaps over them. Each component keeps its own early stop: the
+loop runs the iterations with a per-component done mask and freezes a
+finished component (torch.where), which equals the reference's vmapped
+while_loop. The preconditioner's 2D DCTs go through core.fourier, which
+routes 4096- and 8192-long float32 axes to the ops.dct kernels.
+
+The multigrid keeps every plane (..., n, m) with a structurally zero
+last column (x-diffs) or row (y-diffs), so neighbour shifts are cyclic
+rolls whose wrap-around terms vanish: the arithmetic equals the
+reference stencils entry for entry. Its CG solves route as the
+reference's ``_cg_kernel_ok`` does: float32 levels with sides that are
+multiples of 128 and at most 1024 go to the ops.cg kernel (fixed
+iteration count; the guarded coefficients make post-convergence
+iterations no-ops), every other level to the early-stopping loop. The
+V-branch stencil passes run in ops.vcycle.
 """
 
 import torch
 
+import torch.nn.functional as F
+
 from ..config import DEFAULTS
+from ..core.fourier import dct2n, idct2n
 from ..core.mathtools import wrap_to_pi
 from ..ops import cg as _cg
 from ..ops import vcycle as _vcycle
+from ..ops.cg import poisson_scale
+from ..ops.vcycle import _q as _apply_q_aligned
 
 _JACOBI_OMEGA = 0.8   # damped-Jacobi factor (2D optimum 4/5)
 _V_COARSE_MULT = 4    # V-branch correction grid: finest level / 4
@@ -32,6 +45,144 @@ def stamp(events, name):
         ev = torch.cuda.Event(enable_timing=True)
         ev.record()
         events.append((name, ev))
+
+
+def solve_poisson(rho, scale=None):
+    """Solve the Neumann Poisson equation P phi = rho by DCT (the
+    unweighted preconditioner of the CG)."""
+    if scale is None:
+        scale = poisson_scale(*rho.shape[-2:], rho.dtype, rho.device)
+    return idct2n(dct2n(rho) / scale)
+
+
+def _diff0(a, axis):
+    """diff along `axis` with a zero prepended and appended."""
+    pad = (1, 1) if axis == -1 else (0, 0, 1, 1)
+    return torch.diff(F.pad(a, pad), dim=axis)
+
+
+def _apply_q(p, WWx, WWy):
+    """Weighted transformation (A^T)(W^T W)(A) p on unaligned planes:
+    WWx (..., n, m-1), WWy (..., n-1, m)."""
+    return (_diff0(WWx * torch.diff(p, dim=-1), -1)
+            + _diff0(WWy * torch.diff(p, dim=-2), -2))
+
+
+def _residual(dx, dy, weight):
+    """WWx, WWy (eq. 34 min-neighbour weighting) and the initial
+    residual from wrapped phase diffs dx (..., n, m-1), dy (..., n-1,
+    m); weight (..., n, m) or None (unweighted)."""
+    if weight is None:
+        WWx = torch.ones_like(dx)
+        WWy = torch.ones_like(dy)
+        WWdx, WWdy = dx, dy
+    else:
+        WW = weight * weight
+        WWx = torch.minimum(WW[..., :, :-1], WW[..., :, 1:])
+        WWy = torch.minimum(WW[..., :-1, :], WW[..., 1:, :])
+        WWdx = WWx * dx
+        WWdy = WWy * dy
+    return _diff0(WWdx, -1) + _diff0(WWdy, -2), WWx, WWy
+
+
+def cg_kernel_ok(shape, dtype):
+    """The reference's _cg_kernel_ok read for the card: a float32 level
+    whose sides the CG kernel takes (multiples of 128, at most
+    ops.cg.MAX_SIDE)."""
+    n, m = shape[-2:]
+    return dtype == torch.float32 and _cg.supported(n, m)
+
+
+def _cg_unwrap(rk0, WWx, WWy, kmax, aligned=False):
+    """PCG on the weighted Poisson system from phi = 0. Returns (phi,
+    iterations per batch element). Aligned (multigrid) solves that
+    cg_kernel_ok admits run the ops.cg kernel for kmax iterations; all
+    others run the early-stopping loop."""
+    kmax = int(kmax)
+    if aligned and kmax >= 1 and cg_kernel_ok(rk0.shape, rk0.dtype):
+        phi = _cg.cg_poisson(rk0, WWx, WWy, kmax)
+        return phi, torch.full(rk0.shape[:-2], kmax, dtype=torch.int32,
+                               device=rk0.device)
+    return _cg_unwrap_body(rk0, WWx, WWy, kmax, aligned)
+
+
+def _cg_unwrap_body(rk0, WWx, WWy, kmax, aligned):
+    """The reference's early-stopping PCG loop, batched: a component
+    stops at ||r|| < eps ||r0|| (eps 1e-6 in float32, 1e-9 in float64),
+    at rz == 0 or after kmax iterations (at least one, as the
+    reference's while_loop runs its body once before testing k), and
+    starts done when its rk0 is all zero; a stopped component is frozen
+    while the others run on. On the card all iterations are enqueued
+    without a host sync (frozen iterations change nothing); a CPU run
+    leaves the loop once every component is done."""
+    dt = rk0.dtype
+    n, m = rk0.shape[-2:]
+    lead = rk0.shape[:-2]
+    scale = poisson_scale(n, m, dt, rk0.device)
+    apply_q = _apply_q_aligned if aligned else _apply_q
+    eps = 1e-9 if dt == torch.float64 else 1e-6
+
+    def dot(a, b):
+        return (a * b).sum((-2, -1), keepdim=True)
+
+    one = torch.ones(lead + (1, 1), dtype=dt, device=rk0.device)
+    zero = torch.zeros_like(one)
+    norm_r0 = torch.sqrt(dot(rk0, rk0))
+    phi = torch.zeros_like(rk0)
+    rk = rk0
+    pk = torch.zeros_like(rk0)
+    rzprev = one
+    k = torch.zeros(lead + (1, 1), dtype=torch.int32, device=rk0.device)
+    done = (rk0 == 0).all(-1, keepdim=True).all(-2, keepdim=True)
+    for it in range(max(kmax, 1)):
+        if rk0.device.type == "cpu" and bool(done.all()):
+            break
+        zk = solve_poisson(rk, scale)
+        rz = dot(rk, zk)
+        beta = torch.where(rzprev != 0,
+                           rz / torch.where(rzprev != 0, rzprev, one), zero)
+        pk_new = zk if it == 0 else zk + beta * pk
+        Qpk = apply_q(pk_new, WWx, WWy)
+        pq = dot(pk_new, Qpk)
+        alpha = torch.where(pq != 0, rz / torch.where(pq != 0, pq, one),
+                            zero)
+        phi = torch.where(done, phi, phi + alpha * pk_new)
+        rk_new = rk - alpha * Qpk
+        stop = ((k + 1 >= kmax) | (torch.sqrt(dot(rk_new, rk_new))
+                                   < eps * norm_r0) | (rz == 0))
+        rk = torch.where(done, rk, rk_new)
+        pk = torch.where(done, pk, pk_new)
+        rzprev = torch.where(done, rzprev, rz)
+        k = torch.where(done, k, k + 1)
+        done = done | stop
+    return phi, k.reshape(lead)
+
+
+def phase_unwrap(psi, weight=None, kmax=DEFAULTS.unwrap_kmax,
+                 return_iters=False):
+    """Unwrap the phase image psi (..., n, m) given weight (the
+    magnitude of a complex lock-in signal); batched over leading axes.
+    With return_iters=True also returns the CG iteration count per
+    batch element."""
+    dx = wrap_to_pi(torch.diff(psi, dim=-1))
+    dy = wrap_to_pi(torch.diff(psi, dim=-2))
+    rk, WWx, WWy = _residual(dx, dy, weight)
+    phi, k = _cg_unwrap(rk, WWx, WWy, kmax)
+    return (phi, k) if return_iters else phi
+
+
+def phase_unwrap_prediff(dx, dy, weight=None, kmax=DEFAULTS.unwrap_kmax,
+                         return_iters=False, events=None):
+    """Unwrap from phase gradients dx = diff(psi, -1) (..., n, m-1) and
+    dy = diff(psi, -2) (..., n-1, m) with the exact early-stopping CG;
+    weight (n, m) is shared by the batch. `events` (a list) collects a
+    CUDA timing event after the solve."""
+    dx = wrap_to_pi(dx)
+    dy = wrap_to_pi(dy)
+    rk, WWx, WWy = _residual(dx, dy, weight)
+    phi, k = _cg_unwrap(rk, WWx, WWy, kmax)
+    stamp(events, "unwrap")
+    return (phi, k) if return_iters else phi
 
 
 def _mask_last(a, axis):
@@ -151,7 +302,7 @@ def phase_unwrap_prediff_mg(dx, dy, weight, kmax=10, coarse=4,
     if weight is None:
         raise NotImplementedError(
             "phase_unwrap_prediff_mg: the unweighted multigrid unwrap is "
-            "not ported (ROADMAP queue 1)")
+            "not ported (ROADMAP queue 1 item 8)")
     dx = wrap_to_pi(dx)
     dy = wrap_to_pi(dy)
     n = dx.shape[-2]
@@ -178,7 +329,7 @@ def phase_unwrap_prediff_mg(dx, dy, weight, kmax=10, coarse=4,
         nc, mc = n // c, m // c
         if phi is None:
             rk, WWx, WWy = _residual_aligned(dxc, dyc, wc)
-            phi = _cg.cg_poisson(rk, WWx, WWy, int(iters))
+            phi, _ = _cg_unwrap(rk, WWx, WWy, iters, aligned=True)
             stamp(events, "unwrap_coarse")
             continue
         phi = upsample(phi, nc, mc)
@@ -186,7 +337,7 @@ def phase_unwrap_prediff_mg(dx, dy, weight, kmax=10, coarse=4,
             if iters != "v":
                 raise NotImplementedError(
                     f"unwrap_mg_final={iters!r}: only the 'v' branch is "
-                    "ported (ROADMAP queue 1)")
+                    "ported (ROADMAP queue 1 item 8)")
             cv = _V_COARSE_MULT * c
             # fused pre-smooth: residual gradients, weights, residual,
             # Jacobi diagonal, d = Dinv rk, r = rk - Q d, and the row
@@ -202,7 +353,8 @@ def phase_unwrap_prediff_mg(dx, dy, weight, kmax=10, coarse=4,
             # product), exact energy line search, Jacobi post-smooth
             r2c = rrow @ _avg_right(mc, mc // cv, cv, rrow.dtype,
                                     rrow.device)
-            dcu = upsample(_cg.cg_poisson(r2c, WWxv, WWyv, vk), nc, mc)
+            dcor, _ = _cg_unwrap(r2c, WWxv, WWyv, vk, aligned=True)
+            dcu = upsample(dcor, nc, mc)
             q = _vcycle.applyq(dcu, wc)
             num = (r * dcu).sum((-2, -1), keepdim=True)
             den = (dcu * q).sum((-2, -1), keepdim=True)
@@ -220,6 +372,7 @@ def phase_unwrap_prediff_mg(dx, dy, weight, kmax=10, coarse=4,
         rdy = dyc - _mask_last(torch.roll(phi, -1, -2) - phi, -2)
         if iters > 0:
             rk, WWx, WWy = _residual_aligned(rdx, rdy, wc)
-            phi = phi + _cg.cg_poisson(rk, WWx, WWy, int(iters))
+            dphi, _ = _cg_unwrap(rk, WWx, WWy, iters, aligned=True)
+            phi = phi + dphi
         stamp(events, f"unwrap_level{c}")
     return phi

@@ -1,6 +1,7 @@
 """The CUDA kernels of pygpa_tpu_torch against their plain twins, on the
-card, at small shapes the bench does not use (odd aspect ratios, other
-coarse factors and iteration counts). Marked `cuda`; each test skips
+card, at shapes the bench does not use (odd aspect ratios, other coarse
+factors and iteration counts, the 8192^2 window and DCT length), and
+the unwrap's routes on the card. Marked `cuda`; each test skips
 without a CUDA device. JAX is not needed, so on a machine without it:
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
@@ -95,3 +96,102 @@ def test_sweep_kernel(dev):
     dy = (uy - py)[:, 1:, :].abs().cpu().numpy()
     assert np.percentile(dx, 99) < 1e-3 and np.percentile(dy, 99) < 1e-3
     assert float(((wn - pn).abs() / (pn.abs() + 1e-9)).max()) < 5e-3
+
+
+@pytest.mark.parametrize("n,m", [(1024, 80), (4096, 160), (8192, 96)])
+def test_dct_kernels(dev, n, m):
+    """Both DCT kernels, forward and inverse, against the float32 FFT
+    twins: normwise relative error <= 1e-5 (a ragged column count on
+    the axis -2 kernel)."""
+    from pygpa_tpu_torch.ops import dct as tdct
+    x = _planes((3, n), 11, dev)
+    before = _build.launches["dct_lane"]
+    for fn, twin in ((tdct.dct_lane, tdct.dct_lane_plain),
+                     (tdct.idct_lane, tdct.idct_lane_plain)):
+        assert _rel(fn(x), twin(x)) <= 1e-5
+    assert _build.launches["dct_lane"] == before + 2
+    x2 = _planes((2, n, m), 12, dev)
+    for fn, twin in ((tdct.dct_sub, tdct.dct_sub_plain),
+                     (tdct.idct_sub, tdct.idct_sub_plain)):
+        assert _rel(fn(x2), twin(x2)) <= 1e-5
+
+
+def _zoom_ops(P, W0, W1, n, m, seed, dev):
+    g = np.random.default_rng(seed)
+    shapes = [(W0, W1), (W0, W1), (P, W0), (P, W1), (n, W0), (n, W0),
+              (m, W1), (m, W1)]
+    ops = [g.normal(size=s) for s in shapes]
+    ops[2] = g.uniform(0.2, 1.0, size=(P, W0))
+    ops[3] = g.uniform(0.2, 1.0, size=(P, W1))
+    return [torch.from_numpy(a.astype(np.float32)).to(dev) for a in ops]
+
+
+def test_zoom_sweep_kernel_wide_window(dev):
+    """P = 49 candidates (past the reference's 48-candidate chunk) and
+    W1 = 512 (the 8192^2 window): kernel against twin with
+    chip_smoke.py's flip-tolerant bounds; candidates 10 and 48 are
+    identical, so 48 never wins (strict '>' across the reference's
+    chunk boundary)."""
+    from pygpa_tpu_torch.ops import zoom_sweep as tz
+    ops = _zoom_ops(49, 64, 512, 256, 512, 13, dev)
+    ops[2][48] = ops[2][10]
+    ops[3][48] = ops[3][10]
+    got = tz.zoom_sweep(*ops, dr=20)
+    want = tz.zoom_sweep_plain(*ops, dr=20)
+    same = got[3] == want[3]
+    assert float(same.float().mean()) > 0.99
+    assert not (got[3] == 48).any() and (got[3] == 10).any()
+    assert torch.allclose(got[0][same], want[0][same], rtol=1e-4)
+    scale = float(want[0].max().sqrt())
+    for k in (1, 2):
+        assert float((got[k] - want[k])[same].abs().max()) <= 1e-3 * scale
+    assert torch.allclose(got[4][same], want[4][same], atol=1e-5)
+    assert torch.allclose(got[5][same], want[5][same], rtol=1e-5, atol=1e-5)
+
+
+def test_multigrid_1152_runs_early_stopping_levels(dev):
+    """1152^2 with unwrap_coarse=4: the 288^2 coarse level (not a
+    multiple of 128) takes the early-stopping loop on the card, as the
+    reference routes it; the V-branch kernels still run. Matches the CPU
+    run within 1e-4."""
+    from pygpa_tpu_torch.solvers.unwrap import phase_unwrap_prediff_mg
+    g = np.random.default_rng(17)
+    n = 1152
+    x = np.linspace(-1, 1, n)
+    X, Y = np.meshgrid(x, x, indexing="ij")
+    psi = np.stack([3 * np.exp(-(X ** 2 + 2 * Y ** 2) / 0.3) + X * Y,
+                    2 * np.sin(2 * X + Y)])
+    dx = (np.diff(psi, axis=-1) + 0.01 * g.normal(size=(2, n, n - 1)))
+    dy = (np.diff(psi, axis=-2) + 0.01 * g.normal(size=(2, n - 1, n)))
+    w = 0.2 + np.exp(-(X ** 2 + Y ** 2))
+    w[:64] = w[-64:] = w[:, :64] = w[:, -64:] = 1e-6
+    args = [torch.from_numpy(a.astype(np.float32)) for a in (dx, dy, w)]
+    want = phase_unwrap_prediff_mg(*args, kmax=6, coarse=4)
+    _build.launches.clear()
+    got = phase_unwrap_prediff_mg(*(a.to(dev) for a in args), kmax=6,
+                                  coarse=4)
+    assert _build.launches["cg_poisson"] == 0
+    assert _build.launches["presmooth"] == 1
+    assert _rel(got.cpu(), want) <= 1e-4
+
+
+def test_exact_cg_through_the_dct_kernels(dev, monkeypatch):
+    """The exact CG at 4096^2 on the card with its preconditioner on the
+    DCT kernels, against the same solve on the FFT twins (also on the
+    card): relative 1e-4, the same iteration counts."""
+    from pygpa_tpu_torch.core import fourier as tf
+    from pygpa_tpu_torch.solvers import unwrap as tu
+    n = 4096
+    g = np.random.default_rng(19)
+    dx = torch.from_numpy(g.normal(size=(2, n, n - 1)).astype(np.float32))
+    dy = torch.from_numpy(g.normal(size=(2, n - 1, n)).astype(np.float32))
+    w = torch.from_numpy(g.uniform(0.1, 1.0, size=(n, n)).astype(np.float32))
+    dx, dy, w = dx.to(dev), dy.to(dev), w.to(dev)
+    _build.launches.clear()
+    got, kg = tu.phase_unwrap_prediff(dx, dy, w, kmax=5, return_iters=True)
+    assert _build.launches["dct_lane"] == 10
+    assert _build.launches["dct_sub"] == 10
+    monkeypatch.setattr(tf, "dct_kernel_ok", lambda n, dtype: False)
+    want, kw = tu.phase_unwrap_prediff(dx, dy, w, kmax=5, return_iters=True)
+    assert torch.equal(kg, kw)
+    assert _rel(got, want) <= 1e-4

@@ -67,15 +67,18 @@ def test_extractor_matches_reference(kernel_reference):
     assert fn.plan.wl.shape == (3, 36, 2)
 
 
-def test_extractor_refuses_unported_routes():
+def test_extractor_refuses_unported_routes(monkeypatch):
+    """What the port still leaves out raises NotImplementedError naming
+    its ROADMAP item: the winner phase-gradient sweep and the grouped
+    phase/weight emission (pipeline_fused_uv=False)."""
     ks = np.array(generate_ks(0.1, 7.0))[:3]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpipe.make_displacement_extractor((256, 256), ks)    # exact CG
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpipe.make_displacement_extractor((256, 256), ks, unwrap_coarse=4,
-                                          dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpipe.make_displacement_extractor((250, 256), ks, unwrap_coarse=4)
+    img = torch.zeros((128, 128))
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 7"):
+        tpipe.extract_displacement_field(img, ks, with_grad=True)
+    monkeypatch.setattr(tpipe, "DEFAULTS", tpipe.DEFAULTS.__class__(
+        pipeline_fused_uv=False))
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 7"):
+        tpipe.make_displacement_extractor((256, 256), ks)
 
 
 @pytest.mark.parametrize("shape,sigma,dr", [((2, 96, 80), 6, 12),

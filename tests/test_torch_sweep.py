@@ -121,18 +121,20 @@ def test_grid_fixture_plan_identical(size):
 
 
 def test_plan_refuses_unported_routes():
+    """Where the reference leaves the grouped route (a side not a
+    multiple of 128, unequal candidate counts, float64, P > 48) the
+    grouped planner returns None and the per-peak route runs."""
     img, ks, wlists, sigma, dr, gc = _grid_fixture(256)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TW.plan_sweep((250, 256), wlists, sigma, dr, ks, gauss_cut=gc)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TW.plan_sweep(img.shape, [wlists[0], wlists[1][:-1], wlists[2]],
-                      sigma, dr, ks, gauss_cut=gc)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TW.plan_sweep(img.shape, wlists, sigma, dr, ks, gauss_cut=gc,
-                      dtype=torch.float64)
+    assert TW.plan_sweep((250, 256), wlists, sigma, dr, ks,
+                         gauss_cut=gc) is None
+    assert TW.plan_sweep(img.shape, [wlists[0], wlists[1][:-1], wlists[2]],
+                         sigma, dr, ks, gauss_cut=gc) is None
+    assert TW.plan_sweep(img.shape, wlists, sigma, dr, ks, gauss_cut=gc,
+                         dtype=torch.float64) is None
     big = [np.concatenate([w] * 4) for w in wlists]      # P = 64 > 48
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TW.plan_sweep(img.shape, big, sigma, dr, ks, gauss_cut=gc)
+    assert TW.plan_sweep(img.shape, big, sigma, dr, ks, gauss_cut=gc) is None
+    assert TW.wfr_sweep_uv_multi(torch.zeros((250, 256)), wlists, sigma, dr,
+                                 ks, gauss_cut=gc) is None
 
 
 def test_zoom_basis_and_dft_windows_match():
