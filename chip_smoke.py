@@ -32,9 +32,28 @@ Phases, each printed on its own lines:
    bench's three gates, seconds per image over 3 runs after warm-up,
    per-stage CUDA-event times and peak device memory.
 
+7. the README's undistortion, two runs: (a) config 3 of
+   benchmarks/run_all.py as it builds it (2048^2,
+   phase_unwrap_mg(psi, |img|) and undistort_image(img, u, coarse=4)),
+   held to its three gates (unwrap p99 < 0.02 rad, max < 0.3 rad,
+   undistort rel rms < 0.05), and (b) the default
+   undistort_image(img_d, u_true) (coarse 1, order 3) on the 4096^2
+   deformed fixture against the clean lattice, rel rms < 0.05 on the
+   128-px interior;
+8. the README's unit cell, two runs: (a) config 4 (unit_cell_average
+   with only_generate_func at z = 2, then expand_unitcell at 4096^2),
+   and (b) the same calls on the deformed fixture with u = u_true, each
+   held to ucell_roundtrip_rel_rms < 0.05 on the 128-px interior;
+   each run with its launch counts, the whole path against the same path
+   on the plain twins (max |delta| / max |ref| < 1e-4), seconds per call
+   after a warm-up and peak device memory.
+
 Phase 3 also holds the zoom-sweep kernel (all three peaks of the eager
-path) and the four DCT directions (on the exact CG's own residual)
-against their twins.
+path), the four DCT directions (on the exact CG's own residual), the
+warp kernels (the first 'nearest' and the final 'constant' cubic warp
+of phase 7b, the first bilinear warp of 7a's coarse inversion), and the
+drizzle and expand kernels (phase 8a's inputs) against their twins;
+the drizzle kernel also runs twice and must repeat bit for bit.
 
 Any failed check raises and the script exits non-zero. Without a CUDA
 card it fails at once. Its last two lines are the kernels JSON object
@@ -79,14 +98,33 @@ KERNELS = {
                  "pygpa_tpu/ops/pallas_dct2.py:132"),
     "dct_sub": ("pygpa_tpu_torch/csrc/dct.cu",
                 "pygpa_tpu/ops/pallas_dct2.py:220"),
+    "warp_bilinear": ("pygpa_tpu_torch/csrc/warp.cu",
+                      "pygpa_tpu/ops/pallas_warp.py:71"),
+    "warp_cubic": ("pygpa_tpu_torch/csrc/warp.cu",
+                   "pygpa_tpu/ops/pallas_warp.py:172"),
+    "expand": ("pygpa_tpu_torch/csrc/expand.cu",
+               "pygpa_tpu/ops/pallas_expand.py:78"),
+    "drizzle": ("pygpa_tpu_torch/csrc/drizzle.cu",
+                "pygpa_tpu/ops/pallas_drizzle.py:56"),
 }
 # the path whose counted run a kernel's "launches" reports
 PATH_OF = {"sweep_uv": 4, "presmooth": 4, "applyq": 4, "cg_poisson": 4,
-           "zoom_sweep": 5, "dct_lane": 5, "dct_sub": 5}
+           "zoom_sweep": 5, "dct_lane": 5, "dct_sub": 5,
+           "warp_bilinear": "7a", "warp_cubic": "7b", "expand": "8a",
+           "drizzle": "8a"}
 # kernels each driven path must launch
 PATH_KERNELS = {4: ("sweep_uv", "presmooth", "applyq", "cg_poisson"),
                 5: ("zoom_sweep", "dct_lane", "dct_sub"),
-                6: ("sweep_uv", "dct_lane", "dct_sub")}
+                6: ("sweep_uv", "dct_lane", "dct_sub"),
+                "7a": ("presmooth", "applyq", "cg_poisson", "warp_bilinear",
+                       "warp_cubic"),
+                "7b": ("warp_cubic",),
+                "8a": ("drizzle", "expand"),
+                "8b": ("drizzle", "expand")}
+REPS_NEW = 3        # timed runs of phases 7 and 8
+PATH_AGREE = 1e-4   # phases 7, 8: max |kernels - twins| / max |twins|
+GATE_UNWRAP_P99, GATE_UNWRAP_MAX, GATE_UNDISTORT = 0.02, 0.3, 0.05
+GATE_UCELL = 0.05
 
 
 def say(*a):
@@ -119,18 +157,20 @@ def cuda_ms(fn, reps):
 
 class Capture:
     """Swap a module-level kernel wrapper for a recorder that keeps the
-    arguments of its first `keep` calls (all when None) and forwards
-    every call to the wrapper."""
+    arguments of its first `keep` calls (all when None), and of the
+    latest call in `last`, and forwards every call to the wrapper."""
 
     def __init__(self, module, name, keep=None):
         self.module, self.name, self.keep = module, name, keep
         self.orig = getattr(module, name)
         self.calls = []
+        self.last = None
 
     def __enter__(self):
         def rec(*args):
             if self.keep is None or len(self.calls) < self.keep:
                 self.calls.append(args)
+            self.last = args
             return self.orig(*args)
         setattr(self.module, self.name, rec)
         return self
@@ -309,8 +349,13 @@ def plain_versions():
     """Every kernel wrapper swapped for its plain twin (the DCT route
     predicate off), to drive a path on the card without its kernels."""
     from pygpa_tpu_torch.core import fourier
-    from pygpa_tpu_torch.ops import cg, sweep, vcycle, zoom_sweep
-    swaps = [(sweep, "sweep_uv", sweep.sweep_uv_plain),
+    from pygpa_tpu_torch.ops import (cg, drizzle, expand, sweep, vcycle, warp,
+                                     zoom_sweep)
+    swaps = [(warp, "warp_bilinear", warp.warp_bilinear_plain),
+             (warp, "warp_cubic", warp.warp_cubic_plain),
+             (drizzle, "drizzle", drizzle.drizzle_plain),
+             (expand, "expand_cell", expand.expand_cell_plain),
+             (sweep, "sweep_uv", sweep.sweep_uv_plain),
              (zoom_sweep, "zoom_sweep", zoom_sweep.zoom_sweep_plain),
              (vcycle, "presmooth", vcycle.presmooth_plain),
              (vcycle, "applyq", vcycle.applyq_plain),
@@ -403,6 +448,146 @@ def drive_path(num, label, call, call_deconv, img, img_d, u_true, ks):
     return launches
 
 
+def config3_fixture(torch):
+    """benchmarks/run_all.py config 3 (2048^2): the lattice rendered with
+    a Gaussian x-shift u, the clean lattice, u, the phase plane psi and
+    the weight |img|."""
+    from pygpa_tpu_torch.lattices import hexlattice_gen
+    size = 2048
+    S = size // 2
+    xp, yp = np.meshgrid(np.arange(-S, S), np.arange(-S, S), indexing="ij")
+    u = np.stack([3.0 * np.exp(-((xp / 400.) ** 2 + (yp / 500.) ** 2)),
+                  np.zeros((size, size))]).astype(np.float32)
+    img = hexlattice_gen(0.08, 5.0, order=2, size=size, shift=u,
+                         dtype=torch.float32, device="cuda")
+    clean = hexlattice_gen(0.08, 5.0, order=2, size=size,
+                           dtype=torch.float32, device="cuda")
+    psi = torch.from_numpy((0.05 * (xp + yp)).astype(np.float32)).cuda()
+    return img, clean, torch.from_numpy(u).cuda(), psi, img.abs()
+
+
+def config4_fixture(torch):
+    """benchmarks/run_all.py config 4 (4096^2): the perfect lattice and
+    the first two k-vectors in float32 (JAX's default precision there)."""
+    from pygpa_tpu_torch.lattices import generate_ks, hexlattice_gen
+    img = hexlattice_gen(0.02, 5.0, order=2, size=SIZE, dtype=torch.float32,
+                         device="cuda")
+    return img, generate_ks(0.02, 5.0)[:2].astype(np.float32)
+
+
+def rel_rms(got, want, b):
+    """rms(got - want) / rms(want) on the interior that crops b px."""
+    d = (got - want)[b:-b, b:-b]
+    w = want[b:-b, b:-b]
+    return float((d * d).mean().sqrt() / (w * w).mean().sqrt())
+
+
+WARP_BOUND = 1e-6
+
+
+def check_warp(wm, name, args):
+    """A warp kernel against its twin on one captured call: normwise
+    relative error <= 1e-6 (the kernel repeats the twin's float32
+    operations in the same order)."""
+    import torch
+    got = getattr(wm, name)(*args)
+    want = getattr(wm, name + "_plain")(*args)
+    torch.cuda.synchronize()
+    e = rel_err(got, want)
+    say(f"  {name} image {tuple(args[0].shape)} mode {args[3]!r} "
+        f"{args[5] if len(args) > 5 else ''} vs twin: rel err {e!r} "
+        f"(bound {WARP_BOUND})")
+    if not torch.isfinite(got).all() or not e <= WARP_BOUND:
+        raise RuntimeError(f"{name} kernel disagrees with its twin")
+    return float((got - want).abs().max())
+
+
+DRIZZLE_BOUND = 1e-5
+
+
+def check_drizzle(dm, args):
+    """The drizzle kernel against its twin (float32 index_add_, sums in
+    another order): normwise relative error <= 1e-5 for sum and weights;
+    two kernel launches agree bit for bit."""
+    import torch
+    s1, w1 = dm.drizzle(*args)
+    s2, w2 = dm.drizzle(*args)
+    ps, pw = dm.drizzle_plain(*args)
+    torch.cuda.synchronize()
+    same = bool(torch.equal(s1, s2) and torch.equal(w1, w2))
+    es, ew = rel_err(s1, ps), rel_err(w1, pw)
+    say(f"  drizzle {tuple(args[0].shape)} -> {tuple(s1.shape)} vs twin: "
+        f"rel err sum {es!r} weights {ew!r} (bound {DRIZZLE_BOUND}); "
+        f"two launches bit-identical: {same}")
+    if not (same and es <= DRIZZLE_BOUND and ew <= DRIZZLE_BOUND):
+        raise RuntimeError("drizzle kernel disagrees with its twin or "
+                           "does not repeat")
+    return max(float((s1 - ps).abs().max()), float((w1 - pw).abs().max()))
+
+
+def check_expand(em, args):
+    """The expand kernel against its twin: normwise relative error
+    <= 1e-6 (same float32 operations in the same order)."""
+    import torch
+    got = em.expand_cell(*args)
+    want = em.expand_cell_plain(*args)
+    torch.cuda.synchronize()
+    e = rel_err(got, want)
+    say(f"  expand_cell cell {tuple(args[0].shape)} -> {tuple(got.shape)} "
+        f"order {args[7]} vs twin: rel err {e!r} (bound {WARP_BOUND})")
+    if not torch.isfinite(got).all() or not e <= WARP_BOUND:
+        raise RuntimeError("expand kernel disagrees with its twin")
+    return float((got - want).abs().max())
+
+
+def run_path(label, title, call, gates):
+    """Phases 7 and 8: a warm-up, one counted run (launch counts reset
+    just before, read just after), the gates on its outputs, timed runs,
+    peak memory, and the same path on the plain twins. Returns the
+    counted run's launches."""
+    import torch
+    from pygpa_tpu_torch.ops import _build
+    call()
+    torch.cuda.synchronize()
+    _build.launches.clear()
+    outs = call()
+    torch.cuda.synchronize()
+    launches = dict(_build.launches)
+    say(f"[{label}] {title}: launches in one run: {launches}")
+    missing = [k for k in PATH_KERNELS[label] if not launches.get(k)]
+    if missing:
+        raise RuntimeError(f"kernels of the path never ran: {missing}")
+    for o in outs:
+        if not torch.isfinite(o).any():
+            raise RuntimeError(f"{title}: output has no finite value")
+    vals, ok = gates(outs)
+    say(f"    gates: {json.dumps(vals)}")
+    if not ok:
+        raise RuntimeError(f"{title}: ACCURACY GATE FAILED")
+    t0 = time.perf_counter()
+    for _ in range(REPS_NEW):
+        call()
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / REPS_NEW
+    torch.cuda.reset_peak_memory_stats()
+    call()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    with plain_versions():
+        refs = call()
+    for o, r in zip(outs, refs):
+        if not torch.equal(torch.isnan(o), torch.isnan(r)):
+            raise RuntimeError(f"{title}: NaN bins differ from the twins'")
+        e = rel_err(torch.nan_to_num(o), torch.nan_to_num(r))
+        say(f"    with kernels vs plain versions: {tuple(o.shape)} max "
+            f"|delta| / max |ref| {e!r} (bound {PATH_AGREE})")
+        if not e < PATH_AGREE:
+            raise RuntimeError(f"{title}: kernels change the result")
+    say(f"    seconds per call {dt!r} ({REPS_NEW} runs after warm-up, host "
+        f"clock, synchronized); peak device memory {peak / 2**30!r} GiB")
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -419,7 +604,11 @@ def main():
     from pygpa_tpu_torch.ops import sweep as sw_mod
     from pygpa_tpu_torch.ops import vcycle as vc_mod
     from pygpa_tpu_torch.ops import wfr as wfr_mod
+    from pygpa_tpu_torch.ops import drizzle as drizzle_mod
+    from pygpa_tpu_torch.ops import expand as expand_mod
+    from pygpa_tpu_torch.ops import warp as warp_mod
     from pygpa_tpu_torch.solvers import unwrap as unwrap_mod
+    from pygpa_tpu_torch.ucell import averaging as ucell_mod
 
     # ---- 1. the card
     card = card_line()
@@ -511,6 +700,49 @@ def main():
         rows[kern] = dict(max_abs_err=e_dct[kern],
                           ms=(dct_ms[kern][0] + dct_ms[inv][0]) / 2,
                           plain_ms=(dct_ms[kern][1] + dct_ms[inv][1]) / 2)
+    # the undistortion paths' warps and the unit-cell path's drizzle and
+    # expansion, captured from one run of phases 7b, 7a and 8a
+    with Capture(warp_mod, "warp_cubic", keep=1) as c_wc:
+        pipeline.undistort_image(img_d, u_true)
+        torch.cuda.synchronize()
+    c3 = config3_fixture(torch)
+    with Capture(warp_mod, "warp_bilinear", keep=1) as c_wb:
+        pipeline.undistort_image(c3[0], c3[2], coarse=4)
+        torch.cuda.synchronize()
+    img4, ks4 = config4_fixture(torch)
+    with Capture(ucell_mod._drizzle, "drizzle", keep=1) as c_dz, \
+            Capture(ucell_mod._expand, "expand_cell", keep=1) as c_ex:
+        ucell_mod.expand_unitcell(
+            ucell_mod.unit_cell_average(img4, ks4, z=2), ks4, (SIZE, SIZE),
+            z=2)
+        torch.cuda.synchronize()
+    wc_calls = (c_wc.calls[0], c_wc.last)
+    e_wc = max(check_warp(warp_mod, "warp_cubic", a) for a in wc_calls)
+    wc_ms = [(cuda_ms(lambda a=a: warp_mod.warp_cubic(*a), 20),
+              cuda_ms(lambda a=a: warp_mod.warp_cubic_plain(*a), 3))
+             for a in wc_calls]
+    say(f"    warp_cubic ms (kernel, twin), first 'nearest' and final "
+        f"'constant' call: {wc_ms}")
+    rows["warp_cubic"] = dict(max_abs_err=e_wc, ms=wc_ms[0][0],
+                              plain_ms=wc_ms[0][1])
+    wb = c_wb.calls[0]
+    rows["warp_bilinear"] = dict(
+        max_abs_err=check_warp(warp_mod, "warp_bilinear", wb),
+        ms=cuda_ms(lambda: warp_mod.warp_bilinear(*wb), 20),
+        plain_ms=cuda_ms(lambda: warp_mod.warp_bilinear_plain(*wb), 5))
+    dz, ex = c_dz.calls[0], c_ex.calls[0]
+    rows["drizzle"] = dict(
+        max_abs_err=check_drizzle(drizzle_mod, dz),
+        ms=cuda_ms(lambda: drizzle_mod.drizzle(*dz), 10),
+        plain_ms=cuda_ms(lambda: drizzle_mod.drizzle_plain(*dz), 3))
+    rows["expand"] = dict(
+        max_abs_err=check_expand(expand_mod, ex),
+        ms=cuda_ms(lambda: expand_mod.expand_cell(*ex), 10),
+        plain_ms=cuda_ms(lambda: expand_mod.expand_cell_plain(*ex), 3))
+    # the captured operands would count in phase 4's peak memory
+    del c_sw, c_ps, c_aq, c_cg, sw_args, ps_args, aq_args
+    del c_zs, c_dl, c_il, c_ds, c_is, dct_in
+    del c_wc, wc_calls, c_wb, wb, c_dz, dz, c_ex, ex
     for name, r in rows.items():
         say(f"    {name}: kernel {r['ms']!r} ms, twin {r['plain_ms']!r} ms")
 
@@ -591,6 +823,65 @@ def main():
         pipeline.make_displacement_extractor((SIZE, SIZE), ks32,
                                              deconvolve=True, device="cuda"),
         img, img_d, u_true, ks32)
+
+    # ---- 7. the README's undistortion: (a) config 3, (b) the default call
+    from pygpa_tpu_torch.solvers.unwrap import phase_unwrap_mg
+    img3, clean3, u3, psi3, w3 = c3
+
+    def gates_7a(outs):
+        phi, rec = outs
+        dphi = (phi - psi3).flatten()
+        dphi = (dphi - dphi.mean()).abs()
+        v = {"unwrap_plane_err_p99_rad": float(torch.quantile(
+                 dphi, torch.tensor(0.99, device=dphi.device))),
+             "unwrap_plane_err_max_rad": float(dphi.max()),
+             "undistort_rel_rms": rel_rms(rec, clean3, 32),
+             "gated": f"p99<{GATE_UNWRAP_P99}, max<{GATE_UNWRAP_MAX}, "
+                      f"rel_rms<{GATE_UNDISTORT}"}
+        return v, (v["unwrap_plane_err_p99_rad"] < GATE_UNWRAP_P99
+                   and v["unwrap_plane_err_max_rad"] < GATE_UNWRAP_MAX
+                   and v["undistort_rel_rms"] < GATE_UNDISTORT)
+
+    path_launches["7a"] = run_path(
+        "7a", "config 3: phase_unwrap_mg(psi, |img|) + "
+        "undistort_image(img, u, coarse=4), 2048^2",
+        lambda: (phase_unwrap_mg(psi3, w3),
+                 pipeline.undistort_image(img3, u3, coarse=4)),
+        gates_7a)
+
+    def gates_7b(outs):
+        v = {"undistort_rel_rms": rel_rms(outs[0], img, 128),
+             "gated": f"rel_rms<{GATE_UNDISTORT}"}
+        return v, v["undistort_rel_rms"] < GATE_UNDISTORT
+
+    path_launches["7b"] = run_path(
+        "7b", "undistort_image(img_d, u_true) defaults, 4096^2",
+        lambda: (pipeline.undistort_image(img_d, u_true),), gates_7b)
+
+    # ---- 8. the README's unit cell: (a) config 4, (b) with u
+    avg4 = ucell_mod.unit_cell_average(None, ks4, z=2,
+                                       only_generate_func=True)
+
+    def step_8a():
+        cell = avg4(img4)
+        return cell, ucell_mod.expand_unitcell(cell, ks4, (SIZE, SIZE), z=2)
+
+    def step_8b():
+        cell = ucell_mod.unit_cell_average(img_d, ks[:2], u=u_true, z=2)
+        return cell, ucell_mod.expand_unitcell(cell, ks[:2], (SIZE, SIZE),
+                                               z=2, u=u_true)
+
+    for label, title, step, want in (
+            ("8a", "config 4: unit_cell_average + expand_unitcell, z=2, "
+             "4096^2", step_8a, img4),
+            ("8b", "unit_cell_average(img_d, ks[:2], u=u_true, z=2) + "
+             "expand_unitcell(..., u=u_true), 4096^2", step_8b, img_d)):
+        def gates_8(outs, want=want):
+            v = {"ucell_roundtrip_rel_rms": rel_rms(outs[1], want, 128),
+                 "cell_shape": list(outs[0].shape),
+                 "gated": f"rel_rms<{GATE_UCELL}"}
+            return v, v["ucell_roundtrip_rel_rms"] < GATE_UCELL
+        path_launches[label] = run_path(label, title, step, gates_8)
 
     kernels = []
     for name, (src, rep) in KERNELS.items():

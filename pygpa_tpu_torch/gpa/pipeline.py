@@ -24,14 +24,130 @@ import torch
 import torch.nn.functional as F
 
 from ..config import DEFAULTS
+from ..core import interp
 from ..core.fourier import fourier_gaussian_multiplier, wiener_deconvolve
 from ..ops.sweep import rim_weights
 from ..ops.wfr import (SweepPlan, UVSweep, plan_sweep, wfr_sweep,
                        wfr_sweep_phase_weight_multi)
-from ..solvers.unwrap import stamp
+from ..solvers.unwrap import _resize_right, stamp
 from .reconstruct import (reconstruct_u_inv_from_demod,
                           reconstruct_u_inv_from_phases,
                           reconstruct_u_inv_from_uv)
+
+
+def _grid(n0, n1, m0, m1, dtype, device):
+    """jnp.mgrid[n0:n1, m0:m1] as two (n1-n0, m1-m0) planes of `dtype`."""
+    xx = torch.arange(n0, n1, device=device).to(dtype)[:, None]
+    yy = torch.arange(m0, m1, device=device).to(dtype)[None, :]
+    shape = (n1 - n0, m1 - m0)
+    return xx.expand(shape), yy.expand(shape)
+
+
+def _resample2(usf, coords, order, mode, margin):
+    """Both planes of `usf` sampled at `coords` (prefilter off)."""
+    return torch.stack([
+        interp.map_coordinates(usf[0], coords, order=order, mode=mode,
+                               prefilter=False, margin=margin),
+        interp.map_coordinates(usf[1], coords, order=order, mode=mode,
+                               prefilter=False, margin=margin)])
+
+
+def invert_u(us, iters=35, edge=0, mode="nearest", order=3):
+    """Fixed-point inversion of the displacement field us (2, n, m):
+    u_it(r) = us(r + u_it(r)), one step from zero and `iters` more
+    (pygpa_tpu.gpa.pipeline.invert_u). The B-spline prefilter runs once,
+    outside the loop."""
+    us = torch.as_tensor(us)
+    n, m = us.shape[1], us.shape[2]
+    xx, yy = _grid(0, n, 0, m, us.dtype, us.device)
+    xx = xx - edge
+    yy = yy - edge
+    mg = interp.NEAREST_MARGIN if (order == 3 and mode == "nearest") else 0
+    usf = interp.spline_filter(us, mode=mode, axes=(-2, -1), margin=mg) \
+        if order == 3 else us
+    u_it = torch.zeros_like(us)
+    for _ in range(int(iters) + 1):
+        u_it = _resample2(usf, torch.stack([xx + u_it[0], yy + u_it[1]]),
+                          order, mode, mg)
+    return u_it
+
+
+def invert_u_overlap(us, iters=35, edge=0, mode="nearest", order=3,
+                     coarse=1, refine_iters=2):
+    """invert_u on an `edge`-wide overlap border, output (2, n + 2 edge,
+    m + 2 edge) (pygpa_tpu.gpa.pipeline.invert_u_overlap). coarse > 1
+    runs the Picard iteration at order 1 on the coarse-x subsampled grid
+    and polishes at full resolution with `refine_iters` frozen-Jacobian
+    Newton steps (J = grad us at r + u_coarse, upsampled by the linear
+    resize products); coarse=1 is the reference algorithm."""
+    us = torch.as_tensor(us)
+    n, m = us.shape[1], us.shape[2]
+    dt, dev = us.dtype, us.device
+    xx, yy = _grid(-edge, n + edge, -edge, m + edge, dt, dev)
+    mg = interp.NEAREST_MARGIN if (order == 3 and mode == "nearest") else 0
+
+    if coarse > 1:
+        c = int(coarse)
+        usc = us[:, ::c, ::c] / c      # displacements in coarse pixels
+        nc, mc = usc.shape[1], usc.shape[2]
+        uc = invert_u(usc, iters=min(int(iters), 16), edge=0, mode=mode,
+                      order=1)
+        # the reference's _sep2 (L @ a @ R) as float32/float64 products
+        L = _resize_right(nc, n, dt, dev).T
+        R = _resize_right(mc, m, dt, dev)
+        xxc, yyc = _grid(0, nc, 0, mc, dt, dev)
+        coordsc = torch.stack([xxc + uc[0], yyc + uc[1]])
+        J = []
+        for i in (0, 1):
+            for g in torch.gradient(usc[i]):   # d/d(coarse px) of usc
+                J.append(interp.map_coordinates(g, coordsc, order=1,
+                                                mode=mode))
+        with interp.no_tf32():
+            u0 = L @ (uc * float(c)) @ R
+            J = L @ torch.stack(J) @ R
+        if edge > 0:
+            u0 = interp.pad_np(u0, edge, "edge")
+            J = interp.pad_np(J, edge, "edge")
+        a = 1.0 - J[0]
+        b = -J[1]
+        cc = -J[2]
+        d = 1.0 - J[3]
+        det = a * d - b * cc
+        # |det| ~ 0 means |grad u| ~ 1: plain Picard step there
+        safe = det.abs() > 0.1
+        det = torch.where(safe, det, 1.0)
+        u_it = u0
+        for _ in range(int(refine_iters)):
+            gu = _resample2(us, torch.stack([xx + u_it[0], yy + u_it[1]]),
+                            1, mode, 0)
+            r0 = gu - u_it
+            du0 = (d * r0[0] - b * r0[1]) / det
+            du1 = (a * r0[1] - cc * r0[0]) / det
+            u_it = u_it + torch.stack([torch.where(safe, du0, r0[0]),
+                                       torch.where(safe, du1, r0[1])])
+        return u_it
+
+    usf = interp.spline_filter(us, mode=mode, axes=(-2, -1), margin=mg) \
+        if order == 3 else us
+    u_it = _resample2(usf, torch.stack([xx, yy]), order, mode, mg)
+    for _ in range(int(iters)):
+        u_it = _resample2(usf, torch.stack([xx + u_it[0], yy + u_it[1]]),
+                          order, mode, mg)
+    return u_it
+
+
+def undistort_image(deformed, u, order=3, coarse=1, invert_iters=35):
+    """Lawler-Fujita undistortion (pygpa_tpu.gpa.pipeline.
+    undistort_image): invert -u, then resample the deformed image at
+    r + u_inv in 'constant' mode. coarse > 1 inverts on the coarse grid
+    (see invert_u_overlap)."""
+    deformed = torch.as_tensor(deformed)
+    u = torch.as_tensor(u)
+    u_inv = invert_u_overlap(-u, iters=invert_iters, coarse=coarse)
+    xx, yy = _grid(0, u.shape[1], 0, u.shape[2], u.dtype, u.device)
+    coords = torch.stack([xx + u_inv[0], yy + u_inv[1]])
+    return interp.map_coordinates(deformed, coords, order=order,
+                                  mode="constant", cval=0.0)
 
 
 def _next_fast_fft_size(n):

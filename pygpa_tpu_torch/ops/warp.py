@@ -1,0 +1,229 @@
+"""Bilinear and cubic image resampling at per-pixel coordinates.
+
+Replaces the TPU kernels ``pygpa_tpu/ops/pallas_warp.py``
+``_warp_kernel`` (entry ``warp_bilinear``) and ``_warp_cubic_kernel``
+(entry ``warp_cubic``), both behind ``_warp_core``. They sample a 2-D
+image at fractional (row, column) coordinates cy, cx of any shape:
+
+- warp_bilinear: 2 x 2 taps, the algebra of
+  jax.scipy.ndimage.map_coordinates(order=1); 'nearest' clamps the
+  sample position, 'constant' blends a one-pixel cval ring and masks
+  positions further out;
+- warp_cubic: 4 x 4 taps with Catmull-Rom or cubic B-spline weights
+  (the B-spline samples spline_filter'ed coefficients: scipy's order-3
+  interpolant); 'nearest' clamps each tap, 'constant' blends cval out
+  to two pixels (Catmull-Rom) or samples the mirror-extended spline
+  inside the image and cuts to cval outside it (B-spline, scipy's
+  legacy 'constant').
+
+Each wrapper does the reference wrapper's boundary algebra exactly: the
+fraction is taken in the coordinates' dtype (floor, then the
+difference) and cast to the image's, the integer taps are shifted and
+clamped into an image padded by 1 (bilinear constant), 2 (cubic
+nearest, edge) or 3 (cubic constant, cval or reflect) rings, and the
+'constant' outside mask is applied last.
+
+CUDA route (``csrc/warp.cu``): one thread per output pixel computes its
+taps and fractions from the coordinates and gathers the taps through
+the read-only cache; the padded rings are index arithmetic (clamp,
+reflect or cval), never materialised. The TPU kernel's 3 x 3 block
+windows, bit-packed scalar prefetch, row-shift loop and validity guard
+with its dense fallback existed because Mosaic has no sublane gather; a
+CUDA gather is exact for any coordinates, so none of them is carried
+over. Bound on an H100 by device memory (the coordinates read and the
+output written once; the taps mostly hit L1/L2 because neighbouring
+pixels sample neighbouring positions). All arithmetic uses the _rn
+intrinsics in the twin's order, so the kernel repeats the twin's
+rounding.
+
+The plain twins (``warp_bilinear_plain``, ``warp_cubic_plain``) hold
+the dense tap/weight algebra of the reference's ``_warp_xla`` on
+materialised padded images. A CPU tensor runs the twin; a CUDA tensor
+the kernel (float32 image and coordinates, 2-D image) or an error.
+"""
+import torch
+import torch.nn.functional as F
+
+from . import _build
+
+MODES = ("nearest", "constant")
+_WEIGHT_FN = {"catmull": 1, "bspline": 2}   # csrc/warp.cu weight codes
+
+
+def catmull_weights(t):
+    """Catmull-Rom weights for taps at offsets (-1, 0, 1, 2)."""
+    t2 = t * t
+    t3 = t2 * t
+    w0 = -0.5 * t3 + t2 - 0.5 * t
+    w1 = 1.5 * t3 - 2.5 * t2 + 1.0
+    w2 = -1.5 * t3 + 2.0 * t2 + 0.5 * t
+    w3 = 0.5 * t3 - 0.5 * t2
+    return (w0, w1, w2, w3)
+
+
+def bspline_weights(t):
+    """Cubic B-spline basis weights for taps at offsets (-1, 0, 1, 2)
+    (sampling spline_filter'ed coefficients gives scipy's prefiltered
+    order-3 interpolant)."""
+    t2 = t * t
+    t3 = t2 * t
+    s = 1.0 / 6.0
+    w0 = s * (1.0 - 3.0 * t + 3.0 * t2 - t3)
+    w1 = s * (4.0 - 6.0 * t2 + 3.0 * t3)
+    w2 = s * (1.0 + 3.0 * t + 3.0 * t2 - 3.0 * t3)
+    w3 = s * t3
+    return (w0, w1, w2, w3)
+
+
+def _dense(img, iy0, ix0, fy, fx, taps, cubic="catmull"):
+    """The reference's _warp_xla: separable taps of the padded image at
+    integer base taps (iy0, ix0) with fractions (fy, fx)."""
+    m = img.shape[1]
+    flat = img.reshape(-1)
+    if taps == 2:
+        r0 = flat[iy0 * m + ix0]
+        r1 = flat[iy0 * m + ix0 + 1]
+        r2 = flat[(iy0 + 1) * m + ix0]
+        r3 = flat[(iy0 + 1) * m + ix0 + 1]
+        return ((1.0 - fy) * ((1.0 - fx) * r0 + fx * r1)
+                + fy * ((1.0 - fx) * r2 + fx * r3))
+    weight_fn = bspline_weights if cubic == "bspline" else catmull_weights
+    wy = weight_fn(fy)
+    wx = weight_fn(fx)
+    out = torch.zeros_like(fy)
+    for a in range(4):
+        row = torch.zeros_like(fy)
+        for b in range(4):
+            row = row + wx[b] * flat[(iy0 + a) * m + ix0 + b]
+        out = out + wy[a] * row
+    return out
+
+
+def _floor_frac(c, dtype):
+    """(floor(c) as int64, fraction in c's dtype cast to `dtype`)."""
+    fl = torch.floor(c)
+    return fl.to(torch.int64), (c - fl).to(dtype), fl
+
+
+def warp_bilinear_plain(image, cy, cx, mode="nearest", cval=0.0):
+    """Plain PyTorch twin of the bilinear warp kernel."""
+    if mode not in MODES:
+        raise NotImplementedError(f"mode={mode!r}")
+    n, m = image.shape
+    ty, fy, _ = _floor_frac(cy, image.dtype)
+    tx, fx, _ = _floor_frac(cx, image.dtype)
+    if mode == "nearest":
+        # clamp the sample position: outside, both taps hit the border
+        fy = torch.where((ty < 0) | (ty > n - 2), 0.0, fy)
+        fx = torch.where((tx < 0) | (tx > m - 2), 0.0, fx)
+        fy = torch.where(cy >= n - 1, 1.0, fy)
+        fx = torch.where(cx >= m - 1, 1.0, fx)
+        ty = ty.clamp(0, n - 2)
+        tx = tx.clamp(0, m - 2)
+        img = image
+    else:
+        # one cval ring: taps within a pixel outside blend with cval
+        img = F.pad(image, (1, 1, 1, 1), value=float(cval))
+        outside = (cy <= -1) | (cy >= n) | (cx <= -1) | (cx >= m)
+        ty = (ty + 1).clamp(0, n)
+        tx = (tx + 1).clamp(0, m)
+    out = _dense(img, ty, tx, fy, fx, 2)
+    if mode == "constant":
+        out = torch.where(outside, float(cval), out)
+    return out
+
+
+def warp_cubic_plain(image, cy, cx, mode="nearest", cval=0.0,
+                     cubic="catmull"):
+    """Plain PyTorch twin of the cubic warp kernel."""
+    from ..core.interp import pad_np
+    if mode not in MODES:
+        raise NotImplementedError(f"mode={mode!r}")
+    n, m = image.shape
+    if mode == "nearest":
+        # two edge rings reproduce per-tap clamping out to 1 px; beyond,
+        # the clamped position with fraction 1 picks the border tap
+        img = pad_np(image, 2, "edge")
+        cyc = cy.clamp(-1, n)
+        cxc = cx.clamp(-1, m)
+        ty, fy, fl_y = _floor_frac(cyc, image.dtype)
+        tx, fx, fl_x = _floor_frac(cxc, image.dtype)
+        fy = torch.where(fl_y > n - 1, 1.0, fy)
+        fx = torch.where(fl_x > m - 1, 1.0, fx)
+        ty = ty.clamp(max=n - 1) + 1
+        tx = tx.clamp(max=m - 1) + 1
+    else:
+        if cubic == "bspline":
+            # inside: the mirror-extended spline; outside: cval
+            img = pad_np(image, 3, "reflect")
+            outside = (cy < 0) | (cy > n - 1) | (cx < 0) | (cx > m - 1)
+            cyc = cy.clamp(0.0, n - 1.0)
+            cxc = cx.clamp(0.0, m - 1.0)
+        else:
+            img = F.pad(image, (3, 3, 3, 3), value=float(cval))
+            outside = ((cy <= -2) | (cy >= n + 1)
+                       | (cx <= -2) | (cx >= m + 1))
+            cyc = cy.clamp(-2, n + 1)
+            cxc = cx.clamp(-2, m + 1)
+        ty, fy, _ = _floor_frac(cyc, image.dtype)
+        tx, fx, _ = _floor_frac(cxc, image.dtype)
+        ty = ty.clamp(max=n) + 2
+        tx = tx.clamp(max=m) + 2
+    out = _dense(img, ty, tx, fy, fx, 4, cubic)
+    if mode == "constant":
+        out = torch.where(outside, float(cval), out)
+    return out
+
+
+def _launch(op, image, cy, cx, mode, cval, weight):
+    """Run the warp kernel `op` ('warp_bilinear' or 'warp_cubic') on a
+    CUDA float32 image."""
+    if image.device.type != "cuda":
+        raise ValueError(f"{op}: unsupported device {image.device}")
+    if image.ndim != 2 or mode not in MODES or cy.shape != cx.shape:
+        raise ValueError(f"{op} kernel needs a 2-D image, mode in {MODES} "
+                         "and coordinate planes of one shape (got "
+                         f"{tuple(image.shape)}, {mode!r}, "
+                         f"{tuple(cy.shape)}, {tuple(cx.shape)})")
+    n, m = image.shape
+    count = cy.numel()
+    if count >= 2 ** 31 or n * m >= 2 ** 31 or min(n, m) < 2:
+        raise ValueError(f"{op} kernel: image {n}x{m} or {count} samples "
+                         "out of range")
+    img = image.contiguous()
+    ys = cy.reshape(-1).contiguous()
+    xs = cx.reshape(-1).contiguous()
+    _build.check_tensor(op, "image", img, (n, m), torch.float32,
+                        image.device)
+    for name, t in (("cy", ys), ("cx", xs)):
+        _build.check_tensor(op, name, t, (count,), torch.float32,
+                            image.device)
+    out = torch.empty_like(ys)
+    with torch.cuda.device(image.device):
+        fn = _build.bind(op, "piipppiiifp")
+        _build.check(fn(img.data_ptr(), n, m, ys.data_ptr(), xs.data_ptr(),
+                        out.data_ptr(), count, MODES.index(mode), weight,
+                        float(cval),
+                        torch.cuda.current_stream(image.device).cuda_stream),
+                     op)
+    _build.launches[op] += 1
+    return out.reshape(cy.shape)
+
+
+def warp_bilinear(image, cy, cx, mode="nearest", cval=0.0):
+    """map_coordinates(order=1) of a 2-D image at coordinates (cy, cx)
+    (any shape, the output's); CPU tensors run the twin, CUDA tensors
+    the kernel."""
+    if image.device.type == "cpu":
+        return warp_bilinear_plain(image, cy, cx, mode, cval)
+    return _launch("warp_bilinear", image, cy, cx, mode, cval, 0)
+
+
+def warp_cubic(image, cy, cx, mode="nearest", cval=0.0, cubic="catmull"):
+    """map_coordinates(order=3) of a 2-D image (cubic='catmull') or of
+    its B-spline coefficients (cubic='bspline') at coordinates (cy,
+    cx); CPU tensors run the twin, CUDA tensors the kernel."""
+    if image.device.type == "cpu":
+        return warp_cubic_plain(image, cy, cx, mode, cval, cubic)
+    return _launch("warp_cubic", image, cy, cx, mode, cval,
+                   _WEIGHT_FN["bspline" if cubic == "bspline" else "catmull"])

@@ -185,6 +185,21 @@ def phase_unwrap_prediff(dx, dy, weight=None, kmax=DEFAULTS.unwrap_kmax,
     return (phi, k) if return_iters else phi
 
 
+def phase_unwrap_mg(psi, weight=None, kmax=10, coarse=4, **kw):
+    """Multigrid-accelerated phase_unwrap (pygpa_tpu.solvers.unwrap.
+    phase_unwrap_mg): the phase image psi (..., n, m) is differenced and
+    integrated by phase_unwrap_prediff_mg against `weight` (n, m); with
+    no weight the unwrap is one exact Poisson solve of the wrapped
+    differences."""
+    dx = torch.diff(psi, dim=-1)
+    dy = torch.diff(psi, dim=-2)
+    if weight is None:
+        rk, _, _ = _residual(wrap_to_pi(dx), wrap_to_pi(dy), None)
+        return solve_poisson(rk)
+    return phase_unwrap_prediff_mg(dx, dy, weight, kmax=int(kmax),
+                                   coarse=coarse, **kw)
+
+
 def _mask_last(a, axis):
     """Zero the last slice along `axis`."""
     out = a.clone()

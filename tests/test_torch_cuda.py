@@ -1,7 +1,10 @@
 """The CUDA kernels of pygpa_tpu_torch against their plain twins, on the
 card, at shapes the bench does not use (odd aspect ratios, other coarse
-factors and iteration counts, the 8192^2 window and DCT length), and
-the unwrap's routes on the card. Marked `cuda`; each test skips
+factors and iteration counts, the 8192^2 window and DCT length; for the
+warp, drizzle and expand kernels sides off every tile multiple, 1-D,
+sawtooth and far-outside coordinates, cval != 0, cells near 512^2 and
+of odd size, z2 = 2, u given, all-NaN images), and the unwrap's and
+the undistortion's routes on the card. Marked `cuda`; each test skips
 without a CUDA device. JAX is not needed, so on a machine without it:
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
@@ -195,3 +198,131 @@ def test_exact_cg_through_the_dct_kernels(dev, monkeypatch):
     want, kw = tu.phase_unwrap_prediff(dx, dy, w, kmax=5, return_iters=True)
     assert torch.equal(kg, kw)
     assert _rel(got, want) <= 1e-4
+
+
+def _warp_coords(kind, n, m, dev):
+    """Sample positions (2, ...) in float32 on the card: a smooth warp
+    over the image, 1-D vectors, a sawtooth (wrapped, jumps of ~n at
+    every seam) and positions far outside every border."""
+    if kind == "1d":
+        c = np.stack([np.linspace(-4.5, n + 3.2, 1001),
+                      np.linspace(m + 5.1, -3.7, 1001)])
+    else:
+        yy, xx = np.meshgrid(np.arange(n, dtype=float),
+                             np.arange(m, dtype=float), indexing="ij")
+        if kind == "smooth":
+            c = np.stack([yy + 3 * np.sin(xx / 37), xx - 4 * np.cos(yy / 29)])
+        elif kind == "sawtooth":
+            c = np.stack([(yy * 1.73 + 0.2 * xx) % (n - 3.0),
+                          (xx * 1.61 + 0.1 * yy) % (m - 5.0)])
+        else:
+            c = np.stack([yy * 1.4 - 0.2 * n, xx * 1.5 - 0.25 * m])
+            c[:, ::7] += 1e4
+    return torch.from_numpy(c.astype(np.float32)).to(dev)
+
+
+@pytest.mark.parametrize("kind", ["smooth", "1d", "sawtooth", "far"])
+@pytest.mark.parametrize("n,m", [(300, 517), (97, 1030)])
+def test_warp_kernels(dev, n, m, kind):
+    """Both warp kernels (bilinear; Catmull-Rom and B-spline cubic) in
+    both modes with cval != 0, against their twins on the card: the
+    same float32 operations in the same order, so within 1e-6 of the
+    image's maximum."""
+    from pygpa_tpu_torch.ops import warp as tw
+    img = _planes((n, m), 21, dev)
+    c = _warp_coords(kind, n, m, dev)
+    before = dict(_build.launches)
+    for mode in ("nearest", "constant"):
+        cases = [(tw.warp_bilinear, tw.warp_bilinear_plain, ())]
+        cases += [(tw.warp_cubic, tw.warp_cubic_plain, (cub,))
+                  for cub in ("catmull", "bspline")]
+        for fn, twin, extra in cases:
+            got = fn(img, c[0], c[1], mode, -2.5, *extra)
+            want = twin(img, c[0], c[1], mode, -2.5, *extra)
+            assert got.shape == c.shape[1:] and torch.isfinite(got).all()
+            assert float((got - want).abs().max()) <= 1e-6 * float(
+                img.abs().max()), (mode, extra)
+    assert _build.launches["warp_bilinear"] == before.get("warp_bilinear",
+                                                          0) + 2
+    assert _build.launches["warp_cubic"] == before.get("warp_cubic", 0) + 4
+
+
+def test_undistort_on_the_card_matches_the_cpu(dev, monkeypatch):
+    """undistort_image at 384 x 320 (coarse 1 and 4) on the card, with
+    TF32 allowed globally, against the same float32 call on the CPU:
+    the prefilter's convolutions and the coarse inversion's products
+    switch TF32 off themselves."""
+    from pygpa_tpu_torch.gpa.pipeline import undistort_image
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    n, m = 384, 320
+    yy, xx = np.meshgrid(np.arange(n), np.arange(m), indexing="ij")
+    u = np.stack([3 * np.sin(2 * np.pi * yy / n + 0.4) + 0.3,
+                  2 * np.cos(2 * np.pi * xx / m)]).astype(np.float32)
+    img = _planes((n, m), 22, "cpu")
+    for coarse in (1, 4):
+        want = undistort_image(img, torch.from_numpy(u), coarse=coarse)
+        _build.launches.clear()
+        got = undistort_image(img.to(dev), torch.from_numpy(u).to(dev),
+                              coarse=coarse)
+        assert _build.launches["warp_cubic"] >= 1
+        assert _rel(got.cpu(), want) <= 1e-4, coarse
+
+
+def _diag_ks(a, b):
+    return np.array([[1.0 / a, 0.0], [0.0, 1.0 / b]])
+
+
+# (k-vectors, z, image shape): a cell near the reference's 512 x 512
+# limit (512 x 402, past shared memory) and one of odd sides (13 x 9)
+CELLS = [(_diag_ks(255.5, 200.3), 2, (1100, 900)),
+         (_diag_ks(12.4, 8.7), 1, (301, 517)),
+         (generate_ks(0.06, 9.0)[:2], 3, (333, 250))]
+
+
+@pytest.mark.parametrize("ks,z,shape", CELLS)
+@pytest.mark.parametrize("with_u", [False, True])
+def test_drizzle_kernel(dev, ks, z, shape, with_u):
+    """The drizzle kernel against its float32 index_add_ twin (normwise
+    1e-5, NaN pixels skipped), two launches bit-identical, and an
+    all-NaN image summing to exactly 0."""
+    from pygpa_tpu_torch.ops import drizzle as td
+    from pygpa_tpu_torch.ucell import calc_ucell_parameters
+    rmin, rsize = calc_ucell_parameters(ks, z)
+    rsize = tuple(int(r) for r in rsize)
+    img = _planes(shape, 23, dev)
+    img[5:9, 20:60] = float("nan")
+    u = 0.8 * _planes((2,) + shape, 24, dev) if with_u else None
+    before = _build.launches["drizzle"]
+    s1, w1 = td.drizzle(img, ks, rmin, rsize, z, u)
+    s2, w2 = td.drizzle(img, ks, rmin, rsize, z, u)
+    assert _build.launches["drizzle"] == before + 2
+    assert torch.equal(s1, s2) and torch.equal(w1, w2)
+    ps, pw = td.drizzle_plain(img, ks, rmin, rsize, z, u)
+    assert s1.shape == rsize and (w1 > 0).any()
+    assert _rel(s1, ps) <= 1e-5 and _rel(w1, pw) <= 1e-5
+    s0, w0 = td.drizzle(torch.full_like(img, float("nan")), ks, rmin, rsize,
+                        z, u)
+    assert not s0.any() and not w0.any()
+
+
+@pytest.mark.parametrize("ks,z,shape", CELLS)
+@pytest.mark.parametrize("order,cubic,z2,with_u",
+                         [(1, "bspline", 1, False), (3, "bspline", 2, True),
+                          (3, "catmull", 1, True)])
+def test_expand_kernel(dev, ks, z, shape, order, cubic, z2, with_u):
+    """The expand kernel against its twin: shared-memory and L1 cells,
+    orders 1 and 3, z2 = 2, u given; the same float32 operations in the
+    same order, so within 1e-6 of the cell's maximum."""
+    from pygpa_tpu_torch.ops import expand as te
+    from pygpa_tpu_torch.ucell import calc_ucell_parameters
+    rmin, rsize = calc_ucell_parameters(ks, z)
+    cell = _planes(tuple(rsize), 25, dev)
+    u = 0.5 * _planes((2,) + shape, 26, dev) if with_u else None
+    before = _build.launches["expand"]
+    got = te.expand_cell(cell, ks, rmin, z, z2, u, shape, order, cubic)
+    want = te.expand_cell_plain(cell, ks, rmin, z, z2, u, shape, order,
+                                cubic)
+    assert _build.launches["expand"] == before + 1
+    assert got.shape == shape and torch.isfinite(got).all()
+    assert float((got - want).abs().max()) <= 1e-6 * float(cell.abs().max())

@@ -101,9 +101,14 @@ def test_next_fast_fft_size_matches():
 def test_port_imports_no_jax():
     code = ("import sys, pkgutil, importlib\n"
             "import pygpa_tpu_torch\n"
+            "names = set()\n"
             "for m in pkgutil.walk_packages(pygpa_tpu_torch.__path__, "
             "'pygpa_tpu_torch.'):\n"
             "    importlib.import_module(m.name)\n"
+            "    names.add(m.name)\n"
+            "new = {'core.interp', 'ops.warp', 'ops.drizzle', 'ops.expand', "
+            "'ucell', 'ucell.averaging'}\n"
+            "assert {'pygpa_tpu_torch.' + n for n in new} <= names, names\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'pygpa_tpu' or "
             "m.startswith('pygpa_tpu.')]\n"

@@ -1,0 +1,294 @@
+"""The port's unit-cell averaging (pygpa_tpu_torch.ucell) and the drizzle
+and expand kernels' plain twins (ops.drizzle, ops.expand) against
+pygpa_tpu on the CPU: the module against pygpa_tpu.ucell, the round
+trips with the bounds of tests/test_ucell.py, the twins against the
+Pallas kernels in interpret mode with the bounds of
+tests/test_pallas_drizzle.py and atol 1e-10 (expand). Where the
+reference's two routes disagree, the port follows the kernels, and a
+test at such a geometry shows it. float64 inputs from numpy seeds."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pygpa_tpu.lattices import generate_ks, hexlattice_gen
+import pygpa_tpu.ucell as JUC
+from pygpa_tpu.ucell.averaging import _drizzle as xla_drizzle
+from pygpa_tpu.ops.pallas_drizzle import drizzle as pallas_drizzle
+from pygpa_tpu.ops.pallas_expand import expand_cell as pallas_expand
+import pygpa_tpu_torch.ucell as TUC
+from pygpa_tpu_torch.ops import _build
+from pygpa_tpu_torch.ops import drizzle as TD
+from pygpa_tpu_torch.ops import expand as TE
+
+torch.set_num_threads(2)
+# a cell box that ends exactly where the cell does (rmin = 0, extents
+# 10.3 x 7.6 px): drizzle taps reach column R1 and expand positions
+# pass R - 1, where the reference's routes differ
+KS_DIAG = np.array([[1 / 10.3, 0.0], [0.0, 1 / 7.6]])
+
+
+def _ks(r_k=0.02, xi0=7.0, kappa=1.05):
+    return np.asarray(generate_ks(r_k, xi0, kappa=kappa, psi=0.0))[:2]
+
+
+def _lattice(size, shift=None):
+    img = np.asarray(hexlattice_gen(0.02, 7.0, 2, kappa=1.05, psi=0.0,
+                                    size=size, shift=shift,
+                                    dtype=np.float64))
+    return img / img.max()
+
+
+def test_cell_geometry_matches():
+    ks = _ks()
+    rng = np.random.default_rng(0)
+    vecs = rng.normal(size=(50, 2)) * 40
+    for fn in (JUC.forward_transform, JUC.backward_transform):
+        want = np.asarray(fn(jnp.asarray(vecs), jnp.asarray(ks)))
+        got = getattr(TUC, fn.__name__)(torch.from_numpy(vecs), ks)
+        assert np.allclose(got.numpy(), want, atol=1e-12)
+    want = np.asarray(JUC.cart_in_uc(jnp.asarray(vecs), jnp.asarray(ks),
+                                     rmin=jnp.asarray([1.5, -2.0])))
+    got = TUC.cart_in_uc(torch.from_numpy(vecs), ks,
+                         rmin=torch.tensor([1.5, -2.0], dtype=torch.float64))
+    assert np.allclose(got.numpy(), want, atol=1e-10)
+    f = np.array([0.3, 0.8])
+    assert np.allclose(TUC.float_overlap(torch.from_numpy(f)).numpy(),
+                       np.asarray(JUC.float_overlap(jnp.asarray(f))))
+    for z in (1, 2, 3):
+        rj, sj = JUC.calc_ucell_parameters(ks, z)
+        rt, st = TUC.calc_ucell_parameters(ks, z)
+        assert np.allclose(rt, rj) and tuple(st) == tuple(sj)
+
+
+@pytest.mark.parametrize("R", [(2.25, 3.5), (4.6, 4.2), (-1.3, 0.4),
+                               (-6.5, 1.0)])
+def test_add_to_position_matches(R):
+    """Inside, across the far edge (taps dropped) and at negative
+    positions (taken from the end, or dropped past it)."""
+    res = np.random.default_rng(1).normal(size=(5, 5))
+    w = np.zeros((5, 5))
+    want = JUC.add_to_position(2.5, jnp.asarray(R), jnp.asarray(res),
+                               jnp.asarray(w))
+    got = TUC.add_to_position(2.5, torch.tensor(R, dtype=torch.float64),
+                              torch.from_numpy(res), torch.from_numpy(w))
+    for g, t in zip(got, want):
+        assert np.allclose(g.numpy(), np.asarray(t), atol=1e-14)
+
+
+@pytest.mark.parametrize("z,with_u", [(1, False), (2, False), (2, True)])
+def test_unit_cell_average_matches(z, with_u):
+    """At a geometry where no tap reaches the cell's last column the two
+    reference routes agree, and the port matches them: values, weights,
+    the NaN of unvisited bins, and the factory form."""
+    ks = _ks()
+    img = _lattice(160)
+    img[20:24, 30:70] = np.nan
+    u = 0.7 * np.random.default_rng(2).normal(size=(2,) + img.shape)
+    uu = u if with_u else None
+    want, wantw = JUC.unit_cell_average(img, ks, u=uu, z=z,
+                                        return_weights=True)
+    got, gotw = TUC.unit_cell_average(torch.from_numpy(img), ks,
+                                      u=None if uu is None else
+                                      torch.from_numpy(uu), z=z,
+                                      return_weights=True)
+    want, wantw = np.asarray(want), np.asarray(wantw)
+    assert np.array_equal(np.isnan(got.numpy()), np.isnan(want))
+    assert np.allclose(gotw.numpy(), wantw, atol=1e-10)
+    assert np.allclose(got.numpy(), want, atol=1e-10, equal_nan=True)
+    f = TUC.unit_cell_average(None, ks, z=z, only_generate_func=True)
+    assert torch.equal(torch.nan_to_num(f(torch.from_numpy(img), uu)),
+                       torch.nan_to_num(got))
+
+
+@pytest.mark.parametrize("order,z2,with_u", [(3, 1, False), (3, 1, True),
+                                             (1, 1, True), (3, 2, False)])
+def test_expand_unitcell_matches(order, z2, with_u):
+    ks = _ks(0.05, 7.0, 1.0)
+    z = 2
+    _, rsize = JUC.calc_ucell_parameters(ks, z)
+    rng = np.random.default_rng(3)
+    cell = rng.normal(size=rsize)
+    cell[0, :3] = np.nan                  # nan_to_num'd by both
+    shape = (96, 128)
+    u = 0.5 * rng.normal(size=(2,) + shape) if with_u else 0
+    want = JUC.expand_unitcell(jnp.asarray(cell), ks, shape, z=z, z2=z2,
+                               u=u, order=order)
+    got = TUC.expand_unitcell(torch.from_numpy(cell), ks, shape, z=z, z2=z2,
+                              u=torch.from_numpy(u) if with_u else 0,
+                              order=order)
+    assert np.allclose(got.numpy(), np.asarray(want), atol=1e-10)
+
+
+@pytest.mark.parametrize("z", [2, 3])
+def test_project_and_expand(z):
+    """tests/test_ucell.py's round trip and bounds."""
+    ks = _ks()
+    original = _lattice(200)
+    cell = TUC.unit_cell_average(torch.from_numpy(original), ks, z=z)
+    expanded = TUC.expand_unitcell(cell, ks, original.shape, z=z).numpy()
+    assert np.abs(original - expanded).mean() < 5e-3
+    assert np.abs(original - expanded).max() < 0.11
+
+
+@pytest.mark.parametrize("z", [2, 3])
+def test_deformed_project_and_expand(z, gaussiandeform):
+    u = gaussiandeform[:, :200, :200]
+    ks = _ks()
+    deformed = _lattice(200, shift=u)
+    ut = torch.from_numpy(np.ascontiguousarray(u))
+    cell = TUC.unit_cell_average(torch.from_numpy(deformed), ks, z=z, u=ut)
+    expanded = TUC.expand_unitcell(cell, ks, deformed.shape, z=z,
+                                   u=ut).numpy()
+    assert np.abs(deformed - expanded).mean() < 3e-3
+    assert np.abs(deformed - expanded).max() < 0.15
+
+
+def test_nan_masking_and_weights():
+    """tests/test_ucell.py's NaN-masking and weight checks."""
+    ks = np.asarray(generate_ks(0.05, 0.0))[:2]
+    clean = np.array(hexlattice_gen(0.05, 0.0, 1, size=100,
+                                    dtype=np.float64))
+    img = clean.copy()
+    img[:50] = np.nan
+    cell = TUC.unit_cell_average(torch.from_numpy(img), ks, z=2).numpy()
+    ref = TUC.unit_cell_average(torch.from_numpy(clean), ks, z=2).numpy()
+    assert np.isfinite(cell).any()
+    both = np.isfinite(cell) & np.isfinite(ref)
+    assert both.sum() > 0.9 * np.isfinite(ref).sum()
+    d = np.abs(cell - ref)[both]
+    assert d.mean() < 0.05 and np.quantile(d, 0.9) < 0.1
+    small = torch.from_numpy(clean[:64, :64].copy())
+    _, w = TUC.unit_cell_average(small, ks, z=2, return_weights=True)
+    assert np.isclose(float(w.sum()), 64 * 64)
+
+
+@pytest.fixture(scope="module")
+def drizzle_case():
+    rng = np.random.default_rng(1)
+    ks = np.asarray(generate_ks(0.06, 9.0))[:2]
+    z = 2
+    rmin, rsize = JUC.calc_ucell_parameters(ks, z)
+    img = rng.normal(size=(160, 256))
+    img[10:14, 40:60] = np.nan
+    u = 0.8 * rng.normal(size=(2,) + img.shape)
+    return ks, z, rmin, tuple(int(r) for r in rsize), img, u
+
+
+@pytest.mark.parametrize("with_u", [False, True])
+def test_drizzle_twin_matches_interpret_kernel(drizzle_case, with_u):
+    """tests/test_pallas_drizzle.py's bounds: the same bins visited,
+    weights rtol 1e-5, averages rtol 1e-4 / atol 1e-5."""
+    ks, z, rmin, rsize, img, u = drizzle_case
+    uu = u if with_u else None
+    s, w = pallas_drizzle(jnp.asarray(img), ks, rmin, rsize, z, u=uu,
+                          interpret=True)
+    s, w = np.asarray(s), np.asarray(w)
+    ts, tw = TD.drizzle_plain(torch.from_numpy(img), ks, rmin, rsize, z,
+                              None if uu is None else torch.from_numpy(uu))
+    ts, tw = ts.numpy(), tw.numpy()
+    assert ((w > 0) == (tw > 0)).all()
+    ok = w > 1e-9
+    assert np.allclose(tw[ok], w[ok], rtol=1e-5)
+    assert np.allclose(ts[ok] / tw[ok], s[ok] / w[ok], rtol=1e-4, atol=1e-5)
+
+
+def test_drizzle_all_nan_sums_exactly_zero(drizzle_case):
+    ks, z, rmin, rsize, img, _ = drizzle_case
+    s, w = TD.drizzle_plain(torch.full(img.shape, float("nan"),
+                                       dtype=torch.float64),
+                            ks, rmin, rsize, z)
+    assert float(s.abs().max()) == 0.0 and float(w.abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("order,z2,with_u", [(1, 1, False), (1, 1, True),
+                                             (3, 1, True), (3, 2, False)])
+def test_expand_twin_matches_interpret_kernel(order, z2, with_u):
+    ks = np.asarray(generate_ks(0.05, 7.0))[:2]
+    z = 2
+    rmin, rsize = JUC.calc_ucell_parameters(ks, z)
+    rng = np.random.default_rng(0)
+    cell = rng.normal(size=rsize)
+    shape = (192, 256)
+    u = 0.5 * rng.normal(size=(2,) + shape) if with_u else None
+    want = pallas_expand(jnp.asarray(cell), ks, rmin, z, z2, u, shape,
+                         order=order, interpret=True)
+    got = TE.expand_cell_plain(torch.from_numpy(cell), ks, rmin, z, z2,
+                               None if u is None else torch.from_numpy(u),
+                               shape, order)
+    assert np.allclose(got.numpy(), np.asarray(want), atol=1e-10)
+
+
+def test_drizzle_drops_taps_past_the_last_column():
+    """At KS_DIAG the cell's last column R1 - 1 has taps to its right.
+    The TPU kernel drops them (so does the port); the reference's XLA
+    scatter adds them to the first column of the next row."""
+    z = 2
+    rmin, rsize = JUC.calc_ucell_parameters(KS_DIAG, z)
+    rsize = tuple(int(r) for r in rsize)
+    rng = np.random.default_rng(4)
+    img = rng.normal(size=(96, 128))
+    u = 0.8 * rng.normal(size=(2,) + img.shape)  # positions off the grid
+    s, w = pallas_drizzle(jnp.asarray(img), KS_DIAG, rmin, rsize, z, u=u,
+                          interpret=True)
+    ts, tw = TD.drizzle_plain(torch.from_numpy(img), KS_DIAG, rmin, rsize, z,
+                              torch.from_numpy(u))
+    assert np.allclose(tw.numpy(), np.asarray(w), rtol=1e-5, atol=1e-9)
+    assert np.allclose(ts.numpy(), np.asarray(s), rtol=1e-4, atol=1e-6)
+    _, xw = xla_drizzle(jnp.asarray(img), jnp.asarray(u),
+                        jnp.asarray(KS_DIAG), tuple(rmin), rsize, z)
+    extra = np.asarray(xw) - tw.numpy()
+    # the wrapped taps land in column 0 of rows 1..R0-1 and nowhere else
+    assert np.abs(extra[:, 1:]).max() < 1e-9
+    assert extra[1:, 0].min() > 0.1
+
+
+def test_expand_samples_the_mirror_rim():
+    """At KS_DIAG (z = 1) cell rows run to X0 = 10.3 > R0 - 1 = 10. The
+    TPU kernel samples the mirror-extended B-spline there (so does the
+    port); the reference's map_coordinates route cuts those positions
+    to 0."""
+    z = 1
+    rmin, rsize = JUC.calc_ucell_parameters(KS_DIAG, z)
+    cell = np.random.default_rng(5).normal(size=rsize)
+    shape = (64, 48)
+    want = np.asarray(pallas_expand(jnp.asarray(cell), KS_DIAG, rmin, z, 1,
+                                    None, shape, order=3, interpret=True))
+    got = TUC.expand_unitcell(torch.from_numpy(cell), KS_DIAG, shape,
+                              z=z).numpy()
+    assert np.allclose(got, want, atol=1e-10)
+    xla = np.asarray(JUC.expand_unitcell(jnp.asarray(cell), KS_DIAG, shape,
+                                         z=z))
+    # positions past the last row or column (X0 > R0 - 1 or X1 > R1 - 1),
+    # with X as the reference's map_coordinates route computes it
+    ii, jj = np.meshgrid(np.arange(shape[0]), np.arange(shape[1]),
+                         indexing="ij")
+    X = [((ii * KS_DIAG[k, 0] + jj * KS_DIAG[k, 1]) % 1.0)
+         * np.linalg.inv(KS_DIAG)[k, k] - rmin[k] for k in (0, 1)]
+    rim = (X[0] > rsize[0] - 1) | (X[1] > rsize[1] - 1)
+    assert rim.any() and not rim.all()
+    assert np.abs(xla[rim]).max() == 0.0
+    assert np.abs(got[rim]).min() > 0.0
+    assert np.allclose(got[~rim], xla[~rim], atol=1e-10)
+
+
+def test_wrappers_route_on_device():
+    """CPU tensors run the twins and count no launch; a tensor on
+    another device goes to the kernel path and raises there."""
+    ks = np.asarray(generate_ks(0.05, 7.0))[:2]
+    rmin, rsize = TUC.calc_ucell_parameters(ks, 2)
+    img = torch.from_numpy(np.random.default_rng(6).normal(size=(64, 64)))
+    _build.launches.clear()
+    a = TD.drizzle(img, ks, rmin, rsize, 2)
+    b = TD.drizzle_plain(img, ks, rmin, rsize, 2)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    cell = torch.ones(tuple(rsize), dtype=torch.float64)
+    assert torch.equal(TE.expand_cell(cell, ks, rmin, 2, 1, None, (32, 32)),
+                       TE.expand_cell_plain(cell, ks, rmin, 2, 1, None,
+                                            (32, 32)))
+    assert sum(_build.launches.values()) == 0
+    meta = torch.empty((64, 64), device="meta")
+    with pytest.raises(ValueError, match="device"):
+        TD.drizzle(meta, ks, rmin, rsize, 2)
+    with pytest.raises(ValueError, match="device"):
+        TE.expand_cell(meta, ks, rmin, 2, 1, None, (32, 32))
