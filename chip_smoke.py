@@ -53,7 +53,17 @@ path), the four DCT directions (on the exact CG's own residual), the
 warp kernels (the first 'nearest' and the final 'constant' cubic warp
 of phase 7b, the first bilinear warp of 7a's coarse inversion), and the
 drizzle and expand kernels (phase 8a's inputs) against their twins;
-the drizzle kernel also runs twice and must repeat bit for bit.
+the drizzle kernel also runs twice and must repeat bit for bit. For
+each kernel it computes the bound from those inputs (the larger of
+their bytes, each input read once and each output written once, over
+3.35 TB/s and their float32 operations over 67 TFLOP/s: the matrix
+products of the sweeps' twins from torch's flop counter, 2.5 n log2 n
+per DCT line, the CG's FFT-form DCT pairs and stencil, a per-element
+count for the stencils, gathers and scatters) and, where one PyTorch
+call computes the same function, times it and holds it to the kernel:
+F.grid_sample for the bilinear warp (the drizzle has none: index_add
+scatters taps that other calls compute first). The DCT rows print each
+direction's time beside its twin's and its bound.
 
 Any failed check raises and the script exits non-zero. Without a CUDA
 card it fails at once. Its last two lines are the kernels JSON object
@@ -200,6 +210,80 @@ def rel_err(got, want):
     return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
 
 
+# published H100 SXM peaks (NVIDIA's data sheet, 700 W): HBM bytes/s and
+# float32 FLOP/s outside the tensor cores
+HBM_BYTES_S, FP32_FLOP_S = 3.35e12, 67e12
+
+
+def tensor_bytes(*objs):
+    """Bytes of every tensor in objs (tuples and lists searched)."""
+    import torch
+    total = 0
+    for o in objs:
+        if isinstance(o, torch.Tensor):
+            total += o.numel() * o.element_size()
+        elif isinstance(o, (tuple, list)):
+            total += tensor_bytes(*o)
+    return total
+
+
+def bound(nbytes, ops):
+    """(least ms, what sets it): the larger of nbytes over the HBM rate
+    and ops float32 operations over the float32 peak."""
+    t_b, t_o = nbytes / HBM_BYTES_S * 1e3, float(ops) / FP32_FLOP_S * 1e3
+    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def matmul_flops(fn, *args, **kw):
+    """FLOPs of the matrix products fn(*args) runs (torch's flop
+    counter; elementwise work is not counted, so a bound built on it
+    stays a lower bound). Returns (flops, outputs)."""
+    from torch.utils.flop_counter import FlopCounterMode
+    with FlopCounterMode(display=False) as fc:
+        out = fn(*args, **kw)
+    return fc.get_total_flops(), out
+
+
+def dct_ops(x, axis):
+    """Operations of a DCT through a half-length complex FFT: 2.5 n
+    log2 n per line of n (half of a complex n-point FFT's 5 n log2 n)."""
+    n = x.shape[axis]
+    return 2.5 * n * np.log2(n) * (x.numel() // n)
+
+
+def bound_row(nbytes, ops):
+    """The kernels-line fields of a bound (library_ms None until a
+    library call is timed)."""
+    ms, by = bound(nbytes, ops)
+    return dict(bound_ms=ms, bound_by=by, library_ms=None)
+
+
+# F.grid_sample against the bilinear warp kernel: it normalises the
+# positions to [-1, 1] and back, so taps may move by float32 rounding
+LIBRARY_BOUND = 1e-5
+
+
+def bilinear_library(args):
+    """F.grid_sample (bilinear, align_corners=True) on a bilinear warp's
+    image and positions, as a zero-argument call: the same function in
+    'nearest' mode (padding 'border') and in 'constant' mode with cval 0
+    (padding 'zeros'); None for another cval."""
+    import torch
+    import torch.nn.functional as F
+    image, cy, cx, mode, cval = args[:5]
+    pad = {"nearest": "border"}.get(mode)
+    if mode == "constant" and float(cval) == 0.0:
+        pad = "zeros"
+    if pad is None:
+        return None
+    n, m = image.shape
+    grid = torch.stack([2 * cx / (m - 1) - 1, 2 * cy / (n - 1) - 1], -1)
+    grid = grid.reshape(1, -1, 1, 2)
+    inp = image[None, None]
+    return lambda: F.grid_sample(inp, grid, mode="bilinear",
+                                 padding_mode=pad, align_corners=True)
+
+
 def check_sweep(sw, args):
     import torch
     ux, uy, wn = sw.sweep_uv(*args)
@@ -338,7 +422,7 @@ def check_dct(dm, inputs):
         mabs[kern] = max(mabs.get(kern, 0.0),
                          float((got - want).abs().max()))
         say(f"  {name} {tuple(x.shape)} vs twin: rel err {e!r} "
-            f"(bound {DCT_BOUND})")
+            f"(error bound {DCT_BOUND})")
         if not np.isfinite(e) or e > DCT_BOUND:
             raise RuntimeError(f"{name} kernel disagrees with its twin")
     return mabs
@@ -444,6 +528,8 @@ def drive_path(num, label, call, call_deconv, img, img_d, u_true, ks):
         f"({REPS_EXACT} runs after warm-up, host clock, synchronized)")
     say(f"    stage ms (CUDA events, deconvolving run): "
         f"{json.dumps(stages)}")
+    say(f"    unwrap stage (the exact CG on the DCT kernels) "
+        f"{stages.get('unwrap')!r} ms")
     say(f"    peak device memory {peak / 2**30!r} GiB")
     return launches
 
@@ -646,24 +732,36 @@ def main():
         f"{len(c_ps.calls)}, applyq {len(c_aq.calls)}, cg {cg_calls}")
     sw_args, ps_args, aq_args = c_sw.calls[0], c_ps.calls[0], c_aq.calls[0]
     rows = {}
+    ops, outs = matmul_flops(sw_mod.sweep_uv_plain, *sw_args)
     rows["sweep_uv"] = dict(
         max_abs_err=check_sweep(sw_mod, sw_args),
         ms=cuda_ms(lambda: sw_mod.sweep_uv(*sw_args), 3),
-        plain_ms=cuda_ms(lambda: sw_mod.sweep_uv_plain(*sw_args), 3))
+        plain_ms=cuda_ms(lambda: sw_mod.sweep_uv_plain(*sw_args), 3),
+        **bound_row(tensor_bytes(sw_args, outs), ops))
     e_ps, e_aq = check_vcycle(vc_mod, ps_args, aq_args)
+    # stencils: a per-pixel count of the kernels' float32 operations
     rows["presmooth"] = dict(
         max_abs_err=e_ps, ms=cuda_ms(lambda: vc_mod.presmooth(*ps_args), 20),
-        plain_ms=cuda_ms(lambda: vc_mod.presmooth_plain(*ps_args), 20))
+        plain_ms=cuda_ms(lambda: vc_mod.presmooth_plain(*ps_args), 20),
+        **bound_row(tensor_bytes(ps_args, vc_mod.presmooth_plain(*ps_args)),
+                    40 * ps_args[0].numel()))
     rows["applyq"] = dict(
         max_abs_err=e_aq, ms=cuda_ms(lambda: vc_mod.applyq(*aq_args), 20),
-        plain_ms=cuda_ms(lambda: vc_mod.applyq_plain(*aq_args), 20))
+        plain_ms=cuda_ms(lambda: vc_mod.applyq_plain(*aq_args), 20),
+        **bound_row(tensor_bytes(aq_args, vc_mod.applyq_plain(*aq_args)),
+                    12 * aq_args[0].numel()))
     e_cg = check_cg(cg_mod, c_cg.calls)
     cg_ms = [(cuda_ms(lambda a=a: cg_mod.cg_poisson(*a), 10),
               cuda_ms(lambda a=a: cg_mod.cg_poisson_plain(*a), 10))
              for a in c_cg.calls]
     say(f"    cg_poisson ms (kernel, twin) per call: {cg_ms}")
-    rows["cg_poisson"] = dict(max_abs_err=e_cg, ms=cg_ms[0][0],
-                              plain_ms=cg_ms[0][1])
+    # kmax iterations of an FFT-form 2D DCT pair plus the stencil
+    rk0, kmax = c_cg.calls[0][0], c_cg.calls[0][3]
+    npx = rk0.shape[-2] * rk0.shape[-1]
+    rows["cg_poisson"] = dict(
+        max_abs_err=e_cg, ms=cg_ms[0][0], plain_ms=cg_ms[0][1],
+        **bound_row(tensor_bytes(c_cg.calls[0][:3], rk0),
+                    rk0.numel() * kmax * (5 * np.log2(npx) + 12)))
     # the eager path's inputs: one zoom sweep per Bragg peak, and the
     # first transform of each direction in its exact CG
     ks32 = KS_BENCH_F32
@@ -685,9 +783,15 @@ def main():
               cuda_ms(lambda a=a: zs_mod.zoom_sweep_plain(*a), 2))
              for a in c_zs.calls]
     say(f"    zoom_sweep ms (kernel, twin) per peak: {zs_ms}")
+    zs_bytes = zs_ops = 0
+    for a in c_zs.calls:
+        ops, outs = matmul_flops(zs_mod.zoom_sweep_plain, *a, dr=dr)
+        zs_bytes += tensor_bytes(a, outs)
+        zs_ops += ops
     rows["zoom_sweep"] = dict(max_abs_err=e_zs,
                               ms=sum(k for k, _ in zs_ms),
-                              plain_ms=sum(p for _, p in zs_ms))
+                              plain_ms=sum(p for _, p in zs_ms),
+                              **bound_row(zs_bytes, zs_ops))
     dct_in = {"dct_lane": c_dl.calls[0][0], "idct_lane": c_il.calls[0][0],
               "dct_sub": c_ds.calls[0][0], "idct_sub": c_is.calls[0][0]}
     e_dct = check_dct(dct_mod, dct_in)
@@ -695,11 +799,21 @@ def main():
                      cuda_ms(lambda f=getattr(dct_mod, name + "_plain"),
                              x=x: f(x), 10))
               for name, x in dct_in.items()}
-    say(f"    DCT ms (kernel, twin) per call: {dct_ms}")
+    dct_bound = {}
+    for name, x in dct_in.items():
+        dct_bound[name] = bound(2 * tensor_bytes(x),
+                                dct_ops(x, -1 if "lane" in name else -2))
+        (k_ms, t_ms), (b_ms, b_by) = dct_ms[name], dct_bound[name]
+        say(f"    {name} {tuple(x.shape)}: kernel {k_ms!r} ms, twin "
+            f"{t_ms!r} ms, bound {b_ms!r} ms ({b_by}), kernel at "
+            f"{b_ms / k_ms!r} of the bound")
     for kern, inv in (("dct_lane", "idct_lane"), ("dct_sub", "idct_sub")):
         rows[kern] = dict(max_abs_err=e_dct[kern],
                           ms=(dct_ms[kern][0] + dct_ms[inv][0]) / 2,
-                          plain_ms=(dct_ms[kern][1] + dct_ms[inv][1]) / 2)
+                          plain_ms=(dct_ms[kern][1] + dct_ms[inv][1]) / 2,
+                          bound_ms=(dct_bound[kern][0]
+                                    + dct_bound[inv][0]) / 2,
+                          bound_by=dct_bound[kern][1], library_ms=None)
     # the undistortion paths' warps and the unit-cell path's drizzle and
     # expansion, captured from one run of phases 7b, 7a and 8a
     with Capture(warp_mod, "warp_cubic", keep=1) as c_wc:
@@ -723,28 +837,51 @@ def main():
              for a in wc_calls]
     say(f"    warp_cubic ms (kernel, twin), first 'nearest' and final "
         f"'constant' call: {wc_ms}")
-    rows["warp_cubic"] = dict(max_abs_err=e_wc, ms=wc_ms[0][0],
-                              plain_ms=wc_ms[0][1])
+    # gathers: a per-output count of the kernels' float32 operations
+    # (16 taps, their weights and the position arithmetic for a cubic
+    # sample; 4 taps for a bilinear one)
+    wc0 = wc_calls[0]
+    rows["warp_cubic"] = dict(
+        max_abs_err=e_wc, ms=wc_ms[0][0], plain_ms=wc_ms[0][1],
+        **bound_row(tensor_bytes(wc0[:3], wc0[1]), 56 * wc0[1].numel()))
     wb = c_wb.calls[0]
     rows["warp_bilinear"] = dict(
         max_abs_err=check_warp(warp_mod, "warp_bilinear", wb),
         ms=cuda_ms(lambda: warp_mod.warp_bilinear(*wb), 20),
-        plain_ms=cuda_ms(lambda: warp_mod.warp_bilinear_plain(*wb), 5))
+        plain_ms=cuda_ms(lambda: warp_mod.warp_bilinear_plain(*wb), 5),
+        **bound_row(tensor_bytes(wb[:3], wb[1]), 12 * wb[1].numel()))
+    lib = bilinear_library(wb)
+    if lib is not None:
+        e = rel_err(lib().reshape(wb[1].shape), warp_mod.warp_bilinear(*wb))
+        say(f"    warp_bilinear vs library F.grid_sample: max |delta| / max "
+            f"|kernel| {e!r} (bound {LIBRARY_BOUND})")
+        if not e <= LIBRARY_BOUND:
+            raise RuntimeError("F.grid_sample computes another function "
+                               "than the bilinear warp kernel")
+        rows["warp_bilinear"]["library_ms"] = cuda_ms(lib, 20)
+        say(f"    warp_bilinear: library F.grid_sample "
+            f"{rows['warp_bilinear']['library_ms']!r} ms")
     dz, ex = c_dz.calls[0], c_ex.calls[0]
+    dz_out = drizzle_mod.drizzle(*dz)
     rows["drizzle"] = dict(
         max_abs_err=check_drizzle(drizzle_mod, dz),
         ms=cuda_ms(lambda: drizzle_mod.drizzle(*dz), 10),
-        plain_ms=cuda_ms(lambda: drizzle_mod.drizzle_plain(*dz), 3))
+        plain_ms=cuda_ms(lambda: drizzle_mod.drizzle_plain(*dz), 3),
+        **bound_row(tensor_bytes(dz, dz_out), 40 * dz[0].numel()))
+    ex_out = expand_mod.expand_cell_plain(*ex)
     rows["expand"] = dict(
         max_abs_err=check_expand(expand_mod, ex),
         ms=cuda_ms(lambda: expand_mod.expand_cell(*ex), 10),
-        plain_ms=cuda_ms(lambda: expand_mod.expand_cell_plain(*ex), 3))
+        plain_ms=cuda_ms(lambda: expand_mod.expand_cell_plain(*ex), 3),
+        **bound_row(tensor_bytes(ex, ex_out), 56 * ex_out.numel()))
     # the captured operands would count in phase 4's peak memory
-    del c_sw, c_ps, c_aq, c_cg, sw_args, ps_args, aq_args
-    del c_zs, c_dl, c_il, c_ds, c_is, dct_in
-    del c_wc, wc_calls, c_wb, wb, c_dz, dz, c_ex, ex
+    del c_sw, c_ps, c_aq, c_cg, sw_args, ps_args, aq_args, rk0, outs
+    del c_zs, c_dl, c_il, c_ds, c_is, dct_in, x
+    del c_wc, wc_calls, wc0, c_wb, wb, c_dz, dz, dz_out, c_ex, ex, ex_out
     for name, r in rows.items():
-        say(f"    {name}: kernel {r['ms']!r} ms, twin {r['plain_ms']!r} ms")
+        say(f"    {name}: kernel {r['ms']!r} ms, twin {r['plain_ms']!r} ms, "
+            f"bound {r['bound_ms']!r} ms ({r['bound_by']}), library "
+            f"{r['library_ms']!r} ms")
 
     # ---- 4. the main path, counters reset just before
     u = fn(img)                                   # warm-up

@@ -13,13 +13,18 @@ kernel here (``csrc/*.cu``, built with nvcc at first use by
 PyTorch twin: a CPU tensor goes to the twin, a CUDA tensor to the
 kernel.
 
-Entry points::
+The entry points run on the card: with ``device=None`` (the default)
+they move numpy arrays and CPU tensors to ``"cuda"``, and raise where
+torch has no CUDA; ``device="cpu"`` asks for the plain route::
 
     from pygpa_tpu_torch.gpa import pipeline
-    u = pipeline.extract_displacement_field(image, ks[:3])   # image on the card
-    fn = pipeline.make_displacement_extractor(image.shape, ks[:3],
-                                              device="cuda")
+    from pygpa_tpu_torch import ucell
+    u = pipeline.extract_displacement_field(image, ks[:3])  # on the card
+    fn = pipeline.make_displacement_extractor(image.shape, ks[:3])
     u = fn(image)
+    flat = pipeline.undistort_image(image, u)
+    cell = ucell.unit_cell_average(image, ks[:2], u=u, z=2)
+    back = ucell.expand_unitcell(cell, ks[:2], image.shape, z=2, u=u)
 """
 
 __version__ = "0.1.0"

@@ -60,7 +60,9 @@ def dct_kernel_ok(n, dtype):
 def dct2n(x):
     """2D DCT-II over the last two axes (scipy.fft.dctn, norm=None): the
     lane axis first, then axis -2, each on the ops.dct kernel where
-    dct_kernel_ok holds and on the FFT twin otherwise."""
+    dct_kernel_ok holds (one launch per axis, a shared-memory FFT of n/2
+    complex points per line; csrc/dct.cu) and on the FFT twin
+    otherwise."""
     lane = _dct.dct_lane if dct_kernel_ok(x.shape[-1], x.dtype) \
         else _dct.dct_lane_plain
     sub = _dct.dct_sub if dct_kernel_ok(x.shape[-2], x.dtype) \

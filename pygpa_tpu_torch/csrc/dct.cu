@@ -1,238 +1,411 @@
-// Single-pass DCT-II and its exact inverse along one axis.
+// Single-pass DCT-II and its exact inverse along one axis, as a
+// shared-memory FFT.
 //
 // Replaces the TPU kernels pygpa_tpu/ops/pallas_dct2.py _fwd_lane_kernel
 // (axis -1, entries dct_lane / idct_lane) and _fwd_sub_kernel (axis -2,
-// entries dct_sub / idct_sub). Wrapper and plain twins:
+// entries dct_sub / idct_sub). Wrapper, twiddle tables and plain twins:
 // pygpa_tpu_torch/ops/dct.py.
 //
-// The scipy DCT-II (norm=None) matrix C[k, j] = 2 cos(pi k (2j+1) / 2n)
-// factorises over the digit splits j = j2*128 + j1, k = k2*128 + k1
-// (q = n / 128, n in {1024, 2048, 4096, 8192}) as
-//     C[k, j] = Re[2 U[k2, j1] V[k1, j1] W[k1, j2]],
-// so a transform is two small complex contractions with a pointwise
-// twiddle between them. Forward and inverse share one form,
-//     out[s*128 + a] = 2 Re sum_b B[s][b] V'[a][b] sum_t A[a][t] in[t*128 + b],
-// with the factor tables A (128, q), V' (128, 128), B (q, 128) chosen
-// per direction by the wrapper (forward: A = W, V' = V, B = U; inverse:
-// A = U^T, V' = V^T, B = W^T, and the input scaled by 1/(2n) with a half
-// weight at k = 0). The tables are float32 values of exact integer
-// angles reduced mod 4n (built on the host in float64).
+// What bounds it on an H100: memory. A (2, 4096, 4096) float32 call
+// reads 134 MB and writes 134 MB, 0.080 ms at 3.35 TB/s; the FFT form
+// does ~1 GFLOP, 0.015 ms at the 67 TFLOP/s float32 peak. (The TPU
+// kernels' digit-split contraction did 4 * 128 * n FMAs per line, 34
+// GFLOP per call: 0.51 ms on this card's float32 units even at peak.)
 //
-// Neither kernel transposes the array: dct_lane_kernel keeps one row in
-// shared memory and walks the 128 values of the free digit `a` in tiles;
-// dct_sub_kernel works on 32-column strips, streams the 128-digit `b`
-// through shared memory in chunks of 4 and keeps its (q x 256/q x 32)
-// output tile in registers.
-// Bound on an H100: 4 * 128 * n float32 FMAs per transformed line
-// (17 GFLOP per 4096^2 plane), fed from shared memory with broadcast
-// table reads; a plane is read and written once (64 MB at 4096^2 does
-// not fit the 50 MB L2). No tensor cores yet.
+// The design does each line's whole transform in shared memory, so each
+// element is read from device memory once and written once:
+//
+// forward (scipy dct type 2, norm=None; Makhoul), for a line x of n:
+//   1. load with the permutation v_j = x_2j, v_(n-1-j) = x_(2j+1), and
+//      read v as N = n/2 complex points z_m = v_2m + i v_(2m+1);
+//   2. Z = FFT_N(z): radix-8/16 Stockham passes, each thread holding its
+//      butterflies in registers between two __syncthreads;
+//   3. split Z into V_k, V_(N-k) (the real FFT of v) and store
+//      y_k = 2 Re(e^(-i pi k / 2n) V_k) and y_(n-k), y_(N-k), y_(N+k)
+//      from the same pair of loads;
+// inverse (scipy idct type 2, norm=None): the mirror image. The load
+//   reads y_k, y_(n-k), y_(N-k), y_(N+k) together, builds
+//   F_k = (y_k - i y_(n-k)) e^(i pi k / 2n) / (2n) and packs the
+//   Hermitian F into Z'_k = (F_k + F_(k+N)) + i e^(2 pi i k / n)
+//   (F_k - F_(k+N)) and Z'_(N-k); an unnormalised inverse FFT_N gives
+//   z, whose real and imaginary parts are v_2m and v_(2m+1); the store
+//   undoes the permutation.
+//
+// Twiddles come from one float32 table per (n, direction), built on the
+// host in float64 from integer angles reduced mod 4n: tw (N: the FFT's
+// roots of unity), w (N + 1: e^(-+ i pi k / 2n), scaled by 1/(2n) for the
+// inverse) and A (N/2 + 1: e^(-+ 2 pi i k / n)). Each block copies it to
+// shared memory once.
+//
+// lane kernel (axis -1): C = 16384 / n rows per block (64 KB of complex
+//   data), rows laid out one after the other; ragged row counts masked.
+//   The forward's load and the inverse's store move 16 bytes per thread
+//   (x_4t .. x_4t+3 are z_t and z_(N-1-t)); the forward's split store
+//   and the inverse's pack load are coalesced 4-byte accesses.
+// sub kernel (axis -2, no transpose): a strip of C adjacent columns of
+//   one plane per block, C = 32768 / n (128 KB of complex data; 8
+//   columns, one 32-byte sector per row, at n = 4096), columns
+//   interleaved; ragged column counts are masked.
+// Threads per block C * N / 32 (256 lane, 512 sub).
+// Both keep one padding slot per 16 complex values in shared memory, so
+// the stride-R writes of the first Stockham pass do not conflict on
+// banks. 32 complex values per thread in registers per pass.
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int L = 128;     // minor digit length
-constexpr int NT = 256;    // threads per block
-constexpr int FT = 32;     // lane kernel: free-digit tile
-constexpr int HP = L + 1;  // padded H row (conflict-free column reads)
-constexpr int CT = 32;     // sub kernel: columns per block
-constexpr int JB = 4;      // sub kernel: b-digit chunk
+__device__ __forceinline__ float2 cmul(float2 a, float2 b) {
+  return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
+}
+__device__ __forceinline__ float2 cadd(float2 a, float2 b) {
+  return make_float2(a.x + b.x, a.y + b.y);
+}
+__device__ __forceinline__ float2 csub(float2 a, float2 b) {
+  return make_float2(a.x - b.x, a.y - b.y);
+}
+__device__ __forceinline__ float2 conjg(float2 a) {
+  return make_float2(a.x, -a.y);
+}
+__device__ __forceinline__ float2 times_i(float2 a) {
+  return make_float2(-a.y, a.x);
+}
 
-// one row of n = Q * 128 per block; dynamic smem n + 2 * FT * HP floats
-template <int Q>
-__global__ void __launch_bounds__(NT) lane_kernel(
-    const float* __restrict__ x, float* __restrict__ y,
-    const float2* __restrict__ A, const float2* __restrict__ V,
-    const float2* __restrict__ B, float in_scale, int half0) {
-  constexpr int n = Q * L;
-  constexpr int SQ = Q / 8;  // stage-B outputs per thread
-  extern __shared__ float sm[];
-  float* xs = sm;                 // [n]
-  float* Hr = xs + n;             // [FT][HP]
-  float* Hi = Hr + FT * HP;
-  const size_t row = blockIdx.x;
-  const float* xr = x + row * n;
-  for (int e = threadIdx.x; e < n; e += NT) {
-    float v = xr[e] * in_scale;
-    if (half0 && e == 0) v *= 0.5f;
-    xs[e] = v;
+constexpr float kC1 = 0.92387953251128674f;  // cos(pi / 8)
+constexpr float kS1 = 0.38268343236508977f;  // sin(pi / 8)
+constexpr float kR2 = 0.70710678118654752f;  // cos(pi / 4)
+
+// cos(2 pi m / 16); m is a compile-time constant after unrolling
+__device__ __forceinline__ float cos16(int m) {
+  switch (m & 15) {
+    case 0: return 1.f;
+    case 1: case 15: return kC1;
+    case 2: case 14: return kR2;
+    case 3: case 13: return kS1;
+    case 4: case 12: return 0.f;
+    case 5: case 11: return -kS1;
+    case 6: case 10: return -kR2;
+    default: return (m & 15) == 8 ? -1.f : -kC1;  // 7, 9 and 8
+  }
+}
+
+// e^(s 2 pi i m / 16), s = +1 for the inverse and -1 for the forward
+template <bool INV>
+__device__ __forceinline__ float2 w16(int m) {
+  const float s = cos16(m + 12);  // sin(2 pi m / 16)
+  return make_float2(cos16(m), INV ? s : -s);
+}
+
+// in-register DFT of R in {2, 4, 8, 16} points, natural order in and out;
+// R = 8 and 16 as 4 x (R / 4) with the inner twiddles W_R^(r2 k1)
+template <int R, bool INV>
+__device__ __forceinline__ void dft(float2 (&a)[R]) {
+  if constexpr (R == 2) {
+    const float2 t = a[0];
+    a[0] = cadd(t, a[1]);
+    a[1] = csub(t, a[1]);
+  } else if constexpr (R == 4) {
+    const float2 t0 = cadd(a[0], a[2]), t1 = csub(a[0], a[2]);
+    const float2 t2 = cadd(a[1], a[3]);
+    const float2 d = csub(a[1], a[3]);
+    // (a1 - a3) * W_4, W_4 = -i forward, +i inverse
+    const float2 t3 = INV ? make_float2(-d.y, d.x) : make_float2(d.y, -d.x);
+    a[0] = cadd(t0, t2);
+    a[2] = csub(t0, t2);
+    a[1] = cadd(t1, t3);
+    a[3] = csub(t1, t3);
+  } else {
+    constexpr int Q = R / 4;
+    float2 b[Q][4];
+#pragma unroll
+    for (int r2 = 0; r2 < Q; ++r2) {
+      float2 t[4] = {a[r2], a[Q + r2], a[2 * Q + r2], a[3 * Q + r2]};
+      dft<4, INV>(t);
+#pragma unroll
+      for (int k1 = 0; k1 < 4; ++k1)
+        b[r2][k1] = (r2 * k1 == 0)
+                        ? t[k1]
+                        : cmul(t[k1], w16<INV>(r2 * k1 * (16 / R)));
+    }
+#pragma unroll
+    for (int k1 = 0; k1 < 4; ++k1) {
+      float2 t[Q];
+#pragma unroll
+      for (int r2 = 0; r2 < Q; ++r2) t[r2] = b[r2][k1];
+      dft<Q, INV>(t);
+#pragma unroll
+      for (int k2 = 0; k2 < Q; ++k2) a[k1 + 4 * k2] = t[k2];
+    }
+  }
+}
+
+// radices of the Stockham passes, in order (N = n / 2 complex points)
+template <int N> struct Plan;
+template <> struct Plan<512> { static constexpr int R0 = 8, R1 = 8, R2 = 8; };
+template <> struct Plan<1024> { static constexpr int R0 = 16, R1 = 8, R2 = 8; };
+template <> struct Plan<2048> { static constexpr int R0 = 16, R1 = 16, R2 = 8; };
+template <> struct Plan<4096> { static constexpr int R0 = 16, R1 = 16, R2 = 16; };
+
+// shared-memory slot of complex value m of line c: lines one after the
+// other (lane) or interleaved (sub), one padding slot per 16
+template <int N, int C, bool SUB>
+__device__ __forceinline__ int slot(int m, int c) {
+  const int flat = SUB ? m * C + c : c * N + m;
+  return flat + (flat >> 4);
+}
+
+// float offset of v_p (the permuted real line) of line c
+template <int N, int C, bool SUB>
+__device__ __forceinline__ int vpos(int p, int c) {
+  return 2 * slot<N, C, SUB>(p >> 1, c) + (p & 1);
+}
+
+// item i of C * K -> (line c, index k): the index runs fastest along a
+// row (lane), the line fastest across a strip's columns (sub)
+template <int C, int K, bool SUB>
+__device__ __forceinline__ void item(int i, int& c, int& k) {
+  if (SUB) {
+    c = i % C;
+    k = i / C;
+  } else {
+    c = i / K;
+    k = i % K;
+  }
+}
+
+// one Stockham pass of radix R after NS points' worth of earlier passes:
+// butterfly jb reads z[jb + r N/R], twiddles by tw[r (jb % NS) N/(NS R)],
+// and writes z[(jb / NS) NS R + jb % NS + r NS]
+template <int N, int C, bool SUB, bool INV, int T, int R, int NS>
+__device__ __forceinline__ void fft_pass(float2* z, const float2* tw) {
+  constexpr int K = N / R;
+  constexpr int BPT = C * K / T;
+  float2 a[BPT][R];
+  int cs[BPT], js[BPT];
+#pragma unroll
+  for (int q = 0; q < BPT; ++q) {
+    item<C, K, SUB>(threadIdx.x + q * T, cs[q], js[q]);
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      a[q][r] = z[slot<N, C, SUB>(js[q] + r * K, cs[q])];
+  }
+#pragma unroll
+  for (int q = 0; q < BPT; ++q) {
+    if constexpr (NS > 1) {
+      const int kk = js[q] & (NS - 1);
+#pragma unroll
+      for (int r = 1; r < R; ++r)
+        a[q][r] = cmul(a[q][r], tw[r * kk * (N / (NS * R))]);
+    }
+    dft<R, INV>(a[q]);
   }
   __syncthreads();
-  float* yr = y + row * n;
-  for (int a0 = 0; a0 < L; a0 += FT) {
-    {  // stage A: H[a][b] = V'[a][b] sum_t A[a][t] xs[t*128 + b]
-      const int b = threadIdx.x & (L - 1);
-      const int ag = (threadIdx.x >> 7) * (FT / 2);
-      float gr[FT / 2], gi[FT / 2];
 #pragma unroll
-      for (int i = 0; i < FT / 2; ++i) gr[i] = gi[i] = 0.f;
-#pragma unroll 4
-      for (int t = 0; t < Q; ++t) {
-        const float xv = xs[t * L + b];
+  for (int q = 0; q < BPT; ++q) {
+    const int kk = js[q] & (NS - 1);
+    const int d = (js[q] / NS) * NS * R + kk;
 #pragma unroll
-        for (int i = 0; i < FT / 2; ++i) {
-          const float2 w = A[(a0 + ag + i) * Q + t];
-          gr[i] = fmaf(w.x, xv, gr[i]);
-          gi[i] = fmaf(w.y, xv, gi[i]);
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < FT / 2; ++i) {
-        const float2 v = V[(a0 + ag + i) * L + b];
-        Hr[(ag + i) * HP + b] = v.x * gr[i] - v.y * gi[i];
-        Hi[(ag + i) * HP + b] = v.y * gr[i] + v.x * gi[i];
-      }
-    }
-    __syncthreads();
-    {  // stage B: y[s*128 + a] = 2 Re sum_b B[s][b] H[a][b]
-      const int f = threadIdx.x & 31;
-      const int sg = threadIdx.x >> 5;
-      float acc[SQ];
-#pragma unroll
-      for (int i = 0; i < SQ; ++i) acc[i] = 0.f;
-#pragma unroll 4
-      for (int b = 0; b < L; ++b) {
-        const float hr = Hr[f * HP + b], hi = Hi[f * HP + b];
-#pragma unroll
-        for (int i = 0; i < SQ; ++i) {
-          const float2 u = B[(sg + 8 * i) * L + b];
-          acc[i] = fmaf(u.x, hr, acc[i]);
-          acc[i] = fmaf(-u.y, hi, acc[i]);
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < SQ; ++i)
-        yr[(sg + 8 * i) * L + a0 + f] = 2.f * acc[i];
-    }
-    __syncthreads();
+    for (int r = 0; r < R; ++r) z[slot<N, C, SUB>(d + r * NS, cs[q])] = a[q][r];
   }
+  __syncthreads();
 }
 
-// grid (ceil(m / 32), 128 / AT, batch) with AT = 256 / Q free values per
-// block; the (Q x AT x 32) output tile stays in registers (32 a thread)
-template <int Q>
-__global__ void __launch_bounds__(NT) sub_kernel(
+// lane: blockIdx.x covers rows [C blockIdx.x, C blockIdx.x + C) of
+//   `lines` rows of n; sub: blockIdx.x covers columns [C blockIdx.x, ...)
+//   of the (n, m) plane blockIdx.y; `lines` = m
+template <int N, int C, bool SUB, bool INV>
+__global__ void __launch_bounds__(C * N / 32) dct_kernel(
     const float* __restrict__ x, float* __restrict__ y,
-    const float2* __restrict__ A, const float2* __restrict__ V,
-    const float2* __restrict__ B, int m, float in_scale, int half0) {
-  constexpr int n = Q * L;
-  constexpr int AT = 256 / Q;
-  constexpr int NO = Q * AT / 8;  // outputs per thread (= 32)
-  __shared__ float xs[Q][JB][CT];
-  __shared__ float Hr[AT][JB][CT];
-  __shared__ float Hi[AT][JB][CT];
-  const int c = threadIdx.x & 31;
-  const int g = threadIdx.x >> 5;
-  const int col = blockIdx.x * CT + c;
-  const bool live = col < m;
-  const int a0 = blockIdx.y * AT;
-  const size_t plane = (size_t)blockIdx.z * n * m;
-  const float* xb = x + plane;
-  float acc[NO];
-#pragma unroll
-  for (int i = 0; i < NO; ++i) acc[i] = 0.f;
-  for (int b0 = 0; b0 < L; b0 += JB) {
-    for (int r = g; r < Q * JB; r += 8) {
-      const int t = r / JB, bb = r % JB;
-      const int j = t * L + b0 + bb;
-      float v = live ? xb[(size_t)j * m + col] * in_scale : 0.f;
-      if (half0 && j == 0) v *= 0.5f;
-      xs[t][bb][c] = v;
-    }
+    const float2* __restrict__ tab, int lines) {
+  constexpr int n = 2 * N;
+  constexpr int T = C * N / 32;
+  constexpr int DATA = C * N + C * N / 16;  // padded complex slots
+  constexpr int TAB = N + (N + 1) + (N / 2 + 1);
+  extern __shared__ float2 sm[];
+  float2* z = sm;
+  float* zf = reinterpret_cast<float*>(sm);
+  float2* tw = sm + DATA;       // [N]
+  const float2* wt = tw + N;    // [N + 1]
+  const float2* At = wt + N + 1;  // [N / 2 + 1]
+  for (int i = threadIdx.x; i < TAB; i += T) tw[i] = tab[i];
+
+  const int line0 = blockIdx.x * C;
+  const size_t base = SUB ? (size_t)blockIdx.y * n * lines + line0
+                          : (size_t)line0 * n;
+  // element j of line c: x[base + goff(j, c)]
+  auto goff = [&](int j, int c) -> size_t {
+    return SUB ? (size_t)j * lines + c : (size_t)c * n + j;
+  };
+  auto live = [&](int c) { return line0 + c < lines; };
+
+  if constexpr (INV) {
+    // ---- load: pack the Hermitian F into Z' pair by pair, straight
+    // from device memory (the pack reads the tables)
     __syncthreads();
-    // stage A: H[a][bb] = V'[a][b] sum_t A[a][t] xs[t][bb]
-    for (int r = g; r < AT * JB; r += 8) {
-      const int a = r / JB, bb = r % JB;
-      float gr = 0.f, gi = 0.f;
+    constexpr int K = N / 2;
+    auto Y = [&](int p, int c) {
+      return live(c) ? x[base + goff(p, c)] : 0.f;
+    };
+    auto pack = [&](int k, int c, float2& ok, float2& om) {
+      const float ynk = k ? Y(n - k, c) : 0.f;
+      const float2 F1 = cmul(make_float2(Y(k, c), -ynk), wt[k]);
+      const float2 F2 = cmul(make_float2(Y(N - k, c), -Y(N + k, c)),
+                             wt[N - k]);
+      const float2 S = cadd(F1, conjg(F2));
+      const float2 itD = times_i(cmul(At[k], csub(F1, conjg(F2))));
+      ok = cadd(S, itD);
+      om = conjg(csub(S, itD));
+    };
+#pragma unroll 4
+    for (int i = threadIdx.x; i < C * K; i += T) {
+      int c, k;
+      item<C, K, SUB>(i, c, k);
+      float2 zk, zm;
+      pack(k, c, zk, zm);
+      z[slot<N, C, SUB>(k, c)] = zk;
+      if (k) z[slot<N, C, SUB>(N - k, c)] = zm;  // k = 0: Z'_N is Z'_0
+    }
+    // k = N/2 pairs with itself: one per line (C <= T)
+    if (threadIdx.x < C) {
+      float2 zh, unused;
+      pack(K, threadIdx.x, zh, unused);
+      z[slot<N, C, SUB>(K, threadIdx.x)] = zh;
+    }
+  } else if constexpr (SUB) {
+    // ---- load: permute x into v, a strip row (C columns) at a time
 #pragma unroll 8
-      for (int t = 0; t < Q; ++t) {
-        const float2 w = A[(a0 + a) * Q + t];
-        const float xv = xs[t][bb][c];
-        gr = fmaf(w.x, xv, gr);
-        gi = fmaf(w.y, xv, gi);
-      }
-      const float2 v = V[(a0 + a) * L + b0 + bb];
-      Hr[a][bb][c] = v.x * gr - v.y * gi;
-      Hi[a][bb][c] = v.y * gr + v.x * gi;
+    for (int i = threadIdx.x; i < C * n; i += T) {
+      int c, j;
+      item<C, n, SUB>(i, c, j);
+      const float v = live(c) ? x[base + goff(j, c)] : 0.f;
+      zf[vpos<N, C, SUB>((j & 1) ? n - 1 - (j >> 1) : (j >> 1), c)] = v;
     }
-    __syncthreads();
-    // stage B: acc[s, a] += Re B[s][b] H[a][bb]
-#pragma unroll
-    for (int i = 0; i < NO; ++i) {
-      const int p = g + 8 * i;
-      const int s = p / AT, a = p % AT;
-#pragma unroll
-      for (int bb = 0; bb < JB; ++bb) {
-        const float2 u = B[s * L + b0 + bb];
-        acc[i] = fmaf(u.x, Hr[a][bb][c], acc[i]);
-        acc[i] = fmaf(-u.y, Hi[a][bb][c], acc[i]);
-      }
+  } else {
+    // ---- load: 16 bytes x_4t .. x_4t+3 at a time, permuted in registers:
+    // z_t = x_4t + i x_4t+2 and z_(N-1-t) = x_4t+3 + i x_4t+1
+#pragma unroll 8
+    for (int i = threadIdx.x; i < C * N / 2; i += T) {
+      int c, t;
+      item<C, N / 2, SUB>(i, c, t);
+      const float4 v = live(c) ? reinterpret_cast<const float4*>(x + base)[i]
+                               : make_float4(0.f, 0.f, 0.f, 0.f);
+      z[slot<N, C, SUB>(t, c)] = make_float2(v.x, v.z);
+      z[slot<N, C, SUB>(N - 1 - t, c)] = make_float2(v.w, v.y);
     }
-    __syncthreads();
   }
-  if (!live) return;
-  float* yb = y + plane;
-#pragma unroll
-  for (int i = 0; i < NO; ++i) {
-    const int p = g + 8 * i;
-    const int s = p / AT, a = p % AT;
-    yb[(size_t)(s * L + a0 + a) * m + col] = 2.f * acc[i];
+  __syncthreads();
+
+  // ---- the half-length complex FFT
+  using P = Plan<N>;
+  fft_pass<N, C, SUB, INV, T, P::R0, 1>(z, tw);
+  fft_pass<N, C, SUB, INV, T, P::R1, P::R0>(z, tw);
+  fft_pass<N, C, SUB, INV, T, P::R2, P::R0 * P::R1>(z, tw);
+
+  if constexpr (INV && SUB) {
+    // ---- store: undo the permutation
+#pragma unroll 8
+    for (int i = threadIdx.x; i < C * n; i += T) {
+      int c, j;
+      item<C, n, SUB>(i, c, j);
+      const int p = (j & 1) ? n - 1 - (j >> 1) : (j >> 1);
+      if (live(c)) y[base + goff(j, c)] = zf[vpos<N, C, SUB>(p, c)];
+    }
+  } else if constexpr (INV) {
+    // ---- store: the forward load's mirror, 16 bytes at a time
+#pragma unroll 8
+    for (int i = threadIdx.x; i < C * N / 2; i += T) {
+      int c, t;
+      item<C, N / 2, SUB>(i, c, t);
+      if (!live(c)) continue;
+      const float2 a = z[slot<N, C, SUB>(t, c)];
+      const float2 b = z[slot<N, C, SUB>(N - 1 - t, c)];
+      reinterpret_cast<float4*>(y + base)[i] = make_float4(a.x, b.y, a.y, b.x);
+    }
+  } else {
+    // ---- split Z_k, Z_(N-k) into V_k, V_(N-k), post-twiddle, store
+    constexpr int K = N / 2;
+    auto split = [&](int k, int c, float2& P1, float2& P2) {
+      const float2 Zk = z[slot<N, C, SUB>(k, c)];
+      const float2 Zm = z[slot<N, C, SUB>((N - k) & (N - 1), c)];
+      const float2 E2 = cadd(Zk, conjg(Zm));
+      const float2 iAO = times_i(cmul(At[k], csub(Zk, conjg(Zm))));
+      P1 = cmul(wt[k], csub(E2, iAO));
+      P2 = cmul(wt[N - k], conjg(cadd(E2, iAO)));
+    };
+#pragma unroll 4
+    for (int i = threadIdx.x; i < C * K; i += T) {
+      int c, k;
+      item<C, K, SUB>(i, c, k);
+      if (!live(c)) continue;
+      float2 P1, P2;
+      split(k, c, P1, P2);
+      y[base + goff(k, c)] = P1.x;
+      if (k) {
+        y[base + goff(n - k, c)] = -P1.y;
+        y[base + goff(N - k, c)] = P2.x;
+        y[base + goff(N + k, c)] = -P2.y;
+      } else {
+        y[base + goff(N, c)] = P2.x;  // y_(N+0) is y_N
+      }
+    }
+    // k = N/2 pairs with itself: one per line (C <= T)
+    if (threadIdx.x < C && live(threadIdx.x)) {
+      float2 P1, P2;
+      split(K, threadIdx.x, P1, P2);
+      y[base + goff(K, threadIdx.x)] = P1.x;
+      y[base + goff(n - K, threadIdx.x)] = -P1.y;
+    }
   }
 }
 
-template <int Q>
-int launch_lane(const float* x, float* y, const float2* A, const float2* V,
-                const float2* B, int rows, float in_scale, int half0,
-                cudaStream_t stream) {
-  const size_t smem = ((size_t)Q * L + 2 * FT * HP) * sizeof(float);
+template <int N, int C, bool SUB, bool INV>
+int launch(const float* x, float* y, const float* tab, int lines, int batch,
+           cudaStream_t stream) {
+  constexpr int T = C * N / 32;
+  constexpr size_t smem =
+      (size_t)(C * N + C * N / 16 + N + (N + 1) + (N / 2 + 1)) *
+      sizeof(float2);
   cudaError_t err = cudaFuncSetAttribute(
-      lane_kernel<Q>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      dct_kernel<N, C, SUB, INV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (err != cudaSuccess) return (int)err;
-  lane_kernel<Q><<<rows, NT, smem, stream>>>(x, y, A, V, B, in_scale, half0);
+  const dim3 grid((lines + C - 1) / C, SUB ? batch : 1);
+  dct_kernel<N, C, SUB, INV><<<grid, T, smem, stream>>>(
+      x, y, reinterpret_cast<const float2*>(tab), lines);
   return (int)cudaGetLastError();
 }
 
-template <int Q>
-int launch_sub(const float* x, float* y, const float2* A, const float2* V,
-               const float2* B, int batch, int m, float in_scale, int half0,
-               cudaStream_t stream) {
-  dim3 grid((m + CT - 1) / CT, L / (256 / Q), batch);
-  sub_kernel<Q><<<grid, NT, 0, stream>>>(x, y, A, V, B, m, in_scale, half0);
-  return (int)cudaGetLastError();
+template <int N, int C, bool SUB>
+int launch_dir(const float* x, float* y, const float* tab, int lines,
+               int batch, int inverse, cudaStream_t stream) {
+  return inverse ? launch<N, C, SUB, true>(x, y, tab, lines, batch, stream)
+                 : launch<N, C, SUB, false>(x, y, tab, lines, batch, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// x, y: (rows, n) contiguous; tables as in the header comment
-int dct_lane(const float* x, float* y, const float* A, const float* V,
-             const float* B, int rows, int n, float in_scale, int half0,
-             cudaStream_t stream) {
-  const float2* a = reinterpret_cast<const float2*>(A);
-  const float2* v = reinterpret_cast<const float2*>(V);
-  const float2* b = reinterpret_cast<const float2*>(B);
+// x, y: (rows, n) contiguous, 16-byte aligned; tab: the (n, direction)
+// table of ops/dct.py (tw, w, A as interleaved float32 pairs)
+int dct_lane(const float* x, float* y, const float* tab, int rows, int n,
+             int inverse, cudaStream_t stream) {
   switch (n) {
-    case 1024: return launch_lane<8>(x, y, a, v, b, rows, in_scale, half0, stream);
-    case 2048: return launch_lane<16>(x, y, a, v, b, rows, in_scale, half0, stream);
-    case 4096: return launch_lane<32>(x, y, a, v, b, rows, in_scale, half0, stream);
-    case 8192: return launch_lane<64>(x, y, a, v, b, rows, in_scale, half0, stream);
+    case 1024: return launch_dir<512, 16, false>(x, y, tab, rows, 1, inverse, stream);
+    case 2048: return launch_dir<1024, 8, false>(x, y, tab, rows, 1, inverse, stream);
+    case 4096: return launch_dir<2048, 4, false>(x, y, tab, rows, 1, inverse, stream);
+    case 8192: return launch_dir<4096, 2, false>(x, y, tab, rows, 1, inverse, stream);
   }
   return (int)cudaErrorInvalidValue;
 }
 
 // x, y: (batch, n, m) contiguous, transformed along n
-int dct_sub(const float* x, float* y, const float* A, const float* V,
-            const float* B, int batch, int n, int m, float in_scale,
-            int half0, cudaStream_t stream) {
-  const float2* a = reinterpret_cast<const float2*>(A);
-  const float2* v = reinterpret_cast<const float2*>(V);
-  const float2* b = reinterpret_cast<const float2*>(B);
+int dct_sub(const float* x, float* y, const float* tab, int batch, int n,
+            int m, int inverse, cudaStream_t stream) {
   switch (n) {
-    case 1024: return launch_sub<8>(x, y, a, v, b, batch, m, in_scale, half0, stream);
-    case 2048: return launch_sub<16>(x, y, a, v, b, batch, m, in_scale, half0, stream);
-    case 4096: return launch_sub<32>(x, y, a, v, b, batch, m, in_scale, half0, stream);
-    case 8192: return launch_sub<64>(x, y, a, v, b, batch, m, in_scale, half0, stream);
+    case 1024: return launch_dir<512, 32, true>(x, y, tab, m, batch, inverse, stream);
+    case 2048: return launch_dir<1024, 16, true>(x, y, tab, m, batch, inverse, stream);
+    case 4096: return launch_dir<2048, 8, true>(x, y, tab, m, batch, inverse, stream);
+    case 8192: return launch_dir<4096, 4, true>(x, y, tab, m, batch, inverse, stream);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -24,7 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from ..config import DEFAULTS
-from ..core import interp
+from ..core import entry_device, interp
 from ..core.fourier import fourier_gaussian_multiplier, wiener_deconvolve
 from ..ops.sweep import rim_weights
 from ..ops.wfr import (SweepPlan, UVSweep, plan_sweep, wfr_sweep,
@@ -136,13 +136,16 @@ def invert_u_overlap(us, iters=35, edge=0, mode="nearest", order=3,
     return u_it
 
 
-def undistort_image(deformed, u, order=3, coarse=1, invert_iters=35):
+def undistort_image(deformed, u, order=3, coarse=1, invert_iters=35,
+                    device=None):
     """Lawler-Fujita undistortion (pygpa_tpu.gpa.pipeline.
     undistort_image): invert -u, then resample the deformed image at
     r + u_inv in 'constant' mode. coarse > 1 inverts on the coarse grid
-    (see invert_u_overlap)."""
-    deformed = torch.as_tensor(deformed)
-    u = torch.as_tensor(u)
+    (see invert_u_overlap). The image and u move to `device` (None: the
+    card; "cpu" for the plain route)."""
+    dev = entry_device(device)
+    deformed = torch.as_tensor(deformed, device=dev)
+    u = torch.as_tensor(u, device=dev)
     u_inv = invert_u_overlap(-u, iters=invert_iters, coarse=coarse)
     xx, yy = _grid(0, u.shape[1], 0, u.shape[2], u.dtype, u.device)
     coords = torch.stack([xx + u_inv[0], yy + u_inv[1]])
@@ -243,11 +246,12 @@ def make_displacement_extractor(shape, kvecs, sigma=None,
     optional Wiener deconvolution).
 
     Arguments follow pygpa_tpu.gpa.pipeline.make_displacement_extractor;
-    `device` places the precomputed operands and the work. The grouped
-    uv sweep runs where its plan applies (float32, sides multiples of
-    128, equal windows, P <= 48); other shapes and float64 take the
-    per-peak phase/weight sweeps (`chunk` candidates per batched product
-    on the plain route). unwrap_coarse selects the multigrid unwrap,
+    `device` places the precomputed operands and the work, and each
+    image moves there (None: the card, "cuda"; "cpu" runs the plain
+    twins). The grouped uv sweep runs where its plan applies (float32,
+    sides multiples of 128, equal windows, P <= 48); other shapes and
+    float64 take the per-peak phase/weight sweeps (`chunk` candidates
+    per batched product on the plain route). unwrap_coarse selects the multigrid unwrap,
     None the exact early-stopping CG.
 
     Returns run(image, events=None) -> u (2, n, m). `events`, a list,
@@ -257,6 +261,7 @@ def make_displacement_extractor(shape, kvecs, sigma=None,
         raise NotImplementedError(
             "pipeline_fused_uv=False: the grouped phase/weight sweep "
             "emission is not ported (ROADMAP queue 1 item 7)")
+    device = entry_device(device)
     kvecs_h = np.asarray(kvecs, np.float64)
     knorms = np.linalg.norm(kvecs_h, axis=1)
     if not np.all(knorms > 0):
@@ -305,7 +310,7 @@ def extract_displacement_field(image, kvecs, sigma=None,
                                deconvolve=False, with_grad=False,
                                chunk=8,
                                unwrap_kmax=DEFAULTS.unwrap_kmax_reconstruct,
-                               events=None):
+                               events=None, device=None):
     """Extract the displacement field u (2, n, m) of a (moire) lattice
     image (pygpa_tpu.gpa.pipeline.extract_displacement_field): sigma =
     ceil(1 / min |k|), sweep range kw = mean |k| / kwscale in steps of
@@ -315,8 +320,9 @@ def extract_displacement_field(image, kvecs, sigma=None,
 
     `wfr_func` is the reference's plug-in seam: a callable
     f(img0, sigma, kx, ky, kw=..., kstep=...) -> {'lockin': ...} that
-    replaces the built-in sweep. The image keeps its dtype and device
-    (a numpy array runs on the CPU). `events`, a list,
+    replaces the built-in sweep. The image keeps its dtype and moves to
+    `device` (None: the card, "cuda"; "cpu" for the plain route; without
+    a card the default raises). `events`, a list,
     collects (stage name, CUDA event) pairs after the fft2, the sweeps,
     the lstsq, the unwrap and the deconvolution. with_grad raises
     NotImplementedError (ROADMAP queue 1 item 7)."""
@@ -333,7 +339,8 @@ def extract_displacement_field(image, kvecs, sigma=None,
         sigma = int(np.ceil(1 / knorms.min()))
     kstep = kw / ksteps
     if not isinstance(image, torch.Tensor):
-        image = torch.tensor(np.asarray(image))
+        image = np.asarray(image)
+    image = torch.as_tensor(image, device=entry_device(device))
     img0 = image - image.mean()
     gs = []
     if wfr_func is not None:

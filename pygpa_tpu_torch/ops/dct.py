@@ -8,13 +8,16 @@ unwrap's preconditioner ``idct2n(dct2n(r) / eigenvalues)`` runs here on
 large images (core.fourier routes an axis here where the reference's
 ``_pallas_dct_ok`` would: n >= 4096).
 
-Method (``csrc/dct.cu``): the DCT matrix factorises over the digit
-splits j = j2*128 + j1, k = k2*128 + k1 as Re[2 U V W] (q = n/128), so a
-transform is a q-deep and a 128-deep complex contraction with a
-pointwise twiddle between them; one kernel form serves both directions
-through the factor tables built here (float64 from integer angles
-reduced mod 4n, then float32). The axis -2 kernel never transposes the
-array. Launch counts: "dct_lane" and "dct_sub", both directions.
+Method (``csrc/dct.cu``): Makhoul's DCT through a real FFT of the
+permuted line, done as a complex FFT of n/2 points in shared memory
+(radix-8/16 Stockham passes, ``RADICES``) with the permutation in the
+load and the real-FFT split and post-twiddle in the store; the inverse
+is its mirror image. Each element is read from and written to device
+memory once; the axis -1 kernel moves each row 16 bytes at a time, the
+axis -2 kernel works on strips of adjacent columns and never
+transposes. The twiddles are one table per (n, direction)
+(``kernel_tables``: float64 from integer angles reduced mod 4n, then
+float32). Launch counts: "dct_lane" and "dct_sub", both directions.
 
 The plain twins are Makhoul's single-FFT DCT pair on torch.fft; a CPU
 tensor runs the twin, a CUDA tensor the kernel (or raises).
@@ -28,11 +31,10 @@ import torch
 from . import _build
 
 SIZES = (1024, 2048, 4096, 8192)
-_L = 128
 
 
 def supported(n):
-    """Axis lengths the kernels take (128 / q must be an even integer)."""
+    """Axis lengths the kernels take."""
     return n in SIZES
 
 
@@ -71,41 +73,44 @@ def idct_sub_plain(y):
     return idct_lane_plain(y.transpose(-1, -2)).transpose(-1, -2)
 
 
-def factor_tables(n, inverse):
-    """(A (128, q), V (128, 128), B (q, 128)) complex128 factor tables of
-    the kernel form out[s*128 + a] = 2 Re sum_b B[s, b] V[a, b]
-    sum_t A[a, t] in[t*128 + b] (see csrc/dct.cu). Every angle is
-    pi N / (2n) with the integer N reduced mod 4n before the float64
+# radices of the kernels' Stockham passes, in order, per n / 2 (as
+# csrc/dct.cu's Plan; the CPU tests emulate the passes from it)
+RADICES = {512: (8, 8, 8), 1024: (16, 8, 8), 2048: (16, 16, 8),
+           4096: (16, 16, 16)}
+
+
+def kernel_tables(n, inverse):
+    """The kernels' complex128 twiddle tables for a line of n (N = n/2),
+    s = -1 forward and +1 inverse: tw[m] = e^(2 pi i s m / N) (m < N,
+    the FFT), w[k] = e^(i pi s k / 2n) (k <= N; divided by 2n for the
+    inverse) and A[k] = e^(2 pi i s k / n) (k <= N/2). Every angle is
+    pi M / (2n) with the integer M reduced mod 4n before the float64
     cos/sin."""
-    q = n // _L
-    four_n = 4 * n
-    r = np.arange(_L, dtype=np.int64)
-    t = np.arange(q, dtype=np.int64)
+    N = n // 2
+    s = 1.0 if inverse else -1.0
 
-    def tw(N):
-        ang = (N % four_n).astype(np.float64) * (np.pi / (2 * n))
-        return np.cos(ang) + 1j * np.sin(ang)
+    def root(M):
+        ang = (M % (4 * n)).astype(np.float64) * (np.pi / (2 * n))
+        return np.cos(ang) + 1j * s * np.sin(ang)
 
-    U = tw(_L * np.outer(t, 2 * r + 1))      # (k2, j1)
-    V = tw(np.outer(r, 2 * r + 1))           # (k1, j1)
-    W = tw(2 * _L * np.outer(r, t))          # (k1, j2)
+    tw = root(8 * np.arange(N))
+    w = root(np.arange(N + 1))
     if inverse:
-        return U.T, V.T, W.T
-    return W, V, U
+        w = w / (2 * n)
+    return tw, w, root(4 * np.arange(N // 2 + 1))
 
 
 @functools.lru_cache(maxsize=16)
-def _device_tables(n, inverse, device):
-    """The factor tables as interleaved (re, im) float32 tensors on
-    `device`."""
-    out = []
-    for a in factor_tables(n, inverse):
-        ri = np.stack([a.real, a.imag], -1).astype(np.float32)
-        out.append(torch.from_numpy(np.ascontiguousarray(ri)).to(device))
-    return tuple(out)
+def _device_table(n, inverse, device):
+    """tw, w and A one after the other as interleaved (re, im) float32
+    on `device`."""
+    t = np.concatenate(kernel_tables(n, inverse))
+    ri = np.stack([t.real, t.imag], -1).astype(np.float32)
+    return torch.from_numpy(np.ascontiguousarray(ri)).to(device)
 
 
 def _launch(x, axis, inverse):
+    """Launch the kernel along `axis` (-1 or -2)."""
     if x.device.type != "cuda":
         raise ValueError(f"dct: unsupported device {x.device}")
     if x.dim() < -axis or x.dtype != torch.float32 \
@@ -115,22 +120,21 @@ def _launch(x, axis, inverse):
                          f"{x.dtype} {tuple(x.shape)})")
     n = x.shape[axis]
     x = x.contiguous()
+    if x.data_ptr() % 16:     # the lane kernel moves 16 bytes at a time
+        x = x.clone()
     y = torch.empty_like(x)
-    A, V, B = _device_tables(n, inverse, x.device)
-    scale, half0 = (1.0 / (2 * n), 1) if inverse else (1.0, 0)
+    tab = _device_table(n, bool(inverse), x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         if axis == -1:
-            fn = _build.bind("dct_lane", "pppppiifip")
-            code = fn(x.data_ptr(), y.data_ptr(), A.data_ptr(),
-                      V.data_ptr(), B.data_ptr(), x.numel() // n, n, scale,
-                      half0, stream)
+            fn = _build.bind("dct_lane", "pppiiip")
+            code = fn(x.data_ptr(), y.data_ptr(), tab.data_ptr(),
+                      x.numel() // n, n, int(inverse), stream)
         else:
             m = x.shape[-1]
-            fn = _build.bind("dct_sub", "pppppiiifip")
-            code = fn(x.data_ptr(), y.data_ptr(), A.data_ptr(),
-                      V.data_ptr(), B.data_ptr(), x.numel() // (n * m), n, m,
-                      scale, half0, stream)
+            fn = _build.bind("dct_sub", "pppiiiip")
+            code = fn(x.data_ptr(), y.data_ptr(), tab.data_ptr(),
+                      x.numel() // (n * m), n, m, int(inverse), stream)
     name = "dct_lane" if axis == -1 else "dct_sub"
     _build.check(code, name)
     _build.launches[name] += 1

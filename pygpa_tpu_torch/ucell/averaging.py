@@ -18,6 +18,7 @@ they set the cell's shape.
 import numpy as np
 import torch
 
+from ..core import entry_device
 from ..ops import drizzle as _drizzle
 from ..ops import expand as _expand
 
@@ -103,18 +104,21 @@ def expand_kernel_ok(cell, shape, order):
 
 
 def unit_cell_average(image, ks, u=None, z=1, return_weights=False,
-                      only_generate_func=False):
+                      only_generate_func=False, device=None):
     """Average an image (n, m) over all its unit cells (drizzle). NaN
     pixels are skipped; unvisited bins come back NaN (0/0). `u` (2, n, m)
     is applied before binning. only_generate_func=True returns the
-    averaging function f(image, u=None) with (ks, z) fixed."""
+    averaging function f(image, u=None) with (ks, z) fixed. The image
+    and u move to `device` (None: the card; "cpu" for the plain
+    route)."""
+    dev = entry_device(device)
     ks = np.asarray(ks)
     rmin, rsize = calc_ucell_parameters(ks, z)
     rmin = tuple(float(r) for r in rmin)
     rsize = tuple(int(r) for r in rsize)
 
     def run(image, u=None):
-        image = torch.as_tensor(image)
+        image = torch.as_tensor(image, device=dev)
         if u is not None:
             u = torch.as_tensor(u, device=image.device).to(image.dtype)
         if drizzle_kernel_ok(image, rsize):
@@ -131,11 +135,15 @@ def unit_cell_average(image, ks, u=None, z=1, return_weights=False,
     return res
 
 
-def expand_unitcell(unit_cell_image, ks, shape, z=1, z2=1, u=0, order=3):
+def expand_unitcell(unit_cell_image, ks, shape, z=1, z2=1, u=0, order=3,
+                    device=None):
     """Re-expand an averaged unit cell (NaNs taken as 0) to an image of
     `shape`: every output pixel, displaced by u when given, is mapped
-    into the cell and resampled (order 3 B-spline by default, or 1)."""
-    cell = torch.nan_to_num(torch.as_tensor(unit_cell_image))
+    into the cell and resampled (order 3 B-spline by default, or 1).
+    The cell and u move to `device` (None: the card; "cpu" for the plain
+    route)."""
+    cell = torch.nan_to_num(torch.as_tensor(unit_cell_image,
+                                            device=entry_device(device)))
     rmin, _ = calc_ucell_parameters(np.asarray(ks), z)
     uu = None
     if not (isinstance(u, (int, float)) and u == 0):

@@ -101,11 +101,13 @@ def test_sweep_kernel(dev):
     assert float(((wn - pn).abs() / (pn.abs() + 1e-9)).max()) < 5e-3
 
 
-@pytest.mark.parametrize("n,m", [(1024, 80), (4096, 160), (8192, 96)])
-def test_dct_kernels(dev, n, m):
+@pytest.mark.parametrize("n,m,batch", [(1024, 80, 2), (2048, 97, 2),
+                                        (4096, 160, 2), (8192, 96, 3)])
+def test_dct_kernels(dev, n, m, batch):
     """Both DCT kernels, forward and inverse, against the float32 FFT
-    twins: normwise relative error <= 1e-5 (a ragged column count on
-    the axis -2 kernel)."""
+    twins: normwise relative error <= 1e-5 (three rows, fewer than a
+    lane block holds; rows one float off the 16-byte grid; column counts
+    that leave a ragged strip)."""
     from pygpa_tpu_torch.ops import dct as tdct
     x = _planes((3, n), 11, dev)
     before = _build.launches["dct_lane"]
@@ -113,10 +115,16 @@ def test_dct_kernels(dev, n, m):
                      (tdct.idct_lane, tdct.idct_lane_plain)):
         assert _rel(fn(x), twin(x)) <= 1e-5
     assert _build.launches["dct_lane"] == before + 2
-    x2 = _planes((2, n, m), 12, dev)
+    x2 = _planes((batch, n, m), 12, dev)
     for fn, twin in ((tdct.dct_sub, tdct.dct_sub_plain),
                      (tdct.idct_sub, tdct.idct_sub_plain)):
         assert _rel(fn(x2), twin(x2)) <= 1e-5
+    # a row that starts off the 16-byte grid goes through the lane kernel
+    xs = x.flatten()[1:1 + 2 * n].reshape(2, n)
+    assert _rel(tdct.dct_lane(xs), tdct.dct_lane_plain(xs)) <= 1e-5
+    # each kernel's inverse gives its forward's input back
+    assert _rel(tdct.idct_lane(tdct.dct_lane(x)), x) <= 1e-5
+    assert _rel(tdct.idct_sub(tdct.dct_sub(x2)), x2) <= 1e-5
 
 
 def _zoom_ops(P, W0, W1, n, m, seed, dev):
@@ -261,10 +269,11 @@ def test_undistort_on_the_card_matches_the_cpu(dev, monkeypatch):
                   2 * np.cos(2 * np.pi * xx / m)]).astype(np.float32)
     img = _planes((n, m), 22, "cpu")
     for coarse in (1, 4):
-        want = undistort_image(img, torch.from_numpy(u), coarse=coarse)
+        want = undistort_image(img, torch.from_numpy(u), coarse=coarse,
+                               device="cpu")
         _build.launches.clear()
         got = undistort_image(img.to(dev), torch.from_numpy(u).to(dev),
-                              coarse=coarse)
+                              coarse=coarse, device=dev)
         assert _build.launches["warp_cubic"] >= 1
         assert _rel(got.cpu(), want) <= 1e-4, coarse
 

@@ -1,8 +1,8 @@
 """The port's single-pass DCT (pygpa_tpu_torch.ops.dct, plain twins on
 the CPU) against pygpa_tpu.ops.pallas_dct2 in interpret mode and
-scipy.fft, the kernel's factor tables against scipy through a numpy
-emulation of the kernel's arithmetic, and the dct2n/idct2n route
-against the reference's _pallas_dct_ok gate."""
+scipy.fft, the kernels' FFT form with their twiddle tables against
+scipy through a float64 numpy emulation of the kernels' arithmetic, and
+the dct2n/idct2n route against the reference's _pallas_dct_ok gate."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -59,27 +59,133 @@ def test_float32_twins_match_scipy():
         assert np.abs(got - ref).max() <= 1e-5 * np.abs(ref).max()
 
 
+def _dft(a, inverse):
+    """csrc/dct.cu's in-register DFT of R in {2, 4, 8, 16} points along
+    axis 0: R <= 4 directly, R = 8 and 16 as 4 x (R / 4) with the inner
+    twiddles W_R^(r2 k1)."""
+    R = a.shape[0]
+    s = 1 if inverse else -1
+    if R <= 4:
+        r = np.arange(R)
+        return np.tensordot(np.exp(s * 2j * np.pi * np.outer(r, r) / R), a,
+                            axes=1)
+    Q = R // 4
+    b = np.stack([_dft(a[r2::Q], inverse) for r2 in range(Q)])
+    tw = np.exp(s * 2j * np.pi * np.outer(np.arange(Q), np.arange(4)) / R)
+    b = b * tw.reshape(tw.shape + (1,) * (a.ndim - 1))
+    out = np.empty_like(a)
+    for k1 in range(4):
+        out[k1::4] = _dft(b[:, k1], inverse)
+    return out
+
+
+def _fft(z, tw, inverse):
+    """The kernels' Stockham passes over the last axis of z (N points),
+    radices TD.RADICES[N] in order: butterfly jb reads z[jb + r N/R],
+    twiddles by tw[r (jb % Ns) N/(Ns R)], writes z[(jb // Ns) Ns R +
+    jb % Ns + r Ns]."""
+    N = z.shape[-1]
+    ns = 1
+    for R in TD.RADICES[N]:
+        K = N // R
+        jb = np.arange(K)
+        kk = jb % ns
+        a = np.stack([z[..., jb + r * K] for r in range(R)])
+        a = a * tw[np.outer(np.arange(R), kk) * (N // (ns * R))][:, None, :]
+        a = _dft(a, inverse)
+        d = (jb // ns) * ns * R + kk
+        z = np.empty_like(z)
+        for r in range(R):
+            z[..., d + r * ns] = a[r]
+        ns *= R
+    return z
+
+
+def _vpos(n):
+    """Makhoul's permutation: x_j sits at v_p, p = j/2 (j even) or
+    n - 1 - (j - 1)/2 (j odd)."""
+    j = np.arange(n)
+    return np.where(j % 2 == 0, j // 2, n - 1 - (j - 1) // 2)
+
+
 def _kernel_form(x, n, inverse):
-    """numpy float64 emulation of csrc/dct.cu's arithmetic along the last
-    axis: input scaling, stage A over the q digit, the V twiddle, stage
-    B over the 128 digit, the factor 2."""
-    A, V, B = TD.factor_tables(n, inverse)
-    xin = np.array(x, np.float64)
-    if inverse:
-        xin = xin / (2 * n)
-        xin[..., 0] *= 0.5
-    X = xin.reshape(x.shape[:-1] + (n // 128, 128))           # [t][b]
-    H = np.einsum("at,...tb->...ab", A, X) * V
-    return 2 * np.einsum("sb,...ab->...sa", B, H).real.reshape(x.shape)
+    """numpy float64 emulation of csrc/dct.cu along the last axis, with
+    the wrapper's own tables (TD.kernel_tables): the forward permutes
+    into v, packs z_m = v_2m + i v_(2m+1), runs the passes and splits
+    each pair Z_k, Z_(N-k) into y_k, y_(n-k), y_(N-k), y_(N+k); the
+    inverse packs F into Z' pair by pair, runs the inverse passes and
+    undoes the permutation."""
+    N = n // 2
+    tw, w, A = TD.kernel_tables(n, inverse)
+    x = np.asarray(x, np.float64)
+    ks = range(N // 2 + 1)
+    if not inverse:
+        v = np.empty_like(x)
+        v[..., _vpos(n)] = x
+        Z = _fft(v[..., 0::2] + 1j * v[..., 1::2], tw, False)
+        y = np.empty_like(x)
+        for k in ks:
+            Zk, Zm = Z[..., k], Z[..., (N - k) % N]
+            E2, iAO = Zk + np.conj(Zm), 1j * A[k] * (Zk - np.conj(Zm))
+            P1 = w[k] * (E2 - iAO)
+            P2 = w[N - k] * np.conj(E2 + iAO)
+            y[..., k] = P1.real
+            if k:
+                y[..., n - k] = -P1.imag
+            if k == 0:
+                y[..., N] = P2.real
+            elif k < N // 2:
+                y[..., N - k] = P2.real
+                y[..., N + k] = -P2.imag
+        return y
+    Z = np.empty(x.shape[:-1] + (N,), complex)
+    for k in ks:
+        ynk = x[..., n - k] if k else 0.0
+        F1 = (x[..., k] - 1j * ynk) * w[k]
+        F2 = (x[..., N - k] - 1j * x[..., N + k]) * w[N - k]
+        S, itD = F1 + np.conj(F2), 1j * A[k] * (F1 - np.conj(F2))
+        Z[..., k] = S + itD
+        if 0 < k < N // 2:
+            Z[..., N - k] = np.conj(S - itD)
+    z = _fft(Z, tw, True)
+    v = np.stack([z.real, z.imag], -1).reshape(x.shape)
+    return v[..., _vpos(n)]
 
 
 @pytest.mark.parametrize("n", TD.SIZES)
 def test_factor_tables_reproduce_scipy(n):
+    """The kernels' arithmetic in float64 with the wrapper's twiddle
+    tables reproduces scipy's DCT-II and its inverse to 1e-12."""
     x = np.random.default_rng(n).normal(size=(2, n))
     for inverse, ref in ((False, sdct(x, type=2, axis=-1)),
                          (True, sidct(x, type=2, axis=-1))):
         got = _kernel_form(x, n, inverse)
         assert np.abs(got - ref).max() <= 1e-12 * np.abs(ref).max()
+
+
+@pytest.mark.parametrize("n", TD.SIZES)
+def test_kernel_tables_are_exact_roots(n):
+    """Every table entry is the root its integer angle names (float32
+    within 1 ulp of the float64 value), the FFT table's entries are
+    N-th roots of unity, and the inverse's tables conjugate the
+    forward's (w scaled by 1/(2n))."""
+    N = n // 2
+    tw, w, A = TD.kernel_tables(n, False)
+    itw, iw, iA = TD.kernel_tables(n, True)
+    assert tw.shape == (N,) and w.shape == (N + 1,) and A.shape == (N // 2 + 1,)
+    np.testing.assert_allclose(tw ** N, 1, atol=1e-9)
+    np.testing.assert_allclose(
+        w, np.exp(-1j * np.pi * np.arange(N + 1) / (2 * n)), atol=1e-15)
+    np.testing.assert_allclose(
+        A, np.exp(-2j * np.pi * np.arange(N // 2 + 1) / n), atol=1e-15)
+    np.testing.assert_array_equal(itw, np.conj(tw))
+    np.testing.assert_array_equal(iw * (2 * n), np.conj(w))
+    np.testing.assert_array_equal(iA, np.conj(A))
+    dev = TD._device_table(n, False, torch.device("cpu")).numpy()
+    flat = np.concatenate([tw, w, A])
+    assert dev.shape == (flat.size, 2) and dev.dtype == np.float32
+    np.testing.assert_allclose(dev[:, 0], flat.real, atol=6e-8)
+    np.testing.assert_allclose(dev[:, 1], flat.imag, atol=6e-8)
 
 
 def test_route_matches_reference_gate(monkeypatch):

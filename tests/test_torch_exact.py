@@ -86,7 +86,7 @@ def test_extract_displacement_field_matches_reference():
     img, ks = _lattice(256)
     want = np.asarray(jpipe.extract_displacement_field(jnp.asarray(img), ks))
     got, gs = tpipe.extract_displacement_field(torch.from_numpy(img), ks,
-                                               return_gs=True)
+                                               return_gs=True, device="cpu")
     assert got.shape == (2, 256, 256) and got.dtype == torch.float32
     assert len(gs) == 3 and gs[0]["w"].shape == (2, 256, 256)
     got = got.numpy()
@@ -111,7 +111,8 @@ def test_eager_banks_follow_the_kvector_dtype(monkeypatch):
         monkeypatch.setattr(tpipe, "wfr_sweep", lambda img0, wl, *a, **k:
                             seen.append(len(wl)) or {"lockin": torch.ones(
                                 img0.shape, dtype=torch.complex64)})
-        tpipe.extract_displacement_field(torch.zeros((128, 128)), ks)
+        tpipe.extract_displacement_field(torch.zeros((128, 128)), ks,
+                                         device="cpu")
         assert seen == want
 
 
@@ -130,8 +131,9 @@ def test_wfr_func_seam():
         return tpipe.wfr_sweep(img0, wl, np.array([kx, ky]), sigma)
 
     t = torch.from_numpy(img)
-    got = tpipe.extract_displacement_field(t, ks, wfr_func=sweep)
-    want = tpipe.extract_displacement_field(t, ks)
+    got = tpipe.extract_displacement_field(t, ks, wfr_func=sweep,
+                                           device="cpu")
+    want = tpipe.extract_displacement_field(t, ks, device="cpu")
     assert len(kw_seen) == 3
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-6)
 
@@ -144,7 +146,8 @@ def test_factory_exact_cg_matches_reference():
     img, ks = _lattice(256)
     want = np.asarray(jpipe.make_displacement_extractor(
         (256, 256), ks, chunk=4)(jnp.asarray(img)))
-    fn = tpipe.make_displacement_extractor((256, 256), ks, chunk=4)
+    fn = tpipe.make_displacement_extractor((256, 256), ks, chunk=4,
+                                           device="cpu")
     assert fn.plan is not None
     got = fn(torch.from_numpy(img)).numpy()
     b = 8
@@ -159,7 +162,8 @@ def test_factory_per_peak_route_matches_reference():
     img = img[:192]
     want = np.asarray(jpipe.make_displacement_extractor(
         img.shape, ks, unwrap_coarse=4)(jnp.asarray(img)))
-    fn = tpipe.make_displacement_extractor(img.shape, ks, unwrap_coarse=4)
+    fn = tpipe.make_displacement_extractor(img.shape, ks, unwrap_coarse=4,
+                                           device="cpu")
     assert fn.plan is None
     got = fn(torch.from_numpy(img)).numpy()
     b = 8
@@ -170,12 +174,13 @@ def test_displacement_field_testset(testset_gaussian, gaussiandeform):
     """The reference's pipeline tolerances on the 500^2 testset
     (tests/test_pipeline.py): noisy < 0.9 px, deconvolved < 0.05 px."""
     original, deformed, noise, ori_ks = testset_gaussian
-    u = -tpipe.extract_displacement_field(deformed + noise,
-                                          ori_ks[:3]).numpy()
+    u = -tpipe.extract_displacement_field(deformed + noise, ori_ks[:3],
+                                          device="cpu").numpy()
     assert u.shape == gaussiandeform.shape and u.dtype == np.float64
     assert np.all(np.abs(u - gaussiandeform)[:, 20:-20, 20:-20] < 0.9)
     u2 = -tpipe.extract_displacement_field(deformed, ori_ks[:3],
-                                           deconvolve=True).numpy()
+                                           deconvolve=True,
+                                           device="cpu").numpy()
     assert np.all(np.abs(u2 - gaussiandeform)[:, 20:-20, 20:-20] < 0.05)
 
 
@@ -185,9 +190,10 @@ def test_factory_matches_eager(testset_gaussian):
     original, deformed, noise, ori_ks = testset_gaussian
     ks = ori_ks[:3]
     fn = tpipe.make_displacement_extractor(deformed.shape, ks,
-                                           dtype=torch.float64)
+                                           dtype=torch.float64, device="cpu")
     u_fact = fn(deformed).numpy()
-    u_eager = tpipe.extract_displacement_field(deformed, ks).numpy()
+    u_eager = tpipe.extract_displacement_field(deformed, ks,
+                                               device="cpu").numpy()
     assert np.allclose(u_fact, u_eager, atol=1e-9)
 
 
@@ -231,5 +237,5 @@ def test_multigrid_early_stopping_levels_match_reference(monkeypatch):
 def test_exact_path_runs_no_kernel_on_the_cpu():
     img, ks = _lattice(128)
     _build.launches.clear()
-    tpipe.extract_displacement_field(torch.from_numpy(img), ks)
+    tpipe.extract_displacement_field(torch.from_numpy(img), ks, device="cpu")
     assert sum(_build.launches.values()) == 0

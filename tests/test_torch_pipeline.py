@@ -55,7 +55,7 @@ def test_extractor_matches_reference(kernel_reference):
     want = np.asarray(jpipe.make_displacement_extractor(
         (size, size), ks, chunk=4, unwrap_coarse=4)(jnp.asarray(img)))
     fn = tpipe.make_displacement_extractor((size, size), ks, chunk=4,
-                                           unwrap_coarse=4)
+                                           unwrap_coarse=4, device="cpu")
     got = fn(torch.from_numpy(img))
     assert got.shape == (2, size, size) and got.dtype == torch.float32
     got = got.numpy()
@@ -74,11 +74,12 @@ def test_extractor_refuses_unported_routes(monkeypatch):
     ks = np.array(generate_ks(0.1, 7.0))[:3]
     img = torch.zeros((128, 128))
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 7"):
-        tpipe.extract_displacement_field(img, ks, with_grad=True)
+        tpipe.extract_displacement_field(img, ks, with_grad=True,
+                                         device="cpu")
     monkeypatch.setattr(tpipe, "DEFAULTS", tpipe.DEFAULTS.__class__(
         pipeline_fused_uv=False))
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 7"):
-        tpipe.make_displacement_extractor((256, 256), ks)
+        tpipe.make_displacement_extractor((256, 256), ks, device="cpu")
 
 
 @pytest.mark.parametrize("shape,sigma,dr", [((2, 96, 80), 6, 12),
@@ -154,4 +155,44 @@ def test_wrappers_dispatch_on_device():
     args = [torch.empty((1,), device="meta")] * 11
     with pytest.raises(ValueError, match="device"):
         tsweep.sweep_uv(*args, 2, True)
+    assert sum(_build.launches.values()) == 0
+
+
+def _entry_call(name):
+    """One of the README's five entry points at 128^2, with no `device`
+    argument, on numpy inputs."""
+    from pygpa_tpu_torch import lattices as tlat
+    from pygpa_tpu_torch import ucell as tucell
+    ks = np.asarray(tlat.generate_ks(0.1, 7.0))[:3]
+    img = hexlattice_gen(0.1, 7.0, order=1, size=128, dtype=jnp.float32)
+    img = np.array(img)
+    if name == "extract_displacement_field":
+        return tpipe.extract_displacement_field(img, ks)
+    if name == "make_displacement_extractor":
+        return tpipe.make_displacement_extractor(img.shape, ks)(img)
+    if name == "undistort_image":
+        return tpipe.undistort_image(img, np.zeros((2,) + img.shape,
+                                                   np.float32))
+    if name == "unit_cell_average":
+        return tucell.unit_cell_average(img, ks[:2], z=2)
+    _, rsize = tucell.calc_ucell_parameters(ks[:2], 2)
+    return tucell.expand_unitcell(np.ones(rsize, np.float32), ks[:2],
+                                  img.shape, z=2)
+
+
+@pytest.mark.parametrize("name", ["extract_displacement_field",
+                                  "make_displacement_extractor",
+                                  "undistort_image", "unit_cell_average",
+                                  "expand_unitcell"])
+def test_entry_points_default_to_the_card(name):
+    """With no `device`, an entry point moves its numpy inputs to the
+    card and returns a CUDA tensor; where torch has no CUDA it raises
+    instead of running on the CPU, and launches nothing."""
+    _build.launches.clear()
+    if torch.cuda.is_available():
+        assert _entry_call(name).device.type == "cuda"
+        return
+    # a CPU-only torch asserts; a CUDA build without a card finds no driver
+    with pytest.raises((AssertionError, RuntimeError), match="CUDA|NVIDIA"):
+        _entry_call(name)
     assert sum(_build.launches.values()) == 0

@@ -91,12 +91,13 @@ def test_unit_cell_average_matches(z, with_u):
     got, gotw = TUC.unit_cell_average(torch.from_numpy(img), ks,
                                       u=None if uu is None else
                                       torch.from_numpy(uu), z=z,
-                                      return_weights=True)
+                                      return_weights=True, device="cpu")
     want, wantw = np.asarray(want), np.asarray(wantw)
     assert np.array_equal(np.isnan(got.numpy()), np.isnan(want))
     assert np.allclose(gotw.numpy(), wantw, atol=1e-10)
     assert np.allclose(got.numpy(), want, atol=1e-10, equal_nan=True)
-    f = TUC.unit_cell_average(None, ks, z=z, only_generate_func=True)
+    f = TUC.unit_cell_average(None, ks, z=z, only_generate_func=True,
+                              device="cpu")
     assert torch.equal(torch.nan_to_num(f(torch.from_numpy(img), uu)),
                        torch.nan_to_num(got))
 
@@ -116,7 +117,7 @@ def test_expand_unitcell_matches(order, z2, with_u):
                                u=u, order=order)
     got = TUC.expand_unitcell(torch.from_numpy(cell), ks, shape, z=z, z2=z2,
                               u=torch.from_numpy(u) if with_u else 0,
-                              order=order)
+                              order=order, device="cpu")
     assert np.allclose(got.numpy(), np.asarray(want), atol=1e-10)
 
 
@@ -125,8 +126,10 @@ def test_project_and_expand(z):
     """tests/test_ucell.py's round trip and bounds."""
     ks = _ks()
     original = _lattice(200)
-    cell = TUC.unit_cell_average(torch.from_numpy(original), ks, z=z)
-    expanded = TUC.expand_unitcell(cell, ks, original.shape, z=z).numpy()
+    cell = TUC.unit_cell_average(torch.from_numpy(original), ks, z=z,
+                                 device="cpu")
+    expanded = TUC.expand_unitcell(cell, ks, original.shape, z=z,
+                                   device="cpu").numpy()
     assert np.abs(original - expanded).mean() < 5e-3
     assert np.abs(original - expanded).max() < 0.11
 
@@ -137,9 +140,10 @@ def test_deformed_project_and_expand(z, gaussiandeform):
     ks = _ks()
     deformed = _lattice(200, shift=u)
     ut = torch.from_numpy(np.ascontiguousarray(u))
-    cell = TUC.unit_cell_average(torch.from_numpy(deformed), ks, z=z, u=ut)
+    cell = TUC.unit_cell_average(torch.from_numpy(deformed), ks, z=z, u=ut,
+                                 device="cpu")
     expanded = TUC.expand_unitcell(cell, ks, deformed.shape, z=z,
-                                   u=ut).numpy()
+                                   u=ut, device="cpu").numpy()
     assert np.abs(deformed - expanded).mean() < 3e-3
     assert np.abs(deformed - expanded).max() < 0.15
 
@@ -151,15 +155,18 @@ def test_nan_masking_and_weights():
                                     dtype=np.float64))
     img = clean.copy()
     img[:50] = np.nan
-    cell = TUC.unit_cell_average(torch.from_numpy(img), ks, z=2).numpy()
-    ref = TUC.unit_cell_average(torch.from_numpy(clean), ks, z=2).numpy()
+    cell = TUC.unit_cell_average(torch.from_numpy(img), ks, z=2,
+                                 device="cpu").numpy()
+    ref = TUC.unit_cell_average(torch.from_numpy(clean), ks, z=2,
+                                device="cpu").numpy()
     assert np.isfinite(cell).any()
     both = np.isfinite(cell) & np.isfinite(ref)
     assert both.sum() > 0.9 * np.isfinite(ref).sum()
     d = np.abs(cell - ref)[both]
     assert d.mean() < 0.05 and np.quantile(d, 0.9) < 0.1
     small = torch.from_numpy(clean[:64, :64].copy())
-    _, w = TUC.unit_cell_average(small, ks, z=2, return_weights=True)
+    _, w = TUC.unit_cell_average(small, ks, z=2, return_weights=True,
+                                 device="cpu")
     assert np.isclose(float(w.sum()), 64 * 64)
 
 
@@ -255,7 +262,7 @@ def test_expand_samples_the_mirror_rim():
     want = np.asarray(pallas_expand(jnp.asarray(cell), KS_DIAG, rmin, z, 1,
                                     None, shape, order=3, interpret=True))
     got = TUC.expand_unitcell(torch.from_numpy(cell), KS_DIAG, shape,
-                              z=z).numpy()
+                              z=z, device="cpu").numpy()
     assert np.allclose(got, want, atol=1e-10)
     xla = np.asarray(JUC.expand_unitcell(jnp.asarray(cell), KS_DIAG, shape,
                                          z=z))
