@@ -7,7 +7,10 @@ Phases, each printed on its own lines:
 
 1. the card (nvidia-smi name and power limit), torch and CUDA versions,
    TF32 switched off for matmuls and cuDNN;
-2. the build of the CUDA kernels (csrc/*.cu, nvcc, timed);
+2. the build of the CUDA kernels (csrc/*.cu, nvcc, timed), ptxas's
+   registers and spills of the zoom stage-2 and bilinear kernels, and
+   the proof that the zoom stage 2 runs on the tensor cores: HMMA
+   instructions in its SASS (cuobjdump -sass), or the phase fails;
 3. each kernel against its plain PyTorch twin on the card, on the
    inputs the 4096^2 bench extractor hands it (captured from one
    extractor run), with the error bound stated beside the check and
@@ -28,7 +31,10 @@ Phases, each printed on its own lines:
    make_displacement_extractor((4096, 4096), ks, device="cuda") (the
    grouped sweep, then the exact CG on the DCT kernels);
    each with its launch counts, the whole path against the same path
-   on the plain twins (interior p99 |du| < 1e-4 px, max < 1e-2 px), the
+   on the plain twins (interior p99 |du| < 1e-4 px, max < 1e-2 px; in
+   phase 5, whose zoom kernel sums more accurately than its float32
+   twin, the p99 is held instead to the path with a float64 zoom sweep:
+   < 5e-4 px and no further than the twins' own path), the
    bench's three gates, seconds per image over 3 runs after warm-up,
    per-stage CUDA-event times and peak device memory.
 
@@ -36,8 +42,8 @@ Phases, each printed on its own lines:
    benchmarks/run_all.py as it builds it (2048^2,
    phase_unwrap_mg(psi, |img|) and undistort_image(img, u, coarse=4)),
    held to its three gates (unwrap p99 < 0.02 rad, max < 0.3 rad,
-   undistort rel rms < 0.05), and (b) the default
-   undistort_image(img_d, u_true) (coarse 1, order 3) on the 4096^2
+   undistort rel rms < 0.05) and to 20 bilinear launches, and (b) the
+   default undistort_image(img_d, u_true) (coarse 1, order 3) on the 4096^2
    deformed fixture against the clean lattice, rel rms < 0.05 on the
    128-px interior;
 8. the README's unit cell, two runs: (a) config 4 (unit_cell_average
@@ -49,17 +55,23 @@ Phases, each printed on its own lines:
    after a warm-up and peak device memory.
 
 Phase 3 also holds the zoom-sweep kernel (all three peaks of the eager
-path), the four DCT directions (on the exact CG's own residual), the
-warp kernels (the first 'nearest' and the final 'constant' cubic warp
-of phase 7b, the first bilinear warp of 7a's coarse inversion), and the
-drizzle and expand kernels (phase 8a's inputs) against their twins;
-the drizzle kernel also runs twice and must repeat bit for bit. For
+path; stage 1 and stage 2 timed apart, with stage 2's float32-FMA and
+3xTF32 bounds), the four DCT directions (on the exact CG's own
+residual), the warp kernels (the first 'nearest' and the final
+'constant' cubic warp of phase 7b, the first bilinear warp of 7a's
+coarse inversion: both planes of u in one launch, timed per call and as
+device time from torch.profiler beside F.grid_sample on the same
+planes), and the drizzle and expand kernels (phase 8a's inputs) against
+their twins; the drizzle kernel also runs twice and must repeat bit for
+bit. For
 each kernel it computes the bound from those inputs (the larger of
 their bytes, each input read once and each output written once, over
 3.35 TB/s and their float32 operations over 67 TFLOP/s: the matrix
-products of the sweeps' twins from torch's flop counter, 2.5 n log2 n
+products of the grouped sweep's twin from torch's flop counter, the
+zoom sweep's 8 P n W1 (W0 + m) from its shapes, 2.5 n log2 n
 per DCT line, the CG's FFT-form DCT pairs and stencil, a per-element
-count for the stencils, gathers and scatters) and, where one PyTorch
+count for the stencils, gathers and scatters; the zoom sweep's stage 2
+three times over at 495 TFLOP/s dense TF32) and, where one PyTorch
 call computes the same function, times it and holds it to the kernel:
 F.grid_sample for the bilinear warp (the drizzle has none: index_add
 scatters taps that other calls compute first). The DCT rows print each
@@ -210,9 +222,9 @@ def rel_err(got, want):
     return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
 
 
-# published H100 SXM peaks (NVIDIA's data sheet, 700 W): HBM bytes/s and
-# float32 FLOP/s outside the tensor cores
-HBM_BYTES_S, FP32_FLOP_S = 3.35e12, 67e12
+# published H100 SXM peaks (NVIDIA's data sheet, 700 W): HBM bytes/s,
+# float32 FLOP/s outside the tensor cores and dense TF32 FLOP/s on them
+HBM_BYTES_S, FP32_FLOP_S, TF32_FLOP_S = 3.35e12, 67e12, 495e12
 
 
 def tensor_bytes(*objs):
@@ -232,6 +244,60 @@ def bound(nbytes, ops):
     and ops float32 operations over the float32 peak."""
     t_b, t_o = nbytes / HBM_BYTES_S * 1e3, float(ops) / FP32_FLOP_S * 1e3
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def zoom_bounds(nbytes, flops1, flops2):
+    """(FP32-FMA bound ms, 3xTF32 bound ms) of the zoom sweep: stage 1's
+    flops1 in float32 FMA either way; stage 2's flops2 in float32 FMA, or
+    three times over at the dense TF32 rate; each no less than nbytes
+    over the HBM rate."""
+    t_b = nbytes / HBM_BYTES_S * 1e3
+    fp32 = (flops1 + flops2) / FP32_FLOP_S * 1e3
+    tc = (flops1 / FP32_FLOP_S + 3 * flops2 / TF32_FLOP_S) * 1e3
+    return max(t_b, fp32), max(t_b, tc)
+
+
+def device_ms(fn, reps):
+    """Mean device milliseconds per call of fn(): the summed durations of
+    the kernels the calls launched, from torch.profiler's device records
+    (host time and launch gaps excluded), after one warm-up call; None
+    when the profiler records no device activity."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA)
+    return us / 1e3 / reps if us > 0 else None
+
+
+def ptxas_lines(log, key):
+    """ptxas's registers/spills lines (nvcc -Xptxas -v) of every kernel
+    whose mangled name holds `key`."""
+    out, on = [], False
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            on = key in line
+        elif on and ("spill" in line or "Used" in line):
+            out.append(line.strip())
+    return out
+
+
+def hmma_count(lib_path, key):
+    """HMMA (tensor-core) instructions in the SASS of the kernels of the
+    built library whose mangled name holds `key` (cuobjdump -sass)."""
+    from pygpa_tpu_torch.ops import _build
+    tool = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    return sum(f.count("HMMA") for f in sass.split("Function : ")[1:]
+               if key in f.split("\n", 1)[0])
 
 
 def matmul_flops(fn, *args, **kw):
@@ -265,21 +331,24 @@ LIBRARY_BOUND = 1e-5
 
 def bilinear_library(args):
     """F.grid_sample (bilinear, align_corners=True) on a bilinear warp's
-    image and positions, as a zero-argument call: the same function in
-    'nearest' mode (padding 'border') and in 'constant' mode with cval 0
-    (padding 'zeros'); None for another cval."""
+    image or stack of C planes, as one (1, C, n, m) input, and positions,
+    as a zero-argument call whose output reshapes to the warp's: the same
+    function in 'nearest' mode (padding 'border') and in 'constant' mode
+    with cval 0 (padding 'zeros'); None for another cval."""
     import torch
     import torch.nn.functional as F
-    image, cy, cx, mode, cval = args[:5]
+    image, cy, cx = args[:3]
+    mode = args[3] if len(args) > 3 else "nearest"
+    cval = args[4] if len(args) > 4 else 0.0
     pad = {"nearest": "border"}.get(mode)
     if mode == "constant" and float(cval) == 0.0:
         pad = "zeros"
     if pad is None:
         return None
-    n, m = image.shape
+    n, m = image.shape[-2:]
     grid = torch.stack([2 * cx / (m - 1) - 1, 2 * cy / (n - 1) - 1], -1)
     grid = grid.reshape(1, -1, 1, 2)
-    inp = image[None, None]
+    inp = image.reshape(1, -1, n, m)
     return lambda: F.grid_sample(inp, grid, mode="bilinear",
                                  padding_mode=pad, align_corners=True)
 
@@ -468,10 +537,53 @@ def gate_values(u, ud, u_true, ks):
         float(resid.abs().max())
 
 
-def drive_path(num, label, call, call_deconv, img, img_d, u_true, ks):
+ZOOM_PATH_F64 = 5e-4   # phase 5: interior p99 |du| px from the float64
+#                        zoom sweep's path (the float32 twins' own path
+#                        lies 4.45e-4 px from it on the bench fixture)
+
+
+@contextlib.contextmanager
+def float64_zoom():
+    """The zoom-sweep wrapper swapped for its twin computed in float64
+    (outputs cast back to float32), every other kernel as built: the
+    path phase 5 holds the zoom kernel's path to."""
+    from pygpa_tpu_torch.ops import zoom_sweep as zs
+
+    def zoom64(Sr, Si, gx, gy, A0c, A0s, A1c, A1s, dr=None):
+        out = zs.zoom_sweep_plain(*(a.double() for a in (
+            Sr, Si, gx, gy, A0c, A0s, A1c, A1s)), dr=dr)
+        return tuple(o.float() if o.is_floating_point() else o for o in out)
+
+    real = zs.zoom_sweep
+    zs.zoom_sweep = zoom64
+    try:
+        yield
+    finally:
+        zs.zoom_sweep = real
+
+
+def interior_dist(u, ref, ks):
+    """Interior p99 and max |u - ref| (px), the bench's border cut."""
+    import torch
+    b = 8 * int(np.ceil(1 / np.linalg.norm(ks, axis=1).min()))
+    d = (u - ref)[:, b:-b, b:-b].abs().flatten()
+    p99 = float(torch.quantile(d[::7], torch.tensor([0.99],
+                                                    device=d.device)))
+    return p99, float(d.max())
+
+
+def drive_path(num, label, call, call_deconv, img, img_d, u_true, ks,
+               zoom=False):
     """Phases 5 and 6: one counted run, timed runs, the path against its
     plain versions, the bench gates, stage times and peak memory.
-    Returns the counted run's launches."""
+    Returns the counted run's launches.
+
+    The path with kernels is held to the path on the plain twins (p99 <
+    1e-4 px, max < 1e-2 px: near-tie winner flips). With `zoom` (phase 5,
+    whose zoom kernel computes its products more accurately than its
+    float32 twin) the p99 is held instead to the path with a float64
+    zoom sweep: p99 under ZOOM_PATH_F64 and no larger than the twins'
+    own path's, max < 1e-2 px."""
     import torch
     from pygpa_tpu_torch.ops import _build
     call(img)                                      # warm-up
@@ -493,14 +605,27 @@ def drive_path(num, label, call, call_deconv, img, img_d, u_true, ks):
     dt = (time.perf_counter() - t0) / REPS_EXACT
     with plain_versions():
         up = call(img)
-    b = 8 * int(np.ceil(1 / np.linalg.norm(ks, axis=1).min()))
-    d = (u - up)[:, b:-b, b:-b].abs().flatten()
-    p99 = float(torch.quantile(d[::7], torch.tensor([0.99],
-                                                    device=d.device)))
-    dmax = float(d.max())
-    say(f"    with kernels vs plain versions: interior p99 |du| {p99!r} "
-        f"max {dmax!r} px (bounds 1e-4, 1e-2)")
-    if not (p99 < 1e-4 and dmax < 1e-2):
+    p99, dmax = interior_dist(u, up, ks)
+    if not zoom:
+        say(f"    with kernels vs plain versions: interior p99 |du| {p99!r} "
+            f"max {dmax!r} px (bounds 1e-4, 1e-2)")
+        ok = p99 < 1e-4 and dmax < 1e-2
+    else:
+        with float64_zoom():
+            u64 = call(img)
+        k99, kmax = interior_dist(u, u64, ks)
+        t99, tmax = interior_dist(up, u64, ks)
+        say(f"    with kernels vs plain versions: interior p99 |du| {p99!r} "
+            f"max {dmax!r} px (bound on max 1e-2)")
+        say(f"    vs the path with a float64 zoom sweep: with kernels p99 "
+            f"{k99!r} max {kmax!r} px, plain versions p99 {t99!r} max "
+            f"{tmax!r} px (bounds: p99 < {ZOOM_PATH_F64} and <= the plain "
+            f"versions', max < 1e-2)")
+        ok = dmax < 1e-2 and k99 < ZOOM_PATH_F64 and k99 <= t99 \
+            and kmax < 1e-2
+        del u64
+    del up
+    if not ok:
         raise RuntimeError(f"{label}: kernels change the result")
     call_deconv(img_d)
     events = []
@@ -712,6 +837,17 @@ def main():
     lib = _build.load()
     say(f"[2] kernels built and loaded in {time.perf_counter() - t0:.2f} s "
         f"(nvcc {_build.build_seconds!r} s) -> {os.path.basename(lib._name)}")
+    for key in ("zoom_stage2_kernel", "bilinear_kernel"):
+        lines = ptxas_lines(_build.build_log, key) or (
+            "not in this run's log: the library was built by an earlier "
+            "process")
+        say(f"    ptxas {key}: {lines}")
+    n_hmma = hmma_count(lib._name, "zoom_stage2_kernel")
+    say(f"    zoom_stage2_kernel SASS: {n_hmma} HMMA instructions "
+        "(cuobjdump -sass)")
+    if n_hmma == 0:
+        raise RuntimeError("the zoom stage-2 kernel has no HMMA in its SASS: "
+                           "its products do not run on the tensor cores")
 
     # ---- 3. kernels vs twins on the main path's own inputs
     ks, img, img_d, u_true = fixtures(torch)
@@ -779,19 +915,42 @@ def main():
         f"{[tuple(a[0].shape) for a in c_zs.calls]}")
     dr = 2 * int(np.ceil(1 / np.linalg.norm(ks, axis=1).min()))
     e_zs = check_zoom(zs_mod, c_zs.calls, dr)
-    zs_ms = [(cuda_ms(lambda a=a: zs_mod.zoom_sweep(*a), 3),
-              cuda_ms(lambda a=a: zs_mod.zoom_sweep_plain(*a), 2))
-             for a in c_zs.calls]
-    say(f"    zoom_sweep ms (kernel, twin) per peak: {zs_ms}")
-    zs_bytes = zs_ops = 0
+    # per peak: the call (both launches), stage 1 (sweep_stage1, float32
+    # FMA) and stage 2 (3xTF32 on the tensor cores) alone, and the twin;
+    # FLOP: 8 P n W0 W1 in stage 1 and 8 P n m W1 in stage 2 (the twin's
+    # products, as torch's flop counter counts them)
+    zs = {"call": 0.0, "stage1": 0.0, "stage2": 0.0, "twin": 0.0}
+    zs_bytes = flops1 = flops2 = 0
     for a in c_zs.calls:
-        ops, outs = matmul_flops(zs_mod.zoom_sweep_plain, *a, dr=dr)
-        zs_bytes += tensor_bytes(a, outs)
-        zs_ops += ops
-    rows["zoom_sweep"] = dict(max_abs_err=e_zs,
-                              ms=sum(k for k, _ in zs_ms),
-                              plain_ms=sum(p for _, p in zs_ms),
-                              **bound_row(zs_bytes, zs_ops))
+        (W0, W1), P = a[0].shape, a[2].shape[0]
+        n, m = a[4].shape[0], a[6].shape[0]
+        T = zs_mod.stage1(*a[:6])
+        t = {"call": cuda_ms(lambda a=a: zs_mod.zoom_sweep(*a), 3),
+             "stage1": cuda_ms(lambda a=a: zs_mod.stage1(*a[:6]), 3),
+             "stage2": cuda_ms(lambda T=T, a=a: zs_mod.stage2(
+                 T, a[6], a[7], None), 3),
+             "twin": cuda_ms(lambda a=a: zs_mod.zoom_sweep_plain(*a), 2)}
+        del T
+        f1, f2 = 8 * P * n * W0 * W1, 8 * P * n * m * W1
+        s2_fp32, s2_tc = zoom_bounds(0, 0, f2)
+        say(f"    zoom_sweep P={P} W0={W0} W1={W1}: call {t['call']!r} ms "
+            f"(stage 1 {t['stage1']!r}, stage 2 {t['stage2']!r}), twin "
+            f"{t['twin']!r} ms; stage 1 bound {f1 / FP32_FLOP_S * 1e3!r} ms "
+            f"(float32 FMA); stage 2 bounds {s2_fp32!r} ms (float32 FMA), "
+            f"{s2_tc!r} ms (3xTF32)")
+        for k in zs:
+            zs[k] += t[k]
+        zs_bytes += tensor_bytes(a) + 6 * n * m * 4
+        flops1 += f1
+        flops2 += f2
+    b_fp32, b_tc = zoom_bounds(zs_bytes, flops1, flops2)
+    say(f"    zoom_sweep, three peaks: call {zs['call']!r} ms, stage 1 "
+        f"{zs['stage1']!r} ms, stage 2 {zs['stage2']!r} ms; bound "
+        f"{b_fp32!r} ms in float32 FMA, {b_tc!r} ms with stage 2 in "
+        f"3xTF32 (the row's bound; {flops1!r} + {flops2!r} FLOP)")
+    rows["zoom_sweep"] = dict(max_abs_err=e_zs, ms=zs["call"],
+                              plain_ms=zs["twin"], bound_ms=b_tc,
+                              bound_by="operations", library_ms=None)
     dct_in = {"dct_lane": c_dl.calls[0][0], "idct_lane": c_il.calls[0][0],
               "dct_sub": c_ds.calls[0][0], "idct_sub": c_is.calls[0][0]}
     e_dct = check_dct(dct_mod, dct_in)
@@ -844,23 +1003,32 @@ def main():
     rows["warp_cubic"] = dict(
         max_abs_err=e_wc, ms=wc_ms[0][0], plain_ms=wc_ms[0][1],
         **bound_row(tensor_bytes(wc0[:3], wc0[1]), 56 * wc0[1].numel()))
+    # the first bilinear call of 7a's coarse inversion: both planes of u
+    # at the 512^2 grid's positions, one launch
     wb = c_wb.calls[0]
+    wb_out = warp_mod.warp_bilinear_plain(*wb)
     rows["warp_bilinear"] = dict(
         max_abs_err=check_warp(warp_mod, "warp_bilinear", wb),
         ms=cuda_ms(lambda: warp_mod.warp_bilinear(*wb), 20),
         plain_ms=cuda_ms(lambda: warp_mod.warp_bilinear_plain(*wb), 5),
-        **bound_row(tensor_bytes(wb[:3], wb[1]), 12 * wb[1].numel()))
+        **bound_row(tensor_bytes(wb[:3], wb_out), 12 * wb_out.numel()))
+    wb_dev = device_ms(lambda: warp_mod.warp_bilinear(*wb), 20)
     lib = bilinear_library(wb)
     if lib is not None:
-        e = rel_err(lib().reshape(wb[1].shape), warp_mod.warp_bilinear(*wb))
+        e = rel_err(lib().reshape(wb_out.shape), warp_mod.warp_bilinear(*wb))
         say(f"    warp_bilinear vs library F.grid_sample: max |delta| / max "
             f"|kernel| {e!r} (bound {LIBRARY_BOUND})")
         if not e <= LIBRARY_BOUND:
             raise RuntimeError("F.grid_sample computes another function "
                                "than the bilinear warp kernel")
         rows["warp_bilinear"]["library_ms"] = cuda_ms(lib, 20)
-        say(f"    warp_bilinear: library F.grid_sample "
-            f"{rows['warp_bilinear']['library_ms']!r} ms")
+        lib_dev = device_ms(lib, 20)
+        say(f"    warp_bilinear {tuple(wb[0].shape)} at {tuple(wb[1].shape)} "
+            f"positions: per call (CUDA events over 20 calls) kernel "
+            f"{rows['warp_bilinear']['ms']!r} ms, F.grid_sample "
+            f"{rows['warp_bilinear']['library_ms']!r} ms; device time "
+            f"(torch.profiler kernel records) kernel {wb_dev!r} ms, "
+            f"F.grid_sample {lib_dev!r} ms")
     dz, ex = c_dz.calls[0], c_ex.calls[0]
     dz_out = drizzle_mod.drizzle(*dz)
     rows["drizzle"] = dict(
@@ -877,7 +1045,8 @@ def main():
     # the captured operands would count in phase 4's peak memory
     del c_sw, c_ps, c_aq, c_cg, sw_args, ps_args, aq_args, rk0, outs
     del c_zs, c_dl, c_il, c_ds, c_is, dct_in, x
-    del c_wc, wc_calls, wc0, c_wb, wb, c_dz, dz, dz_out, c_ex, ex, ex_out
+    del c_wc, wc_calls, wc0, c_wb, wb, wb_out, c_dz, dz, dz_out, c_ex, ex
+    del ex_out
     for name, r in rows.items():
         say(f"    {name}: kernel {r['ms']!r} ms, twin {r['plain_ms']!r} ms, "
             f"bound {r['bound_ms']!r} ms ({r['bound_by']}), library "
@@ -947,7 +1116,7 @@ def main():
             im, ks32, events=events),
         lambda im, events=None: pipeline.extract_displacement_field(
             im, ks32, deconvolve=True, events=events),
-        img, img_d, u_true, ks32)
+        img, img_d, u_true, ks32, zoom=True)
     if path_launches[5].get("zoom_sweep") != 3:
         raise RuntimeError("the eager path should run one zoom sweep per "
                            f"Bragg peak: {path_launches[5]}")
@@ -985,6 +1154,11 @@ def main():
         lambda: (phase_unwrap_mg(psi3, w3),
                  pipeline.undistort_image(img3, u3, coarse=4)),
         gates_7a)
+    # 17 Picard steps and 2 Newton steps on both planes of u, one
+    # Jacobian of four gradient planes: one bilinear launch each
+    if path_launches["7a"].get("warp_bilinear") != 20:
+        raise RuntimeError("config 3 should launch the bilinear warp 20 "
+                           f"times: {path_launches['7a']}")
 
     def gates_7b(outs):
         v = {"undistort_rel_rms": rel_rms(outs[0], img, 128),

@@ -12,6 +12,12 @@ order 1, ``_map_coordinates_cubic`` (the reference's own plain sampler,
 mirror taps for constant-mode B-splines) for order 3. Routing by
 device, dtype and shape is the reference's; nothing falls back.
 
+``map_coordinates`` keeps the reference's 2-D contract. The private
+``_map_coordinates_stack`` samples a stack of planes at the same
+positions (the displacement inversion's two planes of u and four
+gradient planes): at order 1 one bilinear launch per stack on the card,
+under the same gate, and the twin on the CPU.
+
 spline_filter stays a torch operation, as it is an XLA convolution in
 the reference: per axis a mode-extended pad and the 55-tap truncated
 inverse filter (|z1|^27 < 1e-15) as a float32/float64 conv1d. cuDNN
@@ -211,12 +217,15 @@ def warp_kernel_ok(image, coordinates, order, mode):
     """The reference's _use_pallas_warp read for the card: the warp
     kernels take a CUDA float32 2-D image sampled at float32
     coordinates (2, ...) with 1-D or 2-D planes, order 1 or 3, mode
-    'nearest' or 'constant'."""
+    'nearest' or 'constant'; the bilinear kernel also a stack (C, n, m)
+    of up to ops.warp.MAX_PLANES planes."""
     return (order in (1, 3)
             and image.device.type == "cuda"
             and image.dtype == torch.float32
             and coordinates.dtype == torch.float32
-            and image.ndim == 2
+            and (image.ndim == 2 or (
+                image.ndim == 3 and order == 1
+                and 0 < image.shape[0] <= _warp.MAX_PLANES))
             and coordinates.shape[0] == 2
             and coordinates.ndim in (2, 3)
             and mode in _warp.MODES)
@@ -252,8 +261,10 @@ def map_coordinates(image, coordinates, order=3, mode="nearest", cval=0.0,
         return _map_coordinates_nearest(image, coordinates, cval, mode)
     if order == 1:
         if warp_kernel_ok(image, coordinates, order, mode):
-            return _warp.warp_bilinear(image, coordinates[0], coordinates[1],
-                                       mode, cval)
+            # the kernel takes contiguous planes (a view is copied here)
+            return _warp.warp_bilinear(
+                image.contiguous(), coordinates[0].contiguous(),
+                coordinates[1].contiguous(), mode, cval)
         return _warp.warp_bilinear_plain(image, coordinates[0],
                                          coordinates[1], mode, cval)
     if order != 3:
@@ -280,3 +291,22 @@ def map_coordinates(image, coordinates, order=3, mode="nearest", cval=0.0,
                                 cval, cubic)
     return _map_coordinates_cubic(image, coordinates, cval, mode,
                                   cubic=cubic)
+
+
+def _map_coordinates_stack(images, coordinates, order, mode, margin=0):
+    """map_coordinates(prefilter=False) of each plane of a stack (C, n,
+    m) at the same float coordinates (2, ...): output (C, ...), each
+    plane bit-identical to its own map_coordinates call. Order 1 takes
+    one bilinear launch for a stack of up to ops.warp.MAX_PLANES planes
+    on the card (the warp_kernel_ok gate) and the twin elsewhere; order 3
+    samples plane by plane."""
+    if order != 1:
+        return torch.stack([map_coordinates(im, coordinates, order=order,
+                                            mode=mode, prefilter=False,
+                                            margin=margin) for im in images])
+    if warp_kernel_ok(images, coordinates, order, mode):
+        return _warp.warp_bilinear(images.contiguous(),
+                                   coordinates[0].contiguous(),
+                                   coordinates[1].contiguous(), mode)
+    return _warp.warp_bilinear_plain(images, coordinates[0], coordinates[1],
+                                     mode)

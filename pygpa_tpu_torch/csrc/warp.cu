@@ -15,9 +15,17 @@
 // mirror about the edge samples ('reflect'), or cval outside ('const').
 // Exact for any coordinates, so there is no guard and no fallback.
 // Bound on an H100 by device memory: 8 bytes of coordinates read and 4
-// written per pixel; neighbouring pixels sample neighbouring positions,
-// so the taps hit L1/L2. The _rn intrinsics keep the twin's rounding
-// (no FMA contraction) in the twin's order of operations.
+// written per pixel and plane; neighbouring pixels sample neighbouring
+// positions, so the taps hit L1/L2. The _rn intrinsics keep the twin's
+// rounding (no FMA contraction) in the twin's order of operations.
+//
+// The bilinear kernel samples a stack of up to 4 planes at the same
+// positions in one launch (the two planes of u in each Picard step of
+// the displacement inversion, the four gradient planes of its Newton
+// Jacobian). Its device time at the inversion's 512^2 grid is a few
+// microseconds; the launch path around it, not the gather, set its time
+// per call, so the stack halves (Picard) or quarters (Jacobian) the
+// launches and the wrapper keeps its host work small (ops/warp.py).
 #include <cuda_runtime.h>
 
 namespace {
@@ -75,11 +83,14 @@ __device__ __forceinline__ float tap(const float* __restrict__ img, int m,
   return (r < 0 || c < 0) ? cval : __ldg(img + (size_t)r * m + c);
 }
 
-// one thread per sample; grid ceil(count / NT)
+// one thread per sample position for all C planes of a stack (C <= 4):
+// the taps and fractions are computed, and (cy, cx) read, once; each
+// plane's arithmetic is the single-plane kernel's, so a plane of a stack
+// is bit-identical to that plane warped alone. grid ceil(count / NT)
 __global__ void __launch_bounds__(NT) bilinear_kernel(
-    const float* __restrict__ img, int n, int m, const float* __restrict__ cy,
-    const float* __restrict__ cx, float* __restrict__ out, int count,
-    int mode, float cval) {
+    const float* __restrict__ img, int C, int n, int m,
+    const float* __restrict__ cy, const float* __restrict__ cx,
+    float* __restrict__ out, int count, int mode, float cval) {
   const size_t k = (size_t)blockIdx.x * NT + threadIdx.x;
   if (k >= (size_t)count) return;
   const float y = cy[k], x = cx[k];
@@ -105,15 +116,19 @@ __global__ void __launch_bounds__(NT) bilinear_kernel(
     c0 = unpad(tx, 1, m, EXT_CONST);
     c1 = unpad(tx + 1, 1, m, EXT_CONST);
   }
-  const float v0 = tap(img, m, r0, c0, cval), v1 = tap(img, m, r0, c1, cval);
-  const float v2 = tap(img, m, r1, c0, cval), v3 = tap(img, m, r1, c1, cval);
+  const bool cut = mode == CONSTANT && (y <= -1.f || y >= (float)n ||
+                                        x <= -1.f || x >= (float)m);
   const float gy = sub(1.f, fy), gx = sub(1.f, fx);
-  float v = add(mul(gy, add(mul(gx, v0), mul(fx, v1))),
-                mul(fy, add(mul(gx, v2), mul(fx, v3))));
-  if (mode == CONSTANT &&
-      (y <= -1.f || y >= (float)n || x <= -1.f || x >= (float)m))
-    v = cval;
-  out[k] = v;
+  const size_t plane = (size_t)n * m;
+#pragma unroll 4
+  for (int c = 0; c < C; ++c) {
+    const float* p = img + c * plane;
+    const float v0 = tap(p, m, r0, c0, cval), v1 = tap(p, m, r0, c1, cval);
+    const float v2 = tap(p, m, r1, c0, cval), v3 = tap(p, m, r1, c1, cval);
+    const float v = add(mul(gy, add(mul(gx, v0), mul(fx, v1))),
+                        mul(fy, add(mul(gx, v2), mul(fx, v3))));
+    out[c * (size_t)count + k] = cut ? cval : v;
+  }
 }
 
 template <int WF>
@@ -183,13 +198,13 @@ __global__ void __launch_bounds__(NT) cubic_kernel(
 
 extern "C" {
 
-int warp_bilinear(const float* img, int n, int m, const float* cy,
+// img: C contiguous (n, m) planes; out: C planes of `count` samples
+int warp_bilinear(const float* img, int C, int n, int m, const float* cy,
                   const float* cx, float* out, int count, int mode,
-                  int weight, float cval, cudaStream_t stream) {
-  (void)weight;
+                  float cval, cudaStream_t stream) {
   if (count == 0) return 0;
   bilinear_kernel<<<(count + NT - 1) / NT, NT, 0, stream>>>(
-      img, n, m, cy, cx, out, count, mode, cval);
+      img, C, n, m, cy, cx, out, count, mode, cval);
   return (int)cudaGetLastError();
 }
 

@@ -43,15 +43,6 @@ def _grid(n0, n1, m0, m1, dtype, device):
     return xx.expand(shape), yy.expand(shape)
 
 
-def _resample2(usf, coords, order, mode, margin):
-    """Both planes of `usf` sampled at `coords` (prefilter off)."""
-    return torch.stack([
-        interp.map_coordinates(usf[0], coords, order=order, mode=mode,
-                               prefilter=False, margin=margin),
-        interp.map_coordinates(usf[1], coords, order=order, mode=mode,
-                               prefilter=False, margin=margin)])
-
-
 def invert_u(us, iters=35, edge=0, mode="nearest", order=3):
     """Fixed-point inversion of the displacement field us (2, n, m):
     u_it(r) = us(r + u_it(r)), one step from zero and `iters` more
@@ -67,8 +58,8 @@ def invert_u(us, iters=35, edge=0, mode="nearest", order=3):
         if order == 3 else us
     u_it = torch.zeros_like(us)
     for _ in range(int(iters) + 1):
-        u_it = _resample2(usf, torch.stack([xx + u_it[0], yy + u_it[1]]),
-                          order, mode, mg)
+        u_it = interp._map_coordinates_stack(
+            usf, torch.stack([xx + u_it[0], yy + u_it[1]]), order, mode, mg)
     return u_it
 
 
@@ -97,14 +88,13 @@ def invert_u_overlap(us, iters=35, edge=0, mode="nearest", order=3,
         R = _resize_right(mc, m, dt, dev)
         xxc, yyc = _grid(0, nc, 0, mc, dt, dev)
         coordsc = torch.stack([xxc + uc[0], yyc + uc[1]])
-        J = []
-        for i in (0, 1):
-            for g in torch.gradient(usc[i]):   # d/d(coarse px) of usc
-                J.append(interp.map_coordinates(g, coordsc, order=1,
-                                                mode=mode))
+        # d/d(coarse px) of usc, the four planes sampled in one launch
+        grads = torch.stack([g for i in (0, 1)
+                             for g in torch.gradient(usc[i])])
+        J = interp._map_coordinates_stack(grads, coordsc, 1, mode)
         with interp.no_tf32():
             u0 = L @ (uc * float(c)) @ R
-            J = L @ torch.stack(J) @ R
+            J = L @ J @ R
         if edge > 0:
             u0 = interp.pad_np(u0, edge, "edge")
             J = interp.pad_np(J, edge, "edge")
@@ -118,8 +108,8 @@ def invert_u_overlap(us, iters=35, edge=0, mode="nearest", order=3,
         det = torch.where(safe, det, 1.0)
         u_it = u0
         for _ in range(int(refine_iters)):
-            gu = _resample2(us, torch.stack([xx + u_it[0], yy + u_it[1]]),
-                            1, mode, 0)
+            gu = interp._map_coordinates_stack(
+                us, torch.stack([xx + u_it[0], yy + u_it[1]]), 1, mode)
             r0 = gu - u_it
             du0 = (d * r0[0] - b * r0[1]) / det
             du1 = (a * r0[1] - cc * r0[0]) / det
@@ -129,10 +119,11 @@ def invert_u_overlap(us, iters=35, edge=0, mode="nearest", order=3,
 
     usf = interp.spline_filter(us, mode=mode, axes=(-2, -1), margin=mg) \
         if order == 3 else us
-    u_it = _resample2(usf, torch.stack([xx, yy]), order, mode, mg)
+    u_it = interp._map_coordinates_stack(usf, torch.stack([xx, yy]), order,
+                                         mode, mg)
     for _ in range(int(iters)):
-        u_it = _resample2(usf, torch.stack([xx + u_it[0], yy + u_it[1]]),
-                          order, mode, mg)
+        u_it = interp._map_coordinates_stack(
+            usf, torch.stack([xx + u_it[0], yy + u_it[1]]), order, mode, mg)
     return u_it
 
 

@@ -9,7 +9,10 @@ rebuilds and a stale library is never loaded. It is bound with
 ``ctypes``: each launcher takes raw device pointers (``data_ptr()``)
 and the caller's CUDA stream, launches on that stream without
 synchronising, and returns ``cudaGetLastError()``; :func:`check`
-raises on a non-zero code.
+raises on a non-zero code. :func:`bind` declares a launcher's argument
+types once and caches it, so a launch costs one dictionary lookup.
+``build_log`` keeps nvcc's output of the last build, with ptxas's
+registers, shared memory and spills of every kernel (``-Xptxas -v``).
 
 No source includes PyTorch's headers, so the build takes seconds, not
 the minutes of ``torch.utils.cpp_extension.load``.
@@ -29,9 +32,11 @@ SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 CUDA_HOMES = ("/usr/local/cuda",)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-Xcompiler", "-fPIC", "-lineinfo"]
+              "-O3", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v"]
 
 _lib = None
+_bound = {}     # (name, layout) -> bound launcher
+_CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 build_seconds = None
 build_log = ""
 
@@ -126,11 +131,17 @@ def load():
 def bind(name, layout):
     """ctypes function `name` of the library with its argument types
     declared: `layout` is a string of 'p' (device pointer or stream),
-    'i' (int) and 'f' (float) codes, in order."""
-    fn = getattr(load(), name)
-    types = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
-    fn.argtypes = [types[c] for c in layout]
-    fn.restype = ctypes.c_int
+    'i' (int) and 'f' (float) codes, in order. Bound once per (name,
+    layout), each as its own function object, so two layouts of one
+    name never share argument types; later calls return the cached
+    function."""
+    key = (name, layout)
+    fn = _bound.get(key)
+    if fn is None:
+        fn = load()[name]           # a new function object per lookup
+        fn.argtypes = [_CTYPES[c] for c in layout]
+        fn.restype = ctypes.c_int
+        _bound[key] = fn
     return fn
 
 

@@ -8,7 +8,9 @@ image at fractional (row, column) coordinates cy, cx of any shape:
 - warp_bilinear: 2 x 2 taps, the algebra of
   jax.scipy.ndimage.map_coordinates(order=1); 'nearest' clamps the
   sample position, 'constant' blends a one-pixel cval ring and masks
-  positions further out;
+  positions further out. It also takes a stack (C, n, m) of up to
+  MAX_PLANES planes sampled at the same positions, output (C, ...):
+  each plane is bit-identical to that plane warped alone;
 - warp_cubic: 4 x 4 taps with Catmull-Rom or cubic B-spline weights
   (the B-spline samples spline_filter'ed coefficients: scipy's order-3
   interpolant); 'nearest' clamps each tap, 'constant' blends cval out
@@ -36,10 +38,20 @@ pixels sample neighbouring positions). All arithmetic uses the _rn
 intrinsics in the twin's order, so the kernel repeats the twin's
 rounding.
 
+The bilinear kernel's device time at the inversion's 512^2 grid is a
+few microseconds, so its launch path sets its time per call: a stack
+of planes takes one launch, and ``_launch_bilinear`` does only the
+host work a launch needs (one combined check that raises on every
+input the kernel does not take: device, dtype, contiguity, shapes,
+mode; the output allocated once; the launcher bound once; no device
+context switch and no Stream object when the tensor is on the current
+device).
+
 The plain twins (``warp_bilinear_plain``, ``warp_cubic_plain``) hold
 the dense tap/weight algebra of the reference's ``_warp_xla`` on
 materialised padded images. A CPU tensor runs the twin; a CUDA tensor
-the kernel (float32 image and coordinates, 2-D image) or an error.
+the kernel (float32 image and coordinates; a 2-D image, or for the
+bilinear warp a stack of up to MAX_PLANES planes) or an error.
 """
 import torch
 import torch.nn.functional as F
@@ -47,6 +59,7 @@ import torch.nn.functional as F
 from . import _build
 
 MODES = ("nearest", "constant")
+MAX_PLANES = 4      # planes of a bilinear stack in one launch
 _WEIGHT_FN = {"catmull": 1, "bspline": 2}   # csrc/warp.cu weight codes
 
 
@@ -77,14 +90,15 @@ def bspline_weights(t):
 
 def _dense(img, iy0, ix0, fy, fx, taps, cubic="catmull"):
     """The reference's _warp_xla: separable taps of the padded image at
-    integer base taps (iy0, ix0) with fractions (fy, fx)."""
-    m = img.shape[1]
-    flat = img.reshape(-1)
+    integer base taps (iy0, ix0) with fractions (fy, fx); the bilinear
+    form also takes a stack (C, n, m), sampled plane by plane."""
+    m = img.shape[-1]
+    flat = img.reshape(img.shape[:-2] + (-1,))
     if taps == 2:
-        r0 = flat[iy0 * m + ix0]
-        r1 = flat[iy0 * m + ix0 + 1]
-        r2 = flat[(iy0 + 1) * m + ix0]
-        r3 = flat[(iy0 + 1) * m + ix0 + 1]
+        r0 = flat[..., iy0 * m + ix0]
+        r1 = flat[..., iy0 * m + ix0 + 1]
+        r2 = flat[..., (iy0 + 1) * m + ix0]
+        r3 = flat[..., (iy0 + 1) * m + ix0 + 1]
         return ((1.0 - fy) * ((1.0 - fx) * r0 + fx * r1)
                 + fy * ((1.0 - fx) * r2 + fx * r3))
     weight_fn = bspline_weights if cubic == "bspline" else catmull_weights
@@ -106,10 +120,11 @@ def _floor_frac(c, dtype):
 
 
 def warp_bilinear_plain(image, cy, cx, mode="nearest", cval=0.0):
-    """Plain PyTorch twin of the bilinear warp kernel."""
+    """Plain PyTorch twin of the bilinear warp kernel (a 2-D image or a
+    stack (C, n, m) of planes)."""
     if mode not in MODES:
         raise NotImplementedError(f"mode={mode!r}")
-    n, m = image.shape
+    n, m = image.shape[-2:]
     ty, fy, _ = _floor_frac(cy, image.dtype)
     tx, fx, _ = _floor_frac(cx, image.dtype)
     if mode == "nearest":
@@ -175,9 +190,9 @@ def warp_cubic_plain(image, cy, cx, mode="nearest", cval=0.0,
     return out
 
 
-def _launch(op, image, cy, cx, mode, cval, weight):
-    """Run the warp kernel `op` ('warp_bilinear' or 'warp_cubic') on a
-    CUDA float32 image."""
+def _launch_cubic(image, cy, cx, mode, cval, weight):
+    """Run the cubic warp kernel on a CUDA float32 2-D image."""
+    op = "warp_cubic"
     if image.device.type != "cuda":
         raise ValueError(f"{op}: unsupported device {image.device}")
     if image.ndim != 2 or mode not in MODES or cy.shape != cx.shape:
@@ -210,13 +225,60 @@ def _launch(op, image, cy, cx, mode, cval, weight):
     return out.reshape(cy.shape)
 
 
+def _launch_bilinear(image, cy, cx, mode, cval):
+    """Run the bilinear kernel on a CUDA float32 image (n, m) or stack
+    (C, n, m), C <= MAX_PLANES, at contiguous float32 coordinates of one
+    shape; output (C, ...) for a stack. Raises on any other input."""
+    dev = image.device
+    if dev.type != "cuda":
+        raise ValueError(f"warp_bilinear: unsupported device {dev}")
+    shape = image.shape
+    nd = len(shape)
+    C = shape[0] if nd == 3 else 1
+    f32 = torch.float32
+    if (image.dtype != f32 or cy.dtype != f32 or cx.dtype != f32
+            or cy.device != dev or cx.device != dev
+            or cy.shape != cx.shape or nd not in (2, 3)
+            or not 0 < C <= MAX_PLANES or mode not in MODES
+            or not (image.is_contiguous() and cy.is_contiguous()
+                    and cx.is_contiguous())):
+        raise ValueError(
+            "warp_bilinear kernel needs a contiguous float32 image (n, m) or "
+            f"stack (C <= {MAX_PLANES}, n, m), contiguous float32 coordinate "
+            f"planes of one shape on {dev} and mode in {MODES}; got image "
+            f"{image.dtype} {tuple(shape)}, cy {cy.dtype} {tuple(cy.shape)} "
+            f"on {cy.device}, cx {cx.dtype} {tuple(cx.shape)} on "
+            f"{cx.device}, mode {mode!r}")
+    n, m = shape[-2], shape[-1]
+    count = cy.numel()
+    if C * count >= 2 ** 31 or C * n * m >= 2 ** 31 or min(n, m) < 2:
+        raise ValueError(f"warp_bilinear kernel: image {tuple(shape)} or "
+                         f"{count} samples out of range")
+    out = torch.empty(shape[:-2] + cy.shape, dtype=f32, device=dev)
+    fn = _build.bind("warp_bilinear", "piiipppiifp")
+    args = (image.data_ptr(), C, n, m, cy.data_ptr(), cx.data_ptr(),
+            out.data_ptr(), count, MODES.index(mode), float(cval))
+    idx = dev.index
+    if idx == torch.cuda.current_device():
+        # the current stream's cudaStream_t, as
+        # torch.cuda.current_stream(dev).cuda_stream gives it
+        code = fn(*args, torch._C._cuda_getCurrentRawStream(idx))
+    else:
+        with torch.cuda.device(idx):
+            code = fn(*args, torch._C._cuda_getCurrentRawStream(idx))
+    _build.check(code, "warp_bilinear")
+    _build.launches["warp_bilinear"] += 1
+    return out
+
+
 def warp_bilinear(image, cy, cx, mode="nearest", cval=0.0):
-    """map_coordinates(order=1) of a 2-D image at coordinates (cy, cx)
-    (any shape, the output's); CPU tensors run the twin, CUDA tensors
-    the kernel."""
+    """map_coordinates(order=1) of a 2-D image, or of each plane of a
+    stack (C, n, m) with C <= MAX_PLANES, at coordinates (cy, cx) (any
+    shape; the output's is cy.shape, or (C,) + cy.shape for a stack);
+    CPU tensors run the twin, CUDA tensors the kernel."""
     if image.device.type == "cpu":
         return warp_bilinear_plain(image, cy, cx, mode, cval)
-    return _launch("warp_bilinear", image, cy, cx, mode, cval, 0)
+    return _launch_bilinear(image, cy, cx, mode, cval)
 
 
 def warp_cubic(image, cy, cx, mode="nearest", cval=0.0, cubic="catmull"):
@@ -225,5 +287,6 @@ def warp_cubic(image, cy, cx, mode="nearest", cval=0.0, cubic="catmull"):
     cx); CPU tensors run the twin, CUDA tensors the kernel."""
     if image.device.type == "cpu":
         return warp_cubic_plain(image, cy, cx, mode, cval, cubic)
-    return _launch("warp_cubic", image, cy, cx, mode, cval,
-                   _WEIGHT_FN["bspline" if cubic == "bspline" else "catmull"])
+    return _launch_cubic(image, cy, cx, mode, cval,
+                         _WEIGHT_FN["bspline" if cubic == "bspline"
+                                    else "catmull"])

@@ -16,12 +16,20 @@ bf16 screen and HIGH->HIGHEST clamp were TPU devices, and this is the
 same strict chunk merge in a single pass, in float32.
 
 CUDA route, two launches on the current stream: stage 1 is the grouped
-sweep's ``sweep_stage1`` (``csrc/sweep.cu``) with one group and one band
-run, into a (P, n, 2 W1) float32 scratch; stage 2 is
-``csrc/zoom_sweep.cu``, which streams T and the column basis through
-shared memory (any W1 that is a multiple of 64) and keeps the tournament
-in registers. Bound on an H100 by stage 2's P*n*m*W1 complex
-multiply-adds in float32 FMA. Launch count: "zoom_sweep".
+sweep's ``sweep_stage1`` (``csrc/sweep.cu``, float32 FMA) with one group
+and one band run, into a (P, n, 2 W1) float32 scratch T; stage 2 is
+``csrc/zoom_sweep.cu`` on the tensor cores in 3xTF32 (each float32
+product as lo.hi + hi.lo + hi.hi of TF32 halves; one float32
+tensor-core chain per 32 columns of W1, since the tensor cores truncate
+their adds, and the chains' sums added in float32 registers with
+rounding to nearest), with T and the column basis streamed through a
+cp.async ring and the tournament in registers. The eager path on it
+lies nearer the same path with a float64 zoom sweep than the path on
+the float32 twin does (chip_smoke.py, phase 5). Shape limits: n, m and
+W1 multiples of 64, W0 a multiple of 16. Bound on an H100 by stage 2's
+P*n*m*8*W1 FLOP, three times over, at the dense TF32 rate (about 26 ms
+for the three 4096^2 bench peaks; 65 ms in float32 FMA, the kernel this
+one replaced). Launch count: "zoom_sweep".
 
 The plain twin :func:`zoom_sweep_plain` is the reference's einsum and
 where-tournament (``_wfr_sweep_zoom``'s scan body), chunked over the
@@ -67,7 +75,8 @@ def zoom_sweep_plain(Sr, Si, gx, gy, A0c, A0s, A1c, A1s, dr=None,
     return out
 
 
-def _zoom_sweep_cuda(Sr, Si, gx, gy, A0c, A0s, A1c, A1s, dr):
+def _check(Sr, Si, gx, gy, A0c, A0s, A1c, A1s):
+    """Raise unless the operands are what the two launches take."""
     W0, W1 = Sr.shape
     P = gx.shape[0]
     n, m = A0c.shape[0], A1c.shape[0]
@@ -82,11 +91,30 @@ def _zoom_sweep_cuda(Sr, Si, gx, gy, A0c, A0s, A1c, A1s, dr):
             f"zoom_sweep kernel needs n, m, W1 multiples of {TILE}, W0 a "
             f"multiple of 16 and P >= 1 (got n={n}, m={m}, W0={W0}, "
             f"W1={W1}, P={P})")
+
+
+def stage1(Sr, Si, gx, gy, A0c, A0s):
+    """Stage 1 on the card (checked operands): T (P, n, 2 W1), the rows
+    [Re | Im] of ((A0c + i A0s) . gx_i) @ (Sr + i Si) . gy_i."""
+    W0, W1 = Sr.shape
+    P, n, dev = gx.shape[0], A0c.shape[0], Sr.device
     run = torch.zeros((P,), dtype=torch.int32, device=dev)
-    A1cT = A1c.T.contiguous()
-    A1sT = A1s.T.contiguous()
-    T = torch.empty((P, n, 2 * W1), dtype=f32, device=dev)
-    ba = torch.empty((n, m), dtype=f32, device=dev)
+    T = torch.empty((P, n, 2 * W1), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        _build.check(_build.bind("sweep_stage1", "ppppppppiiiiiip")(
+            Sr.data_ptr(), Si.data_ptr(), gx.data_ptr(), gy.data_ptr(),
+            A0c.data_ptr(), A0s.data_ptr(), run.data_ptr(), T.data_ptr(),
+            1, 1, P, n, W0, W1, torch.cuda.current_stream(dev).cuda_stream),
+            "sweep_stage1")
+    return T
+
+
+def stage2(T, A1c, A1s, dr):
+    """Stage 2 and the tournament on the card (checked operands): the
+    outputs of :func:`zoom_sweep` from stage 1's T."""
+    P, n, W1 = T.shape[0], T.shape[1], T.shape[2] // 2
+    m, dev = A1c.shape[0], T.device
+    ba = torch.empty((n, m), dtype=torch.float32, device=dev)
     br = torch.empty_like(ba)
     bi = torch.empty_like(ba)
     bx = torch.empty((n, m), dtype=torch.int32, device=dev)
@@ -94,18 +122,11 @@ def _zoom_sweep_cuda(Sr, Si, gx, gy, A0c, A0s, A1c, A1s, dr):
     ph = torch.empty_like(ba) if emit else ba
     wt = torch.empty_like(ba) if emit else ba
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        s1 = _build.bind("sweep_stage1", "ppppppppiiiiiip")
-        _build.check(s1(Sr.data_ptr(), Si.data_ptr(), gx.data_ptr(),
-                        gy.data_ptr(), A0c.data_ptr(), A0s.data_ptr(),
-                        run.data_ptr(), T.data_ptr(),
-                        1, 1, P, n, W0, W1, stream), "sweep_stage1")
-        s2 = _build.bind("zoom_sweep_stage2", "pppppppppiiiiip")
-        _build.check(s2(T.data_ptr(), A1cT.data_ptr(), A1sT.data_ptr(),
-                        ba.data_ptr(), br.data_ptr(), bi.data_ptr(),
-                        bx.data_ptr(), ph.data_ptr(), wt.data_ptr(),
-                        P, n, m, W1, int(dr) if emit else -1, stream),
-                     "zoom_sweep_stage2")
+        _build.check(_build.bind("zoom_sweep_stage2", "pppppppppiiiiip")(
+            T.data_ptr(), A1c.data_ptr(), A1s.data_ptr(), ba.data_ptr(),
+            br.data_ptr(), bi.data_ptr(), bx.data_ptr(), ph.data_ptr(),
+            wt.data_ptr(), P, n, m, W1, int(dr) if emit else -1,
+            torch.cuda.current_stream(dev).cuda_stream), "zoom_sweep_stage2")
     out = (ba, br, bi, bx)
     return out + (ph, wt) if emit else out
 
@@ -125,6 +146,7 @@ def zoom_sweep(Sr, Si, gx, gy, A0c, A0s, A1c, A1s, dr=None):
         return zoom_sweep_plain(Sr, Si, gx, gy, A0c, A0s, A1c, A1s, dr)
     if Sr.device.type != "cuda":
         raise ValueError(f"zoom_sweep: unsupported device {Sr.device}")
-    out = _zoom_sweep_cuda(Sr, Si, gx, gy, A0c, A0s, A1c, A1s, dr)
+    _check(Sr, Si, gx, gy, A0c, A0s, A1c, A1s)
+    out = stage2(stage1(Sr, Si, gx, gy, A0c, A0s), A1c, A1s, dr)
     _build.launches["zoom_sweep"] += 1
     return out

@@ -160,6 +160,164 @@ def test_zoom_sweep_kernel_wide_window(dev):
     assert torch.allclose(got[5][same], want[5][same], rtol=1e-5, atol=1e-5)
 
 
+def _zoom_agree(got, want, phase_weight=True):
+    """chip_smoke.py check_zoom's bounds: winners agree on > 99%; where
+    they agree |M|^2 within rtol 1e-4 (atol 1e-7 of its max), Re/Im
+    within 1e-3 of max |M|, and when `phase_weight` the phase within
+    1e-5 rad where |M|^2 >= 1e-6 of its max and the weight within rtol
+    1e-5 (atol 1e-6)."""
+    same = got[3] == want[3]
+    assert float(same.float().mean()) > 0.99
+    amax = float(want[0].max())
+    d = [(g - w).abs() for g, w in zip(got, want)]
+    assert float((d[0] - 1e-4 * want[0].abs())[same].max()) <= 1e-7 * amax
+    for k in (1, 2):
+        assert float(d[k][same].max()) <= 1e-3 * amax ** 0.5
+    if phase_weight:
+        live = same & (want[0] >= 1e-6 * amax)
+        dph = torch.remainder(got[4] - want[4] + np.pi, 2 * np.pi) - np.pi
+        assert float(dph.abs()[live].max()) <= 1e-5
+        assert float((d[5] - 1e-5 * want[5].abs())[same].max()) <= 1e-6
+
+
+def _zoom_float64(ops):
+    """Every candidate's M (P, n, m), complex128, from the float32
+    operands computed in float64."""
+    Sr, Si, gx, gy, A0c, A0s, A1c, A1s = (o.double() for o in ops)
+    g = gx[:, :, None] * gy[:, None, :]
+    Tr = A0c @ (g * Sr) - A0s @ (g * Si)
+    Ti = A0c @ (g * Si) + A0s @ (g * Sr)
+    return torch.complex(Tr @ A1c.T - Ti @ A1s.T, Tr @ A1s.T + Ti @ A1c.T)
+
+
+@pytest.mark.parametrize("P", [1, 49])
+@pytest.mark.parametrize("W1", [64, 128, 256, 512])
+def test_zoom_sweep_tensor_core_kernel(dev, W1, P):
+    """The 3xTF32 stage 2 against the twin at every window width from 64
+    to 512 (8192^2), with one candidate and with 49 (past the
+    reference's 48-candidate chunk), on a 128 x 192 frame, at
+    check_zoom's bounds; with P = 49, candidates 7 and 30 are identical,
+    so they tie wherever they lead and 30 never wins. With one candidate
+    no tournament lifts |M| off zero, and where |M| is 1e-3 of its
+    maximum even the float32 twin's phase is ~4e-5 rad from a float64
+    product, so the phase and the weight are held through M instead:
+    against the float64 product, the kernel's rms error in M stays
+    within 1e-5 of the rms of M (the weight's rtol), at every P."""
+    from pygpa_tpu_torch.ops import zoom_sweep as tz
+    ops = _zoom_ops(P, 64, W1, 128, 192, 30 + W1 + P, dev)
+    if P > 1:
+        ops[2][30] = ops[2][7]
+        ops[3][30] = ops[3][7]
+    before = _build.launches["zoom_sweep"]
+    got = tz.zoom_sweep(*ops, dr=10)
+    want = tz.zoom_sweep_plain(*ops, dr=10)
+    assert _build.launches["zoom_sweep"] == before + 1
+    assert got[3].dtype == torch.int32
+    assert all(bool(torch.isfinite(g).all()) for g in got[:3])
+    _zoom_agree(got, want, phase_weight=P > 1)
+    if P > 1:
+        assert not (got[3] == 30).any() and (got[3] == 7).any()
+    M64 = _zoom_float64(ops)
+
+    ref = M64.gather(0, got[3].long()[None])[0]
+    err = torch.complex(got[1].double(), got[2].double()) - ref
+    rel = float(err.abs().pow(2).mean().sqrt() / ref.abs().pow(2).mean()
+                .sqrt())
+    assert rel <= 1e-5, rel
+
+
+def test_zoom_sweep_kernel_zero_window_and_refusals(dev):
+    """An all-zero window: every |M|^2 is 0, so every pixel keeps index
+    0 and M = 0 (strict '>' from a zero start), phase 0 and weight 0. A
+    window width off the multiple of 64 is refused."""
+    from pygpa_tpu_torch.ops import zoom_sweep as tz
+    ops = _zoom_ops(5, 64, 64, 64, 128, 3, dev)
+    ops[0].zero_()
+    ops[1].zero_()
+    got = tz.zoom_sweep(*ops, dr=4)
+    for g in got:
+        assert not g.any()
+    with pytest.raises(ValueError, match="multiples of 64"):
+        tz.zoom_sweep(*_zoom_ops(2, 64, 96, 64, 64, 4, dev))
+
+
+@pytest.mark.parametrize("C", [1, 2, 4])
+@pytest.mark.parametrize("n,m", [(300, 517), (97, 1030)])
+def test_bilinear_plane_stack_kernel(dev, n, m, C):
+    """The bilinear kernel on a stack (C, n, m) in one launch, against
+    the stack twin (within 1e-6 of the image's maximum: the same float32
+    operations in the same order) and against one launch per plane (bit
+    for bit), in both modes with cval != 0, at sides off every multiple
+    of 32, for smooth, sawtooth and far-outside positions."""
+    from pygpa_tpu_torch.ops import warp as tw
+    stack = _planes((C, n, m), 40 + C, dev)
+    for kind in ("smooth", "sawtooth", "far"):
+        c = _warp_coords(kind, n, m, dev)
+        for mode in tw.MODES:
+            before = _build.launches["warp_bilinear"]
+            got = tw.warp_bilinear(stack, c[0], c[1], mode, -2.5)
+            assert _build.launches["warp_bilinear"] == before + 1
+            want = tw.warp_bilinear_plain(stack, c[0], c[1], mode, -2.5)
+            assert got.shape == (C,) + c.shape[1:]
+            assert float((got - want).abs().max()) <= 1e-6 * float(
+                stack.abs().max()), (kind, mode)
+            for k in range(C):
+                assert torch.equal(got[k], tw.warp_bilinear(
+                    stack[k], c[0], c[1], mode, -2.5))
+
+
+def test_bilinear_wrapper_refuses(dev):
+    """Inputs the bilinear kernel does not take raise before a launch:
+    a wrong dtype, a non-contiguous image or coordinate plane, C = 5,
+    coordinate planes of two shapes or on two devices, an unknown
+    mode."""
+    from pygpa_tpu_torch.ops import warp as tw
+    img = _planes((2, 64, 96), 5, dev)
+    c = _warp_coords("smooth", 64, 96, dev)
+    bad = [((img.double(), c[0], c[1]), {}),
+           ((img, c[0].double(), c[1]), {}),
+           ((img[:, :, ::2], c[0], c[1]), {}),
+           ((img, c[0].t(), c[1].t()), {}),
+           ((_planes((5, 64, 96), 6, dev), c[0], c[1]), {}),
+           ((img, c[0], c[1][:, :10]), {}),
+           ((img, c[0].cpu(), c[1]), {}),
+           ((img, c[0], c[1]), {"mode": "wrap"})]
+    before = _build.launches["warp_bilinear"]
+    for args, kw in bad:
+        with pytest.raises(ValueError):
+            tw.warp_bilinear(*args, **kw)
+    assert _build.launches["warp_bilinear"] == before
+
+
+def test_map_coordinates_bilinear_takes_views(dev):
+    """The public bilinear routes take views: map_coordinates(order=1)
+    of a cropped image at coordinates that are a transposed view, and
+    the plane-stack route on a cropped stack, launch the kernel once each
+    and give, bit for bit, the kernel's result on contiguous copies of
+    the same values (and the twin's within 1e-6 of the image's max)."""
+    from pygpa_tpu_torch.core import interp as ti
+    from pygpa_tpu_torch.ops import warp as tw
+    big = _planes((2, 160, 200), 9, dev)
+    c = torch.empty((2, 140, 100), device=dev).transpose(1, 2)
+    c.copy_(_warp_coords("smooth", 100, 140, dev))
+    img, stack = big[0, 20:120, 30:170], big[:, 20:120, 30:170]
+    assert not (img.is_contiguous() or stack.is_contiguous()
+                or c.is_contiguous())
+    for mode in tw.MODES:
+        before = _build.launches["warp_bilinear"]
+        got = ti.map_coordinates(img, c, order=1, mode=mode)
+        got_stack = ti._map_coordinates_stack(stack, c, 1, mode)
+        assert _build.launches["warp_bilinear"] == before + 2
+        cc = c.contiguous()
+        assert torch.equal(got, tw.warp_bilinear(img.contiguous(), cc[0],
+                                                 cc[1], mode))
+        assert torch.equal(got_stack, tw.warp_bilinear(
+            stack.contiguous(), cc[0], cc[1], mode))
+        want = tw.warp_bilinear_plain(stack, c[0], c[1], mode)
+        assert float((got_stack - want).abs().max()) <= 1e-6 * float(
+            stack.abs().max())
+
+
 def test_multigrid_1152_runs_early_stopping_levels(dev):
     """1152^2 with unwrap_coarse=4: the 288^2 coarse level (not a
     multiple of 128) takes the early-stopping loop on the card, as the

@@ -174,3 +174,24 @@ def test_routes_on_the_cpu():
             fn(meta, meta, meta)
     with pytest.raises(NotImplementedError):
         TI.map_coordinates(img, c, order=3, mode="wrap")
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("mode", ["nearest", "constant"])
+@pytest.mark.parametrize("C", [1, 2, 4])
+def test_bilinear_plane_stack_is_bit_identical_per_plane(C, mode, dtype):
+    """The bilinear twin on a stack (C, n, m) and the private stack route
+    (core.interp._map_coordinates_stack) against one call per plane: the
+    same float operations, so equal bit for bit, for positions inside,
+    on and far beyond the border and across sawtooth seams."""
+    stack = torch.from_numpy(_img((C, 40, 56), 10 + C).astype(dtype))
+    c = np.concatenate([_far_coords(40, 56), _sawtooth(40, 56)], axis=1)
+    c = torch.from_numpy(c.astype(dtype))
+    got = TW.warp_bilinear_plain(stack, c[0], c[1], mode, -1.5)
+    assert got.shape == (C,) + c.shape[1:] and got.dtype == stack.dtype
+    via_route = TI._map_coordinates_stack(stack, c, 1, mode)
+    for k in range(C):
+        assert torch.equal(got[k], TW.warp_bilinear_plain(
+            stack[k], c[0], c[1], mode, -1.5))
+        assert torch.equal(via_route[k], TI.map_coordinates(
+            stack[k], c, order=1, mode=mode))

@@ -135,6 +135,22 @@ def test_kernels_without_nvcc_raise(monkeypatch, tmp_path):
         _build.load()
 
 
+def test_bind_caches_per_name_and_layout(monkeypatch):
+    """_build.bind declares a launcher's argument types once per (name,
+    layout): a repeated call returns the same function, and a second
+    layout of the same name gets its own function with its own types,
+    never the first caller's (the C library stands in for the kernels')."""
+    import ctypes
+    monkeypatch.setattr(_build, "_lib", ctypes.CDLL(None))
+    monkeypatch.setattr(_build, "_bound", {})
+    one = _build.bind("abs", "i")
+    assert _build.bind("abs", "i") is one
+    two = _build.bind("abs", "f")
+    assert two is not one
+    assert one.argtypes == [ctypes.c_int] and two.argtypes == [ctypes.c_float]
+    assert one(-7) == 7
+
+
 def test_wrappers_dispatch_on_device():
     """A CPU tensor runs the plain twin and counts no launch; a tensor
     on any other device goes to the kernel path or raises, never to the

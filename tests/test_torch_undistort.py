@@ -57,6 +57,29 @@ def test_invert_u_overlap_matches(n, coarse, edge):
     _close(got, want, 1e-5 * np.abs(us).max())
 
 
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_coarse_inversion_samples_plane_stacks(dtype, monkeypatch):
+    """invert_u_overlap(coarse=4) samples u's two planes together in each
+    of the 17 Picard steps and the 2 Newton steps, and the four gradient
+    planes of J together: 20 bilinear samplings of stacks (on the card,
+    20 launches), with the result of the reference."""
+    from pygpa_tpu_torch.ops import warp as TW
+    calls = []
+    plain = TW.warp_bilinear_plain
+
+    def count(image, *a):
+        calls.append(tuple(image.shape[:-2]))
+        return plain(image, *a)
+
+    monkeypatch.setattr(TW, "warp_bilinear_plain", count)
+    us = _field(256, dtype)
+    got = TP.invert_u_overlap(torch.from_numpy(us), coarse=4)
+    assert sorted(calls) == [(2,)] * 19 + [(4,)]
+    want = JP.invert_u_overlap(jnp.asarray(us), coarse=4)
+    _close(got, want, 1e-10 if dtype == np.float64 else 1e-5
+           * np.abs(us).max())
+
+
 @pytest.mark.parametrize("n,coarse", [(128, 1), (256, 4)])
 def test_undistort_image_matches(n, coarse):
     img = np.random.default_rng(3).normal(size=(n, n))

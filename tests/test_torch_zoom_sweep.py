@@ -176,3 +176,165 @@ def test_wrapper_dispatch():
     assert sum(_build.launches.values()) == 0
     with pytest.raises(ValueError, match="device"):
         TZ.zoom_sweep(*[a.to("meta") for a in ops])
+
+
+def _tf32_rna(x):
+    """cvt.rna.tf32.f32 by bit operations: the float32 mantissa rounded
+    to its top 10 bits, half away from zero (add half of the 13 dropped
+    bits' unit to the magnitude, then clear them)."""
+    b = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return ((b + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _split(x):
+    """The kernel's split: hi = tf32(x), lo = tf32(x - hi)."""
+    hi = _tf32_rna(x)
+    return hi, _tf32_rna(x - hi)
+
+
+def _f32_toward_zero(x):
+    """float64 -> float32 rounded toward zero: how a tensor-core mma
+    leaves its float32 accumulator."""
+    f = x.astype(np.float32)
+    over = np.abs(f.astype(np.float64)) > np.abs(x)
+    return np.where(over, np.nextafter(f, np.float32(0)), f)
+
+
+def _stage2_tensor_cores(T, A1c, A1s, passes, chain=32):
+    """csrc/zoom_sweep.cu's stage 2 as its tensor cores compute it: M_r =
+    Tr A1c^T - Ti A1s^T and M_i = Tr A1s^T + Ti A1c^T (P, n, m) from T
+    (P, n, 2 W1), in the kernel's order (per 8-deep group of W1: the Tr
+    product, then the Ti one), each float32 product a b taken as the
+    TF32 products `passes` ((a part, b part) in order, of 'hi' and 'lo')
+    into a float32 accumulator. One mma adds its 8 exact products to the
+    accumulator and truncates the sum to float32, as the card's tensor
+    cores do. A chain of mma runs over `chain` columns of W1 (the
+    kernel's 32: one stage) from zero, and the chains' sums are added
+    in float32, rounded to nearest."""
+    W1 = A1c.shape[1]
+    halves = {"r": _split(T[..., :W1]), "i": _split(T[..., W1:])}
+    basis = {"c": _split(A1c), "s": _split(A1s), "-s": _split(-A1s)}
+    part = {"hi": 0, "lo": 1}
+    terms = {"r": (("r", "c"), ("i", "-s")), "i": (("r", "s"), ("i", "c"))}
+    shape = T.shape[:2] + A1c.shape[:1]
+    total = {out: np.zeros(shape, np.float32) for out in terms}
+    for k0 in range(0, W1, chain):
+        acc = {out: np.zeros(shape, np.float32) for out in terms}
+        for k in range(k0, min(k0 + chain, W1), 8):
+            for out, pairs in terms.items():
+                for h, b in pairs:
+                    for pa, pb in passes:
+                        a = halves[h][part[pa]][..., k:k + 8]
+                        bb = basis[b][part[pb]][:, k:k + 8]
+                        acc[out] = _f32_toward_zero(acc[out] + np.einsum(
+                            "pnk,mk->pnm", a.astype(np.float64),
+                            bb.astype(np.float64)))
+        for out in terms:
+            total[out] = total[out] + acc[out]
+    return total["r"], total["i"]
+
+
+def _stage1_float32(ops, W1):
+    """Stage 1's T (P, n, 2 W1) in float32 from _operands' arrays, and
+    the float64 tournament of the stage-2 products of that T."""
+    Sr, Si, gx, gy, A0c, A0s, A1c, A1s = ops
+    Swr = gx[:, :, None] * Sr[None] * gy[:, None, :]
+    Swi = gx[:, :, None] * Si[None] * gy[:, None, :]
+    T = np.concatenate([A0c @ Swr - A0s @ Swi, A0c @ Swi + A0s @ Swr],
+                       -1).astype(np.float32)
+    T64, c64, s64 = (a.astype(np.float64) for a in (T, A1c, A1s))
+    Tr, Ti = T64[..., :W1], T64[..., W1:]
+    return T, _tournament(Tr @ c64.T - Ti @ s64.T, Tr @ s64.T + Ti @ c64.T)
+
+
+def _tournament(Mr, Mi):
+    """Strict '>' from a zero start over the candidates (the kernel's
+    and the twin's rule): best |M|^2, Re, Im, index."""
+    ba = np.zeros(Mr.shape[1:], Mr.dtype)
+    br, bi = np.zeros_like(ba), np.zeros_like(ba)
+    bx = np.zeros(ba.shape, np.int32)
+    for i in range(Mr.shape[0]):
+        a = Mr[i] * Mr[i] + Mi[i] * Mi[i]
+        better = a > ba
+        ba, br, bi = (np.where(better, x, y) for x, y in
+                      ((a, ba), (Mr[i], br), (Mi[i], bi)))
+        bx = np.where(better, i, bx)
+    return ba, br, bi, bx
+
+
+def _check_zoom_excess(got, want):
+    """chip_smoke.py check_zoom's numbers, each as a fraction of its
+    bound (<= 1 passes): winner disagreement over 1%, |M|^2 beyond rtol
+    1e-4 (atol 1e-7 of its max), Re and Im beyond 1e-3 of max |M|, the
+    phase beyond 1e-5 rad where |M|^2 >= 1e-6 of its max, the weight
+    sqrt(|M|^2) beyond rtol 1e-5 (atol 1e-6)."""
+    same = got[3] == want[3]
+    amax = want[0].max()
+    top = np.sqrt(amax)
+    live = same & (want[0] >= 1e-6 * amax)
+    dph = np.angle(np.exp(1j * (np.arctan2(got[2], got[1]).astype(np.float64)
+                                - np.arctan2(want[2], want[1]))))
+    wg, ww = np.sqrt(got[0]).astype(np.float64), np.sqrt(want[0])
+    return {
+        "winners": (1 - same.mean()) / 0.01,
+        "absq": max((np.abs(got[0] - want[0]) - 1e-4 * want[0])[same].max(),
+                    0) / (1e-7 * amax),
+        "re": np.abs(got[1] - want[1])[same].max() / (1e-3 * top),
+        "im": np.abs(got[2] - want[2])[same].max() / (1e-3 * top),
+        "phase": np.abs(dph[live]).max() / 1e-5,
+        "weight": max((np.abs(wg - ww) - 1e-5 * ww)[same].max(), 0) / 1e-6,
+    }
+
+
+def test_tf32_rounding_by_bits():
+    """cvt.rna's rule: 10 mantissa bits, a half ulp rounds away from zero
+    on both signs; hi + lo keeps x to 2^-22 of its size."""
+    one = np.float32(1.0)
+    half = np.float32(2.0 ** -11)          # half a TF32 ulp at 1
+    got = _tf32_rna(np.array([one + half, -(one + half), one + half / 2,
+                              np.float32(3.0)], np.float32))
+    np.testing.assert_array_equal(
+        got, np.array([1 + 2.0 ** -10, -(1 + 2.0 ** -10), 1, 3], np.float32))
+    x = np.random.default_rng(7).normal(size=4096).astype(np.float32)
+    hi, lo = _split(x)
+    assert not (hi.view(np.uint32) & 0x1FFF).any()
+    assert not (lo.view(np.uint32) & 0x1FFF).any()
+    err = np.abs(hi.astype(np.float64) + lo - x) / np.abs(x)
+    assert err.max() <= 2.0 ** -22
+
+
+def test_three_tf32_passes_meet_the_kernel_bounds_and_one_does_not():
+    """The zoom kernel's 3xTF32 arithmetic (lo.hi, hi.lo, hi.hi per
+    product, truncating float32 accumulation), emulated at P = 3, n = m
+    = 64, W1 = 64, stays within chip_smoke.py's check_zoom bounds of the
+    float64 product of the same stage-1 output; one TF32 pass (hi.hi)
+    misses the 1e-5 rad phase bound, which is why the kernel takes
+    three."""
+    ops = _operands(8, 3, 64, 64, 64, 64, glo=0.2)
+    A1c, A1s = ops[6], ops[7]
+    T, want = _stage1_float32(ops, 64)
+    three = _check_zoom_excess(_tournament(*_stage2_tensor_cores(
+        T, A1c, A1s, (("lo", "hi"), ("hi", "lo"), ("hi", "hi")))), want)
+    one = _check_zoom_excess(_tournament(*_stage2_tensor_cores(
+        T, A1c, A1s, (("hi", "hi"),))), want)
+    assert max(three.values()) <= 1, three
+    assert one["phase"] > 1, one
+
+
+def test_truncating_chains_restart_every_stage():
+    """Why the kernel restarts its tensor-core chain every 32 columns of
+    W1: the tensor cores truncate each mma's sum to float32, and over one
+    chain of W1 = 512 columns (384 mma per output) that shrinks |M| past
+    check_zoom's weight rtol of 1e-5 against the float64 product, while
+    one chain per 32-column stage, its sums added in float32 rounded to
+    nearest, stays within every check_zoom bound (emulated at P = 3,
+    W0 = 64, n = m = 64)."""
+    ops = _operands(21, 3, 64, 512, 64, 64, glo=0.2)
+    T, want = _stage1_float32(ops, 512)
+    passes = (("lo", "hi"), ("hi", "lo"), ("hi", "hi"))
+    per_stage = _check_zoom_excess(_tournament(*_stage2_tensor_cores(
+        T, ops[6], ops[7], passes, chain=32)), want)
+    one_chain = _check_zoom_excess(_tournament(*_stage2_tensor_cores(
+        T, ops[6], ops[7], passes, chain=512)), want)
+    assert max(per_stage.values()) <= 1, per_stage
+    assert one_chain["weight"] > 1, one_chain
