@@ -8,22 +8,26 @@ Phases, each printed on its own lines:
 1. the card (nvidia-smi name and power limit), torch and CUDA versions,
    TF32 switched off for matmuls and cuDNN;
 2. the build of the CUDA kernels (csrc/*.cu, nvcc, timed), ptxas's
-   registers and spills of the zoom stage-2 and bilinear kernels, and
-   the proof that the zoom stage 2 runs on the tensor cores: HMMA
-   instructions in its SASS (cuobjdump -sass), or the phase fails;
+   registers and spills of the two sweeps' stage-2 kernels and of the
+   bilinear and displacement-form cubic warps, and the proof that both
+   stage 2s run on the tensor cores: HMMA instructions in their SASS
+   (cuobjdump -sass), or the phase fails;
 3. each kernel against its plain PyTorch twin on the card, on the
-   inputs the 4096^2 bench extractor hands it (captured from one
-   extractor run), with the error bound stated beside the check and
-   both times from CUDA events after warm-up;
+   inputs the 4096^2 paths hand it (captured from one run of each),
+   with the error bound stated beside the check and both times from
+   CUDA events after warm-up;
 4. the bench extractor itself: make_displacement_extractor((4096,
    4096), ks, chunk=4, unwrap_coarse=4, device="cuda") on the bench
    fixture (r_k 0.02, theta 5 deg, kappa 1.005, psi 10 deg, order 2)
    and on the Gaussian-envelope deformed fixture, held to the bench's
    three accuracy gates (interior < 0.002 px, dc-free < 0.0012 px,
-   deformed < 0.075 px after gaussian_deconvolve); launch counters
-   reset just before and read just after show that every kernel ran;
-   seconds per image and Mpix/s over 5 runs after warm-up, per-stage
-   CUDA-event times and peak device memory;
+   deformed < 0.075 px after gaussian_deconvolve, its margin printed)
+   and to the path with a float64 grouped sweep (interior p99 < 5e-4
+   px, max < 1e-2 px; the path with the sweep's float32 twin, the other
+   kernels as built, printed beside it); launch
+   counters reset just before and read just after show that every
+   kernel ran; seconds per image and Mpix/s over 5 runs after warm-up,
+   per-stage CUDA-event times and peak device memory;
 5. the README's eager path, extract_displacement_field(img, ks) on the
    same fixture (one zoom sweep per Bragg peak, the exact CG on the DCT
    kernels), and
@@ -31,12 +35,13 @@ Phases, each printed on its own lines:
    make_displacement_extractor((4096, 4096), ks, device="cuda") (the
    grouped sweep, then the exact CG on the DCT kernels);
    each with its launch counts, the whole path against the same path
-   on the plain twins (interior p99 |du| < 1e-4 px, max < 1e-2 px; in
-   phase 5, whose zoom kernel sums more accurately than its float32
-   twin, the p99 is held instead to the path with a float64 zoom sweep:
-   < 5e-4 px and no further than the twins' own path), the
-   bench's three gates, seconds per image over 3 runs after warm-up,
-   per-stage CUDA-event times and peak device memory.
+   on the plain twins (max < 1e-2 px: near-tie winner flips) and, since
+   the sweep kernels sum more accurately than their float32 twins,
+   against the path with that sweep computed in float64 (interior p99
+   < 5e-4 px and no further than the twins' own path, max < 1e-2 px;
+   the float64 path's own interior maxima printed), the bench's three
+   gates, seconds per image over 3 runs after warm-up, per-stage
+   CUDA-event times and peak device memory.
 
 7. the README's undistortion, two runs: (a) config 3 of
    benchmarks/run_all.py as it builds it (2048^2,
@@ -45,37 +50,45 @@ Phases, each printed on its own lines:
    undistort rel rms < 0.05) and to 20 bilinear launches, and (b) the
    default undistort_image(img_d, u_true) (coarse 1, order 3) on the 4096^2
    deformed fixture against the clean lattice, rel rms < 0.05 on the
-   128-px interior;
+   128-px interior, and to 37 cubic launches (36 Picard steps, one
+   final warp);
 8. the README's unit cell, two runs: (a) config 4 (unit_cell_average
    with only_generate_func at z = 2, then expand_unitcell at 4096^2),
    and (b) the same calls on the deformed fixture with u = u_true, each
    held to ucell_roundtrip_rel_rms < 0.05 on the 128-px interior;
    each run with its launch counts, the whole path against the same path
    on the plain twins (max |delta| / max |ref| < 1e-4), seconds per call
-   after a warm-up and peak device memory.
+   after a warm-up and peak device memory;
+9. two short extractor runs on config 1's lattice (r_k 0.1, theta 7
+   deg): at 2048^2 with the defaults (the grouped sweep at Wb = 448)
+   and at 500^2 with unwrap_coarse=4 (the multigrid's V-branch on its
+   twins), each held to finite output, config 1's gate (interior max
+   |u| < 0.02 px) and its plain versions' path.
 
-Phase 3 also holds the zoom-sweep kernel (all three peaks of the eager
-path; stage 1 and stage 2 timed apart, with stage 2's float32-FMA and
-3xTF32 bounds), the four DCT directions (on the exact CG's own
-residual), the warp kernels (the first 'nearest' and the final
-'constant' cubic warp of phase 7b, the first bilinear warp of 7a's
-coarse inversion: both planes of u in one launch, timed per call and as
-device time from torch.profiler beside F.grid_sample on the same
-planes), and the drizzle and expand kernels (phase 8a's inputs) against
-their twins; the drizzle kernel also runs twice and must repeat bit for
-bit. For
+Phase 3 also holds the grouped sweep (kernel and float32 twin against
+the float64 twin; stages 1, 2 and the uv epilogue timed apart, with
+stage 2's float32-FMA and 3xTF32 bounds), the zoom-sweep kernel (all
+three peaks of the eager path; stage 1 and stage 2 timed apart, with
+stage 2's float32-FMA and 3xTF32 bounds), the four DCT directions (on
+the exact CG's own residual), the warp kernels (the displacement-form
+cubic warp on the first Picard step of phase 7b, both planes in place,
+and on its final 'constant' warp, with the coordinate form on the same
+positions; the first bilinear warp of 7a's coarse inversion: both
+planes of u in one launch, timed per call and as device time from
+torch.profiler beside F.grid_sample on the same planes), and the
+drizzle and expand kernels (phase 8a's inputs) against their twins;
+the drizzle kernel also runs twice and must repeat bit for bit. For
 each kernel it computes the bound from those inputs (the larger of
 their bytes, each input read once and each output written once, over
-3.35 TB/s and their float32 operations over 67 TFLOP/s: the matrix
-products of the grouped sweep's twin from torch's flop counter, the
-zoom sweep's 8 P n W1 (W0 + m) from its shapes, 2.5 n log2 n
-per DCT line, the CG's FFT-form DCT pairs and stencil, a per-element
-count for the stencils, gathers and scatters; the zoom sweep's stage 2
-three times over at 495 TFLOP/s dense TF32) and, where one PyTorch
-call computes the same function, times it and holds it to the kernel:
-F.grid_sample for the bilinear warp (the drizzle has none: index_add
-scatters taps that other calls compute first). The DCT rows print each
-direction's time beside its twin's and its bound.
+3.35 TB/s and their float32 operations over 67 TFLOP/s: the sweeps'
+8 G P n Wb (W0 + m) from their shapes with stage 2 three times over at
+495 TFLOP/s dense TF32, 2.5 n log2 n per DCT line, the CG's FFT-form
+DCT pairs and stencil, a per-element count for the stencils, gathers
+and scatters) and, where one PyTorch call computes the same function,
+times it and holds it to the kernel: F.grid_sample for the bilinear
+warp (the drizzle has none: index_add scatters taps that other calls
+compute first). The DCT rows print each direction's time beside its
+twin's and its bound.
 
 Any failed check raises and the script exits non-zero. Without a CUDA
 card it fails at once. Its last two lines are the kernels JSON object
@@ -142,7 +155,9 @@ PATH_KERNELS = {4: ("sweep_uv", "presmooth", "applyq", "cg_poisson"),
                        "warp_cubic"),
                 "7b": ("warp_cubic",),
                 "8a": ("drizzle", "expand"),
-                "8b": ("drizzle", "expand")}
+                "8b": ("drizzle", "expand"),
+                "9a": ("sweep_uv",),
+                "9b": ()}
 REPS_NEW = 3        # timed runs of phases 7 and 8
 PATH_AGREE = 1e-4   # phases 7, 8: max |kernels - twins| / max |twins|
 GATE_UNWRAP_P99, GATE_UNWRAP_MAX, GATE_UNDISTORT = 0.02, 0.3, 0.05
@@ -353,37 +368,57 @@ def bilinear_library(args):
                                  padding_mode=pad, align_corners=True)
 
 
-def check_sweep(sw, args):
+SWEEP_BOUNDS = {"dudx_p99": 1e-3, "dudy_p99": 1e-3, "wnorm_rel_max": 5e-3,
+                "wnorm_rel_p99": 5e-5}
+
+
+def sweep_stats(got, want):
+    """check_sweep's numbers of one sweep's outputs against another's."""
     import torch
-    ux, uy, wn = sw.sweep_uv(*args)
-    px, py, pn = sw.sweep_uv_plain(*args)
+    ux, uy, wn = got
+    vx, vy, vn = want
+    dx = (ux - vx)[:, :, 1:].abs()
+    dy = (uy - vy)[:, 1:, :].abs()
+    dwn = (wn - vn).abs() / (vn.abs() + 1e-9)
+    q = torch.tensor([0.99], device=dx.device, dtype=dx.dtype)
+    return {"dudx_p99": float(torch.quantile(dx.flatten()[::7], q)),
+            "dudy_p99": float(torch.quantile(dy.flatten()[::7], q)),
+            "wnorm_rel_max": float(dwn.max()),
+            "wnorm_rel_p99": float(torch.quantile(dwn.flatten()[::7], q))}
+
+
+def check_sweep(sw, args):
+    """The grouped sweep kernel against its float32 twin and, with the
+    twin, against the twin computed in float64, with the flip-tolerant
+    bounds of tests/test_lockin_wfr.py's banded-vs-unbanded test (near-tie
+    winners may differ between two summation orders, so the p99s are
+    bounded tightly and the maxima loosely). Returns the largest absolute
+    difference from the float32 twin."""
+    import torch
+    got = sw.sweep_uv(*args)
+    f32 = sw.sweep_uv_plain(*args)
+    f64 = [t.float() for t in sw.sweep_uv_plain(*(
+        a.double() if torch.is_tensor(a) and a.is_floating_point() else a
+        for a in args))]
     torch.cuda.synchronize()
-    for name, t in (("dudx_s", ux), ("dudy_s", uy), ("wnorm", wn)):
+    for name, t in zip(("dudx_s", "dudy_s", "wnorm"), got):
         if not torch.isfinite(t).all():
             raise RuntimeError(f"sweep kernel: non-finite {name}")
-    dx = (ux - px)[:, :, 1:].abs()
-    dy = (uy - py)[:, 1:, :].abs()
-    dwn = ((wn - pn).abs() / (pn.abs() + 1e-9))
-    # flip-tolerant bounds (tests/test_lockin_wfr.py banded-vs-unbanded):
-    # near-tie winners may differ between two f32 summation orders, so
-    # the p99s are bounded tightly and the maxima loosely
-    q = torch.tensor([0.99], device=dx.device)
-    stats = {
-        "dudx_p99": float(torch.quantile(dx.flatten()[::7], q)),
-        "dudy_p99": float(torch.quantile(dy.flatten()[::7], q)),
-        "wnorm_rel_max": float(dwn.max()),
-        "wnorm_rel_p99": float(torch.quantile(dwn.flatten()[::7], q)),
-    }
-    max_abs = max(float(dx.max()), float(dy.max()),
-                  float((wn - pn).abs().max()))
-    say(f"  sweep_uv vs twin: {json.dumps(stats)} max_abs_err={max_abs!r}")
-    ok = (stats["dudx_p99"] < 1e-3 and stats["dudy_p99"] < 1e-3
-          and stats["wnorm_rel_max"] < 5e-3
-          and stats["wnorm_rel_p99"] < 5e-5)
+    ok = True
+    for what, a, b in (("kernel vs float32 twin", got, f32),
+                       ("kernel vs float64 twin", got, f64),
+                       ("float32 twin vs float64 twin", f32, f64)):
+        st = sweep_stats(a, b)
+        say(f"  sweep_uv {what}: {json.dumps(st)} (bounds "
+            f"{json.dumps(SWEEP_BOUNDS)})")
+        ok &= all(st[k] < v for k, v in SWEEP_BOUNDS.items())
+    max_abs = max(float((ux - px)[..., 1:].abs().max()) for ux, px in
+                  zip(got[:2], f32[:2]))
+    max_abs = max(max_abs, float((got[2] - f32[2]).abs().max()))
+    say(f"  sweep_uv max_abs_err (kernel vs float32 twin) {max_abs!r}")
     if not ok:
-        raise RuntimeError("sweep kernel disagrees with its twin beyond "
-                           "p99 < 1e-3 (dudx, dudy), wnorm rel max < 5e-3, "
-                           "p99 < 5e-5")
+        raise RuntimeError("sweep kernel or twin beyond the flip-tolerant "
+                           f"bounds {SWEEP_BOUNDS}")
     return max_abs
 
 
@@ -506,6 +541,7 @@ def plain_versions():
                                      zoom_sweep)
     swaps = [(warp, "warp_bilinear", warp.warp_bilinear_plain),
              (warp, "warp_cubic", warp.warp_cubic_plain),
+             (warp, "warp_cubic_disp", warp.warp_cubic_disp_plain),
              (drizzle, "drizzle", drizzle.drizzle_plain),
              (expand, "expand_cell", expand.expand_cell_plain),
              (sweep, "sweep_uv", sweep.sweep_uv_plain),
@@ -562,6 +598,44 @@ def float64_zoom():
         zs.zoom_sweep = real
 
 
+SWEEP_PATH_F64 = 5e-4  # phase 6: interior p99 |du| px from the float64
+#                        grouped sweep's path
+
+
+@contextlib.contextmanager
+def float64_sweep():
+    """The grouped-sweep wrapper swapped for its twin computed in float64
+    (outputs cast back to float32), every other kernel as built: the
+    path phases 4 and 6 hold the grouped kernel's path to."""
+    import torch
+    from pygpa_tpu_torch.ops import sweep as sw
+
+    def sweep64(*args):
+        out = sw.sweep_uv_plain(*(a.double() if torch.is_tensor(a)
+                                  and a.is_floating_point() else a
+                                  for a in args))
+        return tuple(o.float() for o in out)
+
+    real = sw.sweep_uv
+    sw.sweep_uv = sweep64
+    try:
+        yield
+    finally:
+        sw.sweep_uv = real
+
+
+@contextlib.contextmanager
+def float32_sweep():
+    """The grouped-sweep wrapper swapped for its float32 twin alone."""
+    from pygpa_tpu_torch.ops import sweep as sw
+    real = sw.sweep_uv
+    sw.sweep_uv = sw.sweep_uv_plain
+    try:
+        yield
+    finally:
+        sw.sweep_uv = real
+
+
 def interior_dist(u, ref, ks):
     """Interior p99 and max |u - ref| (px), the bench's border cut."""
     import torch
@@ -573,17 +647,20 @@ def interior_dist(u, ref, ks):
 
 
 def drive_path(num, label, call, call_deconv, img, img_d, u_true, ks,
-               zoom=False):
+               ref64, bound64):
     """Phases 5 and 6: one counted run, timed runs, the path against its
-    plain versions, the bench gates, stage times and peak memory.
-    Returns the counted run's launches.
+    plain versions and against the path with a float64 sweep, the bench
+    gates, stage times and peak memory. Returns the counted run's
+    launches.
 
-    The path with kernels is held to the path on the plain twins (p99 <
-    1e-4 px, max < 1e-2 px: near-tie winner flips). With `zoom` (phase 5,
-    whose zoom kernel computes its products more accurately than its
-    float32 twin) the p99 is held instead to the path with a float64
-    zoom sweep: p99 under ZOOM_PATH_F64 and no larger than the twins'
-    own path's, max < 1e-2 px."""
+    The sweep kernels compute their products more accurately than their
+    float32 twins, so a check against the twins' path measures rounding:
+    the path with kernels is held to the path on the plain twins only by
+    max < 1e-2 px (near-tie winner flips), and its interior p99 to the
+    path with the sweep computed in float64 (`ref64`, a context): under
+    `bound64` px and no further than the twins' own path; max < 1e-2
+    px. The float64 path's own interior maxima are printed beside the
+    gates'."""
     import torch
     from pygpa_tpu_torch.ops import _build
     call(img)                                      # warm-up
@@ -606,25 +683,23 @@ def drive_path(num, label, call, call_deconv, img, img_d, u_true, ks,
     with plain_versions():
         up = call(img)
     p99, dmax = interior_dist(u, up, ks)
-    if not zoom:
-        say(f"    with kernels vs plain versions: interior p99 |du| {p99!r} "
-            f"max {dmax!r} px (bounds 1e-4, 1e-2)")
-        ok = p99 < 1e-4 and dmax < 1e-2
-    else:
-        with float64_zoom():
-            u64 = call(img)
-        k99, kmax = interior_dist(u, u64, ks)
-        t99, tmax = interior_dist(up, u64, ks)
-        say(f"    with kernels vs plain versions: interior p99 |du| {p99!r} "
-            f"max {dmax!r} px (bound on max 1e-2)")
-        say(f"    vs the path with a float64 zoom sweep: with kernels p99 "
-            f"{k99!r} max {kmax!r} px, plain versions p99 {t99!r} max "
-            f"{tmax!r} px (bounds: p99 < {ZOOM_PATH_F64} and <= the plain "
-            f"versions', max < 1e-2)")
-        ok = dmax < 1e-2 and k99 < ZOOM_PATH_F64 and k99 <= t99 \
-            and kmax < 1e-2
-        del u64
-    del up
+    with ref64():
+        u64 = call(img)
+    k99, kmax = interior_dist(u, u64, ks)
+    t99, tmax = interior_dist(up, u64, ks)
+    say(f"    with kernels vs plain versions: interior p99 |du| {p99!r} "
+        f"max {dmax!r} px (bound on max 1e-2)")
+    say(f"    vs the path with a float64 sweep: with kernels p99 {k99!r} "
+        f"max {kmax!r} px, plain versions p99 {t99!r} max {tmax!r} px "
+        f"(bounds: p99 < {bound64} and <= the plain versions', max < 1e-2)")
+    b = 8 * int(np.ceil(1 / np.linalg.norm(ks, axis=1).min()))
+    ui = u64[:, b:-b, b:-b]
+    say(f"    the float64-sweep path's own interior max |u| "
+        f"{float(ui.abs().max())!r} px, dc-free "
+        f"{float((ui - ui.mean(dim=(1, 2), keepdim=True)).abs().max())!r} "
+        "px (the zero-displacement fixture)")
+    ok = dmax < 1e-2 and k99 < bound64 and k99 <= t99 and kmax < 1e-2
+    del u64, up
     if not ok:
         raise RuntimeError(f"{label}: kernels change the result")
     call_deconv(img_d)
@@ -713,6 +788,44 @@ def check_warp(wm, name, args):
     return float((got - want).abs().max())
 
 
+def check_cubic_disp(wm, args):
+    """The displacement-form cubic kernel against its twin on one
+    captured call, out of place and, for a two-plane call, in place on a
+    copy of u: normwise relative error <= WARP_BOUND (the twin's float32
+    operations in the same order)."""
+    import torch
+    got = wm.warp_cubic_disp(*args)
+    want = wm.warp_cubic_disp_plain(*args)
+    errs = [rel_err(got, want)]
+    if args[0].shape[-1] == 2:
+        u2 = args[1].clone()
+        wm.warp_cubic_disp(args[0], u2, *args[2:6], u2)
+        errs.append(rel_err(u2, want))
+    torch.cuda.synchronize()
+    say(f"  warp_cubic_disp {tuple(args[0].shape)} at {tuple(args[1].shape)}"
+        f" mode {args[4]!r} margin {args[3]} vs twin: rel err (out of "
+        f"place, in place) {errs} (bound {WARP_BOUND})")
+    if not torch.isfinite(got).all() or not max(errs) <= WARP_BOUND:
+        raise RuntimeError("warp_cubic_disp kernel disagrees with its twin")
+    return float((got - want).abs().max())
+
+
+def cubic_coords(args):
+    """The coordinate-form cubic warp's arguments for the first plane of
+    a displacement-form call: the positions its twin builds."""
+    import torch
+    from pygpa_tpu_torch.core import interp
+    coef, u, origin, margin, mode, cval = args
+    h, w = u.shape[-2:]
+    xx = torch.arange(origin[0], origin[0] + h, device=u.device).float()
+    yy = torch.arange(origin[1], origin[1] + w, device=u.device).float()
+    c = interp.margin_coords(torch.stack([xx[:, None] + u[0],
+                                          yy[None, :] + u[1]]),
+                             coef.shape[:2], margin)
+    return (coef[..., 0].contiguous(), c[0].contiguous(), c[1].contiguous(),
+            mode, cval, "bspline")
+
+
 DRIZZLE_BOUND = 1e-5
 
 
@@ -799,6 +912,60 @@ def run_path(label, title, call, gates):
     return launches
 
 
+def drive_short(label, size, kw):
+    """Phase 9: make_displacement_extractor((size, size), config 1's
+    k-vectors, **kw) on config 1's zero-displacement lattice: launch
+    counts, finite output, config 1's gate (interior max |u| < 0.02 px,
+    8 sigma border) and the path against the same path on the plain
+    twins (interior p99 < 1e-3 px, max < 1e-2 px: near-tie winner flips
+    between the grouped kernel and its twin)."""
+    import torch
+    from pygpa_tpu_torch.gpa import pipeline
+    from pygpa_tpu_torch.lattices import generate_ks, hexlattice_gen
+    from pygpa_tpu_torch.ops import _build
+    ks = generate_ks(0.1, 7.0)[:3]
+    img = hexlattice_gen(0.1, 7.0, order=2, size=size, dtype=torch.float32,
+                         device="cuda")
+    fn = pipeline.make_displacement_extractor((size, size), ks,
+                                              device="cuda", **kw)
+    plan = fn.plan
+    if plan is None:
+        route = "per-peak sweeps"
+    else:
+        wb = plan.idx1s.shape[1] if plan.col_groups is None \
+            else plan.col_groups[0]
+        route = f"grouped sweep, Wb = {wb}"
+    fn(img)
+    torch.cuda.synchronize()
+    _build.launches.clear()
+    u = fn(img)
+    torch.cuda.synchronize()
+    launches = dict(_build.launches)
+    say(f"[{label}] make_displacement_extractor(({size}, {size}), config 1 "
+        f"ks, {kw}) ({route}): launches in one run: {launches}")
+    missing = [k for k in PATH_KERNELS[label] if not launches.get(k)]
+    if missing:
+        raise RuntimeError(f"kernels of the path never ran: {missing}")
+    if tuple(u.shape) != (2, size, size) or not torch.isfinite(u).all():
+        raise RuntimeError(f"[{label}] output bad, shape {tuple(u.shape)}")
+    t0 = time.perf_counter()
+    for _ in range(REPS_NEW):
+        fn(img)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / REPS_NEW
+    with plain_versions():
+        up = fn(img)
+    p99, dmax = interior_dist(u, up, ks)
+    b = 8 * int(np.ceil(1 / np.linalg.norm(ks, axis=1).min()))
+    err = float(u[:, b:-b, b:-b].abs().max())
+    say(f"    interior max |u| {err!r} px (gate 0.02); with kernels vs plain "
+        f"versions: interior p99 |du| {p99!r} max {dmax!r} px (bounds "
+        f"1e-3, 1e-2); seconds per image {dt!r} ({REPS_NEW} runs after "
+        "warm-up, host clock, synchronized)")
+    if not (err < 0.02 and p99 < 1e-3 and dmax < 1e-2):
+        raise RuntimeError(f"[{label}] gate or path check failed")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -837,17 +1004,18 @@ def main():
     lib = _build.load()
     say(f"[2] kernels built and loaded in {time.perf_counter() - t0:.2f} s "
         f"(nvcc {_build.build_seconds!r} s) -> {os.path.basename(lib._name)}")
-    for key in ("zoom_stage2_kernel", "bilinear_kernel"):
+    for key in ("zoom_stage2_kernel", "grouped_stage2_kernel",
+                "bilinear_kernel", "cubic_disp_kernel"):
         lines = ptxas_lines(_build.build_log, key) or (
             "not in this run's log: the library was built by an earlier "
             "process")
         say(f"    ptxas {key}: {lines}")
-    n_hmma = hmma_count(lib._name, "zoom_stage2_kernel")
-    say(f"    zoom_stage2_kernel SASS: {n_hmma} HMMA instructions "
-        "(cuobjdump -sass)")
-    if n_hmma == 0:
-        raise RuntimeError("the zoom stage-2 kernel has no HMMA in its SASS: "
-                           "its products do not run on the tensor cores")
+    for key in ("zoom_stage2_kernel", "grouped_stage2_kernel"):
+        n_hmma = hmma_count(lib._name, key)
+        say(f"    {key} SASS: {n_hmma} HMMA instructions (cuobjdump -sass)")
+        if n_hmma == 0:
+            raise RuntimeError(f"{key} has no HMMA in its SASS: its "
+                               "products do not run on the tensor cores")
 
     # ---- 3. kernels vs twins on the main path's own inputs
     ks, img, img_d, u_true = fixtures(torch)
@@ -869,11 +1037,38 @@ def main():
     sw_args, ps_args, aq_args = c_sw.calls[0], c_ps.calls[0], c_aq.calls[0]
     rows = {}
     ops, outs = matmul_flops(sw_mod.sweep_uv_plain, *sw_args)
+    # stage 1: 8 G P n W0 Wb FLOP in float32 FMA; stage 2: 8 G P n m Wb,
+    # three times over at the dense TF32 rate (torch's flop counter over
+    # the twin counts the same products)
+    G, P, W0 = sw_args[2].shape
+    n_sw, m_sw, Wb = sw_args[4].shape[1], sw_args[6].shape[1], \
+        sw_args[6].shape[2]
+    f1, f2 = 8 * G * P * n_sw * W0 * Wb, 8 * G * P * n_sw * m_sw * Wb
+    b_fp32, b_tc = zoom_bounds(tensor_bytes(sw_args, outs), f1, f2)
+    T_sw = sw_mod.stage1(*sw_args[:6], sw_args[8])
+    ph_sw, wt_sw = sw_mod.stage2(T_sw, sw_args[6], sw_args[7], sw_args[9],
+                                 sw_args[11], sw_args[12])
+    sw_t = {"call": cuda_ms(lambda: sw_mod.sweep_uv(*sw_args), 3),
+            "stage1": cuda_ms(lambda: sw_mod.stage1(*sw_args[:6],
+                                                    sw_args[8]), 3),
+            "stage2": cuda_ms(lambda: sw_mod.stage2(
+                T_sw, sw_args[6], sw_args[7], sw_args[9], sw_args[11],
+                sw_args[12]), 3),
+            "uv": cuda_ms(lambda: sw_mod.epilogue(ph_sw, wt_sw,
+                                                  sw_args[10]), 3)}
+    del T_sw, ph_sw, wt_sw
+    s2_fp32, s2_tc = zoom_bounds(0, 0, f2)
+    say(f"    sweep_uv G={G} P={P} W0={W0} Wb={Wb}: call {sw_t['call']!r} ms "
+        f"(stage 1 {sw_t['stage1']!r}, stage 2 {sw_t['stage2']!r}, uv "
+        f"{sw_t['uv']!r}); stage 1 bound {f1 / FP32_FLOP_S * 1e3!r} ms "
+        f"(float32 FMA); stage 2 bounds {s2_fp32!r} ms (float32 FMA), "
+        f"{s2_tc!r} ms (3xTF32); call bounds {b_fp32!r} ms (float32 FMA), "
+        f"{b_tc!r} ms (stage 2 in 3xTF32, the row's bound; {f1!r} + {f2!r} "
+        f"FLOP, flop counter {ops!r})")
     rows["sweep_uv"] = dict(
-        max_abs_err=check_sweep(sw_mod, sw_args),
-        ms=cuda_ms(lambda: sw_mod.sweep_uv(*sw_args), 3),
+        max_abs_err=check_sweep(sw_mod, sw_args), ms=sw_t["call"],
         plain_ms=cuda_ms(lambda: sw_mod.sweep_uv_plain(*sw_args), 3),
-        **bound_row(tensor_bytes(sw_args, outs), ops))
+        bound_ms=b_tc, bound_by="operations", library_ms=None)
     e_ps, e_aq = check_vcycle(vc_mod, ps_args, aq_args)
     # stencils: a per-pixel count of the kernels' float32 operations
     rows["presmooth"] = dict(
@@ -975,7 +1170,7 @@ def main():
                           bound_by=dct_bound[kern][1], library_ms=None)
     # the undistortion paths' warps and the unit-cell path's drizzle and
     # expansion, captured from one run of phases 7b, 7a and 8a
-    with Capture(warp_mod, "warp_cubic", keep=1) as c_wc:
+    with Capture(warp_mod, "warp_cubic_disp", keep=1) as c_wc:
         pipeline.undistort_image(img_d, u_true)
         torch.cuda.synchronize()
     c3 = config3_fixture(torch)
@@ -989,20 +1184,39 @@ def main():
             ucell_mod.unit_cell_average(img4, ks4, z=2), ks4, (SIZE, SIZE),
             z=2)
         torch.cuda.synchronize()
-    wc_calls = (c_wc.calls[0], c_wc.last)
-    e_wc = max(check_warp(warp_mod, "warp_cubic", a) for a in wc_calls)
-    wc_ms = [(cuda_ms(lambda a=a: warp_mod.warp_cubic(*a), 20),
-              cuda_ms(lambda a=a: warp_mod.warp_cubic_plain(*a), 3))
-             for a in wc_calls]
-    say(f"    warp_cubic ms (kernel, twin), first 'nearest' and final "
-        f"'constant' call: {wc_ms}")
-    # gathers: a per-output count of the kernels' float32 operations
-    # (16 taps, their weights and the position arithmetic for a cubic
-    # sample; 4 taps for a bilinear one)
-    wc0 = wc_calls[0]
-    rows["warp_cubic"] = dict(
-        max_abs_err=e_wc, ms=wc_ms[0][0], plain_ms=wc_ms[0][1],
-        **bound_row(tensor_bytes(wc0[:3], wc0[1]), 56 * wc0[1].numel()))
+    # the first Picard step of 7b's inversion (both coefficient planes of
+    # u at r + u_it, written in place) and its final 'constant' warp
+    wc_calls = [a[:6] for a in (c_wc.calls[0], c_wc.last)]
+    e_wc = max(check_cubic_disp(warp_mod, a) for a in wc_calls)
+    coef, u_wc = wc_calls[0][:2]
+    u_step = u_wc.clone()
+    wc_ms = cuda_ms(lambda: warp_mod.warp_cubic_disp(
+        coef, u_step, *wc_calls[0][2:6], u_step), 20)
+    wc_twin = cuda_ms(lambda: warp_mod.warp_cubic_disp_plain(*wc_calls[0]), 2)
+    wc_last = (cuda_ms(lambda: warp_mod.warp_cubic_disp(*wc_calls[1]), 20),
+               cuda_ms(lambda: warp_mod.warp_cubic_disp_plain(*wc_calls[1]),
+                       2))
+    del u_step
+    # bytes: the coefficient planes and u read once, u written once;
+    # operations: the position, taps and weights once a pixel (24) and 32
+    # a plane (16 taps, a multiply and an add each)
+    C, h_wc, w_wc = coef.shape[-1], u_wc.shape[1], u_wc.shape[2]
+    wc_bound = bound_row(tensor_bytes(coef, u_wc) + 4 * C * h_wc * w_wc,
+                         (24 + 32 * C) * h_wc * w_wc)
+    say(f"    warp_cubic_disp per Picard step ({C} planes {tuple(coef.shape)}"
+        f" at {h_wc}x{w_wc}, in place): kernel {wc_ms!r} ms, twin "
+        f"{wc_twin!r} ms, bound {wc_bound['bound_ms']!r} ms "
+        f"({wc_bound['bound_by']}); final 'constant' warp (kernel, twin) "
+        f"{wc_last!r} ms")
+    # the coordinate form on the same step's positions, one plane
+    wc_coords = cubic_coords(wc_calls[0])
+    e_wc = max(e_wc, check_warp(warp_mod, "warp_cubic", wc_coords))
+    say(f"    warp_cubic coordinate form, one plane of that step: kernel "
+        f"{cuda_ms(lambda: warp_mod.warp_cubic(*wc_coords), 20)!r} ms "
+        "(the displacement form takes both planes in one launch)")
+    del wc_coords
+    rows["warp_cubic"] = dict(max_abs_err=e_wc, ms=wc_ms, plain_ms=wc_twin,
+                              **wc_bound)
     # the first bilinear call of 7a's coarse inversion: both planes of u
     # at the 512^2 grid's positions, one launch
     wb = c_wb.calls[0]
@@ -1045,7 +1259,8 @@ def main():
     # the captured operands would count in phase 4's peak memory
     del c_sw, c_ps, c_aq, c_cg, sw_args, ps_args, aq_args, rk0, outs
     del c_zs, c_dl, c_il, c_ds, c_is, dct_in, x
-    del c_wc, wc_calls, wc0, c_wb, wb, wb_out, c_dz, dz, dz_out, c_ex, ex
+    del c_wc, wc_calls, coef, u_wc, c_wb, wb, wb_out, c_dz, dz, dz_out, c_ex
+    del ex
     del ex_out
     for name, r in rows.items():
         say(f"    {name}: kernel {r['ms']!r} ms, twin {r['plain_ms']!r} ms, "
@@ -1100,9 +1315,34 @@ def main():
              "gated": f"interior<{GATE_INTERIOR}, dcfree<{GATE_DCFREE}, "
                       f"deformed<{GATE_DEFORMED}"}
     say(f"    gates: {json.dumps(gates)}")
+    say(f"    deformed gate margin: {GATE_DEFORMED - u_err_def!r} px below "
+        f"{GATE_DEFORMED}")
     if not (u_err < GATE_INTERIOR and u_err_dc < GATE_DCFREE
             and u_err_def < GATE_DEFORMED):
         raise RuntimeError("ACCURACY GATE FAILED")
+    # the path against the path with a float64 grouped sweep, and the
+    # path with the sweep's float32 twin against it: the other kernels
+    # run as built in all three, since the multigrid's CG kernel and its
+    # twin differ by itself (phase 3: 3e-6 to 1.5e-5 relative); the path
+    # on all the plain versions is printed beside them
+    with plain_versions():
+        up = fn(img)
+    with float64_sweep():
+        u64 = fn(img)
+    with float32_sweep():
+        u32 = fn(img)
+    k99, kmax = interior_dist(u, u64, ks)
+    t99, tmax = interior_dist(u32, u64, ks)
+    a99, amax = interior_dist(up, u64, ks)
+    say(f"    vs the path with a float64 sweep: with kernels p99 {k99!r} max "
+        f"{kmax!r} px, with the sweep's float32 twin p99 {t99!r} max "
+        f"{tmax!r} px, on all plain versions p99 {a99!r} max {amax!r} px "
+        f"(bounds: p99 < {SWEEP_PATH_F64}, max < 1e-2; the kernels' path "
+        f"lies {'nearer' if k99 <= t99 else 'further'} than the float32 "
+        "twin's)")
+    del up, u64, u32
+    if not (k99 < SWEEP_PATH_F64 and kmax < 1e-2):
+        raise RuntimeError("bench extractor: kernels change the result")
     say(f"    seconds_per_image {dt!r}, Mpix/s {SIZE * SIZE / 1e6 / dt!r} "
         f"({REPS} runs after warm-up, host clock, synchronized)")
     say(f"    stage ms (CUDA events): {json.dumps(stages)}")
@@ -1116,7 +1356,7 @@ def main():
             im, ks32, events=events),
         lambda im, events=None: pipeline.extract_displacement_field(
             im, ks32, deconvolve=True, events=events),
-        img, img_d, u_true, ks32, zoom=True)
+        img, img_d, u_true, ks32, float64_zoom, ZOOM_PATH_F64)
     if path_launches[5].get("zoom_sweep") != 3:
         raise RuntimeError("the eager path should run one zoom sweep per "
                            f"Bragg peak: {path_launches[5]}")
@@ -1128,7 +1368,7 @@ def main():
                                              device="cuda"),
         pipeline.make_displacement_extractor((SIZE, SIZE), ks32,
                                              deconvolve=True, device="cuda"),
-        img, img_d, u_true, ks32)
+        img, img_d, u_true, ks32, float64_sweep, SWEEP_PATH_F64)
 
     # ---- 7. the README's undistortion: (a) config 3, (b) the default call
     from pygpa_tpu_torch.solvers.unwrap import phase_unwrap_mg
@@ -1168,6 +1408,10 @@ def main():
     path_launches["7b"] = run_path(
         "7b", "undistort_image(img_d, u_true) defaults, 4096^2",
         lambda: (pipeline.undistort_image(img_d, u_true),), gates_7b)
+    # 36 Picard steps (both planes of u, in place) and the final warp
+    if path_launches["7b"].get("warp_cubic") != 37:
+        raise RuntimeError("the default undistortion should launch the "
+                           f"cubic warp 37 times: {path_launches['7b']}")
 
     # ---- 8. the README's unit cell: (a) config 4, (b) with u
     avg4 = ucell_mod.unit_cell_average(None, ks4, z=2,
@@ -1193,6 +1437,13 @@ def main():
                  "gated": f"rel_rms<{GATE_UCELL}"}
             return v, v["ucell_roundtrip_rel_rms"] < GATE_UCELL
         path_launches[label] = run_path(label, title, step, gates_8)
+
+    # ---- 9. short runs at shapes the bench does not use: config 1's
+    # lattice at 2048^2 (the grouped sweep at Wb = 448) and at 500^2 with
+    # the multigrid (the V-branch on its twins)
+    for label, size, kw in (("9a", 2048, {}), ("9b", 500,
+                                                {"unwrap_coarse": 4})):
+        drive_short(label, size, kw)
 
     kernels = []
     for name, (src, rep) in KERNELS.items():

@@ -14,9 +14,13 @@ device, dtype and shape is the reference's; nothing falls back.
 
 ``map_coordinates`` keeps the reference's 2-D contract. The private
 ``_map_coordinates_stack`` samples a stack of planes at the same
-positions (the displacement inversion's two planes of u and four
-gradient planes): at order 1 one bilinear launch per stack on the card,
-under the same gate, and the twin on the CPU.
+positions at order 1 (the coarse inversion's two planes of u and four
+gradient planes): one bilinear launch per stack on the card, under the
+same gate, and the twin on the CPU. ``map_displaced`` samples up to two
+B-spline coefficient planes at r + u(r) (the order-3 inversion's
+Picard step, the undistortion's final warp): the displacement form of
+the cubic warp on the card, under the same gate, and on the CPU its
+twin, which is the composition of positions and map_coordinates.
 
 spline_filter stays a torch operation, as it is an XLA convolution in
 the reference: per axis a mode-extended pad and the 55-tap truncated
@@ -231,6 +235,20 @@ def warp_kernel_ok(image, coordinates, order, mode):
             and mode in _warp.MODES)
 
 
+def margin_coords(coordinates, shape, margin):
+    """Positions (2, ...) on the logical grid of margin-extended
+    coefficients of `shape` clamped at +-(margin - 1) px off that grid
+    and shifted into the extended frame (no change for margin 0)."""
+    mg = int(margin)
+    if not mg:
+        return coordinates
+    ext = mg - 1
+    n_l = shape[0] - 2 * mg
+    m_l = shape[1] - 2 * mg
+    return torch.stack([coordinates[0].clamp(-ext, n_l - 1 + ext) + mg,
+                        coordinates[1].clamp(-ext, m_l - 1 + ext) + mg])
+
+
 def map_coordinates(image, coordinates, order=3, mode="nearest", cval=0.0,
                     cubic="bspline", prefilter=True, margin=0):
     """Sample the 2-D `image` at fractional `coordinates` (2, ...).
@@ -276,16 +294,7 @@ def map_coordinates(image, coordinates, order=3, mode="nearest", cval=0.0,
         else:
             image = spline_filter(image, mode=mode)
     if margin:
-        # sample the margin-extended coefficients: clamp at
-        # +-(margin - 1) px off the logical grid and shift into the
-        # extended frame
-        mg = int(margin)
-        ext = mg - 1
-        n_l = image.shape[0] - 2 * mg
-        m_l = image.shape[1] - 2 * mg
-        coordinates = torch.stack([
-            coordinates[0].clamp(-ext, n_l - 1 + ext) + mg,
-            coordinates[1].clamp(-ext, m_l - 1 + ext) + mg])
+        coordinates = margin_coords(coordinates, image.shape, margin)
     if warp_kernel_ok(image, coordinates, order, mode):
         return _warp.warp_cubic(image, coordinates[0], coordinates[1], mode,
                                 cval, cubic)
@@ -298,8 +307,8 @@ def _map_coordinates_stack(images, coordinates, order, mode, margin=0):
     m) at the same float coordinates (2, ...): output (C, ...), each
     plane bit-identical to its own map_coordinates call. Order 1 takes
     one bilinear launch for a stack of up to ops.warp.MAX_PLANES planes
-    on the card (the warp_kernel_ok gate) and the twin elsewhere; order 3
-    samples plane by plane."""
+    on the card (the warp_kernel_ok gate) and the twin elsewhere; other
+    orders sample plane by plane."""
     if order != 1:
         return torch.stack([map_coordinates(im, coordinates, order=order,
                                             mode=mode, prefilter=False,
@@ -310,3 +319,19 @@ def _map_coordinates_stack(images, coordinates, order, mode, margin=0):
                                    coordinates[1].contiguous(), mode)
     return _warp.warp_bilinear_plain(images, coordinates[0], coordinates[1],
                                      mode)
+
+
+def map_displaced(coef, u, origin, mode, margin=0, cval=0.0, out=None):
+    """map_coordinates(order=3, prefilter=False) of each B-spline
+    coefficient plane of `coef` (n, m, C), C <= 2 planes stored last, at
+    the grid points (r + origin) + u(r) of u (2, h, w): output (C, h, w),
+    written into `out` when given (u itself for an in-place Picard step).
+    The displacement form of the cubic warp takes it on the card where
+    warp_kernel_ok holds for a plane of `coef` at u; elsewhere its twin,
+    the same composition as building the positions and calling
+    map_coordinates, bit for bit."""
+    if coef.shape[-1] <= 2 and warp_kernel_ok(coef[..., 0], u, 3, mode):
+        return _warp.warp_cubic_disp(coef, u, origin, margin, mode, cval,
+                                     out)
+    return _warp.warp_cubic_disp_plain(coef, u, origin, margin, mode, cval,
+                                       out)

@@ -9,30 +9,66 @@
 // rows and columns from step to step. Blocks here run in parallel and
 // in no order, so the op is three launches:
 //   sweep_stage1: T[g,i] = ((A0c + i A0s) . gx_i) @ (Sr + i Si)_run(i),
-//                 times gy_i, stored as [Re | Im] rows (G, P, n, 2 Wb);
-//   sweep_stage2: per 64x64 pixel tile of group g, M_i = T_i @ A1^T for
-//                 every candidate i with the running best |M|^2 (strict
-//                 '>', candidate 0 first) in registers; emits the winner
-//                 phase (atan2 + banded column ramp) and the rim-masked
-//                 weight, (G, n, m) each;
+//                 times gy_i, stored as [Re | Im] rows (G, P, n, 2 Wb),
+//                 in float32 FMA (also the zoom sweep's stage 1);
+//   sweep_stage2: per 64x64 pixel tile of group g (blockIdx.z), M_i =
+//                 T_i @ A1^T for every candidate i on the tensor cores
+//                 (sweep_tc.cuh, shared with the zoom sweep: 3xTF32
+//                 mma.sync, chains restarting every 32 columns of Wb,
+//                 the hi.hi products in a chain apart from the two small
+//                 ones (SPLIT), which lands |M| nearer its float64 value
+//                 than the float32 twin's products; the column basis
+//                 streamed with T through a cp.async ring, so any Wb
+//                 that is a multiple of 64 runs) with the running best
+//                 |M|^2 (strict '>', candidate 0 taken first) in
+//                 registers; emits the winner phase (atan2 + banded
+//                 column ramp) and the rim-masked weight, (G, n, m) each;
 //   sweep_uv:     one thread per pixel: wrapped shifted diffs against the
 //                 left / upper neighbour and the 2x2 weighted lstsq.
-// Bound on an H100: stage 2's G*P*n*m*Wb complex MACs in fp32 FMA
-// (1.86 TFLOP at the 4096^2 bench; no tensor cores). Each thread owns a
-// 4x4 pixel patch; the column basis of the tile (2 x Wb x 64 floats)
-// stays in shared memory for all P candidates, and T streams through
-// shared memory in 16-deep chunks.
+// Bound on an H100: stage 2's G*P*n*m*Wb complex MACs (1.86 TFLOP at the
+// 4096^2 bench), three times over as 3xTF32 at 495 TFLOP/s dense TF32
+// (~11.3 ms; 27.8 ms in float32 FMA), plus stage 1's float32 FMA.
 // Everything is float32; the TPU's bf16 operand splits and polynomial
 // atan2 were Mosaic workarounds and are not carried over.
 #include <cuda_runtime.h>
 #include <math.h>
 
-#include "sweep_tile.cuh"
+#include "sweep_tc.cuh"
 
 namespace {
 
+// stage 1 and the uv epilogue: 64 x 64 output tiles of 256 threads, 4 x 4
+// outputs a thread, contracting in 16-deep chunks staged in shared memory
+constexpr int TILE = 64;   // output tile edge (rows and columns)
+constexpr int BK = 16;     // contraction chunk
+constexpr int APAD = TILE + 4;
+constexpr int NT = 256;    // 16 x 16 threads, 4 x 4 outputs each
 constexpr float PI_F = 3.14159265358979f;
 constexpr float TWO_PI_F = 6.283185307179586f;
+
+// acc(4x4 complex) += a(4, complex column slice) x b(4, complex row slice)
+__device__ __forceinline__ void cmac(const float* ar_s, const float* ai_s,
+                                     const float* br_s, const float* bi_s,
+                                     float accr[4][4], float acci[4][4]) {
+  const float4 ar = *reinterpret_cast<const float4*>(ar_s);
+  const float4 ai = *reinterpret_cast<const float4*>(ai_s);
+  const float4 br = *reinterpret_cast<const float4*>(br_s);
+  const float4 bi = *reinterpret_cast<const float4*>(bi_s);
+  const float a_r[4] = {ar.x, ar.y, ar.z, ar.w};
+  const float a_i[4] = {ai.x, ai.y, ai.z, ai.w};
+  const float b_r[4] = {br.x, br.y, br.z, br.w};
+  const float b_i[4] = {bi.x, bi.y, bi.z, bi.w};
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      accr[a][b] = fmaf(a_r[a], b_r[b], accr[a][b]);
+      accr[a][b] = fmaf(-a_i[a], b_i[b], accr[a][b]);
+      acci[a][b] = fmaf(a_r[a], b_i[b], acci[a][b]);
+      acci[a][b] = fmaf(a_i[a], b_r[b], acci[a][b]);
+    }
+  }
+}
 
 __device__ __forceinline__ float wrap_pi(float x) {
   // (x + pi) mod 2 pi - pi, floor modulo; no FMA contraction so the
@@ -117,71 +153,23 @@ __global__ void __launch_bounds__(NT) stage1_kernel(
   }
 }
 
-// grid (m/64, n/64, G); dynamic smem 2*Wb*64 + 2*BK*APAD floats
-__global__ void __launch_bounds__(NT, 2) stage2_kernel(
-    const float* __restrict__ T, const float* __restrict__ A1cT,
-    const float* __restrict__ A1sT, const int* __restrict__ off,
+// grid (m/64, n/64, G); T (G, P, n, 2 Wb); A1c, A1s (G, m, Wb), the
+// base-band column basis; off (G, P) band offsets; dynamic smem ZSMEM
+__global__ void __launch_bounds__(ZNT, 1) grouped_stage2_kernel(
+    const float* __restrict__ T, const float* __restrict__ A1c,
+    const float* __restrict__ A1s, const int* __restrict__ off,
     float* __restrict__ ph, float* __restrict__ wt,
     int P, int n, int m, int Wb, int dr, int banded) {
   extern __shared__ __align__(16) float smem[];
-  float* Bc = smem;                  // [Wb][TILE]
-  float* Bs = Bc + Wb * TILE;        // [Wb][TILE]
-  float* Tr = Bs + Wb * TILE;        // [BK][APAD]
-  float* Ti = Tr + BK * APAD;        // [BK][APAD]
-  const int c0 = blockIdx.x * TILE;
-  const int r0 = blockIdx.y * TILE;
+  const int c0 = blockIdx.x * ZT, r0 = blockIdx.y * ZT;
   const int g = blockIdx.z;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-
-  for (int e = threadIdx.x; e < Wb * TILE; e += NT) {
-    const int k = e / TILE, c = e % TILE;
-    const size_t idx = ((size_t)g * Wb + k) * m + c0 + c;
-    Bc[e] = A1cT[idx];
-    Bs[e] = A1sT[idx];
-  }
-
-  float ba[4][4], br[4][4], bi[4][4];
-  int bo[4][4];
-  const size_t ld = 2 * (size_t)Wb;
-  for (int i = 0; i < P; ++i) {
-    const float* Tg = T + ((size_t)(g * P + i) * n + r0) * ld;
-    float accr[4][4], acci[4][4];
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int b = 0; b < 4; ++b) accr[a][b] = acci[a][b] = 0.f;
-    for (int k0 = 0; k0 < Wb; k0 += BK) {
-      __syncthreads();
-      for (int e = threadIdx.x; e < TILE * BK; e += NT) {
-        const int r = e / BK, k = e % BK;
-        Tr[k * APAD + r] = Tg[(size_t)r * ld + k0 + k];
-        Ti[k * APAD + r] = Tg[(size_t)r * ld + Wb + k0 + k];
-      }
-      __syncthreads();
-#pragma unroll
-      for (int k = 0; k < BK; ++k) {
-        // M_r = Tr A1c - Ti A1s, M_i = Tr A1s + Ti A1c
-        cmac(&Tr[k * APAD + ty * 4], &Ti[k * APAD + ty * 4],
-             &Bc[(k0 + k) * TILE + tx * 4], &Bs[(k0 + k) * TILE + tx * 4],
-             accr, acci);
-      }
-    }
-    const int oi = off[g * P + i];
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        const float mr = accr[a][b], mi = acci[a][b];
-        const float absq = __fadd_rn(__fmul_rn(mr, mr), __fmul_rn(mi, mi));
-        if (i == 0 || absq > ba[a][b]) {
-          ba[a][b] = absq;
-          br[a][b] = mr;
-          bi[a][b] = mi;
-          bo[a][b] = oi;
-        }
-      }
-    }
-  }
+  float br[2][2][4], bi[2][2][4];
+  int bx[2][2][4];
+  sweep_tc_tile<true, true>(T + (size_t)g * P * n * 2 * Wb,
+                      A1c + (size_t)g * m * Wb, A1s + (size_t)g * m * Wb,
+                      P, n, Wb, Wb, r0, c0, smem, br, bi, bx);
+  int rw, cl;
+  tc_pixel(r0, c0, &rw, &cl);
 
   const float inv_m = (float)(1.0 / (double)m);
   const float ramp = (float)(6.283185307179586 / (double)m);
@@ -189,25 +177,37 @@ __global__ void __launch_bounds__(NT, 2) stage2_kernel(
   const float rim = 1e-6f;
   const size_t plane = (size_t)g * n * m;
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int r = r0 + ty * 4 + a;
+  for (int a = 0; a < 2; ++a)
 #pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      const int c = c0 + tx * 4 + b;
-      float pht = atan2f(bi[a][b], br[a][b]);
-      if (banded) {
-        // winner lock-in = base-band value x e^{2 pi i c off / m};
-        // off * c < 2^24 is exact in float32
-        float rr = __fmul_rn((float)bo[a][b], (float)c);
-        rr = __fsub_rn(rr, __fmul_rn((float)m, floorf(__fmul_rn(rr, inv_m))));
-        pht = wrap_pi(__fadd_rn(pht, __fmul_rn(rr, ramp)));
+    for (int b = 0; b < 2; ++b)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = rw + a * 16 + h * 8;
+        float pv[2], wv[2];
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int e = 2 * h + j;
+          const int c = cl + b * 8 + j;
+          const float mr = br[a][b][e], mi = bi[a][b][e];
+          float pht = atan2f(mi, mr);
+          if (banded) {
+            // winner lock-in = base-band value x e^{2 pi i c off / m};
+            // off * c < 2^24 is exact in float32
+            const int oi = __ldg(off + g * P + bx[a][b][e]);
+            float rr = __fmul_rn((float)oi, (float)c);
+            rr = __fsub_rn(rr,
+                           __fmul_rn((float)m, floorf(__fmul_rn(rr, inv_m))));
+            pht = wrap_pi(__fadd_rn(pht, __fmul_rn(rr, ramp)));
+          }
+          const bool interior = r >= dr && r < n - dr && c >= dr && c < m - dr;
+          pv[j] = pht;
+          wv[j] = __fmul_rn(sqrtf(fmaxf(absq(mr, mi), 0.f)),
+                            interior ? inside : rim);
+        }
+        const size_t o = plane + (size_t)r * m + cl + b * 8;
+        *reinterpret_cast<float2*>(ph + o) = make_float2(pv[0], pv[1]);
+        *reinterpret_cast<float2*>(wt + o) = make_float2(wv[0], wv[1]);
       }
-      const bool interior = r >= dr && r < n - dr && c >= dr && c < m - dr;
-      const size_t o = plane + (size_t)r * m + c;
-      ph[o] = pht;
-      wt[o] = __fmul_rn(sqrtf(fmaxf(ba[a][b], 0.f)), interior ? inside : rim);
-    }
-  }
 }
 
 // one thread per pixel; kc = (G, 5): k0, k1, k0*k0, k0*k1, k1*k1
@@ -284,16 +284,18 @@ int sweep_stage1(const float* Sr, const float* Si, const float* gx,
   return (int)cudaGetLastError();
 }
 
-int sweep_stage2(const float* T, const float* A1cT, const float* A1sT,
+// T (G, P, n, 2 Wb), A1c and A1s (G, m, Wb), all contiguous float32; n,
+// m and Wb multiples of 64
+int sweep_stage2(const float* T, const float* A1c, const float* A1s,
                  const int* off, float* ph, float* wt, int G, int P, int n,
                  int m, int Wb, int dr, int banded, cudaStream_t stream) {
-  const size_t smem = (2 * (size_t)Wb * TILE + 2 * BK * APAD) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      stage2_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      grouped_stage2_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)ZSMEM);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(m / TILE, n / TILE, G);
-  stage2_kernel<<<grid, NT, smem, stream>>>(T, A1cT, A1sT, off, ph, wt, P, n,
-                                            m, Wb, dr, banded);
+  dim3 grid(m / ZT, n / ZT, G);
+  grouped_stage2_kernel<<<grid, ZNT, ZSMEM, stream>>>(
+      T, A1c, A1s, off, ph, wt, P, n, m, Wb, dr, banded);
   return (int)cudaGetLastError();
 }
 

@@ -43,23 +43,35 @@ def _grid(n0, n1, m0, m1, dtype, device):
     return xx.expand(shape), yy.expand(shape)
 
 
+def _coefficients(us, mode):
+    """(margin, B-spline coefficients of both planes of us, stored
+    planes-last (n, m, 2)): the inversion's prefilter, run once outside
+    its Picard loop, in the layout the displacement-form warp reads."""
+    mg = interp.NEAREST_MARGIN if mode == "nearest" else 0
+    usf = interp.spline_filter(us, mode=mode, axes=(-2, -1), margin=mg)
+    return mg, usf.permute(1, 2, 0).contiguous()
+
+
 def invert_u(us, iters=35, edge=0, mode="nearest", order=3):
     """Fixed-point inversion of the displacement field us (2, n, m):
     u_it(r) = us(r + u_it(r)), one step from zero and `iters` more
-    (pygpa_tpu.gpa.pipeline.invert_u). The B-spline prefilter runs once,
-    outside the loop."""
+    (pygpa_tpu.gpa.pipeline.invert_u). At order 3 the B-spline prefilter
+    runs once, outside the loop, and each step samples both coefficient
+    planes at r + u_it in one displacement-form warp that updates u_it in
+    place (core.interp.map_displaced)."""
     us = torch.as_tensor(us)
     n, m = us.shape[1], us.shape[2]
-    xx, yy = _grid(0, n, 0, m, us.dtype, us.device)
-    xx = xx - edge
-    yy = yy - edge
-    mg = interp.NEAREST_MARGIN if (order == 3 and mode == "nearest") else 0
-    usf = interp.spline_filter(us, mode=mode, axes=(-2, -1), margin=mg) \
-        if order == 3 else us
-    u_it = torch.zeros_like(us)
+    u_it = torch.zeros_like(us, memory_format=torch.contiguous_format)
+    if order == 3:
+        mg, usf = _coefficients(us, mode)
+        for _ in range(int(iters) + 1):
+            interp.map_displaced(usf, u_it, (-edge, -edge), mode, mg,
+                                 out=u_it)
+        return u_it
+    xx, yy = _grid(-edge, n - edge, -edge, m - edge, us.dtype, us.device)
     for _ in range(int(iters) + 1):
         u_it = interp._map_coordinates_stack(
-            usf, torch.stack([xx + u_it[0], yy + u_it[1]]), order, mode, mg)
+            us, torch.stack([xx + u_it[0], yy + u_it[1]]), order, mode)
     return u_it
 
 
@@ -75,7 +87,6 @@ def invert_u_overlap(us, iters=35, edge=0, mode="nearest", order=3,
     n, m = us.shape[1], us.shape[2]
     dt, dev = us.dtype, us.device
     xx, yy = _grid(-edge, n + edge, -edge, m + edge, dt, dev)
-    mg = interp.NEAREST_MARGIN if (order == 3 and mode == "nearest") else 0
 
     if coarse > 1:
         c = int(coarse)
@@ -117,13 +128,19 @@ def invert_u_overlap(us, iters=35, edge=0, mode="nearest", order=3,
                                        torch.where(safe, du1, r0[1])])
         return u_it
 
-    usf = interp.spline_filter(us, mode=mode, axes=(-2, -1), margin=mg) \
-        if order == 3 else us
-    u_it = interp._map_coordinates_stack(usf, torch.stack([xx, yy]), order,
-                                         mode, mg)
+    if order == 3:
+        # one step from zero and `iters` more, in place (invert_u)
+        mg, usf = _coefficients(us, mode)
+        u_it = torch.zeros((2,) + xx.shape, dtype=dt, device=dev)
+        for _ in range(int(iters) + 1):
+            interp.map_displaced(usf, u_it, (-edge, -edge), mode, mg,
+                                 out=u_it)
+        return u_it
+    u_it = interp._map_coordinates_stack(us, torch.stack([xx, yy]), order,
+                                         mode)
     for _ in range(int(iters)):
         u_it = interp._map_coordinates_stack(
-            usf, torch.stack([xx + u_it[0], yy + u_it[1]]), order, mode, mg)
+            us, torch.stack([xx + u_it[0], yy + u_it[1]]), order, mode)
     return u_it
 
 
@@ -138,6 +155,11 @@ def undistort_image(deformed, u, order=3, coarse=1, invert_iters=35,
     deformed = torch.as_tensor(deformed, device=dev)
     u = torch.as_tensor(u, device=dev)
     u_inv = invert_u_overlap(-u, iters=invert_iters, coarse=coarse)
+    if order == 3:
+        # map_coordinates(order=3, mode='constant') in displacement form
+        coef = interp.spline_filter(deformed, mode="constant")
+        return interp.map_displaced(coef[..., None], u_inv, (0, 0),
+                                    "constant")[0]
     xx, yy = _grid(0, u.shape[1], 0, u.shape[2], u.dtype, u.device)
     coords = torch.stack([xx + u_inv[0], yy + u_inv[1]])
     return interp.map_coordinates(deformed, coords, order=order,

@@ -13,21 +13,30 @@ shifted per-pixel weighted-lstsq displacement gradients
 CUDA route (``csrc/sweep.cu``), three launches on the current stream:
 
 1. stage 1: T[g, i] = ((A0 . gx_i) @ S_run(i)) . gy_i as [Re | Im]
-   rows into a (G, P, n, 2*Wb) float32 scratch;
+   rows into a (G, P, n, 2*Wb) float32 scratch (float32 FMA);
 2. stage 2 + tournament: M_i = T_i @ [A1c | -A1s], [A1s | A1c] per
-   64x64 pixel tile, looped over the candidates with the running best
-   kept in registers; emits the phase and weight planes (G, n, m);
+   64x64 pixel tile on the tensor cores (``csrc/sweep_tc.cuh``, shared
+   with the zoom sweep: 3xTF32 ``mma.sync``, tensor-core chains that
+   restart every 32 columns of Wb with float32 adds between, the hi.hi
+   products in a chain apart from the two small ones, T and the column
+   basis streamed through a ``cp.async`` ring, so any Wb that is a
+   multiple of 64 runs), looped over the candidates with the running
+   best kept in registers; emits the phase and weight planes (G, n, m);
 3. the uv epilogue, one thread per pixel reading its left and upper
    neighbours from device memory.
 
-What bounds it on an H100: stage 2 is G*P*n*m*Wb complex
-multiply-adds (1.86 TFLOP at the 4096^2 bench shapes) in float32 FMA
-outside the tensor cores. The design keeps the (G, P, n, m) candidate
+What bounds it on an H100: stage 2's G*P*n*m*Wb complex multiply-adds
+(1.86 TFLOP at the 4096^2 bench shapes), three times over at the
+dense TF32 rate (~11.3 ms; 27.8 ms in float32 FMA outside the tensor
+cores), plus stage 1. The design keeps the (G, P, n, m) candidate
 planes out of memory entirely (the tournament never leaves registers)
 and schedules the column tiles of one 64-row band next to each other,
 so the band's slice of T (2.4 MB per peak) is re-read from L2 rather
-than device memory; tensor cores and fusing stage 3 into stage 2 are
-later work.
+than device memory. The kernel's stage 2 lies nearer its float64 value
+than the float32 twin's does, so chip_smoke.py holds its path to the
+path with a float64 sweep. ``stage1``, ``stage2`` and ``epilogue``
+launch one kernel each on checked operands (chip_smoke.py times them
+apart; the zoom sweep reuses ``stage1``).
 
 The uv epilogue wraps its phase differences with :func:`wrap_diff`,
 not the reference's (x + pi) form, which rounds a near-zero float32
@@ -45,7 +54,6 @@ from . import _build
 _PI = 3.14159265358979
 _TWO_PI = 6.283185307179586
 TILE = 64          # stage-1/2 output tile (rows x columns), csrc/sweep.cu
-MAX_WB = 256       # stage 2 keeps the (2, Wb, 64) column basis in smem
 
 
 def wrap_pi(x):
@@ -90,16 +98,16 @@ def _stage1_plain(Sr, Si, gx, gy, A0c, A0s, run):
     return torch.stack(Ts)                        # (G, P, n, 2 Wb)
 
 
-def _stage2_plain(T, A1cT, A1sT, off, dr, banded):
+def _stage2_plain(T, A1c, A1s, off, dr, banded):
     G, P, n, _ = T.shape
-    m = A1cT.shape[2]
+    m = A1c.shape[1]
     dev = T.device
     jj = torch.arange(m, device=dev)[None, :]
     mask = rim_weights(n, m, dr, T.dtype, dev)
     phs, wts = [], []
     for g in range(G):
-        B1r = torch.cat([A1cT[g], -A1sT[g]], dim=0)   # (2 Wb, m)
-        B1i = torch.cat([A1sT[g], A1cT[g]], dim=0)
+        B1r = torch.cat([A1c[g].T, -A1s[g].T], dim=0)   # (2 Wb, m)
+        B1i = torch.cat([A1s[g].T, A1c[g].T], dim=0)
         offg = off[g].to(T.dtype)
         for i in range(P):
             mr = T[g, i] @ B1r
@@ -165,62 +173,91 @@ def _uv_plain(ph, wt, kconst):
     return ux, uy, torch.sqrt(wsq)
 
 
-def sweep_uv_plain(Sr, Si, gx, gy, A0c, A0s, A1cT, A1sT, run, off, kconst,
+def sweep_uv_plain(Sr, Si, gx, gy, A0c, A0s, A1c, A1s, run, off, kconst,
                    dr, banded):
     """Plain PyTorch twin of the CUDA sweep (same arguments as
     :func:`sweep_uv`)."""
     T = _stage1_plain(Sr, Si, gx, gy, A0c, A0s, run)
-    ph, wt = _stage2_plain(T, A1cT, A1sT, off, int(dr), bool(banded))
+    ph, wt = _stage2_plain(T, A1c, A1s, off, int(dr), bool(banded))
     return _uv_plain(ph, wt, kconst)
 
 
-def _sweep_uv_cuda(Sr, Si, gx, gy, A0c, A0s, A1cT, A1sT, run, off, kconst,
-                   dr, banded):
+def kernel_supported(n, m, W0, Wb, P):
+    """Shapes the CUDA sweep takes: n, m and the band width Wb multiples
+    of TILE (any Wb: the column basis streams through shared memory),
+    W0 a multiple of 16, at least one candidate."""
+    return (n % TILE == 0 and m % TILE == 0 and W0 % 16 == 0
+            and Wb % TILE == 0 and P >= 1)
+
+
+def _check(Sr, Si, gx, gy, A0c, A0s, A1c, A1s, run, off, kconst):
+    """Raise unless the operands are what the three launches take."""
     G, H, W0, Wb = Sr.shape
     P = gx.shape[1]
     n = A0c.shape[1]
-    m = A1cT.shape[2]
+    m = A1c.shape[1]
     f32, i32 = torch.float32, torch.int32
     for name, t, shape, dt in (
             ("Sr", Sr, (G, H, W0, Wb), f32), ("Si", Si, (G, H, W0, Wb), f32),
             ("gx", gx, (G, P, W0), f32), ("gy", gy, (G, P, Wb), f32),
             ("A0c", A0c, (G, n, W0), f32), ("A0s", A0s, (G, n, W0), f32),
-            ("A1cT", A1cT, (G, Wb, m), f32), ("A1sT", A1sT, (G, Wb, m), f32),
+            ("A1c", A1c, (G, m, Wb), f32), ("A1s", A1s, (G, m, Wb), f32),
             ("run", run, (G, P), i32), ("off", off, (G, P), i32),
             ("kconst", kconst, (G, 5), f32)):
         _build.check_tensor("sweep_uv", name, t, shape, dt, Sr.device)
-    if n % TILE or m % TILE or W0 % 16 or Wb % TILE or Wb > MAX_WB:
+    if not kernel_supported(n, m, W0, Wb, P):
         raise ValueError(
             f"sweep_uv kernel needs n, m, Wb multiples of {TILE}, W0 a "
-            f"multiple of 16 and Wb <= {MAX_WB} (got n={n}, m={m}, "
-            f"W0={W0}, Wb={Wb})")
-    dev = Sr.device
-    T = torch.empty((G, P, n, 2 * Wb), dtype=f32, device=dev)
-    ph = torch.empty((G, n, m), dtype=f32, device=dev)
-    wt = torch.empty((G, n, m), dtype=f32, device=dev)
-    ux = torch.empty((2, n, m), dtype=f32, device=dev)
-    uy = torch.empty((2, n, m), dtype=f32, device=dev)
-    wn = torch.empty((n, m), dtype=f32, device=dev)
+            f"multiple of 16 and P >= 1 (got n={n}, m={m}, W0={W0}, "
+            f"Wb={Wb}, P={P})")
+
+
+def stage1(Sr, Si, gx, gy, A0c, A0s, run):
+    """Stage 1 on the card (checked operands): T (G, P, n, 2 Wb)."""
+    G, H, W0, Wb = Sr.shape
+    P, n, dev = gx.shape[1], A0c.shape[1], Sr.device
+    T = torch.empty((G, P, n, 2 * Wb), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        s1 = _build.bind("sweep_stage1", "ppppppppiiiiiip")
-        _build.check(s1(Sr.data_ptr(), Si.data_ptr(), gx.data_ptr(),
-                        gy.data_ptr(), A0c.data_ptr(), A0s.data_ptr(),
-                        run.data_ptr(), T.data_ptr(),
-                        G, H, P, n, W0, Wb, stream), "sweep_stage1")
-        s2 = _build.bind("sweep_stage2", "ppppppiiiiiiip")
-        _build.check(s2(T.data_ptr(), A1cT.data_ptr(), A1sT.data_ptr(),
-                        off.data_ptr(), ph.data_ptr(), wt.data_ptr(),
-                        G, P, n, m, Wb, int(dr), int(bool(banded)),
-                        stream), "sweep_stage2")
-        s3 = _build.bind("sweep_uv", "ppppppiiip")
-        _build.check(s3(ph.data_ptr(), wt.data_ptr(), kconst.data_ptr(),
-                        ux.data_ptr(), uy.data_ptr(), wn.data_ptr(),
-                        G, n, m, stream), "sweep_uv")
+        _build.check(_build.bind("sweep_stage1", "ppppppppiiiiiip")(
+            Sr.data_ptr(), Si.data_ptr(), gx.data_ptr(), gy.data_ptr(),
+            A0c.data_ptr(), A0s.data_ptr(), run.data_ptr(), T.data_ptr(),
+            G, H, P, n, W0, Wb, torch.cuda.current_stream(dev).cuda_stream),
+            "sweep_stage1")
+    return T
+
+
+def stage2(T, A1c, A1s, off, dr, banded):
+    """Stage 2 on the tensor cores and the tournament (checked operands):
+    the winner phase and rim-masked weight planes (G, n, m)."""
+    G, P, n, Wb = T.shape[0], T.shape[1], T.shape[2], T.shape[3] // 2
+    m, dev = A1c.shape[1], T.device
+    ph = torch.empty((G, n, m), dtype=torch.float32, device=dev)
+    wt = torch.empty_like(ph)
+    with torch.cuda.device(dev):
+        _build.check(_build.bind("sweep_stage2", "ppppppiiiiiiip")(
+            T.data_ptr(), A1c.data_ptr(), A1s.data_ptr(), off.data_ptr(),
+            ph.data_ptr(), wt.data_ptr(), G, P, n, m, Wb, int(dr),
+            int(bool(banded)), torch.cuda.current_stream(dev).cuda_stream),
+            "sweep_stage2")
+    return ph, wt
+
+
+def epilogue(ph, wt, kconst):
+    """The uv epilogue on the card: (dudx_s, dudy_s, wnorm)."""
+    G, n, m = ph.shape
+    dev = ph.device
+    ux = torch.empty((2, n, m), dtype=torch.float32, device=dev)
+    uy = torch.empty_like(ux)
+    wn = torch.empty((n, m), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        _build.check(_build.bind("sweep_uv", "ppppppiiip")(
+            ph.data_ptr(), wt.data_ptr(), kconst.data_ptr(), ux.data_ptr(),
+            uy.data_ptr(), wn.data_ptr(), G, n, m,
+            torch.cuda.current_stream(dev).cuda_stream), "sweep_uv")
     return ux, uy, wn
 
 
-def sweep_uv(Sr, Si, gx, gy, A0c, A0s, A1cT, A1sT, run, off, kconst, dr,
+def sweep_uv(Sr, Si, gx, gy, A0c, A0s, A1c, A1s, run, off, kconst, dr,
              banded):
     """Grouped banded sweep -> (dudx_s (2, n, m), dudy_s (2, n, m),
     wnorm (n, m)), float32.
@@ -230,7 +267,7 @@ def sweep_uv(Sr, Si, gx, gy, A0c, A0s, A1cT, A1sT, run, off, kconst, dr,
     gx : (G, P, W0) row Gaussian factors; gy : (G, P, Wb) column
         factors band-sliced per candidate.
     A0c, A0s : (G, n, W0) row inverse-DFT bases.
-    A1cT, A1sT : (G, Wb, m) base-band column bases, transposed.
+    A1c, A1s : (G, m, Wb) base-band column bases.
     run, off : (G, P) int32 run index and band offset per candidate
         (candidates wy-sorted, runs consecutive).
     kconst : (G, 5) float32 (k0, k1, k0*k0, k0*k1, k1*k1) with
@@ -239,11 +276,13 @@ def sweep_uv(Sr, Si, gx, gy, A0c, A0s, A1cT, A1sT, run, off, kconst, dr,
 
     Column 0 of dudx_s and row 0 of dudy_s hold no diff and are 0."""
     if Sr.device.type == "cpu":
-        return sweep_uv_plain(Sr, Si, gx, gy, A0c, A0s, A1cT, A1sT, run,
+        return sweep_uv_plain(Sr, Si, gx, gy, A0c, A0s, A1c, A1s, run,
                               off, kconst, dr, banded)
     if Sr.device.type != "cuda":
         raise ValueError(f"sweep_uv: unsupported device {Sr.device}")
-    out = _sweep_uv_cuda(Sr, Si, gx, gy, A0c, A0s, A1cT, A1sT, run, off,
-                         kconst, dr, banded)
+    _check(Sr, Si, gx, gy, A0c, A0s, A1c, A1s, run, off, kconst)
+    ph, wt = stage2(stage1(Sr, Si, gx, gy, A0c, A0s, run), A1c, A1s, off,
+                    dr, banded)
+    out = epilogue(ph, wt, kconst)
     _build.launches["sweep_uv"] += 1
     return out

@@ -23,7 +23,10 @@ round-to-nearest intrinsics without FMA contraction, so the kernel's
 arithmetic is the twin's, operation for operation.
 
 phi, dxc, dyc and p carry a batch axis (the displacement components);
-w is one (n, m) plane shared by the batch.
+w is one (n, m) plane shared by the batch. The multigrid takes the
+kernels where :func:`vcycle_kernel_ok` holds and the twins elsewhere,
+as the reference routes by its ``_vcycle_kernel_ok``; a wrapper handed
+a CUDA tensor outside the kernels' limits raises.
 """
 import torch
 
@@ -31,6 +34,25 @@ from . import _build
 
 PRESMOOTH_ROWS = 16   # presmooth output tile rows (csrc/vcycle.cu)
 PRESMOOTH_COLS = 32
+
+
+def supported(n, m, cr):
+    """Shapes the presmooth kernel takes: n % PRESMOOTH_ROWS, m %
+    PRESMOOTH_COLS, a coarse factor cr dividing PRESMOOTH_ROWS, n, m >=
+    3 (the reference's pallas_vcycle.supported, for this kernel's
+    tile)."""
+    cr = int(cr)
+    return (n % PRESMOOTH_ROWS == 0 and m % PRESMOOTH_COLS == 0
+            and cr >= 1 and PRESMOOTH_ROWS % cr == 0 and n >= 3 and m >= 3)
+
+
+def vcycle_kernel_ok(phi, w, cr):
+    """The reference's _vcycle_kernel_ok read for the card: the V-branch
+    kernels take CUDA float32 planes phi (..., n, m) and w (n, m) whose
+    shape and coarse factor cr the kernels support."""
+    n, m = phi.shape[-2:]
+    return (phi.device.type == "cuda" and phi.dtype == torch.float32
+            and w.dtype == torch.float32 and supported(n, m, cr))
 
 
 def _masks(n, m, device):
@@ -96,8 +118,7 @@ def presmooth(phi, dxc, dyc, w, cr, omega):
         raise ValueError(f"presmooth: unsupported device {phi.device}")
     n, m = phi.shape[-2:]
     cr = int(cr)
-    if (n % PRESMOOTH_ROWS or m % PRESMOOTH_COLS or cr < 1
-            or PRESMOOTH_ROWS % cr or n < 3 or m < 3):
+    if not supported(n, m, cr):
         raise ValueError(
             f"presmooth kernel needs n % {PRESMOOTH_ROWS} == 0, m % "
             f"{PRESMOOTH_COLS} == 0 and cr dividing {PRESMOOTH_ROWS} "

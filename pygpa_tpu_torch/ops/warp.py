@@ -47,11 +47,25 @@ mode; the output allocated once; the launcher bound once; no device
 context switch and no Stream object when the tensor is on the current
 device).
 
+The cubic B-spline warp also takes its positions in displacement form,
+``warp_cubic_disp``: up to two coefficient planes, stored planes-last
+(n, m, C) so that one 8-byte load reads a tap of both, sampled at the
+grid point r + u(r) of each output pixel, the position built (with the
+'nearest' margin's clamp and shift) from the pixel's own u in the
+kernel, the taps and weights computed once for both planes. It is what
+the displacement inversion's Picard step (both planes of u, updated in
+place) and the undistortion's final warp run; its bound is the bytes
+of u in and out and of the coefficients, 0.120 ms per 4096^2 Picard
+step. Both forms count their launches as "warp_cubic".
+
 The plain twins (``warp_bilinear_plain``, ``warp_cubic_plain``) hold
 the dense tap/weight algebra of the reference's ``_warp_xla`` on
-materialised padded images. A CPU tensor runs the twin; a CUDA tensor
-the kernel (float32 image and coordinates; a 2-D image, or for the
-bilinear warp a stack of up to MAX_PLANES planes) or an error.
+materialised padded images; ``warp_cubic_disp_plain`` is the
+composition the displacement form replaces (positions built in torch,
+then core.interp's plain sampler), bit for bit. A CPU tensor runs the
+twin; a CUDA tensor the kernel (float32 image and coordinates; a 2-D
+image, or for the bilinear warp a stack of up to MAX_PLANES planes) or
+an error.
 """
 import torch
 import torch.nn.functional as F
@@ -225,6 +239,63 @@ def _launch_cubic(image, cy, cx, mode, cval, weight):
     return out.reshape(cy.shape)
 
 
+def warp_cubic_disp_plain(coef, u, origin=(0, 0), margin=0, mode="nearest",
+                          cval=0.0, out=None):
+    """Plain PyTorch twin of the displacement-form cubic warp: the
+    positions (r + origin) + u(r) built in torch, clamped and shifted
+    into the margin as core.interp.map_coordinates does, then each plane
+    coef[..., p] sampled by core.interp's plain B-spline sampler."""
+    from ..core import interp
+    h, w = u.shape[-2:]
+    dev, dt = u.device, u.dtype
+    xx = torch.arange(origin[0], origin[0] + h, device=dev).to(dt)[:, None]
+    yy = torch.arange(origin[1], origin[1] + w, device=dev).to(dt)[None, :]
+    coords = interp.margin_coords(torch.stack([xx + u[0], yy + u[1]]),
+                                  coef.shape[:2], margin)
+    res = torch.stack([interp._map_coordinates_cubic(
+        coef[..., p], coords, cval, mode, cubic="bspline")
+        for p in range(coef.shape[-1])])
+    return res if out is None else out.copy_(res)
+
+
+def _launch_cubic_disp(coef, u, origin, margin, mode, cval, out):
+    """Run the displacement-form cubic kernel on CUDA float32 planes."""
+    op = "warp_cubic_disp"
+    dev = coef.device
+    if dev.type != "cuda":
+        raise ValueError(f"{op}: unsupported device {dev}")
+    C = coef.shape[-1] if coef.ndim == 3 else 0
+    h, w = u.shape[-2:]
+    if out is None:
+        out = torch.empty((C, h, w), dtype=torch.float32, device=dev)
+    f32 = torch.float32
+    if (coef.ndim != 3 or not 0 < C <= 2 or u.shape != (2, h, w)
+            or mode not in MODES or out.shape != (C, h, w)
+            or any(t.dtype != f32 or t.device != dev or not t.is_contiguous()
+                   for t in (coef, u, out))
+            or out.data_ptr() == coef.data_ptr()):
+        raise ValueError(
+            f"{op} kernel needs contiguous float32 coefficients (n, m, C <= "
+            f"2), u (2, h, w) and out (C, h, w), apart from coef, on {dev} "
+            f"and mode in {MODES}; got coef {coef.dtype} "
+            f"{tuple(coef.shape)}, u {u.dtype} {tuple(u.shape)} on {u.device},"
+            f" out {out.dtype} {tuple(out.shape)} on {out.device}, mode "
+            f"{mode!r}")
+    n, m = coef.shape[:2]
+    mg = int(margin)
+    if C * n * m >= 2 ** 31 or 2 * h * w >= 2 ** 31 or min(n, m) - 2 * mg < 2:
+        raise ValueError(f"{op} kernel: coefficients {tuple(coef.shape)} "
+                         f"(margin {mg}) or grid {h}x{w} out of range")
+    with torch.cuda.device(dev):
+        fn = _build.bind(op, "piiippiiiiiifp")
+        _build.check(fn(coef.data_ptr(), C, n, m, u.data_ptr(),
+                        out.data_ptr(), h, w, int(origin[0]), int(origin[1]),
+                        mg, MODES.index(mode), float(cval),
+                        torch.cuda.current_stream(dev).cuda_stream), op)
+    _build.launches["warp_cubic"] += 1
+    return out
+
+
 def _launch_bilinear(image, cy, cx, mode, cval):
     """Run the bilinear kernel on a CUDA float32 image (n, m) or stack
     (C, n, m), C <= MAX_PLANES, at contiguous float32 coordinates of one
@@ -290,3 +361,17 @@ def warp_cubic(image, cy, cx, mode="nearest", cval=0.0, cubic="catmull"):
     return _launch_cubic(image, cy, cx, mode, cval,
                          _WEIGHT_FN["bspline" if cubic == "bspline"
                                     else "catmull"])
+
+
+def warp_cubic_disp(coef, u, origin=(0, 0), margin=0, mode="nearest",
+                    cval=0.0, out=None):
+    """map_coordinates(order=3, prefilter=False) of each B-spline
+    coefficient plane of `coef` (n, m, C), C <= 2 planes stored last, at
+    the grid points (r + origin) + u(r), u (2, h, w): output (C, h, w),
+    written into `out` when given (which may be u itself: the kernel
+    reads each pixel of u before it writes that pixel). `margin` is the
+    coefficients' extension (core.interp.NEAREST_MARGIN for scipy-exact
+    'nearest'). CPU tensors run the twin, CUDA tensors the kernel."""
+    if coef.device.type == "cpu":
+        return warp_cubic_disp_plain(coef, u, origin, margin, mode, cval, out)
+    return _launch_cubic_disp(coef, u, origin, margin, mode, cval, out)

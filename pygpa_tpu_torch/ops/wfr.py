@@ -301,8 +301,8 @@ class UVSweep:
                                 device=device).reshape(G, P)
         self.off = torch.tensor(off_of, dtype=torch.int32,
                                 device=device).reshape(G, P)
-        self.A1cT = self.A1c[:, :, :Wb].transpose(1, 2).contiguous()
-        self.A1sT = self.A1s[:, :, :Wb].transpose(1, 2).contiguous()
+        self.A1cb = self.A1c[:, :, :Wb].contiguous()        # (G, m, Wb)
+        self.A1sb = self.A1s[:, :, :Wb].contiguous()
         kc = []
         for k0, k1 in plan.uv_ks:
             t0, t1 = 2 * np.pi * k0, 2 * np.pi * k1
@@ -333,7 +333,7 @@ class UVSweep:
                              f", got {img0.dtype} {tuple(img0.shape)}")
         Sr4, Si4 = self.windows(img0)
         return _sweep.sweep_uv(Sr4, Si4, self.gx, self.gy, self.A0c,
-                               self.A0s, self.A1cT, self.A1sT, self.run,
+                               self.A0s, self.A1cb, self.A1sb, self.run,
                                self.off, self.kconst, self.plan.dr,
                                self.banded)
 

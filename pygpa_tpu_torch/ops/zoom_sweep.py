@@ -38,6 +38,7 @@ candidates; a CPU tensor runs it, a CUDA tensor the kernels.
 import torch
 
 from . import _build
+from . import sweep as _sweep
 from .sweep import TILE, rim_weights
 
 
@@ -95,18 +96,11 @@ def _check(Sr, Si, gx, gy, A0c, A0s, A1c, A1s):
 
 def stage1(Sr, Si, gx, gy, A0c, A0s):
     """Stage 1 on the card (checked operands): T (P, n, 2 W1), the rows
-    [Re | Im] of ((A0c + i A0s) . gx_i) @ (Sr + i Si) . gy_i."""
-    W0, W1 = Sr.shape
-    P, n, dev = gx.shape[0], A0c.shape[0], Sr.device
-    run = torch.zeros((P,), dtype=torch.int32, device=dev)
-    T = torch.empty((P, n, 2 * W1), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        _build.check(_build.bind("sweep_stage1", "ppppppppiiiiiip")(
-            Sr.data_ptr(), Si.data_ptr(), gx.data_ptr(), gy.data_ptr(),
-            A0c.data_ptr(), A0s.data_ptr(), run.data_ptr(), T.data_ptr(),
-            1, 1, P, n, W0, W1, torch.cuda.current_stream(dev).cuda_stream),
-            "sweep_stage1")
-    return T
+    [Re | Im] of ((A0c + i A0s) . gx_i) @ (Sr + i Si) . gy_i: the grouped
+    sweep's stage 1 with one group and one band run."""
+    run = torch.zeros((1, gx.shape[0]), dtype=torch.int32, device=Sr.device)
+    return _sweep.stage1(Sr[None, None], Si[None, None], gx[None], gy[None],
+                         A0c[None], A0s[None], run)[0]
 
 
 def stage2(T, A1c, A1s, dr):

@@ -19,7 +19,9 @@ reference's ``_cg_kernel_ok`` does: float32 levels with sides that are
 multiples of 128 and at most 1024 go to the ops.cg kernel (fixed
 iteration count; the guarded coefficients make post-convergence
 iterations no-ops), every other level to the early-stopping loop. The
-V-branch stencil passes run in ops.vcycle.
+V-branch stencil passes run in the ops.vcycle kernels where
+``vcycle_kernel_ok`` holds (the reference's ``_vcycle_kernel_ok``) and
+in their plain twins, the reference's XLA stencils, elsewhere.
 """
 
 import torch
@@ -354,11 +356,16 @@ def phase_unwrap_prediff_mg(dx, dy, weight, kmax=10, coarse=4,
                     f"unwrap_mg_final={iters!r}: only the 'v' branch is "
                     "ported (ROADMAP queue 1 item 8)")
             cv = _V_COARSE_MULT * c
+            if _vcycle.vcycle_kernel_ok(phi, wc, cv):
+                presmooth, applyq = _vcycle.presmooth, _vcycle.applyq
+            else:
+                presmooth = _vcycle.presmooth_plain
+                applyq = _vcycle.applyq_plain
             # fused pre-smooth: residual gradients, weights, residual,
             # Jacobi diagonal, d = Dinv rk, r = rk - Q d, and the row
             # half of the restriction of r
-            r, d, Dinv, rrow = _vcycle.presmooth(phi, dxc, dyc, wc, cv,
-                                                 _JACOBI_OMEGA)
+            r, d, Dinv, rrow = presmooth(phi, dxc, dyc, wc, cv,
+                                         _JACOBI_OMEGA)
             dxv, dyv, wv = level_data(cv)
             _, WWxv, WWyv = _residual_aligned(dxv, dyv, wv)
             vk = int(kmax) if DEFAULTS.unwrap_mg_v_kmax is None \
@@ -370,7 +377,7 @@ def phase_unwrap_prediff_mg(dx, dy, weight, kmax=10, coarse=4,
                                     rrow.device)
             dcor, _ = _cg_unwrap(r2c, WWxv, WWyv, vk, aligned=True)
             dcu = upsample(dcor, nc, mc)
-            q = _vcycle.applyq(dcu, wc)
+            q = applyq(dcu, wc)
             num = (r * dcu).sum((-2, -1), keepdim=True)
             den = (dcu * q).sum((-2, -1), keepdim=True)
             one = torch.ones((), dtype=den.dtype, device=den.device)

@@ -89,7 +89,7 @@ def test_sweep_kernel(dev):
                            2 * sigma, ks, gauss_cut=7.0)
     sw = twfr.UVSweep(plan, device=dev)
     Sr4, Si4 = sw.windows(img)
-    args = (Sr4, Si4, sw.gx, sw.gy, sw.A0c, sw.A0s, sw.A1cT, sw.A1sT,
+    args = (Sr4, Si4, sw.gx, sw.gy, sw.A0c, sw.A0s, sw.A1cb, sw.A1sb,
             sw.run, sw.off, sw.kconst, plan.dr, sw.banded)
     ux, uy, wn = tsweep.sweep_uv(*args)
     px, py, pn = tsweep.sweep_uv_plain(*args)
@@ -493,3 +493,147 @@ def test_expand_kernel(dev, ks, z, shape, order, cubic, z2, with_u):
     assert _build.launches["expand"] == before + 1
     assert got.shape == shape and torch.isfinite(got).all()
     assert float((got - want).abs().max()) <= 1e-6 * float(cell.abs().max())
+
+
+def _grouped_ops(G, P, W0, Wb, n, m, seed, dev):
+    """sweep_uv operands made from a seed: two band runs per group at
+    offsets 0 and 64, DFT bases of consecutive bins, nominal k-vectors;
+    dr 6, banded."""
+    g = np.random.default_rng(seed)
+    f = np.float32
+    T = lambda a, dt=f: torch.from_numpy(np.asarray(a, dt)).to(dev)
+    a0 = twfr._zoom_basis(n, (np.arange(W0) + 5) % n)
+    a1 = twfr._zoom_basis(m, (np.arange(Wb) + 3) % m)
+    h = P // 2
+    kc = [[2 * np.pi * a, 2 * np.pi * b] for a, b in
+          g.uniform(0.05, 0.2, size=(G, 2))]
+    return (T(g.normal(size=(G, 2, W0, Wb))), T(g.normal(size=(G, 2, W0, Wb))),
+            T(g.uniform(0.2, 1, size=(G, P, W0))),
+            T(g.uniform(0.2, 1, size=(G, P, Wb))),
+            T(np.stack([a0[0].numpy()] * G)), T(np.stack([a0[1].numpy()] * G)),
+            T(np.stack([a1[0].numpy()] * G)), T(np.stack([a1[1].numpy()] * G)),
+            T([[0] * h + [1] * (P - h)] * G, np.int32),
+            T([[0] * h + [64] * (P - h)] * G, np.int32),
+            T([[a, b, a * a, a * b, b * b] for a, b in kc]), 6, True)
+
+
+@pytest.mark.parametrize("Wb", [128, 256, 448])
+def test_grouped_sweep_tensor_core_kernel(dev, Wb):
+    """The grouped sweep's stage 2 on the tensor cores at band widths of
+    the bench (128), of config 6 (256) and of config 1 at 2048^2 (448,
+    which the former kernel refused), on one stage-1 output, against the
+    float32 and the float64 twin's stage 2, with the flip-tolerant bounds
+    of tests/test_lockin_wfr.py's banded-vs-unbanded test: winner phases
+    within 1e-4 rad at 99% of the pixels (flips) and p99 < 5e-5 rad,
+    weights rel p99 < 5e-5 and max < 2e-2. The whole call counts one
+    launch and is finite. (Synthetic operands: the uv lstsq of random
+    phases is too ill-conditioned for check_sweep's uv bounds.)"""
+    args = _grouped_ops(3, 5, 64, Wb, 256, 320, 40 + Wb, dev)
+    before = _build.launches["sweep_uv"]
+    assert all(torch.isfinite(t).all() for t in tsweep.sweep_uv(*args))
+    assert _build.launches["sweep_uv"] == before + 1
+    T = tsweep.stage1(*args[:6], args[8])
+    ph, wt = tsweep.stage2(T, args[6], args[7], args[9], 6, True)
+    for dt in (torch.float32, torch.float64):
+        pp, pw = tsweep._stage2_plain(T.to(dt), args[6].to(dt),
+                                      args[7].to(dt), args[9], 6, True)
+        dph = torch.remainder(ph.to(dt) - pp + np.pi, 2 * np.pi) - np.pi
+        dph = dph.abs().flatten()
+        rel = ((wt.to(dt) - pw).abs() / (pw.abs() + 1e-9)).flatten()
+        assert float((dph > 1e-4).double().mean()) < 1e-2, (Wb, dt)
+        assert float(torch.quantile(dph[::3], 0.99)) < 5e-5, (Wb, dt)
+        assert float(torch.quantile(rel[::3], 0.99)) < 5e-5, (Wb, dt)
+        assert float(rel.max()) < 2e-2, (Wb, dt)
+
+
+def test_config1_extractor_at_2048(dev, monkeypatch):
+    """make_displacement_extractor((2048, 2048), config 1's k-vectors)
+    plans an unbanded Wb = 448 and runs through the grouped kernel:
+    finite, config 1's gate (interior max |u| < 0.02 px, 8 sigma border)
+    and within 1e-3 px (p99) of the same call on the plain twins."""
+    from pygpa_tpu_torch.gpa.pipeline import make_displacement_extractor
+    ks = generate_ks(0.1, 7.0)[:3]
+    img = hexlattice_gen(0.1, 7.0, order=2, size=2048, dtype=torch.float32,
+                         device=dev)
+    fn = make_displacement_extractor((2048, 2048), ks, device=dev)
+    assert fn.plan.col_groups is None and fn.plan.idx1s.shape[1] == 448
+    before = _build.launches["sweep_uv"]
+    u = fn(img)
+    assert _build.launches["sweep_uv"] == before + 1
+    assert torch.isfinite(u).all()
+    b = 8 * int(np.ceil(1 / np.linalg.norm(ks, axis=1).min()))
+    assert float(u[:, b:-b, b:-b].abs().max()) < 0.02
+    monkeypatch.setattr(tsweep, "sweep_uv", tsweep.sweep_uv_plain)
+    d = (u - fn(img))[:, b:-b, b:-b].abs().flatten()
+    assert float(torch.quantile(d[::7], 0.99)) < 1e-3
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("size", [500, 512])
+def test_multigrid_extractor_routes_the_v_branch(dev, dtype, size):
+    """make_displacement_extractor(..., unwrap_coarse=4) at 500^2 (shapes
+    the V-branch kernels refuse) and in float64 runs on the card, the
+    V-branch on the twins there and on the kernels at 512^2 float32, and
+    matches the same call on the CPU on a lattice shifted by a smooth
+    ~1 px field: float64 within 1e-9 px; float32 interior p99 within
+    1e-4 px and max within 1e-2 px (near-tie winner flips between the
+    grouped kernel and its twin, as chip_smoke.py phase 6)."""
+    from pygpa_tpu_torch.gpa.pipeline import make_displacement_extractor
+    ks = generate_ks(0.1, 7.0)[:3]
+    x = np.arange(size) / size
+    shift = np.stack([np.outer(np.sin(2 * np.pi * x), np.cos(np.pi * x)),
+                      0.5 * np.outer(x, x)])
+    img = hexlattice_gen(0.1, 7.0, order=2, size=size, shift=shift,
+                         dtype=dtype)
+    want = make_displacement_extractor((size, size), ks, unwrap_coarse=4,
+                                       dtype=dtype, device="cpu")(img)
+    before = _build.launches["presmooth"]
+    got = make_displacement_extractor((size, size), ks, unwrap_coarse=4,
+                                      dtype=dtype, device=dev)(img.to(dev))
+    kernel = dtype == torch.float32 and size == 512
+    assert _build.launches["presmooth"] == before + int(kernel)
+    assert torch.isfinite(got).all()
+    b = 2 * int(np.ceil(1 / np.linalg.norm(ks, axis=1).min()))
+    d = (got.cpu() - want)[:, b:-b, b:-b].abs().flatten()
+    if dtype == torch.float64:
+        assert float(d.max()) <= 1e-9
+    else:
+        assert float(torch.quantile(d, 0.99)) <= 1e-4
+        assert float(d.max()) <= 1e-2
+
+
+@pytest.mark.parametrize("mode,margin", [("nearest", 13), ("constant", 0)])
+@pytest.mark.parametrize("n,m", [(300, 517), (97, 1030), (256, 256)])
+def test_cubic_displacement_kernel(dev, n, m, mode, margin):
+    """The displacement-form cubic warp against its twin (normwise 1e-6:
+    the same float32 operations in the same order), on one and two
+    coefficient planes (stored planes-last), out of place and in place
+    (out = u), with positions far outside, on sides off the kernel's
+    32 x 8 block."""
+    from pygpa_tpu_torch.core import interp as ti
+    from pygpa_tpu_torch.ops import warp as tw
+    planes = _planes((2, n, m), 31, dev)
+    coef = ti.spline_filter(planes, mode=mode, axes=(-2, -1), margin=margin)
+    coef = coef.permute(1, 2, 0).contiguous()          # planes last
+    u = 3 * _planes((2, n, m), 32, dev)
+    u[:, :2, :5] = torch.tensor([[50.0], [-70.0]], device=dev)[:, :, None]
+    for origin in ((0, 0), (-4, -4)):
+        for C in (1, 2):
+            before = _build.launches["warp_cubic"]
+            cf = coef[..., :C].contiguous()
+            got = tw.warp_cubic_disp(cf, u, origin, margin, mode, 0.0)
+            assert _build.launches["warp_cubic"] == before + 1
+            want = tw.warp_cubic_disp_plain(cf, u, origin, margin, mode,
+                                            0.0)
+            assert got.shape == (C, n, m) and torch.isfinite(got).all()
+            assert _rel(got, want) <= 1e-6, (origin, C)
+        u_in = u.clone()
+        tw.warp_cubic_disp(coef, u_in, origin, margin, mode, 0.0, u_in)
+        assert _rel(u_in, want) <= 1e-6
+    with pytest.raises(ValueError, match="warp_cubic_disp"):
+        tw.warp_cubic_disp(coef.double(), u.double(), (0, 0), margin, mode)
+    with pytest.raises(ValueError, match="warp_cubic_disp"):
+        tw.warp_cubic_disp(torch.cat([coef, coef], -1), u, (0, 0), margin,
+                           mode)
+    with pytest.raises(ValueError, match="warp_cubic_disp"):
+        tw.warp_cubic_disp(coef, u, (0, 0), margin, mode, 0.0, coef)

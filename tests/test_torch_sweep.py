@@ -167,7 +167,7 @@ def test_uv_epilogue_matches_reference_prologue():
     sw = TW.UVSweep(plan)
     Sr4, Si4 = sw.windows(torch.from_numpy(img))
     T = TS._stage1_plain(Sr4, Si4, sw.gx, sw.gy, sw.A0c, sw.A0s, sw.run)
-    ph, wt = TS._stage2_plain(T, sw.A1cT, sw.A1sT, sw.off, dr, True)
+    ph, wt = TS._stage2_plain(T, sw.A1cb, sw.A1sb, sw.off, dr, True)
     ux, uy, wn = TS._uv_plain(ph, wt, sw.kconst)
     ph, wt = jnp.asarray(ph.numpy()), jnp.asarray(wt.numpy())
     K = 2 * jnp.pi * jnp.asarray(ks, jnp.float32)
@@ -216,7 +216,7 @@ def test_sweep_twin_matches_interpret_kernel(highest, fixture, banded):
     sw = TW.UVSweep(plan)
     Sr4, Si4 = sw.windows(torch.from_numpy(img))
     T = TS._stage1_plain(Sr4, Si4, sw.gx, sw.gy, sw.A0c, sw.A0s, sw.run)
-    _, wt = TS._stage2_plain(T, sw.A1cT, sw.A1sT, sw.off, dr, sw.banded)
+    _, wt = TS._stage2_plain(T, sw.A1cb, sw.A1sb, sw.off, dr, sw.banded)
     wt = wt.numpy()
     mx = wt[:, :, :-1].min(0) > 1e-4
     my = wt[:, :-1, :].min(0) > 1e-4
@@ -226,3 +226,157 @@ def test_sweep_twin_matches_interpret_kernel(highest, fixture, banded):
     assert (dy[:, my] > 1e-4).mean() < 1e-3
     assert np.percentile(dx, 99) < 1e-3 and np.percentile(dy, 99) < 1e-3
     assert (np.abs(wn1 - wn0) / (np.abs(wn0) + 1e-9)).max() < 5e-3
+
+
+def _grouped_case(seed, G, P, W0, W1, Wb, n, m, dr=6):
+    """Operands of a banded grouped uv sweep made from a seed: spectrum
+    windows (G, W0, W1), Gaussian-like factors, the DFT bases of
+    consecutive window bins, two band runs per group (offsets 0 and W1 -
+    Wb), and the nominal k-vectors; returned as the arguments of the
+    reference's fused_zoom_sweep_grouped (numpy) and of the port's
+    sweep_uv (torch)."""
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    Sr, Si = (rng.normal(size=(G, W0, W1)).astype(f32) for _ in range(2))
+    gx = rng.uniform(0.2, 1.0, size=(G, P, W0)).astype(f32)
+    gy = rng.uniform(0.2, 1.0, size=(G, P, W1)).astype(f32)
+    i0 = (np.arange(W0) + 5) % n
+    i1 = (np.arange(W1) + 3) % m
+    A0c, A0s = (a.numpy() for a in TW._zoom_basis(n, i0))
+    A1c, A1s = (a.numpy() for a in TW._zoom_basis(m, i1))
+    A0c, A0s = np.stack([A0c] * G), np.stack([A0s] * G)
+    A1c, A1s = np.stack([A1c] * G), np.stack([A1s] * G)
+    runs = tuple(((P // 2, 0), (P - P // 2, W1 - Wb)) for _ in range(G))
+    ks = rng.uniform(0.05, 0.2, size=(G, 2))
+    ref = dict(args=(Sr, Si, gx, gy, A0c, A0s, A1c, A1s),
+               uv_ks=tuple((2 * np.pi * a, 2 * np.pi * b) for a, b in ks),
+               dr=dr, col_groups=(Wb, runs))
+    T = torch.from_numpy
+    band = [[(0, P // 2, 0), (1, P - P // 2, W1 - Wb)] for _ in range(G)]
+    Sr4 = T(np.stack([[Sr[g, :, o:o + Wb] for _, _, o in band[g]]
+                      for g in range(G)]).copy())
+    Si4 = T(np.stack([[Si[g, :, o:o + Wb] for _, _, o in band[g]]
+                      for g in range(G)]).copy())
+    gyb = T(np.stack([np.concatenate(
+        [gy[g, :P // 2, :Wb], gy[g, P // 2:, W1 - Wb:]]) for g in range(G)]))
+    run = T(np.array([[0] * (P // 2) + [1] * (P - P // 2)] * G, np.int32))
+    off = T(np.array([[0] * (P // 2) + [W1 - Wb] * (P - P // 2)] * G,
+                     np.int32))
+    kc = [[t0, t1, t0 * t0, t0 * t1, t1 * t1] for t0, t1 in ref["uv_ks"]]
+    port = (Sr4, Si4, T(gx), gyb, T(A0c), T(A0s),
+            T(A1c[:, :, :Wb].copy()), T(A1s[:, :, :Wb].copy()), run, off,
+            torch.tensor(kc, dtype=torch.float64).float(), dr, True)
+    return ref, port
+
+
+def _emulated_sweep_uv(args):
+    """csrc/sweep.cu's grouped sweep as its tensor cores compute stage 2
+    (test_torch_zoom_sweep's emulation of sweep_tc.cuh: 3xTF32, each
+    mma's sum truncated to float32, per 32 columns of Wb one chain of the
+    hi.hi products and one of the two small ones, the chains' sums added
+    in float32), with the twin's stage 1, the tournament taking candidate
+    0 first, and the twin's epilogues."""
+    from test_torch_zoom_sweep import _stage2_tensor_cores
+    Sr, Si, gx, gy, A0c, A0s, A1c, A1s, run, off, kc, dr, banded = args
+    G, P = gx.shape[:2]
+    n, m = A0c.shape[1], A1c.shape[1]
+    T = TS._stage1_plain(Sr, Si, gx, gy, A0c, A0s, run).numpy()
+    passes = (("lo", "hi"), ("hi", "lo"), ("hi", "hi"))
+    jj = torch.arange(m)[None, :].float()
+    phs, wts = [], []
+    for g in range(G):
+        Mr, Mi = _stage2_tensor_cores(T[g], A1c[g].numpy(), A1s[g].numpy(),
+                                      passes, split=True)
+        br, bi, bo = Mr[0], Mi[0], np.full(Mr.shape[1:], off[g, 0].item())
+        for i in range(1, P):
+            sel = Mr[i] * Mr[i] + Mi[i] * Mi[i] > br * br + bi * bi
+            br, bi = np.where(sel, Mr[i], br), np.where(sel, Mi[i], bi)
+            bo = np.where(sel, off[g, i].item(), bo)
+        br, bi = torch.from_numpy(br), torch.from_numpy(bi)
+        rr = torch.from_numpy(bo.astype(np.float32)) * jj
+        rr = rr - m * torch.floor(rr * (1.0 / m))
+        phs.append(TS.wrap_pi(torch.atan2(bi, br) + rr * (TS._TWO_PI / m)))
+        wts.append(torch.sqrt(br * br + bi * bi)
+                   * TS.rim_weights(n, m, dr, torch.float32))
+    return TS._uv_plain(torch.stack(phs), torch.stack(wts), kc)
+
+
+def _uv_distance(got, want):
+    """chip_smoke.py check_sweep's numbers: the p99 of |dudx_s|, |dudy_s|
+    off the carry column/row, and the maximum and p99 of the weight
+    norm's relative difference."""
+    ux, uy, wn = (np.asarray(a, np.float64) for a in got)
+    vx, vy, vn = (np.asarray(a, np.float64) for a in want)
+    rel = np.abs(wn - vn) / (np.abs(vn) + 1e-9)
+    return {"dudx_p99": np.percentile(np.abs(ux - vx)[:, :, 1:], 99),
+            "dudy_p99": np.percentile(np.abs(uy - vy)[:, 1:, :], 99),
+            "wnorm_rel_max": rel.max(),
+            "wnorm_rel_p99": np.percentile(rel, 99)}
+
+
+SWEEP_F64_BOUNDS = {"dudx_p99": 1e-3, "dudy_p99": 1e-3,
+                    "wnorm_rel_max": 5e-3, "wnorm_rel_p99": 5e-5}
+
+
+@pytest.mark.parametrize("Wb", [128, 320])
+def test_tensor_core_stage2_meets_the_float64_bounds(Wb):
+    """The grouped stage 2's tensor-core arithmetic, emulated on a banded
+    plan of two groups at 128^2 (Wb 128, and 320, past what the former
+    SIMT kernel kept in shared memory), against the float64 twin: within
+    chip_smoke.py check_sweep's bounds, and the float32 twin no nearer in
+    the weight norm (the small products' own chain keeps the tensor
+    cores' truncation off |M|; one chain for all three passes lies
+    1.1-1.8x further than the twin). The gradients share the twin's
+    float32 stage 1, which sets their distance: equal within 5%."""
+    _, args = _grouped_case(30 + Wb, 2, 6, 64, Wb + 64, Wb, 128, 128)
+    want = TS.sweep_uv_plain(*(a.double() if torch.is_tensor(a)
+                               and a.is_floating_point() else a
+                               for a in args))
+    emu = _uv_distance(_emulated_sweep_uv(args), want)
+    f32 = _uv_distance(TS.sweep_uv_plain(*args), want)
+    assert all(emu[k] < b for k, b in SWEEP_F64_BOUNDS.items()), emu
+    assert emu["wnorm_rel_max"] <= f32["wnorm_rel_max"], (emu, f32)
+    assert emu["wnorm_rel_p99"] <= f32["wnorm_rel_p99"], (emu, f32)
+    assert emu["dudx_p99"] <= 1.05 * f32["dudx_p99"], (emu, f32)
+    assert emu["dudy_p99"] <= 1.05 * f32["dudy_p99"], (emu, f32)
+
+
+def test_twin_past_256_columns_matches_interpret_kernel(highest):
+    """The twin at Wb = 320 (a band the former kernel refused) against
+    the reference's fused_zoom_sweep_grouped in interpret mode on the same
+    operands, with the flip-tolerant bounds of tests/test_lockin_wfr.py's
+    banded-vs-unbanded test (uv p99 < 1e-3, weight norm rel max <
+    5e-3)."""
+    from pygpa_tpu.ops.pallas_sweep import fused_zoom_sweep_grouped
+    ref, args = _grouped_case(7, 2, 4, 64, 384, 320, 128, 128)
+    want = fused_zoom_sweep_grouped(
+        *(jnp.asarray(a) for a in ref["args"]), uv_ks=ref["uv_ks"],
+        dr=ref["dr"], col_groups=ref["col_groups"], interpret=True)
+    got = TS.sweep_uv(*args)
+    d = _uv_distance(got, [np.asarray(a) for a in want])
+    assert all(np.isfinite(a.numpy()).all() for a in got)
+    assert d["dudx_p99"] < 1e-3 and d["dudy_p99"] < 1e-3, d
+    assert d["wnorm_rel_max"] < 5e-3, d
+
+
+def test_kernel_takes_the_planners_widths():
+    """The grouped kernel's shape rule accepts every Wb that is a
+    multiple of 64: config 1's lattice (r_k 0.1, theta 7 deg) at 2048^2
+    plans an unbanded Wb = 448, which the former kernel refused (Wb <=
+    256), and the bench's 4096^2 plan a banded Wb = 128."""
+    ks = np.asarray(generate_ks(0.1, 7.0))[:3]
+    sigma = int(np.ceil(1 / np.linalg.norm(ks, axis=1).min()))
+    plan = TW.plan_sweep((2048, 2048), candidate_banks(ks), sigma,
+                         2 * sigma, ks, gauss_cut=7.0)
+    assert plan is not None and plan.col_groups is None
+    P, W0, Wb = plan.wl.shape[1], plan.idx0s.shape[1], plan.idx1s.shape[1]
+    assert Wb == 448
+    assert TS.kernel_supported(2048, 2048, W0, Wb, P)
+    bks, banks = _bench_banks()
+    sig = int(np.ceil(1 / np.linalg.norm(bks, axis=1).min()))
+    bench = TW.plan_sweep((4096, 4096), banks, sig, 2 * sig, bks,
+                          gauss_cut=7.0)
+    assert TS.kernel_supported(4096, 4096, 192, bench.col_groups[0], 36)
+    for bad in ((2048, 2048, W0, Wb + 32, P), (2048, 2000, W0, Wb, P),
+                (2048, 2048, W0 + 8, Wb, P), (2048, 2048, W0, Wb, 0)):
+        assert not TS.kernel_supported(*bad)

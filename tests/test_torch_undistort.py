@@ -130,3 +130,59 @@ def test_phase_unwrap_mg_matches(weighted):
     assert got.shape == want.shape and got.dtype == torch.float32
     err = np.abs(got.numpy() - want).max() / np.abs(want).max()
     assert err <= 1e-5, err
+
+
+@pytest.mark.parametrize("mode,margin,origin", [("nearest", 13, (0, 0)),
+                                                ("nearest", 13, (-5, -5)),
+                                                ("constant", 0, (0, 0))])
+def test_displacement_twin_is_the_composition(mode, margin, origin):
+    """The displacement-form cubic warp's twin (and so the CPU route of
+    the inversion's Picard step and the undistortion's final warp) is
+    the composition it replaces, bit for bit, in float32: positions r +
+    u built in torch, then map_coordinates(order=3, prefilter=False) of
+    each coefficient plane (with the 'nearest' margin's clamp and
+    shift); and an in-place call (out = u) gives the same planes."""
+    from pygpa_tpu_torch.core import interp as TI
+    from pygpa_tpu_torch.ops import warp as TW
+    rng = np.random.default_rng(17)
+    h, w = 96, 80
+    planes = torch.from_numpy(rng.normal(size=(2, h, w)).astype(np.float32))
+    coef = TI.spline_filter(planes, mode=mode, axes=(-2, -1), margin=margin)
+    coef = coef.permute(1, 2, 0).contiguous()          # planes last
+    # a few pixels of displacement, and some positions far outside
+    u = torch.from_numpy((4 * rng.normal(size=(2, h, w))).astype(np.float32))
+    u[:, :3, :4] = torch.tensor([[40.0], [-60.0]])[:, :, None]
+    xx = torch.arange(origin[0], origin[0] + h).float()[:, None]
+    yy = torch.arange(origin[1], origin[1] + w).float()[None, :]
+    coords = torch.stack([xx.expand(h, w) + u[0], yy.expand(h, w) + u[1]])
+    want = torch.stack([TI.map_coordinates(coef[..., p], coords, order=3,
+                                           mode=mode, prefilter=False,
+                                           margin=margin)
+                        for p in range(2)])
+    got = TW.warp_cubic_disp(coef, u, origin, margin, mode)
+    assert got.dtype == torch.float32 and torch.equal(got, want)
+    assert torch.equal(TI.map_displaced(coef, u, origin, mode, margin), want)
+    u_in = u.clone()
+    TI.map_displaced(coef, u_in, origin, mode, margin, out=u_in)
+    assert torch.equal(u_in, want)
+    one = TW.warp_cubic_disp(coef[..., :1], u, origin, margin, mode)
+    assert torch.equal(one, want[:1])
+
+
+def test_order3_inversion_steps_in_place(monkeypatch):
+    """invert_u_overlap (coarse 1, order 3) runs one displacement-form
+    warp of both planes per Picard step, 36 in all, each writing u_it in
+    place, and undistort_image adds one for its final warp: 37."""
+    from pygpa_tpu_torch.ops import warp as TW
+    calls = []
+    plain = TW.warp_cubic_disp_plain
+
+    def count(coef, u, origin, margin, mode, cval, out=None):
+        calls.append((coef.shape[-1], out is u, mode))
+        return plain(coef, u, origin, margin, mode, cval, out)
+
+    monkeypatch.setattr(TW, "warp_cubic_disp_plain", count)
+    us = _field(64, np.float32)
+    TP.undistort_image(torch.from_numpy(us[0]), torch.from_numpy(us),
+                       device="cpu")
+    assert calls == [(2, True, "nearest")] * 36 + [(1, False, "constant")]

@@ -163,3 +163,57 @@ def test_unwrap_mg_matches_reference(kernel_unwrap, n):
                                      torch.from_numpy(w), kmax=6, coarse=4)
     assert got.shape == (2, n, n) and got.dtype == torch.float32
     _close(got.numpy(), want, 1e-4)
+
+
+def _card_plane(shape, dtype=torch.float32):
+    """A stand-in for a CUDA tensor of `shape` and `dtype`: what
+    vcycle_kernel_ok reads (shape, dtype, device)."""
+    import types
+    return types.SimpleNamespace(shape=shape, dtype=dtype,
+                                 device=torch.device("cuda"))
+
+
+def test_vcycle_gate_truth_table():
+    """vcycle_kernel_ok: CUDA float32 planes whose shape and coarse
+    factor the kernels take (n % 16, m % 32, cr dividing 16); 500^2,
+    float64 and CPU tensors go to the twins, as the reference's
+    _vcycle_kernel_ok sends them to its XLA stencils."""
+    ok = tvc.vcycle_kernel_ok
+    w32 = _card_plane((512, 512))
+    assert ok(_card_plane((2, 512, 512)), w32, 4)
+    assert ok(_card_plane((2, 1024, 96)), _card_plane((1024, 96)), 16)
+    for cr in (1, 2, 8, 16):
+        assert ok(_card_plane((2, 512, 512)), w32, cr)
+    for cr in (3, 32):
+        assert not ok(_card_plane((2, 512, 512)), w32, cr)
+    assert not ok(_card_plane((2, 500, 500)), _card_plane((500, 500)), 4)
+    assert not ok(_card_plane((2, 512, 500)), _card_plane((512, 500)), 4)
+    assert not ok(_card_plane((2, 512, 512), torch.float64),
+                  _card_plane((512, 512), torch.float64), 4)
+    cpu = torch.zeros((2, 512, 512))
+    assert not ok(cpu, cpu[0], 4)
+
+
+def test_unwrap_mg_at_500_takes_the_twins(monkeypatch):
+    """phase_unwrap_prediff_mg at 500^2, routed as on the card (the gate
+    read without its device condition): the V-branch never reaches the
+    kernel wrappers, which would raise on a CUDA tensor of that shape,
+    and the result matches the reference (XLA stencils there too)."""
+    dx, dy, w = _problem(500, 11)
+    monkeypatch.setattr(tvc, "vcycle_kernel_ok", lambda phi, w, cr: (
+        phi.dtype == torch.float32 and tvc.supported(*phi.shape[-2:], cr)))
+
+    def refuse(*a):
+        raise AssertionError("V-branch kernel wrapper called at 500^2")
+
+    monkeypatch.setattr(tvc, "presmooth", refuse)
+    monkeypatch.setattr(tvc, "applyq", refuse)
+    wj = jnp.asarray(w)
+    want = jax.vmap(lambda a, b: JU.phase_unwrap_prediff_mg(
+        a, b, wj, kmax=6, coarse=4, precision=HIGHEST))(
+            jnp.asarray(dx), jnp.asarray(dy))
+    got = TU.phase_unwrap_prediff_mg(torch.from_numpy(dx),
+                                     torch.from_numpy(dy),
+                                     torch.from_numpy(w), kmax=6, coarse=4)
+    assert got.shape == (2, 500, 500)
+    _close(got.numpy(), want, 1e-4)

@@ -200,7 +200,7 @@ def _f32_toward_zero(x):
     return np.where(over, np.nextafter(f, np.float32(0)), f)
 
 
-def _stage2_tensor_cores(T, A1c, A1s, passes, chain=32):
+def _stage2_tensor_cores(T, A1c, A1s, passes, chain=32, split=False):
     """csrc/zoom_sweep.cu's stage 2 as its tensor cores compute it: M_r =
     Tr A1c^T - Ti A1s^T and M_i = Tr A1s^T + Ti A1c^T (P, n, m) from T
     (P, n, 2 W1), in the kernel's order (per 8-deep group of W1: the Tr
@@ -210,7 +210,9 @@ def _stage2_tensor_cores(T, A1c, A1s, passes, chain=32):
     accumulator and truncates the sum to float32, as the card's tensor
     cores do. A chain of mma runs over `chain` columns of W1 (the
     kernel's 32: one stage) from zero, and the chains' sums are added
-    in float32, rounded to nearest."""
+    in float32, rounded to nearest. With `split` (the grouped sweep's
+    tile, sweep_tc.cuh SPLIT) every pass but hi.hi goes into a second
+    chain, added to the first's sum before the stage sum."""
     W1 = A1c.shape[1]
     halves = {"r": _split(T[..., :W1]), "i": _split(T[..., W1:])}
     basis = {"c": _split(A1c), "s": _split(A1s), "-s": _split(-A1s)}
@@ -220,17 +222,20 @@ def _stage2_tensor_cores(T, A1c, A1s, passes, chain=32):
     total = {out: np.zeros(shape, np.float32) for out in terms}
     for k0 in range(0, W1, chain):
         acc = {out: np.zeros(shape, np.float32) for out in terms}
+        sml = {out: np.zeros(shape, np.float32) for out in terms}
         for k in range(k0, min(k0 + chain, W1), 8):
             for out, pairs in terms.items():
                 for h, b in pairs:
                     for pa, pb in passes:
                         a = halves[h][part[pa]][..., k:k + 8]
                         bb = basis[b][part[pb]][:, k:k + 8]
-                        acc[out] = _f32_toward_zero(acc[out] + np.einsum(
+                        into = sml if split and (pa, pb) != ("hi", "hi") \
+                            else acc
+                        into[out] = _f32_toward_zero(into[out] + np.einsum(
                             "pnk,mk->pnm", a.astype(np.float64),
                             bb.astype(np.float64)))
         for out in terms:
-            total[out] = total[out] + acc[out]
+            total[out] = total[out] + (acc[out] + sml[out])
     return total["r"], total["i"]
 
 
