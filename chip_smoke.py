@@ -8,10 +8,13 @@ Phases, each printed on its own lines:
 1. the card (nvidia-smi name and power limit), torch and CUDA versions,
    TF32 switched off for matmuls and cuDNN;
 2. the build of the CUDA kernels (csrc/*.cu, nvcc, timed), ptxas's
-   registers and spills of the two sweeps' stage-2 kernels and of the
-   bilinear and displacement-form cubic warps, and the proof that both
-   stage 2s run on the tensor cores: HMMA instructions in their SASS
-   (cuobjdump -sass), or the phase fails;
+   registers and spills of the two sweeps' stage-2 kernels, the
+   bilinear and displacement-form cubic warps, the CG's fused DCT passes
+   and stencil kernel and the drizzle's shared-memory kernel, the proof
+   that both stage 2s run on the tensor cores (HMMA instructions in
+   their SASS, cuobjdump -sass) and that the drizzle's shared-memory
+   adds are native ATOMS.ADD, not a compare-and-swap loop, or the phase
+   fails;
 3. each kernel against its plain PyTorch twin on the card, on the
    inputs the 4096^2 paths hand it (captured from one run of each),
    with the error bound stated beside the check and both times from
@@ -77,7 +80,14 @@ positions; the first bilinear warp of 7a's coarse inversion: both
 planes of u in one launch, timed per call and as device time from
 torch.profiler beside F.grid_sample on the same planes), and the
 drizzle and expand kernels (phase 8a's inputs) against their twins;
-the drizzle kernel also runs twice and must repeat bit for bit. For
+the drizzle kernel also runs twice and on its global-atomic route and
+must repeat bit for bit, and its max|v| pass is timed alone. The CG
+kernel runs both calls phase 4 captures (kmax 6 and 4, the FFT route)
+and a dense-route call at (2, 384, 640), each against its twin and
+bit for bit against itself, with its kernel launches per iteration
+(torch.profiler; at most 6 on the FFT route), the L2 traffic of its
+launch chain and, on the FFT route, the dense route's error and time on
+the same inputs. For
 each kernel it computes the bound from those inputs (the larger of
 their bytes, each input read once and each output written once, over
 3.35 TB/s and their float32 operations over 67 TFLOP/s: the sweeps'
@@ -304,15 +314,58 @@ def ptxas_lines(log, key):
     return out
 
 
-def hmma_count(lib_path, key):
-    """HMMA (tensor-core) instructions in the SASS of the kernels of the
-    built library whose mangled name holds `key` (cuobjdump -sass)."""
+def sass_functions(lib_path, key):
+    """The SASS text (cuobjdump -sass) of each kernel of the built
+    library whose mangled name holds `key`."""
     from pygpa_tpu_torch.ops import _build
     tool = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
     sass = subprocess.run([tool, "-sass", lib_path], capture_output=True,
                           text=True, check=True, timeout=300).stdout
-    return sum(f.count("HMMA") for f in sass.split("Function : ")[1:]
-               if key in f.split("\n", 1)[0])
+    return [f for f in sass.split("Function : ")[1:]
+            if key in f.split("\n", 1)[0]]
+
+
+def hmma_count(lib_path, key):
+    """HMMA (tensor-core) instructions in the SASS of the kernels of the
+    built library whose mangled name holds `key`."""
+    return sum(f.count("HMMA") for f in sass_functions(lib_path, key))
+
+
+def sass_ops(lib_path, key, prefixes):
+    """The distinct SASS opcodes starting with one of `prefixes` in the
+    kernels of the built library whose mangled name holds `key`."""
+    return sorted({tok for f in sass_functions(lib_path, key)
+                   for ln in f.splitlines()
+                   for tok in ln.replace(";", " ").split()
+                   if tok.startswith(prefixes)})
+
+
+def device_kernels(fn):
+    """The CUDA kernels one call of fn() launches: {name: device ms}
+    from torch.profiler's device records (copies and fills left out),
+    after one warm-up call, and their count; (None, None) when the
+    profiler records no device activity."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    recs = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
+            if e.device_type == DeviceType.CUDA]
+    if not recs:
+        return None, None
+    by_name, count = {}, 0
+    for name, us in recs:
+        if name.lower().startswith(("memcpy", "memset")):
+            continue
+        count += 1
+        short = name.replace("(anonymous namespace)::", "").split("(")[0]
+        by_name[short] = by_name.get(short, 0.0) + us / 1e3
+    return by_name, count
 
 
 def matmul_flops(fn, *args, **kw):
@@ -448,21 +501,78 @@ def check_vcycle(vc, ps_args, aq_args):
 CG_BOUND = 1e-4
 
 
+@contextlib.contextmanager
+def cg_dense_route():
+    """The CG wrapper's route predicate set to the dense DCT-matrix
+    route for every side (the sides it then takes are still kernels)."""
+    from pygpa_tpu_torch.ops import cg
+    real = cg.fft_route
+    cg.fft_route = lambda n, m: False
+    try:
+        yield
+    finally:
+        cg.fft_route = real
+
+
 def check_cg(cg, calls):
+    """The CG kernel against its FFT-form twin on each call, normwise
+    relative <= 1e-4 (float32 sums in another order), and a second run
+    bit for bit (fixed-order reductions); on the FFT route also the
+    dense route's error on the same inputs, printed beside it."""
     import torch
     mabs = 0.0
     for args in calls:
         got = cg.cg_poisson(*args)
+        again = cg.cg_poisson(*args)
         want = cg.cg_poisson_plain(*args)
         torch.cuda.synchronize()
         e = rel_err(got, want)
+        same = bool(torch.equal(got, again))
         mabs = max(mabs, float((got - want).abs().max()))
-        say(f"  cg_poisson {tuple(args[0].shape)} kmax {args[3]} vs twin: "
-            f"rel err {e!r} (bound {CG_BOUND}: dense-matrix DCT vs FFT DCT "
-            "preconditioner, f32)")
-        if not np.isfinite(e) or e > CG_BOUND:
-            raise RuntimeError("cg_poisson kernel disagrees with its twin")
+        n, m = args[0].shape[-2:]
+        route = "FFT-form DCT passes" if cg.fft_route(n, m) else \
+            "dense DCT matrices"
+        line = (f"  cg_poisson {tuple(args[0].shape)} kmax {args[3]} "
+                f"({route}) vs twin: rel err {e!r} (bound {CG_BOUND}: "
+                f"float32 sums in another order); two runs bit-identical: "
+                f"{same}")
+        if cg.fft_route(n, m):
+            with cg_dense_route():
+                dense = cg.cg_poisson(*args)
+            line += (f"; the dense route on the same inputs: rel err "
+                     f"{rel_err(dense, want)!r}")
+        say(line)
+        if not (np.isfinite(e) and e <= CG_BOUND and same
+                and torch.isfinite(got).all()):
+            raise RuntimeError("cg_poisson kernel disagrees with its twin "
+                               "or does not repeat")
     return mabs
+
+
+def dense_cg_call(torch, B, n, m, kmax):
+    """A CG call at sides no Stockham plan covers (the dense route): the
+    aligned residual and weights of random gradients and a weight with
+    the pipeline's 1e-6 rim, from numpy seeds."""
+    from pygpa_tpu_torch.solvers.unwrap import _residual_aligned
+    g = np.random.default_rng(7)
+    dxp, dyp = (torch.from_numpy(g.normal(size=(B, n, m)).astype(
+        np.float32)).cuda() for _ in range(2))
+    dxp[..., -1] = 0
+    dyp[..., -1, :] = 0
+    w = g.uniform(0.05, 1.0, size=(n, m))
+    w[:8] = w[-8:] = w[:, :8] = w[:, -8:] = 1e-6
+    rk, WWx, WWy = _residual_aligned(dxp, dyp, torch.from_numpy(
+        w.astype(np.float32)).cuda())
+    return rk, WWx, WWy, kmax
+
+
+def cg_l2_bytes(B, n, m):
+    """Bytes one FFT-route iteration moves through L2, each launch's
+    planes read and written once: the four passes (2, 2, 2 and 3 planes
+    of (B, n, m)), p_applyq (z, p_old, p, Qp and the two (n, m) weights)
+    and update_x (phi, r, p, Qp read; phi, r written)."""
+    plane, ww = 4 * B * n * m, 4 * n * m
+    return (2 + 2 + 2 + 3) * plane + 4 * plane + 2 * ww + 6 * plane
 
 
 ZOOM_AGREE = 0.99      # winner agreement, kernel vs twin
@@ -829,24 +939,54 @@ def cubic_coords(args):
 DRIZZLE_BOUND = 1e-5
 
 
+@contextlib.contextmanager
+def drizzle_global_route():
+    """The drizzle wrapper's route predicate set to the global-atomic
+    route for every cell."""
+    from pygpa_tpu_torch.ops import drizzle
+    real = drizzle.shared_route
+    drizzle.shared_route = lambda rsize: False
+    try:
+        yield
+    finally:
+        drizzle.shared_route = real
+
+
 def check_drizzle(dm, args):
     """The drizzle kernel against its twin (float32 index_add_, sums in
     another order): normwise relative error <= 1e-5 for sum and weights;
-    two kernel launches agree bit for bit."""
+    two launches, and the other route, agree bit for bit."""
     import torch
     s1, w1 = dm.drizzle(*args)
     s2, w2 = dm.drizzle(*args)
+    with drizzle_global_route():
+        sg, wg = dm.drizzle(*args)
     ps, pw = dm.drizzle_plain(*args)
     torch.cuda.synchronize()
     same = bool(torch.equal(s1, s2) and torch.equal(w1, w2))
+    same_g = bool(torch.equal(s1, sg) and torch.equal(w1, wg))
     es, ew = rel_err(s1, ps), rel_err(w1, pw)
-    say(f"  drizzle {tuple(args[0].shape)} -> {tuple(s1.shape)} vs twin: "
-        f"rel err sum {es!r} weights {ew!r} (bound {DRIZZLE_BOUND}); "
-        f"two launches bit-identical: {same}")
-    if not (same and es <= DRIZZLE_BOUND and ew <= DRIZZLE_BOUND):
-        raise RuntimeError("drizzle kernel disagrees with its twin or "
-                           "does not repeat")
+    route = "shared-memory" if dm.shared_route(s1.shape) else "global"
+    say(f"  drizzle {tuple(args[0].shape)} -> {tuple(s1.shape)} ({route} "
+        f"route) vs twin: rel err sum {es!r} weights {ew!r} (bound "
+        f"{DRIZZLE_BOUND}); two launches bit-identical: {same}; "
+        f"bit-identical to the global-atomic route: {same_g}")
+    if not (same and same_g and es <= DRIZZLE_BOUND and ew <= DRIZZLE_BOUND):
+        raise RuntimeError("drizzle kernel disagrees with its twin or its "
+                           "other route, or does not repeat")
     return max(float((s1 - ps).abs().max()), float((w1 - pw).abs().max()))
+
+
+def absmax_ms(img):
+    """CUDA-event ms of the drizzle's max|v| pass alone (its C entry)."""
+    import torch
+    from pygpa_tpu_torch.ops import _build
+    out = torch.zeros(1, dtype=torch.int32, device=img.device)
+    fn = _build.bind("drizzle_absmax", "pipp")
+    stream = torch.cuda.current_stream().cuda_stream
+    return cuda_ms(lambda: _build.check(fn(img.data_ptr(), img.numel(),
+                                           out.data_ptr(), stream),
+                                        "drizzle_absmax"), 20)
 
 
 def check_expand(em, args):
@@ -1005,7 +1145,8 @@ def main():
     say(f"[2] kernels built and loaded in {time.perf_counter() - t0:.2f} s "
         f"(nvcc {_build.build_seconds!r} s) -> {os.path.basename(lib._name)}")
     for key in ("zoom_stage2_kernel", "grouped_stage2_kernel",
-                "bilinear_kernel", "cubic_disp_kernel"):
+                "bilinear_kernel", "cubic_disp_kernel", "EpiEigen", "EpiDot",
+                "p_applyq_kernel", "drizzle_shared_kernel"):
         lines = ptxas_lines(_build.build_log, key) or (
             "not in this run's log: the library was built by an earlier "
             "process")
@@ -1016,6 +1157,13 @@ def main():
         if n_hmma == 0:
             raise RuntimeError(f"{key} has no HMMA in its SASS: its "
                                "products do not run on the tensor cores")
+    atoms = sass_ops(lib._name, "drizzle_shared_kernel", ("ATOM", "RED"))
+    say(f"    drizzle_shared_kernel SASS atomics: {atoms} (cuobjdump -sass)")
+    if "ATOMS.ADD" not in atoms or any(a.startswith(("ATOMS.CAS",
+                                                     "ATOMS.CAST"))
+                                       for a in atoms):
+        raise RuntimeError("the drizzle's shared-memory adds are not native "
+                           "ATOMS.ADD (a compare-and-swap loop?)")
 
     # ---- 3. kernels vs twins on the main path's own inputs
     ks, img, img_d, u_true = fixtures(torch)
@@ -1081,18 +1229,49 @@ def main():
         plain_ms=cuda_ms(lambda: vc_mod.applyq_plain(*aq_args), 20),
         **bound_row(tensor_bytes(aq_args, vc_mod.applyq_plain(*aq_args)),
                     12 * aq_args[0].numel()))
-    e_cg = check_cg(cg_mod, c_cg.calls)
-    cg_ms = [(cuda_ms(lambda a=a: cg_mod.cg_poisson(*a), 10),
-              cuda_ms(lambda a=a: cg_mod.cg_poisson_plain(*a), 10))
-             for a in c_cg.calls]
-    say(f"    cg_poisson ms (kernel, twin) per call: {cg_ms}")
-    # kmax iterations of an FFT-form 2D DCT pair plus the stencil
-    rk0, kmax = c_cg.calls[0][0], c_cg.calls[0][3]
-    npx = rk0.shape[-2] * rk0.shape[-1]
-    rows["cg_poisson"] = dict(
-        max_abs_err=e_cg, ms=cg_ms[0][0], plain_ms=cg_ms[0][1],
-        **bound_row(tensor_bytes(c_cg.calls[0][:3], rk0),
-                    rk0.numel() * kmax * (5 * np.log2(npx) + 12)))
+    # both captured calls (the coarse solve, kmax 6, and the V-branch's
+    # correction, kmax 4) and a dense-route call at sides no Stockham
+    # plan covers
+    dense_call = dense_cg_call(torch, 2, 384, 640, 4)
+    e_cg = check_cg(cg_mod, c_cg.calls + [dense_call])
+    cg_rows = []
+    for a in c_cg.calls + [dense_call]:
+        rk0, kmax = a[0], a[3]
+        B, n_cg, m_cg = (int(np.prod(rk0.shape[:-2])),) + tuple(
+            rk0.shape[-2:])
+        npx = n_cg * m_cg
+        # kmax iterations of an FFT-form 2D DCT pair plus the stencil
+        b_ms, b_by = bound(tensor_bytes(a[:3], rk0),
+                           rk0.numel() * kmax * (5 * np.log2(npx) + 12))
+        k_ms = cuda_ms(lambda a=a: cg_mod.cg_poisson(*a), 10)
+        t_ms = cuda_ms(lambda a=a: cg_mod.cg_poisson_plain(*a), 10)
+        by_kernel, kern = device_kernels(lambda a=a: cg_mod.cg_poisson(*a))
+        per_it = None if kern is None else kern / kmax
+        fft = cg_mod.fft_route(n_cg, m_cg)
+        line = (f"    cg_poisson {tuple(rk0.shape)} kmax {kmax} "
+                f"({'FFT' if fft else 'dense'} route): kernel {k_ms!r} ms, "
+                f"twin {t_ms!r} ms, bound {b_ms!r} ms ({b_by}); kernel "
+                f"launches per iteration {per_it!r} (torch.profiler)")
+        if fft:
+            l2 = cg_l2_bytes(B, n_cg, m_cg)
+            with cg_dense_route():
+                d_ms = cuda_ms(lambda a=a: cg_mod.cg_poisson(*a), 10)
+            line += (f"; L2 traffic of the launch chain {l2!r} bytes per "
+                     f"iteration ({l2 * kmax / HBM_BYTES_S * 1e3!r} ms at "
+                     f"the HBM rate for the call); the dense route on the "
+                     f"same inputs {d_ms!r} ms")
+            if per_it is not None and per_it > 6:
+                raise RuntimeError(f"the FFT-route CG launches {per_it} "
+                                   "kernels per iteration, more than 6")
+        say(line)
+        say(f"      device ms per kernel over the call: "
+            f"{json.dumps(by_kernel)}")
+        cg_rows.append((k_ms, t_ms, b_ms, b_by))
+    rk0 = c_cg.calls[0][0]
+    rows["cg_poisson"] = dict(max_abs_err=e_cg, ms=cg_rows[0][0],
+                              plain_ms=cg_rows[0][1], bound_ms=cg_rows[0][2],
+                              bound_by=cg_rows[0][3], library_ms=None)
+    del dense_call
     # the eager path's inputs: one zoom sweep per Bragg peak, and the
     # first transform of each direction in its exact CG
     ks32 = KS_BENCH_F32
@@ -1250,6 +1429,13 @@ def main():
         ms=cuda_ms(lambda: drizzle_mod.drizzle(*dz), 10),
         plain_ms=cuda_ms(lambda: drizzle_mod.drizzle_plain(*dz), 3),
         **bound_row(tensor_bytes(dz, dz_out), 40 * dz[0].numel()))
+    with drizzle_global_route():
+        dz_glob = cuda_ms(lambda: drizzle_mod.drizzle(*dz), 10)
+    say(f"    drizzle {tuple(dz[0].shape)} -> {tuple(dz_out[0].shape)}: call "
+        f"on the shared-memory route {rows['drizzle']['ms']!r} ms, on the "
+        f"global-atomic route {dz_glob!r} ms; the max|v| pass both run "
+        f"{absmax_ms(dz[0])!r} ms alone; bound "
+        f"{rows['drizzle']['bound_ms']!r} ms")
     ex_out = expand_mod.expand_cell_plain(*ex)
     rows["expand"] = dict(
         max_abs_err=check_expand(expand_mod, ex),

@@ -1,13 +1,36 @@
 // Fixed-iteration DCT-preconditioned CG on the weighted Poisson system of
 // the multigrid unwrap's coarse levels.
 //
-// Replaces the TPU kernel pygpa_tpu/ops/pallas_cg.py _cg_kernel (entry
-// cg_poisson). Wrapper and plain twin: pygpa_tpu_torch/ops/cg.py.
+// Replaces the TPU kernel pygpa_tpu/ops/pallas_cg.py _cg_kernel (entries
+// cg_poisson_fft and cg_poisson). Wrapper, route predicate and plain
+// twin: pygpa_tpu_torch/ops/cg.py.
 //
 // The TPU kernel held the whole solve (a 1024^2 float32 plane is 4 MB)
-// in VMEM for one launch. One SM's shared memory cannot hold a plane,
-// but the 50 MB L2 holds the solver state, so here each iteration is a
-// short chain of launches over L2-resident planes:
+// in VMEM for one launch, its preconditioner as dense DCT matrices on
+// the MXU (Mosaic could not lower the FFT form's reshapes). One SM's
+// shared memory cannot hold a plane, but the 50 MB L2 holds the solver
+// state, so here each iteration is a short chain of launches over
+// L2-resident planes. Two routes, chosen by the side lengths:
+//
+// FFT route (cg_poisson_fft: n, m powers of two, 128 ... 1024), six
+// launches per iteration:
+//   lane fwd       DCT-II along m (dct_fft.cuh, shared with dct.cu);
+//   sub fwd        DCT-II along n, the store dividing by the Neumann
+//                  eigenvalue 2 (cos(pi i / n) + cos(pi j / m) - 2),
+//                  computed from (i, j) ([0, 0] kept);
+//   sub inv        inverse DCT along n;
+//   lane inv       inverse DCT along m, giving z; the store also forms
+//                  the block partials of r.z;
+//   p_applyq       rz, beta (guarded), p = z + beta p_old at each point
+//                  and its four neighbours into a second p buffer, Q p
+//                  with the aligned cyclic stencil, p.Qp partials;
+//   update_x       pq, alpha (guarded), phi += alpha p, r -= alpha Qp.
+//   Each pass moves a plane of L2-resident state, O(n m log(n m)) work,
+//   where the dense form did 4 n m (n + m) FMAs per plane and iteration.
+//   Lines per block C = 4096 / N (N = side / 2): 32 KB of complex data,
+//   128 threads, and at (2, 1024, 1024) 256 blocks a pass.
+// Dense route (cg_poisson: the other sides that are multiples of 128,
+// 384, 640, 768, 896, which no radix-8/16 plan covers), eight launches:
 //   4 x sgemm      the dense DCT-II / scipy-inverse preconditioner
 //                  (rows then columns, 1/eigenvalue fused into the
 //                  epilogue of the forward pair), matrices built on the
@@ -15,14 +38,18 @@
 //   dot_partials   r.z block partials;
 //   update_p       rz, beta (guarded), p = z + beta p;
 //   applyq_pq      Q p with the aligned cyclic stencil, p.Qp partials;
-//   update_x       pq, alpha (guarded), phi += alpha p, r -= alpha Qp.
+//   update_x       as above.
 // rz, pq, alpha and beta never leave the device: every block of the
 // update kernels reduces the same partials in the same fixed order, so
-// the run needs no host sync, no float atomics, and repeats bit for bit.
-// Bound on an H100: the four dense 1024^3 products per plane and
-// iteration (fp32 FMA, ~17 GFLOP per iteration for two planes).
+// a solve needs no host sync, no float atomics, and repeats bit for bit.
+// Bound on an H100: the FFT route's passes, each a read and a write of
+// the (B, n, m) planes through L2 (2 x 8 MB at the bench's (2, 1024,
+// 1024)); the dense route's four n^3 products per plane and iteration
+// (fp32 FMA, ~17 GFLOP per iteration for two 1024^2 planes).
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "dct_fft.cuh"
 
 namespace {
 
@@ -233,13 +260,206 @@ __global__ void __launch_bounds__(NT) update_x_kernel(
   }
 }
 
+// ---- FFT route
+
+// sub fwd epilogue: y / eigenvalue (i, j), the [0, 0] entry as it is
+struct EpiEigen {
+  static constexpr bool REDUCES = false;
+  float fn, fm;  // pi / n, pi / m
+  __device__ __forceinline__ void put(float* y, size_t o, float v, int i,
+                                      int j) {
+    const float s = 2.0f * (cosf((float)i * fn) + cosf((float)j * fm) - 2.0f);
+    y[o] = (i == 0 && j == 0) ? v : v / s;
+  }
+};
+
+// lane inv epilogue: store z and add r.z into the thread's sum; done()
+// writes the block's partial (fixed-order tree) to part[blockIdx.x]
+struct EpiDot {
+  static constexpr bool REDUCES = true;
+  const float* r;
+  float* part;
+  float acc;
+  __device__ __forceinline__ void put4(float* y, size_t base, int i,
+                                       float4 v) {
+    reinterpret_cast<float4*>(y + base)[i] = v;
+    const float4 q = reinterpret_cast<const float4*>(r + base)[i];
+    acc = fmaf(q.x, v.x, acc);
+    acc = fmaf(q.y, v.y, acc);
+    acc = fmaf(q.z, v.z, acc);
+    acc = fmaf(q.w, v.w, acc);
+  }
+  __device__ __forceinline__ void done(float* sh) {
+    sh[threadIdx.x] = acc;
+    __syncthreads();
+    for (int s = blockDim.x / 2; s > 0; s >>= 1) {
+      if (threadIdx.x < s) sh[threadIdx.x] += sh[threadIdx.x + s];
+      __syncthreads();
+    }
+    if (threadIdx.x == 0) part[blockIdx.x] = sh[0];
+  }
+};
+
+// rz = sum(part_rz); beta = rzprev != 0 ? rz / rzprev : 0; p = z (k = 0)
+// or z + beta p_old, formed at each point and at its four neighbours
+// (the same fmaf, so a neighbour's value is the one its own thread
+// stores); Q p with the aligned cyclic stencil into qp, p into p_new,
+// p.Qp partials; block 0 stores rz as rzhist[b, k]. grid (nb, B)
+__global__ void __launch_bounds__(NT) p_applyq_kernel(
+    const float* __restrict__ z, const float* __restrict__ p_old,
+    float* __restrict__ p_new, const float* __restrict__ WWx,
+    const float* __restrict__ WWy, float* __restrict__ qp,
+    const float* __restrict__ part_rz, int nb_rz, float* __restrict__ rzhist,
+    float* __restrict__ part_pq, int k, int kmax, int n, int m) {
+  __shared__ float sh[NT];
+  const int b = blockIdx.y;
+  const size_t nm = (size_t)n * m;
+  const float rz = reduce_partials(part_rz + b * nb_rz, nb_rz, sh);
+  const float rzprev = k == 0 ? 1.0f : rzhist[b * kmax + k - 1];
+  const float beta = rzprev != 0.f ? rz / rzprev : 0.f;
+  const float* zb = z + b * nm;
+  const float* qb = p_old + b * nm;
+  auto pat = [&](int o) { return k == 0 ? zb[o] : fmaf(beta, qb[o], zb[o]); };
+  const int base = blockIdx.x * NT * RED;  // n m <= 2^20
+  float v = 0.f;
+#pragma unroll 4
+  for (int t = 0; t < RED; ++t) {
+    const int o = base + t * NT + threadIdx.x;
+    const int i = o / m, j = o - i * m;
+    const int jr = j + 1 == m ? 0 : j + 1, jl = j == 0 ? m - 1 : j - 1;
+    const int id = i + 1 == n ? 0 : i + 1, iu = i == 0 ? n - 1 : i - 1;
+    const float pc = pat(o);
+    const float tx = WWx[o] * (pat(i * m + jr) - pc);
+    const float txl = WWx[i * m + jl] * (pc - pat(i * m + jl));
+    const float ty = WWy[o] * (pat(id * m + j) - pc);
+    const float tyu = WWy[iu * m + j] * (pc - pat(iu * m + j));
+    const float q = tx - txl + ty - tyu;
+    qp[b * nm + o] = q;
+    p_new[b * nm + o] = pc;
+    v = fmaf(pc, q, v);
+  }
+  const float s = block_sum(v, sh);
+  if (threadIdx.x == 0) part_pq[b * gridDim.x + blockIdx.x] = s;
+  if (blockIdx.x == 0 && threadIdx.x == 0) rzhist[b * kmax + k] = rz;
+}
+
+// lines per block of a pass at N = side / 2 complex points: 4096
+// complex values (32 KB) and 128 threads per block at every side
+template <int N>
+struct Pass {
+  static constexpr int C = 4096 / N;
+  static constexpr int T = C * N / 32;
+  static constexpr size_t SMEM = dct_smem_bytes<N, C>();
+  static_assert(SMEM <= 48 * 1024, "fits without the opt-in attribute");
+};
+
+// the FFT-route solve at sides n = 2 NN, m = 2 NM; r holds rk0, phi 0
+template <int NN, int NM>
+int fft_solve(const float* WWx, const float* WWy, float* phi, float* ws,
+              const float* const* tabs, int B, int kmax,
+              cudaStream_t stream) {
+  using L = Pass<NM>;
+  using S = Pass<NN>;
+  constexpr int n = 2 * NN, m = 2 * NM;
+  constexpr size_t nm = (size_t)n * m;
+  constexpr int nb = (int)(nm / (NT * RED));
+  float* r = ws;
+  float* z = r + B * nm;
+  float* x1 = z + B * nm;
+  float* pbuf[2] = {x1 + B * nm, x1 + 2 * B * nm};
+  float* qp = x1 + 3 * B * nm;
+  float* part_rz = qp + B * nm;
+  float* part_pq = part_rz + (size_t)B * (n / L::C);
+  float* rzhist = part_pq + (size_t)B * nb;
+  const float2* lane_f = reinterpret_cast<const float2*>(tabs[0]);
+  const float2* sub_f = reinterpret_cast<const float2*>(tabs[1]);
+  const float2* sub_i = reinterpret_cast<const float2*>(tabs[2]);
+  const float2* lane_i = reinterpret_cast<const float2*>(tabs[3]);
+  const double PI = 3.14159265358979323846;
+  const EpiEigen eig{(float)(PI / n), (float)(PI / m)};
+  const dim3 glane(B * n / L::C), gsub(m / S::C, B), gred(nb, B);
+  for (int k = 0; k < kmax; ++k) {
+    float* p_old = pbuf[k & 1];
+    float* p = pbuf[(k + 1) & 1];
+    dct_kernel<NM, L::C, false, false><<<glane, L::T, L::SMEM, stream>>>(
+        r, x1, lane_f, B * n, Store{});
+    dct_kernel<NN, S::C, true, false, EpiEigen>
+        <<<gsub, S::T, S::SMEM, stream>>>(x1, z, sub_f, m, eig);
+    dct_kernel<NN, S::C, true, true><<<gsub, S::T, S::SMEM, stream>>>(
+        z, x1, sub_i, m, Store{});
+    dct_kernel<NM, L::C, false, true, EpiDot>
+        <<<glane, L::T, L::SMEM, stream>>>(x1, z, lane_i, B * n,
+                                           EpiDot{r, part_rz, 0.f});
+    p_applyq_kernel<<<gred, NT, 0, stream>>>(z, p_old, p, WWx, WWy, qp,
+                                             part_rz, n / L::C, rzhist,
+                                             part_pq, k, kmax, n, m);
+    update_x_kernel<<<gred, NT, 0, stream>>>(phi, r, p, qp, part_pq, rzhist,
+                                             k, kmax, nm);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
+}
+
+template <int NN>
+int fft_solve_m(int m, const float* WWx, const float* WWy, float* phi,
+                float* ws, const float* const* tabs, int B, int kmax,
+                cudaStream_t stream) {
+  switch (m) {
+    case 128: return fft_solve<NN, 64>(WWx, WWy, phi, ws, tabs, B, kmax, stream);
+    case 256: return fft_solve<NN, 128>(WWx, WWy, phi, ws, tabs, B, kmax, stream);
+    case 512: return fft_solve<NN, 256>(WWx, WWy, phi, ws, tabs, B, kmax, stream);
+    case 1024: return fft_solve<NN, 512>(WWx, WWy, phi, ws, tabs, B, kmax, stream);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+bool fft_side(int s) { return s == 128 || s == 256 || s == 512 || s == 1024; }
+
 size_t plane(int n, int m) { return (size_t)n * m; }
 
 }  // namespace
 
 extern "C" {
 
-// floats of workspace cg_poisson needs
+// floats of workspace cg_poisson_fft needs
+long long cg_fft_workspace_floats(int B, int n, int m, int kmax) {
+  const size_t nm = plane(n, m);
+  const size_t nb = nm / (NT * RED);
+  // r.z partials: one per lane block of 4096 / (m / 2) rows
+  const size_t lane_parts = nm / 8192;
+  return (long long)(6 * B * nm + B * lane_parts + B * nb +
+                     (size_t)B * kmax);
+}
+
+// The FFT route. rk0, phi: (B, n, m); WWx, WWy: (n, m); tabs: the
+// ops/dct.py tables (lane forward at m, sub forward at n, sub inverse at
+// n, lane inverse at m); n, m in {128, 256, 512, 1024}
+int cg_poisson_fft(const float* rk0, const float* WWx, const float* WWy,
+                   float* phi, float* ws, const float* tab_lane_f,
+                   const float* tab_sub_f, const float* tab_sub_i,
+                   const float* tab_lane_i, int B, int n, int m, int kmax,
+                   cudaStream_t stream) {
+  if (!fft_side(n) || !fft_side(m) || B < 1 || kmax < 1)
+    return (int)cudaErrorInvalidValue;
+  const size_t nm = plane(n, m);
+  cudaError_t err;
+  if ((err = cudaMemcpyAsync(ws, rk0, B * nm * sizeof(float),
+                             cudaMemcpyDeviceToDevice, stream)) != cudaSuccess)
+    return (int)err;
+  if ((err = cudaMemsetAsync(phi, 0, B * nm * sizeof(float), stream)) !=
+      cudaSuccess)
+    return (int)err;
+  const float* tabs[4] = {tab_lane_f, tab_sub_f, tab_sub_i, tab_lane_i};
+  switch (n) {
+    case 128: return fft_solve_m<64>(m, WWx, WWy, phi, ws, tabs, B, kmax, stream);
+    case 256: return fft_solve_m<128>(m, WWx, WWy, phi, ws, tabs, B, kmax, stream);
+    case 512: return fft_solve_m<256>(m, WWx, WWy, phi, ws, tabs, B, kmax, stream);
+    default: return fft_solve_m<512>(m, WWx, WWy, phi, ws, tabs, B, kmax, stream);
+  }
+}
+
+// floats of workspace cg_poisson (the dense route) needs
 long long cg_workspace_floats(int B, int n, int m, int kmax) {
   const size_t nm = plane(n, m);
   const size_t nb = nm / (NT * RED);
@@ -247,8 +467,8 @@ long long cg_workspace_floats(int B, int n, int m, int kmax) {
                      2 * B * nb + (size_t)B * kmax);
 }
 
-// rk0, phi: (B, n, m); WWx, WWy: (n, m); n, m % 128 == 0 and
-// n * m % (NT * RED) == 0
+// The dense route. rk0, phi: (B, n, m); WWx, WWy: (n, m); n, m % 128
+// == 0 and n * m % (NT * RED) == 0
 int cg_poisson(const float* rk0, const float* WWx, const float* WWy,
                float* phi, float* ws, int B, int n, int m, int kmax,
                cudaStream_t stream) {

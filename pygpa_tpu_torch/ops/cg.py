@@ -13,12 +13,18 @@ Qp = A^T (W^T W) A p with the aligned cyclic stencil, alpha = rz /
 The guarded coefficients make post-convergence iterations no-ops, so
 the loop runs a fixed kmax like the TPU kernel.
 
-CUDA route (``csrc/cg.cu``): per iteration four hand-written tiled
-fp32 GEMMs against dense DCT matrices built on the device, then
-stencil / update kernels with fixed-order block-partial reductions;
-alpha and beta stay on the device (no host sync inside the loop).
-Bound on an H100 by the 4 x 2 x n^3 GEMM FLOPs per plane and
-iteration. The plain twin uses the FFT-based DCT pair of core.fourier.
+CUDA routes (``csrc/cg.cu``), chosen by :func:`fft_route`: on sides
+that are powers of two (128 ... 1024) each iteration is six launches,
+the preconditioner as four one-axis FFT-form DCT passes over the batch
+(``csrc/dct_fft.cuh``, shared with the DCT kernels; the eigenvalue
+division fused into the second pass's store, the r.z partials into the
+fourth's), then a fused p-update and stencil kernel and the x/r update.
+On the other sides the reference takes (384, 640, 768, 896) it is four
+hand-written tiled fp32 GEMMs against dense DCT matrices built on the
+device, then four stencil / update kernels. Both keep alpha and beta on
+the device (no host sync inside the loop) and reduce block partials in
+a fixed order, so a solve repeats bit for bit. The plain twin uses the
+FFT-based DCT pair of core.fourier.
 
 rk0 carries a batch axis (..., n, m); WWx, WWy are (n, m), shared by
 the batch. Returns phi shaped like rk0.
@@ -28,6 +34,7 @@ import ctypes
 import torch
 
 from . import _build
+from . import dct as _dct
 from .vcycle import _q as _apply_q
 from ..core.fourier import dct2n, idct2n
 
@@ -38,9 +45,21 @@ _NT_RED = 256 * 16   # elements per reduction block (csrc/cg.cu)
 MAX_SIDE = 1024
 
 
+# sides of the FFT route: powers of two, whose half lengths have a
+# Stockham plan (ops/dct.RADICES)
+FFT_SIDES = (128, 256, 512, 1024)
+
+
 def supported(n, m):
     """Sides the reference's CG kernel takes (pallas_cg.supported)."""
     return n % 128 == 0 and m % 128 == 0 and n <= MAX_SIDE and m <= MAX_SIDE
+
+
+def fft_route(n, m):
+    """True where the kernel runs its preconditioner as FFT-form DCT
+    passes (both sides in FFT_SIDES), False where it takes the dense
+    DCT-matrix route (the other supported sides)."""
+    return n in FFT_SIDES and m in FFT_SIDES
 
 
 def poisson_scale(n, m, dtype, device):
@@ -101,16 +120,26 @@ def cg_poisson(rk0, WWx, WWy, kmax):
         _build.check_tensor("cg_poisson", name, t, (n, m), torch.float32,
                             rk0.device)
     phi = torch.empty_like(rk_b)
+    fft = fft_route(n, m)
     with torch.cuda.device(rk0.device):
-        size = _build.load().cg_workspace_floats
+        stream = torch.cuda.current_stream(rk0.device).cuda_stream
+        size = _build.load()["cg_fft_workspace_floats" if fft
+                             else "cg_workspace_floats"]
         size.argtypes = [ctypes.c_int] * 4
         size.restype = ctypes.c_longlong
         ws = torch.empty(int(size(B, n, m, kmax)), dtype=torch.float32,
                          device=rk0.device)
-        fn = _build.bind("cg_poisson", "pppppiiiip")
-        _build.check(fn(rk_b.data_ptr(), WWx.data_ptr(), WWy.data_ptr(),
-                        phi.data_ptr(), ws.data_ptr(), B, n, m, kmax,
-                        torch.cuda.current_stream(rk0.device).cuda_stream),
-                     "cg_poisson")
+        ptrs = (rk_b.data_ptr(), WWx.data_ptr(), WWy.data_ptr(),
+                phi.data_ptr(), ws.data_ptr())
+        if fft:
+            tabs = [_dct._device_table(s, inv, rk0.device).data_ptr()
+                    for s, inv in ((m, False), (n, False), (n, True),
+                                   (m, True))]
+            fn = _build.bind("cg_poisson_fft", "pppppppppiiiip")
+            code = fn(*ptrs, *tabs, B, n, m, kmax, stream)
+        else:
+            fn = _build.bind("cg_poisson", "pppppiiiip")
+            code = fn(*ptrs, B, n, m, kmax, stream)
+    _build.check(code, "cg_poisson")
     _build.launches["cg_poisson"] += 1
     return phi.reshape(rk0.shape)

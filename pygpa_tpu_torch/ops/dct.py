@@ -74,9 +74,11 @@ def idct_sub_plain(y):
 
 
 # radices of the kernels' Stockham passes, in order, per n / 2 (as
-# csrc/dct.cu's Plan; the CPU tests emulate the passes from it)
-RADICES = {512: (8, 8, 8), 1024: (16, 8, 8), 2048: (16, 16, 8),
-           4096: (16, 16, 16)}
+# csrc/dct_fft.cuh's Plan; the CPU tests emulate the passes from it);
+# n / 2 = 64, 128, 256 are the multigrid CG's sides 128, 256, 512
+# (ops/cg.py), which reach the passes through csrc/cg.cu only
+RADICES = {64: (8, 8), 128: (16, 8), 256: (16, 16), 512: (8, 8, 8),
+           1024: (16, 8, 8), 2048: (16, 16, 8), 4096: (16, 16, 16)}
 
 
 def kernel_tables(n, inverse):
@@ -100,7 +102,7 @@ def kernel_tables(n, inverse):
     return tw, w, root(4 * np.arange(N // 2 + 1))
 
 
-@functools.lru_cache(maxsize=16)
+@functools.lru_cache(maxsize=32)
 def _device_table(n, inverse, device):
     """tw, w and A one after the other as interleaved (re, im) float32
     on `device`."""

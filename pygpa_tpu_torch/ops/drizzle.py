@@ -10,20 +10,23 @@ cropped dense accumulators drop them (the reference's XLA scatter
 instead wraps a tap at column R1 into the next row; see
 tests/test_torch_ucell.py). NaN pixels add neither value nor weight.
 
-CUDA route (``csrc/drizzle.cu``): one thread per pixel computes X from
-the 11 scalars, as the TPU kernel does, and adds its four taps into two
-int64 fixed-point planes in device memory with integer atomics. A
-fixed-point sum does not depend on the order of the adds, so two
-launches on the same input give bit-identical output (float atomics
-would not). The scale is 2^(62 - e) with N max|v| < 2^e (N pixels, v the
-non-NaN values; a device-side pre-pass gives max|v|), so no bin can
-overflow and each add is rounded by at most 2^(e - 63), i.e. at
+CUDA routes (``csrc/drizzle.cu``): one pass finds max|v| over the
+non-NaN pixels (NaN-aware, order-free, so deterministic), which sets
+the fixed-point scale 2^(62 - e) with N max|v| < 2^e (N pixels), so no
+bin can overflow and each add is rounded by at most 2^(e - 63), i.e. at
 16.8 M pixels of magnitude <= 4 by 1.5e-11, far below float32 rounding.
-A second launch converts the planes back to float32. The planes (up to
-two x 2 MB at the reference's 512 x 512 limit) stay in device memory,
-mostly in L2; bound on an H100 by the atomic throughput of L2. The TPU
-kernel's dense hat-matrix MXU contraction was its way around scatters
-and is not carried over.
+Each pixel computes X from the 11 scalars, as the TPU kernel does, and
+adds its four taps into two int64 fixed-point planes. Where one plane
+fits a block's shared memory (:func:`shared_route`: config 4's 118 x
+166 cell, 157 KB) a grid of one block per SM and plane adds them there
+and flushes each block's nonzero bins with one global atomic; larger
+cells (up to two x 2 MB at the reference's 512 x 512 limit) add every
+tap into the planes in device memory with L2 atomics. A fixed-point sum
+does not depend on the order of the adds, so both routes and any two
+launches give bit-identical output (float atomics would not). A last
+launch converts the planes back to float32. The TPU kernel's dense
+hat-matrix MXU contraction was its way around scatters and is not
+carried over.
 
 The plain twin ``drizzle_plain`` computes X with the same operations and
 scatters with index_add_ (float sums: not bitwise repeatable on the
@@ -36,12 +39,21 @@ import torch
 from . import _build
 
 MAX_CELL = 512     # largest cell side the reference's kernel takes
+# shared memory one block may opt in to on an H100 (sm_90: 227 KB)
+SHARED_BYTES = 232448
 
 
 def supported(rsize):
     """Cells the reference's drizzle kernel takes (pallas_drizzle.
     supported: at most 512 bins per side)."""
     return rsize[0] <= MAX_CELL and rsize[1] <= MAX_CELL
+
+
+def shared_route(rsize):
+    """True where one int64 cell plane (R0 R1 x 8 bytes) fits a block's
+    shared memory, so the kernel accumulates in shared memory; False
+    where it adds into the planes in device memory."""
+    return int(rsize[0]) * int(rsize[1]) * 8 <= SHARED_BYTES
 
 
 def scalars(ks, rmin, z, dtype):
@@ -137,17 +149,18 @@ def drizzle(image, ks, rmin, rsize, z, u=None):
         u = torch.as_tensor(u, device=image.device).contiguous()
         _build.check_tensor("drizzle", "u", u, (2, n, m), torch.float32,
                             image.device)
-    # max |v| over the non-NaN pixels sets the fixed-point scale
-    vmax = torch.where(torch.isnan(img), 0.0, img).abs().amax()
-    acc = torch.zeros((2, R0, R1), dtype=torch.int64, device=image.device)
+    # the planes and, last, the slot the kernel's max|v| pass writes
+    acc = torch.zeros(2 * R0 * R1 + 1, dtype=torch.int64,
+                      device=image.device)
     out = torch.empty((2, R0, R1), dtype=torch.float32, device=image.device)
     s = scalars(ks, rmin, z, torch.float32)
     u0 = u[0].data_ptr() if u is not None else None
     u1 = u[1].data_ptr() if u is not None else None
     with torch.cuda.device(image.device):
-        fn = _build.bind("drizzle", "ppppppiiii" + "f" * 11 + "p")
-        _build.check(fn(img.data_ptr(), u0, u1, vmax.data_ptr(),
-                        acc.data_ptr(), out.data_ptr(), n, m, R0, R1, *s,
+        fn = _build.bind("drizzle", "pppppiiiii" + "f" * 11 + "p")
+        _build.check(fn(img.data_ptr(), u0, u1, acc.data_ptr(),
+                        out.data_ptr(), n, m, R0, R1,
+                        int(shared_route((R0, R1))), *s,
                         torch.cuda.current_stream(image.device).cuda_stream),
                      "drizzle")
     _build.launches["drizzle"] += 1

@@ -65,18 +65,37 @@ def test_presmooth_and_applyq_kernels(dev, n, m, cr):
     assert _rel(q, tvc.applyq_plain(phi, w)) <= 1e-5
 
 
-@pytest.mark.parametrize("n,m,kmax", [(256, 128, 6), (128, 384, 1)])
-def test_cg_kernel(dev, n, m, kmax):
+def _check_cg(dev, B, n, m, kmax):
+    """The CG kernel against its twin (normwise 1e-4) and against itself
+    (fixed-order reductions: a second run repeats bit for bit)."""
     from pygpa_tpu_torch.solvers.unwrap import _residual_aligned
-    dxp, dyp = _planes((2, n, m), 5, dev), _planes((2, n, m), 6, dev)
+    dxp, dyp = _planes((B, n, m), 5, dev), _planes((B, n, m), 6, dev)
     dxp[..., -1] = 0
     dyp[..., -1, :] = 0
     rk, WWx, WWy = _residual_aligned(dxp, dyp, _weight(n, m, 7, dev))
+    before = _build.launches["cg_poisson"]
     got = tcg.cg_poisson(rk, WWx, WWy, kmax)
+    assert _build.launches["cg_poisson"] == before + 1
     want = tcg.cg_poisson_plain(rk, WWx, WWy, kmax)
-    assert _rel(got, want) <= 1e-4
-    # fixed-order reductions: a second run repeats bit for bit
+    assert torch.isfinite(got).all() and _rel(got, want) <= 1e-4
     assert torch.equal(got, tcg.cg_poisson(rk, WWx, WWy, kmax))
+
+
+@pytest.mark.parametrize("n,m,kmax", [(256, 128, 6), (128, 384, 1)])
+def test_cg_kernel(dev, n, m, kmax):
+    """(256, 128) on the FFT route, (128, 384) on the dense route."""
+    assert tcg.fft_route(n, m) == (m != 384)
+    _check_cg(dev, 2, n, m, kmax)
+
+
+@pytest.mark.parametrize("B,n,m,kmax", [(2, 1024, 1024, 6),
+                                        (1, 512, 512, 10),
+                                        (2, 384, 640, 4)])
+def test_cg_kernel_at_the_paths_shapes(dev, B, n, m, kmax):
+    """The bench's coarse solve and config 3's (FFT route), and a side
+    pair no Stockham plan covers (dense route)."""
+    assert tcg.fft_route(n, m) == (n != 384)
+    _check_cg(dev, B, n, m, kmax)
 
 
 def test_sweep_kernel(dev):
@@ -452,11 +471,13 @@ CELLS = [(_diag_ks(255.5, 200.3), 2, (1100, 900)),
 def test_drizzle_kernel(dev, ks, z, shape, with_u):
     """The drizzle kernel against its float32 index_add_ twin (normwise
     1e-5, NaN pixels skipped), two launches bit-identical, and an
-    all-NaN image summing to exactly 0."""
+    all-NaN image summing to exactly 0: the 512 x 402 cell on the
+    global-atomic route, the others on the shared-memory route."""
     from pygpa_tpu_torch.ops import drizzle as td
     from pygpa_tpu_torch.ucell import calc_ucell_parameters
     rmin, rsize = calc_ucell_parameters(ks, z)
     rsize = tuple(int(r) for r in rsize)
+    assert td.shared_route(rsize) == (rsize[0] * rsize[1] < 100000)
     img = _planes(shape, 23, dev)
     img[5:9, 20:60] = float("nan")
     u = 0.8 * _planes((2,) + shape, 24, dev) if with_u else None
@@ -471,6 +492,37 @@ def test_drizzle_kernel(dev, ks, z, shape, with_u):
     s0, w0 = td.drizzle(torch.full_like(img, float("nan")), ks, rmin, rsize,
                         z, u)
     assert not s0.any() and not w0.any()
+
+
+@pytest.mark.parametrize("with_u,nan", [(False, False), (True, False),
+                                        (False, True)])
+def test_drizzle_routes_agree_bit_for_bit(dev, monkeypatch, with_u, nan):
+    """Config 4's cell (118 x 166 at z = 2) on a 1024^2 lattice: the
+    shared-memory route and the global-atomic route (forced through the
+    route predicate) give the same bits, with and without u and on an
+    all-NaN image, and both repeat."""
+    from pygpa_tpu_torch.ops import drizzle as td
+    from pygpa_tpu_torch.ucell import calc_ucell_parameters
+    ks = generate_ks(0.02, 5.0)[:2].astype(np.float32)
+    rmin, rsize = calc_ucell_parameters(ks, 2)
+    rsize = tuple(int(r) for r in rsize)
+    assert rsize == (118, 166) and td.shared_route(rsize)
+    img = hexlattice_gen(0.02, 5.0, order=2, size=1024, dtype=torch.float32,
+                         device=dev)
+    if nan:
+        img = torch.full_like(img, float("nan"))
+    u = 0.8 * _planes((2, 1024, 1024), 27, dev) if with_u else None
+    shared = [td.drizzle(img, ks, rmin, rsize, 2, u) for _ in range(2)]
+    monkeypatch.setattr(td, "shared_route", lambda rsize: False)
+    glob = [td.drizzle(img, ks, rmin, rsize, 2, u) for _ in range(2)]
+    for a in shared[1:] + glob:
+        assert torch.equal(a[0], shared[0][0]) and torch.equal(a[1],
+                                                               shared[0][1])
+    if nan:
+        assert not shared[0][0].any() and not shared[0][1].any()
+    else:
+        ps, pw = td.drizzle_plain(img, ks, rmin, rsize, 2, u)
+        assert _rel(shared[0][0], ps) <= 1e-5 and _rel(shared[0][1], pw) <= 1e-5
 
 
 @pytest.mark.parametrize("ks,z,shape", CELLS)

@@ -1,8 +1,9 @@
 """The port's single-pass DCT (pygpa_tpu_torch.ops.dct, plain twins on
 the CPU) against pygpa_tpu.ops.pallas_dct2 in interpret mode and
 scipy.fft, the kernels' FFT form with their twiddle tables against
-scipy through a float64 numpy emulation of the kernels' arithmetic, and
-the dct2n/idct2n route against the reference's _pallas_dct_ok gate."""
+scipy through a float64 numpy emulation of the kernels' arithmetic (at
+every plan: the DCT kernels' lengths and the multigrid CG's), and the
+dct2n/idct2n route against the reference's _pallas_dct_ok gate."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -152,7 +153,22 @@ def _kernel_form(x, n, inverse):
     return v[..., _vpos(n)]
 
 
-@pytest.mark.parametrize("n", TD.SIZES)
+# every line length with a Stockham plan: the DCT kernels' SIZES and
+# the multigrid CG's sides 128, 256 and 512 (csrc/cg.cu)
+PLAN_SIZES = sorted(2 * N for N in TD.RADICES)
+
+
+def test_plans_cover_the_kernels_sizes():
+    """Each plan's radices multiply to its length, and every DCT kernel
+    size and power-of-two CG side has one."""
+    from pygpa_tpu_torch.ops import cg as TCG
+    for N, radices in TD.RADICES.items():
+        assert int(np.prod(radices)) == N
+        assert all(R in (2, 4, 8, 16) for R in radices)
+    assert set(TD.SIZES) | set(TCG.FFT_SIDES) == set(PLAN_SIZES)
+
+
+@pytest.mark.parametrize("n", PLAN_SIZES)
 def test_factor_tables_reproduce_scipy(n):
     """The kernels' arithmetic in float64 with the wrapper's twiddle
     tables reproduces scipy's DCT-II and its inverse to 1e-12."""
@@ -163,7 +179,7 @@ def test_factor_tables_reproduce_scipy(n):
         assert np.abs(got - ref).max() <= 1e-12 * np.abs(ref).max()
 
 
-@pytest.mark.parametrize("n", TD.SIZES)
+@pytest.mark.parametrize("n", PLAN_SIZES)
 def test_kernel_tables_are_exact_roots(n):
     """Every table entry is the root its integer angle names (float32
     within 1 ulp of the float64 value), the FFT table's entries are

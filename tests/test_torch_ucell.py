@@ -226,6 +226,112 @@ def test_expand_twin_matches_interpret_kernel(order, z2, with_u):
     assert np.allclose(got.numpy(), np.asarray(want), atol=1e-10)
 
 
+def test_drizzle_route_truth_table():
+    """shared_route: the shared-memory kernel where one int64 cell plane
+    fits a block's opt-in shared memory (227 KB on an H100), config 4's
+    118 x 166 cell among them; larger cells, up to the reference's
+    512 x 512, take the global-atomic kernel."""
+    assert TD.SHARED_BYTES == 227 * 1024
+    for rsize in ((118, 166), (13, 9), (1, 1), (170, 170), (512, 56)):
+        assert TD.shared_route(rsize), rsize
+    for rsize in ((171, 170), (512, 512), (512, 402), (200, 150)):
+        assert not TD.shared_route(rsize), rsize
+    for rsize in ((118, 166), (512, 512)):
+        assert TD.supported(rsize)
+    # config 4's cell (benchmarks/run_all.py, z = 2)
+    ks4 = np.asarray(generate_ks(0.02, 5.0))[:2].astype(np.float32)
+    _, rsize = TUC.calc_ucell_parameters(ks4, 2)
+    assert tuple(int(r) for r in rsize) == (118, 166)
+
+
+def _fixed_taps(img, ks, rmin, rsize, z, u):
+    """csrc/drizzle.cu's taps in numpy: per pixel the float32 cell
+    position (ops.drizzle.cell_coords), the float32 hat products, each
+    rounded to int64 at the kernel's fixed_scale (2^(62 - e), count
+    max|v| < 2^e; max|v| over the non-NaN pixels). Returns the bin of
+    every tap inside the cell, its value and weight integers, the pixel
+    it came from, and both scales."""
+    n, m = img.shape
+    R0, R1 = rsize
+    t = torch.from_numpy(img.astype(np.float32))
+    ut = None if u is None else torch.from_numpy(u.astype(np.float32))
+    ii, jj = TD._positions(n, m, ut, torch.float32, t.device)
+    X0, X1 = TD.cell_coords(TD.scalars(ks, rmin, z, torch.float32), ii, jj)
+    X0, X1 = X0.numpy(), X1.numpy()
+    fl0, fl1 = np.floor(X0), np.floor(X1)
+    t0, t1 = X0 - fl0, X1 - fl1
+    valid = ~np.isnan(img)
+    val = np.where(valid, img, 0).astype(np.float32)
+    vw = valid.astype(np.float32)
+
+    def scale(vmax):
+        _, e = np.frexp(float(n * m) * float(vmax))
+        return 2.0 ** (62 - int(e)) if n * m * float(vmax) > 0 else 1.0
+
+    sv = scale(np.abs(val).max())
+    sw = scale(1.0)
+    one = np.float32(1)
+    bins, tv, tw, pix = [], [], [], []
+    for li in range(2):
+        r = fl0.astype(np.int64) + li
+        hy = t0 if li else one - t0
+        hv, hw = hy * val, hy * vw
+        for lj in range(2):
+            c = fl1.astype(np.int64) + lj
+            hx = t1 if lj else one - t1
+            ok = (r >= 0) & (r < R0) & (c >= 0) & (c < R1)
+            bins.append((r * R1 + c)[ok])
+            tv.append(np.rint((hv * hx)[ok].astype(np.float64) * sv))
+            tw.append(np.rint((hw * hx)[ok].astype(np.float64) * sw))
+            pix.append(np.flatnonzero(ok))
+    return (np.concatenate(bins), np.concatenate(tv).astype(np.int64),
+            np.concatenate(tw).astype(np.int64), np.concatenate(pix), sv, sw)
+
+
+def _split_words_plane(bins, taps, nbins):
+    """One block's plane as the shared-memory kernel keeps it: per bin a
+    uint32 low word (its wraps carried into the high word) and a uint32
+    high word, read back as the int64 lo + 2^32 hi."""
+    t = taps.view(np.uint64)
+    lo_sum = np.zeros(nbins, dtype=object)
+    hi_sum = np.zeros(nbins, dtype=object)
+    np.add.at(lo_sum, bins, [int(x) & 0xFFFFFFFF for x in t])
+    np.add.at(hi_sum, bins, [int(x) >> 32 for x in t])
+    lo = np.array([int(x) & 0xFFFFFFFF for x in lo_sum], dtype=np.uint64)
+    hi = np.array([(int(h) + (int(x) >> 32)) & 0xFFFFFFFF
+                   for h, x in zip(hi_sum, lo_sum)], dtype=np.uint64)
+    return ((hi << np.uint64(32)) | lo).view(np.int64)
+
+
+@pytest.mark.parametrize("with_u", [False, True])
+def test_drizzle_block_planes_sum_to_the_single_plane(drizzle_case, with_u):
+    """The shared-memory route's argument on the CPU: the fixed-point
+    taps scattered into per-block planes (contiguous pixel runs, each
+    plane kept as split 32-bit words) and those planes summed give the
+    single-plane int64 scatter of the global route bit for bit, and the
+    result matches the twin within the kernel test's 1e-5 bound."""
+    ks, z, rmin, rsize, img, u = drizzle_case
+    uu = u if with_u else None
+    bins, tv, tw, pix, sv, sw = _fixed_taps(img, ks, rmin, rsize, z, uu)
+    nbins = rsize[0] * rsize[1]
+    blocks = np.array_split(np.arange(img.size), 7)
+    for taps, sc, k in ((tv, sv, 0), (tw, sw, 1)):
+        single = np.zeros(nbins, np.int64)
+        np.add.at(single, bins, taps)
+        total = np.zeros(nbins, np.int64)
+        for run in blocks:
+            sel = (pix >= run[0]) & (pix <= run[-1])
+            total += _split_words_plane(bins[sel], taps[sel], nbins)
+        np.testing.assert_array_equal(total, single)
+        got = (single.astype(np.float64) / sc).astype(np.float32)
+        want = TD.drizzle_plain(torch.from_numpy(img.astype(np.float32)), ks,
+                                rmin, rsize, z,
+                                None if uu is None else
+                                torch.from_numpy(uu.astype(np.float32)))[k]
+        want = want.numpy().reshape(-1)
+        assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+
+
 def test_drizzle_drops_taps_past_the_last_column():
     """At KS_DIAG the cell's last column R1 - 1 has taps to its right.
     The TPU kernel drops them (so does the port); the reference's XLA

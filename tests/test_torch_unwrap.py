@@ -21,21 +21,23 @@ torch.set_num_threads(2)
 HIGHEST = jax.lax.Precision.HIGHEST
 
 
-def _problem(n, seed=0):
-    """Two components of wrapped-free phase gradients dx (2, n, n-1),
-    dy (2, n-1, n) of a smooth field plus noise, and a lock-in-like
-    weight (n, n) with the pipeline's 1e-6 rim floor."""
+def _problem(n, seed=0, m=None):
+    """Two components of wrapped-free phase gradients dx (2, n, m-1),
+    dy (2, n-1, m) of a smooth field plus noise, and a lock-in-like
+    weight (n, m) with the pipeline's 1e-6 rim floor (m = n unless
+    given)."""
+    m = n if m is None else m
     rng = np.random.default_rng(seed)
-    x = np.linspace(-1, 1, n)
-    X, Y = np.meshgrid(x, x, indexing="ij")
+    X, Y = np.meshgrid(np.linspace(-1, 1, n), np.linspace(-1, 1, m),
+                       indexing="ij")
     psi = np.stack([3 * np.exp(-(X ** 2 + 2 * Y ** 2) / 0.3) + X * Y,
                     2 * np.sin(2 * X + Y) + 0.5 * Y])
-    dx = np.diff(psi, axis=-1) + 0.01 * rng.normal(size=(2, n, n - 1))
-    dy = np.diff(psi, axis=-2) + 0.01 * rng.normal(size=(2, n - 1, n))
-    w = 0.2 + np.exp(-(X ** 2 + Y ** 2)) + 0.1 * rng.uniform(size=(n, n))
-    rim = np.full((n, n), 1e-6)
-    d = n // 16
-    rim[d:-d, d:-d] += 1.0
+    dx = np.diff(psi, axis=-1) + 0.01 * rng.normal(size=(2, n, m - 1))
+    dy = np.diff(psi, axis=-2) + 0.01 * rng.normal(size=(2, n - 1, m))
+    w = 0.2 + np.exp(-(X ** 2 + Y ** 2)) + 0.1 * rng.uniform(size=(n, m))
+    rim = np.full((n, m), 1e-6)
+    d, e = n // 16, m // 16
+    rim[d:-d, e:-e] += 1.0
     return (dx.astype(np.float32), dy.astype(np.float32),
             (w * rim).astype(np.float32))
 
@@ -83,9 +85,13 @@ def test_applyq_twin_matches_interpret_kernel():
         _close(got[b], want, 1e-5)
 
 
-@pytest.mark.parametrize("n", [128, 256])
-def test_cg_twin_matches_interpret_kernel(n):
-    dx, dy, w = _problem(n, 3)
+@pytest.mark.parametrize("n,m", [pytest.param(s, s, id=str(s))
+                                 for s in (128, 256, 512)]
+                         + [pytest.param(256, 128, id="256x128")])
+def test_cg_twin_matches_interpret_kernel(n, m):
+    """Square sides and (256, 128), whose two axes take plans of their
+    own in the kernel."""
+    dx, dy, w = _problem(n, 3, m)
     dxp, dyp = _aligned(dx, dy)
     rk, WWx, WWy = JU._residual_aligned(jnp.asarray(dxp), jnp.asarray(dyp),
                                         jnp.asarray(w))
@@ -96,6 +102,21 @@ def test_cg_twin_matches_interpret_kernel(n):
         want = pallas_cg.cg_poisson(rk[b], WWx, WWy, 6, precision=HIGHEST,
                                     interpret=True)
         _close(got[b], want, 1e-4)
+
+
+def test_cg_route_truth_table():
+    """Every side the reference's kernel takes runs on the card: powers
+    of two on the FFT-form DCT passes, the other multiples of 128 up to
+    1024 on the dense DCT-matrix route."""
+    for n in (128, 256, 512, 1024):
+        assert tcg.supported(n, n) and tcg.fft_route(n, n)
+    for n in (384, 640, 768, 896):
+        assert tcg.supported(n, n) and not tcg.fft_route(n, n)
+    assert tcg.fft_route(256, 128) and tcg.fft_route(128, 1024)
+    assert tcg.supported(128, 384) and not tcg.fft_route(128, 384)
+    assert tcg.supported(896, 512) and not tcg.fft_route(896, 512)
+    for n, m in ((1152, 1152), (2048, 1024), (100, 128), (500, 500)):
+        assert not tcg.supported(n, m) and not tcg.fft_route(n, m)
 
 
 def test_resampling_helpers_match():
