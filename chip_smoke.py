@@ -80,15 +80,19 @@ positions; the first bilinear warp of 7a's coarse inversion: both
 planes of u in one launch, timed per call and as device time from
 torch.profiler beside F.grid_sample on the same planes), and the
 drizzle and expand kernels (phase 8a's inputs) against their twins;
-the drizzle kernel also runs twice and on its global-atomic route and
-must repeat bit for bit, and its max|v| pass is timed alone. The CG
-kernel runs both calls phase 4 captures (kmax 6 and 4, the FFT route)
-and a dense-route call at (2, 384, 640), each against its twin and
-bit for bit against itself, with its kernel launches per iteration
+the drizzle and expand kernels also run twice and on their other route
+(global-atomic; L1) and must repeat bit for bit, the drizzle's max|v|
+pass is timed alone, and the expand kernel's device time
+(torch.profiler, both routes) is printed apart from its call's
+CUDA-event time and launches (the cell's prefilter is torch). The
+presmooth kernel must repeat bit for bit; its device time and the
+bytes it moves (its halo reads counted) are printed beside its bound.
+The CG kernel runs both calls phase 4 captures (kmax 6 and 4, the FFT
+route) and a dense-route call at (2, 384, 640), each against its twin
+and bit for bit against itself, with its kernel launches per iteration
 (torch.profiler; at most 6 on the FFT route), the L2 traffic of its
 launch chain and, on the FFT route, the dense route's error and time on
-the same inputs. For
-each kernel it computes the bound from those inputs (the larger of
+the same inputs. For each kernel it computes the bound from those inputs (the larger of
 their bytes, each input read once and each output written once, over
 3.35 TB/s and their float32 operations over 67 TFLOP/s: the sweeps'
 8 G P n Wb (W0 + m) from their shapes with stage 2 three times over at
@@ -340,11 +344,12 @@ def sass_ops(lib_path, key, prefixes):
                    if tok.startswith(prefixes)})
 
 
-def device_kernels(fn):
-    """The CUDA kernels one call of fn() launches: {name: device ms}
-    from torch.profiler's device records (copies and fills left out),
-    after one warm-up call, and their count; (None, None) when the
-    profiler records no device activity."""
+def device_kernels(fn, reps=1):
+    """The CUDA kernels one call of fn() launches: {name: device ms per
+    call} from torch.profiler's device records over `reps` calls
+    (copies and fills left out), after one warm-up call, and their count
+    per call; (None, None) when the profiler records no device
+    activity."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -352,7 +357,8 @@ def device_kernels(fn):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        fn()
+        for _ in range(reps):
+            fn()
         torch.cuda.synchronize()
     recs = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
             if e.device_type == DeviceType.CUDA]
@@ -364,8 +370,8 @@ def device_kernels(fn):
             continue
         count += 1
         short = name.replace("(anonymous namespace)::", "").split("(")[0]
-        by_name[short] = by_name.get(short, 0.0) + us / 1e3
-    return by_name, count
+        by_name[short] = by_name.get(short, 0.0) + us / 1e3 / reps
+    return by_name, count // reps
 
 
 def matmul_flops(fn, *args, **kw):
@@ -478,14 +484,18 @@ def check_sweep(sw, args):
 def check_vcycle(vc, ps_args, aq_args):
     import torch
     got = vc.presmooth(*ps_args)
+    again = vc.presmooth(*ps_args)
     want = vc.presmooth_plain(*ps_args)
     torch.cuda.synchronize()
     errs = [rel_err(g, w) for g, w in zip(got, want)]
     mabs_ps = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    same = all(torch.equal(g, a) for g, a in zip(got, again))
     say(f"  presmooth vs twin: rel err (r, d, Dinv, rrow) = {errs} "
-        f"max_abs_err={mabs_ps!r} (bound 1e-5)")
-    if not all(np.isfinite(errs)) or max(errs) > 1e-5:
-        raise RuntimeError("presmooth kernel disagrees with its twin")
+        f"max_abs_err={mabs_ps!r} (bound 1e-5); two launches "
+        f"bit-identical: {same}")
+    if not all(np.isfinite(errs)) or max(errs) > 1e-5 or not same:
+        raise RuntimeError("presmooth kernel disagrees with its twin or "
+                           "does not repeat")
     q = vc.applyq(*aq_args)
     qp = vc.applyq_plain(*aq_args)
     torch.cuda.synchronize()
@@ -989,19 +999,49 @@ def absmax_ms(img):
                                         "drizzle_absmax"), 20)
 
 
+@contextlib.contextmanager
+def expand_l1_route():
+    """The expand wrapper's route predicate set to the L1 route (no
+    staging) for every cell."""
+    from pygpa_tpu_torch.ops import expand
+    real = expand.shared_route
+    expand.shared_route = lambda shape: False
+    try:
+        yield
+    finally:
+        expand.shared_route = real
+
+
 def check_expand(em, args):
-    """The expand kernel against its twin: normwise relative error
-    <= 1e-6 (same float32 operations in the same order)."""
+    """The expand kernel against its twin: within WARP_BOUND of the
+    cell's maximum (same float32 operations in the same order); a second
+    launch and the L1 route give the same bits."""
     import torch
     got = em.expand_cell(*args)
+    again = em.expand_cell(*args)
+    with expand_l1_route():
+        l1 = em.expand_cell(*args)
     want = em.expand_cell_plain(*args)
     torch.cuda.synchronize()
-    e = rel_err(got, want)
+    e = float((got - want).abs().max()) / float(args[0].abs().max())
+    same, same_l1 = bool(torch.equal(got, again)), bool(torch.equal(got, l1))
     say(f"  expand_cell cell {tuple(args[0].shape)} -> {tuple(got.shape)} "
-        f"order {args[7]} vs twin: rel err {e!r} (bound {WARP_BOUND})")
-    if not torch.isfinite(got).all() or not e <= WARP_BOUND:
-        raise RuntimeError("expand kernel disagrees with its twin")
+        f"order {args[7]} vs twin: max |delta| / max |cell| {e!r} (bound "
+        f"{WARP_BOUND}), rel err {rel_err(got, want)!r}; two launches "
+        f"bit-identical: {same}; bit-identical to the L1 route: {same_l1}")
+    if not (torch.isfinite(got).all() and e <= WARP_BOUND and same
+            and same_l1):
+        raise RuntimeError("expand kernel disagrees with its twin or its "
+                           "other route, or does not repeat")
     return float((got - want).abs().max())
+
+
+def kernel_ms(by_name, key):
+    """Device ms of the kernels in a device_kernels breakdown whose name
+    holds `key` (None without device records)."""
+    if by_name is None:
+        return None
+    return sum(v for k, v in by_name.items() if key in k)
 
 
 def run_path(label, title, call, gates):
@@ -1224,6 +1264,19 @@ def main():
         plain_ms=cuda_ms(lambda: vc_mod.presmooth_plain(*ps_args), 20),
         **bound_row(tensor_bytes(ps_args, vc_mod.presmooth_plain(*ps_args)),
                     40 * ps_args[0].numel()))
+    # the bytes the strip kernel moves: halo columns and rows read again
+    B_ps, (n_ps, m_ps) = ps_args[0].shape[0], ps_args[0].shape[-2:]
+    ps_moved = vc_mod.presmooth_traffic(
+        B_ps, n_ps, m_ps, int(ps_args[4]),
+        torch.cuda.get_device_properties(0).multi_processor_count)
+    ps_need = tensor_bytes(ps_args, vc_mod.presmooth_plain(*ps_args))
+    say(f"    presmooth {tuple(ps_args[0].shape)} cr {ps_args[4]}: call "
+        f"{rows['presmooth']['ms']!r} ms (CUDA events over 20 calls), "
+        f"device {device_ms(lambda: vc_mod.presmooth(*ps_args), 20)!r} ms "
+        f"(torch.profiler); moves {ps_moved} bytes "
+        f"({ps_moved / HBM_BYTES_S * 1e3!r} ms at the HBM rate, "
+        f"{ps_moved / ps_need!r} of the bound's {ps_need}); bound "
+        f"{rows['presmooth']['bound_ms']!r} ms")
     rows["applyq"] = dict(
         max_abs_err=e_aq, ms=cuda_ms(lambda: vc_mod.applyq(*aq_args), 20),
         plain_ms=cuda_ms(lambda: vc_mod.applyq_plain(*aq_args), 20),
@@ -1436,12 +1489,29 @@ def main():
         f"global-atomic route {dz_glob!r} ms; the max|v| pass both run "
         f"{absmax_ms(dz[0])!r} ms alone; bound "
         f"{rows['drizzle']['bound_ms']!r} ms")
+    # the expand call (the cell's prefilter in torch, then the kernel):
+    # the kernel's device time apart from the call's CUDA-event time
     ex_out = expand_mod.expand_cell_plain(*ex)
+    e_ex = check_expand(expand_mod, ex)
+    ex_call = cuda_ms(lambda: expand_mod.expand_cell(*ex), 10)
+    ex_by, ex_n = device_kernels(lambda: expand_mod.expand_cell(*ex), 10)
+    with expand_l1_route():
+        l1_by, _ = device_kernels(lambda: expand_mod.expand_cell(*ex), 10)
+    ex_k = kernel_ms(ex_by, "expand_kernel")
+    ex_dev = device_ms(lambda: expand_mod.expand_cell(*ex), 10)
     rows["expand"] = dict(
-        max_abs_err=check_expand(expand_mod, ex),
-        ms=cuda_ms(lambda: expand_mod.expand_cell(*ex), 10),
+        max_abs_err=e_ex, ms=ex_call if ex_k is None else ex_k,
         plain_ms=cuda_ms(lambda: expand_mod.expand_cell_plain(*ex), 3),
         **bound_row(tensor_bytes(ex, ex_out), 56 * ex_out.numel()))
+    say(f"    expand {tuple(ex[0].shape)} -> {tuple(ex_out.shape)}: kernel "
+        f"device {ex_k!r} ms on the shared route, "
+        f"{kernel_ms(l1_by, 'expand_kernel')!r} ms on the L1 route "
+        f"(torch.profiler over 10 calls); the call {ex_call!r} ms (CUDA "
+        f"events over 10 calls), device {ex_dev!r} ms, {ex_n} launches a "
+        f"call (the kernel and the prefilter's "
+        f"torch kernels); bound {rows['expand']['bound_ms']!r} ms "
+        f"(the row's ms is the kernel's device time)")
+    say(f"      device ms per kernel over the call: {json.dumps(ex_by)}")
     # the captured operands would count in phase 4's peak memory
     del c_sw, c_ps, c_aq, c_cg, sw_args, ps_args, aq_args, rk0, outs
     del c_zs, c_dl, c_il, c_ds, c_is, dct_in, x

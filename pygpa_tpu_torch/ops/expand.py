@@ -16,13 +16,18 @@ rim that samples the mirror-extended spline, where the reference's
 map_coordinates route cuts positions outside [0, R - 1] to 0 (see
 tests/test_torch_ucell.py); the port follows the kernel.
 
-CUDA route (``csrc/expand.cu``): one thread per output pixel (grid
-stride) computes X from the 12 scalars, as the TPU kernel does, and
-sums its 2 x 2 or 4 x 4 taps; the cell is staged in shared memory when
-it fits (96 KB; a (122, 170) float32 cell is 83 KB), else read through
-the L1 cache. Bound on an H100 by the output write (4 bytes a pixel, 12
-with u). The TPU kernel's dense W_x @ cell MXU product over all cell
-columns was its way around gathers and is not carried over.
+CUDA route (``csrc/expand.cu``): work items are runs of 4 * threads
+columns of one row, taken by a grid sized to the card's SMs; a thread
+computes X for 4 adjacent pixels from the 12 scalars, as the TPU kernel
+does, sums their 2 x 2 or 4 x 4 taps, and writes them as one 16-byte
+store when rows start on a 16-byte boundary (else 4 scalar stores,
+the row's tail masked). Cells up to 227 KB (:func:`shared_route`; a
+(122, 170) float32 cell is 83 KB) take the shared route: persistent
+512-thread blocks stage the cell once each. Larger cells take the L1
+route: no staging, the cell read through the read-only cache. Bound
+on an H100 by the output write (4 bytes a pixel, 12 with u). The TPU
+kernel's dense W_x @ cell MXU product over all cell columns was its
+way around gathers and is not carried over.
 
 The plain twin ``expand_cell_plain`` computes the same taps with torch
 gathers. A CPU tensor runs the twin; a CUDA tensor the kernel (float32)
@@ -36,7 +41,9 @@ from .drizzle import MAX_CELL, cell_coords, scalars
 
 ORDERS = (1, 3)
 _WEIGHT_FN = {"hat": 0, "catmull": 1, "bspline": 2}   # csrc/expand.cu
-SMEM_BYTES = 96 * 1024
+SMEM_BYTES = 227 * 1024     # csrc/expand.cu SMEM_MAX
+THREADS = {"shared": 512, "l1": 256}   # csrc/expand.cu NT_SMEM, NT_L1
+VEC = 4                     # adjacent pixels a thread
 
 
 def supported(cell_shape, out_shape, order):
@@ -44,6 +51,12 @@ def supported(cell_shape, out_shape, order):
     supported: order 1 or 3, at most 512 per side)."""
     return (order in ORDERS and cell_shape[0] <= MAX_CELL
             and cell_shape[1] <= MAX_CELL)
+
+
+def shared_route(cell_shape):
+    """True when the kernel stages the (prepared) cell in shared memory:
+    its float32 plane fits a block's opt-in shared memory."""
+    return cell_shape[0] * cell_shape[1] * 4 <= SMEM_BYTES
 
 
 def _hat(d):
@@ -156,7 +169,7 @@ def expand_cell(cell, ks, rmin, z, z2, u, out_shape, order=3,
                         u[0].data_ptr() if u is not None else None,
                         u[1].data_ptr() if u is not None else None,
                         out.data_ptr(), n, m, order, _WEIGHT_FN[kfn],
-                        int(R0 * R1 * 4 <= SMEM_BYTES), *s,
+                        int(shared_route((R0, R1))), *s,
                         torch.cuda.current_stream(cell.device).cuda_stream),
                      "expand_cell")
     _build.launches["expand"] += 1

@@ -14,13 +14,15 @@ neighbour IS the reference semantics.
   half of the restriction; the caller finishes the columns).
 - applyq(p, w) -> Q p with the weights rebuilt from w.
 
-CUDA route (``csrc/vcycle.cu``): presmooth works on 16 x 32 output
-tiles with a 2-pixel halo staged in shared memory (the chain needs
-neighbours of neighbours); applyq is one thread per pixel reading its
-five-point neighbourhood through the cache. Both are bound by device
-memory (a few float32 planes read and written once per pass) and use
-round-to-nearest intrinsics without FMA contraction, so the kernel's
-arithmetic is the twin's, operation for operation.
+CUDA route (``csrc/vcycle.cu``): presmooth walks column strips down
+the rows, a 128-thread block owning 124 output columns and a 2-column
+halo on each side, all batch planes in one block (w and the weights,
+D and Dinv built once), one input row a step and output row k - 2 at
+step k (the chain needs neighbours of neighbours); applyq is one thread
+per pixel reading its five-point neighbourhood through the cache. Both
+are bound by device memory and use round-to-nearest intrinsics without
+FMA contraction, so the kernel's arithmetic is the twin's, operation
+for operation.
 
 phi, dxc, dyc and p carry a batch axis (the displacement components);
 w is one (n, m) plane shared by the batch. The multigrid takes the
@@ -32,18 +34,49 @@ import torch
 
 from . import _build
 
-PRESMOOTH_ROWS = 16   # presmooth output tile rows (csrc/vcycle.cu)
+PRESMOOTH_ROWS = 16   # the gate's row and column multiples
 PRESMOOTH_COLS = 32
+PRESMOOTH_THREADS = 128                     # csrc/vcycle.cu PT: staged columns
+PRESMOOTH_TILE = PRESMOOTH_THREADS - 4      # output columns a block
+PRESMOOTH_BLOCKS_PER_SM = 8                 # its launch bounds
+PRESMOOTH_PLANES = 2                        # batch planes a launch (MAXB)
 
 
 def supported(n, m, cr):
     """Shapes the presmooth kernel takes: n % PRESMOOTH_ROWS, m %
     PRESMOOTH_COLS, a coarse factor cr dividing PRESMOOTH_ROWS, n, m >=
-    3 (the reference's pallas_vcycle.supported, for this kernel's
-    tile)."""
+    3 (the reference's pallas_vcycle.supported read for the card; the
+    kernel itself masks partial column tiles and row strips)."""
     cr = int(cr)
     return (n % PRESMOOTH_ROWS == 0 and m % PRESMOOTH_COLS == 0
             and cr >= 1 and PRESMOOTH_ROWS % cr == 0 and n >= 3 and m >= 3)
+
+
+def presmooth_tiling(n, m, sms):
+    """(output rows a block, grid (column tiles, row strips)) of the
+    presmooth kernel on a card with `sms` SMs: PRESMOOTH_TILE output
+    columns a block; row strips of a multiple of PRESMOOTH_ROWS rows
+    (so of every coarse factor), as few as fill the card in one wave of
+    PRESMOOTH_BLOCKS_PER_SM blocks an SM, so each block's 4 halo rows
+    are spread over as many output rows as that allows."""
+    tiles = -(-m // PRESMOOTH_TILE)
+    strips = max(1, sms * PRESMOOTH_BLOCKS_PER_SM // tiles)
+    rows = -(-n // strips)
+    rows = -(-rows // PRESMOOTH_ROWS) * PRESMOOTH_ROWS
+    return rows, (tiles, -(-n // rows))
+
+
+def presmooth_traffic(B, n, m, cr, sms):
+    """Bytes the presmooth kernel moves on a card with `sms` SMs: every
+    block reads its PRESMOOTH_THREADS columns of rows + 4 input rows (w
+    once a launch of up to PRESMOOTH_PLANES planes, phi, dxc, dyc each
+    plane) and writes r, d, Dinv once and rrow."""
+    rows, (tiles, strips) = presmooth_tiling(n, m, sms)
+    rows_read = sum(min(rows, n - k * rows) + 4 for k in range(strips))
+    launches = -(-B // PRESMOOTH_PLANES)
+    reads = (3 * B + launches) * rows_read * tiles * PRESMOOTH_THREADS
+    writes = (2 * B + 1) * n * m + B * (n // cr) * m
+    return 4 * (reads + writes)
 
 
 def vcycle_kernel_ok(phi, w, cr):
@@ -136,10 +169,12 @@ def presmooth(phi, dxc, dyc, w, cr, omega):
     dinv = torch.empty((n, m), dtype=phi.dtype, device=phi.device)
     rrow = torch.empty((B, n // cr, m), dtype=phi.dtype, device=phi.device)
     with torch.cuda.device(phi.device):
-        fn = _build.bind("vcycle_presmooth", "ppppppppiiiifp")
+        props = torch.cuda.get_device_properties(phi.device)
+        rows, _ = presmooth_tiling(n, m, props.multi_processor_count)
+        fn = _build.bind("vcycle_presmooth", "ppppppppiiiiifp")
         _build.check(fn(phi_b.data_ptr(), dxc_b.data_ptr(), dyc_b.data_ptr(),
                         w.data_ptr(), r.data_ptr(), d.data_ptr(),
-                        dinv.data_ptr(), rrow.data_ptr(), B, n, m, cr,
+                        dinv.data_ptr(), rrow.data_ptr(), B, n, m, rows, cr,
                         float(omega),
                         torch.cuda.current_stream(phi.device).cuda_stream),
                      "vcycle_presmooth")

@@ -50,6 +50,76 @@ def _weight(n, m, seed, dev):
     return torch.from_numpy(w.astype(np.float32)).to(dev)
 
 
+def _presmooth_np(phi, dxc, dyc, w, cr, omega):
+    """The presmooth kernel's operations on whole planes in numpy
+    float32 (correctly rounded division, as __fdiv_rn; rrow summed
+    row after row, as the kernel does)."""
+    f = np.float32
+    B, n, m = phi.shape
+    lane = np.arange(m)[None, :] < m - 1
+    row = np.arange(n)[:, None] != n - 1
+    WW = w * w
+    WWx = np.where(lane, np.fmin(WW, np.roll(WW, -1, -1)), f(0))
+    WWy = np.where(row, np.fmin(WW, np.roll(WW, -1, -2)), f(0))
+    tx = WWx * (dxc - np.where(lane, np.roll(phi, -1, -1) - phi, f(0)))
+    ty = WWy * (dyc - np.where(row, np.roll(phi, -1, -2) - phi, f(0)))
+    rk = ((tx - np.roll(tx, 1, -1)) + ty) - np.roll(ty, 1, -2)
+    D = -(((WWx + np.roll(WWx, 1, -1)) + WWy) + np.roll(WWy, 1, -2))
+    dinv = np.where(np.abs(D) > f(1e-8),
+                    f(omega) / np.where(D != 0, D, f(1)), f(0)).astype(f)
+    d = rk * dinv
+    qx = WWx * (np.roll(d, -1, -1) - d)
+    qy = WWy * (np.roll(d, -1, -2) - d)
+    r = rk - (((qx - np.roll(qx, 1, -1)) + qy) - np.roll(qy, 1, -2))
+    g = r.reshape(B, n // cr, cr, m)
+    acc = g[:, :, 0]
+    for q in range(1, cr):
+        acc = acc + g[:, :, q]
+    return r, d, dinv, acc / f(cr)
+
+
+
+@pytest.mark.parametrize("B", [1, 2, 3])
+@pytest.mark.parametrize("cr", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("n,m", [(16, 32), (48, 96), (16, 96), (48, 32)])
+def test_presmooth_strip_kernel(dev, n, m, cr, B):
+    """The strip-marching presmooth kernel on planes narrower than one
+    column tile and shorter than one row strip (every column wraps, every
+    tile is an edge tile), at every coarse factor and 1-3 batch planes:
+    against its twin (normwise 1e-5), bit for bit against the numpy
+    whole-plane form of its float32 operations, and against a repeat."""
+    phi, dxc, dyc = (_planes((B, n, m), s, dev) for s in (51, 52, 53))
+    g = np.random.default_rng(54)
+    w = torch.from_numpy(g.uniform(0.05, 1.0, size=(n, m)).astype(
+        np.float32)).to(dev)
+    _check_presmooth(phi, dxc, dyc, w, cr)
+
+
+@pytest.mark.parametrize("B,n,m", [(2, 4096, 4096), (2, 2048, 2048),
+                                   (5, 256, 384), (2, 1024, 160)])
+def test_presmooth_strip_kernel_at_the_paths_shapes(dev, B, n, m):
+    """The bench's (2, 4096^2) and config 3's (2, 2048^2) at cr = 4, five
+    planes (three launches of at most two, w read by each) and a plane
+    of several row strips and an interior column tile, as
+    test_presmooth_strip_kernel checks them."""
+    phi, dxc, dyc = (_planes((B, n, m), s, dev) for s in (55, 56, 57))
+    _check_presmooth(phi, dxc, dyc, _weight(n, m, 58, dev), 4)
+
+
+def _check_presmooth(phi, dxc, dyc, w, cr):
+    before = _build.launches["presmooth"]
+    got = tvc.presmooth(phi, dxc, dyc, w, cr, 0.8)
+    again = tvc.presmooth(phi, dxc, dyc, w, cr, 0.8)
+    assert _build.launches["presmooth"] == before + 2
+    want = tvc.presmooth_plain(phi, dxc, dyc, w, cr, 0.8)
+    ref = _presmooth_np(*(t.cpu().numpy() for t in (phi, dxc, dyc, w)), cr,
+                        0.8)
+    for g, a, t, r in zip(got, again, want, ref):
+        assert g.shape == t.shape and torch.equal(g, a)
+        assert _rel(g, t) <= 1e-5
+        np.testing.assert_array_equal(g.cpu().numpy(), r)
+
+
 @pytest.mark.parametrize("n,m,cr", [(256, 384, 4), (128, 96, 2),
                                     (64, 64, 16)])
 def test_presmooth_and_applyq_kernels(dev, n, m, cr):
@@ -545,6 +615,36 @@ def test_expand_kernel(dev, ks, z, shape, order, cubic, z2, with_u):
     assert _build.launches["expand"] == before + 1
     assert got.shape == shape and torch.isfinite(got).all()
     assert float((got - want).abs().max()) <= 1e-6 * float(cell.abs().max())
+
+
+
+@pytest.mark.parametrize("with_u", [False, True])
+@pytest.mark.parametrize("shape", [(4096, 4096), (517, 4097)])
+def test_expand_kernel_config4(dev, monkeypatch, shape, with_u):
+    """Config 4's cell (118 x 166 at z = 2, B-spline) onto 4096^2 and onto
+    an odd output width (scalar stores and a masked row tail), with and
+    without u: the shared route twice and the L1 route (forced through
+    the route predicate) give the same bits, within 1e-6 of the cell's
+    maximum of the twin."""
+    from pygpa_tpu_torch.ops import expand as te
+    from pygpa_tpu_torch.ucell import calc_ucell_parameters
+    ks = generate_ks(0.02, 5.0)[:2].astype(np.float32)
+    rmin, rsize = calc_ucell_parameters(ks, 2)
+    assert tuple(int(r) for r in rsize) == (118, 166)
+    cell = _planes((118, 166), 28, dev)
+    u = 0.8 * _planes((2,) + shape, 29, dev) if with_u else None
+    args = (cell, ks, rmin, 2, 1, u, shape)
+    assert te.shared_route((122, 170))
+    before = _build.launches["expand"]
+    got = [te.expand_cell(*args) for _ in range(2)]
+    monkeypatch.setattr(te, "shared_route", lambda s: False)
+    got.append(te.expand_cell(*args))
+    assert _build.launches["expand"] == before + 3
+    assert all(torch.equal(g, got[0]) for g in got[1:])
+    want = te.expand_cell_plain(*args)
+    assert got[0].shape == shape and torch.isfinite(got[0]).all()
+    assert float((got[0] - want).abs().max()) <= 1e-6 * float(
+        cell.abs().max())
 
 
 def _grouped_ops(G, P, W0, Wb, n, m, seed, dev):

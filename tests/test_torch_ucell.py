@@ -405,3 +405,82 @@ def test_wrappers_route_on_device():
         TD.drizzle(meta, ks, rmin, rsize, 2)
     with pytest.raises(ValueError, match="device"):
         TE.expand_cell(meta, ks, rmin, 2, 1, None, (32, 32))
+
+
+@pytest.mark.parametrize("route", ["shared", "l1"])
+@pytest.mark.parametrize("n,m,grid", [(4096, 4096, 264), (37, 4097, 1056),
+                                      (5, 3, 132), (64, 2050, 7)])
+def test_expand_launch_covers_every_pixel_once(route, n, m, grid):
+    """csrc/expand.cu's partition in numpy: a grid of `grid` blocks walks
+    items (row, run of VEC * threads columns) with a stride of the grid;
+    each thread takes VEC adjacent pixels, one aligned 16-byte store
+    when m % VEC == 0, else scalar stores with the row's tail masked.
+    Every pixel is written exactly once, config 4's 4096^2 among the
+    sizes."""
+    NT, V = TE.THREADS[route], TE.VEC
+    chunks = -(-m // (NT * V))
+    items = n * chunks
+    grid = min(grid, items)
+    vec = m % V == 0
+    hits = np.zeros(n * m, int)
+    t = np.arange(NT)
+    for b in range(grid):
+        w = np.arange(b, items, grid)[:, None]
+        i = w // chunks
+        j = (w - i * chunks) * (NT * V) + t * V
+        live = j < m
+        p = (i * m + j)[live]
+        if vec:
+            assert (p % V == 0).all()           # 16-byte aligned store
+            np.add.at(hits, (p[:, None] + np.arange(V)).ravel(), 1)
+        else:
+            jj = j[live][:, None] + np.arange(V)
+            pp = (p[:, None] + np.arange(V))[jj < m]
+            np.add.at(hits, pp, 1)
+    assert (hits == 1).all()
+
+
+def test_expand_route_truth_table():
+    """shared_route: cells whose float32 plane fits a block's opt-in
+    shared memory (227 KB) are staged, config 4's prepared 122 x 170
+    cell among them; larger ones, up to the reference's 512 x 512, are
+    read through L1."""
+    for shape in ((122, 170), (13, 9), (238, 238), (512, 113)):
+        assert TE.shared_route(shape), shape
+    for shape in ((242, 242), (512, 402), (512, 512)):
+        assert not TE.shared_route(shape), shape
+
+
+@pytest.mark.parametrize("kfn", ["bspline", "catmull", "hat"])
+def test_expand_tap_pieces_are_the_kernel_function(kfn):
+    """csrc/expand.cu evaluates one piece of the kernel function per tap
+    (the inner one for taps 1 and 2 of four, the outer one for taps 0
+    and 3): on float32 positions across a cell's range, dense near
+    integers where the rounded distances reach |d| = 1 and 2, that piece
+    equals the twin's piecewise function bit for bit at every tap."""
+    K = {"hat": TE._hat, "catmull": TE._catmull_rom, "bspline": TE._bspline3}
+    rng = np.random.default_rng(8)
+    k = np.arange(-3, 520, dtype=np.float64)
+    eps = np.array([0, 2 ** -24, 2 ** -20, 1e-7, 1e-4, 0.5])
+    X = np.concatenate([rng.uniform(-3, 520, 200000),
+                        (k[:, None] + eps).ravel(),
+                        (k[:, None] - eps).ravel()]).astype(np.float32)
+    X = torch.from_numpy(X)
+    taps, first = (2, 0) if kfn == "hat" else (4, -1)
+    fl = torch.floor(X)
+    for b in range(taps):
+        d = X - (fl + (first + b))
+        a = d.abs()
+        if kfn == "hat" or b in (1, 2):
+            piece = {"hat": lambda a: torch.clamp(1.0 - a, min=0.0),
+                     "catmull": lambda a: (1.5 * a - 2.5) * a * a + 1.0,
+                     "bspline": lambda a: (1.0 / 6.0) * (
+                         4.0 + a * a * (3.0 * a - 6.0))}[kfn](a)
+            assert float(a.max()) <= 1.0
+        else:
+            t = 2.0 - a
+            piece = {"catmull": ((-0.5 * a + 2.5) * a - 4.0) * a + 2.0,
+                     "bspline": (1.0 / 6.0) * t * t * t}[kfn]
+            assert float(a.min()) >= 1.0 and float(a.max()) <= 2.0
+        want = K[kfn](d)
+        assert torch.equal(piece.view(torch.int32), want.view(torch.int32)), b

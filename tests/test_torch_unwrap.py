@@ -13,6 +13,7 @@ import torch
 import pygpa_tpu.solvers.unwrap as JU
 from pygpa_tpu.ops import pallas_cg, pallas_vcycle
 import pygpa_tpu_torch.solvers.unwrap as TU
+from test_torch_cuda import _presmooth_np
 from pygpa_tpu_torch import config as tcfg
 from pygpa_tpu_torch.ops import cg as tcg
 from pygpa_tpu_torch.ops import vcycle as tvc
@@ -238,3 +239,126 @@ def test_unwrap_mg_at_500_takes_the_twins(monkeypatch):
                                      torch.from_numpy(w), kmax=6, coarse=4)
     assert got.shape == (2, 500, 500)
     _close(got.numpy(), want, 1e-4)
+
+
+def _presmooth_strips(phi, dxc, dyc, w, cr, omega, sms):
+    """csrc/vcycle.cu presmooth_kernel's schedule in numpy float32, every
+    block of a row strip side by side: thread s of column tile t owns
+    column t * PRESMOOTH_TILE - 2 + s (wrapped), step k loads row k,
+    publishes phi, WW and the x-neighbour values in double-buffered
+    shared rows and writes row k - 2. Returns the four outputs (NaN
+    where never written) and how often each output pixel was written."""
+    f = np.float32
+    B, n, m = phi.shape
+    PT, PC = tvc.PRESMOOTH_THREADS, tvc.PRESMOOTH_TILE
+    rows, (tiles, strips) = tvc.presmooth_tiling(n, m, sms)
+    s = np.arange(PT)
+    sl, sr = np.maximum(s - 1, 0), np.minimum(s + 1, PT - 1)
+    j = (np.arange(tiles) * PC)[:, None] - 2 + s[None, :]
+    gj = j % m
+    lane = gj < m - 1
+    out_col = (s >= 2) & (s < PC + 2) & (j < m)
+    jo = j[out_col]
+    outs = [np.full((B, n, m), np.nan, f), np.full((B, n, m), np.nan, f),
+            np.full((n, m), np.nan, f), np.full((B, n // cr, m), np.nan, f)]
+    hits = np.zeros((n, m), int)
+    rhits = np.zeros((n // cr, m), int)
+    z1, zb = np.zeros((tiles, PT), f), np.zeros((B, tiles, PT), f)
+    for by in range(strips):
+        r0, r1 = by * rows, min(by * rows + rows, n)
+        WW1, wx1, wy2, di2 = z1.copy(), z1.copy(), z1.copy(), z1.copy()
+        phi1, dy1, tx1, ty2, rk2, d2, qx2, qy3, acc = (
+            zb.copy() for _ in range(9))
+        s_tx, s_qx = np.zeros((2,) + zb.shape, f), np.zeros((2,) + zb.shape, f)
+        s_wwx = np.zeros((2,) + z1.shape, f)
+        grp, orow = 0, r0 // cr
+        for k in range(r0 - 2, r1 + 2):
+            gk, par = k % n, k & 1
+            cw, cphi = w[gk][gj], phi[:, gk][:, gj]
+            cdx, cdy = dxc[:, gk][:, gj], dyc[:, gk][:, gj]
+            row1 = (k - 1) % n != n - 1
+            WW = cw * cw
+            wx0 = np.where(lane, np.fmin(WW, WW[:, sr]), f(0))
+            wy1 = np.fmin(WW1, WW) if row1 else z1
+            D = -(((wx1 + s_wwx[par ^ 1][:, sl]) + wy1) + wy2)
+            di1 = np.where(np.abs(D) > f(1e-8),
+                           f(omega) / np.where(D != 0, D, f(1)), f(0))
+            s_wwx[par] = wx0
+            tx0 = wx0 * (cdx - np.where(lane, cphi[..., sr] - cphi, f(0)))
+            ty1 = wy1 * (dy1 - (cphi - phi1 if row1 else f(0)))
+            rk1 = ((tx1 - s_tx[par ^ 1][..., sl]) + ty1) - ty2
+            d1 = rk1 * di1
+            s_tx[par] = tx0
+            qx1 = wx1 * (d1[..., sr] - d1)
+            qy2 = wy2 * (d1 - d2)
+            q = ((qx2 - s_qx[par ^ 1][..., sl]) + qy2) - qy3
+            s_qx[par] = qx1
+            rv = rk2 - q
+            i = k - 2
+            if i >= r0:
+                outs[0][:, i, jo] = rv[:, out_col]
+                outs[1][:, i, jo] = d2[:, out_col]
+                outs[2][i, jo] = di2[out_col]
+                hits[i, jo] += 1
+                acc = rv if grp == 0 else acc + rv
+                if grp == cr - 1:
+                    outs[3][:, orow, jo] = (acc / f(cr))[:, out_col]
+                    rhits[orow, jo] += 1
+                grp += 1
+                if grp == cr:
+                    grp, orow = 0, orow + 1
+            qx2, qy3, rk2, d2, ty2, tx1 = qx1, qy2, rk1, d1, ty1, tx0
+            phi1, dy1 = cphi, cdy
+            WW1, wx1, wy2, di2 = WW, wx0, wy1, di1
+    return outs, hits, rhits
+
+
+@pytest.mark.parametrize("B,n,m,cr,sms", [(2, 48, 384, 4, 1),
+                                          (1, 16, 32, 16, 132),
+                                          (3, 64, 160, 2, 3),
+                                          (2, 32, 96, 1, 132),
+                                          (2, 48, 288, 8, 2)])
+def test_presmooth_strip_schedule(B, n, m, cr, sms):
+    """The presmooth kernel's column strips with their rolling rows,
+    emulated in numpy at sizes that give partial column tiles and row
+    strips, interior and edge tiles, several coarse factors and batch
+    sizes: every output pixel (and rrow row) is written exactly once,
+    bit for bit the whole-plane form of the same float32 operations,
+    which lies within the kernel test's 1e-5 of the twin."""
+    rng = np.random.default_rng(n + m + cr)
+    phi, dxc, dyc = (rng.normal(size=(B, n, m)).astype(np.float32)
+                     for _ in range(3))
+    w = rng.uniform(0.05, 1.0, size=(n, m)).astype(np.float32)
+    w[:2] = 1e-6
+    outs, hits, rhits = _presmooth_strips(phi, dxc, dyc, w, cr, 0.8, sms)
+    assert (hits == 1).all() and (rhits == 1).all()
+    want = _presmooth_np(phi, dxc, dyc, w, cr, 0.8)
+    for got, ref in zip(outs, want):
+        np.testing.assert_array_equal(got, ref)
+    twin = tvc.presmooth_plain(*(torch.from_numpy(a) for a in
+                                 (phi, dxc, dyc, w)), cr, 0.8)
+    for ref, t in zip(want, twin):
+        _close(ref, t.numpy(), 1e-5)
+
+
+@pytest.mark.parametrize("B", [1, 2, 3, 5])
+def test_presmooth_tiling_and_traffic(B):
+    """presmooth_tiling's grid covers the plane with row strips of a
+    multiple of 16 rows that fill the card in one wave (an H100's 132
+    SMs at the bench's 4096^2, config 3's 2048^2 and a small plane),
+    and presmooth_traffic counts each input read about once: within
+    12% of one read at the two large sizes (w once a launch of up to
+    PRESMOOTH_PLANES planes, so more often at B = 3 and 5)."""
+    for n, m in ((4096, 4096), (2048, 2048), (48, 96)):
+        rows, (tiles, strips) = tvc.presmooth_tiling(n, m, 132)
+        assert rows % 16 == 0 and (strips - 1) * rows < n <= strips * rows
+        assert tiles * tvc.PRESMOOTH_TILE >= m
+        assert tiles * strips <= 132 * tvc.PRESMOOTH_BLOCKS_PER_SM or \
+            rows == 16
+        launches = -(-B // tvc.PRESMOOTH_PLANES)
+        once = 4 * ((3 * B + launches) * n * m + (2 * B + 1) * n * m
+                    + B * (n // 4) * m)
+        ratio = tvc.presmooth_traffic(B, n, m, 4, 132) / once
+        assert ratio >= 1.0
+        if n >= 2048:
+            assert ratio < 1.12
