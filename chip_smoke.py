@@ -66,7 +66,25 @@ Phases, each printed on its own lines:
    deg): at 2048^2 with the defaults (the grouped sweep at Wb = 448)
    and at 500^2 with unwrap_coarse=4 (the multigrid's V-branch on its
    twins), each held to finite output, config 1's gate (interior max
-   |u| < 0.02 px) and its plain versions' path.
+   |u| < 0.02 px) and its plain versions' path;
+10. config 2g of benchmarks/run_all.py (adaptive-GPA property maps from
+   the winner phase gradients, 4096^2) as it builds it, twice: (a) with
+   the k-vectors in float32 (KS_BENCH_F32: banks of 42, 49 and 36
+   candidates, so the grouped gate fails and each peak runs the zoom
+   sweep's gradient emission: 3 "zoom_grad" launches, no grouped one)
+   and (b) in float64 (42 candidates each: one grouped launch with the
+   gradient emission, "sweep_grad", banded at Wb = 192); each held to
+   config 2g's gates on the 4 sigma interior (max |theta - theta_0| <
+   0.01 deg, max |kappa - 1.005| < 0.001), to the same path on the plain
+   twins (a tenth of each gate: 1e-3 deg, 1e-4), seconds per call over 3
+   runs after warm-up and peak device memory;
+11. (a) extract_displacement_field(img, ks, with_grad=True,
+   return_gs=True): 3 "zoom_grad" launches, finite gradients, u the
+   same bits as without with_grad, the bench's three gates; (b) the
+   factory at its defaults with pipeline_fused_uv=False: the grouped
+   phase/weight emission ("sweep_pw", one launch) and the demodulated
+   reconstruction, held to the bench's three gates, with its distance
+   from the uv route's u printed.
 
 Phase 3 also holds the grouped sweep (kernel and float32 twin against
 the float64 twin; stages 1, 2 and the uv epilogue timed apart, with
@@ -103,6 +121,20 @@ times it and holds it to the kernel: F.grid_sample for the bilinear
 warp (the drizzle has none: index_add scatters taps that other calls
 compute first). The DCT rows print each direction's time beside its
 twin's and its bound.
+
+Phase 3 also holds the three gradient-path emissions to their float32
+and float64 twins on the inputs paths 10a and 10b hand them: the zoom
+sweep's gradient emission on all three peaks of 10a (winners agree on
+> 1 - 2e-4 of the pixels, and there the gradients within rtol 2e-3,
+atol 2e-5 rad/px; its tournament the plain launch's bits), and the
+grouped sweep's phase/weight (a) and gradient (b) emissions on 10b's
+(a: the uv route's phase/weight bounds; b: its planes (a)'s bits, the
+gradients within the same rtol/atol wherever the phases agree within
+1e-3 rad, all but 2e-4 of the pixels), each timed (CUDA events) beside
+its twin and its bound: stage 1 twice in float32 FMA, stage 2 three
+times over at the dense TF32 rate, and the winners' two products per
+tile (2 x 8 x winners x 64^2 x W FLOP, the winners counted per tile from
+this run) likewise.
 
 Any failed check raises and the script exits non-zero. Without a CUDA
 card it fails at once. Its last two lines are the kernels JSON object
@@ -155,12 +187,20 @@ KERNELS = {
                "pygpa_tpu/ops/pallas_expand.py:78"),
     "drizzle": ("pygpa_tpu_torch/csrc/drizzle.cu",
                 "pygpa_tpu/ops/pallas_drizzle.py:56"),
+    # the emissions of the gradient path, counted apart
+    "sweep_pw": ("pygpa_tpu_torch/csrc/sweep.cu",
+                 "pygpa_tpu/ops/pallas_sweep.py:370"),
+    "sweep_grad": ("pygpa_tpu_torch/csrc/sweep.cu",
+                   "pygpa_tpu/ops/pallas_sweep.py:370"),
+    "zoom_grad": ("pygpa_tpu_torch/csrc/zoom_sweep.cu",
+                  "pygpa_tpu/ops/pallas_sweep.py:96"),
 }
 # the path whose counted run a kernel's "launches" reports
 PATH_OF = {"sweep_uv": 4, "presmooth": 4, "applyq": 4, "cg_poisson": 4,
            "zoom_sweep": 5, "dct_lane": 5, "dct_sub": 5,
            "warp_bilinear": "7a", "warp_cubic": "7b", "expand": "8a",
-           "drizzle": "8a"}
+           "drizzle": "8a", "zoom_grad": "10a", "sweep_grad": "10b",
+           "sweep_pw": "11b"}
 # kernels each driven path must launch
 PATH_KERNELS = {4: ("sweep_uv", "presmooth", "applyq", "cg_poisson"),
                 5: ("zoom_sweep", "dct_lane", "dct_sub"),
@@ -171,7 +211,24 @@ PATH_KERNELS = {4: ("sweep_uv", "presmooth", "applyq", "cg_poisson"),
                 "8a": ("drizzle", "expand"),
                 "8b": ("drizzle", "expand"),
                 "9a": ("sweep_uv",),
-                "9b": ()}
+                "9b": (),
+                "10a": ("zoom_grad",),
+                "10b": ("sweep_grad",),
+                "11a": ("zoom_grad", "dct_lane", "dct_sub"),
+                "11b": ("sweep_pw", "dct_lane", "dct_sub")}
+# each gradient path's launches of the sweeps: exactly these counts
+PATH_SWEEPS = {"10a": {"zoom_grad": 3}, "10b": {"sweep_grad": 1},
+               "11a": {"zoom_grad": 3}, "11b": {"sweep_pw": 1}}
+SWEEP_NAMES = ("sweep_uv", "sweep_pw", "sweep_grad", "zoom_sweep",
+               "zoom_grad")
+GATE_2G_THETA, GATE_2G_KAPPA = 0.01, 0.001   # run_all.py config 2g
+DEVICE = "cuda"     # where phases 10 and 11 put their work
+GRAD_RTOL, GRAD_ATOL, GRAD_AGREE = 2e-3, 2e-5, 1 - 2e-4
+# where the grouped phases agree, a near-tie flip to a neighbouring
+# candidate moves a gradient by up to ~1e-3 rad/px (measured 1.0e-3 on
+# path 10b); a sign, axis or band-ramp slip moves all of them by 1e-2
+# and more
+GRAD_SLIP = 1e-2
 REPS_NEW = 3        # timed runs of phases 7 and 8
 PATH_AGREE = 1e-4   # phases 7, 8: max |kernels - twins| / max |twins|
 GATE_UNWRAP_P99, GATE_UNWRAP_MAX, GATE_UNDISTORT = 0.02, 0.3, 0.05
@@ -208,21 +265,24 @@ def cuda_ms(fn, reps):
 
 class Capture:
     """Swap a module-level kernel wrapper for a recorder that keeps the
-    arguments of its first `keep` calls (all when None), and of the
-    latest call in `last`, and forwards every call to the wrapper."""
+    positional arguments of its first `keep` calls (all when None) in
+    `calls` and their keyword arguments in `kws`, the latest call's in
+    `last`, and forwards every call to the wrapper."""
 
     def __init__(self, module, name, keep=None):
         self.module, self.name, self.keep = module, name, keep
         self.orig = getattr(module, name)
         self.calls = []
+        self.kws = []          # the keyword arguments of each kept call
         self.last = None
 
     def __enter__(self):
-        def rec(*args):
+        def rec(*args, **kw):
             if self.keep is None or len(self.calls) < self.keep:
                 self.calls.append(args)
+                self.kws.append(kw)
             self.last = args
-            return self.orig(*args)
+            return self.orig(*args, **kw)
         setattr(self.module, self.name, rec)
         return self
 
@@ -665,6 +725,8 @@ def plain_versions():
              (drizzle, "drizzle", drizzle.drizzle_plain),
              (expand, "expand_cell", expand.expand_cell_plain),
              (sweep, "sweep_uv", sweep.sweep_uv_plain),
+             (sweep, "sweep_pw", sweep.sweep_pw_plain),
+             (sweep, "sweep_grad", sweep.sweep_grad_plain),
              (zoom_sweep, "zoom_sweep", zoom_sweep.zoom_sweep_plain),
              (vcycle, "presmooth", vcycle.presmooth_plain),
              (vcycle, "applyq", vcycle.applyq_plain),
@@ -705,9 +767,10 @@ def float64_zoom():
     path phase 5 holds the zoom kernel's path to."""
     from pygpa_tpu_torch.ops import zoom_sweep as zs
 
-    def zoom64(Sr, Si, gx, gy, A0c, A0s, A1c, A1s, dr=None):
+    def zoom64(Sr, Si, gx, gy, A0c, A0s, A1c, A1s, dr=None, grad_ops=None):
         out = zs.zoom_sweep_plain(*(a.double() for a in (
-            Sr, Si, gx, gy, A0c, A0s, A1c, A1s)), dr=dr)
+            Sr, Si, gx, gy, A0c, A0s, A1c, A1s)), dr=dr,
+            grad_ops=None if grad_ops is None else as_double(grad_ops))
         return tuple(o.float() if o.is_floating_point() else o for o in out)
 
     real = zs.zoom_sweep
@@ -1146,6 +1209,413 @@ def drive_short(label, size, kw):
         raise RuntimeError(f"[{label}] gate or path check failed")
 
 
+def config2g_banks(ks):
+    """benchmarks/run_all.py config 2g's candidate banks and sigma from
+    the k-vectors in their own dtype (np.arange endpoints in it):
+    sigma = ceil(1 / min |k|), kw = mean |k| / 2.5, steps of kw / 3."""
+    knorms = np.linalg.norm(ks, axis=1)
+    kw = knorms.mean() / 2.5
+    wlists = []
+    for pk in ks:
+        wx, wy = np.meshgrid(np.arange(pk[0] - kw, pk[0] + kw, kw / 3),
+                             np.arange(pk[1] - kw, pk[1] + kw, kw / 3),
+                             indexing="ij")
+        wlists.append(np.stack([wx.ravel(), wy.ravel()], -1))
+    return wlists, int(np.ceil(1 / knorms.min()))
+
+
+def config2g_step(ks):
+    """Config 2g's step as run_all.py builds it: mean subtraction,
+    wfr_sweep_phase_weight_multi(with_grad=True, krefs=ks) and
+    calc_props_from_phasegradient on float32 k-vectors."""
+    from pygpa_tpu_torch.ops.wfr import wfr_sweep_phase_weight_multi
+    from pygpa_tpu_torch.props import calc_props_from_phasegradient
+    wlists, sigma = config2g_banks(ks)
+    kv = np.asarray(ks, np.float32)
+
+    def step(image):
+        img0 = image - image.mean()
+        _, weights, grads = wfr_sweep_phase_weight_multi(
+            img0, wlists, sigma, 2 * sigma, with_grad=True, krefs=ks)
+        return calc_props_from_phasegradient(kv, grads, weights, 1.0)
+    return step, sigma
+
+
+def tile_winners(idx, P):
+    """Distinct winning candidates of each 64 x 64 tile of a (n, m) index
+    plane, summed over the tiles."""
+    import torch
+    n, m = idx.shape
+    t = idx.long().reshape(n // 64, 64, m // 64, 64).permute(0, 2, 1, 3)
+    t = t.reshape(-1, 64 * 64)
+    seen = torch.zeros((t.shape[0], P), dtype=torch.bool, device=idx.device)
+    seen.scatter_(1, t, True)
+    return int(seen.sum())
+
+
+def grouped_winners(T, A1c, A1s):
+    """Each group's per-pixel winning candidate (G, n, m) from stage 1's
+    T (G, P, n, 2 Wb) and the base band's basis, in float32 with strict
+    '>' from candidate 0 (torch.argmax keeps the first of equal
+    maxima)."""
+    import torch
+    G, P, n, W2 = T.shape
+    Wb = W2 // 2
+    out = []
+    for g in range(G):
+        best = None
+        for i in range(P):
+            Tr, Ti = T[g, i, :, :Wb], T[g, i, :, Wb:]
+            mr = Tr @ A1c[g].T - Ti @ A1s[g].T
+            mi = Tr @ A1s[g].T + Ti @ A1c[g].T
+            a = mr * mr + mi * mi
+            if best is None:
+                best, idx = a, torch.zeros(a.shape, dtype=torch.int32,
+                                           device=a.device)
+            else:
+                sel = a > best
+                best = torch.where(sel, a, best)
+                idx = torch.where(sel, i, idx)
+        out.append(idx)
+    return torch.stack(out)
+
+
+def grad_excess(got, want, where):
+    """Largest |got - want| beyond GRAD_ATOL + GRAD_RTOL |want| on the
+    pixels `where` (<= 0 passes), and the largest |got - want| there."""
+    d = (got - want).abs()[where]
+    return (float((d - GRAD_ATOL - GRAD_RTOL * want.abs()[where]).max()),
+            float(d.max()))
+
+
+def as_double(args):
+    import torch
+    return tuple(a.double() if torch.is_tensor(a) and a.is_floating_point()
+                 else a for a in args)
+
+
+def check_zoom_grad(zs, calls, kws):
+    """Emission (c) on each peak's captured inputs: the gradients against
+    the float32 twin on the pixels whose winners agree (> GRAD_AGREE of
+    them; rtol GRAD_RTOL, atol GRAD_ATOL rad/px), and both against the
+    float64 twin's (distances printed); the tournament is the plain
+    launch's, bit for bit. Returns (max |kernel - twin| over the
+    gradients, kernel ms, twin ms, bound ms, FLOP counts)."""
+    import torch
+    mabs = k_ms = t_ms = 0.0
+    nbytes = f1 = f2 = fg = 0
+    for a, kw in zip(calls, kws):
+        gops = kw["grad_ops"]
+        got = zs.zoom_sweep(*a, grad_ops=gops)
+        plain = zs.zoom_sweep(*a)
+        want = zs.zoom_sweep_plain(*a, grad_ops=gops)
+        w64 = zs.zoom_sweep_plain(*as_double(a), grad_ops=as_double(gops))
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip(got[:4], plain)):
+            raise RuntimeError("zoom_grad: the tournament's bits differ "
+                               "from the plain launch's")
+        same = got[3] == want[3]
+        agree = float(same.float().mean())
+        line = []
+        ok = agree > GRAD_AGREE
+        for k, nm in ((4, "gx"), (5, "gy")):
+            if not torch.isfinite(got[k]).all():
+                raise RuntimeError(f"zoom_grad: non-finite {nm}")
+            ex, dmax = grad_excess(got[k], want[k], same)
+            s64 = got[3] == w64[3]
+            d64 = float((got[k].double() - w64[k]).abs()[s64].max())
+            t64 = float((want[k].double() - w64[k]).abs()[s64].max())
+            line.append(f"{nm} max |kernel - twin| {dmax!r} (excess over "
+                        f"the bound {ex!r}); vs the float64 twin: kernel "
+                        f"{d64!r}, float32 twin {t64!r}")
+            ok &= ex <= 0
+            mabs = max(mabs, dmax)
+        (W0, W1), P = a[0].shape, a[2].shape[0]
+        n, m = a[4].shape[0], a[6].shape[0]
+        wins = tile_winners(got[3], P)
+        say(f"  zoom_grad P={P} W0={W0} W1={W1}: winners agree {agree!r}; "
+            + "; ".join(line) + f"; winners over the tiles {wins} "
+            f"({wins / (n * m / 4096)!r} a tile)")
+        if not ok:
+            raise RuntimeError("zoom_grad kernel disagrees with its twin")
+        k_ms += cuda_ms(lambda a=a: zs.zoom_sweep(*a, grad_ops=gops), 3)
+        t_ms += cuda_ms(lambda a=a: zs.zoom_sweep_plain(*a, grad_ops=gops),
+                        1)
+        nbytes += tensor_bytes(a, gops, got)
+        f1 += 2 * 8 * P * n * W0 * W1
+        f2 += 8 * P * n * m * W1
+        fg += 2 * 8 * wins * 64 * 64 * W1
+        del got, plain, want, w64
+    b_ms = zoom_bounds(nbytes, f1, f2 + fg)[1]
+    return mabs, k_ms, t_ms, b_ms, (f1, f2, fg)
+
+
+PW_BOUNDS = {"phase_flips": 1e-2, "phase_p99": 5e-5, "weight_rel_p99": 5e-5,
+             "weight_rel_max": 2e-2}
+
+
+def pw_stats(ph, wt, ph_w, wt_w):
+    """The uv route's phase/weight numbers (tests/test_torch_cuda.py's
+    grouped stage-2 test): the share of phases more than 1e-4 rad off,
+    their p99, and the weights' relative p99 and maximum."""
+    import torch
+    dt = ph_w.dtype
+    dph = (torch.remainder(ph.to(dt) - ph_w + np.pi, 2 * np.pi)
+           - np.pi).abs().flatten()
+    rel = ((wt.to(dt) - wt_w).abs() / (wt_w.abs() + 1e-9)).flatten()
+    q = torch.tensor([0.99], device=dph.device, dtype=dt)
+    return {"phase_flips": float((dph > 1e-4).double().mean()),
+            "phase_p99": float(torch.quantile(dph[::7], q)),
+            "weight_rel_p99": float(torch.quantile(rel[::7], q)),
+            "weight_rel_max": float(rel.max())}
+
+
+def check_grouped_emissions(sw, args):
+    """Emissions (a) and (b) of the grouped sweep on path 10b's inputs
+    (sweep_grad's arguments; (a) takes them without the gradient
+    operands): (a) against the float32 and float64 twins within
+    PW_BOUNDS; (b) returns (a)'s planes bit for bit, and its gradients
+    lie within rtol GRAD_RTOL, atol GRAD_ATOL of each twin's wherever the
+    phases agree within 1e-3 rad, at all but 1 - GRAD_AGREE of the
+    pixels (near-tie winner flips), and within GRAD_SLIP at every pixel
+    where the phases agree. Returns the rows of both."""
+    import torch
+    pw_args = args[:2] + args[4:10] + args[12:]
+    pw = sw.sweep_pw(*pw_args)
+    gr = sw.sweep_grad(*args)
+    torch.cuda.synchronize()
+    if not (torch.equal(gr[0], pw[0]) and torch.equal(gr[1], pw[1])):
+        raise RuntimeError("sweep_grad's phase/weight planes are not "
+                           "sweep_pw's")
+    pw_abs, gr_abs = 0.0, 0.0
+    for tag, dt in (("float32", None), ("float64", torch.float64)):
+        a = args if dt is None else as_double(args)
+        want = sw.sweep_grad_plain(*a)
+        st = pw_stats(pw[0], pw[1], want[0], want[1])
+        say(f"  sweep_pw vs the {tag} twin: {json.dumps(st)} (bounds "
+            f"{json.dumps(PW_BOUNDS)})")
+        if not all(st[k] < v for k, v in PW_BOUNDS.items()):
+            raise RuntimeError(f"sweep_pw disagrees with its {tag} twin")
+        dph = (torch.remainder(gr[0].to(want[0].dtype) - want[0] + np.pi,
+                               2 * np.pi) - np.pi).abs()
+        ok_ph = dph < 1e-3
+        bad = ~ok_ph
+        line = []
+        for k, nm in ((2, "gx"), (3, "gy")):
+            if not torch.isfinite(gr[k]).all():
+                raise RuntimeError(f"sweep_grad: non-finite {nm}")
+            g64, w = gr[k].to(want[k].dtype), want[k]
+            d = (g64 - w).abs()
+            bad |= d > GRAD_ATOL + GRAD_RTOL * w.abs()
+            dmax = float(d[ok_ph].max())
+            line.append(f"{nm} max |kernel - twin| {dmax!r} where the "
+                        f"phases agree")
+            if dt is None:
+                gr_abs = max(gr_abs, dmax)
+        share = float(bad.double().mean())
+        say(f"  sweep_grad vs the {tag} twin: " + "; ".join(line)
+            + f"; pixels off the bounds {share!r} (bound {1 - GRAD_AGREE!r})")
+        if not (share < 1 - GRAD_AGREE
+                and all(float((gr[k].to(want[k].dtype) - want[k]).abs()
+                              [ok_ph].max()) < GRAD_SLIP for k in (2, 3))):
+            raise RuntimeError(f"sweep_grad disagrees with its {tag} twin")
+        if dt is None:
+            pw_abs = float((pw[1] - want[1]).abs().max())
+        del want
+    # times, winners per tile and the bounds
+    (Sr, Si, S2r, S2i, gx, gy, A0c, A0s, A1c, A1s, A1yc, A1ys, run, off,
+     dr, banded) = args
+    G, P, W0 = gx.shape
+    n, m, Wb = A0c.shape[1], A1c.shape[1], A1c.shape[2]
+    T = sw.stage1(Sr, Si, gx, gy, A0c, A0s, run)
+    win = grouped_winners(T, A1c, A1s)
+    wins = sum(tile_winners(win[g], P) for g in range(G))
+    del T, win
+    f1, f2 = 8 * G * P * n * W0 * Wb, 8 * G * P * n * m * Wb
+    fg = 2 * 8 * wins * 64 * 64 * Wb
+    pw_b = zoom_bounds(tensor_bytes(pw_args, pw), f1, f2)[1]
+    gr_b = zoom_bounds(tensor_bytes(args, gr), 2 * f1, f2 + fg)[1]
+    rows = {"sweep_pw": dict(
+                max_abs_err=pw_abs, ms=cuda_ms(lambda: sw.sweep_pw(*pw_args),
+                                               3),
+                plain_ms=cuda_ms(lambda: sw.sweep_pw_plain(*pw_args), 1),
+                bound_ms=pw_b, bound_by="operations", library_ms=None),
+            "sweep_grad": dict(
+                max_abs_err=gr_abs, ms=cuda_ms(lambda: sw.sweep_grad(*args),
+                                               3),
+                plain_ms=cuda_ms(lambda: sw.sweep_grad_plain(*args), 1),
+                bound_ms=gr_b, bound_by="operations", library_ms=None)}
+    say(f"  grouped emissions G={G} P={P} W0={W0} Wb={Wb} banded={banded}: "
+        f"winners over the tiles {wins} ({wins / (G * n * m / 4096)!r} a "
+        f"tile, the float32 twin's tournament); FLOP stage 1 {f1!r} (x2 "
+        f"with gradients), stage 2 {f2!r}, gradient products {fg!r}")
+    for k, r in rows.items():
+        say(f"  {k}: kernel {r['ms']!r} ms, twin {r['plain_ms']!r} ms, bound "
+            f"{r['bound_ms']!r} ms (stage 2 and the gradient products in "
+            "3xTF32)")
+    return rows
+
+
+def sweep_launches(launches, label):
+    """Fail unless the counted run launched exactly PATH_SWEEPS[label]'s
+    sweeps and no other sweep."""
+    want = PATH_SWEEPS[label]
+    got = {k: launches.get(k, 0) for k in SWEEP_NAMES}
+    if any(got[k] != want.get(k, 0) for k in SWEEP_NAMES):
+        raise RuntimeError(f"[{label}] sweep launches {got}, expected "
+                           f"{want}")
+
+
+def counted_run(label, call):
+    """A warm-up call, then one call with the launch counts reset just
+    before and read just after; fails unless every kernel of
+    PATH_KERNELS[label] ran and the sweeps are PATH_SWEEPS[label]'s."""
+    import torch
+    from pygpa_tpu_torch.ops import _build
+    call()
+    torch.cuda.synchronize()
+    _build.launches.clear()
+    out = call()
+    torch.cuda.synchronize()
+    launches = dict(_build.launches)
+    missing = [k for k in PATH_KERNELS[label] if not launches.get(k)]
+    if missing:
+        raise RuntimeError(f"kernels of the path never ran: {missing}")
+    sweep_launches(launches, label)
+    return out, launches
+
+
+def timed(call, reps):
+    """(seconds per call over `reps` synchronized runs on the host clock,
+    peak device GiB of one more run)."""
+    import torch
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        call()
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / reps
+    torch.cuda.reset_peak_memory_stats()
+    call()
+    torch.cuda.synchronize()
+    return dt, torch.cuda.max_memory_allocated() / 2**30
+
+
+def drive_2g(label, title, ks, img):
+    """Phase 10: config 2g's step on the bench fixture: launch counts,
+    the gates on the 4 sigma interior, the same step on the plain twins
+    (a tenth of each gate), seconds per call and peak memory. Returns
+    the counted run's launches."""
+    import torch
+    from pygpa_tpu_torch.props import get_initial_props
+    step, sigma = config2g_step(ks)
+    props, launches = counted_run(label, lambda: step(img))
+    say(f"[{label}] {title}: launches in one run: {launches}")
+    if tuple(props.shape) != (4, SIZE, SIZE) or not torch.isfinite(
+            props).all():
+        raise RuntimeError(f"[{label}] props bad: {tuple(props.shape)}")
+    b = 4 * sigma
+    theta0 = float(np.float32(float(get_initial_props(ks)[1])))
+    th, ka = props[0][b:-b, b:-b], props[3][b:-b, b:-b]
+    gates = {"theta_err_interior_deg": float((th - theta0).abs().max()),
+             "kappa_err_interior": float((ka - 1.005).abs().max()),
+             "gated": f"theta<{GATE_2G_THETA}, kappa<{GATE_2G_KAPPA}"}
+    say(f"    gates: {json.dumps(gates)}")
+    if not (gates["theta_err_interior_deg"] < GATE_2G_THETA
+            and gates["kappa_err_interior"] < GATE_2G_KAPPA):
+        raise RuntimeError(f"[{label}] ACCURACY GATE FAILED")
+    dt, peak = timed(lambda: step(img), REPS_EXACT)
+    with plain_versions():
+        pp = step(img)
+    dth = float((props[0] - pp[0])[b:-b, b:-b].abs().max())
+    dka = float((props[3] - pp[3])[b:-b, b:-b].abs().max())
+    say(f"    with kernels vs plain versions, 4 sigma interior: max |dtheta| "
+        f"{dth!r} deg, max |dkappa| {dka!r} (bounds "
+        f"{GATE_2G_THETA / 10}, {GATE_2G_KAPPA / 10})")
+    say(f"    seconds per call {dt!r} ({REPS_EXACT} runs after warm-up, host "
+        f"clock, synchronized); peak device memory {peak!r} GiB")
+    if not (dth < GATE_2G_THETA / 10 and dka < GATE_2G_KAPPA / 10):
+        raise RuntimeError(f"[{label}] kernels change the result")
+    return launches
+
+
+def gates_ok(g):
+    return g[0] < GATE_INTERIOR and g[1] < GATE_DCFREE and g[2] < GATE_DEFORMED
+
+
+def say_gates(g):
+    say("    gates: " + json.dumps({
+        "u_err_interior_px": g[0], "u_err_interior_dcfree_px": g[1],
+        "u_err_deformed_px": g[2],
+        "gated": f"interior<{GATE_INTERIOR}, dcfree<{GATE_DCFREE}, "
+                 f"deformed<{GATE_DEFORMED}"}))
+
+
+def drive_eager_grad(img, img_d, u_true, ks):
+    """Phase 11a: the eager path with with_grad=True: 3 zoom_grad
+    launches, finite gradients, u the plain eager path's bits, the
+    bench's three gates, seconds per call and peak memory."""
+    import torch
+    from pygpa_tpu_torch.gpa import pipeline
+
+    def call():
+        return pipeline.extract_displacement_field(img, ks, with_grad=True,
+                                                   return_gs=True,
+                                                   device=DEVICE)
+    (u, gs), launches = counted_run("11a", call)
+    say(f"[11a] extract_displacement_field(img, ks, with_grad=True, "
+        f"return_gs=True): launches in one run: {launches}")
+    for g in gs:
+        if tuple(g["grad"].shape) != (SIZE, SIZE, 2) or not torch.isfinite(
+                g["grad"]).all():
+            raise RuntimeError("[11a] gradients bad")
+    u0 = pipeline.extract_displacement_field(img, ks, device=DEVICE)
+    if not torch.equal(u, u0):
+        raise RuntimeError("[11a] u differs from the path without with_grad")
+    ud = pipeline.extract_displacement_field(img_d, ks, deconvolve=True,
+                                             with_grad=True, device=DEVICE)
+    g = gate_values(u, ud, u_true, ks)
+    say_gates(g)
+    dt, peak = timed(call, 2)
+    say(f"    u is the path without with_grad's, bit for bit; seconds per "
+        f"call {dt!r} (2 runs after warm-up, host clock, synchronized); "
+        f"peak device memory {peak!r} GiB")
+    if not gates_ok(g):
+        raise RuntimeError("[11a] ACCURACY GATE FAILED")
+    return launches
+
+
+def drive_demod(img, img_d, u_true, ks):
+    """Phase 11b: the factory at its defaults with pipeline_fused_uv=False:
+    one sweep_pw launch, the bench's three gates, the distance from the
+    uv route's u, seconds per image and peak memory."""
+    import dataclasses
+    from pygpa_tpu_torch.gpa import pipeline
+    real = pipeline.DEFAULTS
+    pipeline.DEFAULTS = dataclasses.replace(real, pipeline_fused_uv=False)
+    try:
+        fn = pipeline.make_displacement_extractor((SIZE, SIZE), ks,
+                                                  device=DEVICE)
+        fn_d = pipeline.make_displacement_extractor(
+            (SIZE, SIZE), ks, deconvolve=True, device=DEVICE)
+    finally:
+        pipeline.DEFAULTS = real
+    u, launches = counted_run("11b", lambda: fn(img))
+    say(f"[11b] make_displacement_extractor((4096, 4096), ks) defaults, "
+        f"pipeline_fused_uv=False: launches in one run: {launches}")
+    g = gate_values(u, fn_d(img_d), u_true, ks)
+    say_gates(g)
+    p99, dmax = interior_dist(u, pipeline.make_displacement_extractor(
+        (SIZE, SIZE), ks, device=DEVICE)(img), ks)
+    dt, peak = timed(lambda: fn(img), REPS_EXACT)
+    say(f"    vs the uv route (phase 6's call): interior p99 |du| {p99!r} max "
+        f"{dmax!r} px; seconds per image {dt!r} ({REPS_EXACT} runs after "
+        f"warm-up, host clock, synchronized); peak device memory {peak!r} "
+        "GiB")
+    if not gates_ok(g):
+        raise RuntimeError("[11b] ACCURACY GATE FAILED")
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1378,6 +1848,34 @@ def main():
     rows["zoom_sweep"] = dict(max_abs_err=e_zs, ms=zs["call"],
                               plain_ms=zs["twin"], bound_ms=b_tc,
                               bound_by="operations", library_ms=None)
+    # the gradient path's inputs, from one run of each of config 2g's
+    # routes: per peak (float32 k-vectors, 10a) and grouped (float64, 10b)
+    step32, _ = config2g_step(ks32)
+    step64, _ = config2g_step(np.asarray(ks, np.float64))
+    with Capture(wfr_mod._zoom, "zoom_sweep") as c_zg:
+        step32(img)
+        torch.cuda.synchronize()
+    with Capture(wfr_mod._sweep, "sweep_grad") as c_sg:
+        step64(img)
+        torch.cuda.synchronize()
+    del step32, step64
+    sg = c_sg.calls[0]
+    say(f"    captured gradient-path calls: zoom_grad P = "
+        f"{[a[2].shape[0] for a in c_zg.calls]}, windows "
+        f"{[tuple(a[0].shape) for a in c_zg.calls]}; sweep_grad windows "
+        f"{tuple(sg[0].shape)}, G, P = {tuple(sg[4].shape[:2])}, Wb = "
+        f"{sg[8].shape[2]}, banded {sg[15]}")
+    e_zg, zg_ms, zg_twin, zg_b, zg_f = check_zoom_grad(zs_mod, c_zg.calls,
+                                                       c_zg.kws)
+    say(f"    zoom_grad, three peaks: kernel {zg_ms!r} ms, twin {zg_twin!r} "
+        f"ms, bound {zg_b!r} ms (FLOP: stage 1 twice {zg_f[0]!r} in float32 "
+        f"FMA, stage 2 {zg_f[1]!r} and the gradient products {zg_f[2]!r} "
+        "in 3xTF32)")
+    rows["zoom_grad"] = dict(max_abs_err=e_zg, ms=zg_ms, plain_ms=zg_twin,
+                             bound_ms=zg_b, bound_by="operations",
+                             library_ms=None)
+    rows.update(check_grouped_emissions(sw_mod, sg))
+    del c_zg, c_sg, sg
     dct_in = {"dct_lane": c_dl.calls[0][0], "idct_lane": c_il.calls[0][0],
               "dct_sub": c_ds.calls[0][0], "idct_sub": c_is.calls[0][0]}
     e_dct = check_dct(dct_mod, dct_in)
@@ -1700,6 +2198,19 @@ def main():
     for label, size, kw in (("9a", 2048, {}), ("9b", 500,
                                                 {"unwrap_coarse": 4})):
         drive_short(label, size, kw)
+
+    # ---- 10. config 2g, the property maps from the winner gradients:
+    # (a) float32 k-vectors (per-peak zoom sweeps), (b) float64 (grouped)
+    path_launches["10a"] = drive_2g(
+        "10a", "config 2g, float32 k-vectors: per-peak zoom sweeps",
+        KS_BENCH_F32, img)
+    path_launches["10b"] = drive_2g(
+        "10b", "config 2g, float64 k-vectors: one grouped sweep",
+        np.asarray(ks, np.float64), img)
+
+    # ---- 11. the eager path with gradients, the demodulated factory
+    path_launches["11a"] = drive_eager_grad(img, img_d, u_true, ks32)
+    path_launches["11b"] = drive_demod(img, img_d, u_true, ks32)
 
     kernels = []
     for name, (src, rep) in KERNELS.items():

@@ -1,16 +1,20 @@
-// Grouped banded WFR sweep with reconstruction-prologue (uv) emission.
+// Grouped banded WFR sweep: the reconstruction-prologue (uv), phase/weight
+// and phase-gradient emissions.
 //
 // Replaces the TPU kernel pygpa_tpu/ops/pallas_sweep.py _grouped_kernel
-// (entry fused_zoom_sweep_grouped, uv_ks + col_groups path). Wrapper and
-// plain twin: pygpa_tpu_torch/ops/sweep.py.
+// (entry fused_zoom_sweep_grouped with col_groups: uv_ks, no emission flag
+// (a: phase and weight) or grad_ops (b: also the winners' gradients)).
+// Wrapper and plain twin: pygpa_tpu_torch/ops/sweep.py.
 //
 // The TPU kernel ran stage 1, stage 2, the argmax tournament and the uv
 // epilogue in one grid whose steps ran in order, carrying phase/weight
 // rows and columns from step to step. Blocks here run in parallel and
-// in no order, so the op is three launches:
+// in no order, so the op is two or three launches:
 //   sweep_stage1: T[g,i] = ((A0c + i A0s) . gx_i) @ (Sr + i Si)_run(i),
 //                 times gy_i, stored as [Re | Im] rows (G, P, n, 2 Wb),
-//                 in float32 FMA (also the zoom sweep's stage 1);
+//                 in float32 FMA (also the zoom sweep's stage 1); with
+//                 gradients a second launch on the row-derivative
+//                 windows S2 = (2 pi i f0) S gives Tx;
 //   sweep_stage2: per 64x64 pixel tile of group g (blockIdx.z), M_i =
 //                 T_i @ A1^T for every candidate i on the tensor cores
 //                 (sweep_tc.cuh, shared with the zoom sweep: 3xTF32
@@ -22,7 +26,12 @@
 //                 that is a multiple of 64 runs) with the running best
 //                 |M|^2 (strict '>', candidate 0 taken first) in
 //                 registers; emits the winner phase (atan2 + banded
-//                 column ramp) and the rim-masked weight, (G, n, m) each;
+//                 column ramp) and the rim-masked weight, (G, n, m) each
+//                 (emission (a) ends here); sweep_stage2_grad then adds
+//                 the winners' gradients (winner_grads(): Tx_i and T_i
+//                 against the base band's A1 and A1y for each candidate
+//                 that wins a pixel of the tile, less off * 2 pi / m on
+//                 the column gradient of a banded winner);
 //   sweep_uv:     one thread per pixel: wrapped shifted diffs against the
 //                 left / upper neighbour and the 2x2 weighted lstsq.
 // Bound on an H100: stage 2's G*P*n*m*Wb complex MACs (1.86 TFLOP at the
@@ -154,12 +163,19 @@ __global__ void __launch_bounds__(NT) stage1_kernel(
 }
 
 // grid (m/64, n/64, G); T (G, P, n, 2 Wb); A1c, A1s (G, m, Wb), the
-// base-band column basis; off (G, P) band offsets; dynamic smem ZSMEM
+// base-band column basis; off (G, P) band offsets; dynamic smem ZSMEM.
+// GRAD (emission (b)): also Tx (G, P, n, 2 Wb), stage 1 of the
+// row-derivative windows, and A1yc, A1ys (G, m, Wb), the f1-scaled
+// base-band basis; the winners' gradients go to gxo, gyo (G, n, m)
+template <bool GRAD>
 __global__ void __launch_bounds__(ZNT, 1) grouped_stage2_kernel(
     const float* __restrict__ T, const float* __restrict__ A1c,
     const float* __restrict__ A1s, const int* __restrict__ off,
     float* __restrict__ ph, float* __restrict__ wt,
-    int P, int n, int m, int Wb, int dr, int banded) {
+    int P, int n, int m, int Wb, int dr, int banded,
+    const float* __restrict__ Tx, const float* __restrict__ A1yc,
+    const float* __restrict__ A1ys, float* __restrict__ gxo,
+    float* __restrict__ gyo) {
   extern __shared__ __align__(16) float smem[];
   const int c0 = blockIdx.x * ZT, r0 = blockIdx.y * ZT;
   const int g = blockIdx.z;
@@ -208,6 +224,16 @@ __global__ void __launch_bounds__(ZNT, 1) grouped_stage2_kernel(
         *reinterpret_cast<float2*>(ph + o) = make_float2(pv[0], pv[1]);
         *reinterpret_cast<float2*>(wt + o) = make_float2(wv[0], wv[1]);
       }
+  // the column gradient of a banded winner takes away its ramp's slope,
+  // off * 2 pi / m (the TPU kernel's gyo - ro * (2 pi / m))
+  if (GRAD) {
+    const size_t cand = (size_t)g * P * n * 2 * Wb;
+    const size_t basis = (size_t)g * m * Wb;
+    winner_grads<true>(T + cand, Tx + cand, A1c + basis, A1s + basis,
+                       A1yc + basis, A1ys + basis, P, n, Wb, Wb, r0, c0,
+                       smem, br, bi, bx, gxo + plane, gyo + plane, m,
+                       banded ? off + g * P : nullptr, ramp);
+  }
 }
 
 // one thread per pixel; kc = (G, 5): k0, k1, k0*k0, k0*k1, k1*k1
@@ -270,6 +296,23 @@ __global__ void __launch_bounds__(NT) uv_kernel(
   wn[idx] = sqrtf(wsq);
 }
 
+template <bool GRAD>
+int launch_stage2(const float* T, const float* A1c, const float* A1s,
+                  const int* off, float* ph, float* wt, int G, int P, int n,
+                  int m, int Wb, int dr, int banded, const float* Tx,
+                  const float* A1yc, const float* A1ys, float* gxo,
+                  float* gyo, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      grouped_stage2_kernel<GRAD>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)ZSMEM);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(m / ZT, n / ZT, G);
+  grouped_stage2_kernel<GRAD><<<grid, ZNT, ZSMEM, stream>>>(
+      T, A1c, A1s, off, ph, wt, P, n, m, Wb, dr, banded, Tx, A1yc, A1ys, gxo,
+      gyo);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -289,14 +332,20 @@ int sweep_stage1(const float* Sr, const float* Si, const float* gx,
 int sweep_stage2(const float* T, const float* A1c, const float* A1s,
                  const int* off, float* ph, float* wt, int G, int P, int n,
                  int m, int Wb, int dr, int banded, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      grouped_stage2_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)ZSMEM);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(m / ZT, n / ZT, G);
-  grouped_stage2_kernel<<<grid, ZNT, ZSMEM, stream>>>(
-      T, A1c, A1s, off, ph, wt, P, n, m, Wb, dr, banded);
-  return (int)cudaGetLastError();
+  return launch_stage2<false>(T, A1c, A1s, off, ph, wt, G, P, n, m, Wb, dr,
+                              banded, nullptr, nullptr, nullptr, nullptr,
+                              nullptr, stream);
+}
+
+// emission (b): also Tx (G, P, n, 2 Wb), A1yc and A1ys (G, m, Wb); the
+// winners' gradients to gxo, gyo (G, n, m)
+int sweep_stage2_grad(const float* T, const float* Tx, const float* A1c,
+                      const float* A1s, const float* A1yc, const float* A1ys,
+                      const int* off, float* ph, float* wt, float* gxo,
+                      float* gyo, int G, int P, int n, int m, int Wb, int dr,
+                      int banded, cudaStream_t stream) {
+  return launch_stage2<true>(T, A1c, A1s, off, ph, wt, G, P, n, m, Wb, dr,
+                             banded, Tx, A1yc, A1ys, gxo, gyo, stream);
 }
 
 int sweep_uv(const float* ph, const float* wt, const float* kc, float* ux,

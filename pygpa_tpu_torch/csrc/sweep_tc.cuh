@@ -2,7 +2,9 @@
 // per-pixel |M|^2 tournament: the part shared by the single-peak zoom
 // sweep (zoom_sweep.cu) and the grouped banded sweep (sweep.cu). Each
 // kernel calls sweep_tc_tile() for its 64 x 64 pixel tile and then
-// writes its own epilogue from the winners it returns.
+// writes its own epilogue from the winners it returns; with the gradient
+// emission, winner_grads() then runs the winners' derivative products
+// through the same pipeline (tc_products) and writes gx, gy.
 //
 // For P candidates i in order, with T_i (n, 2K) the stage-1 rows
 // [Tr | Ti] and the column basis A1c, A1s (m rows, K columns):
@@ -156,20 +158,21 @@ __device__ __forceinline__ void tc_pixel(int r0, int c0, int* row,
   *col = c0 + (warp & 3) * 16 + 2 * (lane & 3);
 }
 
-// Stage 2 and the tournament of the 64 x 64 tile at (r0, c0): T (P, n,
-// 2K) row-major; Bc, Bs the column basis, row c at Bc + c * ldb (K
-// columns used); smem ZSMEM bytes of dynamic shared memory. Returns the
-// winners' Re, Im and candidate index in the fragment layout of
-// tc_pixel(). SPLIT keeps the small products in their own chain (see
-// mma3), which costs ~20 registers a thread and lands |M| nearer its
+// The stage-2 products of the 64 x 64 tile at (r0, c0), candidate after
+// candidate: T (P, n, 2K) row-major; Bc, Bs the column basis, row c at
+// Bc + c * ldb (K columns used); smem ZSMEM bytes of dynamic shared
+// memory. When candidate i's sums are complete, done(i, sumr, sumi) gets
+// its Re M and Im M in the fragment layout of tc_pixel(), and the sums
+// restart from zero. SPLIT keeps the small products in their own chain
+// (see mma3), which costs ~20 registers a thread and lands |M| nearer its
 // float64 value than a float32 product does; the zoom sweep keeps one
-// chain, the design its path check was measured with.
-template <bool TAKE_FIRST, bool SPLIT>
-__device__ __forceinline__ void sweep_tc_tile(
+// chain, the design its path check was measured with. The block may call
+// this again on the same shared memory (the winner gradients do).
+template <bool SPLIT, class Done>
+__device__ __forceinline__ void tc_products(
     const float* __restrict__ T, const float* __restrict__ Bc,
     const float* __restrict__ Bs, int P, int n, int K, int ldb, int r0,
-    int c0, float* smem, float br[2][2][4], float bi[2][2][4],
-    int bx[2][2][4]) {
+    int c0, float* smem, Done done) {
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;     // mma group and thread in it
@@ -191,8 +194,6 @@ __device__ __forceinline__ void sweep_tc_tile(
       for (int e = 0; e < 4; ++e) {
         accr[a][b][e] = acci[a][b][e] = sumr[a][b][e] = sumi[a][b][e] = 0.f;
         smlr[a][b][e] = smli[a][b][e] = 0.f;
-        br[a][b][e] = bi[a][b][e] = 0.f;
-        bx[a][b][e] = 0;
       }
 
   // stage s: candidate s / nk, K columns [k0, k0 + 32) of Tr, Ti (rows
@@ -216,6 +217,7 @@ __device__ __forceinline__ void sweep_tc_tile(
     }
   };
 
+  __syncthreads();  // every warp is done with an earlier call's ring
 #pragma unroll
   for (int s = 0; s < ZSTAGES - 1; ++s) {
     if (s < total) load(s);
@@ -292,24 +294,118 @@ __device__ __forceinline__ void sweep_tc_tile(
           accr[a][b][e] = acci[a][b][e] = 0.f;
         }
 
-    if (s % nk == nk - 1) {  // candidate s / nk complete: tournament
-      const int i = s / nk;
+    if (s % nk == nk - 1) {  // candidate s / nk complete
+      done(s / nk, sumr, sumi);
 #pragma unroll
       for (int a = 0; a < 2; ++a)
 #pragma unroll
         for (int b = 0; b < 2; ++b)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const float mr = sumr[a][b][e], mi = sumi[a][b][e];
-            if ((TAKE_FIRST && i == 0) ||
-                absq(mr, mi) > absq(br[a][b][e], bi[a][b][e])) {
-              br[a][b][e] = mr;
-              bi[a][b][e] = mi;
-              bx[a][b][e] = i;
-            }
-            sumr[a][b][e] = sumi[a][b][e] = 0.f;
-          }
+          for (int e = 0; e < 4; ++e) sumr[a][b][e] = sumi[a][b][e] = 0.f;
     }
+  }
+}
+
+// Stage 2 and the tournament of the 64 x 64 tile at (r0, c0) (operands as
+// tc_products): the winners' Re, Im and candidate index in the fragment
+// layout of tc_pixel().
+template <bool TAKE_FIRST, bool SPLIT>
+__device__ __forceinline__ void sweep_tc_tile(
+    const float* __restrict__ T, const float* __restrict__ Bc,
+    const float* __restrict__ Bs, int P, int n, int K, int ldb, int r0,
+    int c0, float* smem, float br[2][2][4], float bi[2][2][4],
+    int bx[2][2][4]) {
+#pragma unroll
+  for (int a = 0; a < 2; ++a)
+#pragma unroll
+    for (int b = 0; b < 2; ++b)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        br[a][b][e] = bi[a][b][e] = 0.f;
+        bx[a][b][e] = 0;
+      }
+  tc_products<SPLIT>(
+      T, Bc, Bs, P, n, K, ldb, r0, c0, smem,
+      [&](int i, const float (&mr)[2][2][4], const float (&mi)[2][2][4]) {
+#pragma unroll
+        for (int a = 0; a < 2; ++a)
+#pragma unroll
+          for (int b = 0; b < 2; ++b)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              if ((TAKE_FIRST && i == 0) ||
+                  absq(mr[a][b][e], mi[a][b][e]) >
+                      absq(br[a][b][e], bi[a][b][e])) {
+                br[a][b][e] = mr[a][b][e];
+                bi[a][b][e] = mi[a][b][e];
+                bx[a][b][e] = i;
+              }
+            }
+      });
+}
+
+// The winners' analytic phase gradients of the tile (the gradient
+// emission): for each candidate i that wins a pixel of the tile (P
+// block-wide votes; a lattice tile has one to a few), two more
+// one-candidate product sets on the tensor cores, Mx = Tx_i . B1 (the
+// row-derivative window's stage 1 against the column basis Bc, Bs) and
+// My = T_i . B1y (stage 1 against the f1-scaled basis Byc, Bys), and at
+// the pixels i wins
+//   gx = (Im M Re Mx - Re M Im Mx) / max(|M|^2, 1e-30),  gy alike from My,
+// the derivatives of -angle(M) along rows and columns, with M the
+// winner's (br, bi) from sweep_tc_tile. gy then takes away off_i * ramp
+// when `off` is given (the banded sweep's column ramp). Written to gxo,
+// gyo (row-major, m columns) at the tile's pixels; the winners' products
+// cost 2/P of the tournament's each.
+template <bool SPLIT>
+__device__ __forceinline__ void winner_grads(
+    const float* __restrict__ T, const float* __restrict__ Tx,
+    const float* __restrict__ Bc, const float* __restrict__ Bs,
+    const float* __restrict__ Byc, const float* __restrict__ Bys, int P,
+    int n, int K, int ldb, int r0, int c0, float* smem,
+    const float br[2][2][4], const float bi[2][2][4], const int bx[2][2][4],
+    float* __restrict__ gxo, float* __restrict__ gyo, int m,
+    const int* __restrict__ off, float ramp) {
+  int rw, cl;
+  tc_pixel(r0, c0, &rw, &cl);
+  const size_t cand = (size_t)n * 2 * K;
+  for (int i = 0; i < P; ++i) {
+    bool mine = false;
+#pragma unroll
+    for (int a = 0; a < 2; ++a)
+#pragma unroll
+      for (int b = 0; b < 2; ++b)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) mine |= bx[a][b][e] == i;
+    if (!__syncthreads_or(mine)) continue;
+    // the gradient of -angle(M) from D = dM at the pixels i wins, less
+    // `sub` (x - 0 is exact, so gx and the unbanded gy take 0)
+    auto store = [&](float* out, float sub) {
+      return [&, out, sub](int, const float (&dr)[2][2][4],
+                           const float (&di)[2][2][4]) {
+#pragma unroll
+        for (int a = 0; a < 2; ++a)
+#pragma unroll
+          for (int b = 0; b < 2; ++b)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              if (bx[a][b][e] != i) continue;
+              const float mr = br[a][b][e], mi = bi[a][b][e];
+              const float den = fmaxf(absq(mr, mi), 1e-30f);
+              const float gv = __fdiv_rn(
+                  __fsub_rn(__fmul_rn(mi, dr[a][b][e]),
+                            __fmul_rn(mr, di[a][b][e])), den);
+              const int r = rw + a * 16 + (e >> 1) * 8;
+              const int c = cl + b * 8 + (e & 1);
+              out[(size_t)r * m + c] = __fsub_rn(gv, sub);
+            }
+      };
+    };
+    tc_products<SPLIT>(Tx + i * cand, Bc, Bs, 1, n, K, ldb, r0, c0, smem,
+                       store(gxo, 0.f));
+    tc_products<SPLIT>(T + i * cand, Byc, Bys, 1, n, K, ldb, r0, c0, smem,
+                       store(gyo, off ? __fmul_rn((float)__ldg(off + i), ramp)
+                                      : 0.f));
   }
 }
 

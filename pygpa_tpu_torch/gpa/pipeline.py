@@ -11,10 +11,12 @@ early-stopping CG unwrap, whose DCTs run on the ops.dct kernels at
 4096 px and up).
 
 make_displacement_extractor, the factory: mean subtraction -> the
-grouped banded sweep with reconstruction-prologue emission (ops.sweep)
-where the grouped plan applies, else the per-peak phase/weight sweeps
--> the multigrid (unwrap_coarse) or exact (unwrap_coarse=None) unwrap
-of the two displacement components -> optional Wiener deconvolution.
+grouped banded sweep (ops.sweep) where the grouped plan applies, with
+reconstruction-prologue emission (DEFAULTS.pipeline_fused_uv) or
+phase/weight emission and the demodulated reconstruction, else the
+per-peak phase/weight sweeps -> the multigrid (unwrap_coarse) or exact
+(unwrap_coarse=None) unwrap of the two displacement components ->
+optional Wiener deconvolution.
 Everything that does not depend on the image (the sweep plan, DFT
 bases, Gaussian factors) is built once by the factory on `device`.
 """
@@ -27,7 +29,7 @@ from ..config import DEFAULTS
 from ..core import entry_device, interp
 from ..core.fourier import fourier_gaussian_multiplier, wiener_deconvolve
 from ..ops.sweep import rim_weights
-from ..ops.wfr import (SweepPlan, UVSweep, plan_sweep, wfr_sweep,
+from ..ops.wfr import (GroupedSweep, SweepPlan, plan_sweep, wfr_sweep,
                        wfr_sweep_phase_weight_multi)
 from ..solvers.unwrap import _resize_right, stamp
 from .reconstruct import (reconstruct_u_inv_from_demod,
@@ -261,19 +263,18 @@ def make_displacement_extractor(shape, kvecs, sigma=None,
     Arguments follow pygpa_tpu.gpa.pipeline.make_displacement_extractor;
     `device` places the precomputed operands and the work, and each
     image moves there (None: the card, "cuda"; "cpu" runs the plain
-    twins). The grouped uv sweep runs where its plan applies (float32,
-    sides multiples of 128, equal windows, P <= 48); other shapes and
-    float64 take the per-peak phase/weight sweeps (`chunk` candidates
-    per batched product on the plain route). unwrap_coarse selects the multigrid unwrap,
-    None the exact early-stopping CG.
+    twins). The grouped sweep runs where its plan applies (float32,
+    sides multiples of 128, equal windows, P <= 48): with
+    DEFAULTS.pipeline_fused_uv its uv emission feeds
+    reconstruct_u_inv_from_uv, without it its phase/weight emission
+    feeds reconstruct_u_inv_from_demod. Other shapes and float64 take
+    the per-peak phase/weight sweeps (`chunk` candidates per batched
+    product on the plain route). unwrap_coarse selects the multigrid
+    unwrap, None the exact early-stopping CG.
 
     Returns run(image, events=None) -> u (2, n, m). `events`, a list,
     collects (stage name, CUDA event) pairs after each stage (sweep,
     lstsq, unwrap levels, deconvolve) for stage timing on the card."""
-    if not DEFAULTS.pipeline_fused_uv:
-        raise NotImplementedError(
-            "pipeline_fused_uv=False: the grouped phase/weight sweep "
-            "emission is not ported (ROADMAP queue 1 item 7)")
     device = entry_device(device)
     kvecs_h = np.asarray(kvecs, np.float64)
     knorms = np.linalg.norm(kvecs_h, axis=1)
@@ -285,23 +286,28 @@ def make_displacement_extractor(shape, kvecs, sigma=None,
           else float(gauss_cut))
     np_dtype = np.float32 if dtype == torch.float32 else np.float64
     wlists = candidate_banks(kvecs_h, kwscale, ksteps, dtype=np_dtype)
+    fused_uv = DEFAULTS.pipeline_fused_uv
     plan = plan_sweep(shape, wlists, sig, dr, kvecs_h, gauss_cut=gc,
                       dtype=dtype)
-    sweep = UVSweep(plan, device=device) if plan is not None else None
+    sweep = None if plan is None else GroupedSweep(
+        plan, device=device, emit="uv" if fused_uv else "pw")
     kv = torch.tensor(kvecs_h, device=device).to(dtype)
 
     def run(image, events=None):
         image = torch.as_tensor(image, device=device).to(dtype)
         img0 = image - image.mean()
-        if sweep is not None:
+        if sweep is not None and fused_uv:
             uv = sweep(img0)
             stamp(events, "sweep")
             u = reconstruct_u_inv_from_uv(*uv, kmax=unwrap_kmax,
                                           unwrap_coarse=unwrap_coarse,
                                           events=events)
         else:
-            ph, wt = wfr_sweep_phase_weight_multi(img0, wlists, sig, dr,
-                                                  chunk=chunk, gauss_cut=gc)
+            if sweep is not None:
+                ph, wt = sweep(img0)
+            else:
+                ph, wt = wfr_sweep_phase_weight_multi(
+                    img0, wlists, sig, dr, chunk=chunk, gauss_cut=gc)
             stamp(events, "sweep")
             u = reconstruct_u_inv_from_demod(kv, ph, wt, kmax=unwrap_kmax,
                                              unwrap_coarse=unwrap_coarse,
@@ -337,8 +343,9 @@ def extract_displacement_field(image, kvecs, sigma=None,
     `device` (None: the card, "cuda"; "cpu" for the plain route; without
     a card the default raises). `events`, a list,
     collects (stage name, CUDA event) pairs after the fft2, the sweeps,
-    the lstsq, the unwrap and the deconvolution. with_grad raises
-    NotImplementedError (ROADMAP queue 1 item 7)."""
+    the lstsq, the unwrap and the deconvolution. with_grad adds each
+    peak's winner phase gradient to its g-dict ('grad' (n, m, 2),
+    wfr2_grad_opt's), returned with return_gs."""
     # the k-vectors keep their dtype: kw, kstep and the np.arange banks
     # are computed in it, as the reference does (float32 and float64
     # k-vectors can give banks of different lengths)

@@ -1,19 +1,27 @@
-"""Grouped banded WFR sweep with reconstruction-prologue emission.
+"""Grouped banded WFR sweep: the reconstruction-prologue (uv),
+phase/weight and phase-gradient emissions.
 
 Replaces the TPU kernel ``pygpa_tpu/ops/pallas_sweep.py``
-``_grouped_kernel`` (uv emission, banded column groups), reached through
-``fused_zoom_sweep_grouped``. For G Bragg peaks x P candidates it
-evaluates every candidate's full-resolution lock-in as two skinny DFT
-products of its spectrum window, keeps the per-pixel argmax of |M|^2
-(strict '>', candidate 0 first), emits the winner's phase (with the
-banded column ramp) and rim-masked weight, and reduces them to the
-shifted per-pixel weighted-lstsq displacement gradients
-``dudx_s``/``dudy_s`` (2, n, m) and the weight norm ``wnorm`` (n, m).
+``_grouped_kernel`` (banded column groups), reached through
+``fused_zoom_sweep_grouped``, with its three output sets: the uv
+prologue (``uv_ks``), the phase and weight planes (a: neither ``uv_ks``
+nor ``grad_ops``) and those planes with the winners' phase gradients
+(b: ``grad_ops``). For G Bragg peaks x P candidates it evaluates every
+candidate's full-resolution lock-in as two skinny DFT products of its
+spectrum window, keeps the per-pixel argmax of |M|^2 (strict '>',
+candidate 0 first), emits the winner's phase (with the banded column
+ramp) and rim-masked weight, and either returns them (a), adds the
+winner's derivatives of -angle(M) along rows and columns (b), or
+reduces them to the shifted per-pixel weighted-lstsq displacement
+gradients ``dudx_s``/``dudy_s`` (2, n, m) and the weight norm ``wnorm``
+(n, m).
 
-CUDA route (``csrc/sweep.cu``), three launches on the current stream:
+CUDA route (``csrc/sweep.cu``), launches on the current stream:
 
 1. stage 1: T[g, i] = ((A0 . gx_i) @ S_run(i)) . gy_i as [Re | Im]
-   rows into a (G, P, n, 2*Wb) float32 scratch (float32 FMA);
+   rows into a (G, P, n, 2*Wb) float32 scratch (float32 FMA); with
+   gradients once more on the row-derivative windows S2 = (2 pi i f0) S,
+   giving Tx;
 2. stage 2 + tournament: M_i = T_i @ [A1c | -A1s], [A1s | A1c] per
    64x64 pixel tile on the tensor cores (``csrc/sweep_tc.cuh``, shared
    with the zoom sweep: 3xTF32 ``mma.sync``, tensor-core chains that
@@ -22,8 +30,12 @@ CUDA route (``csrc/sweep.cu``), three launches on the current stream:
    basis streamed through a ``cp.async`` ring, so any Wb that is a
    multiple of 64 runs), looped over the candidates with the running
    best kept in registers; emits the phase and weight planes (G, n, m);
-3. the uv epilogue, one thread per pixel reading its left and upper
-   neighbours from device memory.
+   with gradients each tile then runs Tx_i @ B1 and T_i @ B1y (the
+   base band's f1-scaled basis A1y = (2 pi i f1) A1) for just the
+   candidates that win one of its pixels, and the banded winner's
+   column gradient takes away its ramp's slope off * 2 pi / m;
+3. (uv) the uv epilogue, one thread per pixel reading its left and
+   upper neighbours from device memory.
 
 What bounds it on an H100: stage 2's G*P*n*m*Wb complex multiply-adds
 (1.86 TFLOP at the 4096^2 bench shapes), three times over at the
@@ -36,16 +48,18 @@ than device memory. The kernel's stage 2 lies nearer its float64 value
 than the float32 twin's does, so chip_smoke.py holds its path to the
 path with a float64 sweep. ``stage1``, ``stage2`` and ``epilogue``
 launch one kernel each on checked operands (chip_smoke.py times them
-apart; the zoom sweep reuses ``stage1``).
+apart; the zoom sweep reuses ``stage1``). Launch counts: "sweep_uv",
+"sweep_pw" (a), "sweep_grad" (b).
 
 The uv epilogue wraps its phase differences with :func:`wrap_diff`,
 not the reference's (x + pi) form, which rounds a near-zero float32
 difference to the spacing at pi: a coherent bias that the unwrap
 integrates into a ~1e-3 px ripple on the bench fixture.
 
-The plain twin :func:`sweep_uv_plain` runs the same three stages with
-torch ops; :func:`sweep_uv` sends a CPU tensor there and a CUDA tensor
-to the kernels.
+The plain twins :func:`sweep_uv_plain`, :func:`sweep_pw_plain` and
+:func:`sweep_grad_plain` run the same stages with torch ops;
+:func:`sweep_uv`, :func:`sweep_pw` and :func:`sweep_grad` send a CPU
+tensor there and a CUDA tensor to the kernels.
 """
 import torch
 
@@ -83,6 +97,25 @@ def rim_weights(n, m, dr, dtype, device=None):
                        torch.tensor(1e-6, dtype=dtype, device=device))
 
 
+def np_gradient_2d(ph):
+    """np.gradient along the last two axes (first-order edges, central
+    interior): (d/d axis -2, d/d axis -1)."""
+    gx = torch.cat([ph[..., 1:2, :] - ph[..., 0:1, :],
+                    (ph[..., 2:, :] - ph[..., :-2, :]) * 0.5,
+                    ph[..., -1:, :] - ph[..., -2:-1, :]], dim=-2)
+    gy = torch.cat([ph[..., :, 1:2] - ph[..., :, 0:1],
+                    (ph[..., :, 2:] - ph[..., :, :-2]) * 0.5,
+                    ph[..., :, -1:] - ph[..., :, -2:-1]], dim=-1)
+    return gx, gy
+
+
+def winner_gradients(Mr, Mi, Dr, Di):
+    """d(-angle M) from M and its derivative D: (Im M Re D - Re M Im D)
+    / max(|M|^2, 1e-30), the TPU kernel's and the CUDA kernels' form."""
+    den = torch.clamp(Mr * Mr + Mi * Mi, min=1e-30)
+    return (Mi * Dr - Mr * Di) / den
+
+
 def _stage1_plain(Sr, Si, gx, gy, A0c, A0s, run):
     G, P = gx.shape[:2]
     Ts = []
@@ -98,30 +131,47 @@ def _stage1_plain(Sr, Si, gx, gy, A0c, A0s, run):
     return torch.stack(Ts)                        # (G, P, n, 2 Wb)
 
 
-def _stage2_plain(T, A1c, A1s, off, dr, banded):
+def _stage2_plain(T, A1c, A1s, off, dr, banded, Tx=None, A1yc=None,
+                  A1ys=None):
     G, P, n, _ = T.shape
     m = A1c.shape[1]
     dev = T.device
     jj = torch.arange(m, device=dev)[None, :]
     mask = rim_weights(n, m, dr, T.dtype, dev)
-    phs, wts = [], []
+    grad = Tx is not None
+    phs, wts, gxs, gys = [], [], [], []
     for g in range(G):
         B1r = torch.cat([A1c[g].T, -A1s[g].T], dim=0)   # (2 Wb, m)
         B1i = torch.cat([A1s[g].T, A1c[g].T], dim=0)
+        if grad:
+            B1yr = torch.cat([A1yc[g].T, -A1ys[g].T], dim=0)
+            B1yi = torch.cat([A1ys[g].T, A1yc[g].T], dim=0)
         offg = off[g].to(T.dtype)
         for i in range(P):
             mr = T[g, i] @ B1r
             mi = T[g, i] @ B1i
             absq = mr * mr + mi * mi
+            if grad:
+                # the winner's gradients, from every candidate's (the
+                # where below keeps the winner's)
+                ggx = winner_gradients(mr, mi, Tx[g, i] @ B1r,
+                                       Tx[g, i] @ B1i)
+                ggy = winner_gradients(mr, mi, T[g, i] @ B1yr,
+                                       T[g, i] @ B1yi)
             if i == 0:
                 ba, br, bi = absq, mr, mi
                 bo = torch.full_like(absq, float(offg[0]))
+                if grad:
+                    bgx, bgy = ggx, ggy
                 continue
             sel = absq > ba
             ba = torch.where(sel, absq, ba)
             br = torch.where(sel, mr, br)
             bi = torch.where(sel, mi, bi)
             bo = torch.where(sel, offg[i], bo)
+            if grad:
+                bgx = torch.where(sel, ggx, bgx)
+                bgy = torch.where(sel, ggy, bgy)
         pht = torch.atan2(bi, br)
         if banded:
             # the winner's true lock-in is its base-band value times the
@@ -129,9 +179,15 @@ def _stage2_plain(T, A1c, A1s, off, dr, banded):
             rr = bo * jj.to(T.dtype)
             rr = rr - m * torch.floor(rr * (1.0 / m))
             pht = wrap_pi(pht + rr * (_TWO_PI / m))
+            if grad:
+                bgy = bgy - bo * (_TWO_PI / m)
         phs.append(pht)
         wts.append(torch.sqrt(torch.clamp(ba, min=0.0)) * mask)
-    return torch.stack(phs), torch.stack(wts)
+        if grad:
+            gxs.append(bgx)
+            gys.append(bgy)
+    out = (torch.stack(phs), torch.stack(wts))
+    return out + (torch.stack(gxs), torch.stack(gys)) if grad else out
 
 
 def _uv_plain(ph, wt, kconst):
@@ -182,6 +238,23 @@ def sweep_uv_plain(Sr, Si, gx, gy, A0c, A0s, A1c, A1s, run, off, kconst,
     return _uv_plain(ph, wt, kconst)
 
 
+def sweep_pw_plain(Sr, Si, gx, gy, A0c, A0s, A1c, A1s, run, off, dr, banded):
+    """Plain PyTorch twin of emission (a) (same arguments as
+    :func:`sweep_pw`)."""
+    T = _stage1_plain(Sr, Si, gx, gy, A0c, A0s, run)
+    return _stage2_plain(T, A1c, A1s, off, int(dr), bool(banded))
+
+
+def sweep_grad_plain(Sr, Si, S2r, S2i, gx, gy, A0c, A0s, A1c, A1s, A1yc,
+                     A1ys, run, off, dr, banded):
+    """Plain PyTorch twin of emission (b) (same arguments as
+    :func:`sweep_grad`)."""
+    T = _stage1_plain(Sr, Si, gx, gy, A0c, A0s, run)
+    Tx = _stage1_plain(S2r, S2i, gx, gy, A0c, A0s, run)
+    return _stage2_plain(T, A1c, A1s, off, int(dr), bool(banded), Tx, A1yc,
+                         A1ys)
+
+
 def kernel_supported(n, m, W0, Wb, P):
     """Shapes the CUDA sweep takes: n, m and the band width Wb multiples
     of TILE (any Wb: the column basis streams through shared memory),
@@ -190,24 +263,30 @@ def kernel_supported(n, m, W0, Wb, P):
             and Wb % TILE == 0 and P >= 1)
 
 
-def _check(Sr, Si, gx, gy, A0c, A0s, A1c, A1s, run, off, kconst):
-    """Raise unless the operands are what the three launches take."""
+def _check(op, Sr, Si, gx, gy, A0c, A0s, A1c, A1s, run, off, kconst=None,
+           grad_ops=None):
+    """Raise unless the operands are what the launches of `op` take."""
     G, H, W0, Wb = Sr.shape
     P = gx.shape[1]
     n = A0c.shape[1]
     m = A1c.shape[1]
     f32, i32 = torch.float32, torch.int32
-    for name, t, shape, dt in (
-            ("Sr", Sr, (G, H, W0, Wb), f32), ("Si", Si, (G, H, W0, Wb), f32),
-            ("gx", gx, (G, P, W0), f32), ("gy", gy, (G, P, Wb), f32),
-            ("A0c", A0c, (G, n, W0), f32), ("A0s", A0s, (G, n, W0), f32),
-            ("A1c", A1c, (G, m, Wb), f32), ("A1s", A1s, (G, m, Wb), f32),
-            ("run", run, (G, P), i32), ("off", off, (G, P), i32),
-            ("kconst", kconst, (G, 5), f32)):
-        _build.check_tensor("sweep_uv", name, t, shape, dt, Sr.device)
+    named = [("Sr", Sr, (G, H, W0, Wb), f32), ("Si", Si, (G, H, W0, Wb), f32),
+             ("gx", gx, (G, P, W0), f32), ("gy", gy, (G, P, Wb), f32),
+             ("A0c", A0c, (G, n, W0), f32), ("A0s", A0s, (G, n, W0), f32),
+             ("A1c", A1c, (G, m, Wb), f32), ("A1s", A1s, (G, m, Wb), f32),
+             ("run", run, (G, P), i32), ("off", off, (G, P), i32)]
+    if kconst is not None:
+        named.append(("kconst", kconst, (G, 5), f32))
+    if grad_ops is not None:
+        named += [(k, t, s, f32) for k, t, s in zip(
+            ("S2r", "S2i", "A1yc", "A1ys"), grad_ops,
+            ((G, H, W0, Wb), (G, H, W0, Wb), (G, m, Wb), (G, m, Wb)))]
+    for name, t, shape, dt in named:
+        _build.check_tensor(op, name, t, shape, dt, Sr.device)
     if not kernel_supported(n, m, W0, Wb, P):
         raise ValueError(
-            f"sweep_uv kernel needs n, m, Wb multiples of {TILE}, W0 a "
+            f"{op} kernel needs n, m, Wb multiples of {TILE}, W0 a "
             f"multiple of 16 and P >= 1 (got n={n}, m={m}, W0={W0}, "
             f"Wb={Wb}, P={P})")
 
@@ -226,20 +305,31 @@ def stage1(Sr, Si, gx, gy, A0c, A0s, run):
     return T
 
 
-def stage2(T, A1c, A1s, off, dr, banded):
+def stage2(T, A1c, A1s, off, dr, banded, Tx=None, A1yc=None, A1ys=None):
     """Stage 2 on the tensor cores and the tournament (checked operands):
-    the winner phase and rim-masked weight planes (G, n, m)."""
+    the winner phase and rim-masked weight planes (G, n, m), and with Tx
+    (stage 1 of the row-derivative windows) and the base band's
+    f1-scaled basis A1yc, A1ys also the winners' gradients (G, n, m)."""
     G, P, n, Wb = T.shape[0], T.shape[1], T.shape[2], T.shape[3] // 2
     m, dev = A1c.shape[1], T.device
     ph = torch.empty((G, n, m), dtype=torch.float32, device=dev)
     wt = torch.empty_like(ph)
+    stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        _build.check(_build.bind("sweep_stage2", "ppppppiiiiiiip")(
-            T.data_ptr(), A1c.data_ptr(), A1s.data_ptr(), off.data_ptr(),
-            ph.data_ptr(), wt.data_ptr(), G, P, n, m, Wb, int(dr),
-            int(bool(banded)), torch.cuda.current_stream(dev).cuda_stream),
-            "sweep_stage2")
-    return ph, wt
+        if Tx is None:
+            _build.check(_build.bind("sweep_stage2", "ppppppiiiiiiip")(
+                T.data_ptr(), A1c.data_ptr(), A1s.data_ptr(), off.data_ptr(),
+                ph.data_ptr(), wt.data_ptr(), G, P, n, m, Wb, int(dr),
+                int(bool(banded)), stream), "sweep_stage2")
+            return ph, wt
+        gxo = torch.empty_like(ph)
+        gyo = torch.empty_like(ph)
+        _build.check(_build.bind("sweep_stage2_grad", "pppppppppppiiiiiiip")(
+            T.data_ptr(), Tx.data_ptr(), A1c.data_ptr(), A1s.data_ptr(),
+            A1yc.data_ptr(), A1ys.data_ptr(), off.data_ptr(), ph.data_ptr(),
+            wt.data_ptr(), gxo.data_ptr(), gyo.data_ptr(), G, P, n, m, Wb,
+            int(dr), int(bool(banded)), stream), "sweep_stage2_grad")
+    return ph, wt, gxo, gyo
 
 
 def epilogue(ph, wt, kconst):
@@ -255,6 +345,14 @@ def epilogue(ph, wt, kconst):
             uy.data_ptr(), wn.data_ptr(), G, n, m,
             torch.cuda.current_stream(dev).cuda_stream), "sweep_uv")
     return ux, uy, wn
+
+
+def _on_card(op, Sr):
+    """True for a CUDA tensor (the kernels), False for a CPU one (the
+    twin); any other device raises."""
+    if Sr.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{op}: unsupported device {Sr.device}")
+    return Sr.device.type == "cuda"
 
 
 def sweep_uv(Sr, Si, gx, gy, A0c, A0s, A1c, A1s, run, off, kconst, dr,
@@ -275,14 +373,46 @@ def sweep_uv(Sr, Si, gx, gy, A0c, A0s, A1c, A1s, run, off, kconst, dr,
     dr : interior-mask border; banded : apply the column ramp.
 
     Column 0 of dudx_s and row 0 of dudy_s hold no diff and are 0."""
-    if Sr.device.type == "cpu":
+    if not _on_card("sweep_uv", Sr):
         return sweep_uv_plain(Sr, Si, gx, gy, A0c, A0s, A1c, A1s, run,
                               off, kconst, dr, banded)
-    if Sr.device.type != "cuda":
-        raise ValueError(f"sweep_uv: unsupported device {Sr.device}")
-    _check(Sr, Si, gx, gy, A0c, A0s, A1c, A1s, run, off, kconst)
+    _check("sweep_uv", Sr, Si, gx, gy, A0c, A0s, A1c, A1s, run, off, kconst)
     ph, wt = stage2(stage1(Sr, Si, gx, gy, A0c, A0s, run), A1c, A1s, off,
                     dr, banded)
     out = epilogue(ph, wt, kconst)
     _build.launches["sweep_uv"] += 1
+    return out
+
+
+def sweep_pw(Sr, Si, gx, gy, A0c, A0s, A1c, A1s, run, off, dr, banded):
+    """Emission (a): the winners' phase (banded column ramp applied) and
+    rim-masked weight, (G, n, m) each, float32 (arguments as
+    :func:`sweep_uv`, without kconst)."""
+    if not _on_card("sweep_pw", Sr):
+        return sweep_pw_plain(Sr, Si, gx, gy, A0c, A0s, A1c, A1s, run, off,
+                              dr, banded)
+    _check("sweep_pw", Sr, Si, gx, gy, A0c, A0s, A1c, A1s, run, off)
+    out = stage2(stage1(Sr, Si, gx, gy, A0c, A0s, run), A1c, A1s, off, dr,
+                 banded)
+    _build.launches["sweep_pw"] += 1
+    return out
+
+
+def sweep_grad(Sr, Si, S2r, S2i, gx, gy, A0c, A0s, A1c, A1s, A1yc, A1ys,
+               run, off, dr, banded):
+    """Emission (b): (phase, weight, grad_x, grad_y), (G, n, m) each,
+    float32: emission (a) and the winners' derivatives of -angle(M)
+    along rows and columns, before any rebase. S2r, S2i (G, H, W0, Wb)
+    are the row-derivative windows (2 pi i f0) S band-sliced like Sr,
+    Si; A1yc, A1ys (G, m, Wb) the base band's column-derivative basis
+    (2 pi i f1) A1; the rest as :func:`sweep_uv`."""
+    if not _on_card("sweep_grad", Sr):
+        return sweep_grad_plain(Sr, Si, S2r, S2i, gx, gy, A0c, A0s, A1c,
+                                A1s, A1yc, A1ys, run, off, dr, banded)
+    _check("sweep_grad", Sr, Si, gx, gy, A0c, A0s, A1c, A1s, run, off,
+           grad_ops=(S2r, S2i, A1yc, A1ys))
+    T = stage1(Sr, Si, gx, gy, A0c, A0s, run)
+    Tx = stage1(S2r, S2i, gx, gy, A0c, A0s, run)
+    out = stage2(T, A1c, A1s, off, dr, banded, Tx, A1yc, A1ys)
+    _build.launches["sweep_grad"] += 1
     return out

@@ -1,26 +1,33 @@
 """Windowed-Fourier-ridge sweeps (counterpart of pygpa_tpu/ops/wfr.py
-without the gradient and continuity variants).
+without the k-continuity variant).
 
 A sweep evaluates, for a Bragg peak and every candidate reference
 vector w of its bank, the full-resolution demodulated lock-in
 
     M_w(r) = sum_q F(q) G_sigma(q + w) e^{2 pi i q.r} / (n m)
 
-and keeps, per pixel, the candidate of largest |M_w|^2. The host
-planners here are numpy copies of the reference's, so both packages
-plan the same sweep. Routes, chosen as the reference chooses them:
+and keeps, per pixel, the candidate of largest |M_w|^2 and, on request,
+the winner's phase gradient (the reference's wfr2_grad_opt: the
+gradient of -angle(M_w), rebased to the nominal k-vector as
+wrap_to_pi(2 (g - 2 pi k)) / 2). The host planners here are numpy
+copies of the reference's, so both packages plan the same sweep.
+Routes, chosen as the reference chooses them:
 
-- the grouped uv sweep (``wfr_sweep_uv_multi``, ``UVSweep``): all peaks
-  in one launch of ops.sweep, from spectrum windows taken by skinny DFT
-  products; float32, sides multiples of 128, equal window shapes and
-  candidate counts, P <= 48;
+- the grouped sweep (``GroupedSweep``; ``wfr_sweep_uv_multi`` and the
+  grouped route of ``wfr_sweep_phase_weight_multi``): all peaks in one
+  launch of ops.sweep, from spectrum windows taken by skinny DFT
+  products, emitting the uv prologue, the phase and weight planes, or
+  those planes with the winners' analytic phase gradients; float32,
+  sides multiples of 128, equal window shapes and candidate counts,
+  P <= 48;
 - the per-peak zoom sweep (``_wfr_sweep_zoom``): the Gaussian bandpass
   confines every candidate to a small window of the full spectrum, and
   ops.zoom_sweep evaluates the window as two DFT products (the CUDA
-  kernel for float32 with sides multiples of 128, its plain twin
-  otherwise, as the reference's fused/XLA split);
+  kernel, with analytic gradients, for float32 with sides multiples of
+  128, its plain twin on the CPU; the reference's XLA route, with
+  np.gradient of each candidate's phase, otherwise);
 - the full-FFT sweep (``_wfr_sweep_chunked``), one inverse FFT per
-  candidate, where no zoom window pays off.
+  candidate, where no zoom window pays off (np.gradient gradients).
 """
 import math
 from dataclasses import dataclass
@@ -31,9 +38,8 @@ import torch
 from . import sweep as _sweep
 from . import zoom_sweep as _zoom
 from ..core.fourier import _fftfreq
-
-_NOT_PORTED_GRAD = ("is not ported: the winner phase-gradient and "
-                    "k-continuity sweeps are ROADMAP queue 1 item 7")
+from ..core.mathtools import wrap_to_pi
+from .sweep import np_gradient_2d as _np_gradient_2d
 
 
 def _zoom_window(n, center_bin, half_need):
@@ -181,10 +187,10 @@ def _dft_windows(image, A0c_flat, A0s_flat, A1c, A1s):
 
 @dataclass(frozen=True)
 class SweepPlan:
-    """Host plan of the grouped uv sweep, the same numbers the reference
+    """Host plan of the grouped sweep, the same numbers the reference
     derives: wl (G, P, 2) candidate banks (wy-sorted when banded), idx0s
     (G, W0) / idx1s (G, W1) window bins, col_groups (Wb, runs) or None,
-    uv_ks the G nominal (k_row, k_col) pairs."""
+    uv_ks the G nominal (k_row, k_col) pairs (None without krefs)."""
     shape: tuple
     sigma: float
     dr: int
@@ -211,12 +217,13 @@ def _grouped_plans(shape, wlists, sigma, dr, gauss_cut, dtype):
     return plans if ok else None
 
 
-def plan_sweep(shape, wlists, sigma, dr, krefs, gauss_cut=None,
+def plan_sweep(shape, wlists, sigma, dr, krefs=None, gauss_cut=None,
                dtype=torch.float32):
-    """Plan the grouped banded uv sweep exactly as
-    pygpa_tpu.ops.wfr.wfr_sweep_phase_weight_multi(_uv=True) does;
-    None where the reference leaves the grouped route (the per-peak
-    route then runs)."""
+    """Plan the grouped banded sweep exactly as
+    pygpa_tpu.ops.wfr.wfr_sweep_phase_weight_multi does on its grouped
+    route; None where the reference leaves the grouped route (the
+    per-peak route then runs). krefs, the nominal k-vectors, are needed
+    by the uv emission only."""
     shape = tuple(int(s) for s in shape)
     plans = _grouped_plans(shape, wlists, sigma, dr, gauss_cut, dtype)
     if plans is None:
@@ -229,25 +236,43 @@ def plan_sweep(shape, wlists, sigma, dr, krefs, gauss_cut=None,
         orders, groups, Wb = cg
         wls = [w[o] for w, o in zip(wls, orders)]
         col_groups = (int(Wb), groups)
+    uv_ks = None if krefs is None else tuple(
+        (float(k[0]), float(k[1])) for k in np.asarray(krefs, np.float64))
     return SweepPlan(
         shape=shape, sigma=float(sigma), dr=int(dr), wl=np.stack(wls),
         idx0s=np.stack([p[0] for p in plans]),
         idx1s=np.stack([p[1] for p in plans]),
-        col_groups=col_groups,
-        uv_ks=tuple((float(k[0]), float(k[1]))
-                    for k in np.asarray(krefs, np.float64)))
+        col_groups=col_groups, uv_ks=uv_ks)
 
 
-class UVSweep:
-    """A planned grouped uv sweep with its image-independent operands
-    (DFT bases, Gaussian factors, band slices) built once on `device`.
-    Calling it on a mean-subtracted float32 image returns (dudx_s
-    (2, n, m), dudy_s (2, n, m), wnorm (n, m)), the shifted per-pixel
-    weighted-lstsq displacement gradients and weight norm that
-    gpa.reconstruct.reconstruct_u_inv_from_uv integrates."""
+_EMISSIONS = ("uv", "pw", "grad")
 
-    def __init__(self, plan, device=None):
-        self.plan = plan
+
+class GroupedSweep:
+    """A planned grouped sweep with its image-independent operands (DFT
+    bases, Gaussian factors, band slices) built once on `device`, for
+    one emission of the reference's grouped kernel:
+
+    - "uv" (the plan needs krefs): (dudx_s (2, n, m), dudy_s (2, n, m),
+      wnorm (n, m)), the shifted per-pixel weighted-lstsq displacement
+      gradients and weight norm that
+      gpa.reconstruct.reconstruct_u_inv_from_uv integrates;
+    - "pw": (phases (G, n, m), weights (G, n, m)), the demodulated
+      winner phases and rim-masked weights;
+    - "grad": (phases, weights, grad_x, grad_y), each (G, n, m), the
+      winners' derivatives of -angle(M) along rows and columns before
+      the wfr2_grad_opt rebase.
+
+    Called on a mean-subtracted float32 image (its windows taken by
+    skinny DFT products) or, with `spectrum`, on windows of a given
+    fft2."""
+
+    def __init__(self, plan, device=None, emit="uv"):
+        if emit not in _EMISSIONS:
+            raise ValueError(f"emit must be one of {_EMISSIONS}, got {emit!r}")
+        if emit == "uv" and plan.uv_ks is None:
+            raise ValueError("the uv emission needs a plan with krefs")
+        self.plan, self.emit = plan, emit
         dt = torch.float32
         n, m = plan.shape
         G, P, _ = plan.wl.shape
@@ -260,10 +285,14 @@ class UVSweep:
         self.A1s = torch.stack([a[1] for a in A1])
         self.A0c = A0c.reshape(n, G, W0).permute(1, 0, 2).contiguous()
         self.A0s = A0s.reshape(n, G, W0).permute(1, 0, 2).contiguous()
-        idx0 = torch.as_tensor(plan.idx0s.astype(np.int64), device=device)
-        idx1 = torch.as_tensor(plan.idx1s.astype(np.int64), device=device)
-        f0 = torch.where(idx0 < n // 2 + n % 2, idx0, idx0 - n).to(dt) / n
-        f1 = torch.where(idx1 < m // 2 + m % 2, idx1, idx1 - m).to(dt) / m
+        self.idx0 = torch.as_tensor(plan.idx0s.astype(np.int64),
+                                    device=device)
+        self.idx1 = torch.as_tensor(plan.idx1s.astype(np.int64),
+                                    device=device)
+        f0 = torch.where(self.idx0 < n // 2 + n % 2, self.idx0,
+                         self.idx0 - n).to(dt) / n
+        f1 = torch.where(self.idx1 < m // 2 + m % 2, self.idx1,
+                         self.idx1 - m).to(dt) / m
         s2 = torch.tensor(2.0 * np.pi ** 2 * plan.sigma ** 2, dtype=dt,
                           device=device)
         wr = torch.as_tensor(plan.wl, device=device).to(dt)
@@ -303,39 +332,72 @@ class UVSweep:
                                 device=device).reshape(G, P)
         self.A1cb = self.A1c[:, :, :Wb].contiguous()        # (G, m, Wb)
         self.A1sb = self.A1s[:, :, :Wb].contiguous()
-        kc = []
-        for k0, k1 in plan.uv_ks:
-            t0, t1 = 2 * np.pi * k0, 2 * np.pi * k1
-            kc.append([t0, t1, t0 * t0, t0 * t1, t1 * t1])
-        self.kconst = torch.tensor(kc, dtype=torch.float64,
-                                   device=device).to(dt)
+        if emit == "grad":
+            # the row-derivative factor 2 pi f0 of the windows, and the
+            # base band of the column-derivative basis (2 pi i f1) A1
+            self.tpf0 = (2 * np.pi) * f0
+            tpf1 = (2 * np.pi) * f1
+            self.A1ycb = (-self.A1s * tpf1[:, None, :])[:, :, :Wb].contiguous()
+            self.A1ysb = (self.A1c * tpf1[:, None, :])[:, :, :Wb].contiguous()
+        if plan.uv_ks is not None:
+            kc = []
+            for k0, k1 in plan.uv_ks:
+                t0, t1 = 2 * np.pi * k0, 2 * np.pi * k1
+                kc.append([t0, t1, t0 * t0, t0 * t1, t1 * t1])
+            self.kconst = torch.tensor(kc, dtype=torch.float64,
+                                       device=device).to(dt)
         self.scale = torch.tensor(1.0 / (n * m), dtype=dt, device=device)
 
-    def windows(self, img0):
-        """Band-sliced, normalized spectrum windows (G, H, W0, Wb)."""
-        Sr, Si = _dft_windows(img0, self.A0c_flat, self.A0s_flat,
-                              self.A1c, self.A1s)
-        Sr = Sr * self.scale
-        Si = Si * self.scale
+    def _bands(self, X):
+        """(G, W0, W1) windows band-sliced per run: (G, H, W0, Wb)."""
         Wb = self.Wb
-        Sr4 = torch.stack([torch.stack([Sr[g, :, off:off + Wb]
-                                        for _, off in rg])
-                           for g, rg in enumerate(self.runs)])
-        Si4 = torch.stack([torch.stack([Si[g, :, off:off + Wb]
-                                        for _, off in rg])
-                           for g, rg in enumerate(self.runs)])
-        return Sr4.contiguous(), Si4.contiguous()
+        return torch.stack([torch.stack([X[g, :, off:off + Wb]
+                                         for _, off in rg])
+                            for g, rg in enumerate(self.runs)]).contiguous()
 
-    def __call__(self, img0):
-        if tuple(img0.shape) != self.plan.shape \
-                or img0.dtype != torch.float32:
-            raise ValueError(f"UVSweep planned for float32 {self.plan.shape}"
-                             f", got {img0.dtype} {tuple(img0.shape)}")
-        Sr4, Si4 = self.windows(img0)
-        return _sweep.sweep_uv(Sr4, Si4, self.gx, self.gy, self.A0c,
-                               self.A0s, self.A1cb, self.A1sb, self.run,
-                               self.off, self.kconst, self.plan.dr,
-                               self.banded)
+    def _scaled(self, img0=None, spectrum=None):
+        """The normalized (G, W0, W1) windows: skinny DFT products of the
+        image, or the window bins of a given fft2."""
+        if spectrum is None:
+            Sr, Si = _dft_windows(img0, self.A0c_flat, self.A0s_flat,
+                                  self.A1c, self.A1s)
+        else:
+            S = torch.stack([spectrum.index_select(0, i0).index_select(1, i1)
+                             for i0, i1 in zip(self.idx0, self.idx1)])
+            Sr, Si = S.real, S.imag
+        return Sr * self.scale, Si * self.scale
+
+    def windows(self, img0, spectrum=None):
+        """Band-sliced, normalized spectrum windows (G, H, W0, Wb)."""
+        Sr, Si = self._scaled(img0, spectrum)
+        return self._bands(Sr), self._bands(Si)
+
+    def __call__(self, img0, spectrum=None):
+        src = img0 if spectrum is None else spectrum
+        if tuple(src.shape) != self.plan.shape or \
+                (spectrum is None and img0.dtype != torch.float32) or \
+                (spectrum is not None and spectrum.dtype != torch.complex64):
+            raise ValueError(f"GroupedSweep planned for float32 "
+                             f"{self.plan.shape}, got {src.dtype} "
+                             f"{tuple(src.shape)}")
+        Sr, Si = self._scaled(img0, spectrum)
+        Sr4, Si4 = self._bands(Sr), self._bands(Si)
+        common = (self.gx, self.gy, self.A0c, self.A0s, self.A1cb, self.A1sb,
+                  self.run, self.off)
+        if self.emit == "uv":
+            return _sweep.sweep_uv(Sr4, Si4, *common, self.kconst,
+                                   self.plan.dr, self.banded)
+        if self.emit == "pw":
+            return _sweep.sweep_pw(Sr4, Si4, *common, self.plan.dr,
+                                   self.banded)
+        # S2 = (2 pi i f0) S, from the normalized windows (the reference's
+        # -tpf0 Si, tpf0 Sr)
+        t = self.tpf0[:, :, None]
+        S2r4, S2i4 = self._bands(-t * Si), self._bands(t * Sr)
+        return _sweep.sweep_grad(Sr4, Si4, S2r4, S2i4, self.gx, self.gy,
+                                 self.A0c, self.A0s, self.A1cb, self.A1sb,
+                                 self.A1ycb, self.A1ysb, self.run, self.off,
+                                 self.plan.dr, self.banded)
 
 
 def wfr_sweep_uv_multi(image, wlists, sigma, dr, krefs, *, gauss_cut=None):
@@ -348,18 +410,20 @@ def wfr_sweep_uv_multi(image, wlists, sigma, dr, krefs, *, gauss_cut=None):
                       gauss_cut=gauss_cut, dtype=image.dtype)
     if plan is None:
         return None
-    return UVSweep(plan, device=image.device)(image)
+    return GroupedSweep(plan, device=image.device)(image)
 
 
 def _real_dtype(spectrum):
     return torch.empty((), dtype=spectrum.dtype).real.dtype
 
 
-def _zoom_operands(spectrum, wlist, idx0, idx1, sigma):
+def _zoom_operands(spectrum, wlist, idx0, idx1, sigma, with_grad=False):
     """The zoom sweep's operands, as the reference builds them: the
     (W0, W1) spectrum window pre-scaled by 1/(n m), the Gaussian factors
     gx (P, W0), gy (P, W1) and the DFT bases A0c/A0s (n, W0), A1c/A1s
-    (m, W1)."""
+    (m, W1); with_grad also returns the gradient operands (S2r, S2i,
+    A1yc, A1ys): S2 = (2 pi i f0) S pre-scaled and A1y = (2 pi i f1) A1
+    (else None)."""
     n, m = spectrum.shape
     rdt = _real_dtype(spectrum)
     dev = spectrum.device
@@ -375,7 +439,15 @@ def _zoom_operands(spectrum, wlist, idx0, idx1, sigma):
     w = torch.as_tensor(np.asarray(wlist), device=dev).to(rdt)
     gx = torch.exp(-s2 * (f0[None, :] + w[:, 0:1]) ** 2)
     gy = torch.exp(-s2 * (f1[None, :] + w[:, 1:2]) ** 2)
-    return (S.real * scale, S.imag * scale, gx, gy, A0c, A0s, A1c, A1s)
+    ops = (S.real * scale, S.imag * scale, gx, gy, A0c, A0s, A1c, A1s)
+    if not with_grad:
+        return ops, None
+    tpf0 = (2 * np.pi) * f0
+    tpf1 = (2 * np.pi) * f1
+    return ops, ((-tpf0[:, None] * S.imag * scale).contiguous(),
+                 (tpf0[:, None] * S.real * scale).contiguous(),
+                 (-A1s * tpf1[None, :]).contiguous(),
+                 (A1c * tpf1[None, :]).contiguous())
 
 
 def _kernel_route(spectrum):
@@ -387,27 +459,36 @@ def _kernel_route(spectrum):
             and n % 128 == 0 and m % 128 == 0)
 
 
-def _wfr_sweep_zoom(spectrum, wlist, idx0, idx1, sigma, chunk):
+def _wfr_sweep_zoom(spectrum, wlist, idx0, idx1, sigma, chunk,
+                    with_grad=False):
     """Band-limited sweep on the (idx0, idx1) window: (best_absq,
-    best_lockin (complex), best_idx)."""
-    ops = _zoom_operands(spectrum, wlist, idx0, idx1, sigma)
+    best_lockin (complex), best_idx, best_grad ((n, m, 2) winner
+    gradients of -angle M, or None)). The kernel route's gradients are
+    analytic, the plain route's np.gradient of each candidate's phase,
+    as the reference's two routes compute them."""
+    ops, gops = _zoom_operands(spectrum, wlist, idx0, idx1, sigma,
+                               with_grad)
     if _kernel_route(spectrum):
-        ba, br, bi, bx = _zoom.zoom_sweep(*ops)
+        out = _zoom.zoom_sweep(*ops, grad_ops=gops)
     else:
-        ba, br, bi, bx = _zoom.zoom_sweep_plain(*ops, chunk=int(chunk))
-    return ba, torch.complex(br, bi), bx
+        out = _zoom.zoom_sweep_plain(*ops, chunk=int(chunk),
+                                     fd_grad=with_grad)
+    ba, br, bi, bx = out[:4]
+    grad = torch.stack(out[4:6], dim=-1) if with_grad else None
+    return ba, torch.complex(br, bi), bx, grad
 
 
 def _wfr_sweep_zoom_pw(spectrum, wlist, idx0, idx1, sigma, dr):
     """Zoom sweep emitting the winner phase and rim-masked weight (the
     float32 kernel route)."""
-    ops = _zoom_operands(spectrum, wlist, idx0, idx1, sigma)
+    ops, _ = _zoom_operands(spectrum, wlist, idx0, idx1, sigma)
     return _zoom.zoom_sweep(*ops, dr=int(dr))[4:]
 
 
-def _wfr_sweep_chunked(spectrum, wlist, sigma, chunk):
+def _wfr_sweep_chunked(spectrum, wlist, sigma, chunk, with_grad=False):
     """Full-FFT sweep: one inverse FFT of the Gaussian-bandpassed
-    spectrum per candidate, `chunk` candidates per batched FFT."""
+    spectrum per candidate, `chunk` candidates per batched FFT; with_grad
+    adds the winner's np.gradient of -angle(M) (n, m, 2), else None."""
     n, m = spectrum.shape
     rdt = _real_dtype(spectrum)
     dev = spectrum.device
@@ -418,6 +499,8 @@ def _wfr_sweep_chunked(spectrum, wlist, sigma, chunk):
     best_absq = torch.zeros((n, m), dtype=rdt, device=dev)
     best_lockin = torch.zeros((n, m), dtype=spectrum.dtype, device=dev)
     best_idx = torch.zeros((n, m), dtype=torch.int32, device=dev)
+    best_grad = torch.zeros((n, m, 2), dtype=rdt, device=dev) \
+        if with_grad else None
     for s in range(0, wl.shape[0], chunk):
         ws = wl[s:s + chunk]
         gx = torch.exp(-s2 * (fx[None, :] + ws[:, 0:1]) ** 2)
@@ -425,12 +508,24 @@ def _wfr_sweep_chunked(spectrum, wlist, sigma, chunk):
         G = (gx[:, :, None] * gy[:, None, :]).to(spectrum.dtype)
         Mw = torch.fft.ifft2(spectrum[None] * G)
         absq = Mw.real * Mw.real + Mw.imag * Mw.imag
+        if with_grad:
+            ggx, ggy = _np_gradient_2d(-torch.atan2(Mw.imag, Mw.real))
         for i in range(ws.shape[0]):
             better = absq[i] > best_absq
             best_absq = torch.where(better, absq[i], best_absq)
             best_lockin = torch.where(better, Mw[i], best_lockin)
             best_idx = torch.where(better, s + i, best_idx)
-    return best_absq, best_lockin, best_idx
+            if with_grad:
+                gi = torch.stack([ggx[i], ggy[i]], dim=-1)
+                best_grad = torch.where(better[..., None], gi, best_grad)
+    return best_absq, best_lockin, best_idx, best_grad
+
+
+def _grad_rebase(grad, kref):
+    """The wfr2_grad_opt epilogue: wrap_to_pi(2 (g - 2 pi kref)) / 2 in
+    the reference's (x + pi) mod 2 pi - pi form, kref broadcasting over
+    the trailing (row, column) axis."""
+    return wrap_to_pi(2.0 * (grad - 2 * math.pi * kref)) / 2.0
 
 
 def wfr_sweep(image, wlist, kref, sigma, *, with_grad=False, with_w=True,
@@ -446,14 +541,15 @@ def wfr_sweep(image, wlist, kref, sigma, *, with_grad=False, with_w=True,
 
     Returns a dict: 'lockin' (complex (N, M); phase relative to kref, or
     demodulated when rebase=False), 'w' ((2, N, M) winning candidates)
-    when with_w, 'absq' (winner |M|^2) when return_absq. with_grad and
-    continuity_dk raise NotImplementedError."""
-    if with_grad:
-        raise NotImplementedError("wfr_sweep(with_grad=True) "
-                                  + _NOT_PORTED_GRAD)
+    when with_w, 'absq' (winner |M|^2) when return_absq, 'grad' ((N, M,
+    2) the winner's phase gradient along rows and columns, rebased to
+    kref as wrap_to_pi(2 (g - 2 pi kref)) / 2) when with_grad.
+    continuity_dk raises NotImplementedError (the wfr4 continuity scans,
+    ROADMAP queue 1 item 5)."""
     if continuity_dk is not None:
-        raise NotImplementedError("wfr_sweep(continuity_dk=...) "
-                                  + _NOT_PORTED_GRAD)
+        raise NotImplementedError(
+            "wfr_sweep(continuity_dk=...) is not ported: the wfr4 "
+            "k-continuity scans are ROADMAP queue 1 item 5")
     if spectrum is None:
         spectrum = torch.fft.fft2(image)
     shape = tuple(spectrum.shape)
@@ -469,15 +565,15 @@ def wfr_sweep(image, wlist, kref, sigma, *, with_grad=False, with_w=True,
                              "zoom=False)")
     chunk = int(min(chunk, wl_h.shape[0]))
     if plan is not None:
-        best_absq, best_lockin, best_idx = _wfr_sweep_zoom(
-            spectrum, wl_h, plan[0], plan[1], float(sigma), chunk)
+        best_absq, best_lockin, best_idx, best_grad = _wfr_sweep_zoom(
+            spectrum, wl_h, plan[0], plan[1], float(sigma), chunk, with_grad)
     else:
-        best_absq, best_lockin, best_idx = _wfr_sweep_chunked(
-            spectrum, wl_h, float(sigma), chunk)
+        best_absq, best_lockin, best_idx, best_grad = _wfr_sweep_chunked(
+            spectrum, wl_h, float(sigma), chunk, with_grad)
+    k = torch.tensor(np.asarray(kref, np.float64),
+                     device=spectrum.device).to(rdt)
     if rebase:
         # separable rank-1 plane wave e^{2 pi i kref . r}
-        k = torch.tensor(np.asarray(kref, np.float64),
-                         device=spectrum.device).to(rdt)
         phx = (2 * np.pi) * (torch.arange(shape[0], dtype=rdt,
                                           device=spectrum.device) * k[0])
         phy = (2 * np.pi) * (torch.arange(shape[1], dtype=rdt,
@@ -492,6 +588,8 @@ def wfr_sweep(image, wlist, kref, sigma, *, with_grad=False, with_w=True,
     if with_w:
         wl = torch.as_tensor(wl_h, device=spectrum.device).to(rdt)
         out["w"] = wl[best_idx.long()].permute(2, 0, 1)
+    if with_grad:
+        out["grad"] = _grad_rebase(best_grad, k)
     return out
 
 
@@ -521,28 +619,56 @@ def wfr_sweep_phase_weight(image, wlist, kref, sigma, dr, *, spectrum=None,
 
 
 def wfr_sweep_phase_weight_multi(image, wlists, sigma, dr, *, spectrum=None,
-                                 chunk=8, gauss_cut=None):
+                                 chunk=8, with_grad=False, krefs=None,
+                                 gauss_cut=None):
     """Demodulated winner phases and rim-masked weights, (G, N, M) each,
-    for all Bragg peaks, one per-peak sweep each
-    (pygpa_tpu.ops.wfr.wfr_sweep_phase_weight_multi on its per-peak
-    route). Where the reference would run its grouped phase/weight
-    emission instead (the grouped_kernel's emission (a), ROADMAP queue 1
-    item 7) this raises NotImplementedError."""
+    for all Bragg peaks (pygpa_tpu.ops.wfr.wfr_sweep_phase_weight_multi):
+    one grouped sweep where the reference's grouped gate holds (float32,
+    sides multiples of 128, equal windows and candidate counts, P <= 48;
+    the spectrum windows come from skinny DFT products of `image` unless
+    `spectrum` is given), one sweep per peak otherwise.
+
+    with_grad=True also returns grads (G, N, M, 2), each peak's
+    wfr2_grad_opt winner phase gradient rebased to its nominal k-vector
+    (krefs (G, 2), required): wrap_to_pi(2 (g - 2 pi k)) / 2."""
+    if with_grad and krefs is None:
+        raise ValueError(
+            "wfr_sweep_phase_weight_multi(with_grad=True) requires "
+            "krefs (the per-peak nominal k-vectors)")
     shape = tuple(spectrum.shape if spectrum is not None else image.shape)
-    dtype = image.dtype if spectrum is None else _real_dtype(spectrum)
-    if _grouped_plans(shape, wlists, sigma, dr, gauss_cut,
-                      dtype) is not None:
-        raise NotImplementedError(
-            "the grouped phase/weight sweep emission is not ported "
-            "(ROADMAP queue 1 item 7); the grouped uv route "
-            "(wfr_sweep_uv_multi) and the per-peak route are")
+    rdt = image.dtype if spectrum is None else _real_dtype(spectrum)
+    dev = image.device if spectrum is None else spectrum.device
+    plan = plan_sweep(shape, wlists, sigma, dr, gauss_cut=gauss_cut,
+                      dtype=rdt)
+    if plan is not None:
+        out = GroupedSweep(plan, device=dev,
+                           emit="grad" if with_grad else "pw")(image,
+                                                               spectrum)
+        if not with_grad:
+            return out
+        ph, wt, ggx, ggy = out
+        k = torch.tensor(np.asarray(krefs, np.float64), device=dev).to(rdt)
+        return ph, wt, _grad_rebase(torch.stack([ggx, ggy], dim=-1),
+                                    k[:, None, None, :])
     if spectrum is None:
         spectrum = torch.fft.fft2(image)
-    phs, wts = [], []
-    for w in wlists:
+    phs, wts, gds = [], [], []
+    for i, w in enumerate(wlists):
+        if with_grad:
+            g = wfr_sweep(image, w, np.asarray(krefs)[i], sigma,
+                          with_grad=True, with_w=False, chunk=chunk,
+                          spectrum=spectrum, rebase=False)
+            phs.append(torch.angle(g["lockin"]))
+            wts.append(torch.abs(g["lockin"]) * _sweep.rim_weights(
+                *shape, int(dr), rdt, dev))
+            gds.append(g["grad"])
+            continue
+        # kref is unused on the demod (rebase=False) path
         ph, wt = wfr_sweep_phase_weight(image, w, np.asarray(w)[0], sigma,
                                         dr, spectrum=spectrum, chunk=chunk,
                                         gauss_cut=gauss_cut)
         phs.append(ph)
         wts.append(wt)
+    if with_grad:
+        return torch.stack(phs), torch.stack(wts), torch.stack(gds)
     return torch.stack(phs), torch.stack(wts)

@@ -1,11 +1,13 @@
 """Single-peak zoom WFR sweep: every candidate's full-resolution lock-in
 from the spectrum window, the per-pixel argmax of |M|^2 and, optionally,
-the winner's phase and rim-masked weight.
+the winner's phase and rim-masked weight and the winner's phase
+gradients.
 
 Replaces the TPU kernel ``pygpa_tpu/ops/pallas_sweep.py`` ``_kernel``
-(reached through ``fused_zoom_sweep_chunk`` and ``fused_zoom_sweep``);
-here ops.wfr's per-peak route (``_wfr_sweep_zoom``,
-``_wfr_sweep_zoom_pw``) calls it. For candidate i with Gaussian factors gx_i (W0), gy_i (W1):
+(reached through ``fused_zoom_sweep_chunk`` and ``fused_zoom_sweep``,
+with and without ``grad_ops``); here ops.wfr's per-peak route
+(``_wfr_sweep_zoom``, ``_wfr_sweep_zoom_pw``) calls it. For candidate i
+with Gaussian factors gx_i (W0), gy_i (W1):
 
     M_i = A0 (gx_i . S . gy_i) A1^T,   A0 = A0c + i A0s, A1 = A1c + i A1s
 
@@ -15,77 +17,115 @@ launch covers all P candidates; the reference's 48-candidate chunks,
 bf16 screen and HIGH->HIGHEST clamp were TPU devices, and this is the
 same strict chunk merge in a single pass, in float32.
 
-CUDA route, two launches on the current stream: stage 1 is the grouped
-sweep's ``sweep_stage1`` (``csrc/sweep.cu``, float32 FMA) with one group
-and one band run, into a (P, n, 2 W1) float32 scratch T; stage 2 is
-``csrc/zoom_sweep.cu`` on the tensor cores in 3xTF32 (each float32
-product as lo.hi + hi.lo + hi.hi of TF32 halves; one float32
-tensor-core chain per 32 columns of W1, since the tensor cores truncate
-their adds, and the chains' sums added in float32 registers with
-rounding to nearest), with T and the column basis streamed through a
-cp.async ring and the tournament in registers. The eager path on it
-lies nearer the same path with a float64 zoom sweep than the path on
-the float32 twin does (chip_smoke.py, phase 5). Shape limits: n, m and
-W1 multiples of 64, W0 a multiple of 16. Bound on an H100 by stage 2's
-P*n*m*8*W1 FLOP, three times over, at the dense TF32 rate (about 26 ms
-for the three 4096^2 bench peaks; 65 ms in float32 FMA, the kernel this
-one replaced). Launch count: "zoom_sweep".
+The gradient emission (``grad_ops = (S2r, S2i, A1yc, A1ys)``, the
+row-derivative window S2 = (2 pi i f0) S and the column-derivative
+basis A1y = (2 pi i f1) A1) adds the winner's derivatives of -angle(M)
+along rows and columns, gx = (Im M Re Mx - Re M Im Mx) / |M|^2 with Mx
+= A0 (gx_i . S2 . gy_i) A1^T, and gy alike with My = A0 (gx_i . S .
+gy_i) A1y^T: exact derivatives of the band-limited interpolant.
+
+CUDA route, two launches on the current stream (three with gradients):
+stage 1 is the grouped sweep's ``sweep_stage1`` (``csrc/sweep.cu``,
+float32 FMA) with one group and one band run, into a (P, n, 2 W1)
+float32 scratch T (and Tx from S2); stage 2 is ``csrc/zoom_sweep.cu`` on
+the tensor cores in 3xTF32 (each float32 product as lo.hi + hi.lo +
+hi.hi of TF32 halves; one float32 tensor-core chain per 32 columns of
+W1, since the tensor cores truncate their adds, and the chains' sums
+added in float32 registers with rounding to nearest), with T and the
+column basis streamed through a cp.async ring and the tournament in
+registers; with gradients, each tile then runs Mx and My for just the
+candidates that win one of its pixels. The eager path on it lies nearer
+the same path with a float64 zoom sweep than the path on the float32
+twin does (chip_smoke.py, phase 5). Shape limits: n, m and W1 multiples
+of 64, W0 a multiple of 16. Bound on an H100 by stage 2's P*n*m*8*W1
+FLOP, three times over, at the dense TF32 rate (about 26 ms for the
+three 4096^2 bench peaks; 65 ms in float32 FMA, the kernel this one
+replaced). Launch counts: "zoom_sweep", "zoom_grad" (with gradients).
 
 The plain twin :func:`zoom_sweep_plain` is the reference's einsum and
 where-tournament (``_wfr_sweep_zoom``'s scan body), chunked over the
-candidates; a CPU tensor runs it, a CUDA tensor the kernels.
+candidates, with the analytic gradients of ``fused_zoom_sweep``'s
+``grad_ops``; a CPU tensor runs it, a CUDA tensor the kernels. Its
+``fd_grad`` form is the reference's other route (float64 and sides off
+the kernel's gate): np.gradient of each candidate's -angle(M).
 """
 import torch
 
 from . import _build
 from . import sweep as _sweep
-from .sweep import TILE, rim_weights
+from .sweep import TILE, np_gradient_2d, rim_weights, winner_gradients
 
 
-def zoom_sweep_plain(Sr, Si, gx, gy, A0c, A0s, A1c, A1s, dr=None,
-                     chunk=8):
+def zoom_sweep_plain(Sr, Si, gx, gy, A0c, A0s, A1c, A1s, dr=None, chunk=8,
+                     grad_ops=None, fd_grad=False):
     """Plain PyTorch twin (same arguments as :func:`zoom_sweep`; `chunk`
-    candidates are evaluated per batched product)."""
+    candidates are evaluated per batched product). fd_grad=True adds the
+    winner's np.gradient of -angle(M) (the reference's XLA route)
+    instead of the analytic grad_ops gradients."""
     P = gx.shape[0]
     n, m = A0c.shape[0], A1c.shape[0]
     rdt, dev = Sr.dtype, Sr.device
+    grad = grad_ops is not None or fd_grad
     ba = torch.zeros((n, m), dtype=rdt, device=dev)
     br = torch.zeros_like(ba)
     bi = torch.zeros_like(ba)
     bx = torch.zeros((n, m), dtype=torch.int32, device=dev)
+    bgx = torch.zeros_like(ba)
+    bgy = torch.zeros_like(ba)
+
+    def stage1(xr, xi, g0, g1):
+        Swr = g0 * xr[None] * g1
+        Swi = g0 * xi[None] * g1
+        return A0c @ Swr - A0s @ Swi, A0c @ Swi + A0s @ Swr   # (C, n, W1)
+
     for s in range(0, P, chunk):
         g0 = gx[s:s + chunk, :, None]
         g1 = gy[s:s + chunk, None, :]
-        Swr = g0 * Sr[None] * g1
-        Swi = g0 * Si[None] * g1
-        Tr = A0c @ Swr - A0s @ Swi                 # (C, n, W1)
-        Ti = A0c @ Swi + A0s @ Swr
+        Tr, Ti = stage1(Sr, Si, g0, g1)
         Mr = Tr @ A1c.T - Ti @ A1s.T               # (C, n, m)
         Mi = Tr @ A1s.T + Ti @ A1c.T
         absq = Mr * Mr + Mi * Mi
+        if fd_grad:
+            ggx, ggy = np_gradient_2d(-torch.atan2(Mi, Mr))
+        elif grad_ops is not None:
+            S2r, S2i, A1yc, A1ys = grad_ops
+            Txr, Txi = stage1(S2r, S2i, g0, g1)
+            ggx = winner_gradients(Mr, Mi, Txr @ A1c.T - Txi @ A1s.T,
+                                   Txr @ A1s.T + Txi @ A1c.T)
+            ggy = winner_gradients(Mr, Mi, Tr @ A1yc.T - Ti @ A1ys.T,
+                                   Tr @ A1ys.T + Ti @ A1yc.T)
         for i in range(absq.shape[0]):
             better = absq[i] > ba
             ba = torch.where(better, absq[i], ba)
             br = torch.where(better, Mr[i], br)
             bi = torch.where(better, Mi[i], bi)
             bx = torch.where(better, s + i, bx)
+            if grad:
+                bgx = torch.where(better, ggx[i], bgx)
+                bgy = torch.where(better, ggy[i], bgy)
     out = (ba, br, bi, bx)
+    if grad:
+        out += (bgx, bgy)
     if dr is not None:
         out += (torch.atan2(bi, br), torch.sqrt(torch.clamp(ba, min=0.0))
                 * rim_weights(n, m, int(dr), rdt, dev))
     return out
 
 
-def _check(Sr, Si, gx, gy, A0c, A0s, A1c, A1s):
-    """Raise unless the operands are what the two launches take."""
+def _check(Sr, Si, gx, gy, A0c, A0s, A1c, A1s, grad_ops=None):
+    """Raise unless the operands are what the launches take."""
     W0, W1 = Sr.shape
     P = gx.shape[0]
     n, m = A0c.shape[0], A1c.shape[0]
     f32, dev = torch.float32, Sr.device
-    for name, t, shape in (
-            ("Sr", Sr, (W0, W1)), ("Si", Si, (W0, W1)), ("gx", gx, (P, W0)),
-            ("gy", gy, (P, W1)), ("A0c", A0c, (n, W0)), ("A0s", A0s, (n, W0)),
-            ("A1c", A1c, (m, W1)), ("A1s", A1s, (m, W1))):
+    named = [("Sr", Sr, (W0, W1)), ("Si", Si, (W0, W1)), ("gx", gx, (P, W0)),
+             ("gy", gy, (P, W1)), ("A0c", A0c, (n, W0)),
+             ("A0s", A0s, (n, W0)), ("A1c", A1c, (m, W1)),
+             ("A1s", A1s, (m, W1))]
+    if grad_ops is not None:
+        named += list(zip(("S2r", "S2i", "A1yc", "A1ys"), grad_ops,
+                          ((W0, W1), (W0, W1), (m, W1), (m, W1))))
+    for name, t, shape in named:
         _build.check_tensor("zoom_sweep", name, t, shape, f32, dev)
     if n % TILE or m % TILE or W0 % 16 or W1 % TILE or P < 1:
         raise ValueError(
@@ -103,9 +143,11 @@ def stage1(Sr, Si, gx, gy, A0c, A0s):
                          A0c[None], A0s[None], run)[0]
 
 
-def stage2(T, A1c, A1s, dr):
+def stage2(T, A1c, A1s, dr, Tx=None, A1yc=None, A1ys=None):
     """Stage 2 and the tournament on the card (checked operands): the
-    outputs of :func:`zoom_sweep` from stage 1's T."""
+    outputs of :func:`zoom_sweep` from stage 1's T, and with Tx (stage 1
+    of the row-derivative window) and the f1-scaled basis A1yc, A1ys
+    the winners' gradients."""
     P, n, W1 = T.shape[0], T.shape[1], T.shape[2] // 2
     m, dev = A1c.shape[0], T.device
     ba = torch.empty((n, m), dtype=torch.float32, device=dev)
@@ -115,32 +157,58 @@ def stage2(T, A1c, A1s, dr):
     emit = dr is not None
     ph = torch.empty_like(ba) if emit else ba
     wt = torch.empty_like(ba) if emit else ba
-    with torch.cuda.device(dev):
-        _build.check(_build.bind("zoom_sweep_stage2", "pppppppppiiiiip")(
-            T.data_ptr(), A1c.data_ptr(), A1s.data_ptr(), ba.data_ptr(),
-            br.data_ptr(), bi.data_ptr(), bx.data_ptr(), ph.data_ptr(),
-            wt.data_ptr(), P, n, m, W1, int(dr) if emit else -1,
-            torch.cuda.current_stream(dev).cuda_stream), "zoom_sweep_stage2")
+    stream = torch.cuda.current_stream(dev).cuda_stream
     out = (ba, br, bi, bx)
+    with torch.cuda.device(dev):
+        if Tx is None:
+            _build.check(_build.bind("zoom_sweep_stage2", "pppppppppiiiiip")(
+                T.data_ptr(), A1c.data_ptr(), A1s.data_ptr(), ba.data_ptr(),
+                br.data_ptr(), bi.data_ptr(), bx.data_ptr(), ph.data_ptr(),
+                wt.data_ptr(), P, n, m, W1, int(dr) if emit else -1, stream),
+                "zoom_sweep_stage2")
+        else:
+            gxo = torch.empty_like(ba)
+            gyo = torch.empty_like(ba)
+            _build.check(_build.bind("zoom_sweep_stage2_grad",
+                                     "ppppppppppppppiiiiip")(
+                T.data_ptr(), Tx.data_ptr(), A1c.data_ptr(), A1s.data_ptr(),
+                A1yc.data_ptr(), A1ys.data_ptr(), ba.data_ptr(),
+                br.data_ptr(), bi.data_ptr(), bx.data_ptr(), gxo.data_ptr(),
+                gyo.data_ptr(), ph.data_ptr(), wt.data_ptr(), P, n, m, W1,
+                int(dr) if emit else -1, stream), "zoom_sweep_stage2_grad")
+            out += (gxo, gyo)
     return out + (ph, wt) if emit else out
 
 
-def zoom_sweep(Sr, Si, gx, gy, A0c, A0s, A1c, A1s, dr=None):
+def zoom_sweep(Sr, Si, gx, gy, A0c, A0s, A1c, A1s, dr=None, grad_ops=None):
     """Zoom sweep of one Bragg peak -> (best_absq, best_r, best_i,
-    best_idx) planes (n, m) [+ (phase, weight) when dr is given].
+    best_idx) planes (n, m) [+ (grad_x, grad_y) when grad_ops is given]
+    [+ (phase, weight) when dr is given].
 
     Sr, Si : (W0, W1) spectrum window, pre-scaled by 1/(n*m).
     gx, gy : (P, W0), (P, W1) per-candidate Gaussian factors.
     A0c, A0s : (n, W0) row inverse-DFT basis; A1c, A1s : (m, W1) column
         basis.
     dr : border of the interior weight mask (emission off when None).
+    grad_ops : (S2r, S2i, A1yc, A1ys), the pre-scaled row-derivative
+        window (W0, W1) and the column-derivative basis (m, W1); the
+        gradients are those of -angle(M) of the winner, along rows and
+        columns, before any rebase.
     best_idx is int32; a pixel whose |M|^2 is 0 for every candidate
-    keeps index 0 and M = 0."""
+    keeps index 0 and M = 0 (and gradient 0)."""
     if Sr.device.type == "cpu":
-        return zoom_sweep_plain(Sr, Si, gx, gy, A0c, A0s, A1c, A1s, dr)
+        return zoom_sweep_plain(Sr, Si, gx, gy, A0c, A0s, A1c, A1s, dr,
+                                grad_ops=grad_ops)
     if Sr.device.type != "cuda":
         raise ValueError(f"zoom_sweep: unsupported device {Sr.device}")
-    _check(Sr, Si, gx, gy, A0c, A0s, A1c, A1s)
-    out = stage2(stage1(Sr, Si, gx, gy, A0c, A0s), A1c, A1s, dr)
-    _build.launches["zoom_sweep"] += 1
+    _check(Sr, Si, gx, gy, A0c, A0s, A1c, A1s, grad_ops)
+    T = stage1(Sr, Si, gx, gy, A0c, A0s)
+    if grad_ops is None:
+        out = stage2(T, A1c, A1s, dr)
+        _build.launches["zoom_sweep"] += 1
+        return out
+    S2r, S2i, A1yc, A1ys = grad_ops
+    out = stage2(T, A1c, A1s, dr, stage1(S2r, S2i, gx, gy, A0c, A0s), A1yc,
+                 A1ys)
+    _build.launches["zoom_grad"] += 1
     return out

@@ -176,7 +176,7 @@ def test_sweep_kernel(dev):
     sigma = int(np.ceil(1 / np.linalg.norm(ks, axis=1).min()))
     plan = twfr.plan_sweep(img.shape, candidate_banks(ks), sigma,
                            2 * sigma, ks, gauss_cut=7.0)
-    sw = twfr.UVSweep(plan, device=dev)
+    sw = twfr.GroupedSweep(plan, device=dev)
     Sr4, Si4 = sw.windows(img)
     args = (Sr4, Si4, sw.gx, sw.gy, sw.A0c, sw.A0s, sw.A1cb, sw.A1sb,
             sw.run, sw.off, sw.kconst, plan.dr, sw.banded)
@@ -789,3 +789,192 @@ def test_cubic_displacement_kernel(dev, n, m, mode, margin):
                            mode)
     with pytest.raises(ValueError, match="warp_cubic_disp"):
         tw.warp_cubic_disp(coef, u, (0, 0), margin, mode, 0.0, coef)
+
+
+def _grad_close(got, want, agree, absq):
+    """A gradient plane of a kernel against its twin's on the pixels whose
+    winners agree: where |M|^2 is at least 1e-2 of its maximum, within
+    rtol 2e-3 and 2e-5 of the plane's mean magnitude there (the ratio's
+    float32 rounding grows as |M| falls); p99 of the relative error over
+    all agreeing pixels < 1e-3."""
+    live = agree & (absq >= 1e-2 * absq.max())
+    sc = float(want[live].abs().mean())
+    d = (got - want).abs()
+    assert bool((d[live] <= 2e-3 * want[live].abs() + 2e-5 * sc).all())
+    rel = (d / (want.abs() + sc))[agree]
+    assert float(torch.quantile(rel[::3], 0.99)) < 1e-3
+
+
+@pytest.mark.parametrize("P", [1, 36, 49])
+@pytest.mark.parametrize("W1", [64, 256])
+def test_zoom_grad_kernel(dev, W1, P):
+    """The zoom kernel's gradient emission (c) against the twin's analytic
+    gradients on seeded operands, with one candidate, 36 and 49 (past the
+    reference's 48-candidate chunk), at window widths 64 and 256. One
+    launch counts as "zoom_grad"; its tournament, phase and weight are
+    the plain launch's bit for bit and meet check_zoom's bounds against
+    the twin; the gradients meet _grad_close's."""
+    from pygpa_tpu_torch.ops import zoom_sweep as tz
+    ops = _zoom_ops(P, 64, W1, 128, 192, 50 + W1 + P, dev)
+    gops = tuple(_planes(s, 60 + P + i, dev) for i, s in enumerate(
+        ((64, W1), (64, W1), (192, W1), (192, W1))))
+    before = dict(_build.launches)
+    got = tz.zoom_sweep(*ops, dr=10, grad_ops=gops)
+    assert _build.launches["zoom_grad"] == before.get("zoom_grad", 0) + 1
+    assert _build.launches["zoom_sweep"] == before.get("zoom_sweep", 0)
+    assert len(got) == 8
+    plain = tz.zoom_sweep(*ops, dr=10)
+    for a, b in zip(got[:4] + got[6:], plain):
+        assert torch.equal(a, b)
+    want = tz.zoom_sweep_plain(*ops, dr=10, grad_ops=gops)
+    _zoom_agree(got[:4] + got[6:], want[:4] + want[6:], phase_weight=P > 1)
+    agree = got[3] == want[3]
+    for k in (4, 5):
+        assert torch.isfinite(got[k]).all()
+        _grad_close(got[k], want[k], agree, want[0])
+
+
+def _grad_ops_grouped(G, P, W0, Wb, n, m, seed, dev, banded):
+    """sweep_grad's operands: _grouped_ops' (unbanded: one run at offset
+    0) with seeded row-derivative windows and column-derivative basis."""
+    args = list(_grouped_ops(G, P, W0, Wb, n, m, seed, dev))
+    if not banded:
+        args[8] = torch.zeros_like(args[8])
+        args[9] = torch.zeros_like(args[9])
+    Sr, Si, gx, gy, A0c, A0s, A1c, A1s, run, off, _, dr, _ = args
+    S2r, S2i = (_planes(Sr.shape, seed + 1 + i, dev) for i in range(2))
+    A1yc, A1ys = (_planes(A1c.shape, seed + 3 + i, dev) for i in range(2))
+    return (Sr, Si, S2r, S2i, gx, gy, A0c, A0s, A1c, A1s, A1yc, A1ys, run,
+            off, dr, banded)
+
+
+@pytest.mark.parametrize("P", [1, 36, 49])
+@pytest.mark.parametrize("Wb,banded", [(128, True), (192, True),
+                                       (256, False)])
+def test_grouped_pw_and_grad_kernels(dev, Wb, banded, P):
+    """The grouped sweep's emissions (a) and (b) on seeded operands,
+    banded (two runs, offsets 0 and 64) at Wb 128 and 192 and unbanded
+    at 256, with P = 1, 36 and 49: (a) returns the planes the uv route's
+    stage 2 computes, bit for bit, and (b) the same planes again; each
+    call counts one launch under its name. Against the float32 and the
+    float64 twins: phases within 1e-4 rad on 99% of the pixels (flips)
+    and p99 < 5e-5 rad, weights rel p99 < 5e-5 and max < 2e-2 (the uv
+    route's phase/weight bounds); gradients meet _grad_close's bounds on
+    the pixels whose phases agree within 1e-4 rad."""
+    a = _grad_ops_grouped(3, P, 64, Wb, 256, 320, 80 + Wb + P, dev, banded)
+    (Sr, Si, S2r, S2i, gx, gy, A0c, A0s, A1c, A1s, A1yc, A1ys, run, off, dr,
+     bd) = a
+    pw_args = (Sr, Si, gx, gy, A0c, A0s, A1c, A1s, run, off, dr, bd)
+    before = dict(_build.launches)
+    pw = tsweep.sweep_pw(*pw_args)
+    assert _build.launches["sweep_pw"] == before.get("sweep_pw", 0) + 1
+    T = tsweep.stage1(Sr, Si, gx, gy, A0c, A0s, run)
+    for x, y in zip(pw, tsweep.stage2(T, A1c, A1s, off, dr, bd)):
+        assert torch.equal(x, y)
+    gr = tsweep.sweep_grad(*a)
+    assert _build.launches["sweep_grad"] == before.get("sweep_grad", 0) + 1
+    assert len(gr) == 4 and torch.equal(gr[0], pw[0])
+    assert torch.equal(gr[1], pw[1])
+    for dt in (torch.float32, torch.float64):
+        want = tsweep.sweep_grad_plain(*(
+            x.to(dt) if torch.is_tensor(x) and x.is_floating_point() else x
+            for x in a))
+        dph = (torch.remainder(gr[0].to(dt) - want[0] + np.pi, 2 * np.pi)
+               - np.pi).abs()
+        rel = ((gr[1].to(dt) - want[1]).abs() / (want[1].abs() + 1e-9))
+        assert float((dph > 1e-4).double().mean()) < 1e-2, dt
+        assert float(torch.quantile(dph.flatten()[::3], 0.99)) < 5e-5, dt
+        assert float(torch.quantile(rel.flatten()[::3], 0.99)) < 5e-5, dt
+        assert float(rel.max()) < 2e-2, dt
+        for k in (2, 3):
+            assert torch.isfinite(gr[k]).all()
+            _grad_close(gr[k].to(dt), want[k], dph < 1e-4, want[1] ** 2)
+
+
+def test_gradient_routes_on_the_card_match_the_cpu(dev):
+    """wfr_sweep_phase_weight_multi(with_grad=True) on config 1's lattice
+    at 256^2 through both of its routes on the card, each against the
+    same call on the CPU (the twins): the grouped route (4x4 candidate
+    grids, banded: one "sweep_grad" launch) and the per-peak route
+    (banks of unequal lengths: three "zoom_grad" launches). Weights within
+    rtol 1e-4; on > 1 - 2e-4 of the pixels the phase within 1e-3 rad and
+    the rebased gradients within rtol 2e-3, atol 2e-5 rad/px (near-tie
+    winner flips aside)."""
+    r_k, theta = 0.12, 5.0
+    ks = np.asarray(generate_ks(r_k, theta), np.float64)[:3]
+    img = hexlattice_gen(r_k, theta, order=1, size=256, dtype=torch.float32)
+    img = img - img.mean()
+    kn = np.linalg.norm(ks, axis=1)
+    kw = kn.mean() / 2.5
+    sigma = int(np.ceil(1 / kn.min()))
+    offs = (np.arange(4) - 1.5) * (2 * kw / 4)
+    grid = np.stack([a.ravel() for a in np.meshgrid(offs, offs,
+                                                    indexing="ij")], -1)
+    grouped = [k[None] + grid for k in ks]
+    per_peak = [np.stack([a.ravel() for a in np.meshgrid(
+        np.arange(k[0] - kw, k[0] + kw, kw / d),
+        np.arange(k[1] - kw, k[1] + kw, kw / d), indexing="ij")], -1)
+        for k, d in zip(ks, (3, 3.5, 2.5))]
+    for wl, name, count, gc in ((grouped, "sweep_grad", 1, 10.0),
+                                (per_peak, "zoom_grad", 3, None)):
+        before = _build.launches[name]
+        got = twfr.wfr_sweep_phase_weight_multi(
+            img.to(dev), wl, sigma, 2, with_grad=True, krefs=ks,
+            gauss_cut=gc)
+        assert _build.launches[name] == before + count, name
+        want = twfr.wfr_sweep_phase_weight_multi(
+            img, wl, sigma, 2, with_grad=True, krefs=ks, gauss_cut=gc)
+        got = [x.cpu() for x in got]
+        assert torch.allclose(got[1], want[1], rtol=1e-4,
+                              atol=1e-6 * float(want[1].max()))
+        dphi = (torch.remainder(got[0] - want[0] + np.pi, 2 * np.pi)
+                - np.pi).abs()
+        bad = dphi >= 1e-3
+        for c in (0, 1):
+            bad |= ((got[2][..., c] - want[2][..., c]).abs()
+                    > 2e-5 + 2e-3 * want[2][..., c].abs())
+        assert float(bad.double().mean()) < 2e-4, name
+
+
+# sha256 digests of the outputs below, taken on an NVIDIA H100 80GB HBM3
+# from the kernels as they were before the tile's products were shared
+# with the gradient emissions (tc_products in csrc/sweep_tc.cuh)
+KEPT_BITS = {
+    "sweep_uv_Wb128":
+        "2af4513470a191271acef50f2e06399f4f56a3abf6803479232056485d4200b4",
+    "sweep_uv_Wb192":
+        "c6e7766cd30b67578c5be0e76c0508bc54d715470b647c5c23d694737b065ba2",
+    "zoom_P49_W1256":
+        "2cb7866dccc9ea3ce5fdf359b5b93cc27b55e71e392145fba5e619d924e65c50",
+    "zoom_P5_W164":
+        "adc81e7e4a1d5e3aa0546f3d26b11d3933fec7f41ed7f50afff6df338820b84e",
+    "zoom_pw_P49_W1256":
+        "c454498676a87409e3d27861d473e044ce6ca027165c0054019a7e3037ed1348",
+    "zoom_pw_P5_W164":
+        "b9c85bdfb0c4f74ea6d989f160b6bc939df3f6998b28c154bda4dcf04fc6df29",
+}
+
+
+def test_uv_and_zoom_outputs_keep_their_bits(dev):
+    """The grouped uv sweep (banded, Wb 128 and 192, P = 7) and the zoom
+    sweep (P = 49 at W1 = 256, P = 5 at 64; with and without the
+    phase/weight emission) on fixed seeded inputs: the sha256 of their
+    outputs is KEPT_BITS', so sharing the tile's product loop with the
+    gradient emissions changed none of their bits."""
+    import hashlib
+    from pygpa_tpu_torch.ops import zoom_sweep as tz
+
+    def sha(outs):
+        h = hashlib.sha256()
+        for o in outs:
+            h.update(o.contiguous().cpu().numpy().tobytes())
+        return h.hexdigest()
+    got = {}
+    for Wb in (128, 192):
+        got[f"sweep_uv_Wb{Wb}"] = sha(tsweep.sweep_uv(*_grouped_ops(
+            3, 7, 64, Wb, 256, 320, 90 + Wb, dev)))
+    for P, W1 in ((49, 256), (5, 64)):
+        ops = _zoom_ops(P, 64, W1, 128, 192, 91 + P, dev)
+        got[f"zoom_P{P}_W1{W1}"] = sha(tz.zoom_sweep(*ops))
+        got[f"zoom_pw_P{P}_W1{W1}"] = sha(tz.zoom_sweep(*ops, dr=10))
+    assert got == KEPT_BITS

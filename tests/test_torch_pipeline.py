@@ -67,19 +67,85 @@ def test_extractor_matches_reference(kernel_reference):
     assert fn.plan.wl.shape == (3, 36, 2)
 
 
-def test_extractor_refuses_unported_routes(monkeypatch):
-    """What the port still leaves out raises NotImplementedError naming
-    its ROADMAP item: the winner phase-gradient sweep and the grouped
-    phase/weight emission (pipeline_fused_uv=False)."""
-    ks = np.array(generate_ks(0.1, 7.0))[:3]
-    img = torch.zeros((128, 128))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 7"):
-        tpipe.extract_displacement_field(img, ks, with_grad=True,
-                                         device="cpu")
-    monkeypatch.setattr(tpipe, "DEFAULTS", tpipe.DEFAULTS.__class__(
-        pipeline_fused_uv=False))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 7"):
-        tpipe.make_displacement_extractor((256, 256), ks, device="cpu")
+def test_extractor_refuses_unported_routes(kernel_reference, monkeypatch):
+    """Two routes that run rather than raise. (1) The factory with
+    pipeline_fused_uv=False: the grouped phase/weight emission,
+    then the demodulated reconstruction, against the reference's same
+    route (its grouped kernel in interpret mode), within 1e-3 px on the
+    8-px interior, as the uv route is held. (2)
+    extract_displacement_field(with_grad=True, return_gs=True) on the
+    CPU: each peak's g-dict carries 'grad' (n, m, 2), and u is the same
+    as without with_grad; on a float64 image (the plain route on both
+    sides) the gradients match the reference's within 1e-9 rad/px."""
+    size, r_k, theta = 256, 0.1, 7.0
+    ks = np.array(generate_ks(r_k, theta))[:3]
+    img = np.array(hexlattice_gen(r_k, theta, order=1, size=size,
+                                  dtype=jnp.float32))
+    for mod in (tpipe, jpipe):
+        monkeypatch.setattr(mod, "DEFAULTS", mod.DEFAULTS.__class__(
+            pipeline_fused_uv=False))
+    want = np.asarray(jpipe.make_displacement_extractor(
+        (size, size), ks, chunk=4, unwrap_coarse=4)(jnp.asarray(img)))
+    fn = tpipe.make_displacement_extractor((size, size), ks, chunk=4,
+                                           unwrap_coarse=4, device="cpu")
+    assert fn.plan is not None
+    got = fn(torch.from_numpy(img)).numpy()
+    assert np.isfinite(got).all()
+    assert np.abs(got - want)[:, 8:-8, 8:-8].max() < 1e-3
+    img64 = img[:128, :128].astype(np.float64)
+    u, gs = tpipe.extract_displacement_field(img64, ks, with_grad=True,
+                                             return_gs=True, device="cpu")
+    u0 = tpipe.extract_displacement_field(img64, ks, device="cpu")
+    np.testing.assert_array_equal(u.numpy(), u0.numpy())
+    _, jgs = jpipe.extract_displacement_field(img64, ks, with_grad=True,
+                                              return_gs=True)
+    for g, jg in zip(gs, jgs):
+        assert g["grad"].shape == (128, 128, 2)
+        np.testing.assert_allclose(g["grad"].numpy(), np.asarray(jg["grad"]),
+                                   rtol=0, atol=1e-9)
+
+
+def test_demod_reconstruction_wraps_without_the_pi_shift():
+    """A trait of the reference: its reconstruct_u_inv_from_demod wraps
+    each phase difference as (x + pi) mod 2 pi - pi, and in float32 that
+    rounds a difference near 2 pi k (here 0.126 rad) to the spacing at
+    pi; the port wraps as the uv epilogue does (ops.sweep.wrap_diff),
+    which returns such an x unchanged. On the card this decided the
+    bench's dc-free gate for the factory with pipeline_fused_uv=False.
+    Here, on a smooth u (two Gaussian and sine components) at 512^2: in
+    float64 the two routes agree within 1e-9 px; in float32 the port's
+    u lies nearer the float64 u than the reference's does."""
+    from pygpa_tpu.gpa import reconstruct as JR
+    from pygpa_tpu_torch.core.mathtools import wrap_to_pi
+    from pygpa_tpu_torch.gpa import reconstruct as TR
+    x = torch.tensor([0.12566371], dtype=torch.float32)
+    assert torch.equal(tsweep.wrap_diff(x), x)
+    assert not torch.equal(wrap_to_pi(x), x)
+    ks = np.asarray(generate_ks(0.02, 5.0, kappa=1.005, psi=10.0))[:3]
+    n = 512
+    y, xx = np.mgrid[:n, :n]
+    u = np.stack([0.3 * np.exp(-((xx - n / 2) ** 2 + (y - n / 2) ** 2)
+                               / (2 * (n / 6) ** 2)),
+                  0.2 * np.sin(2 * np.pi * xx / n)])
+    ph = np.angle(np.exp(-2j * np.pi * np.einsum("kc,cnm->knm", ks, u)))
+    w = np.ones_like(ph)
+    want = np.asarray(JR.reconstruct_u_inv_from_demod(
+        jnp.asarray(ks), jnp.asarray(ph), jnp.asarray(w)))
+    got = TR.reconstruct_u_inv_from_demod(ks, torch.from_numpy(ph),
+                                          torch.from_numpy(w)).numpy()
+    assert np.abs(got - want).max() < 1e-9
+
+    def dc_free_err(a):
+        d = a - want
+        return np.abs(d - d.mean(axis=(1, 2), keepdims=True)).max()
+    f32 = np.float32
+    ref32 = np.asarray(JR.reconstruct_u_inv_from_demod(
+        jnp.asarray(ks, jnp.float32), jnp.asarray(ph, jnp.float32),
+        jnp.asarray(w, jnp.float32)))
+    port32 = TR.reconstruct_u_inv_from_demod(
+        ks, torch.from_numpy(ph.astype(f32)),
+        torch.from_numpy(w.astype(f32))).numpy()
+    assert dc_free_err(port32) < dc_free_err(ref32)
 
 
 @pytest.mark.parametrize("shape,sigma,dr", [((2, 96, 80), 6, 12),
@@ -108,7 +174,8 @@ def test_port_imports_no_jax():
             "    importlib.import_module(m.name)\n"
             "    names.add(m.name)\n"
             "new = {'core.interp', 'ops.warp', 'ops.drizzle', 'ops.expand', "
-            "'ucell', 'ucell.averaging'}\n"
+            "'ucell', 'ucell.averaging', 'gpa.api', 'gpa.kgeometry', "
+            "'props', 'props.jacobians'}\n"
             "assert {'pygpa_tpu_torch.' + n for n in new} <= names, names\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'pygpa_tpu' or "

@@ -148,7 +148,7 @@ def test_zoom_basis_and_dft_windows_match():
         np.testing.assert_allclose(ts.numpy(), np.asarray(js), atol=2e-6)
     jr, ji = W._dft_windows(jnp.asarray(img), jnp.asarray(plan.idx0s),
                             jnp.asarray(plan.idx1s), jnp.float32)
-    sw = TW.UVSweep(plan)
+    sw = TW.GroupedSweep(plan)
     tr, ti = TW._dft_windows(torch.from_numpy(img), sw.A0c_flat,
                              sw.A0s_flat, sw.A1c, sw.A1s)
     # rtol 1e-4 of the window's peak (bins far off the Bragg peak hold
@@ -164,7 +164,7 @@ def test_uv_epilogue_matches_reference_prologue():
     reference's XLA reconstruction prologue on the same planes."""
     img, ks, wlists, sigma, dr, gc = _grid_fixture(256)
     plan = TW.plan_sweep(img.shape, wlists, sigma, dr, ks, gauss_cut=gc)
-    sw = TW.UVSweep(plan)
+    sw = TW.GroupedSweep(plan)
     Sr4, Si4 = sw.windows(torch.from_numpy(img))
     T = TS._stage1_plain(Sr4, Si4, sw.gx, sw.gy, sw.A0c, sw.A0s, sw.run)
     ph, wt = TS._stage2_plain(T, sw.A1cb, sw.A1sb, sw.off, dr, True)
@@ -213,7 +213,7 @@ def test_sweep_twin_matches_interpret_kernel(highest, fixture, banded):
     # winner may flip at a few conditioned pixels (all peak weights
     # > 1e-4); the flip-tolerant bounds of the banded-vs-unbanded
     # kernel test hold, and off the flips the planes agree to 1e-4
-    sw = TW.UVSweep(plan)
+    sw = TW.GroupedSweep(plan)
     Sr4, Si4 = sw.windows(torch.from_numpy(img))
     T = TS._stage1_plain(Sr4, Si4, sw.gx, sw.gy, sw.A0c, sw.A0s, sw.run)
     _, wt = TS._stage2_plain(T, sw.A1cb, sw.A1sb, sw.off, dr, sw.banded)

@@ -152,18 +152,48 @@ def test_phase_weight_routes_match_reference():
 
 
 def test_multi_refuses_the_grouped_phase_weight_emission():
+    """Where the grouped gate holds (float32, 256^2, three banks of 36),
+    wfr_sweep_phase_weight_multi runs the grouped phase/weight emission
+    (its twin here, no launch counted) and agrees with the per-peak
+    sweep of the same bank: weights within rtol 1e-4, phases within
+    1e-4 rad where the weight is above 1e-3 of its maximum."""
     img, k, wl, sigma = _lattice()
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 7"):
-        TW.wfr_sweep_phase_weight_multi(torch.from_numpy(img), [wl] * 3,
-                                        sigma, 2 * sigma)
+    dr = 2 * sigma
+    assert TW.plan_sweep(img.shape, [wl] * 3, sigma, dr) is not None
+    _build.launches.clear()
+    ph, wt = (a.numpy() for a in TW.wfr_sweep_phase_weight_multi(
+        torch.from_numpy(img), [wl] * 3, sigma, dr))
+    assert sum(_build.launches.values()) == 0
+    assert ph.shape == wt.shape == (3,) + img.shape
+    ph1, wt1 = (a.numpy() for a in TW.wfr_sweep_phase_weight(
+        torch.from_numpy(img), wl, k, sigma, dr))
+    for g in range(3):
+        np.testing.assert_allclose(wt[g], wt1, rtol=1e-4,
+                                   atol=1e-6 * wt1.max())
+        live = wt1 > 1e-3 * wt1.max()
+        assert np.abs(np.angle(np.exp(1j * (ph[g] - ph1)))[live]).max() \
+            < 1e-4
 
 
 def test_unported_sweep_options_raise():
+    """continuity_dk (the wfr4 scans) still raises, naming its ROADMAP
+    item; with_grad returns the winner gradient (n, m, 2), rebased to
+    [-pi/2, pi/2), within 1e-4 rad/px of the reference's np.gradient
+    route on the 5 sigma interior (the analytic form here: the zoom
+    kernel's twin)."""
     img, k, wl, sigma = _lattice(128)
-    for kw in (dict(with_grad=True), dict(continuity_dk=0.01)):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 "
-                                                      "item 7"):
-            TW.wfr_sweep(torch.from_numpy(img), wl, k, sigma, **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 5"):
+        TW.wfr_sweep(torch.from_numpy(img), wl, k, sigma, continuity_dk=0.01)
+    got = TW.wfr_sweep(torch.from_numpy(img), wl, k, sigma, with_grad=True)
+    want = W.wfr_sweep(jnp.asarray(img), wl, k, sigma, with_grad=True)
+    g = got["grad"].numpy()
+    assert g.shape == img.shape + (2,) and g.dtype == np.float32
+    assert g.min() >= -np.pi / 2 and g.max() < np.pi / 2
+    b = 5 * sigma
+    same = (got["w"].numpy() == np.asarray(want["w"])).all(0)[b:-b, b:-b]
+    assert same.mean() > 0.99
+    d = np.abs(g - np.asarray(want["grad"]))[b:-b, b:-b][same]
+    assert d.max() < 1e-4
 
 
 def test_wrapper_dispatch():
