@@ -8,10 +8,12 @@ Phases, each printed on its own lines:
 1. the card (nvidia-smi name and power limit), torch and CUDA versions,
    TF32 switched off for matmuls and cuDNN;
 2. the build of the CUDA kernels (csrc/*.cu, nvcc, timed), ptxas's
-   registers and spills of the two sweeps' stage-2 kernels, the
-   bilinear and displacement-form cubic warps, the CG's fused DCT passes
-   and stencil kernel and the drizzle's shared-memory kernel, the proof
-   that both stage 2s run on the tensor cores (HMMA instructions in
+   registers and spills of the sweeps' kernels (both stage 2s, stage
+   1, the gradient emissions' band flags and winner products; the
+   phase fails if one spills), the bilinear and displacement-form cubic
+   warps, the CG's fused DCT passes and stencil kernel and the
+   drizzle's shared-memory kernel, the proof that both stage 2s and
+   the winner products run on the tensor cores (HMMA instructions in
    their SASS, cuobjdump -sass) and that the drizzle's shared-memory
    adds are native ATOMS.ADD, not a compare-and-swap loop, or the phase
    fails;
@@ -118,8 +120,8 @@ their bytes, each input read once and each output written once, over
 DCT pairs and stencil, a per-element count for the stencils, gathers
 and scatters) and, where one PyTorch call computes the same function,
 times it and holds it to the kernel: F.grid_sample for the bilinear
-warp (the drizzle has none: index_add scatters taps that other calls
-compute first). The DCT rows print each direction's time beside its
+warp, scatter_ for the band flags (the drizzle has none: index_add
+scatters taps that other calls compute first). The DCT rows print each direction's time beside its
 twin's and its bound.
 
 Phase 3 also holds the three gradient-path emissions to their float32
@@ -130,17 +132,27 @@ atol 2e-5 rad/px; its tournament the plain launch's bits), and the
 grouped sweep's phase/weight (a) and gradient (b) emissions on 10b's
 (a: the uv route's phase/weight bounds; b: its planes (a)'s bits, the
 gradients within the same rtol/atol wherever the phases agree within
-1e-3 rad, all but 2e-4 of the pixels), each timed (CUDA events) beside
-its twin and its bound: stage 1 twice in float32 FMA, stage 2 three
-times over at the dense TF32 rate, and the winners' two products per
-tile (2 x 8 x winners x 64^2 x W FLOP, the winners counted per tile from
-this run) likewise.
+1e-3 rad, all but 2e-4 of the pixels). Each gradient emission's steps
+after its tournament are held to their twins on the same inputs: the
+band flags ("grad_flags") equal, stage 1 of the row-derivative window
+on the flagged (band, candidate) pairs ("grad_stage1") the full
+launch's rows bit for bit and within 1e-5 of the twin's (relative), the
+winner products ("grad_products") within the rtol/atol above at every
+pixel. Each call is split into its parts (stage 1 of T, the
+tournament, the three steps; CUDA events), the band and tile winners
+of the kernel's and of the float32 twin's tournament are counted (the
+bounds count the twin's), and each row prints two bounds: the work the function
+needs (stage 1 once and on the band winners in float32 FMA, stage 2
+and 2 x 8 x 64^2 x W FLOP per tile winner three times over at the dense
+TF32 rate; the row's bound) and the old design's (stage 1 twice in
+full). The three steps' rows are 10a's, summed over its peaks.
 
 Any failed check raises and the script exits non-zero. Without a CUDA
 card it fails at once. Its last two lines are the kernels JSON object
 followed by {"ok": true, "device": {...}}.
 """
 import contextlib
+import gc
 import json
 import os
 import subprocess
@@ -194,13 +206,25 @@ KERNELS = {
                    "pygpa_tpu/ops/pallas_sweep.py:370"),
     "zoom_grad": ("pygpa_tpu_torch/csrc/zoom_sweep.cu",
                   "pygpa_tpu/ops/pallas_sweep.py:96"),
+    # the gradient emissions' steps after the tournament (both sweeps;
+    # timed on 10a's inputs)
+    "grad_flags": ("pygpa_tpu_torch/csrc/sweep.cu",
+                   "pygpa_tpu/ops/pallas_sweep.py:96"),
+    "grad_stage1": ("pygpa_tpu_torch/csrc/sweep.cu",
+                    "pygpa_tpu/ops/pallas_sweep.py:96"),
+    "grad_products": ("pygpa_tpu_torch/csrc/sweep.cu",
+                      "pygpa_tpu/ops/pallas_sweep.py:96"),
 }
 # the path whose counted run a kernel's "launches" reports
 PATH_OF = {"sweep_uv": 4, "presmooth": 4, "applyq": 4, "cg_poisson": 4,
            "zoom_sweep": 5, "dct_lane": 5, "dct_sub": 5,
            "warp_bilinear": "7a", "warp_cubic": "7b", "expand": "8a",
            "drizzle": "8a", "zoom_grad": "10a", "sweep_grad": "10b",
-           "sweep_pw": "11b"}
+           "sweep_pw": "11b", "grad_flags": "10a", "grad_stage1": "10a",
+           "grad_products": "10a"}
+# the gradient emissions' launches after the tournament, one each per
+# emission call
+GRAD_STEPS = ("grad_flags", "grad_stage1", "grad_products")
 # kernels each driven path must launch
 PATH_KERNELS = {4: ("sweep_uv", "presmooth", "applyq", "cg_poisson"),
                 5: ("zoom_sweep", "dct_lane", "dct_sub"),
@@ -212,15 +236,19 @@ PATH_KERNELS = {4: ("sweep_uv", "presmooth", "applyq", "cg_poisson"),
                 "8b": ("drizzle", "expand"),
                 "9a": ("sweep_uv",),
                 "9b": (),
-                "10a": ("zoom_grad",),
-                "10b": ("sweep_grad",),
-                "11a": ("zoom_grad", "dct_lane", "dct_sub"),
+                "10a": ("zoom_grad",) + GRAD_STEPS,
+                "10b": ("sweep_grad",) + GRAD_STEPS,
+                "11a": ("zoom_grad", "dct_lane", "dct_sub") + GRAD_STEPS,
                 "11b": ("sweep_pw", "dct_lane", "dct_sub")}
 # each gradient path's launches of the sweeps: exactly these counts
 PATH_SWEEPS = {"10a": {"zoom_grad": 3}, "10b": {"sweep_grad": 1},
                "11a": {"zoom_grad": 3}, "11b": {"sweep_pw": 1}}
 SWEEP_NAMES = ("sweep_uv", "sweep_pw", "sweep_grad", "zoom_sweep",
                "zoom_grad")
+# the sweeps' kernels (mangled-name keys): phase 2 fails if one spills
+SWEEP_KERNELS = ("zoom_stage2_kernel", "grouped_stage2_kernel",
+                 "stage1_kernel", "band_flags_kernel",
+                 "winner_products_kernel")
 GATE_2G_THETA, GATE_2G_KAPPA = 0.01, 0.001   # run_all.py config 2g
 DEVICE = "cuda"     # where phases 10 and 11 put their work
 GRAD_RTOL, GRAD_ATOL, GRAD_AGREE = 2e-3, 2e-5, 1 - 2e-4
@@ -242,6 +270,16 @@ def say(*a):
 def card_line():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def card_state():
+    """The card's SM clock, temperature and power draw now, as
+    nvidia-smi reads them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,temperature.gpu,power.draw",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
@@ -376,6 +414,14 @@ def ptxas_lines(log, key):
         elif on and ("spill" in line or "Used" in line):
             out.append(line.strip())
     return out
+
+
+def spill_bytes(lines):
+    """Spill stores and loads, in bytes, summed over ptxas lines (0 for
+    the message that the log holds none)."""
+    import re
+    return sum(int(a) + int(b) for ln in lines for a, b in re.findall(
+        r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln))
 
 
 def sass_functions(lib_path, key):
@@ -1253,33 +1299,6 @@ def tile_winners(idx, P):
     return int(seen.sum())
 
 
-def grouped_winners(T, A1c, A1s):
-    """Each group's per-pixel winning candidate (G, n, m) from stage 1's
-    T (G, P, n, 2 Wb) and the base band's basis, in float32 with strict
-    '>' from candidate 0 (torch.argmax keeps the first of equal
-    maxima)."""
-    import torch
-    G, P, n, W2 = T.shape
-    Wb = W2 // 2
-    out = []
-    for g in range(G):
-        best = None
-        for i in range(P):
-            Tr, Ti = T[g, i, :, :Wb], T[g, i, :, Wb:]
-            mr = Tr @ A1c[g].T - Ti @ A1s[g].T
-            mi = Tr @ A1s[g].T + Ti @ A1c[g].T
-            a = mr * mr + mi * mi
-            if best is None:
-                best, idx = a, torch.zeros(a.shape, dtype=torch.int32,
-                                           device=a.device)
-            else:
-                sel = a > best
-                best = torch.where(sel, a, best)
-                idx = torch.where(sel, i, idx)
-        out.append(idx)
-    return torch.stack(out)
-
-
 def grad_excess(got, want, where):
     """Largest |got - want| beyond GRAD_ATOL + GRAD_RTOL |want| on the
     pixels `where` (<= 0 passes), and the largest |got - want| there."""
@@ -1294,16 +1313,132 @@ def as_double(args):
                  else a for a in args)
 
 
-def check_zoom_grad(zs, calls, kws):
+STAGE1_BOUND = 1e-5    # flagged Tx rows: max |kernel - twin| / max |twin|
+
+
+def check_grad_steps(sw, T, ops, win, split):
+    """The gradient steps after a tournament, each against its plain twin
+    on the same inputs on the card: the band flags equal; Tx on the
+    flagged pairs the full stage 1's rows bit for bit and within
+    STAGE1_BOUND (relative) of the masked twin's; the winner products
+    within GRAD_RTOL, GRAD_ATOL of the twin's at every pixel (both read
+    the same winners). ops = (S2r, S2i, gx, gy, A0c, A0s, run, A1c, A1s,
+    A1yc, A1ys, off, banded) in the grouped layout, win = (mr, mi, idx)
+    the tournament's store. Returns ({step: (kernel ms, twin ms, max
+    |kernel - twin|, library ms or None)}, flagged pairs)."""
+    import torch
+    S2r, S2i, gx, gy, A0c, A0s, run, A1c, A1s, A1yc, A1ys, off, banded = ops
+    mr, mi, idx = win
+    P = T.shape[1]
+    flags = sw.band_winners(idx, P)
+    if not torch.equal(flags, sw.band_winners_plain(idx, P)):
+        raise RuntimeError("grad_flags disagrees with its twin")
+    s1 = (S2r, S2i, gx, gy, A0c, A0s, run)
+    Tx = sw.stage1(*s1, flags)
+    rows = flags.permute(0, 2, 1).repeat_interleave(64, dim=2).bool()
+    if not torch.equal(Tx[rows], sw.stage1(*s1)[rows]):
+        raise RuntimeError("grad_stage1's rows are not the full launch's")
+    want = sw._stage1_plain(*s1, flags)[rows]
+    e1 = float((Tx[rows] - want).abs().max())
+    say(f"    grad_stage1: {int(flags.sum())} of {flags.numel()} (band, "
+        f"candidate) pairs; max |kernel - twin| {e1!r}, "
+        f"{e1 / float(want.abs().max())!r} of the rows' max (bound "
+        f"{STAGE1_BOUND})")
+    if not e1 <= STAGE1_BOUND * float(want.abs().max()):
+        raise RuntimeError("grad_stage1 disagrees with its twin")
+    del want
+    args = (T, Tx, A1c, A1s, A1yc, A1ys, mr, mi, idx, flags, off, banded)
+    got = sw.winner_products(*args, split)
+    want = sw.winner_products_plain(*args)
+    every = torch.ones_like(idx, dtype=torch.bool)
+    e2 = 0.0
+    for k, nm in ((0, "gx"), (1, "gy")):
+        if not torch.isfinite(got[k]).all():
+            raise RuntimeError(f"grad_products: non-finite {nm}")
+        ex, dmax = grad_excess(got[k], want[k], every)
+        if ex > 0:
+            raise RuntimeError(f"grad_products' {nm} disagrees with its twin "
+                               f"(excess {ex!r})")
+        e2 = max(e2, dmax)
+    del got, want
+    # the library call: one scatter_ of the index plane (widened to int64
+    # once, as scatter_ takes it) into zeroed flags; it is idempotent, so
+    # repeats compute the same flags
+    G, n, m = idx.shape
+    lib_idx = idx.long().reshape(G, n // 64, 64 * m)
+    lib_flags = torch.zeros_like(flags)
+    lib_flags.scatter_(2, lib_idx, 1)
+    if not torch.equal(lib_flags, flags):
+        raise RuntimeError("scatter_ computes other flags than grad_flags")
+    parts = {
+        "grad_flags": (cuda_ms(lambda: sw.band_winners(idx, P), 5),
+                       cuda_ms(lambda: sw.band_winners_plain(idx, P), 5),
+                       0.0, cuda_ms(lambda: lib_flags.scatter_(2, lib_idx, 1),
+                                    5)),
+        "grad_stage1": (cuda_ms(lambda: sw.stage1(*s1, flags), 5),
+                        cuda_ms(lambda: sw._stage1_plain(*s1, flags), 1),
+                        e1, None),
+        "grad_products": (
+            cuda_ms(lambda: sw.winner_products(*args, split), 3),
+            cuda_ms(lambda: sw.winner_products_plain(*args), 1), e2, None)}
+    del lib_idx, lib_flags
+    return parts, int(flags.sum())
+
+
+def step_bounds(P, n, m, W0, W, pairs, wins, win_bytes):
+    """Bounds (ms) of the gradient steps from this run's winners: the
+    band flags read the index plane and write the flags; stage 1 on the
+    pairs flagged of P * n/64 does 8 * 64 W0 W FLOP a pair in float32
+    FMA; the products read those pairs' rows of T and Tx, the bases, the
+    winners' planes and flags and write gx, gy, with 2 * 8 * 64^2 * W
+    FLOP per tile winner three times over at the dense TF32 rate.
+    win_bytes: the bytes of the inputs each step reads besides those."""
+    nb = n // 64
+    flag_b = 4 * nb * P
+    rows_b = pairs * 64 * 2 * W * 4
+    fg = 2 * 8 * wins * 64 * 64 * W
+    return {"grad_flags": bound(4 * n * m + flag_b, n * m),
+            "grad_stage1": bound(win_bytes["stage1"] + flag_b + rows_b,
+                                 8 * pairs * 64 * W0 * W),
+            "grad_products": (zoom_bounds(
+                win_bytes["products"] + flag_b + 2 * rows_b
+                + 5 * n * m * 4, 0, fg)[1], "operations")}
+
+
+def winner_counts(sw, idx, P):
+    """(flagged (band, candidate) pairs, tile winners) of a (G, n, m)
+    index plane, from the band flags' plain twin and tile_winners."""
+    return (int(sw.band_winners_plain(idx, P).sum()),
+            sum(tile_winners(x, P) for x in idx))
+
+
+def say_parts(label, t, got, twin, P, bands, tiles):
+    """The parts' times, and the band and tile winners of the kernel's
+    tournament (`got`) and of the float32 twin's (`twin`, which the
+    bounds count)."""
+    say(f"  {label} parts (ms, CUDA events): " + ", ".join(
+        f"{k} {v!r}" for k, v in t.items()) + "; band winners (kernel, "
+        f"twin) {got[0]}, {twin[0]} of {P * bands} (band, candidate) pairs "
+        f"({got[0] / bands!r}, {twin[0] / bands!r} a band); tile winners "
+        f"{got[1]}, {twin[1]} ({got[1] / tiles!r}, {twin[1] / tiles!r} a "
+        "tile)")
+
+
+def check_zoom_grad(zs, sw, calls, kws):
     """Emission (c) on each peak's captured inputs: the gradients against
     the float32 twin on the pixels whose winners agree (> GRAD_AGREE of
     them; rtol GRAD_RTOL, atol GRAD_ATOL rad/px), and both against the
     float64 twin's (distances printed); the tournament is the plain
-    launch's, bit for bit. Returns (max |kernel - twin| over the
-    gradients, kernel ms, twin ms, bound ms, FLOP counts)."""
+    launch's, bit for bit; each gradient step against its twin
+    (check_grad_steps); the call's parts timed apart, the band and tile
+    winners counted. Returns the rows of "zoom_grad" and the three
+    steps (summed over the peaks) and the old design's bound."""
     import torch
     mabs = k_ms = t_ms = 0.0
-    nbytes = f1 = f2 = fg = 0
+    nbytes = f1 = f1x = f2 = fg = 0
+    steps = {k: [0.0, 0.0, 0.0, None] for k in ("grad_flags", "grad_stage1",
+                                                 "grad_products")}
+    sb = {k: [0.0, None] for k in steps}
     for a, kw in zip(calls, kws):
         gops = kw["grad_ops"]
         got = zs.zoom_sweep(*a, grad_ops=gops)
@@ -1332,22 +1467,68 @@ def check_zoom_grad(zs, calls, kws):
             mabs = max(mabs, dmax)
         (W0, W1), P = a[0].shape, a[2].shape[0]
         n, m = a[4].shape[0], a[6].shape[0]
-        wins = tile_winners(got[3], P)
+        # the bounds count the float32 twin's winners, not the kernel's
+        twin = winner_counts(sw, want[3][None], P)
         say(f"  zoom_grad P={P} W0={W0} W1={W1}: winners agree {agree!r}; "
-            + "; ".join(line) + f"; winners over the tiles {wins} "
-            f"({wins / (n * m / 4096)!r} a tile)")
+            + "; ".join(line))
         if not ok:
             raise RuntimeError("zoom_grad kernel disagrees with its twin")
-        k_ms += cuda_ms(lambda a=a: zs.zoom_sweep(*a, grad_ops=gops), 3)
+        del got, plain, want, w64
+        # the steps after the tournament, as one group with one band run
+        T = zs.stage1(*a[:6])
+        out = zs.stage2(T, a[6], a[7], None)
+        run = torch.zeros((1, P), dtype=torch.int32, device=T.device)
+        S2r, S2i, A1yc, A1ys = gops
+        ops = (S2r[None, None], S2i[None, None], a[2][None], a[3][None],
+               a[4][None], a[5][None], run, a[6][None], a[7][None],
+               A1yc[None], A1ys[None], None, False)
+        parts, pairs = check_grad_steps(
+            sw, T[None], ops, tuple(x[None] for x in out[1:4]), False)
+        wins = tile_winners(out[3], P)
+        t = {"call": cuda_ms(lambda a=a: zs.zoom_sweep(*a, grad_ops=gops),
+                             3),
+             "stage1_T": cuda_ms(lambda a=a: zs.stage1(*a[:6]), 3),
+             "tournament": cuda_ms(lambda T=T, a=a: zs.stage2(
+                 T, a[6], a[7], None), 3)}
+        t.update({k: v[0] for k, v in parts.items()})
+        say_parts(f"zoom_grad P={P}", t, (pairs, wins), twin, P, n // 64,
+                  n * m // 4096)
+        del T, out
+        k_ms += t["call"]
         t_ms += cuda_ms(lambda a=a: zs.zoom_sweep_plain(*a, grad_ops=gops),
                         1)
-        nbytes += tensor_bytes(a, gops, got)
-        f1 += 2 * 8 * P * n * W0 * W1
+        call_bytes = tensor_bytes(a, gops) + 6 * n * m * 4
+        nbytes += call_bytes
+        f1 += 8 * P * n * W0 * W1
+        f1x += 8 * twin[0] * 64 * W0 * W1
         f2 += 8 * P * n * m * W1
-        fg += 2 * 8 * wins * 64 * 64 * W1
-        del got, plain, want, w64
-    b_ms = zoom_bounds(nbytes, f1, f2 + fg)[1]
-    return mabs, k_ms, t_ms, b_ms, (f1, f2, fg)
+        fg += 2 * 8 * twin[1] * 64 * 64 * W1
+        b = step_bounds(P, n, m, W0, W1, *twin, {
+            "stage1": tensor_bytes(gops[:2], a[2:6]),
+            "products": tensor_bytes(a[6:8], gops[2:])})
+        for k, v in parts.items():
+            for q in range(2):
+                steps[k][q] += v[q]
+            steps[k][2] = max(steps[k][2], v[2])
+            if v[3] is not None:
+                steps[k][3] = (steps[k][3] or 0.0) + v[3]
+            sb[k][0] += b[k][0]
+            sb[k][1] = b[k][1]
+    rows = {"zoom_grad": dict(
+        max_abs_err=mabs, ms=k_ms, plain_ms=t_ms,
+        bound_ms=zoom_bounds(nbytes, f1 + f1x, f2 + fg)[1],
+        bound_by="operations", library_ms=None)}
+    for k, (ms, pm, err, lib) in steps.items():
+        rows[k] = dict(max_abs_err=err, ms=ms, plain_ms=pm,
+                       bound_ms=sb[k][0], bound_by=sb[k][1], library_ms=lib)
+    old = zoom_bounds(nbytes, 2 * f1, f2 + fg)[1]
+    need = rows["zoom_grad"]["bound_ms"]
+    say(f"    zoom_grad, three peaks: kernel {k_ms!r} ms, twin {t_ms!r} ms; "
+        f"bound of the work the function needs {need!r} ms (stage 1 {f1!r} "
+        f"and on the band winners {f1x!r} FLOP in float32 FMA, stage 2 {f2!r} and the winner products {fg!r} in "
+        f"3xTF32); the old design's work (stage 1 twice in full) "
+        f"{old!r} ms")
+    return rows
 
 
 PW_BOUNDS = {"phase_flips": 1e-2, "phase_p99": 5e-5, "weight_rel_p99": 5e-5,
@@ -1390,7 +1571,7 @@ def check_grouped_emissions(sw, args):
     pw_abs, gr_abs = 0.0, 0.0
     for tag, dt in (("float32", None), ("float64", torch.float64)):
         a = args if dt is None else as_double(args)
-        want = sw.sweep_grad_plain(*a)
+        want = sw.sweep_grad_plain(*a, winners=dt is None)
         st = pw_stats(pw[0], pw[1], want[0], want[1])
         say(f"  sweep_pw vs the {tag} twin: {json.dumps(st)} (bounds "
             f"{json.dumps(PW_BOUNDS)})")
@@ -1421,49 +1602,76 @@ def check_grouped_emissions(sw, args):
             raise RuntimeError(f"sweep_grad disagrees with its {tag} twin")
         if dt is None:
             pw_abs = float((pw[1] - want[1]).abs().max())
+            # the bounds count the float32 twin's winners
+            twin = winner_counts(sw, want[6], args[4].shape[1])
         del want
-    # times, winners per tile and the bounds
+    # the steps after the tournament, its parts timed apart, winners
+    # counted and the bounds
     (Sr, Si, S2r, S2i, gx, gy, A0c, A0s, A1c, A1s, A1yc, A1ys, run, off,
      dr, banded) = args
     G, P, W0 = gx.shape
     n, m, Wb = A0c.shape[1], A1c.shape[1], A1c.shape[2]
     T = sw.stage1(Sr, Si, gx, gy, A0c, A0s, run)
-    win = grouped_winners(T, A1c, A1s)
-    wins = sum(tile_winners(win[g], P) for g in range(G))
+    win = sw.stage2(T, A1c, A1s, off, dr, banded, winners=True)
+    if not (torch.equal(win[0], pw[0]) and torch.equal(win[1], pw[1])):
+        raise RuntimeError("the tournament that stores the winners changes "
+                           "(a)'s planes")
+    parts, pairs = check_grad_steps(
+        sw, T, (S2r, S2i, gx, gy, A0c, A0s, run, A1c, A1s, A1yc, A1ys, off,
+                banded), win[2:], True)
+    wins = sum(tile_winners(win[4][g], P) for g in range(G))
+    t = {"call": cuda_ms(lambda: sw.sweep_grad(*args), 3),
+         "stage1_T": cuda_ms(lambda: sw.stage1(Sr, Si, gx, gy, A0c, A0s,
+                                               run), 3),
+         "tournament": cuda_ms(lambda: sw.stage2(T, A1c, A1s, off, dr, banded,
+                                                 winners=True), 3),
+         "tournament_pw": cuda_ms(lambda: sw.stage2(T, A1c, A1s, off, dr,
+                                                    banded), 3)}
+    t.update({k: v[0] for k, v in parts.items()})
     del T, win
+    say_parts(f"sweep_grad G={G} P={P} Wb={Wb}", t, (pairs, wins), twin, P,
+              G * n // 64, G * n * m // 4096)
     f1, f2 = 8 * G * P * n * W0 * Wb, 8 * G * P * n * m * Wb
-    fg = 2 * 8 * wins * 64 * 64 * Wb
+    f1x = 8 * twin[0] * 64 * W0 * Wb
+    fg = 2 * 8 * twin[1] * 64 * 64 * Wb
     pw_b = zoom_bounds(tensor_bytes(pw_args, pw), f1, f2)[1]
-    gr_b = zoom_bounds(tensor_bytes(args, gr), 2 * f1, f2 + fg)[1]
+    gr_bytes = tensor_bytes(args, gr)
+    gr_b = zoom_bounds(gr_bytes, f1 + f1x, f2 + fg)[1]
+    gr_old = zoom_bounds(gr_bytes, 2 * f1, f2 + fg)[1]
     rows = {"sweep_pw": dict(
                 max_abs_err=pw_abs, ms=cuda_ms(lambda: sw.sweep_pw(*pw_args),
                                                3),
                 plain_ms=cuda_ms(lambda: sw.sweep_pw_plain(*pw_args), 1),
                 bound_ms=pw_b, bound_by="operations", library_ms=None),
             "sweep_grad": dict(
-                max_abs_err=gr_abs, ms=cuda_ms(lambda: sw.sweep_grad(*args),
-                                               3),
+                max_abs_err=gr_abs, ms=t["call"],
                 plain_ms=cuda_ms(lambda: sw.sweep_grad_plain(*args), 1),
                 bound_ms=gr_b, bound_by="operations", library_ms=None)}
     say(f"  grouped emissions G={G} P={P} W0={W0} Wb={Wb} banded={banded}: "
-        f"winners over the tiles {wins} ({wins / (G * n * m / 4096)!r} a "
-        f"tile, the float32 twin's tournament); FLOP stage 1 {f1!r} (x2 "
-        f"with gradients), stage 2 {f2!r}, gradient products {fg!r}")
+        f"FLOP stage 1 {f1!r}, on the band winners {f1x!r}, stage 2 "
+        f"{f2!r}, winner products {fg!r}; sweep_grad: the old design's "
+        f"work (stage 1 twice in full) bounds at {gr_old!r} ms")
     for k, r in rows.items():
         say(f"  {k}: kernel {r['ms']!r} ms, twin {r['plain_ms']!r} ms, bound "
-            f"{r['bound_ms']!r} ms (stage 2 and the gradient products in "
-            "3xTF32)")
+            f"{r['bound_ms']!r} ms (the work the function needs, stage 2 and "
+            "the winner products in 3xTF32)")
     return rows
 
 
 def sweep_launches(launches, label):
     """Fail unless the counted run launched exactly PATH_SWEEPS[label]'s
-    sweeps and no other sweep."""
+    sweeps and no other sweep, and each gradient step once per gradient
+    emission."""
     want = PATH_SWEEPS[label]
     got = {k: launches.get(k, 0) for k in SWEEP_NAMES}
     if any(got[k] != want.get(k, 0) for k in SWEEP_NAMES):
         raise RuntimeError(f"[{label}] sweep launches {got}, expected "
                            f"{want}")
+    steps = {k: launches.get(k, 0) for k in GRAD_STEPS}
+    if any(v != got["zoom_grad"] + got["sweep_grad"] for v in steps.values()):
+        raise RuntimeError(f"[{label}] gradient steps {steps} for "
+                           f"{got['zoom_grad'] + got['sweep_grad']} gradient "
+                           "emissions")
 
 
 def counted_run(label, call):
@@ -1654,14 +1862,17 @@ def main():
     lib = _build.load()
     say(f"[2] kernels built and loaded in {time.perf_counter() - t0:.2f} s "
         f"(nvcc {_build.build_seconds!r} s) -> {os.path.basename(lib._name)}")
-    for key in ("zoom_stage2_kernel", "grouped_stage2_kernel",
-                "bilinear_kernel", "cubic_disp_kernel", "EpiEigen", "EpiDot",
-                "p_applyq_kernel", "drizzle_shared_kernel"):
+    for key in SWEEP_KERNELS + ("bilinear_kernel", "cubic_disp_kernel",
+                                "EpiEigen", "EpiDot", "p_applyq_kernel",
+                                "drizzle_shared_kernel"):
         lines = ptxas_lines(_build.build_log, key) or (
             "not in this run's log: the library was built by an earlier "
             "process")
         say(f"    ptxas {key}: {lines}")
-    for key in ("zoom_stage2_kernel", "grouped_stage2_kernel"):
+        if key in SWEEP_KERNELS and spill_bytes(lines):
+            raise RuntimeError(f"{key} spills registers (ptxas)")
+    for key in ("zoom_stage2_kernel", "grouped_stage2_kernel",
+                "winner_products_kernel"):
         n_hmma = hmma_count(lib._name, key)
         say(f"    {key} SASS: {n_hmma} HMMA instructions (cuobjdump -sass)")
         if n_hmma == 0:
@@ -1865,15 +2076,7 @@ def main():
         f"{[tuple(a[0].shape) for a in c_zg.calls]}; sweep_grad windows "
         f"{tuple(sg[0].shape)}, G, P = {tuple(sg[4].shape[:2])}, Wb = "
         f"{sg[8].shape[2]}, banded {sg[15]}")
-    e_zg, zg_ms, zg_twin, zg_b, zg_f = check_zoom_grad(zs_mod, c_zg.calls,
-                                                       c_zg.kws)
-    say(f"    zoom_grad, three peaks: kernel {zg_ms!r} ms, twin {zg_twin!r} "
-        f"ms, bound {zg_b!r} ms (FLOP: stage 1 twice {zg_f[0]!r} in float32 "
-        f"FMA, stage 2 {zg_f[1]!r} and the gradient products {zg_f[2]!r} "
-        "in 3xTF32)")
-    rows["zoom_grad"] = dict(max_abs_err=e_zg, ms=zg_ms, plain_ms=zg_twin,
-                             bound_ms=zg_b, bound_by="operations",
-                             library_ms=None)
+    rows.update(check_zoom_grad(zs_mod, sw_mod, c_zg.calls, c_zg.kws))
     rows.update(check_grouped_emissions(sw_mod, sg))
     del c_zg, c_sg, sg
     dct_in = {"dct_lane": c_dl.calls[0][0], "idct_lane": c_il.calls[0][0],
@@ -2014,12 +2217,20 @@ def main():
     del c_sw, c_ps, c_aq, c_cg, sw_args, ps_args, aq_args, rk0, outs
     del c_zs, c_dl, c_il, c_ds, c_is, dct_in, x
     del c_wc, wc_calls, coef, u_wc, c_wb, wb, wb_out, c_dz, dz, dz_out, c_ex
-    del ex
-    del ex_out
+    del ex, ex_out, a
     for name, r in rows.items():
         say(f"    {name}: kernel {r['ms']!r} ms, twin {r['plain_ms']!r} ms, "
             f"bound {r['bound_ms']!r} ms ({r['bound_by']}), library "
             f"{r['library_ms']!r} ms")
+    # the timed phases start from the allocator's state without phase
+    # 3's cached blocks
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    say(f"    device memory after phase 3: allocated "
+        f"{torch.cuda.memory_allocated() / 2**30!r} GiB, reserved "
+        f"{torch.cuda.memory_reserved() / 2**30!r} GiB; card (SM clock, "
+        f"temperature, power draw) {card_state()}")
 
     # ---- 4. the main path, counters reset just before
     u = fn(img)                                   # warm-up
@@ -2103,6 +2314,7 @@ def main():
     say(f"    peak device memory {peak / 2**30!r} GiB")
 
     # ---- 5. the README's eager path
+    say(f"    card before phase 5: {card_state()}")
     path_launches = {4: launches}
     path_launches[5] = drive_path(
         5, "extract_displacement_field(img, ks)",

@@ -1,20 +1,24 @@
 // Grouped banded WFR sweep: the reconstruction-prologue (uv), phase/weight
-// and phase-gradient emissions.
+// and phase-gradient emissions, and the gradient emissions' band flags and
+// winner products, which the zoom sweep shares.
 //
 // Replaces the TPU kernel pygpa_tpu/ops/pallas_sweep.py _grouped_kernel
 // (entry fused_zoom_sweep_grouped with col_groups: uv_ks, no emission flag
-// (a: phase and weight) or grad_ops (b: also the winners' gradients)).
-// Wrapper and plain twin: pygpa_tpu_torch/ops/sweep.py.
+// (a: phase and weight) or grad_ops (b: also the winners' gradients)) and,
+// for the zoom sweep's gradient emission, the grad_ops part of _kernel.
+// Wrappers and plain twins: pygpa_tpu_torch/ops/sweep.py.
 //
 // The TPU kernel ran stage 1, stage 2, the argmax tournament and the uv
 // epilogue in one grid whose steps ran in order, carrying phase/weight
-// rows and columns from step to step. Blocks here run in parallel and
-// in no order, so the op is two or three launches:
+// rows and columns from step to step, and made the row-derivative stage
+// 1 (Tx) in the same body as T from one staged A0 . gx block. Blocks here
+// run in parallel and in no order, so the op is several launches:
 //   sweep_stage1: T[g,i] = ((A0c + i A0s) . gx_i) @ (Sr + i Si)_run(i),
 //                 times gy_i, stored as [Re | Im] rows (G, P, n, 2 Wb),
-//                 in float32 FMA (also the zoom sweep's stage 1); with
-//                 gradients a second launch on the row-derivative
-//                 windows S2 = (2 pi i f0) S gives Tx;
+//                 in float32 FMA (also the zoom sweep's stage 1); given
+//                 band flags, only the blocks of flagged (64-row band,
+//                 candidate) pairs run (the gradient emission's Tx, on
+//                 the row-derivative windows S2 = (2 pi i f0) S);
 //   sweep_stage2: per 64x64 pixel tile of group g (blockIdx.z), M_i =
 //                 T_i @ A1^T for every candidate i on the tensor cores
 //                 (sweep_tc.cuh, shared with the zoom sweep: 3xTF32
@@ -27,18 +31,29 @@
 //                 |M|^2 (strict '>', candidate 0 taken first) in
 //                 registers; emits the winner phase (atan2 + banded
 //                 column ramp) and the rim-masked weight, (G, n, m) each
-//                 (emission (a) ends here); sweep_stage2_grad then adds
-//                 the winners' gradients (winner_grads(): Tx_i and T_i
-//                 against the base band's A1 and A1y for each candidate
-//                 that wins a pixel of the tile, less off * 2 pi / m on
-//                 the column gradient of a banded winner);
+//                 (emission (a) ends here); sweep_stage2_winners is the
+//                 same launch that also stores each pixel's winner (Re M,
+//                 Im M, index) for the gradient emission (b);
+//   sweep_band_winners: which candidates win a pixel of each 64-row band
+//                 (G, n/64, P), from the index plane;
+//   sweep_winner_products: per tile, for each candidate that wins one of
+//                 its pixels, Mx = Tx_i . A1 and My = T_i . A1y (the base
+//                 band's f1-scaled basis) as two jobs of one
+//                 tc_products ring, and the gradients of -angle(M) at
+//                 the pixels it wins (less off * 2 pi / m on the column
+//                 gradient of a banded winner), M read back from the
+//                 tournament's store;
 //   sweep_uv:     one thread per pixel: wrapped shifted diffs against the
 //                 left / upper neighbour and the 2x2 weighted lstsq.
 // Bound on an H100: stage 2's G*P*n*m*Wb complex MACs (1.86 TFLOP at the
 // 4096^2 bench), three times over as 3xTF32 at 495 TFLOP/s dense TF32
-// (~11.3 ms; 27.8 ms in float32 FMA), plus stage 1's float32 FMA.
-// Everything is float32; the TPU's bf16 operand splits and polynomial
-// atan2 were Mosaic workarounds and are not carried over.
+// (~11.3 ms; 27.8 ms in float32 FMA), plus stage 1's float32 FMA. The
+// gradient emission adds stage 1 on the band winners (1-2 of 36-49
+// candidates a band on a lattice) and 2 * 8 * 64 * 64 * Wb FLOP per tile
+// winner (~1.07 a tile): no gradient work rides in the tournament's
+// registers or its P-candidate loop. Everything is float32; the TPU's
+// bf16 operand splits and polynomial atan2 were Mosaic workarounds and
+// are not carried over.
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -96,13 +111,15 @@ __device__ __forceinline__ float wrap_diff(float x) {
   return __fsub_rn(x, __fmul_rn(TWO_PI_F, q));
 }
 
-// grid (Wb/64, n/64, G*P)
+// grid (Wb/64, n/64, G*P). flags (G, n/64, P) or null: with flags, only
+// the blocks of flagged (64-row band, candidate) pairs run; the rows of
+// the others are left unwritten.
 __global__ void __launch_bounds__(NT) stage1_kernel(
     const float* __restrict__ Sr, const float* __restrict__ Si,
     const float* __restrict__ gx, const float* __restrict__ gy,
     const float* __restrict__ A0c, const float* __restrict__ A0s,
-    const int* __restrict__ run, float* __restrict__ T,
-    int H, int P, int n, int W0, int Wb) {
+    const int* __restrict__ run, const int* __restrict__ flags,
+    float* __restrict__ T, int H, int P, int n, int W0, int Wb) {
   __shared__ __align__(16) float Ar[BK][APAD];
   __shared__ __align__(16) float Ai[BK][APAD];
   __shared__ __align__(16) float Br[BK][TILE];
@@ -111,6 +128,8 @@ __global__ void __launch_bounds__(NT) stage1_kernel(
   const int r0 = blockIdx.y * TILE;
   const int gi = blockIdx.z;  // g * P + i
   const int g = gi / P;
+  if (flags && !flags[((size_t)g * gridDim.y + blockIdx.y) * P + gi - g * P])
+    return;
   const int h = run[gi];
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const float* a0c = A0c + (size_t)g * n * W0;
@@ -164,18 +183,17 @@ __global__ void __launch_bounds__(NT) stage1_kernel(
 
 // grid (m/64, n/64, G); T (G, P, n, 2 Wb); A1c, A1s (G, m, Wb), the
 // base-band column basis; off (G, P) band offsets; dynamic smem ZSMEM.
-// GRAD (emission (b)): also Tx (G, P, n, 2 Wb), stage 1 of the
-// row-derivative windows, and A1yc, A1ys (G, m, Wb), the f1-scaled
-// base-band basis; the winners' gradients go to gxo, gyo (G, n, m)
-template <bool GRAD>
+// WIN (the gradient emission's tournament): also each pixel's winner,
+// Re M, Im M and candidate index, to mro, mio, ixo (G, n, m); the store
+// alone differs, not the products or the tournament
+template <bool WIN>
 __global__ void __launch_bounds__(ZNT, 1) grouped_stage2_kernel(
     const float* __restrict__ T, const float* __restrict__ A1c,
     const float* __restrict__ A1s, const int* __restrict__ off,
     float* __restrict__ ph, float* __restrict__ wt,
     int P, int n, int m, int Wb, int dr, int banded,
-    const float* __restrict__ Tx, const float* __restrict__ A1yc,
-    const float* __restrict__ A1ys, float* __restrict__ gxo,
-    float* __restrict__ gyo) {
+    float* __restrict__ mro, float* __restrict__ mio,
+    int* __restrict__ ixo) {
   extern __shared__ __align__(16) float smem[];
   const int c0 = blockIdx.x * ZT, r0 = blockIdx.y * ZT;
   const int g = blockIdx.z;
@@ -223,17 +241,15 @@ __global__ void __launch_bounds__(ZNT, 1) grouped_stage2_kernel(
         const size_t o = plane + (size_t)r * m + cl + b * 8;
         *reinterpret_cast<float2*>(ph + o) = make_float2(pv[0], pv[1]);
         *reinterpret_cast<float2*>(wt + o) = make_float2(wv[0], wv[1]);
+        if (WIN) {
+          *reinterpret_cast<float2*>(mro + o) =
+              make_float2(br[a][b][2 * h], br[a][b][2 * h + 1]);
+          *reinterpret_cast<float2*>(mio + o) =
+              make_float2(bi[a][b][2 * h], bi[a][b][2 * h + 1]);
+          *reinterpret_cast<int2*>(ixo + o) =
+              make_int2(bx[a][b][2 * h], bx[a][b][2 * h + 1]);
+        }
       }
-  // the column gradient of a banded winner takes away its ramp's slope,
-  // off * 2 pi / m (the TPU kernel's gyo - ro * (2 pi / m))
-  if (GRAD) {
-    const size_t cand = (size_t)g * P * n * 2 * Wb;
-    const size_t basis = (size_t)g * m * Wb;
-    winner_grads<true>(T + cand, Tx + cand, A1c + basis, A1s + basis,
-                       A1yc + basis, A1ys + basis, P, n, Wb, Wb, r0, c0,
-                       smem, br, bi, bx, gxo + plane, gyo + plane, m,
-                       banded ? off + g * P : nullptr, ramp);
-  }
 }
 
 // one thread per pixel; kc = (G, 5): k0, k1, k0*k0, k0*k1, k1*k1
@@ -296,20 +312,163 @@ __global__ void __launch_bounds__(NT) uv_kernel(
   wn[idx] = sqrtf(wsq);
 }
 
-template <bool GRAD>
+// grid (n/64, G): flags[g][band][i] = 1 where candidate i wins a pixel
+// of the 64-row band of idx (G, n, m), else 0; dynamic smem P ints. The
+// tournament's indices lie in [0, P).
+__global__ void __launch_bounds__(NT) band_flags_kernel(
+    const int* __restrict__ idx, int* __restrict__ flags, int P, int m) {
+  extern __shared__ int seen[];
+  for (int i = threadIdx.x; i < P; i += NT) seen[i] = 0;
+  __syncthreads();
+  const size_t band = (size_t)blockIdx.y * gridDim.x + blockIdx.x;
+  const int4* px = reinterpret_cast<const int4*>(idx + band * TILE * m);
+  for (int e = threadIdx.x; e < TILE * m / 4; e += NT) {
+    const int4 v = __ldg(px + e);
+    seen[v.x] = 1;
+    seen[v.y] = 1;
+    seen[v.z] = 1;
+    seen[v.w] = 1;
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < P; i += NT) flags[band * P + i] = seen[i];
+}
+
+// dynamic shared memory of winner_products_kernel: the ring, the tile's
+// winners (Re M, Im M, index) and its list of winning candidates
+size_t products_smem(int P) {
+  return ZSMEM + 3 * ZT * ZT * sizeof(float) +
+         (size_t)(P < ZT * ZT ? P : ZT * ZT) * sizeof(int);
+}
+
+// The winner products of the gradient emission: grid (m/64, n/64, G).
+// T, Tx (G, P, n, 2K) stage 1 of S and of the row-derivative window S2;
+// Bc, Bs the column basis and Byc, Bys the f1-scaled one, (G, m, K); mr,
+// mi, idx (G, n, m) the winners the tournament stored; flags (G, n/64, P)
+// the band winners (only flagged rows of Tx are read); off (G, P) band
+// offsets or null. For each candidate i that wins a pixel of the tile,
+// in order, two jobs through one tc_products ring, Mx = Tx_i . B1 and My =
+// T_i . B1y, and at the pixels i wins
+//   gx = (Im M Re Mx - Re M Im Mx) / max(|M|^2, 1e-30),  gy alike from My,
+// the derivatives of -angle(M) along rows and columns, gy less
+// off_i * 2 pi / m when off is given (the banded column ramp's slope).
+// Written to gxo, gyo (G, n, m), which may be mr and mi themselves: the
+// tile's winners are read into shared memory before any store.
+template <bool SPLIT>
+__global__ void __launch_bounds__(ZNT, 1) winner_products_kernel(
+    const float* T, const float* Tx, const float* __restrict__ Bc,
+    const float* __restrict__ Bs, const float* __restrict__ Byc,
+    const float* __restrict__ Bys, const float* mr, const float* mi,
+    const int* __restrict__ idx, const int* __restrict__ flags,
+    const int* __restrict__ off, float* gxo, float* gyo, int P, int n,
+    int m, int K) {
+  extern __shared__ __align__(16) float smem[];
+  float* s_mr = smem + ZSTAGES * ZSTAGE;
+  float* s_mi = s_mr + ZT * ZT;
+  int* s_ix = reinterpret_cast<int*>(s_mi + ZT * ZT);
+  int* s_win = s_ix + ZT * ZT;
+  const int c0 = blockIdx.x * ZT, r0 = blockIdx.y * ZT, g = blockIdx.z;
+  const size_t plane = (size_t)g * n * m;
+  for (int e = threadIdx.x; e < ZT * ZT; e += ZNT) {
+    const size_t o = plane + (size_t)(r0 + (e >> 6)) * m + c0 + (e & 63);
+    s_mr[e] = mr[o];
+    s_mi[e] = mi[o];
+    s_ix[e] = idx[o];
+  }
+  __syncthreads();
+  int rw, cl;  // the thread's pixels in the tile (tc_pixel's layout)
+  tc_pixel(0, 0, &rw, &cl);
+  auto at = [&](int a, int b, int e) {
+    return (rw + a * 16 + (e >> 1) * 8) * ZT + cl + b * 8 + (e & 1);
+  };
+  // the tile's winning candidates, in order: a block vote on each of the
+  // band's winners
+  const int* fl = flags + ((size_t)g * gridDim.y + blockIdx.y) * P;
+  int nw = 0;
+  for (int i = 0; i < P; ++i) {
+    if (!__ldg(fl + i)) continue;
+    bool mine = false;
+#pragma unroll
+    for (int a = 0; a < 2; ++a)
+#pragma unroll
+      for (int b = 0; b < 2; ++b)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) mine |= s_ix[at(a, b, e)] == i;
+    if (__syncthreads_or(mine)) {
+      if (threadIdx.x == 0) s_win[nw] = i;
+      ++nw;
+    }
+  }
+  __syncthreads();
+  const size_t cand = (size_t)n * 2 * K;
+  const size_t basis = (size_t)g * m * K;
+  const float* Tg = T + (size_t)g * P * cand;
+  const float* Txg = Tx + (size_t)g * P * cand;
+  const float ramp = (float)(6.283185307179586 / (double)m);
+  // job 2w: Mx of the w-th winner, job 2w + 1: its My
+  tc_products<SPLIT>(
+      [&](int j, const float*& a, const float*& bc, const float*& bs) {
+        const bool y = j & 1;
+        a = (y ? Tg : Txg) + s_win[j >> 1] * cand;
+        bc = (y ? Byc : Bc) + basis;
+        bs = (y ? Bys : Bs) + basis;
+      },
+      2 * nw, K, K, r0, c0, smem,
+      [&](int j, const float (&dr)[2][2][4], const float (&di)[2][2][4]) {
+        const int i = s_win[j >> 1];
+        const bool y = j & 1;
+        float* out = (y ? gyo : gxo) + plane;
+        // x - 0 is exact, so gx and the unbanded gy take 0
+        const float sub =
+            y && off ? __fmul_rn((float)__ldg(off + g * P + i), ramp) : 0.f;
+#pragma unroll
+        for (int a = 0; a < 2; ++a)
+#pragma unroll
+          for (int b = 0; b < 2; ++b)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int p = at(a, b, e);
+              if (s_ix[p] != i) continue;
+              const float wr = s_mr[p], wi = s_mi[p];
+              const float den = fmaxf(absq(wr, wi), 1e-30f);
+              const float gv = __fdiv_rn(
+                  __fsub_rn(__fmul_rn(wi, dr[a][b][e]),
+                            __fmul_rn(wr, di[a][b][e])), den);
+              out[(size_t)(r0 + (p >> 6)) * m + c0 + (p & 63)] =
+                  __fsub_rn(gv, sub);
+            }
+      });
+}
+
+template <bool WIN>
 int launch_stage2(const float* T, const float* A1c, const float* A1s,
                   const int* off, float* ph, float* wt, int G, int P, int n,
-                  int m, int Wb, int dr, int banded, const float* Tx,
-                  const float* A1yc, const float* A1ys, float* gxo,
-                  float* gyo, cudaStream_t stream) {
+                  int m, int Wb, int dr, int banded, float* mro, float* mio,
+                  int* ixo, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      grouped_stage2_kernel<GRAD>,
+      grouped_stage2_kernel<WIN>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)ZSMEM);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(m / ZT, n / ZT, G);
-  grouped_stage2_kernel<GRAD><<<grid, ZNT, ZSMEM, stream>>>(
-      T, A1c, A1s, off, ph, wt, P, n, m, Wb, dr, banded, Tx, A1yc, A1ys, gxo,
-      gyo);
+  grouped_stage2_kernel<WIN><<<grid, ZNT, ZSMEM, stream>>>(
+      T, A1c, A1s, off, ph, wt, P, n, m, Wb, dr, banded, mro, mio, ixo);
+  return (int)cudaGetLastError();
+}
+
+template <bool SPLIT>
+int launch_products(const float* T, const float* Tx, const float* Bc,
+                    const float* Bs, const float* Byc, const float* Bys,
+                    const float* mr, const float* mi, const int* idx,
+                    const int* flags, const int* off, float* gxo, float* gyo,
+                    int G, int P, int n, int m, int K, cudaStream_t stream) {
+  const size_t smem = products_smem(P);
+  cudaError_t err = cudaFuncSetAttribute(
+      winner_products_kernel<SPLIT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(m / ZT, n / ZT, G);
+  winner_products_kernel<SPLIT><<<grid, ZNT, smem, stream>>>(
+      T, Tx, Bc, Bs, Byc, Bys, mr, mi, idx, flags, off, gxo, gyo, P, n, m,
+      K);
   return (int)cudaGetLastError();
 }
 
@@ -319,11 +478,11 @@ extern "C" {
 
 int sweep_stage1(const float* Sr, const float* Si, const float* gx,
                  const float* gy, const float* A0c, const float* A0s,
-                 const int* run, float* T, int G, int H, int P, int n, int W0,
-                 int Wb, cudaStream_t stream) {
+                 const int* run, const int* flags, float* T, int G, int H,
+                 int P, int n, int W0, int Wb, cudaStream_t stream) {
   dim3 grid(Wb / TILE, n / TILE, G * P);
-  stage1_kernel<<<grid, NT, 0, stream>>>(Sr, Si, gx, gy, A0c, A0s, run, T, H,
-                                         P, n, W0, Wb);
+  stage1_kernel<<<grid, NT, 0, stream>>>(Sr, Si, gx, gy, A0c, A0s, run,
+                                         flags, T, H, P, n, W0, Wb);
   return (int)cudaGetLastError();
 }
 
@@ -333,19 +492,47 @@ int sweep_stage2(const float* T, const float* A1c, const float* A1s,
                  const int* off, float* ph, float* wt, int G, int P, int n,
                  int m, int Wb, int dr, int banded, cudaStream_t stream) {
   return launch_stage2<false>(T, A1c, A1s, off, ph, wt, G, P, n, m, Wb, dr,
-                              banded, nullptr, nullptr, nullptr, nullptr,
-                              nullptr, stream);
+                              banded, nullptr, nullptr, nullptr, stream);
 }
 
-// emission (b): also Tx (G, P, n, 2 Wb), A1yc and A1ys (G, m, Wb); the
-// winners' gradients to gxo, gyo (G, n, m)
-int sweep_stage2_grad(const float* T, const float* Tx, const float* A1c,
-                      const float* A1s, const float* A1yc, const float* A1ys,
-                      const int* off, float* ph, float* wt, float* gxo,
-                      float* gyo, int G, int P, int n, int m, int Wb, int dr,
-                      int banded, cudaStream_t stream) {
+// the same launch that also stores each pixel's winner (Re M, Im M,
+// index) to mro, mio, ixo (G, n, m)
+int sweep_stage2_winners(const float* T, const float* A1c, const float* A1s,
+                         const int* off, float* ph, float* wt, float* mro,
+                         float* mio, int* ixo, int G, int P, int n, int m,
+                         int Wb, int dr, int banded, cudaStream_t stream) {
   return launch_stage2<true>(T, A1c, A1s, off, ph, wt, G, P, n, m, Wb, dr,
-                             banded, Tx, A1yc, A1ys, gxo, gyo, stream);
+                             banded, mro, mio, ixo, stream);
+}
+
+// idx (G, n, m) int32 in [0, P), flags (G, n/64, P) int32; n, m multiples
+// of 64
+int sweep_band_winners(const int* idx, int* flags, int G, int P, int n,
+                       int m, cudaStream_t stream) {
+  const size_t smem = (size_t)P * sizeof(int);
+  cudaError_t err = cudaFuncSetAttribute(
+      band_flags_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  band_flags_kernel<<<dim3(n / TILE, G), NT, smem, stream>>>(idx, flags, P,
+                                                             m);
+  return (int)cudaGetLastError();
+}
+
+// the winner products (winner_products_kernel); split selects the
+// grouped sweep's chain rounding (SPLIT), else the zoom sweep's
+int sweep_winner_products(const float* T, const float* Tx, const float* Bc,
+                          const float* Bs, const float* Byc,
+                          const float* Bys, const float* mr, const float* mi,
+                          const int* idx, const int* flags, const int* off,
+                          float* gxo, float* gyo, int G, int P, int n, int m,
+                          int K, int split, cudaStream_t stream) {
+  return split ? launch_products<true>(T, Tx, Bc, Bs, Byc, Bys, mr, mi, idx,
+                                       flags, off, gxo, gyo, G, P, n, m, K,
+                                       stream)
+               : launch_products<false>(T, Tx, Bc, Bs, Byc, Bys, mr, mi, idx,
+                                        flags, off, gxo, gyo, G, P, n, m, K,
+                                        stream);
 }
 
 int sweep_uv(const float* ph, const float* wt, const float* kc, float* ux,

@@ -1,10 +1,10 @@
 // Stage 2 of a WFR sweep tile on the tensor cores (3xTF32), with the
 // per-pixel |M|^2 tournament: the part shared by the single-peak zoom
 // sweep (zoom_sweep.cu) and the grouped banded sweep (sweep.cu). Each
-// kernel calls sweep_tc_tile() for its 64 x 64 pixel tile and then
-// writes its own epilogue from the winners it returns; with the gradient
-// emission, winner_grads() then runs the winners' derivative products
-// through the same pipeline (tc_products) and writes gx, gy.
+// tournament kernel calls sweep_tc_tile() for its 64 x 64 pixel tile and
+// then writes its own epilogue from the winners it returns. The
+// gradient emissions' winner products (sweep.cu) run the same product
+// loop, tc_products(), over a list of jobs instead of the candidates.
 //
 // For P candidates i in order, with T_i (n, 2K) the stage-1 rows
 // [Tr | Ti] and the column basis A1c, A1s (m rows, K columns):
@@ -51,10 +51,10 @@
 // - Asynchronous staging: a ring of 3 stages, each holding 32 columns of
 //   K for the tile's Tr, Ti, A1c and A1s rows (4 x 64 x 32 floats),
 //   filled with 16-byte cp.async.cg while the tensor cores work on the
-//   previous stage; the ring runs across candidate boundaries, and the
-//   column basis streams through it with T, so no K is too wide for
-//   shared memory. Rows are padded to 36 floats so every fragment load
-//   is bank-conflict free.
+//   previous stage; the ring runs across candidate (job) boundaries,
+//   and the column basis streams through it with T, so no K is too wide
+//   for shared memory. Rows are padded to 36 floats so every fragment
+//   load is bank-conflict free.
 // - The tile. 64 x 64 pixels per 256 threads (8 warps, 2 x 4, each 32 x
 //   16 pixels: 2 x 2 m16n8 tiles for M_r and 2 x 2 for M_i), one block
 //   per SM (108 KB of shared memory). Each candidate's T row band
@@ -158,31 +158,32 @@ __device__ __forceinline__ void tc_pixel(int r0, int c0, int* row,
   *col = c0 + (warp & 3) * 16 + 2 * (lane & 3);
 }
 
-// The stage-2 products of the 64 x 64 tile at (r0, c0), candidate after
-// candidate: T (P, n, 2K) row-major; Bc, Bs the column basis, row c at
-// Bc + c * ldb (K columns used); smem ZSMEM bytes of dynamic shared
-// memory. When candidate i's sums are complete, done(i, sumr, sumi) gets
-// its Re M and Im M in the fragment layout of tc_pixel(), and the sums
-// restart from zero. SPLIT keeps the small products in their own chain
-// (see mma3), which costs ~20 registers a thread and lands |M| nearer its
-// float64 value than a float32 product does; the zoom sweep keeps one
-// chain, the design its path check was measured with. The block may call
-// this again on the same shared memory (the winner gradients do).
-template <bool SPLIT, class Done>
-__device__ __forceinline__ void tc_products(
-    const float* __restrict__ T, const float* __restrict__ Bc,
-    const float* __restrict__ Bs, int P, int n, int K, int ldb, int r0,
-    int c0, float* smem, Done done) {
+// The stage-2 products of the 64 x 64 tile at (r0, c0), job after job:
+// job j's operands come from operands(j, a, bc, bs): a the row-major
+// (n, 2K) [Re | Im] rows of its T (tile rows r0..r0+63 are read), bc and
+// bs its column basis, row c at bc + c * ldb (K columns used); smem
+// ZSMEM bytes of dynamic shared memory. When job j's sums are complete,
+// done(j, sumr, sumi) gets its Re M and Im M in the fragment layout of
+// tc_pixel(), and the sums restart from zero. The ring runs across job
+// boundaries, so the jobs share one pipeline fill and one drain. SPLIT
+// keeps the small products in their own chain (see mma3), which costs
+// ~20 registers a thread and lands |M| nearer its float64 value than a
+// float32 product does; the zoom sweep keeps one chain, the design its
+// path check was measured with.
+template <bool SPLIT, class Operands, class Done>
+__device__ __forceinline__ void tc_products(Operands operands, int jobs,
+                                            int K, int ldb, int r0, int c0,
+                                            float* smem, Done done) {
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;     // mma group and thread in it
   const int wm = warp >> 2, wn = warp & 3;   // warp's 32 x 16 pixel block
   const size_t ld = 2 * (size_t)K;
   const int nk = K / ZBK;
-  const int total = P * nk;
+  const int total = jobs * nk;
 
   // tensor-core accumulators (one stage's chain) and their float32 sums
-  // over the candidate's stages, in the m16n8 layout: [row tile][column
+  // over the job's stages, in the m16n8 layout: [row tile][column
   // tile][c0..c3]
   float accr[2][2][4], acci[2][2][4], sumr[2][2][4], sumi[2][2][4];
   float smlr[2][2][4], smli[2][2][4];   // SPLIT: the small products
@@ -196,15 +197,17 @@ __device__ __forceinline__ void tc_products(
         smlr[a][b][e] = smli[a][b][e] = 0.f;
       }
 
-  // stage s: candidate s / nk, K columns [k0, k0 + 32) of Tr, Ti (rows
-  // r0..r0+63 of T_i) and of A1c, A1s (rows c0..c0+63)
+  // stage s: job s / nk, K columns [k0, k0 + 32) of its Tr, Ti (rows
+  // r0..r0+63) and of its bc, bs (rows c0..c0+63)
   auto load = [&](int s) {
-    const int i = s / nk;
-    const int k0 = (s - i * nk) * ZBK;
+    const int job = s / nk;
+    const int k0 = (s - job * nk) * ZBK;
     float* st = smem + (s % ZSTAGES) * ZSTAGE;
-    const float* tg = T + ((size_t)i * n + r0) * ld + k0;
-    const float* cg = Bc + (size_t)c0 * ldb + k0;
-    const float* sg = Bs + (size_t)c0 * ldb + k0;
+    const float *a, *bc, *bs;
+    operands(job, a, bc, bs);
+    const float* tg = a + (size_t)r0 * ld + k0;
+    const float* cg = bc + (size_t)c0 * ldb + k0;
+    const float* sg = bs + (size_t)c0 * ldb + k0;
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
       const int e = tid + j * ZNT;
@@ -294,7 +297,7 @@ __device__ __forceinline__ void tc_products(
           accr[a][b][e] = acci[a][b][e] = 0.f;
         }
 
-    if (s % nk == nk - 1) {  // candidate s / nk complete
+    if (s % nk == nk - 1) {  // job s / nk complete
       done(s / nk, sumr, sumi);
 #pragma unroll
       for (int a = 0; a < 2; ++a)
@@ -306,9 +309,10 @@ __device__ __forceinline__ void tc_products(
   }
 }
 
-// Stage 2 and the tournament of the 64 x 64 tile at (r0, c0) (operands as
-// tc_products): the winners' Re, Im and candidate index in the fragment
-// layout of tc_pixel().
+// Stage 2 and the tournament of the 64 x 64 tile at (r0, c0): tc_products
+// over the P candidates of T (P, n, 2K) row-major against one column
+// basis Bc, Bs (job i is candidate i); the winners' Re, Im and candidate
+// index in the fragment layout of tc_pixel().
 template <bool TAKE_FIRST, bool SPLIT>
 __device__ __forceinline__ void sweep_tc_tile(
     const float* __restrict__ T, const float* __restrict__ Bc,
@@ -324,8 +328,14 @@ __device__ __forceinline__ void sweep_tc_tile(
         br[a][b][e] = bi[a][b][e] = 0.f;
         bx[a][b][e] = 0;
       }
+  const size_t cand = (size_t)n * 2 * K;
   tc_products<SPLIT>(
-      T, Bc, Bs, P, n, K, ldb, r0, c0, smem,
+      [&](int i, const float*& a, const float*& bc, const float*& bs) {
+        a = T + i * cand;
+        bc = Bc;
+        bs = Bs;
+      },
+      P, K, ldb, r0, c0, smem,
       [&](int i, const float (&mr)[2][2][4], const float (&mi)[2][2][4]) {
 #pragma unroll
         for (int a = 0; a < 2; ++a)
@@ -342,71 +352,6 @@ __device__ __forceinline__ void sweep_tc_tile(
               }
             }
       });
-}
-
-// The winners' analytic phase gradients of the tile (the gradient
-// emission): for each candidate i that wins a pixel of the tile (P
-// block-wide votes; a lattice tile has one to a few), two more
-// one-candidate product sets on the tensor cores, Mx = Tx_i . B1 (the
-// row-derivative window's stage 1 against the column basis Bc, Bs) and
-// My = T_i . B1y (stage 1 against the f1-scaled basis Byc, Bys), and at
-// the pixels i wins
-//   gx = (Im M Re Mx - Re M Im Mx) / max(|M|^2, 1e-30),  gy alike from My,
-// the derivatives of -angle(M) along rows and columns, with M the
-// winner's (br, bi) from sweep_tc_tile. gy then takes away off_i * ramp
-// when `off` is given (the banded sweep's column ramp). Written to gxo,
-// gyo (row-major, m columns) at the tile's pixels; the winners' products
-// cost 2/P of the tournament's each.
-template <bool SPLIT>
-__device__ __forceinline__ void winner_grads(
-    const float* __restrict__ T, const float* __restrict__ Tx,
-    const float* __restrict__ Bc, const float* __restrict__ Bs,
-    const float* __restrict__ Byc, const float* __restrict__ Bys, int P,
-    int n, int K, int ldb, int r0, int c0, float* smem,
-    const float br[2][2][4], const float bi[2][2][4], const int bx[2][2][4],
-    float* __restrict__ gxo, float* __restrict__ gyo, int m,
-    const int* __restrict__ off, float ramp) {
-  int rw, cl;
-  tc_pixel(r0, c0, &rw, &cl);
-  const size_t cand = (size_t)n * 2 * K;
-  for (int i = 0; i < P; ++i) {
-    bool mine = false;
-#pragma unroll
-    for (int a = 0; a < 2; ++a)
-#pragma unroll
-      for (int b = 0; b < 2; ++b)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) mine |= bx[a][b][e] == i;
-    if (!__syncthreads_or(mine)) continue;
-    // the gradient of -angle(M) from D = dM at the pixels i wins, less
-    // `sub` (x - 0 is exact, so gx and the unbanded gy take 0)
-    auto store = [&](float* out, float sub) {
-      return [&, out, sub](int, const float (&dr)[2][2][4],
-                           const float (&di)[2][2][4]) {
-#pragma unroll
-        for (int a = 0; a < 2; ++a)
-#pragma unroll
-          for (int b = 0; b < 2; ++b)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              if (bx[a][b][e] != i) continue;
-              const float mr = br[a][b][e], mi = bi[a][b][e];
-              const float den = fmaxf(absq(mr, mi), 1e-30f);
-              const float gv = __fdiv_rn(
-                  __fsub_rn(__fmul_rn(mi, dr[a][b][e]),
-                            __fmul_rn(mr, di[a][b][e])), den);
-              const int r = rw + a * 16 + (e >> 1) * 8;
-              const int c = cl + b * 8 + (e & 1);
-              out[(size_t)r * m + c] = __fsub_rn(gv, sub);
-            }
-      };
-    };
-    tc_products<SPLIT>(Tx + i * cand, Bc, Bs, 1, n, K, ldb, r0, c0, smem,
-                       store(gxo, 0.f));
-    tc_products<SPLIT>(T + i * cand, Byc, Bys, 1, n, K, ldb, r0, c0, smem,
-                       store(gyo, off ? __fmul_rn((float)__ldg(off + i), ramp)
-                                      : 0.f));
-  }
 }
 
 }  // namespace

@@ -1,34 +1,33 @@
 // Single-peak zoom WFR sweep: stage 2 of every candidate's lock-in on the
-// tensor cores (3xTF32), the |M|^2 argmax tournament, the optional
-// phase/weight emission and the optional winner phase-gradient emission.
+// tensor cores (3xTF32), the |M|^2 argmax tournament and the optional
+// phase/weight emission.
 //
 // Replaces the TPU kernel pygpa_tpu/ops/pallas_sweep.py _kernel (reached via
 // fused_zoom_sweep_chunk / fused_zoom_sweep, with and without grad_ops).
 // Wrapper and plain twin: pygpa_tpu_torch/ops/zoom_sweep.py. Stage 1, T_i =
 // ((A0c + i A0s) . gx_i) @ (Sr + i Si) . gy_i as [Re | Im] rows (P, n, 2 W1),
 // is the grouped sweep's sweep_stage1 launched with one group and one band
-// run (sweep.cu); with gradients it runs a second time on the
-// row-derivative window S2 = (2 pi i f0) S, giving Tx. This file holds the
-// second launch: per 64 x 64 pixel tile, sweep_tc_tile() (sweep_tc.cuh:
-// 3xTF32 mma.sync, one tensor-core chain per 32 columns of W1, a cp.async
-// ring over T and the column basis, the tournament in registers with
-// strict '>' from a zero start, so a pixel where every |M|^2 is 0 keeps
-// index 0 and M = 0), then this epilogue: best |M|^2, Re M, Im M, index;
-// with dr >= 0 also the phase atan2f(Im, Re) and the weight sqrt(|M|^2) *
-// (1 + 1e-6 inside the dr-pixel border, 1e-6 on it); with GRAD the
-// winners' gradients of -angle(M) along rows and columns (winner_grads():
-// Tx_i against the column basis, T_i against the f1-scaled basis A1y =
-// (2 pi i f1) A1, for each candidate that wins a pixel of the tile).
+// run (sweep.cu). This file holds the second launch: per 64 x 64 pixel
+// tile, sweep_tc_tile() (sweep_tc.cuh: 3xTF32 mma.sync, one tensor-core
+// chain per 32 columns of W1, a cp.async ring over T and the column basis,
+// the tournament in registers with strict '>' from a zero start, so a
+// pixel where every |M|^2 is 0 keeps index 0 and M = 0), then this
+// epilogue: best |M|^2, Re M, Im M, index; with dr >= 0 also the phase
+// atan2f(Im, Re) and the weight sqrt(|M|^2) * (1 + 1e-6 inside the
+// dr-pixel border, 1e-6 on it). The gradient emission runs this same
+// launch as its tournament and then sweep.cu's band flags, stage 1 of the
+// row-derivative window S2 = (2 pi i f0) S on the flagged (64-row band,
+// candidate) pairs only (Tx), and the winner products (Mx = Tx_i . A1,
+// My = T_i . A1y with A1y = (2 pi i f1) A1, for each candidate that wins
+// a pixel of a tile), so this kernel holds no gradient state.
 //
 // Bound on an H100. Stage 2 is P * n * m * 8 W1 FLOP: 4.36 TFLOP for the
 // three 4096^2 bench peaks (P = 42, 49, 36; W1 = 256). In float32 FMA on
 // the SIMT cores (67 TFLOP/s) that is 65 ms; as 3xTF32 on the tensor
-// cores, 13.1 TFLOP over 495 TFLOP/s dense TF32, about 26 ms. The gradient
-// emission adds stage 1 on S2 and 2 * 8 n m W1 FLOP per winner of a tile
-// (counted per tile), against the TPU kernel's two further deep products
-// per chunk winner. The TPU kernel met the same problem with a bf16 hi/lo
-// split on the MXU (_split_bf16); 3xTF32 is its Hopper analogue. Any W1
-// that is a multiple of 64; n, m multiples of 64.
+// cores, 13.1 TFLOP over 495 TFLOP/s dense TF32, about 26 ms. The TPU
+// kernel met the same problem with a bf16 hi/lo split on the MXU
+// (_split_bf16); 3xTF32 is its Hopper analogue. Any W1 that is a multiple
+// of 64; n, m multiples of 64.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -37,19 +36,14 @@
 
 namespace {
 
-// grid (m/64, n/64); T, Tx (P, n, 2 W1); A1c, A1s, A1yc, A1ys (m, W1);
-// dynamic smem ZSMEM. Without GRAD, Tx, A1yc, A1ys, gxo and gyo are
-// unused.
-template <bool GRAD>
+// grid (m/64, n/64); T (P, n, 2 W1); A1c, A1s (m, W1); dynamic smem
+// ZSMEM
 __global__ void __launch_bounds__(ZNT, 1) zoom_stage2_kernel(
     const float* __restrict__ T, const float* __restrict__ A1c,
     const float* __restrict__ A1s, float* __restrict__ best_absq,
     float* __restrict__ best_r, float* __restrict__ best_i,
     int* __restrict__ best_idx, float* __restrict__ ph,
-    float* __restrict__ wt, int P, int n, int m, int W1, int dr,
-    const float* __restrict__ Tx, const float* __restrict__ A1yc,
-    const float* __restrict__ A1ys, float* __restrict__ gxo,
-    float* __restrict__ gyo) {
+    float* __restrict__ wt, int P, int n, int m, int W1, int dr) {
   extern __shared__ __align__(16) float smem[];
   const int c0 = blockIdx.x * ZT, r0 = blockIdx.y * ZT;
   float br[2][2][4], bi[2][2][4];
@@ -91,27 +85,6 @@ __global__ void __launch_bounds__(ZNT, 1) zoom_stage2_kernel(
                           __fmul_rn(sqrtf(fmaxf(q1, 0.f)), f1));
         }
       }
-  if (GRAD)
-    winner_grads<false>(T, Tx, A1c, A1s, A1yc, A1ys, P, n, W1, W1, r0, c0,
-                        smem, br, bi, bx, gxo, gyo, m, nullptr, 0.f);
-}
-
-template <bool GRAD>
-int launch_stage2(const float* T, const float* A1c, const float* A1s,
-                  float* best_absq, float* best_r, float* best_i,
-                  int* best_idx, float* ph, float* wt, int P, int n, int m,
-                  int W1, int dr, const float* Tx, const float* A1yc,
-                  const float* A1ys, float* gxo, float* gyo,
-                  cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      zoom_stage2_kernel<GRAD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)ZSMEM);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(m / ZT, n / ZT);
-  zoom_stage2_kernel<GRAD><<<grid, ZNT, ZSMEM, stream>>>(
-      T, A1c, A1s, best_absq, best_r, best_i, best_idx, ph, wt, P, n, m, W1,
-      dr, Tx, A1yc, A1ys, gxo, gyo);
-  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -124,24 +97,15 @@ int zoom_sweep_stage2(const float* T, const float* A1c, const float* A1s,
                       float* best_absq, float* best_r, float* best_i,
                       int* best_idx, float* ph, float* wt, int P, int n,
                       int m, int W1, int dr, cudaStream_t stream) {
-  return launch_stage2<false>(T, A1c, A1s, best_absq, best_r, best_i,
-                              best_idx, ph, wt, P, n, m, W1, dr, nullptr,
-                              nullptr, nullptr, nullptr, nullptr, stream);
-}
-
-// with the gradient emission: Tx (P, n, 2 W1) stage 1 of the
-// row-derivative window, A1yc and A1ys (m, W1) the f1-scaled column basis;
-// gxo, gyo (n, m) the winners' gradients
-int zoom_sweep_stage2_grad(const float* T, const float* Tx, const float* A1c,
-                           const float* A1s, const float* A1yc,
-                           const float* A1ys, float* best_absq,
-                           float* best_r, float* best_i, int* best_idx,
-                           float* gxo, float* gyo, float* ph, float* wt,
-                           int P, int n, int m, int W1, int dr,
-                           cudaStream_t stream) {
-  return launch_stage2<true>(T, A1c, A1s, best_absq, best_r, best_i,
-                             best_idx, ph, wt, P, n, m, W1, dr, Tx, A1yc,
-                             A1ys, gxo, gyo, stream);
+  cudaError_t err = cudaFuncSetAttribute(
+      zoom_stage2_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)ZSMEM);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(m / ZT, n / ZT);
+  zoom_stage2_kernel<<<grid, ZNT, ZSMEM, stream>>>(
+      T, A1c, A1s, best_absq, best_r, best_i, best_idx, ph, wt, P, n, m, W1,
+      dr);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -19,9 +19,7 @@ gradients ``dudx_s``/``dudy_s`` (2, n, m) and the weight norm ``wnorm``
 CUDA route (``csrc/sweep.cu``), launches on the current stream:
 
 1. stage 1: T[g, i] = ((A0 . gx_i) @ S_run(i)) . gy_i as [Re | Im]
-   rows into a (G, P, n, 2*Wb) float32 scratch (float32 FMA); with
-   gradients once more on the row-derivative windows S2 = (2 pi i f0) S,
-   giving Tx;
+   rows into a (G, P, n, 2*Wb) float32 scratch (float32 FMA);
 2. stage 2 + tournament: M_i = T_i @ [A1c | -A1s], [A1s | A1c] per
    64x64 pixel tile on the tensor cores (``csrc/sweep_tc.cuh``, shared
    with the zoom sweep: 3xTF32 ``mma.sync``, tensor-core chains that
@@ -30,12 +28,21 @@ CUDA route (``csrc/sweep.cu``), launches on the current stream:
    basis streamed through a ``cp.async`` ring, so any Wb that is a
    multiple of 64 runs), looped over the candidates with the running
    best kept in registers; emits the phase and weight planes (G, n, m);
-   with gradients each tile then runs Tx_i @ B1 and T_i @ B1y (the
-   base band's f1-scaled basis A1y = (2 pi i f1) A1) for just the
-   candidates that win one of its pixels, and the banded winner's
-   column gradient takes away its ramp's slope off * 2 pi / m;
 3. (uv) the uv epilogue, one thread per pixel reading its left and
-   upper neighbours from device memory.
+   upper neighbours from device memory; or (b) the gradients, after a
+   tournament launch that also stores each pixel's winner (Re M, Im M,
+   index; the same products and tournament, so the phase and weight
+   planes are (a)'s bits): the band flags (which candidates win a
+   pixel of each 64-row band, "grad_flags"), stage 1 once more on the
+   row-derivative windows S2 = (2 pi i f0) S for the flagged (band,
+   candidate) pairs only (Tx, "grad_stage1"; on a lattice 1-2 of 36-49
+   candidates a band), and the winner products ("grad_products"): per
+   tile, for each candidate that wins one of its pixels, Tx_i @ B1 and
+   T_i @ B1y (the base band's f1-scaled basis A1y = (2 pi i f1) A1) as
+   two jobs of one ``cp.async`` ring, then the gradients at the pixels
+   it wins, the banded winner's column gradient less its ramp's slope
+   off * 2 pi / m. Nothing waits for the host between these launches;
+   the zoom sweep runs the same three for its gradient emission.
 
 What bounds it on an H100: stage 2's G*P*n*m*Wb complex multiply-adds
 (1.86 TFLOP at the 4096^2 bench shapes), three times over at the
@@ -46,10 +53,12 @@ and schedules the column tiles of one 64-row band next to each other,
 so the band's slice of T (2.4 MB per peak) is re-read from L2 rather
 than device memory. The kernel's stage 2 lies nearer its float64 value
 than the float32 twin's does, so chip_smoke.py holds its path to the
-path with a float64 sweep. ``stage1``, ``stage2`` and ``epilogue``
-launch one kernel each on checked operands (chip_smoke.py times them
-apart; the zoom sweep reuses ``stage1``). Launch counts: "sweep_uv",
-"sweep_pw" (a), "sweep_grad" (b).
+path with a float64 sweep. ``stage1``, ``stage2``, ``band_winners``,
+``winner_products`` and ``epilogue`` launch one kernel each on checked
+operands (chip_smoke.py times them apart; the zoom sweep reuses
+``stage1``, ``band_winners`` and ``winner_products``). Launch counts:
+"sweep_uv", "sweep_pw" (a), "sweep_grad" (b), one per call, and the
+gradient steps' "grad_flags", "grad_stage1", "grad_products".
 
 The uv epilogue wraps its phase differences with :func:`wrap_diff`,
 not the reference's (x + pi) form, which rounds a near-zero float32
@@ -57,9 +66,14 @@ difference to the spacing at pi: a coherent bias that the unwrap
 integrates into a ~1e-3 px ripple on the bench fixture.
 
 The plain twins :func:`sweep_uv_plain`, :func:`sweep_pw_plain` and
-:func:`sweep_grad_plain` run the same stages with torch ops;
+:func:`sweep_grad_plain` run the same stages with torch ops
+(``sweep_grad_plain`` keeps every candidate's gradients and the
+winner's by where, independent of the steps above);
 :func:`sweep_uv`, :func:`sweep_pw` and :func:`sweep_grad` send a CPU
-tensor there and a CUDA tensor to the kernels.
+tensor there and a CUDA tensor to the kernels. Each step wrapper
+(``stage1``, ``stage2``, ``band_winners``, ``winner_products``) runs
+its own plain twin on a CPU tensor, so :func:`winner_grads` composes
+the gradient steps on either device.
 """
 import torch
 
@@ -116,7 +130,7 @@ def winner_gradients(Mr, Mi, Dr, Di):
     return (Mi * Dr - Mr * Di) / den
 
 
-def _stage1_plain(Sr, Si, gx, gy, A0c, A0s, run):
+def _stage1_plain(Sr, Si, gx, gy, A0c, A0s, run, flags=None):
     G, P = gx.shape[:2]
     Ts = []
     for g in range(G):
@@ -128,18 +142,24 @@ def _stage1_plain(Sr, Si, gx, gy, A0c, A0s, run):
         tr = (ac @ sr - as_ @ si) * gyi
         ti = (ac @ si + as_ @ sr) * gyi
         Ts.append(torch.cat([tr, ti], dim=-1))
-    return torch.stack(Ts)                        # (G, P, n, 2 Wb)
+    T = torch.stack(Ts)                           # (G, P, n, 2 Wb)
+    if flags is None:
+        return T
+    # the rows of unflagged (band, candidate) pairs: 0 here, unwritten by
+    # the kernel; no later step reads them
+    keep = flags.permute(0, 2, 1).repeat_interleave(TILE, dim=2)
+    return T * keep[..., None].to(T.dtype)
 
 
 def _stage2_plain(T, A1c, A1s, off, dr, banded, Tx=None, A1yc=None,
-                  A1ys=None):
+                  A1ys=None, winners=False):
     G, P, n, _ = T.shape
     m = A1c.shape[1]
     dev = T.device
     jj = torch.arange(m, device=dev)[None, :]
     mask = rim_weights(n, m, dr, T.dtype, dev)
     grad = Tx is not None
-    phs, wts, gxs, gys = [], [], [], []
+    phs, wts, gxs, gys, wins = [], [], [], [], []
     for g in range(G):
         B1r = torch.cat([A1c[g].T, -A1s[g].T], dim=0)   # (2 Wb, m)
         B1i = torch.cat([A1s[g].T, A1c[g].T], dim=0)
@@ -161,6 +181,7 @@ def _stage2_plain(T, A1c, A1s, off, dr, banded, Tx=None, A1yc=None,
             if i == 0:
                 ba, br, bi = absq, mr, mi
                 bo = torch.full_like(absq, float(offg[0]))
+                bx = torch.zeros(absq.shape, dtype=torch.int32, device=dev)
                 if grad:
                     bgx, bgy = ggx, ggy
                 continue
@@ -169,6 +190,7 @@ def _stage2_plain(T, A1c, A1s, off, dr, banded, Tx=None, A1yc=None,
             br = torch.where(sel, mr, br)
             bi = torch.where(sel, mi, bi)
             bo = torch.where(sel, offg[i], bo)
+            bx = torch.where(sel, i, bx)
             if grad:
                 bgx = torch.where(sel, ggx, bgx)
                 bgy = torch.where(sel, ggy, bgy)
@@ -186,8 +208,13 @@ def _stage2_plain(T, A1c, A1s, off, dr, banded, Tx=None, A1yc=None,
         if grad:
             gxs.append(bgx)
             gys.append(bgy)
+        wins.append((br, bi, bx))
     out = (torch.stack(phs), torch.stack(wts))
-    return out + (torch.stack(gxs), torch.stack(gys)) if grad else out
+    if grad:
+        out += (torch.stack(gxs), torch.stack(gys))
+    if winners:
+        out += tuple(torch.stack(w) for w in zip(*wins))
+    return out
 
 
 def _uv_plain(ph, wt, kconst):
@@ -246,13 +273,56 @@ def sweep_pw_plain(Sr, Si, gx, gy, A0c, A0s, A1c, A1s, run, off, dr, banded):
 
 
 def sweep_grad_plain(Sr, Si, S2r, S2i, gx, gy, A0c, A0s, A1c, A1s, A1yc,
-                     A1ys, run, off, dr, banded):
+                     A1ys, run, off, dr, banded, winners=False):
     """Plain PyTorch twin of emission (b) (same arguments as
-    :func:`sweep_grad`)."""
+    :func:`sweep_grad`); with `winners`, the tournament's (Re M, Im M,
+    index) planes follow the four outputs."""
     T = _stage1_plain(Sr, Si, gx, gy, A0c, A0s, run)
     Tx = _stage1_plain(S2r, S2i, gx, gy, A0c, A0s, run)
     return _stage2_plain(T, A1c, A1s, off, int(dr), bool(banded), Tx, A1yc,
-                         A1ys)
+                         A1ys, winners)
+
+
+def band_winners_plain(idx, P):
+    """Plain twin of :func:`band_winners`."""
+    G, n, m = idx.shape
+    flags = torch.zeros((G, n // TILE, P), dtype=torch.int32,
+                        device=idx.device)
+    return flags.scatter_(2, idx.long().reshape(G, n // TILE, TILE * m), 1)
+
+
+def winner_products_plain(T, Tx, A1c, A1s, A1yc, A1ys, mr, mi, idx, flags,
+                          off, banded, out=None):
+    """Plain twin of :func:`winner_products` (its arguments; `split`
+    concerns the kernel's rounding alone): per flagged (band, candidate)
+    pair, the band's rows of Tx_i . B1 and T_i . B1y, and the gradients
+    at the pixels the candidate wins."""
+    G, P, n, _ = T.shape
+    m = A1c.shape[1]
+    gx = torch.zeros_like(mr)
+    gy = torch.zeros_like(mr)
+    for g in range(G):
+        B1r = torch.cat([A1c[g].T, -A1s[g].T], dim=0)   # (2 Wb, m)
+        B1i = torch.cat([A1s[g].T, A1c[g].T], dim=0)
+        B1yr = torch.cat([A1yc[g].T, -A1ys[g].T], dim=0)
+        B1yi = torch.cat([A1ys[g].T, A1yc[g].T], dim=0)
+        for band, i in flags[g].nonzero().tolist():
+            rows = slice(band * TILE, (band + 1) * TILE)
+            wr, wi = mr[g, rows], mi[g, rows]
+            ggx = winner_gradients(wr, wi, Tx[g, i, rows] @ B1r,
+                                   Tx[g, i, rows] @ B1i)
+            ggy = winner_gradients(wr, wi, T[g, i, rows] @ B1yr,
+                                   T[g, i, rows] @ B1yi)
+            if banded:
+                ggy = ggy - off[g, i].to(T.dtype) * (_TWO_PI / m)
+            sel = idx[g, rows] == i
+            gx[g, rows] = torch.where(sel, ggx, gx[g, rows])
+            gy[g, rows] = torch.where(sel, ggy, gy[g, rows])
+    if out is None:
+        return gx, gy
+    out[0].copy_(gx)
+    out[1].copy_(gy)
+    return out
 
 
 def kernel_supported(n, m, W0, Wb, P):
@@ -291,45 +361,149 @@ def _check(op, Sr, Si, gx, gy, A0c, A0s, A1c, A1s, run, off, kconst=None,
             f"Wb={Wb}, P={P})")
 
 
-def stage1(Sr, Si, gx, gy, A0c, A0s, run):
-    """Stage 1 on the card (checked operands): T (G, P, n, 2 Wb)."""
+def stage1(Sr, Si, gx, gy, A0c, A0s, run, flags=None):
+    """Stage 1 (checked operands): T (G, P, n, 2 Wb). With band flags
+    (G, n/64, P) int32, only the rows of flagged (64-row band, candidate)
+    pairs are computed (the gradient emission's Tx, counted as
+    "grad_stage1"); the kernel leaves the others unwritten."""
+    if not _on_card("stage1", Sr):
+        return _stage1_plain(Sr, Si, gx, gy, A0c, A0s, run, flags)
     G, H, W0, Wb = Sr.shape
     P, n, dev = gx.shape[1], A0c.shape[1], Sr.device
+    if flags is not None:
+        _build.check_tensor("stage1", "flags", flags, (G, n // TILE, P),
+                            torch.int32, dev)
     T = torch.empty((G, P, n, 2 * Wb), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        _build.check(_build.bind("sweep_stage1", "ppppppppiiiiiip")(
+        _build.check(_build.bind("sweep_stage1", "pppppppppiiiiiip")(
             Sr.data_ptr(), Si.data_ptr(), gx.data_ptr(), gy.data_ptr(),
-            A0c.data_ptr(), A0s.data_ptr(), run.data_ptr(), T.data_ptr(),
+            A0c.data_ptr(), A0s.data_ptr(), run.data_ptr(),
+            0 if flags is None else flags.data_ptr(), T.data_ptr(),
             G, H, P, n, W0, Wb, torch.cuda.current_stream(dev).cuda_stream),
             "sweep_stage1")
+    if flags is not None:
+        _build.launches["grad_stage1"] += 1
     return T
 
 
-def stage2(T, A1c, A1s, off, dr, banded, Tx=None, A1yc=None, A1ys=None):
+def stage2(T, A1c, A1s, off, dr, banded, winners=False):
     """Stage 2 on the tensor cores and the tournament (checked operands):
-    the winner phase and rim-masked weight planes (G, n, m), and with Tx
-    (stage 1 of the row-derivative windows) and the base band's
-    f1-scaled basis A1yc, A1ys also the winners' gradients (G, n, m)."""
+    the winner phase and rim-masked weight planes (G, n, m); with winners
+    (the gradient emission's tournament) also each pixel's winner: Re M,
+    Im M (float32) and its candidate index (int32), (G, n, m) each, from
+    the same launch with a wider store."""
+    if not _on_card("stage2", T):
+        return _stage2_plain(T, A1c, A1s, off, int(dr), bool(banded),
+                             winners=winners)
     G, P, n, Wb = T.shape[0], T.shape[1], T.shape[2], T.shape[3] // 2
     m, dev = A1c.shape[1], T.device
     ph = torch.empty((G, n, m), dtype=torch.float32, device=dev)
     wt = torch.empty_like(ph)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        if Tx is None:
+        if not winners:
             _build.check(_build.bind("sweep_stage2", "ppppppiiiiiiip")(
                 T.data_ptr(), A1c.data_ptr(), A1s.data_ptr(), off.data_ptr(),
                 ph.data_ptr(), wt.data_ptr(), G, P, n, m, Wb, int(dr),
                 int(bool(banded)), stream), "sweep_stage2")
             return ph, wt
-        gxo = torch.empty_like(ph)
-        gyo = torch.empty_like(ph)
-        _build.check(_build.bind("sweep_stage2_grad", "pppppppppppiiiiiiip")(
+        mr = torch.empty_like(ph)
+        mi = torch.empty_like(ph)
+        idx = torch.empty((G, n, m), dtype=torch.int32, device=dev)
+        _build.check(_build.bind("sweep_stage2_winners",
+                                 "pppppppppiiiiiiip")(
+            T.data_ptr(), A1c.data_ptr(), A1s.data_ptr(), off.data_ptr(),
+            ph.data_ptr(), wt.data_ptr(), mr.data_ptr(), mi.data_ptr(),
+            idx.data_ptr(), G, P, n, m, Wb, int(dr), int(bool(banded)),
+            stream), "sweep_stage2_winners")
+    return ph, wt, mr, mi, idx
+
+
+def band_winners(idx, P):
+    """The gradient emission's band flags: (G, n/64, P) int32, 1 where
+    candidate i wins a pixel of the 64-row band of the tournament's index
+    plane idx (G, n, m) int32 (values in [0, P)), else 0. One launch,
+    counted as "grad_flags"; nothing waits for the host."""
+    if not _on_card("band_winners", idx):
+        return band_winners_plain(idx, P)
+    G, n, m = idx.shape
+    _build.check_tensor("band_winners", "idx", idx, (G, n, m), torch.int32,
+                        idx.device)
+    if n % TILE or m % TILE or P < 1:
+        raise ValueError(f"band_winners needs n, m multiples of {TILE} and "
+                         f"P >= 1 (got n={n}, m={m}, P={P})")
+    flags = torch.empty((G, n // TILE, P), dtype=torch.int32,
+                        device=idx.device)
+    with torch.cuda.device(idx.device):
+        _build.check(_build.bind("sweep_band_winners", "ppiiiip")(
+            idx.data_ptr(), flags.data_ptr(), G, P, n, m,
+            torch.cuda.current_stream(idx.device).cuda_stream),
+            "sweep_band_winners")
+    _build.launches["grad_flags"] += 1
+    return flags
+
+
+def winner_products(T, Tx, A1c, A1s, A1yc, A1ys, mr, mi, idx, flags, off,
+                    banded, split, out=None):
+    """The gradient emission's winner products: (gx, gy) (G, n, m)
+    float32, the derivatives of -angle(M) along rows and columns at
+    each pixel, from its winner's M (mr, mi) and index idx (the
+    tournament's store) and the products Mx = Tx_i . B1, My = T_i . B1y
+    of each candidate i that wins a pixel of a tile (T, Tx (G, P, n,
+    2K); A1c, A1s, A1yc, A1ys (G, m, K); flags (G, n/64, P) from
+    :func:`band_winners`: only flagged rows of Tx are read); with
+    `banded`, gy less off_i * 2 pi / m (off (G, P) int32). `split`
+    takes the grouped sweep's tensor-core chain rounding (the small
+    products in a chain of their own), else the zoom sweep's. `out`
+    (two (G, n, m) float32 tensors, which may be mr and mi) receives
+    the gradients. One launch, counted as "grad_products"."""
+    if not _on_card("winner_products", T):
+        return winner_products_plain(T, Tx, A1c, A1s, A1yc, A1ys, mr, mi,
+                                     idx, flags, off, banded, out)
+    G, P, n, K2 = T.shape
+    m, dev = A1c.shape[1], T.device
+    f32 = torch.float32
+    named = [("T", T, (G, P, n, K2), f32), ("Tx", Tx, (G, P, n, K2), f32)]
+    named += [(k, t, (G, m, K2 // 2), f32) for k, t in
+              zip(("A1c", "A1s", "A1yc", "A1ys"), (A1c, A1s, A1yc, A1ys))]
+    named += [("mr", mr, (G, n, m), f32), ("mi", mi, (G, n, m), f32),
+              ("idx", idx, (G, n, m), torch.int32),
+              ("flags", flags, (G, n // TILE, P), torch.int32)]
+    if banded:
+        named.append(("off", off, (G, P), torch.int32))
+    gxo, gyo = out if out is not None else (torch.empty_like(mr),
+                                            torch.empty_like(mr))
+    named += [("gx", gxo, (G, n, m), f32), ("gy", gyo, (G, n, m), f32)]
+    for name, t, shape, dt in named:
+        _build.check_tensor("winner_products", name, t, shape, dt, dev)
+    if n % TILE or m % TILE or K2 % (2 * TILE):
+        raise ValueError(f"winner_products needs n, m, K multiples of "
+                         f"{TILE} (got n={n}, m={m}, K={K2 // 2})")
+    with torch.cuda.device(dev):
+        _build.check(_build.bind("sweep_winner_products",
+                                 "pppppppppppppiiiiiip")(
             T.data_ptr(), Tx.data_ptr(), A1c.data_ptr(), A1s.data_ptr(),
-            A1yc.data_ptr(), A1ys.data_ptr(), off.data_ptr(), ph.data_ptr(),
-            wt.data_ptr(), gxo.data_ptr(), gyo.data_ptr(), G, P, n, m, Wb,
-            int(dr), int(bool(banded)), stream), "sweep_stage2_grad")
-    return ph, wt, gxo, gyo
+            A1yc.data_ptr(), A1ys.data_ptr(), mr.data_ptr(), mi.data_ptr(),
+            idx.data_ptr(), flags.data_ptr(),
+            off.data_ptr() if banded else 0, gxo.data_ptr(), gyo.data_ptr(),
+            G, P, n, m, K2 // 2, int(bool(split)),
+            torch.cuda.current_stream(dev).cuda_stream),
+            "sweep_winner_products")
+    _build.launches["grad_products"] += 1
+    return gxo, gyo
+
+
+def winner_grads(T, S2r, S2i, gx, gy, A0c, A0s, run, A1c, A1s, A1yc, A1ys,
+                 mr, mi, idx, off, banded, split, out=None):
+    """Steps 2-4 of a gradient emission after its tournament (T its
+    stage 1; mr, mi, idx its winners): the band flags, stage 1 of the
+    row-derivative windows S2r, S2i on the flagged pairs only (Tx), and
+    the winner products. Returns (gx, gy) (G, n, m); each step runs its
+    kernel on CUDA tensors and its plain twin on CPU ones."""
+    flags = band_winners(idx, T.shape[1])
+    Tx = stage1(S2r, S2i, gx, gy, A0c, A0s, run, flags)
+    return winner_products(T, Tx, A1c, A1s, A1yc, A1ys, mr, mi, idx, flags,
+                           off, banded, split, out)
 
 
 def epilogue(ph, wt, kconst):
@@ -411,8 +585,22 @@ def sweep_grad(Sr, Si, S2r, S2i, gx, gy, A0c, A0s, A1c, A1s, A1yc, A1ys,
                                 A1s, A1yc, A1ys, run, off, dr, banded)
     _check("sweep_grad", Sr, Si, gx, gy, A0c, A0s, A1c, A1s, run, off,
            grad_ops=(S2r, S2i, A1yc, A1ys))
-    T = stage1(Sr, Si, gx, gy, A0c, A0s, run)
-    Tx = stage1(S2r, S2i, gx, gy, A0c, A0s, run)
-    out = stage2(T, A1c, A1s, off, dr, banded, Tx, A1yc, A1ys)
+    out = sweep_grad_steps(Sr, Si, S2r, S2i, gx, gy, A0c, A0s, A1c, A1s,
+                           A1yc, A1ys, run, off, dr, banded)
     _build.launches["sweep_grad"] += 1
     return out
+
+
+def sweep_grad_steps(Sr, Si, S2r, S2i, gx, gy, A0c, A0s, A1c, A1s, A1yc,
+                     A1ys, run, off, dr, banded):
+    """Emission (b) as its launches (arguments as :func:`sweep_grad`):
+    stage 1, the tournament that stores the winners, then
+    :func:`winner_grads` in the grouped sweep's chain rounding. Each
+    step runs its kernel on CUDA tensors and its plain twin on CPU
+    ones."""
+    T = stage1(Sr, Si, gx, gy, A0c, A0s, run)
+    ph, wt, mr, mi, idx = stage2(T, A1c, A1s, off, dr, banded, winners=True)
+    # the gradients overwrite the winners' M, which only they read
+    return (ph, wt) + tuple(winner_grads(
+        T, S2r, S2i, gx, gy, A0c, A0s, run, A1c, A1s, A1yc, A1ys, mr, mi,
+        idx, off, banded, True, out=(mr, mi)))

@@ -15,9 +15,10 @@ Routes, chosen as the reference chooses them:
 
 - the grouped sweep (``GroupedSweep``; ``wfr_sweep_uv_multi`` and the
   grouped route of ``wfr_sweep_phase_weight_multi``): all peaks in one
-  launch of ops.sweep, from spectrum windows taken by skinny DFT
-  products, emitting the uv prologue, the phase and weight planes, or
-  those planes with the winners' analytic phase gradients; float32,
+  tournament launch of ops.sweep, from spectrum windows taken by skinny
+  DFT products, emitting the uv prologue, the phase and weight planes,
+  or those planes with the winners' analytic phase gradients (three
+  more launches for the tiles' winners only); float32,
   sides multiples of 128, equal window shapes and candidate counts,
   P <= 48;
 - the per-peak zoom sweep (``_wfr_sweep_zoom``): the Gaussian bandpass

@@ -24,23 +24,29 @@ along rows and columns, gx = (Im M Re Mx - Re M Im Mx) / |M|^2 with Mx
 = A0 (gx_i . S2 . gy_i) A1^T, and gy alike with My = A0 (gx_i . S .
 gy_i) A1y^T: exact derivatives of the band-limited interpolant.
 
-CUDA route, two launches on the current stream (three with gradients):
-stage 1 is the grouped sweep's ``sweep_stage1`` (``csrc/sweep.cu``,
-float32 FMA) with one group and one band run, into a (P, n, 2 W1)
-float32 scratch T (and Tx from S2); stage 2 is ``csrc/zoom_sweep.cu`` on
-the tensor cores in 3xTF32 (each float32 product as lo.hi + hi.lo +
-hi.hi of TF32 halves; one float32 tensor-core chain per 32 columns of
-W1, since the tensor cores truncate their adds, and the chains' sums
-added in float32 registers with rounding to nearest), with T and the
-column basis streamed through a cp.async ring and the tournament in
-registers; with gradients, each tile then runs Mx and My for just the
-candidates that win one of its pixels. The eager path on it lies nearer
-the same path with a float64 zoom sweep than the path on the float32
-twin does (chip_smoke.py, phase 5). Shape limits: n, m and W1 multiples
-of 64, W0 a multiple of 16. Bound on an H100 by stage 2's P*n*m*8*W1
-FLOP, three times over, at the dense TF32 rate (about 26 ms for the
-three 4096^2 bench peaks; 65 ms in float32 FMA, the kernel this one
-replaced). Launch counts: "zoom_sweep", "zoom_grad" (with gradients).
+CUDA route, two launches on the current stream: stage 1 is the
+grouped sweep's ``sweep_stage1`` (``csrc/sweep.cu``, float32 FMA) with
+one group and one band run, into a (P, n, 2 W1) float32 scratch T;
+stage 2 is ``csrc/zoom_sweep.cu`` on the tensor cores in 3xTF32 (each
+float32 product as lo.hi + hi.lo + hi.hi of TF32 halves; one float32
+tensor-core chain per 32 columns of W1, since the tensor cores truncate
+their adds, and the chains' sums added in float32 registers with
+rounding to nearest), with T and the column basis streamed through a
+cp.async ring and the tournament in registers. The gradient emission
+runs the same two launches (its tournament, phase and weight are the
+plain launch's bits) and then the grouped sweep's gradient steps
+(``ops.sweep.winner_grads``): the band flags, stage 1 on S2 for the
+(64-row band, candidate) pairs that win a pixel of the band (Tx), and
+the winner products, Mx and My for just the candidates that win a
+pixel of each tile, in the zoom sweep's chain rounding. The eager path
+on it lies nearer the same path with a float64 zoom sweep than the
+path on the float32 twin does (chip_smoke.py, phase 5). Shape limits:
+n, m and W1 multiples of 64, W0 a multiple of 16. Bound on an H100 by
+stage 2's P*n*m*8*W1 FLOP, three times over, at the dense TF32 rate
+(about 26 ms for the three 4096^2 bench peaks; 65 ms in float32 FMA,
+the kernel this one replaced). Launch counts: "zoom_sweep", "zoom_grad"
+(with gradients, one per call, beside the steps' "grad_flags",
+"grad_stage1" and "grad_products").
 
 The plain twin :func:`zoom_sweep_plain` is the reference's einsum and
 where-tournament (``_wfr_sweep_zoom``'s scan body), chunked over the
@@ -143,11 +149,9 @@ def stage1(Sr, Si, gx, gy, A0c, A0s):
                          A0c[None], A0s[None], run)[0]
 
 
-def stage2(T, A1c, A1s, dr, Tx=None, A1yc=None, A1ys=None):
+def stage2(T, A1c, A1s, dr):
     """Stage 2 and the tournament on the card (checked operands): the
-    outputs of :func:`zoom_sweep` from stage 1's T, and with Tx (stage 1
-    of the row-derivative window) and the f1-scaled basis A1yc, A1ys
-    the winners' gradients."""
+    outputs of :func:`zoom_sweep` without gradients, from stage 1's T."""
     P, n, W1 = T.shape[0], T.shape[1], T.shape[2] // 2
     m, dev = A1c.shape[0], T.device
     ba = torch.empty((n, m), dtype=torch.float32, device=dev)
@@ -157,27 +161,31 @@ def stage2(T, A1c, A1s, dr, Tx=None, A1yc=None, A1ys=None):
     emit = dr is not None
     ph = torch.empty_like(ba) if emit else ba
     wt = torch.empty_like(ba) if emit else ba
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    out = (ba, br, bi, bx)
     with torch.cuda.device(dev):
-        if Tx is None:
-            _build.check(_build.bind("zoom_sweep_stage2", "pppppppppiiiiip")(
-                T.data_ptr(), A1c.data_ptr(), A1s.data_ptr(), ba.data_ptr(),
-                br.data_ptr(), bi.data_ptr(), bx.data_ptr(), ph.data_ptr(),
-                wt.data_ptr(), P, n, m, W1, int(dr) if emit else -1, stream),
-                "zoom_sweep_stage2")
-        else:
-            gxo = torch.empty_like(ba)
-            gyo = torch.empty_like(ba)
-            _build.check(_build.bind("zoom_sweep_stage2_grad",
-                                     "ppppppppppppppiiiiip")(
-                T.data_ptr(), Tx.data_ptr(), A1c.data_ptr(), A1s.data_ptr(),
-                A1yc.data_ptr(), A1ys.data_ptr(), ba.data_ptr(),
-                br.data_ptr(), bi.data_ptr(), bx.data_ptr(), gxo.data_ptr(),
-                gyo.data_ptr(), ph.data_ptr(), wt.data_ptr(), P, n, m, W1,
-                int(dr) if emit else -1, stream), "zoom_sweep_stage2_grad")
-            out += (gxo, gyo)
+        _build.check(_build.bind("zoom_sweep_stage2", "pppppppppiiiiip")(
+            T.data_ptr(), A1c.data_ptr(), A1s.data_ptr(), ba.data_ptr(),
+            br.data_ptr(), bi.data_ptr(), bx.data_ptr(), ph.data_ptr(),
+            wt.data_ptr(), P, n, m, W1, int(dr) if emit else -1,
+            torch.cuda.current_stream(dev).cuda_stream), "zoom_sweep_stage2")
+    out = (ba, br, bi, bx)
     return out + (ph, wt) if emit else out
+
+
+def winner_grads(T, out, gx, gy, A0c, A0s, A1c, A1s, grad_ops):
+    """The gradient emission's steps after the tournament (its outputs
+    `out`, T its stage 1): the grouped sweep's band flags, stage 1 of
+    the row-derivative window on the flagged pairs and winner products
+    (:func:`pygpa_tpu_torch.ops.sweep.winner_grads`) as one group with
+    one band run, in the zoom sweep's tensor-core chain rounding:
+    (grad_x, grad_y) (n, m)."""
+    S2r, S2i, A1yc, A1ys = grad_ops
+    run = torch.zeros((1, gx.shape[0]), dtype=torch.int32, device=T.device)
+    gxo, gyo = _sweep.winner_grads(
+        T[None], S2r[None, None], S2i[None, None], gx[None], gy[None],
+        A0c[None], A0s[None], run, A1c[None], A1s[None], A1yc[None],
+        A1ys[None], out[1][None], out[2][None], out[3][None], None, False,
+        False)
+    return gxo[0], gyo[0]
 
 
 def zoom_sweep(Sr, Si, gx, gy, A0c, A0s, A1c, A1s, dr=None, grad_ops=None):
@@ -203,12 +211,10 @@ def zoom_sweep(Sr, Si, gx, gy, A0c, A0s, A1c, A1s, dr=None, grad_ops=None):
         raise ValueError(f"zoom_sweep: unsupported device {Sr.device}")
     _check(Sr, Si, gx, gy, A0c, A0s, A1c, A1s, grad_ops)
     T = stage1(Sr, Si, gx, gy, A0c, A0s)
+    out = stage2(T, A1c, A1s, dr)
     if grad_ops is None:
-        out = stage2(T, A1c, A1s, dr)
         _build.launches["zoom_sweep"] += 1
         return out
-    S2r, S2i, A1yc, A1ys = grad_ops
-    out = stage2(T, A1c, A1s, dr, stage1(S2r, S2i, gx, gy, A0c, A0s), A1yc,
-                 A1ys)
+    grads = winner_grads(T, out, gx, gy, A0c, A0s, A1c, A1s, grad_ops)
     _build.launches["zoom_grad"] += 1
-    return out
+    return out[:4] + grads + out[4:]

@@ -936,6 +936,121 @@ def test_gradient_routes_on_the_card_match_the_cpu(dev):
         assert float(bad.double().mean()) < 2e-4, name
 
 
+def _index_plane(G, n, m, P, seed):
+    """A (G, n, m) int32 numpy index plane made from a seed: 8 x 8 blocks
+    drawn from three candidates that shift with the band, and every 97th
+    pixel any candidate, so bands and tiles hold several winners."""
+    g = np.random.default_rng(seed)
+    blocks = g.integers(0, min(P, 3), size=(G, n // 8, m // 8))
+    blocks += (np.arange(n // 8)[None, :, None] // 8 * 5) % P
+    idx = np.repeat(np.repeat(blocks % P, 8, 1), 8, 2)
+    flat = idx.reshape(-1)
+    flat[::97] = g.integers(0, P, size=flat[::97].shape)
+    return idx.astype(np.int32)
+
+
+@pytest.mark.parametrize("G,n,m,P", [(1, 128, 192, 5), (3, 256, 320, 42),
+                                     (2, 192, 128, 300)])
+def test_band_winners_kernel(dev, G, n, m, P):
+    """The band flags kernel against its twin, equal, on index planes
+    with several winners a band, and with P = 300 (the flag array longer
+    than a block); one launch counts as "grad_flags"."""
+    idx = torch.from_numpy(_index_plane(G, n, m, P, 7 + P)).to(dev)
+    before = _build.launches["grad_flags"]
+    got = tsweep.band_winners(idx, P)
+    assert _build.launches["grad_flags"] == before + 1
+    want = tsweep.band_winners_plain(idx, P)
+    assert got.shape == (G, n // 64, P) and got.dtype == torch.int32
+    assert torch.equal(got, want)
+    assert int(want.sum(-1).max()) > 1
+
+
+@pytest.mark.parametrize("Wb", [128, 192])
+def test_flagged_stage1_kernel(dev, Wb):
+    """Stage 1 with band flags: the flagged (band, candidate) rows are the
+    full launch's bit for bit and lie within 1e-5 of the masked twin's
+    (relative to the rows' maximum); one launch counts as
+    "grad_stage1", the full launch none."""
+    a = _grouped_ops(3, 7, 64, Wb, 256, 320, 20 + Wb, dev)
+    Sr, Si, gx, gy, A0c, A0s, run = a[:6] + (a[8],)
+    g = np.random.default_rng(Wb)
+    flags = torch.from_numpy(
+        (g.random((3, 4, 7)) < 0.3).astype(np.int32)).to(dev)
+    before = _build.launches["grad_stage1"]
+    full = tsweep.stage1(Sr, Si, gx, gy, A0c, A0s, run)
+    assert _build.launches["grad_stage1"] == before
+    got = tsweep.stage1(Sr, Si, gx, gy, A0c, A0s, run, flags)
+    assert _build.launches["grad_stage1"] == before + 1
+    want = tsweep._stage1_plain(Sr, Si, gx, gy, A0c, A0s, run, flags)
+    rows = flags.permute(0, 2, 1).repeat_interleave(64, dim=2).bool()
+    assert torch.equal(got[rows], full[rows])
+    assert float((got[rows] - want[rows]).abs().max()) <= 1e-5 * float(
+        want[rows].abs().max())
+
+
+@pytest.mark.parametrize("split,banded", [(True, True), (True, False),
+                                          (False, False)])
+def test_winner_products_kernel(dev, split, banded):
+    """The winner products on a grouped tournament's winners (P = 9,
+    several winners a tile) against the twin's, within _grad_close's
+    bounds on every pixel (the winners are shared); in place (out = the
+    winners' M planes) the same bits; one launch counts as
+    "grad_products"."""
+    a = _grad_ops_grouped(3, 9, 64, 128, 256, 320, 33 + split + banded, dev,
+                          banded)
+    (Sr, Si, S2r, S2i, gx, gy, A0c, A0s, A1c, A1s, A1yc, A1ys, run, off, dr,
+     bd) = a
+    T = tsweep.stage1(Sr, Si, gx, gy, A0c, A0s, run)
+    ph, wt, mr, mi, idx = tsweep.stage2(T, A1c, A1s, off, dr, bd,
+                                        winners=True)
+    flags = tsweep.band_winners(idx, 9)
+    Tx = tsweep.stage1(S2r, S2i, gx, gy, A0c, A0s, run, flags)
+    before = _build.launches["grad_products"]
+    got = tsweep.winner_products(T, Tx, A1c, A1s, A1yc, A1ys, mr, mi, idx,
+                                 flags, off, bd, split)
+    assert _build.launches["grad_products"] == before + 1
+    want = tsweep.winner_products_plain(T, Tx, A1c, A1s, A1yc, A1ys, mr, mi,
+                                        idx, flags, off, bd)
+    tiles = idx.long().reshape(3, 4, 64, 5, 64).permute(0, 1, 3, 2, 4)
+    assert any(t.unique().numel() > 1 for t in tiles.reshape(-1, 4096))
+    every = torch.ones_like(idx, dtype=torch.bool)
+    for k in (0, 1):
+        assert torch.isfinite(got[k]).all()
+        _grad_close(got[k], want[k], every, mr * mr + mi * mi)
+    inplace = tsweep.winner_products(T, Tx, A1c, A1s, A1yc, A1ys, mr, mi,
+                                     idx, flags, off, bd, split,
+                                     out=(mr, mi))
+    assert inplace[0] is mr and inplace[1] is mi
+    assert torch.equal(mr, got[0]) and torch.equal(mi, got[1])
+
+
+def test_gradient_tournaments_are_the_plain_launches(dev):
+    """The gradient emissions' tournaments: the grouped launch that stores
+    the winners returns the phase/weight launch's planes bit for bit,
+    its stored |M| gives the weight (torch's sqrt of the same rounded
+    |M|^2, times the rim factor, within one rounding) and its indices
+    the twin's winners at > 99% of the pixels; the zoom gradient call's
+    first four planes are the plain launch's."""
+    from pygpa_tpu_torch.ops import zoom_sweep as tz
+    a = _grouped_ops(3, 7, 64, 192, 256, 320, 61, dev)
+    T = tsweep.stage1(*a[:6], a[8])
+    pw = tsweep.stage2(T, a[6], a[7], a[9], 6, True)
+    ph, wt, mr, mi, idx = tsweep.stage2(T, a[6], a[7], a[9], 6, True,
+                                        winners=True)
+    assert torch.equal(ph, pw[0]) and torch.equal(wt, pw[1])
+    w = torch.sqrt(mr * mr + mi * mi) * tsweep.rim_weights(
+        256, 320, 6, torch.float32, dev)
+    assert torch.allclose(w, wt, rtol=2.4e-7, atol=0)
+    want = tsweep._stage2_plain(T, a[6], a[7], a[9], 6, True, winners=True)
+    assert float((idx == want[4]).float().mean()) > 0.99
+    ops = _zoom_ops(42, 64, 256, 128, 192, 62, dev)
+    gops = tuple(_planes(s, 63 + i, dev) for i, s in enumerate(
+        ((64, 256), (64, 256), (192, 256), (192, 256))))
+    got = tz.zoom_sweep(*ops, grad_ops=gops)
+    for x, y in zip(got[:4], tz.zoom_sweep(*ops)):
+        assert torch.equal(x, y)
+
+
 # sha256 digests of the outputs below, taken on an NVIDIA H100 80GB HBM3
 # from the kernels as they were before the tile's products were shared
 # with the gradient emissions (tc_products in csrc/sweep_tc.cuh)
