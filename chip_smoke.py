@@ -107,6 +107,10 @@ pass is timed alone, and the expand kernel's device time
 CUDA-event time and launches (the cell's prefilter is torch). The
 presmooth kernel must repeat bit for bit; its device time and the
 bytes it moves (its halo reads counted) are printed beside its bound.
+The applyq kernel must give its twin's bits and repeat them, on the
+inputs phase 4 hands it (2, 4096^2) and on those of 7a's unwrap (one
+2048^2 plane); its device time and the bytes it moves are printed the
+same way.
 The CG kernel runs both calls phase 4 captures (kmax 6 and 4, the FFT
 route) and a dense-route call at (2, 384, 640), each against its twin
 and bit for bit against itself, with its kernel launches per iteration
@@ -587,7 +591,7 @@ def check_sweep(sw, args):
     return max_abs
 
 
-def check_vcycle(vc, ps_args, aq_args):
+def check_vcycle(vc, ps_args, aq_calls):
     import torch
     got = vc.presmooth(*ps_args)
     again = vc.presmooth(*ps_args)
@@ -602,15 +606,20 @@ def check_vcycle(vc, ps_args, aq_args):
     if not all(np.isfinite(errs)) or max(errs) > 1e-5 or not same:
         raise RuntimeError("presmooth kernel disagrees with its twin or "
                            "does not repeat")
-    q = vc.applyq(*aq_args)
-    qp = vc.applyq_plain(*aq_args)
-    torch.cuda.synchronize()
-    e = rel_err(q, qp)
-    mabs_aq = float((q - qp).abs().max())
-    say(f"  applyq vs twin: rel err {e!r} max_abs_err={mabs_aq!r} "
-        "(bound 1e-5)")
-    if not np.isfinite(e) or e > 1e-5:
-        raise RuntimeError("applyq kernel disagrees with its twin")
+    mabs_aq = 0.0
+    for a in aq_calls:
+        q = vc.applyq(*a)
+        again = vc.applyq(*a)
+        qp = vc.applyq_plain(*a)
+        torch.cuda.synchronize()
+        mabs = float((q - qp).abs().max())
+        bits, same = torch.equal(q, qp), torch.equal(q, again)
+        say(f"  applyq {tuple(a[0].shape)} vs twin: max_abs_err={mabs!r}, "
+            f"twin's bits: {bits}; two launches bit-identical: {same}")
+        if not (bits and same):
+            raise RuntimeError("applyq kernel does not give its twin's "
+                               "bits or does not repeat")
+        mabs_aq = max(mabs_aq, mabs)
     return mabs_ps, mabs_aq
 
 
@@ -1864,6 +1873,7 @@ def main():
         f"(nvcc {_build.build_seconds!r} s) -> {os.path.basename(lib._name)}")
     for key in SWEEP_KERNELS + ("bilinear_kernel", "cubic_disp_kernel",
                                 "EpiEigen", "EpiDot", "p_applyq_kernel",
+                                "applyq_strip_kernel",
                                 "drizzle_shared_kernel"):
         lines = ptxas_lines(_build.build_log, key) or (
             "not in this run's log: the library was built by an earlier "
@@ -1938,7 +1948,12 @@ def main():
         max_abs_err=check_sweep(sw_mod, sw_args), ms=sw_t["call"],
         plain_ms=cuda_ms(lambda: sw_mod.sweep_uv_plain(*sw_args), 3),
         bound_ms=b_tc, bound_by="operations", library_ms=None)
-    e_ps, e_aq = check_vcycle(vc_mod, ps_args, aq_args)
+    # config 3's fixture (phase 7a): its unwrap's applyq call, one plane
+    c3 = config3_fixture(torch)
+    with Capture(unwrap_mod._vcycle, "applyq", keep=1) as c_aq7:
+        unwrap_mod.phase_unwrap_mg(c3[3], c3[4])
+        torch.cuda.synchronize()
+    e_ps, e_aq = check_vcycle(vc_mod, ps_args, [aq_args, c_aq7.calls[0]])
     # stencils: a per-pixel count of the kernels' float32 operations
     rows["presmooth"] = dict(
         max_abs_err=e_ps, ms=cuda_ms(lambda: vc_mod.presmooth(*ps_args), 20),
@@ -1963,6 +1978,22 @@ def main():
         plain_ms=cuda_ms(lambda: vc_mod.applyq_plain(*aq_args), 20),
         **bound_row(tensor_bytes(aq_args, vc_mod.applyq_plain(*aq_args)),
                     12 * aq_args[0].numel()))
+    # the bytes the strip kernel moves: halo columns and rows read again
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for a in (aq_args, c_aq7.calls[0]):
+        B_aq = int(np.prod(a[0].shape[:-2]))
+        n_aq, m_aq = a[0].shape[-2:]
+        aq_moved = vc_mod.applyq_traffic(B_aq, n_aq, m_aq, sms)
+        aq_need = tensor_bytes(a, vc_mod.applyq_plain(*a))
+        say(f"    applyq {tuple(a[0].shape)} (tiling "
+            f"{vc_mod.applyq_tiling(n_aq, m_aq, sms)}): call "
+            f"{cuda_ms(lambda: vc_mod.applyq(*a), 20)!r} ms (CUDA events "
+            f"over 20 calls), device "
+            f"{device_ms(lambda: vc_mod.applyq(*a), 20)!r} ms "
+            f"(torch.profiler); moves {aq_moved} bytes "
+            f"({aq_moved / HBM_BYTES_S * 1e3!r} ms at the HBM rate, "
+            f"{aq_moved / aq_need!r} of the bound's {aq_need}); bound "
+            f"{aq_need / HBM_BYTES_S * 1e3!r} ms")
     # both captured calls (the coarse solve, kmax 6, and the V-branch's
     # correction, kmax 4) and a dense-route call at sides no Stockham
     # plan covers
@@ -2106,7 +2137,6 @@ def main():
     with Capture(warp_mod, "warp_cubic_disp", keep=1) as c_wc:
         pipeline.undistort_image(img_d, u_true)
         torch.cuda.synchronize()
-    c3 = config3_fixture(torch)
     with Capture(warp_mod, "warp_bilinear", keep=1) as c_wb:
         pipeline.undistort_image(c3[0], c3[2], coarse=4)
         torch.cuda.synchronize()
@@ -2214,7 +2244,7 @@ def main():
         f"(the row's ms is the kernel's device time)")
     say(f"      device ms per kernel over the call: {json.dumps(ex_by)}")
     # the captured operands would count in phase 4's peak memory
-    del c_sw, c_ps, c_aq, c_cg, sw_args, ps_args, aq_args, rk0, outs
+    del c_sw, c_ps, c_aq, c_aq7, c_cg, sw_args, ps_args, aq_args, rk0, outs
     del c_zs, c_dl, c_il, c_ds, c_is, dct_in, x
     del c_wc, wc_calls, coef, u_wc, c_wb, wb, wb_out, c_dz, dz, dz_out, c_ex
     del ex, ex_out, a

@@ -22,14 +22,31 @@
 // tile overhangs the plane: 1.11 at the bench's (2, 4096^2)
 // (ops/vcycle.presmooth_traffic counts it).
 // Columns wrap (a modulo) once per thread and only in tiles touching the
-// image edge; rows wrap with one compare a step. applyq needs only the
-// five-point neighbourhood and is one thread per pixel reading through
-// L1. Neighbours wrap cyclically, as in the aligned forms (zero tails +
+// image edge; rows wrap with one compare a step.
+// applyq marches the same way over a +-1 neighbourhood: each warp owns
+// QCOLS = 128 consecutive columns (4 a lane, one 16-byte load where m % 4
+// == 0 and the pointers are aligned, four scalar loads elsewhere) and a
+// strip of rows chosen by the wrapper (ops/vcycle.applyq_tiling) so the
+// grid fills the card in one wave. Step k loads row k of w and of every
+// batch plane (the next row is prefetched into registers) and writes row
+// k - 1; the row above, its WW and its y fluxes stay in registers, the x
+// neighbours come from the neighbouring lanes by warp shuffles, and lanes
+// 0 and 31 load one halo column each. No shared memory, no barrier. w and
+// the weights are built once a pixel for all planes (up to 2 a launch).
+// Each input element is read (QCOLS + 2) / QCOLS (1 + 2 / rows) times
+// (ops/vcycle.applyq_traffic counts it). Three rows live in registers
+// (the row above, the current one, the prefetched next), 96-113 registers
+// for two planes, so the launch bounds allow 4 blocks an SM (16 warps)
+// without spills; at 6 or 8 blocks the two-plane instances spill and run
+// slower (0.14, 0.20 ms against 0.12 at the bench's shape).
+// Neighbours wrap cyclically, as in the aligned forms (zero tails +
 // the global last-row mask). Bound on an H100: device memory. All
 // arithmetic uses the _rn intrinsics so no FMA contraction changes the
 // twin's rounding, and every output element is the same chain of
 // operations whatever the tiling, so the bits do not depend on it.
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace {
 
@@ -37,7 +54,6 @@ constexpr int PT = 128;                   // presmooth threads = staged columns
 constexpr int PC = PT - 4;                // output columns a block
 constexpr int PMIN_BLOCKS = 8;            // blocks an SM (launch bounds)
 constexpr int MAXB = 2;                   // batch planes a launch
-constexpr int NT = 256;
 
 __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
 __device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
@@ -180,34 +196,175 @@ void launch_presmooth(const float* phi, const float* dxc, const float* dyc,
                                                 rrow, n, m, rows, cr, omega);
 }
 
-__device__ __forceinline__ float wmin(float a, float b) { return fminf(a, b); }
+// torch.minimum's rule: a NaN operand wins
+__device__ __forceinline__ float wmin(float a, float b) {
+  return a != a ? a : (b != b ? b : fminf(a, b));
+}
 
-// one thread per pixel of (B, n, m)
-__global__ void __launch_bounds__(NT) applyq_kernel(
+constexpr int QW = 4;                     // applyq columns a lane
+constexpr int QCOLS = 32 * QW;            // applyq columns a warp
+constexpr int QT = 128;                   // applyq threads a block
+constexpr int QWARPS = QT / 32;
+constexpr int QMIN_BLOCKS = 4;            // blocks an SM (launch bounds)
+
+// QW columns of one row from column index cw[0] (VEC: one 16-byte load)
+template <bool VEC>
+__device__ __forceinline__ void load_cols(const float* __restrict__ row,
+                                          const int (&cw)[QW],
+                                          float (&v)[QW]) {
+  if (VEC) {
+    const float4 t = __ldg(reinterpret_cast<const float4*>(row + cw[0]));
+    v[0] = t.x;
+    v[1] = t.y;
+    v[2] = t.z;
+    v[3] = t.w;
+  } else {
+#pragma unroll
+    for (int t = 0; t < QW; ++t) v[t] = __ldg(row + cw[t]);
+  }
+}
+
+// grid ceil(tiles * strips / QWARPS) blocks of QT threads; BP batch
+// planes. Warp g owns column tile g % tiles and row strip g / tiles;
+// lane l its columns c0 = tile * QCOLS + QW l .. c0 + QW - 1 (loaded
+// wrapped, stored where < m). Step k loads row k and writes row k - 1,
+// for k from r0 - 1 to r1.
+template <int BP, bool VEC>
+__global__ void __launch_bounds__(QT, QMIN_BLOCKS) applyq_strip_kernel(
     const float* __restrict__ p, const float* __restrict__ w,
-    float* __restrict__ q, int B, int n, int m) {
+    float* __restrict__ q, int n, int m, int rows, int tiles, int strips) {
+  const int g = blockIdx.x * QWARPS + (threadIdx.x >> 5);
+  if (g >= tiles * strips) return;          // whole warps only
+  const int lane = threadIdx.x & 31;
+  const int j0 = (g % tiles) * QCOLS, c0 = j0 + lane * QW;
+  const int r0 = (g / tiles) * rows, r1 = min(r0 + rows, n);
   const size_t nm = (size_t)n * m;
-  const size_t idx = (size_t)blockIdx.x * NT + threadIdx.x;
-  if (idx >= (size_t)B * nm) return;
-  const size_t b = idx / nm, o = idx % nm;
-  const int i = (int)(o / m), j = (int)(o % m);
-  const int jr = (j + 1) % m, jl = (j + m - 1) % m;
-  const int id = (i + 1) % n, iu = (i + n - 1) % n;
-  const float* pb = p + b * nm;
-  const float wc = w[o], wr = w[(size_t)i * m + jr], wl = w[(size_t)i * m + jl];
-  const float wd = w[(size_t)id * m + j], wu = w[(size_t)iu * m + j];
-  const float WWc = mul(wc, wc), WWr = mul(wr, wr), WWl = mul(wl, wl);
-  const float WWd = mul(wd, wd), WWu = mul(wu, wu);
-  const float wwx_c = j < m - 1 ? wmin(WWc, WWr) : 0.f;
-  const float wwx_l = jl < m - 1 ? wmin(WWl, WWc) : 0.f;
-  const float wwy_c = i != n - 1 ? wmin(WWc, WWd) : 0.f;
-  const float wwy_u = iu != n - 1 ? wmin(WWu, WWc) : 0.f;
-  const float pc = pb[o];
-  const float tx_c = mul(wwx_c, sub(pb[(size_t)i * m + jr], pc));
-  const float tx_l = mul(wwx_l, sub(pc, pb[(size_t)i * m + jl]));
-  const float ty_c = mul(wwy_c, sub(pb[(size_t)id * m + j], pc));
-  const float ty_u = mul(wwy_u, sub(pc, pb[(size_t)iu * m + j]));
-  q[idx] = sub(add(sub(tx_c, tx_l), ty_c), ty_u);
+  int cw[QW];
+#pragma unroll
+  for (int t = 0; t < QW; ++t)
+    cw[t] = c0 + t < m ? c0 + t : (c0 + t) % m;   // overhanging tile only
+  // halo: lane 0 the column left of the tile, lane 31 the one right of it
+  const bool halo = lane == 0 || lane == 31;
+  const int jh = lane == 0 ? (j0 > 0 ? j0 - 1 : m - 1)
+                           : (j0 + QCOLS < m ? j0 + QCOLS : (j0 + QCOLS) % m);
+  const bool hlane = j0 > 0;                // lane 0's halo column < m - 1
+
+  float nw[QW], np[BP][QW], nhw = 0.f, nhp[BP];
+  auto load = [&](int k) {
+    const int gk = k < 0 ? k + n : (k >= n ? k - n : k);
+    const size_t o = (size_t)gk * m;
+    load_cols<VEC>(w + o, cw, nw);
+#pragma unroll
+    for (int b = 0; b < BP; ++b) load_cols<VEC>(p + b * nm + o, cw, np[b]);
+    if (halo) {
+      nhw = __ldg(w + o + jh);
+#pragma unroll
+      for (int b = 0; b < BP; ++b) nhp[b] = __ldg(p + b * nm + o + jh);
+    }
+  };
+  // row k - 1: WW1, p1, the halo column's hw1, hp1; ty2: y fluxes of row
+  // k - 2
+  float WW1[QW], p1[BP][QW], hw1 = 0.f, hp1[BP], ty2[BP][QW];
+#pragma unroll
+  for (int b = 0; b < BP; ++b) {
+    nhp[b] = hp1[b] = 0.f;
+#pragma unroll
+    for (int t = 0; t < QW; ++t) ty2[b][t] = 0.f;
+  }
+
+  load(r0 - 1);
+  for (int k = r0 - 1; k <= r1; ++k) {
+    float WWc[QW], pc[BP][QW], hpc[BP];
+#pragma unroll
+    for (int t = 0; t < QW; ++t) WWc[t] = mul(nw[t], nw[t]);
+    const float hwc = mul(nhw, nhw);
+#pragma unroll
+    for (int b = 0; b < BP; ++b) {
+      hpc[b] = nhp[b];
+#pragma unroll
+      for (int t = 0; t < QW; ++t) pc[b][t] = np[b][t];
+    }
+    if (k < r1) load(k + 1);
+
+    if (k >= r0) {
+      // y fluxes of row k - 1 (zero weight on the last row)
+      const bool rowy = (k - 1 < 0 ? k - 1 + n : k - 1) != n - 1;
+      float ty1[BP][QW];
+#pragma unroll
+      for (int t = 0; t < QW; ++t) {
+        const float wy = rowy ? wmin(WW1[t], WWc[t]) : 0.f;
+#pragma unroll
+        for (int b = 0; b < BP; ++b)
+          ty1[b][t] = mul(wy, sub(pc[b][t], p1[b][t]));
+      }
+      if (k - 1 >= r0) {
+        // x fluxes of row k - 1: the right neighbour of the last column
+        // from lane + 1 (lane 31: its halo), the left flux of the first
+        // from lane - 1 (lane 0: from its halo)
+        float WWr = __shfl_down_sync(0xffffffffu, WW1[0], 1);
+        if (lane == 31) WWr = hw1;
+        float wx[QW];
+#pragma unroll
+        for (int t = 0; t < QW; ++t)
+          wx[t] = c0 + t < m - 1 ? wmin(WW1[t], t < QW - 1 ? WW1[t + 1] : WWr)
+                                 : 0.f;
+        const float wxh = lane == 0 && hlane ? wmin(hw1, WW1[0]) : 0.f;
+        const size_t o = (size_t)(k - 1) * m + c0;
+#pragma unroll
+        for (int b = 0; b < BP; ++b) {
+          float pr = __shfl_down_sync(0xffffffffu, p1[b][0], 1);
+          if (lane == 31) pr = hp1[b];
+          float tx[QW];
+#pragma unroll
+          for (int t = 0; t < QW; ++t)
+            tx[t] = mul(wx[t], sub(t < QW - 1 ? p1[b][t + 1] : pr, p1[b][t]));
+          float txl = __shfl_up_sync(0xffffffffu, tx[QW - 1], 1);
+          if (lane == 0) txl = mul(wxh, sub(p1[b][0], hp1[b]));
+          float qv[QW];
+#pragma unroll
+          for (int t = 0; t < QW; ++t)
+            qv[t] = sub(add(sub(tx[t], t > 0 ? tx[t - 1] : txl), ty1[b][t]),
+                        ty2[b][t]);
+          float* qo = q + b * nm + o;
+          if (VEC) {
+            if (c0 < m)
+              *reinterpret_cast<float4*>(qo) =
+                  make_float4(qv[0], qv[1], qv[2], qv[3]);
+          } else {
+#pragma unroll
+            for (int t = 0; t < QW; ++t)
+              if (c0 + t < m) qo[t] = qv[t];
+          }
+        }
+      }
+#pragma unroll
+      for (int b = 0; b < BP; ++b)
+#pragma unroll
+        for (int t = 0; t < QW; ++t) ty2[b][t] = ty1[b][t];
+    }
+#pragma unroll
+    for (int t = 0; t < QW; ++t) WW1[t] = WWc[t];
+    hw1 = hwc;
+#pragma unroll
+    for (int b = 0; b < BP; ++b) {
+      hp1[b] = hpc[b];
+#pragma unroll
+      for (int t = 0; t < QW; ++t) p1[b][t] = pc[b][t];
+    }
+  }
+}
+
+template <int BP>
+void launch_applyq(const float* p, const float* w, float* q, int n, int m,
+                   int rows, bool vec, cudaStream_t stream) {
+  const int tiles = (m + QCOLS - 1) / QCOLS, strips = (n + rows - 1) / rows;
+  const int blocks = (tiles * strips + QWARPS - 1) / QWARPS;
+  if (vec)
+    applyq_strip_kernel<BP, true><<<blocks, QT, 0, stream>>>(
+        p, w, q, n, m, rows, tiles, strips);
+  else
+    applyq_strip_kernel<BP, false><<<blocks, QT, 0, stream>>>(
+        p, w, q, n, m, rows, tiles, strips);
 }
 
 }  // namespace
@@ -237,12 +394,24 @@ int vcycle_presmooth(const float* phi, const float* dxc, const float* dyc,
   return 0;
 }
 
+// rows: output rows a warp; planes go in launches of up to MAXB. 16-byte
+// loads and stores where m % 4 == 0 and every pointer is 16-byte aligned
 int vcycle_applyq(const float* p, const float* w, float* q, int B, int n,
-                  int m, cudaStream_t stream) {
-  const size_t total = (size_t)B * n * m;
-  applyq_kernel<<<(unsigned)((total + NT - 1) / NT), NT, 0, stream>>>(
-      p, w, q, B, n, m);
-  return (int)cudaGetLastError();
+                  int m, int rows, cudaStream_t stream) {
+  const size_t nm = (size_t)n * m;
+  const bool vec = m % QW == 0 &&
+                   (((uintptr_t)p | (uintptr_t)w | (uintptr_t)q) & 15) == 0;
+  for (int b0 = 0; b0 < B; b0 += MAXB) {
+    const int bp = B - b0 < MAXB ? B - b0 : MAXB;
+    const size_t o = (size_t)b0 * nm;
+    if (bp == 1)
+      launch_applyq<1>(p + o, w, q + o, n, m, rows, vec, stream);
+    else
+      launch_applyq<2>(p + o, w, q + o, n, m, rows, vec, stream);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  return 0;
 }
 
 }  // extern "C"

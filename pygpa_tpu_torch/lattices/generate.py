@@ -1,5 +1,6 @@
 """Synthetic lattice rendering (counterpart of
-pygpa_tpu/lattices/generate.py: generate_ks and hexlattice_gen).
+pygpa_tpu/lattices/generate.py: generate_ks, anylattice_gen and
+hexlattice_gen).
 
 The k-geometry is host float64 numpy. The image is rendered in float64
 on the requested device and cast to the requested dtype at the end, so
@@ -47,10 +48,14 @@ def _shell_vectors(order):
     return np.array(coeffs, np.int64), np.array(amps)
 
 
-def anylattice_gen(ks, order_amplitudes, size=500, shift=None,
+def anylattice_gen(ks, order_amplitudes=None, size=500, shift=None,
                    dtype=torch.float32, device=None):
     """Render sum_i a_i cos(2 pi k_i . (r + u(r))) on a centred grid;
-    `shift` is an optional (2, N, M) displacement field u."""
+    `ks` is (P, 2), the amplitudes a_i default to ones and `shift` is an
+    optional (2, N, M) displacement field u."""
+    ks = np.asarray(ks, np.float64)
+    if order_amplitudes is None:
+        order_amplitudes = np.ones(len(ks))
     shape = (size, size) if np.isscalar(size) else tuple(size)
     n, m = shape
     f64 = torch.float64
@@ -61,8 +66,7 @@ def anylattice_gen(ks, order_amplitudes, size=500, shift=None,
         x = x + shift[0]
         y = y + shift[1]
     acc = torch.zeros((n, m), dtype=f64, device=device)
-    for k, a in zip(np.asarray(ks, np.float64),
-                    np.asarray(order_amplitudes, np.float64)):
+    for k, a in zip(ks, np.asarray(order_amplitudes, np.float64)):
         acc += float(a) * torch.cos(2 * np.pi * (float(k[0]) * x
                                                  + float(k[1]) * y))
     return acc.to(dtype)

@@ -18,11 +18,14 @@ CUDA route (``csrc/vcycle.cu``): presmooth walks column strips down
 the rows, a 128-thread block owning 124 output columns and a 2-column
 halo on each side, all batch planes in one block (w and the weights,
 D and Dinv built once), one input row a step and output row k - 2 at
-step k (the chain needs neighbours of neighbours); applyq is one thread
-per pixel reading its five-point neighbourhood through the cache. Both
-are bound by device memory and use round-to-nearest intrinsics without
-FMA contraction, so the kernel's arithmetic is the twin's, operation
-for operation.
+step k (the chain needs neighbours of neighbours); applyq marches the
+same way over a one-pixel neighbourhood, a warp owning 128 columns (4 a
+lane, 16-byte loads where the rows allow) and a strip of rows, the x
+neighbours passed between lanes by warp shuffles, and writes row k - 1
+at step k. Both are bound by device memory and use round-to-nearest
+intrinsics without FMA contraction, so the kernel's arithmetic is the
+twin's, operation for operation, and applyq's outputs are the twin's
+bits.
 
 phi, dxc, dyc and p carry a batch axis (the displacement components);
 w is one (n, m) plane shared by the batch. The multigrid takes the
@@ -40,6 +43,10 @@ PRESMOOTH_THREADS = 128                     # csrc/vcycle.cu PT: staged columns
 PRESMOOTH_TILE = PRESMOOTH_THREADS - 4      # output columns a block
 PRESMOOTH_BLOCKS_PER_SM = 8                 # its launch bounds
 PRESMOOTH_PLANES = 2                        # batch planes a launch (MAXB)
+APPLYQ_COLS = 128                           # csrc/vcycle.cu QCOLS: columns a warp
+APPLYQ_WARPS = 4                            # warps a block (QT / 32)
+APPLYQ_BLOCKS_PER_SM = 4                    # its launch bounds
+APPLYQ_MIN_ROWS = 16                        # fewest rows a strip
 
 
 def supported(n, m, cr):
@@ -77,6 +84,31 @@ def presmooth_traffic(B, n, m, cr, sms):
     reads = (3 * B + launches) * rows_read * tiles * PRESMOOTH_THREADS
     writes = (2 * B + 1) * n * m + B * (n // cr) * m
     return 4 * (reads + writes)
+
+
+def applyq_tiling(n, m, sms):
+    """(output rows a warp, (column tiles, row strips)) of the applyq
+    kernel on a card with `sms` SMs: APPLYQ_COLS columns a warp; row
+    strips as few as fill the card in one wave of APPLYQ_BLOCKS_PER_SM
+    blocks of APPLYQ_WARPS warps an SM, and at least APPLYQ_MIN_ROWS
+    rows (or n), so each strip's 2 halo rows are spread over as many
+    output rows as that allows."""
+    tiles = -(-m // APPLYQ_COLS)
+    strips = max(1, sms * APPLYQ_BLOCKS_PER_SM * APPLYQ_WARPS // tiles)
+    rows = max(min(APPLYQ_MIN_ROWS, n), -(-n // strips))
+    return rows, (tiles, -(-n // rows))
+
+
+def applyq_traffic(B, n, m, sms):
+    """Bytes the applyq kernel moves on a card with `sms` SMs: every warp
+    reads its APPLYQ_COLS columns and 2 halo columns of rows + 2 input
+    rows (w once a launch of up to PRESMOOTH_PLANES planes, p each plane)
+    and writes its rows of q once."""
+    rows, (tiles, strips) = applyq_tiling(n, m, sms)
+    rows_read = sum(min(rows, n - k * rows) + 2 for k in range(strips))
+    launches = -(-B // PRESMOOTH_PLANES)
+    reads = (B + launches) * rows_read * tiles * (APPLYQ_COLS + 2)
+    return 4 * (reads + B * n * m)
 
 
 def vcycle_kernel_ok(phi, w, cr):
@@ -198,8 +230,11 @@ def applyq(p, w):
     _build.check_tensor("applyq", "w", w, (n, m), torch.float32, p.device)
     q = torch.empty_like(p_b)
     with torch.cuda.device(p.device):
-        fn = _build.bind("vcycle_applyq", "pppiiip")
+        props = torch.cuda.get_device_properties(p.device)
+        rows, _ = applyq_tiling(n, m, props.multi_processor_count)
+        fn = _build.bind("vcycle_applyq", "pppiiiip")
         _build.check(fn(p_b.data_ptr(), w.data_ptr(), q.data_ptr(), B, n, m,
+                        rows,
                         torch.cuda.current_stream(p.device).cuda_stream),
                      "vcycle_applyq")
     _build.launches["applyq"] += 1

@@ -74,6 +74,62 @@ def test_hexlattice_fixture_matches(shifted):
     np.testing.assert_allclose(t32.numpy(), j32, atol=1e-4)
 
 
+@pytest.mark.parametrize("shifted", [False, True])
+def test_anylattice_fixture_matches(shifted):
+    """anylattice_gen with the reference's default amplitudes (ones),
+    called as the reference is, with no device (the CPU): float64 renders
+    agree to rounding (atol 1e-9), the float32 render (float64, cast
+    once) with the reference's float32 render within atol 1e-4, as in
+    test_hexlattice_fixture_matches, and order_amplitudes=None renders
+    the bits of explicit ones."""
+    size = 64
+    ks = np.concatenate([tlat.generate_ks(0.12, 5.0, kappa=1.005,
+                                          psi=10.0)[:3],
+                         [[0.05, -0.21], [0.3, 0.07]]])
+    shift = _gauss_shift(size, 0.1).astype(np.float32) if shifted else None
+    t64 = tlat.anylattice_gen(ks, size=size, shift=shift,
+                              dtype=torch.float64)
+    j64 = np.asarray(jlat.anylattice_gen(ks, size=size, shift=shift,
+                                         dtype=np.float64))
+    assert t64.dtype == torch.float64 and t64.device.type == "cpu"
+    np.testing.assert_allclose(t64.numpy(), j64, atol=1e-9)
+    t32 = tlat.anylattice_gen(ks, size=size, shift=shift)
+    j32 = np.asarray(jlat.anylattice_gen(ks, size=size, shift=shift,
+                                         dtype=np.float32))
+    assert t32.dtype == torch.float32 and j32.dtype == np.float32
+    np.testing.assert_allclose(t32.numpy(), j32, atol=1e-4)
+    ones = tlat.anylattice_gen(ks, np.ones(len(ks)), size=size, shift=shift)
+    assert torch.equal(t32, ones)
+
+
+def test_lattices_export_the_references_transformations():
+    """pygpa_tpu_torch.lattices exports every name pygpa_tpu.lattices
+    does, and the transformations give the reference's values."""
+    names = ("rotation_matrix", "rotate", "scaling_matrix", "strain_matrix",
+             "a_0_to_r_k", "r_k_to_a_0", "epsilon_to_kappa",
+             "kappa_to_epsilon", "apply_transformation_matrix",
+             "anisotropy_matrix", "generate_ks", "hexlattice_gen",
+             "anylattice_gen")
+    for name in names:
+        assert callable(getattr(jlat, name)) and name in tlat.__all__
+    vecs = np.random.default_rng(4).normal(size=(5, 2))
+    M = tlat.strain_matrix(0.02, axis=1) @ tlat.scaling_matrix(1.01)
+    pairs = [
+        (tlat.rotation_matrix(0.3), jlat.rotation_matrix(0.3)),
+        (tlat.rotate(vecs, 0.7).numpy(), jlat.rotate(vecs, 0.7)),
+        (M, np.asarray(jlat.strain_matrix(0.02, axis=1))
+         @ np.asarray(jlat.scaling_matrix(1.01))),
+        (tlat.apply_transformation_matrix(vecs, M).numpy(),
+         jlat.apply_transformation_matrix(vecs, jnp.asarray(M))),
+        (tlat.a_0_to_r_k(2.46), jlat.a_0_to_r_k(2.46)),
+        (tlat.r_k_to_a_0(0.12), jlat.r_k_to_a_0(0.12)),
+        (tlat.epsilon_to_kappa(0.1, 0.01), jlat.epsilon_to_kappa(0.1, 0.01)),
+        (tlat.kappa_to_epsilon(1.01), jlat.kappa_to_epsilon(1.01))]
+    for got, want in pairs:
+        np.testing.assert_allclose(got, np.asarray(want), rtol=1e-12,
+                                   atol=1e-15)
+
+
 def test_wrap_to_pi_matches():
     x = np.random.default_rng(0).normal(scale=20, size=(64, 64))
     x = x.astype(np.float32)

@@ -131,8 +131,34 @@ def test_presmooth_and_applyq_kernels(dev, n, m, cr):
     assert _build.launches["presmooth"] == before + 1
     for g, t in zip(got, want):
         assert g.shape == t.shape and _rel(g, t) <= 1e-5
-    q = tvc.applyq(phi, w)
-    assert _rel(q, tvc.applyq_plain(phi, w)) <= 1e-5
+    _check_applyq(phi, w)
+
+
+def _check_applyq(p, w):
+    """The applyq kernel bit for bit against its twin and against a
+    repeat (the same _rn chain for every pixel, whatever the tiling)."""
+    before = _build.launches["applyq"]
+    q = tvc.applyq(p, w)
+    again = tvc.applyq(p, w)
+    assert _build.launches["applyq"] == before + 2
+    want = tvc.applyq_plain(p, w)
+    assert q.shape == want.shape
+    assert torch.equal(q, want) and torch.equal(q, again)
+
+
+@pytest.mark.parametrize("B", [1, 2, 3])
+@pytest.mark.parametrize("n,m,offset", [(128, 96, 0), (64, 64, 0),
+                                        (48, 90, 0), (5, 7, 0),
+                                        (200, 300, 0), (64, 256, 1),
+                                        (2048, 2048, 0), (4096, 4096, 0)])
+def test_applyq_strip_kernel(dev, B, n, m, offset):
+    """The strip-marching applyq kernel at 1-3 planes (3: two launches),
+    on planes narrower than a warp's column tile, with m off a multiple
+    of 4 (scalar loads), p starting off a 16-byte boundary (scalar loads
+    though m % 4 == 0) and at config 3's and the bench's sides."""
+    flat = _planes((B * n * m + offset,), 61, dev)
+    p = flat[offset:].view(B, n, m)
+    _check_applyq(p, _weight(n, m, 62, dev))
 
 
 def _check_cg(dev, B, n, m, kmax):

@@ -362,3 +362,105 @@ def test_presmooth_tiling_and_traffic(B):
         assert ratio >= 1.0
         if n >= 2048:
             assert ratio < 1.12
+
+
+def _applyq_strips(p, w, sms):
+    """csrc/vcycle.cu applyq_strip_kernel's schedule in numpy float32,
+    every warp of a row strip side by side: warp (tile t, strip s) owns
+    columns t * APPLYQ_COLS + [0, APPLYQ_COLS) (loaded wrapped), lane 0
+    and lane 31 one halo column each (left and right of the tile); the
+    lanes' x neighbours, passed by shuffles, are the next and previous
+    columns of the tile. Step k loads row k (wrapped) of w and of each of
+    up to PRESMOOTH_PLANES planes a launch and writes row k - 1. Returns
+    q (NaN where never written), how often each output was written and
+    the elements loaded."""
+    f = np.float32
+    B, n, m = p.shape
+    C = tvc.APPLYQ_COLS
+    rows, (tiles, strips) = tvc.applyq_tiling(n, m, sms)
+    j0 = np.arange(tiles) * C
+    c = j0[:, None] + np.arange(C)[None, :]
+    cw = c % m
+    hl = np.where(j0 > 0, j0 - 1, m - 1)
+    hr = (j0 + C) % m
+    q = np.full((B, n, m), np.nan, f)
+    hits = np.zeros((B, n, m), int)
+    loads = 0
+    for b0 in range(0, B, tvc.PRESMOOTH_PLANES):
+        pb = p[b0:b0 + tvc.PRESMOOTH_PLANES]
+        for s in range(strips):
+            r0, r1 = s * rows, min(s * rows + rows, n)
+            ty2 = np.zeros((len(pb), tiles, C), f)
+            for k in range(r0 - 1, r1 + 1):
+                gk = k % n
+                WWc, pc = w[gk][cw] * w[gk][cw], pb[:, gk][:, cw]
+                hwc = (w[gk][hl] * w[gk][hl], w[gk][hr] * w[gk][hr])
+                hpc = (pb[:, gk][:, hl], pb[:, gk][:, hr])
+                loads += (1 + len(pb)) * tiles * (C + 2)
+                if k >= r0:
+                    rowy = (k - 1) % n != n - 1
+                    wy = np.minimum(WW1, WWc) if rowy else np.zeros_like(WWc)
+                    ty1 = wy * (pc - p1)
+                    if k - 1 >= r0:
+                        WWr = np.concatenate([WW1[:, 1:], hw1[1][:, None]],
+                                             -1)
+                        pr = np.concatenate([p1[..., 1:], hp1[1][..., None]],
+                                            -1)
+                        wx = np.where(c < m - 1, np.minimum(WW1, WWr), f(0))
+                        tx = wx * (pr - p1)
+                        wxh = np.where(j0 > 0, np.minimum(hw1[0], WW1[:, 0]),
+                                       f(0))
+                        txh = wxh * (p1[..., 0] - hp1[0])
+                        txl = np.concatenate([txh[..., None], tx[..., :-1]],
+                                             -1)
+                        qv = ((tx - txl) + ty1) - ty2
+                        on = c < m
+                        for b in range(len(pb)):
+                            q[b0 + b, k - 1, c[on]] = qv[b][on]
+                            hits[b0 + b, k - 1, c[on]] += 1
+                    ty2 = ty1
+                WW1, p1, hw1, hp1 = WWc, pc, hwc, hpc
+    return q, hits, loads
+
+
+@pytest.mark.parametrize("B,n,m,sms", [(2, 64, 256, 1), (1, 48, 90, 132),
+                                       (3, 40, 300, 2), (2, 5, 7, 132),
+                                       (1, 256, 256, 1), (3, 96, 130, 1)])
+def test_applyq_strip_schedule(B, n, m, sms):
+    """The applyq kernel's warps and row strips, emulated in numpy at
+    sizes with several strips (a partial last one), edge tiles, an
+    overhanging last column tile, m not a multiple of 4 and 1-3 planes
+    (3: two launches, w read by each): every output pixel is written
+    exactly once, bit for bit the twin's, and applyq_traffic counts the
+    emulation's own loads."""
+    rng = np.random.default_rng(n * m + B)
+    p = rng.normal(size=(B, n, m)).astype(np.float32)
+    w = rng.uniform(0.05, 1.0, size=(n, m)).astype(np.float32)
+    w[:2] = w[:, -3:] = 1e-6
+    q, hits, loads = _applyq_strips(p, w, sms)
+    assert (hits == 1).all()
+    twin = tvc.applyq_plain(torch.from_numpy(p), torch.from_numpy(w))
+    np.testing.assert_array_equal(q, twin.numpy())
+    assert tvc.applyq_traffic(B, n, m, sms) == 4 * (loads + B * n * m)
+
+
+@pytest.mark.parametrize("B", [1, 2, 3])
+def test_applyq_tiling_and_traffic(B):
+    """applyq_tiling covers the plane with row strips of at least 16 rows
+    that fill the card in one wave (an H100's 132 SMs at the bench's
+    4096^2, config 3's 2048^2 and a small plane), and applyq_traffic
+    counts each input read about once: within 10% of one read at the
+    bench's (2, 4096^2) (w once a launch of up to PRESMOOTH_PLANES
+    planes, so more often at B = 3)."""
+    for n, m in ((4096, 4096), (2048, 2048), (48, 96)):
+        rows, (tiles, strips) = tvc.applyq_tiling(n, m, 132)
+        assert rows >= min(16, n) and (strips - 1) * rows < n <= strips * rows
+        assert tiles * tvc.APPLYQ_COLS >= m
+        assert -(-tiles * strips // tvc.APPLYQ_WARPS) <= \
+            132 * tvc.APPLYQ_BLOCKS_PER_SM or rows == 16
+        launches = -(-B // tvc.PRESMOOTH_PLANES)
+        once = 4 * ((B + launches) * n * m + B * n * m)
+        ratio = tvc.applyq_traffic(B, n, m, 132) / once
+        assert ratio >= 1.0
+        if (B, n) == (2, 4096):
+            assert ratio <= 1.1
