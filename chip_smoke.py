@@ -86,7 +86,27 @@ Phases, each printed on its own lines:
    factory at its defaults with pipeline_fused_uv=False: the grouped
    phase/weight emission ("sweep_pw", one launch) and the demodulated
    reconstruction, held to the bench's three gates, with its distance
-   from the uv route's u printed.
+   from the uv route's u printed;
+12. the README quick start from the raw 4096^2 bench image: (a)
+   gt.gpa.extract_primary_ks(img) at its defaults (three primary ks,
+   each a true k up to sign within 1.5/size, the same canonical sets as
+   the call with device="cpu", atol 1e-9; the bytes each attempt
+   fetches to the host; seconds per call over 3 runs); (b)
+   extract_primary_ks(img, DoG=False, subpixel=True) within 0.5/size,
+   then refine_ks on those ks (sign-aligned and ordered to the true
+   ones) within 0.15/size, with no DCT kernel launch (iterate_GPA trims
+   5 px, so its unwraps run at 4086^2 on the DCT twins); (c)
+   extract_displacement_field from the refined ks against phase 5's u
+   from the true ks: each component's least-squares plane removed on
+   the 8 sigma interior (a k error is a uniform strain), max < 0.02 px;
+   (d) vecGPA against three optGPA calls and GPA against optGPA, bit
+   for bit, and iterate_GPA from ks + (0.002, -0.001) cancelling at
+   least 65% of the offset; (e) the bench extractor with the "vv"
+   finest level (unwrap_mg_final replaced in the unwrap module's
+   DEFAULTS): presmooth once and applyq three times a call (once with
+   "v"), the bench's interior and dc-free gates, the same path on the
+   plain twins within 1e-2 px; each with its launch counts and seconds
+   per call.
 
 Phase 3 also holds the grouped sweep (kernel and float32 twin against
 the float64 twin; stages 1, 2 and the uv epilogue timed apart, with
@@ -243,7 +263,8 @@ PATH_KERNELS = {4: ("sweep_uv", "presmooth", "applyq", "cg_poisson"),
                 "10a": ("zoom_grad",) + GRAD_STEPS,
                 "10b": ("sweep_grad",) + GRAD_STEPS,
                 "11a": ("zoom_grad", "dct_lane", "dct_sub") + GRAD_STEPS,
-                "11b": ("sweep_pw", "dct_lane", "dct_sub")}
+                "11b": ("sweep_pw", "dct_lane", "dct_sub"),
+                "12e": ("sweep_uv", "presmooth", "applyq", "cg_poisson")}
 # each gradient path's launches of the sweeps: exactly these counts
 PATH_SWEEPS = {"10a": {"zoom_grad": 3}, "10b": {"sweep_grad": 1},
                "11a": {"zoom_grad": 3}, "11b": {"sweep_pw": 1}}
@@ -265,6 +286,15 @@ REPS_NEW = 3        # timed runs of phases 7 and 8
 PATH_AGREE = 1e-4   # phases 7, 8: max |kernels - twins| / max |twins|
 GATE_UNWRAP_P99, GATE_UNWRAP_MAX, GATE_UNDISTORT = 0.02, 0.3, 0.05
 GATE_UCELL = 0.05
+# phase 12: the quick start from the raw image (tests/test_peaks.py's
+# gates, in units of 1 / size; the eager path's u from refined ks within
+# config 1's gate of phase 5's u once a plane is removed;
+# tests/test_pipeline.py's iterate_GPA offset and its 65% cancellation)
+GATE_PEAKS, GATE_SUBPIXEL, GATE_REFINE = 1.5, 0.5, 0.15
+GATE_REFINED_U = 0.02
+ITERATE_OFFSET, ITERATE_LEFT = np.array([0.002, -0.001]), 0.35
+VV_TWINS = 1e-2     # 12e: max |kernels - twins| px on the interior
+PEAK_REPS = 3
 
 
 def say(*a):
@@ -1833,6 +1863,239 @@ def drive_demod(img, img_d, u_true, ks):
     return launches
 
 
+def canon(ks):
+    """k-vectors with a non-negative x (y where x is 0), rows sorted: a
+    set of ks up to the sign of each."""
+    ks = np.asarray(ks, np.float64)
+    c = np.where(np.sign(ks[:, [0]]) != 0, np.sign(ks[:, [0]]) * ks,
+                 np.sign(ks[:, [1]]) * ks)
+    return c[np.lexsort(c.T[::-1])]
+
+
+def to_true(found, true):
+    """For each true k, its distance (up to sign) to the nearest of
+    `found`, and the found ks reordered and sign-aligned to the true
+    ones (tests/test_peaks.py's alignment, with the order matched)."""
+    found = np.asarray(found, np.float64)
+    both = np.concatenate([found, -found])
+    d = np.linalg.norm(both[None] - true[:, None], axis=-1)
+    return d.min(axis=1), both[d.argmin(axis=1)]
+
+
+@contextlib.contextmanager
+def record_fetches(peaks_mod, sizes):
+    """Append each detection attempt's candidate record size (bytes, the
+    one copy to the host an attempt makes) to `sizes`."""
+    orig = peaks_mod._peak_candidates
+
+    def spy(*a, **kw):
+        rec = orig(*a, **kw)
+        sizes.append(rec.numel() * rec.element_size())
+        return rec
+
+    peaks_mod._peak_candidates = spy
+    try:
+        yield
+    finally:
+        peaks_mod._peak_candidates = orig
+
+
+def counted(call):
+    """(out, launches, seconds) of one synchronized call with the launch
+    counts reset just before and read just after."""
+    import torch
+    from pygpa_tpu_torch.ops import _build
+    torch.cuda.synchronize()
+    _build.launches.clear()
+    t0 = time.perf_counter()
+    out = call()
+    torch.cuda.synchronize()
+    return out, dict(_build.launches), time.perf_counter() - t0
+
+
+def drive_peaks(img, ks):
+    """Phases 12a and 12b: Bragg peaks from the raw 4096^2 image, then
+    refine_ks. Returns the refined ks (host numpy, in the true ks'
+    order)."""
+    import pygpa_tpu_torch as gt
+    from pygpa_tpu_torch.gpa import peaks as peaks_mod
+    true = np.asarray(ks, np.float64)
+    size = img.shape[0]
+    gt.gpa.extract_primary_ks(img)                 # warm-up
+    sizes = []
+    with record_fetches(peaks_mod, sizes):
+        (pks, all_ks), launches, _ = counted(
+            lambda: gt.gpa.extract_primary_ks(img))
+    t0 = time.perf_counter()
+    for _ in range(PEAK_REPS):
+        gt.gpa.extract_primary_ks(img)
+    dt = (time.perf_counter() - t0) / PEAK_REPS
+    t0 = time.perf_counter()
+    pks_cpu, all_cpu = gt.gpa.extract_primary_ks(img.cpu(), device="cpu")
+    dt_cpu = time.perf_counter() - t0
+    d, _ = to_true(pks, true)
+    same = len(pks) == len(pks_cpu) and len(all_ks) == len(all_cpu) and \
+        np.abs(canon(pks) - canon(pks_cpu)).max() <= 1e-9 and \
+        np.abs(canon(all_ks) - canon(all_cpu)).max() <= 1e-9
+    say(f"[12a] extract_primary_ks(img) at the README's defaults, {size}^2: "
+        f"launches {launches}; {len(sizes)} attempt(s), {sizes} bytes "
+        f"fetched to the host (one record each); primary ks {pks.tolist()} "
+        f"({len(all_ks)} candidates); distance to the true ks (up to sign) "
+        f"{(d * size).tolist()} / size (gate {GATE_PEAKS}); the same "
+        f"canonical sets as device='cpu': {same} (atol 1e-9); seconds per "
+        f"call {dt!r} ({PEAK_REPS} runs after warm-up, host clock, "
+        f"synchronized), the CPU call {dt_cpu!r} s")
+    if not (len(pks) == 3 and np.all(d < GATE_PEAKS / size) and same):
+        raise RuntimeError("[12a] Bragg peaks: GATE FAILED")
+
+    pks_s, _ = gt.gpa.extract_primary_ks(img, DoG=False, subpixel=True)
+    d_sub, _ = to_true(pks_s, true)
+    _, pks3 = to_true(gt.gpa.select_closest_to_triangle(pks_s)
+                      if len(pks_s) > 3 else pks_s, true)
+    refined, launches, dt = counted(lambda: gt.gpa.refine_ks(img, pks3))
+    _, _, dt2 = counted(lambda: gt.gpa.refine_ks(img, pks3))
+    d_ref = np.linalg.norm(refined - true, axis=-1)
+    n_dct = sum(launches.get(k, 0) for k in ("dct_lane", "dct_sub"))
+    say(f"[12b] extract_primary_ks(img, DoG=False, subpixel=True): distance "
+        f"to the true ks {(d_sub * size).tolist()} / size (gate "
+        f"{GATE_SUBPIXEL}); refine_ks(img, pks3): launches {launches} "
+        f"({n_dct} DCT kernel launches: iterate_GPA trims 5 px, so its "
+        f"exact unwraps run at {size - 10}^2 on the DCT twins); refined "
+        f"{refined.tolist()}, distance {(d_ref * size).tolist()} / size "
+        f"(gate {GATE_REFINE}); seconds per call {dt!r} (first), {dt2!r} "
+        "(second; host clock, synchronized)")
+    if not (np.all(d_sub < GATE_SUBPIXEL / size) and n_dct == 0
+            and np.all(d_ref < GATE_REFINE / size)):
+        raise RuntimeError("[12b] sub-bin peaks or refine_ks: GATE FAILED")
+    return refined
+
+
+def drive_refined_u(img, ks32, refined):
+    """Phase 12c: extract_displacement_field from the refined ks against
+    phase 5's u from the true ks, each component's least-squares plane
+    removed on the 8 sigma interior (a k error is a uniform strain)."""
+    import torch
+    import pygpa_tpu_torch as gt
+    u5 = gt.gpa.extract_displacement_field(img, ks32)
+    u12, launches, dt = counted(
+        lambda: gt.gpa.extract_displacement_field(img, refined))
+    b = 8 * int(np.ceil(1 / np.linalg.norm(ks32, axis=1).min()))
+    d = (u12 - u5)[:, b:-b, b:-b].double()
+    h, w = d.shape[-2:]
+    # on a full grid with centred coordinates the plane's normal
+    # equations are diagonal
+    x = torch.arange(h, dtype=torch.float64, device=d.device) - (h - 1) / 2
+    y = torch.arange(w, dtype=torch.float64, device=d.device) - (w - 1) / 2
+    sx = (d * x[:, None]).sum((-2, -1)) / (w * (x * x).sum())
+    sy = (d * y[None, :]).sum((-2, -1)) / (h * (y * y).sum())
+    c0 = d.mean((-2, -1))
+    resid = (d - sx[:, None, None] * x[:, None] - sy[:, None, None]
+             * y[None, :] - c0[:, None, None]).abs().flatten()
+    p99 = float(torch.quantile(resid[::7].float(), torch.tensor(
+        0.99, device=d.device)))
+    dmax = float(resid.max())
+    raw = float(d.abs().max())
+    say(f"[12c] extract_displacement_field(img, refined ks) vs phase 5's u "
+        f"(true ks): launches {launches}; interior max |du| {raw!r} px "
+        f"raw; with each component's plane removed: max {dmax!r} px (gate "
+        f"{GATE_REFINED_U}), p99 {p99!r} px; plane slopes (px/px) x "
+        f"{sx.tolist()} y {sy.tolist()}; seconds per call {dt!r} (one run, "
+        "host clock, synchronized)")
+    if not dmax < GATE_REFINED_U:
+        raise RuntimeError("[12c] u from refined ks: GATE FAILED")
+
+
+def drive_lockin(img, ks):
+    """Phase 12d: vecGPA against three optGPA calls and GPA against
+    optGPA (bit for bit), then iterate_GPA from offset ks against the
+    reference's gate."""
+    import torch
+    import pygpa_tpu_torch as gt
+    true = np.asarray(ks, np.float64)
+    sig = int(np.ceil(1 / np.linalg.norm(true, axis=1).min()))
+    v, launches, _ = counted(lambda: gt.gpa.vecGPA(img, true, sig))
+    bits = all(torch.equal(v[i], gt.gpa.optGPA(img, true[i], sig))
+               for i in range(len(true)))
+    bits_gpa = torch.equal(gt.gpa.GPA(img, true[0, 0], true[0, 1], sig),
+                           gt.gpa.optGPA(img, true[0], sig))
+    t0 = time.perf_counter()
+    for _ in range(PEAK_REPS):
+        gt.gpa.vecGPA(img, true, sig)
+    torch.cuda.synchronize()
+    dt_v = (time.perf_counter() - t0) / PEAK_REPS
+    del v
+    (_, _, corr), launches_i, dt_i = counted(
+        lambda: gt.gpa.iterate_GPA(img, true + ITERATE_OFFSET, sig))
+    corr = corr.cpu().numpy()
+    left = np.linalg.norm(corr + ITERATE_OFFSET, axis=1) \
+        / np.linalg.norm(ITERATE_OFFSET)
+    say(f"[12d] vecGPA(img, ks, {sig}): launches {launches}; equals three "
+        f"optGPA calls bit for bit: {bits}; GPA equals optGPA: {bits_gpa}; "
+        f"seconds per call {dt_v!r} ({PEAK_REPS} runs, host clock, "
+        f"synchronized). iterate_GPA(img, ks + {ITERATE_OFFSET.tolist()}, "
+        f"{sig}): launches {launches_i}; correction {corr.tolist()}, offset "
+        f"left {left.tolist()} (gate < {ITERATE_LEFT}); seconds per call "
+        f"{dt_i!r} (one run, host clock, synchronized)")
+    if not (bits and bits_gpa and np.all(left < ITERATE_LEFT)):
+        raise RuntimeError("[12d] lock-in: GATE FAILED")
+
+
+@contextlib.contextmanager
+def mg_final(final):
+    """The multigrid's finest level set to `final` (a dataclasses.replace
+    of the unwrap module's DEFAULTS, restored on exit)."""
+    import dataclasses
+    from pygpa_tpu_torch.solvers import unwrap
+    real = unwrap.DEFAULTS
+    unwrap.DEFAULTS = dataclasses.replace(real, unwrap_mg_final=final)
+    try:
+        yield
+    finally:
+        unwrap.DEFAULTS = real
+
+
+def drive_vv(img, ks):
+    """Phase 12e: the bench extractor with the "vv" finest level: the
+    bench's interior and dc-free gates, presmooth once and applyq three
+    times a call (once with "v"), the same path on the twins."""
+    import torch
+    from pygpa_tpu_torch.gpa import pipeline
+    fn = pipeline.make_displacement_extractor(
+        (SIZE, SIZE), ks, chunk=4, unwrap_coarse=4, device="cuda")
+    fn(img)
+    _, launches_v, _ = counted(lambda: fn(img))
+    with mg_final("vv"):
+        fn(img)
+        u, launches, _ = counted(lambda: fn(img))
+        missing = [k for k in PATH_KERNELS["12e"] if not launches.get(k)]
+        t0 = time.perf_counter()
+        for _ in range(REPS):
+            fn(img)
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / REPS
+        with plain_versions():
+            up = fn(img)
+    b = 8 * int(np.ceil(1 / np.linalg.norm(ks, axis=1).min()))
+    ui = u[:, b:-b, b:-b]
+    err = float(ui.abs().max())
+    err_dc = float((ui - ui.mean(dim=(1, 2), keepdim=True)).abs().max())
+    p99, dmax = interior_dist(u, up, ks)
+    say(f"[12e] the bench extractor with unwrap_mg_final='vv': launches in "
+        f"one run {launches} (with 'v': {launches_v}); interior max |u| "
+        f"{err!r} px (gate {GATE_INTERIOR}), dc-free {err_dc!r} px (gate "
+        f"{GATE_DCFREE}); with kernels vs plain versions: interior p99 "
+        f"{p99!r} max {dmax!r} px (bound {VV_TWINS}); seconds per image "
+        f"{dt!r} ({REPS} runs after warm-up, host clock, synchronized)")
+    if missing or launches.get("presmooth") != 1 or \
+            launches.get("applyq") != 3 or launches_v.get("applyq") != 1:
+        raise RuntimeError(f"[12e] launch counts: {launches}, 'v' "
+                           f"{launches_v}")
+    if not (err < GATE_INTERIOR and err_dc < GATE_DCFREE
+            and dmax < VV_TWINS):
+        raise RuntimeError("[12e] GATE FAILED")
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2453,6 +2716,15 @@ def main():
     # ---- 11. the eager path with gradients, the demodulated factory
     path_launches["11a"] = drive_eager_grad(img, img_d, u_true, ks32)
     path_launches["11b"] = drive_demod(img, img_d, u_true, ks32)
+
+    # ---- 12. the README quick start from the raw image
+    say(f"    card before phase 12: {card_state()}")
+    t12 = time.perf_counter()
+    refined = drive_peaks(img, ks)
+    drive_refined_u(img, ks32, refined)
+    drive_lockin(img, ks)
+    path_launches["12e"] = drive_vv(img, ks)
+    say(f"    phase 12 took {time.perf_counter() - t12!r} s")
 
     kernels = []
     for name, (src, rep) in KERNELS.items():

@@ -1,8 +1,8 @@
 """pygpa_tpu_torch — Geometric Phase Analysis on PyTorch and CUDA.
 
-The PyTorch port of ``pygpa_tpu``'s displacement extraction (the eager
-``extract_displacement_field`` and the ``make_displacement_extractor``
-factory), for NVIDIA Hopper cards (sm_90a). The layout mirrors ``pygpa_tpu``
+The PyTorch port of ``pygpa_tpu`` (all but its parallel, imagetools,
+Kerelsky, WFF and module-path shims so far), for NVIDIA Hopper cards
+(sm_90a). The layout mirrors ``pygpa_tpu``
 (``config``, ``core``, ``lattices``, ``ops``, ``solvers``, ``gpa``) so
 each module's counterpart is found by name. The package imports torch
 and numpy only.
@@ -15,16 +15,29 @@ kernel.
 
 The entry points run on the card: with ``device=None`` (the default)
 they move numpy arrays and CPU tensors to ``"cuda"``, and raise where
-torch has no CUDA; ``device="cpu"`` asks for the plain route::
+torch has no CUDA; ``device="cpu"`` asks for the plain route. The
+README's quick start, from a raw image::
 
-    from pygpa_tpu_torch.gpa import pipeline
-    from pygpa_tpu_torch import ucell
-    u = pipeline.extract_displacement_field(image, ks[:3])  # on the card
-    fn = pipeline.make_displacement_extractor(image.shape, ks[:3])
+    import pygpa_tpu_torch as gt
+    ks, _ = gt.gpa.extract_primary_ks(image)        # Bragg peaks
+    ks = gt.gpa.refine_ks(image, ks)                # sub-grid ks
+    u = gt.gpa.extract_displacement_field(image, ks)
+    flat = gt.gpa.undistort_image(image, u)
+    props = gt.props.calc_props_from_kvecs4(ks)
+    cell = gt.ucell.unit_cell_average(image, ks[:2], u=u, z=2)
+    fn = gt.gpa.pipeline.make_displacement_extractor(image.shape, ks)
     u = fn(image)
-    flat = pipeline.undistort_image(image, u)
-    cell = ucell.unit_cell_average(image, ks[:2], u=u, z=2)
-    back = ucell.expand_unitcell(cell, ks[:2], image.shape, z=2, u=u)
+
+Importing the package builds nothing: the kernels are compiled at their
+first launch (``ops._build``).
 """
 
 __version__ = "0.1.0"
+
+from . import core  # noqa: E402,F401
+from . import lattices  # noqa: E402,F401
+from . import solvers  # noqa: E402,F401
+from . import ops  # noqa: E402,F401
+from . import gpa  # noqa: E402,F401
+from . import props  # noqa: E402,F401
+from . import ucell  # noqa: E402,F401

@@ -1,15 +1,18 @@
-"""Fourier-domain building blocks (counterpart of a subset of
-pygpa_tpu/core/fourier.py): the scipy-convention 2D DCT-II pair of the
-unwrap's Poisson preconditioner (routed per axis to the ops.dct kernels
-as the reference routes to its Pallas DCT), and the Gaussian
-multiplier, Laplacian transfer and Wiener filter of
-gaussian_deconvolve, on torch.fft."""
+"""Fourier-domain building blocks (counterpart of
+pygpa_tpu/core/fourier.py without its TPU matmul FFT): the
+scipy-convention DCT-II pair of the unwrap's Poisson preconditioner
+(routed per axis to the ops.dct kernels as the reference routes to its
+Pallas DCT; the 1-D forms along the last axis are the kernels' Makhoul
+twins), the Gaussian multiplier, Laplacian transfer and Wiener filter of
+gaussian_deconvolve, the Moisan periodic-plus-smooth decomposition and
+FFT smoothing of peak detection, and fftbounds (host numpy), on
+torch.fft."""
 import math
 
 import numpy as np
 import torch
 
-from ..ops import dct as _dct
+from .mathtools import as_tensor
 
 
 def _fftfreq(n, dtype, device):
@@ -17,12 +20,23 @@ def _fftfreq(n, dtype, device):
     return torch.as_tensor(np.fft.fftfreq(n), device=device).to(dtype)
 
 
+def _real_dtype(dtype):
+    return dtype.to_real() if dtype.is_complex else dtype
+
+
 def fourier_gaussian_multiplier(shape, sigma, dtype=torch.float32,
-                                device=None):
-    """Fourier-domain Gaussian window exp(-2 pi^2 sigma^2 |f|^2) on an
-    fft2 grid (scipy.ndimage.fourier_gaussian's multiplier)."""
-    fx = _fftfreq(shape[0], dtype, device)
-    fy = _fftfreq(shape[1], dtype, device)
+                                device=None, shift=(0.0, 0.0)):
+    """Fourier-domain Gaussian window exp(-2 pi^2 sigma^2 |f + shift|^2)
+    on an fft2 grid (scipy.ndimage.fourier_gaussian's multiplier at
+    shift 0). The frequencies are cast to `dtype` before the shift is
+    added, so a float64 tensor shift gives a float64 window, as JAX
+    promotes a float64 k-vector (lockin_from_spectrum)."""
+    sdt = dtype
+    for s in shift:
+        if isinstance(s, torch.Tensor):
+            sdt = torch.promote_types(sdt, s.dtype)
+    fx = _fftfreq(shape[0], dtype, device).to(sdt) + shift[0]
+    fy = _fftfreq(shape[1], dtype, device).to(sdt) + shift[1]
     arg = fx[:, None] ** 2 + fy[None, :] ** 2
     s2 = torch.tensor(2.0 * np.pi ** 2, dtype=dtype, device=device) \
         * torch.tensor(float(sigma), dtype=dtype, device=device) ** 2
@@ -78,3 +92,68 @@ def idct2n(x):
     lane = _dct.idct_lane if dct_kernel_ok(x.shape[-1], x.dtype) \
         else _dct.idct_lane_plain
     return lane(sub(x))
+
+
+def dct2_1d(x):
+    """Unnormalized DCT-II along the last axis (scipy.fft.dct, norm=None),
+    any length: the Makhoul twin of the ops.dct lane kernel."""
+    return _dct.dct_lane_plain(x)
+
+
+def idct2_1d(y):
+    """Exact inverse of dct2_1d (scipy.fft.idct, type 2, norm=None)."""
+    return _dct.idct_lane_plain(y)
+
+
+def moisan_per(image, inverse_dft=True):
+    """Moisan periodic-plus-smooth decomposition image = p + s (over the
+    last two axes): the smooth component solves a discrete Laplace
+    equation driven by the boundary jumps, so p's DFT lacks the cross
+    that non-periodic borders leave, and Bragg peaks stand clean. With
+    inverse_dft=False returns (p_dft, s_dft), else (p, s).
+
+    L. Moisan, "Periodic plus smooth image decomposition", J. Math.
+    Imaging Vis. 39, 161-179 (2011)."""
+    image = as_tensor(image)
+    m, n = image.shape[-2:]
+    dt, dev = _real_dtype(image.dtype), image.device
+    arg_m = torch.as_tensor(2 * np.pi * np.fft.fftfreq(m), device=dev).to(dt)
+    arg_n = torch.as_tensor(2 * np.pi * np.fft.fftfreq(n), device=dev).to(dt)
+    cos_m, sin_m = torch.cos(arg_m), torch.sin(arg_m)
+    cos_n, sin_n = torch.cos(arg_n), torch.sin(arg_n)
+    # the boundary image's DFT: along axis -2 from the first and last
+    # rows' jump, along axis -1 from the first and last columns'
+    w1 = image[..., -1, :] - image[..., 0, :]
+    v_dft = torch.fft.fft(w1)[..., None, :] \
+        * torch.complex(1.0 - cos_m, -sin_m)[:, None]
+    w2 = image[..., :, -1] - image[..., :, 0]
+    v_dft = v_dft + torch.fft.fft(w2)[..., :, None] \
+        * torch.complex(1.0 - cos_n, -sin_n)[None, :]
+    denom = 2.0 * (cos_m[:, None] + cos_n[None, :] - 2.0)
+    denom[0, 0] = 1.0
+    s_dft = v_dft / denom
+    s_dft[..., 0, 0] = 0.0
+    p_dft = torch.fft.fft2(image) - s_dft
+    if inverse_dft:
+        return torch.fft.ifft2(p_dft).real, torch.fft.ifft2(s_dft).real
+    return p_dft, s_dft
+
+
+def gaussian_filter_fft(image, sigma):
+    """Gaussian smoothing of the last two axes by Fourier multiplication
+    (circular boundary; the peak finder's near-periodic spectra)."""
+    image = as_tensor(image)
+    mult = fourier_gaussian_multiplier(image.shape[-2:], sigma,
+                                       _real_dtype(image.dtype), image.device)
+    return torch.fft.ifft2(torch.fft.fft2(image) * mult).real
+
+
+def fftbounds(n, d=1):
+    """Frequency bin edges for pcolormesh-style plotting (host numpy)."""
+    r = np.fft.fftshift(np.fft.fftfreq(n, d))
+    return np.append(r, r[-1] + 1 / (n * d))
+
+
+# imported last: the ops package's own init imports this module's
+# helpers (ops.lockin, ops.wfr), so it must find them defined
+from ..ops import dct as _dct  # noqa: E402

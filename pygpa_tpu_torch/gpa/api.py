@@ -1,5 +1,6 @@
 """The reference's GPA / WFR function names (counterpart of
-pygpa_tpu/gpa/api.py). The WFR variants are thin wrappers over one
+pygpa_tpu/gpa/api.py). GPA, optGPA and vecGPA are the spatial lock-in
+(ops.lockin). The WFR variants are thin wrappers over one
 sweep (ops.wfr.wfr_sweep: on the card the zoom kernel, with its
 gradient emission for the *_grad names); the *_vec variants are the
 same sweep, kept as aliases. Candidate grids are built on the host with
@@ -11,29 +12,24 @@ means the card, "cpu" the plain route (core.entry_device)."""
 import numpy as np
 import torch
 
-from ..core import entry_device
+from ..core import entry_tensor
+from ..ops.lockin import gpa_lockin, gpa_lockin_batch
 from ..ops.wfr import wfr_sweep
 
-_LOCKIN = ("the spatial lock-in (ops/lockin) is not ported: ROADMAP "
-           "queue 1 item 4")
+
+def GPA(image, kx, ky, sigma=22, device=None):
+    """Spatial lock-in of `image` at (kx, ky)."""
+    return gpa_lockin(image, (kx, ky), sigma, device=device)
 
 
-def GPA(image, kx, ky, sigma=22):
-    """Spatial lock-in; raises NotImplementedError (ROADMAP queue 1
-    item 4)."""
-    raise NotImplementedError(f"GPA: {_LOCKIN}")
+def optGPA(image, kvec, sigma=22, device=None):
+    """Spatial lock-in, kvec as a pair."""
+    return gpa_lockin(image, kvec, sigma, device=device)
 
 
-def optGPA(image, kvec, sigma=22):
-    """Spatial lock-in, kvec as a pair; raises NotImplementedError
-    (ROADMAP queue 1 item 4)."""
-    raise NotImplementedError(f"optGPA: {_LOCKIN}")
-
-
-def vecGPA(image, kvecs, sigma=22):
-    """Batched lock-in; raises NotImplementedError (ROADMAP queue 1
-    item 4)."""
-    raise NotImplementedError(f"vecGPA: {_LOCKIN}")
+def vecGPA(image, kvecs, sigma=22, device=None):
+    """Lock-in at each of kvecs (K, 2): (K, n, m)."""
+    return gpa_lockin_batch(image, kvecs, sigma, device=device)
 
 
 def _wgrid(kx, ky, kw, kstep):
@@ -44,16 +40,10 @@ def _wgrid(kx, ky, kw, kstep):
     return np.stack([wx.ravel(), wy.ravel()], axis=-1)
 
 
-def _image(image, device):
-    if not isinstance(image, torch.Tensor):
-        image = np.asarray(image)
-    return torch.as_tensor(image, device=entry_device(device))
-
-
 def wfr(image, sigma, kx, ky, kw, kstep, device=None):
     """Adaptive GPA: the winning candidates wx, wy and the rebased
     lock-in's phase and magnitude r."""
-    g = wfr_sweep(_image(image, device), _wgrid(kx, ky, kw, kstep),
+    g = wfr_sweep(entry_tensor(image, device), _wgrid(kx, ky, kw, kstep),
                   (kx, ky), sigma)
     return {"wx": g["w"][0], "wy": g["w"][1],
             "phase": torch.angle(g["lockin"]), "r": torch.abs(g["lockin"])}
@@ -62,7 +52,7 @@ def wfr(image, sigma, kx, ky, kw, kstep, device=None):
 def wfr2(image, sigma, kx, ky, kw, kstep, device=None):
     """Adaptive GPA: the winning k-field 'w' (2, N, M) and the complex
     lock-in rebased to (kx, ky)."""
-    return wfr_sweep(_image(image, device), _wgrid(kx, ky, kw, kstep),
+    return wfr_sweep(entry_tensor(image, device), _wgrid(kx, ky, kw, kstep),
                      (kx, ky), sigma)
 
 
@@ -72,7 +62,7 @@ optwfr2 = wfr2
 
 def wfr3(image, sigma, klist, kref, device=None):
     """Sweep an explicit k-list, rebased to kref."""
-    return wfr_sweep(_image(image, device), np.asarray(klist),
+    return wfr_sweep(entry_tensor(image, device), np.asarray(klist),
                      np.asarray(kref), sigma)
 
 
@@ -95,7 +85,7 @@ wfr2_only_lockin_vec = wfr2_only_lockin
 def wfr2_grad_opt(image, sigma, kx, ky, kw, kstep, device=None):
     """The sweep with the winner's phase gradient 'grad' (N, M, 2),
     rebased to (kx, ky)."""
-    return wfr_sweep(_image(image, device), _wgrid(kx, ky, kw, kstep),
+    return wfr_sweep(entry_tensor(image, device), _wgrid(kx, ky, kw, kstep),
                      (kx, ky), sigma, with_grad=True)
 
 

@@ -1,22 +1,62 @@
-"""Displacement-field reconstruction from GPA phases (counterpart of
-pygpa_tpu/gpa/reconstruct.py: reconstruct_u_inv_from_phases,
-reconstruct_u_inv_from_demod, _integrate_uv and
-reconstruct_u_inv_from_uv).
+"""Displacement-field reconstruction from GPA phases, and the iterative
+k refinement (counterpart of pygpa_tpu/gpa/reconstruct.py).
 
-Each route wrap-differences the phases, solves the per-pixel weighted
-lstsq for the displacement gradients and integrates each component
-with the weighted phase unwrapper; the two components are one batch of
-the unwrap (a vmap in the reference)."""
+The gradient routes wrap-difference the phases, solve the per-pixel
+weighted lstsq for the displacement gradients and integrate each
+component with the weighted phase unwrapper; the two components are one
+batch of the unwrap (a vmap in the reference). reconstruct_u_inv solves
+2 pi K u = b per pixel from unwrapped phases. iterate_GPA and refine_ks
+refine k-vectors by lock-in, unwrap and plane fit, each round's peaks in
+one batch (lock-ins, unwraps and fits alike), on the device without a
+host sync."""
 import math
 
+import numpy as np
 import torch
 
 from ..config import DEFAULTS
-from ..core.mathtools import wrap_to_pi
+from ..core import entry_tensor
+from ..core.mathtools import fit_plane, wrap_to_pi
+from ..ops.lockin import gpa_lockin_batch
 from ..ops.sweep import wrap_diff
 from ..solvers.lstsq import weighted_lstsq_stack
-from ..solvers.unwrap import (phase_unwrap_prediff, phase_unwrap_prediff_mg,
-                              stamp)
+from ..solvers.unwrap import (phase_unwrap, phase_unwrap_prediff,
+                              phase_unwrap_prediff_mg, stamp)
+
+
+def myweighed_lstsq(b, K, w):
+    """Per-pixel weighted lstsq, the reference's name for
+    weighted_lstsq_stack."""
+    return weighted_lstsq_stack(b, K, w)
+
+
+def fit_delta_k(phases):
+    """The k-correction of unwrapped phase maps (..., n, m): each plane
+    fit's slope over 2 pi, (..., 2)."""
+    return fit_plane(phases)[..., :2] / (2 * math.pi)
+
+
+def reconstruct_u_inv(kvecs, b, weights=None, use_only_ks=None):
+    """u (2, n, m) from unwrapped phases b (G, n, m) along kvecs (G, 2):
+    b less its mean, then 2 pi K u = b per pixel, by weighted lstsq over
+    all G (weights default to ones) or, with use_only_ks (two indices),
+    by the inverse of those two rows of 2 pi K. The arithmetic runs in
+    the promoted dtype of b and kvecs, as in JAX."""
+    b = torch.as_tensor(b)
+    kv = torch.as_tensor(np.asarray(kvecs)) if not isinstance(
+        kvecs, torch.Tensor) else kvecs
+    K = 2 * math.pi * kv.to(b.device)
+    b = b - b.mean(dim=(-2, -1), keepdim=True)
+    if use_only_ks is None:
+        if weights is None:
+            weights = torch.ones_like(b)
+        return weighted_lstsq_stack(b, K, torch.as_tensor(weights,
+                                                          device=b.device))
+    assert len(use_only_ks) == 2
+    dt = torch.promote_types(b.dtype, K.dtype)
+    Kinv = torch.linalg.inv(K[list(use_only_ks)].to(dt))
+    return torch.einsum("ij,j...->i...", Kinv,
+                        b[list(use_only_ks)].to(dt))
 
 
 def reconstruct_u_inv_from_phases(kvecs, phases, weights,
@@ -96,3 +136,50 @@ def reconstruct_u_inv_from_uv(dudx_s, dudy_s, wnorm, kmax=10,
     return _integrate_uv(dudx_s[:, :, 1:], dudy_s[:, 1:, :], wnorm,
                          kmax=kmax, unwrap_coarse=unwrap_coarse,
                          refine_iters=refine_iters, events=events)
+
+
+def iterate_GPA(image, kvecs, sigma, edge=5, iters=3,
+                kmax_iter=DEFAULTS.unwrap_kmax_iterate,
+                kmax=DEFAULTS.unwrap_kmax_final, verbose=False,
+                device=None):
+    """Refine the reference k-vectors (G, 2): lock-in at k + corr, trim
+    `edge`, unwrap the phases (weights sqrt(|lock-in| / max)), plane-fit
+    them and move corr by minus the slope over 2 pi, `iters` times; then
+    a final unwrap with kmax. Returns (unwrapped phases (G, n', m'),
+    lock-in magnitudes, corrections (G, 2)), tensors on the device. The
+    image moves to `device` (None: the card; "cpu" for the plain
+    route)."""
+    image = entry_tensor(image, device)
+    kv = torch.as_tensor(np.array(kvecs), device=image.device).to(
+        image.dtype)
+    corr = torch.zeros_like(kv)
+    for i in range(iters + 1):
+        rs = gpa_lockin_batch(image, kv + corr, sigma, device=image.device)
+        if edge > 0:
+            rs = rs[:, edge:-edge, edge:-edge]
+        prs, w = torch.angle(rs), torch.abs(rs)
+        wn = torch.sqrt(w / w.amax(dim=(-2, -1), keepdim=True))
+        if i < iters:
+            unwrapped = phase_unwrap(prs, wn, kmax=kmax_iter)
+            delta_ks = fit_delta_k(unwrapped)
+            if verbose:
+                print(delta_ks)
+            corr = corr - delta_ks
+        else:
+            unwrapped = phase_unwrap(prs, wn, kmax=kmax)
+    return unwrapped, w, corr
+
+
+def refine_ks(image, kvecs, sigma=None, iters=3,
+              kmax_iter=DEFAULTS.unwrap_kmax_iterate, device=None):
+    """Refine detected k-vectors (limited to about 1/size by the FFT
+    grid) to sub-grid accuracy with iterate_GPA's plane-fit loop, the
+    final unwrap at kmax_iter too; sigma defaults to ceil(1 / min |k|).
+    Returns the corrected k-vectors (host numpy)."""
+    kvecs = np.asarray(kvecs)
+    if sigma is None:
+        sigma = int(np.ceil(1 / np.linalg.norm(kvecs, axis=1).min()))
+    _, _, corr = iterate_GPA(image, kvecs, sigma, iters=iters,
+                             kmax_iter=kmax_iter, kmax=kmax_iter,
+                             device=device)
+    return kvecs + corr.cpu().numpy()

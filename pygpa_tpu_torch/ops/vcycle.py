@@ -157,7 +157,11 @@ def presmooth_plain(phi, dxc, dyc, w, cr, omega):
                        float(omega) / torch.where(D != 0, D, one), zero)
     d = rk * dinv
     r = rk - _q(d, WWx, WWy)
-    rrow = r.reshape(r.shape[:-2] + (n // cr, cr, m)).mean(-2)
+    # rows past the last whole block of cr (shapes the kernel refuses)
+    # do not enter the restriction, as in the multigrid's block means
+    rows = n // cr
+    rrow = r[..., : rows * cr, :].reshape(r.shape[:-2] + (rows, cr, m)) \
+        .mean(-2)
     return r, d, dinv, rrow
 
 

@@ -1,8 +1,9 @@
 """Weighted 2D phase unwrapping (Ghiglia-Romero): the exact
 early-stopping DCT-preconditioned CG (counterpart of
 pygpa_tpu/solvers/unwrap.py ``phase_unwrap`` / ``phase_unwrap_prediff``
-and their ``_cg_unwrap``) and the multigrid-accelerated
-``phase_unwrap_prediff_mg`` with its default schedule.
+and their ``_cg_unwrap``), the multigrid-accelerated
+``phase_unwrap_prediff_mg`` (weighted or not, any schedule, the "v" and
+"vv" V-branches) and the reference's API-parity names.
 
 Leading axes are batch axes (the two displacement components); the
 reference vmaps over them. Each component keeps its own early stop: the
@@ -37,7 +38,6 @@ from ..ops.cg import poisson_scale
 from ..ops.vcycle import _q as _apply_q_aligned
 
 _JACOBI_OMEGA = 0.8   # damped-Jacobi factor (2D optimum 4/5)
-_V_COARSE_MULT = 4    # V-branch correction grid: finest level / 4
 
 
 def stamp(events, name):
@@ -218,10 +218,15 @@ def _pad_last(a, axis):
 
 def _residual_aligned(dxp, dyp, weight):
     """Weighted residual rk and aligned min-neighbour weights WWx/WWy
-    (zero last column / row) from aligned diffs."""
-    WW = weight * weight
-    WWx = _mask_last(torch.minimum(WW, torch.roll(WW, -1, -1)), -1)
-    WWy = _mask_last(torch.minimum(WW, torch.roll(WW, -1, -2)), -2)
+    (zero last column / row) from aligned diffs; weight None is the
+    unweighted problem (WWx, WWy ones but for the zero tails)."""
+    if weight is None:
+        WWx = _mask_last(torch.ones_like(dxp), -1)
+        WWy = _mask_last(torch.ones_like(dyp), -2)
+    else:
+        WW = weight * weight
+        WWx = _mask_last(torch.minimum(WW, torch.roll(WW, -1, -1)), -1)
+        WWy = _mask_last(torch.minimum(WW, torch.roll(WW, -1, -2)), -2)
     WWdx = WWx * dxp
     WWdy = WWy * dyp
     rk = (WWdx - torch.roll(WWdx, 1, -1)
@@ -304,27 +309,29 @@ def default_schedule(n, m, kmax, coarse, refine_iters=3):
     return ((c, int(kmax)),) + mid + ((1, DEFAULTS.unwrap_mg_final),)
 
 
-def phase_unwrap_prediff_mg(dx, dy, weight, kmax=10, coarse=4,
-                            refine_iters=3, events=None):
+def phase_unwrap_prediff_mg(dx, dy, weight=None, kmax=10, coarse=4,
+                            refine_iters=3, schedule=None, v_coarse_mult=4,
+                            events=None):
     """Multigrid-accelerated gradient integration (reference
     pygpa_tpu.solvers.unwrap.phase_unwrap_prediff_mg, aligned kernel
     route): coarse weighted-Poisson CG solve, then progressively finer
-    levels; the finest level runs the V-branch (damped-Jacobi
-    pre-smooth, coarse-grid correction with an exact line search,
-    Jacobi post-smooth).
+    levels, each polishing the upsampled solution: int iterations of CG
+    on the residual gradients, or the V-branch, "v" (damped-Jacobi
+    pre-smooth, coarse-grid correction on the grid v_coarse_mult times
+    coarser with an exact line search, Jacobi post-smooth) or "vv" (a
+    second correct-and-smooth round on the updated residual).
 
     dx : (..., n, m-1) and dy : (..., n-1, m) phase differences (or
-    already aligned (..., n, m)); weight : (n, m) shared by the batch.
-    `events` (a list) collects CUDA timing events per level."""
-    if weight is None:
-        raise NotImplementedError(
-            "phase_unwrap_prediff_mg: the unweighted multigrid unwrap is "
-            "not ported (ROADMAP queue 1 item 8)")
+    already aligned (..., n, m)); weight : (n, m) shared by the batch,
+    or None for the unweighted problem. schedule : ((factor, iters),
+    ...) coarsest -> finest, default_schedule's when None. `events` (a
+    list) collects CUDA timing events per level."""
     dx = wrap_to_pi(dx)
     dy = wrap_to_pi(dy)
     n = dx.shape[-2]
     m = dy.shape[-1]
-    schedule = default_schedule(n, m, kmax, coarse, refine_iters)
+    if schedule is None:
+        schedule = default_schedule(n, m, kmax, coarse, refine_iters)
     dxp = _pad_last(dx, -1) if dx.shape[-1] == m - 1 else dx
     dyp = _pad_last(dy, -2) if dy.shape[-2] == n - 1 else dy
 
@@ -336,8 +343,8 @@ def phase_unwrap_prediff_mg(dx, dy, weight, kmax=10, coarse=4,
         # re-wrapping); the last coarse column/row mixes pad values and
         # is masked back to the structural zero
         dxyc = block_mean(torch.stack([dxp, dyp], 0), nc, mc, c) * c
-        return (_mask_last(dxyc[0], -1), _mask_last(dxyc[1], -2),
-                block_mean(weight, nc, mc, c))
+        wc = None if weight is None else block_mean(weight, nc, mc, c)
+        return _mask_last(dxyc[0], -1), _mask_last(dxyc[1], -2), wc
 
     phi = None
     for c, iters in schedule:
@@ -351,42 +358,13 @@ def phase_unwrap_prediff_mg(dx, dy, weight, kmax=10, coarse=4,
             continue
         phi = upsample(phi, nc, mc)
         if isinstance(iters, str):
-            if iters != "v":
-                raise NotImplementedError(
-                    f"unwrap_mg_final={iters!r}: only the 'v' branch is "
-                    "ported (ROADMAP queue 1 item 8)")
-            cv = _V_COARSE_MULT * c
-            if _vcycle.vcycle_kernel_ok(phi, wc, cv):
-                presmooth, applyq = _vcycle.presmooth, _vcycle.applyq
-            else:
-                presmooth = _vcycle.presmooth_plain
-                applyq = _vcycle.applyq_plain
-            # fused pre-smooth: residual gradients, weights, residual,
-            # Jacobi diagonal, d = Dinv rk, r = rk - Q d, and the row
-            # half of the restriction of r
-            r, d, Dinv, rrow = presmooth(phi, dxc, dyc, wc, cv,
-                                         _JACOBI_OMEGA)
-            dxv, dyv, wv = level_data(cv)
-            _, WWxv, WWyv = _residual_aligned(dxv, dyv, wv)
-            vk = int(kmax) if DEFAULTS.unwrap_mg_v_kmax is None \
-                else int(DEFAULTS.unwrap_mg_v_kmax)
-            # coarse-grid correction of the smoothed residual (the
-            # kernel's row means finished by the column-averaging
-            # product), exact energy line search, Jacobi post-smooth
-            r2c = rrow @ _avg_right(mc, mc // cv, cv, rrow.dtype,
-                                    rrow.device)
-            dcor, _ = _cg_unwrap(r2c, WWxv, WWyv, vk, aligned=True)
-            dcu = upsample(dcor, nc, mc)
-            q = applyq(dcu, wc)
-            num = (r * dcu).sum((-2, -1), keepdim=True)
-            den = (dcu * q).sum((-2, -1), keepdim=True)
-            one = torch.ones((), dtype=den.dtype, device=den.device)
-            alpha = torch.where(den != 0,
-                                num / torch.where(den != 0, den, one),
-                                torch.zeros_like(den))
-            d = d + alpha * dcu
-            r = r - alpha * q
-            phi = phi + (d + r * Dinv)
+            if iters not in ("v", "vv"):
+                raise ValueError(
+                    f"schedule iters must be an int, 'v' or 'vv' (got "
+                    f"{iters!r}); check DEFAULTS.unwrap_mg_final")
+            phi = phi + _v_branch(phi, dxc, dyc, wc, int(v_coarse_mult),
+                                  level_data(int(v_coarse_mult) * c), kmax,
+                                  2 if iters == "vv" else 1)
             stamp(events, "unwrap_v")
             continue
         # residual gradients are small and unwrapped by construction
@@ -397,4 +375,99 @@ def phase_unwrap_prediff_mg(dx, dy, weight, kmax=10, coarse=4,
             dphi, _ = _cg_unwrap(rk, WWx, WWy, iters, aligned=True)
             phi = phi + dphi
         stamp(events, f"unwrap_level{c}")
+    if int(schedule[-1][0]) != 1:
+        phi = upsample(phi, n, m)
     return phi
+
+
+def _v_branch(phi, dxc, dyc, wc, cv, coarse_data, kmax, rounds):
+    """The V-branch's update d of phi on its level (..., nc, mc):
+    damped-Jacobi pre-smooth, then `rounds` times a coarse-grid
+    correction of the residual on the level cv times coarser
+    (`coarse_data`: its differences and weight; an exact energy line
+    search along the correction) and a Jacobi smooth, the residual
+    updated between rounds. On the finest level this is the reference's
+    V-branch; the reference restricts by the finest level's sides, so it
+    runs the branch on that level only. The pre-smooth and Q p run in
+    the ops.vcycle kernels where vcycle_kernel_ok holds (weighted levels
+    only, as the reference gates them) and in their twins elsewhere;
+    the unweighted level hands the twins weights of ones, whose
+    min-neighbour weights are the unweighted problem's."""
+    nc, mc = phi.shape[-2:]
+    if wc is not None and _vcycle.vcycle_kernel_ok(phi, wc, cv):
+        presmooth, applyq = _vcycle.presmooth, _vcycle.applyq
+    else:
+        presmooth = _vcycle.presmooth_plain
+        applyq = _vcycle.applyq_plain
+    if wc is None:
+        wc = torch.ones((nc, mc), dtype=phi.dtype, device=phi.device)
+    # fused pre-smooth: residual gradients, weights, residual, Jacobi
+    # diagonal, d = Dinv rk, r = rk - Q d, and the row half of the
+    # restriction of r
+    r, d, Dinv, rrow = presmooth(phi, dxc, dyc, wc, cv, _JACOBI_OMEGA)
+    _, WWxv, WWyv = _residual_aligned(*coarse_data)
+    vk = int(kmax) if DEFAULTS.unwrap_mg_v_kmax is None \
+        else int(DEFAULTS.unwrap_mg_v_kmax)
+    one = torch.ones((), dtype=phi.dtype, device=phi.device)
+    for j in range(rounds):
+        # the restriction of r: the pre-smooth's row means finished by
+        # the column-averaging product, then block means of the update
+        if j == 0:
+            r2c = rrow @ _avg_right(mc, mc // cv, cv, rrow.dtype,
+                                    rrow.device)
+        else:
+            r2c = block_mean(r, nc // cv, mc // cv, cv)
+        dcor, _ = _cg_unwrap(r2c, WWxv, WWyv, vk, aligned=True)
+        dcu = upsample(dcor, nc, mc)
+        q = applyq(dcu, wc)
+        num = (r * dcu).sum((-2, -1), keepdim=True)
+        den = (dcu * q).sum((-2, -1), keepdim=True)
+        alpha = torch.where(den != 0, num / torch.where(den != 0, den, one),
+                            torch.zeros_like(den))
+        d = d + alpha * dcu
+        r = r - alpha * q
+        s = r * Dinv
+        d = d + s
+        if j < rounds - 1:
+            r = r - applyq(s, wc)
+    return d
+
+
+# --- the reference's phase_unwrap API-parity names -----------------------
+
+def _wrapToPi(x):
+    """wrap_to_pi under the reference's name."""
+    return wrap_to_pi(x)
+
+
+def phase_unwrap_ref(psi, weight=None, kmax=DEFAULTS.unwrap_kmax):
+    """The reference's non-precomputed variant: the same solver."""
+    return phase_unwrap(psi, weight, kmax)
+
+
+def phase_unwrap_ref_prediff(dx, dy, weight=None, kmax=DEFAULTS.unwrap_kmax):
+    """The reference's non-precomputed prediff variant: the same
+    solver."""
+    return phase_unwrap_prediff(dx, dy, weight, kmax)
+
+
+def solvePoisson(rho):
+    """solve_poisson under the reference's name."""
+    return solve_poisson(rho)
+
+
+def precomp_Poissonscaling(rho):
+    """The DCT eigenvalues solvePoisson_precomped divides by, for rho's
+    last two axes."""
+    return poisson_scale(*rho.shape[-2:], rho.dtype, rho.device)
+
+
+def solvePoisson_precomped(rho, scale):
+    """solve_poisson with precomputed eigenvalues."""
+    return solve_poisson(rho, scale)
+
+
+def applyQ(p, WWx, WWy):
+    """The weighted transformation A^T W^T W A p on unaligned weights
+    WWx (..., n, m-1), WWy (..., n-1, m)."""
+    return _apply_q(p, WWx, WWy)
