@@ -106,7 +106,33 @@ Phases, each printed on its own lines:
    DEFAULTS): presmooth once and applyq three times a call (once with
    "v"), the bench's interior and dc-free gates, the same path on the
    plain twins within 1e-2 px; each with its launch counts and seconds
-   per call.
+   per call;
+13. benchmarks/run_all.py configs 1, 2, 5 and 6 as it builds them,
+   through the bench extractor (unwrap_coarse=4): (a) config 1 at 512^2
+   (interior max |u| < 0.02 px, 8 sigma border), (b) config 2 at 1024^2
+   (r_k 0.015, theta 3 deg; < 0.6 px, 2 sigma border), (c) config 5,
+   four 4096^2 tiles (the lattice and its flips, chunk=4) each followed
+   by props_from_u (tile 0's interior: max |theta| < 0.01 deg, max
+   |kappa - 1| < 0.001), (d) config 6 at 8192^2 (chunk=4; raw interior
+   < 0.004 px, dc-free < 0.003 px); each with its launch counts and the
+   routes they show, seconds, peak memory, and the same path on the
+   plain twins (u: interior p99 < 1e-3 px, max < 1e-2 px; config 5's
+   props: a tenth of each gate); (a), (b) and (d) also hold each kernel
+   of the path against its twin, with phase 3's bounds, on the inputs
+   one run of the same extractor hands it on the lattice displaced by
+   the bench's field (config 5's shapes are phase 3's);
+14. (a) config 5f: iterate_J_leastsq on the 128^2 float32 JacA0 field
+   from Kerelsky_Jac's refest (max |theta - theta_ref| < 0.5 deg, kfits/s,
+   its distance from the float64 fit on the card, one traced fit's
+   kernel count and device time); (b) Kerelsky_plus and
+   Kerelsky_Jac on three moire k-vector sets, each through
+   tests/test_kerelsky.py's round-trip gates; (c) gt.gpa.wfr4 on the
+   4096^2 bench fixture for each Bragg peak with config 2g's bank and
+   dk one bank step (route, seconds), and on a 1024^2 crop against the
+   same call on the CPU (winners agree on >= 99.9% of the 5 sigma
+   interior, the lock-in's phase within 1e-4 rad there); (d) gt.gpa.wff
+   on a noisy 1024^2 crop (correlation with the clean crop > 0.97 and
+   above the noisy input's). No hand kernel runs in phase 14.
 
 Phase 3 also holds the grouped sweep (kernel and float32 twin against
 the float64 twin; stages 1, 2 and the uv epilogue timed apart, with
@@ -264,7 +290,15 @@ PATH_KERNELS = {4: ("sweep_uv", "presmooth", "applyq", "cg_poisson"),
                 "10b": ("sweep_grad",) + GRAD_STEPS,
                 "11a": ("zoom_grad", "dct_lane", "dct_sub") + GRAD_STEPS,
                 "11b": ("sweep_pw", "dct_lane", "dct_sub"),
-                "12e": ("sweep_uv", "presmooth", "applyq", "cg_poisson")}
+                "12e": ("sweep_uv", "presmooth", "applyq", "cg_poisson"),
+                "13a": ("sweep_uv", "presmooth", "applyq", "cg_poisson"),
+                "13b": ("sweep_uv", "presmooth", "applyq", "cg_poisson"),
+                "13c": ("sweep_uv", "presmooth", "applyq", "cg_poisson"),
+                # 8192^2: the 2048^2 coarse and correction solves take the
+                # torch CG loop (above ops.cg.MAX_SIDE)
+                "13d": ("sweep_uv", "presmooth", "applyq"),
+                # the fits, wfr4 and WFF run no hand kernel
+                "14a": (), "14b": (), "14c": (), "14d": ()}
 # each gradient path's launches of the sweeps: exactly these counts
 PATH_SWEEPS = {"10a": {"zoom_grad": 3}, "10b": {"sweep_grad": 1},
                "11a": {"zoom_grad": 3}, "11b": {"sweep_pw": 1}}
@@ -275,7 +309,7 @@ SWEEP_KERNELS = ("zoom_stage2_kernel", "grouped_stage2_kernel",
                  "stage1_kernel", "band_flags_kernel",
                  "winner_products_kernel")
 GATE_2G_THETA, GATE_2G_KAPPA = 0.01, 0.001   # run_all.py config 2g
-DEVICE = "cuda"     # where phases 10 and 11 put their work
+DEVICE = "cuda"     # where phases 9-11, 13 and 14 put their work
 GRAD_RTOL, GRAD_ATOL, GRAD_AGREE = 2e-3, 2e-5, 1 - 2e-4
 # where the grouped phases agree, a near-tie flip to a neighbouring
 # candidate moves a gradient by up to ~1e-3 rad/px (measured 1.0e-3 on
@@ -362,16 +396,23 @@ class Capture:
         setattr(self.module, self.name, self.orig)
 
 
+def bench_field(size):
+    """The bench's displacement field at `size` (float32, (2, size,
+    size)): u_x = 0.1 x exp(-(x / (size / 4))^2 / 2 - 1.2 (y / (size /
+    3))^2 / 2), u_y = 0."""
+    S = size // 2
+    xp, yp = np.meshgrid(np.arange(-S, S), np.arange(-S, S), indexing="ij")
+    xshift = 0.1 * xp * np.exp(-0.5 * ((xp / (2 * S / 8)) ** 2
+                                       + 1.2 * (yp / (2 * S / 6)) ** 2))
+    return np.stack((xshift, np.zeros_like(xshift))).astype(np.float32)
+
+
 def fixtures(torch):
     from pygpa_tpu_torch.lattices import generate_ks, hexlattice_gen
     ks = generate_ks(R_K, THETA, kappa=KAPPA, psi=PSI)[:3]
     img = hexlattice_gen(R_K, THETA, order=2, size=SIZE, kappa=KAPPA,
                          psi=PSI, dtype=torch.float32, device="cuda")
-    S = SIZE // 2
-    xp, yp = np.meshgrid(np.arange(-S, S), np.arange(-S, S), indexing="ij")
-    xshift = 0.1 * xp * np.exp(-0.5 * ((xp / (2 * S / 8)) ** 2
-                                       + 1.2 * (yp / (2 * S / 6)) ** 2))
-    u_true = np.stack((xshift, np.zeros_like(xshift))).astype(np.float32)
+    u_true = bench_field(SIZE)
     img_d = hexlattice_gen(R_K, THETA, order=2, size=SIZE, kappa=KAPPA,
                            psi=PSI, shift=u_true, dtype=torch.float32,
                            device="cuda")
@@ -571,19 +612,25 @@ SWEEP_BOUNDS = {"dudx_p99": 1e-3, "dudy_p99": 1e-3, "wnorm_rel_max": 5e-3,
                 "wnorm_rel_p99": 5e-5}
 
 
+def p99(t):
+    """The 99th percentile of t's values, from every 7th (sparser where
+    torch.quantile's limit of 2^24 values needs it)."""
+    import torch
+    f = t.flatten()
+    step = max(7, -(-f.numel() // (1 << 24)))
+    return float(torch.quantile(f[::step], torch.tensor(
+        [0.99], device=f.device, dtype=f.dtype)))
+
+
 def sweep_stats(got, want):
     """check_sweep's numbers of one sweep's outputs against another's."""
-    import torch
     ux, uy, wn = got
     vx, vy, vn = want
     dx = (ux - vx)[:, :, 1:].abs()
     dy = (uy - vy)[:, 1:, :].abs()
     dwn = (wn - vn).abs() / (vn.abs() + 1e-9)
-    q = torch.tensor([0.99], device=dx.device, dtype=dx.dtype)
-    return {"dudx_p99": float(torch.quantile(dx.flatten()[::7], q)),
-            "dudy_p99": float(torch.quantile(dy.flatten()[::7], q)),
-            "wnorm_rel_max": float(dwn.max()),
-            "wnorm_rel_p99": float(torch.quantile(dwn.flatten()[::7], q))}
+    return {"dudx_p99": p99(dx), "dudy_p99": p99(dy),
+            "wnorm_rel_max": float(dwn.max()), "wnorm_rel_p99": p99(dwn)}
 
 
 def check_sweep(sw, args):
@@ -904,14 +951,13 @@ def float32_sweep():
         sw.sweep_uv = real
 
 
-def interior_dist(u, ref, ks):
-    """Interior p99 and max |u - ref| (px), the bench's border cut."""
-    import torch
-    b = 8 * int(np.ceil(1 / np.linalg.norm(ks, axis=1).min()))
-    d = (u - ref)[:, b:-b, b:-b].abs().flatten()
-    p99 = float(torch.quantile(d[::7], torch.tensor([0.99],
-                                                    device=d.device)))
-    return p99, float(d.max())
+def interior_dist(u, ref, ks, b=None):
+    """Interior p99 and max |u - ref| (px), cutting b px (default the
+    bench's 8 sigma border)."""
+    if b is None:
+        b = 8 * int(np.ceil(1 / np.linalg.norm(ks, axis=1).min()))
+    d = (u - ref)[:, b:-b, b:-b].abs()
+    return p99(d), float(d.max())
 
 
 def drive_path(num, label, call, call_deconv, img, img_d, u_true, ks,
@@ -1240,58 +1286,128 @@ def run_path(label, title, call, gates):
     return launches
 
 
-def drive_short(label, size, kw):
-    """Phase 9: make_displacement_extractor((size, size), config 1's
-    k-vectors, **kw) on config 1's zero-displacement lattice: launch
-    counts, finite output, config 1's gate (interior max |u| < 0.02 px,
-    8 sigma border) and the path against the same path on the plain
-    twins (interior p99 < 1e-3 px, max < 1e-2 px: near-tie winner flips
-    between the grouped kernel and its twin)."""
+def plan_line(fn):
+    """The grouped sweep's plan of an extractor (G, P, W0, Wb), or that it
+    has none (the per-peak sweeps)."""
+    plan = fn.plan
+    if plan is None:
+        return "no grouped plan (per-peak sweeps)"
+    wb = plan.idx1s.shape[1] if plan.col_groups is None \
+        else plan.col_groups[0]
+    return (f"grouped plan G, P = {tuple(plan.wl.shape[:2])}, W0 = "
+            f"{plan.idx0s.shape[1]}, Wb = {wb}")
+
+
+def launch_routes(launches):
+    """The route each stage of an extractor's counted run took, read from
+    the kernels it launched."""
+    def runs(*keys):
+        n = {k: launches[k] for k in keys if launches.get(k)}
+        return f"kernels {n}" if n else None
+    dct = [k for k in launches if k.startswith("dct")]
+    return {"sweep": runs("sweep_uv") or "no grouped sweep kernel",
+            "CG solves": runs("cg_poisson")
+            or "torch CG loop (no CG kernel launch)",
+            "DCT": runs(*dct) or "twins (no DCT kernel launch)",
+            "V-branch": runs("presmooth", "applyq") or "twins"}
+
+
+SWEEP_SCALE = 10 * SWEEP_BOUNDS["dudx_p99"]
+
+
+def check_path_kernels(label, fn, img_d):
+    """Phase 13: each hand kernel an extractor's path launches, against
+    its twin on the inputs one run of the same extractor hands it (phase
+    3's checks and bounds), at the config's own shapes. That run is on
+    the config's lattice displaced by bench_field, so the twin's
+    gradient planes are far from 0 (their p99 must exceed SWEEP_SCALE, 10
+    times the sweep's bound): a kernel that writes zeros fails."""
+    import torch
+    from pygpa_tpu_torch.ops import cg, sweep, vcycle, wfr
+    from pygpa_tpu_torch.solvers import unwrap
+    with Capture(wfr._sweep, "sweep_uv") as c_sw, \
+            Capture(unwrap._vcycle, "presmooth") as c_ps, \
+            Capture(unwrap._vcycle, "applyq") as c_aq, \
+            Capture(unwrap._cg, "cg_poisson") as c_cg:
+        fn(img_d)
+        torch.cuda.synchronize()
+    say(f"[{label}] kernels vs twins on one run's inputs (the lattice "
+        f"displaced by bench_field): sweep_uv {len(c_sw.calls)}, presmooth "
+        f"{[tuple(a[0].shape) for a in c_ps.calls]}, applyq "
+        f"{[tuple(a[0].shape) for a in c_aq.calls]}, cg "
+        f"{[tuple(a[0].shape) + (a[3],) for a in c_cg.calls]}")
+    if not (c_sw.calls and c_ps.calls and c_aq.calls):
+        raise RuntimeError(f"[{label}] a kernel of the path was not called")
+    for args in c_sw.calls:
+        ux, uy, _ = sweep.sweep_uv_plain(*args)
+        scale = min(p99(ux[..., 1:].abs()), p99(uy[:, 1:].abs()))
+        say(f"  sweep_uv {tuple(args[0].shape)}: the twin's p99 |gradient| "
+            f"{scale!r} (must exceed {SWEEP_SCALE})")
+        if not scale > SWEEP_SCALE:
+            raise RuntimeError(f"[{label}] the sweep's gradients are too "
+                               "small to hold the kernel")
+        del ux, uy
+        check_sweep(sweep, args)
+    for ps in c_ps.calls:
+        check_vcycle(vcycle, ps, c_aq.calls)
+    if c_cg.calls:
+        check_cg(cg, c_cg.calls)
+
+
+def drive_short(label, size, kw, r_k=0.1, theta=7.0, gate=0.02, mult=8,
+                title="config 1", kernels=False):
+    """Phases 9 and 13: make_displacement_extractor((size, size), the
+    lattice's k-vectors, **kw) on the zero-displacement lattice (r_k,
+    theta; order 2, float32): launch counts and the routes they show,
+    finite output, the gate interior max |u| < gate px on the mult sigma
+    interior, seconds per image, peak memory, and the path against the
+    same path on the plain twins (interior p99 < 1e-3 px, max < 1e-2 px:
+    near-tie winner flips between the grouped kernel and its twin); with
+    `kernels`, check_path_kernels on the same extractor. Returns the
+    counted run's launches."""
     import torch
     from pygpa_tpu_torch.gpa import pipeline
     from pygpa_tpu_torch.lattices import generate_ks, hexlattice_gen
     from pygpa_tpu_torch.ops import _build
-    ks = generate_ks(0.1, 7.0)[:3]
-    img = hexlattice_gen(0.1, 7.0, order=2, size=size, dtype=torch.float32,
-                         device="cuda")
+    ks = generate_ks(r_k, theta)[:3]
+    img = hexlattice_gen(r_k, theta, order=2, size=size, dtype=torch.float32,
+                         device=DEVICE)
     fn = pipeline.make_displacement_extractor((size, size), ks,
-                                              device="cuda", **kw)
-    plan = fn.plan
-    if plan is None:
-        route = "per-peak sweeps"
-    else:
-        wb = plan.idx1s.shape[1] if plan.col_groups is None \
-            else plan.col_groups[0]
-        route = f"grouped sweep, Wb = {wb}"
+                                              device=DEVICE, **kw)
     fn(img)
     torch.cuda.synchronize()
     _build.launches.clear()
     u = fn(img)
     torch.cuda.synchronize()
     launches = dict(_build.launches)
-    say(f"[{label}] make_displacement_extractor(({size}, {size}), config 1 "
-        f"ks, {kw}) ({route}): launches in one run: {launches}")
+    say(f"[{label}] make_displacement_extractor(({size}, {size}), {title} "
+        f"ks, {kw}): launches in one run: {launches}")
+    say(f"    {plan_line(fn)}; routes: {json.dumps(launch_routes(launches))}")
     missing = [k for k in PATH_KERNELS[label] if not launches.get(k)]
     if missing:
         raise RuntimeError(f"kernels of the path never ran: {missing}")
     if tuple(u.shape) != (2, size, size) or not torch.isfinite(u).all():
         raise RuntimeError(f"[{label}] output bad, shape {tuple(u.shape)}")
-    t0 = time.perf_counter()
-    for _ in range(REPS_NEW):
-        fn(img)
-    torch.cuda.synchronize()
-    dt = (time.perf_counter() - t0) / REPS_NEW
+    dt, peak = timed(lambda: fn(img), REPS_NEW)
     with plain_versions():
         up = fn(img)
-    p99, dmax = interior_dist(u, up, ks)
-    b = 8 * int(np.ceil(1 / np.linalg.norm(ks, axis=1).min()))
+    b = mult * int(np.ceil(1 / np.linalg.norm(ks, axis=1).min()))
+    p99, dmax = interior_dist(u, up, ks, b)
     err = float(u[:, b:-b, b:-b].abs().max())
-    say(f"    interior max |u| {err!r} px (gate 0.02); with kernels vs plain "
-        f"versions: interior p99 |du| {p99!r} max {dmax!r} px (bounds "
-        f"1e-3, 1e-2); seconds per image {dt!r} ({REPS_NEW} runs after "
-        "warm-up, host clock, synchronized)")
-    if not (err < 0.02 and p99 < 1e-3 and dmax < 1e-2):
+    say(f"    gates: {json.dumps({'u_err_interior_px': err, 'gated': f'<{gate}, {mult} sigma border'})}")
+    say(f"    with kernels vs plain versions: interior p99 |du| {p99!r} max "
+        f"{dmax!r} px (bounds 1e-3, 1e-2); seconds per image {dt!r}, Mpix/s "
+        f"{size * size / 1e6 / dt!r} ({REPS_NEW} runs after warm-up, host "
+        f"clock, synchronized); peak device memory {peak!r} GiB")
+    if not (err < gate and p99 < 1e-3 and dmax < 1e-2):
         raise RuntimeError(f"[{label}] gate or path check failed")
+    if kernels:
+        del u, up
+        img_d = hexlattice_gen(r_k, theta, order=2, size=size,
+                               shift=bench_field(size), dtype=torch.float32,
+                               device=DEVICE)
+        check_path_kernels(label, fn, img_d)
+    return launches
 
 
 def config2g_banks(ks):
@@ -1716,7 +1832,8 @@ def sweep_launches(launches, label):
 def counted_run(label, call):
     """A warm-up call, then one call with the launch counts reset just
     before and read just after; fails unless every kernel of
-    PATH_KERNELS[label] ran and the sweeps are PATH_SWEEPS[label]'s."""
+    PATH_KERNELS[label] ran and, where PATH_SWEEPS has the label, the
+    sweeps are its."""
     import torch
     from pygpa_tpu_torch.ops import _build
     call()
@@ -1728,7 +1845,8 @@ def counted_run(label, call):
     missing = [k for k in PATH_KERNELS[label] if not launches.get(k)]
     if missing:
         raise RuntimeError(f"kernels of the path never ran: {missing}")
-    sweep_launches(launches, label)
+    if label in PATH_SWEEPS:
+        sweep_launches(launches, label)
     return out, launches
 
 
@@ -2094,6 +2212,313 @@ def drive_vv(img, ks):
             and dmax < VV_TWINS):
         raise RuntimeError("[12e] GATE FAILED")
     return launches
+
+
+# ---- phases 13 and 14: the rest of benchmarks/run_all.py, the Kerelsky
+# fits, the wfr4 continuity scans and WFF
+GATE_5_THETA, GATE_5_KAPPA = 0.01, 0.001     # run_all.py config 5
+GATE_6_RAW, GATE_6_DCFREE = 0.004, 0.003     # run_all.py config 6
+GATE_5F_THETA = 0.5                          # run_all.py config 5f
+WFR4_AGREE, WFR4_PHASE = 0.999, 1e-4         # 14c: card vs the CPU
+GATE_WFF = 0.97                              # tests/test_imagetools.py
+# (theta, psi, epsilon, a_0, xi) of 14b, inside tests/test_kerelsky.py's
+# ranges
+KERELSKY_SETS = ((2.0, 15.0, 0.01, 0.246, 5.0),
+                 (1.5, 30.0, 0.02, 0.246, 10.0),
+                 (12.0, 80.0, 0.05, 3.0, 70.0))
+
+
+def drive_config5():
+    """Phase 13c: run_all.py config 5: four 4096^2 tiles (the lattice and
+    its three flips) each through the bench extractor (chunk=4,
+    unwrap_coarse=4) and props_from_u(u, 1.0), a Python loop in place of
+    lax.map; tile 0's 8 sigma interior held to max |theta| < 0.01 deg and
+    max |kappa - 1| < 0.001, and to the same step on the plain twins
+    within a tenth of each (phase 10's bounds)."""
+    import torch
+    from pygpa_tpu_torch.gpa import pipeline
+    from pygpa_tpu_torch.lattices import generate_ks, hexlattice_gen
+    from pygpa_tpu_torch.props import props_from_u
+    img = hexlattice_gen(0.02, 5.0, order=2, size=SIZE, dtype=torch.float32,
+                         device=DEVICE)
+    tiles = [img, img.flip(0).contiguous(), img.flip(1).contiguous(),
+             img.flip(0, 1).contiguous()]
+    ks = generate_ks(0.02, 5.0)[:3]
+    extract = pipeline.make_displacement_extractor(
+        (SIZE, SIZE), ks, chunk=4, unwrap_coarse=4, device=DEVICE)
+
+    def step():
+        return torch.stack([props_from_u(extract(t), 1.0) for t in tiles])
+
+    props, launches = counted_run("13c", step)
+    say(f"[13c] config 5: 4 x 4096^2 tiles, extractor (chunk=4, "
+        f"unwrap_coarse=4) + props_from_u: launches in one run: {launches}")
+    say(f"    {plan_line(extract)}; routes (4 tiles): "
+        f"{json.dumps(launch_routes(launches))}")
+    if tuple(props.shape) != (4, 4, SIZE, SIZE) or not torch.isfinite(
+            props).all():
+        raise RuntimeError(f"[13c] props bad: {tuple(props.shape)}")
+    b = 8 * int(np.ceil(1 / np.linalg.norm(ks, axis=1).min()))
+    th, ka = props[0, 0][b:-b, b:-b], props[0, 3][b:-b, b:-b]
+    gates = {"theta_offset_interior_deg": float(th.abs().max()),
+             "kappa_err_interior": float((ka - 1.0).abs().max()),
+             "gated": f"theta<{GATE_5_THETA}, kappa<{GATE_5_KAPPA}"}
+    say(f"    gates (tile 0): {json.dumps(gates)}")
+    if not (gates["theta_offset_interior_deg"] < GATE_5_THETA
+            and gates["kappa_err_interior"] < GATE_5_KAPPA):
+        raise RuntimeError("[13c] ACCURACY GATE FAILED")
+    dt, peak = timed(step, 1)
+    with plain_versions():
+        pp = step()
+    dth = float((props[0, 0] - pp[0, 0])[b:-b, b:-b].abs().max())
+    dka = float((props[0, 3] - pp[0, 3])[b:-b, b:-b].abs().max())
+    del pp
+    say(f"    with kernels vs plain versions, tile 0's interior: max |dtheta| "
+        f"{dth!r} deg, max |dkappa| {dka!r} (bounds {GATE_5_THETA / 10}, "
+        f"{GATE_5_KAPPA / 10})")
+    say(f"    seconds per step {dt!r}, Mpix/s {4 * SIZE * SIZE / 1e6 / dt!r} "
+        f"(1 run after warm-up, host clock, synchronized); peak device "
+        f"memory {peak!r} GiB")
+    if not (dth < GATE_5_THETA / 10 and dka < GATE_5_KAPPA / 10):
+        raise RuntimeError("[13c] kernels change the result")
+    return launches
+
+
+def drive_config6():
+    """Phase 13d: run_all.py config 6: one 8192^2 image (the bench's
+    lattice) through the bench extractor (chunk=4, unwrap_coarse=4): the
+    route of each stage, launch counts, raw interior max |u| < 0.004 px
+    and dc-free < 0.003 px (8 sigma border), the path on the plain twins
+    (interior p99 < 1e-3 px, max < 1e-2 px), seconds per image over 2
+    runs after warm-up, peak memory; then check_path_kernels on the same
+    extractor."""
+    import torch
+    from pygpa_tpu_torch.gpa import pipeline
+    from pygpa_tpu_torch.lattices import generate_ks, hexlattice_gen
+    size = 2 * SIZE
+    ks = generate_ks(R_K, THETA, kappa=KAPPA, psi=PSI)[:3]
+    img = hexlattice_gen(R_K, THETA, order=2, size=size, kappa=KAPPA,
+                         psi=PSI, dtype=torch.float32, device=DEVICE)
+    fn = pipeline.make_displacement_extractor(
+        (size, size), ks, chunk=4, unwrap_coarse=4, device=DEVICE)
+    u, launches = counted_run("13d", lambda: fn(img))
+    say(f"[13d] config 6: make_displacement_extractor((8192, 8192), ks, "
+        f"chunk=4, unwrap_coarse=4): launches in one run: {launches}")
+    say(f"    {plan_line(fn)}; routes: {json.dumps(launch_routes(launches))}")
+    if tuple(u.shape) != (2, size, size) or not torch.isfinite(u).all():
+        raise RuntimeError(f"[13d] output bad, shape {tuple(u.shape)}")
+    b = 8 * int(np.ceil(1 / np.linalg.norm(ks, axis=1).min()))
+    ui = u[:, b:-b, b:-b]
+    gates = {"u_err_interior_px": float(ui.abs().max()),
+             "u_err_interior_dcfree_px": float(
+                 (ui - ui.mean(dim=(1, 2), keepdim=True)).abs().max()),
+             "gated": f"interior<{GATE_6_RAW}, dcfree<{GATE_6_DCFREE}"}
+    say(f"    gates: {json.dumps(gates)}")
+    if not (gates["u_err_interior_px"] < GATE_6_RAW
+            and gates["u_err_interior_dcfree_px"] < GATE_6_DCFREE):
+        raise RuntimeError("[13d] ACCURACY GATE FAILED")
+    dt, peak = timed(lambda: fn(img), 2)
+    events = []
+    start = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn(img, events=events)
+    torch.cuda.synchronize()
+    stages, prev = {}, start
+    for name, ev in events:
+        stages[name] = prev.elapsed_time(ev)
+        prev = ev
+    with plain_versions():
+        up = fn(img)
+    p99, dmax = interior_dist(u, up, ks)
+    del up
+    say(f"    with kernels vs plain versions: interior p99 |du| {p99!r} max "
+        f"{dmax!r} px (bounds 1e-3, 1e-2); seconds per image {dt!r}, Mpix/s "
+        f"{size * size / 1e6 / dt!r} (2 runs after warm-up, host clock, "
+        f"synchronized); peak device memory {peak!r} GiB")
+    say(f"    stage ms (CUDA events): {json.dumps(stages)}")
+    if not (p99 < 1e-3 and dmax < 1e-2):
+        raise RuntimeError("[13d] kernels change the result")
+    del u, ui
+    img_d = hexlattice_gen(R_K, THETA, order=2, size=size, kappa=KAPPA,
+                           psi=PSI, shift=bench_field(size),
+                           dtype=torch.float32, device=DEVICE)
+    check_path_kernels("13d", fn, img_d)
+    return launches
+
+
+def moire_ks(theta, psi, epsilon, a, xi):
+    """tests/test_kerelsky.py's moire k-vectors of (theta, psi, epsilon,
+    a, xi)."""
+    from pygpa_tpu_torch.lattices import generate_ks
+    from pygpa_tpu_torch.lattices.transformations import (a_0_to_r_k,
+                                                          epsilon_to_kappa)
+    r_k = a_0_to_r_k(a)
+    r_k2, kappa = epsilon_to_kappa(r_k, epsilon)
+    return (generate_ks(r_k2, xi + theta, kappa=kappa, psi=psi)[:3]
+            - generate_ks(r_k, xi, kappa=1, psi=psi)[:3])
+
+
+def pdiff(x, y, period):
+    return (x - y + period / 2) % period - period / 2
+
+
+def drive_5f():
+    """Phase 14a: run_all.py config 5f: the 128^2 JacA0 field (A0 of
+    generate_ks(0.02, 1.2) plus its 1e-3 sin/cos perturbation) in
+    float32 through iterate_J_leastsq from Kerelsky_Jac's refest:
+    max |theta - refest theta| < 0.5 deg, kfits/s, the same fit in
+    float64 on the card beside it, and one traced fit's kernel count and
+    device time against its seconds."""
+    import torch
+    from pygpa_tpu_torch.lattices import generate_ks
+    from pygpa_tpu_torch.props import Kerelsky_Jac, iterate_J_leastsq
+    from pygpa_tpu_torch.props.kerelsky import _jac_a0
+    kvecs = generate_ks(0.02, 1.2)[:3]
+    t0 = time.perf_counter()
+    refest = Kerelsky_Jac(kvecs, device=DEVICE)
+    t_ref = time.perf_counter() - t0
+    _, A0 = _jac_a0(kvecs, 1.0, 0.246, 0)
+    n = 128
+    xg, yg = np.meshgrid(np.linspace(0, 2 * np.pi, n),
+                         np.linspace(0, 2 * np.pi, n), indexing="ij")
+    pert = 1e-3 * np.stack([np.sin(xg), np.cos(yg), np.sin(xg + yg),
+                            np.cos(xg - yg)], axis=-1).reshape(n, n, 2, 2)
+    J64 = torch.as_tensor(A0[None, None] + pert, device=DEVICE)
+    J32 = J64.float()
+    r32 = torch.tensor(refest, dtype=torch.float32, device=DEVICE)
+    X, launches = counted_run(
+        "14a", lambda: iterate_J_leastsq(J32, r32, device=DEVICE))
+    if tuple(X.shape) != (n, n, 4) or X.dtype != torch.float32:
+        raise RuntimeError(f"[14a] fits bad: {tuple(X.shape)} {X.dtype}")
+    dev = float((X[..., 0] - float(np.float32(refest[0]))).abs().max())
+    dt, peak = timed(lambda: iterate_J_leastsq(J32, r32, device=DEVICE), 2)
+    X64 = iterate_J_leastsq(J64, refest, device=DEVICE)
+    dth = float((X[..., 0].double() - X64[..., 0]).abs().max())
+    say(f"[14a] config 5f: Kerelsky_Jac refest {refest.tolist()} "
+        f"({t_ref!r} s on the card); iterate_J_leastsq on the {n}^2 "
+        f"float32 field: launches {launches}")
+    say(f"    gates: {json.dumps({'fit_theta_dev_deg': dev, 'gated': f'<{GATE_5F_THETA}'})}")
+    say(f"    float32 vs float64 on the card: max |dtheta| {dth!r} deg; "
+        f"seconds per field {dt!r}, kfits/s {n * n / 1e3 / dt!r} (2 runs "
+        f"after warm-up, host clock, synchronized); peak device memory "
+        f"{peak!r} GiB")
+    by_name, n_kern = device_kernels(
+        lambda: iterate_J_leastsq(J32, r32, device=DEVICE))
+    if by_name is not None:
+        busy = sum(by_name.values())
+        say(f"    one field fit traced (torch.profiler): {n_kern} kernels, "
+            f"{busy!r} ms of device time, {busy / (dt * 1e3)!r} of the "
+            f"unprofiled seconds per field (the rest: the device idle, "
+            f"waiting on the host's dispatch)")
+    else:
+        say("    one field fit traced: the profiler recorded no device "
+            "activity")
+    if not (dev < GATE_5F_THETA and torch.isfinite(X).all()):
+        raise RuntimeError("[14a] ACCURACY GATE FAILED")
+
+
+def drive_kerelsky_fits():
+    """Phase 14b: Kerelsky_plus and Kerelsky_Jac on the card for three
+    moire k-vector sets, each through tests/test_kerelsky.py's round-trip
+    gates, with seconds per fit."""
+    from pygpa_tpu_torch.props import Kerelsky_Jac, Kerelsky_plus
+    for theta, psi, epsilon, a, xi in KERELSKY_SETS:
+        mks = moire_ks(theta, psi, epsilon, a, xi)
+        for name, fit in (("Kerelsky_plus", Kerelsky_plus),
+                          ("Kerelsky_Jac", Kerelsky_Jac)):
+            fit(mks, nmperpixel=1, a_0=a, device=DEVICE)
+            t0 = time.perf_counter()
+            p = fit(mks, nmperpixel=1, a_0=a, device=DEVICE)
+            dt = time.perf_counter() - t0
+            errs = [abs(pdiff(abs(p[0]), theta, 60)), abs(pdiff(p[1], psi, 180)),
+                    abs(p[2] - epsilon), abs(pdiff(p[3], xi, 360))]
+            ok = (errs[0] < 1e-2 and errs[1] < 1e-2 and errs[3] < 1e-2
+                  and errs[2] <= 1e-6 + 1e-3 * abs(epsilon))
+            say(f"[14b] {name} of (theta, psi, epsilon, a, xi) = "
+                f"{(theta, psi, epsilon, a, xi)}: {p.tolist()}; errors "
+                f"{errs} (gates 1e-2 deg; epsilon rtol 1e-3, atol 1e-6); "
+                f"{dt!r} s a fit")
+            if not ok:
+                raise RuntimeError(f"[14b] {name} round trip failed")
+
+
+def drive_wfr4(img, ks):
+    """Phase 14c: gt.gpa.wfr4 on the 4096^2 bench fixture for each Bragg
+    peak, config 2g's bank (k +- kw, steps of kw / 3) and dk one step:
+    the route, seconds per call, finite output; then on the 1024^2 crop
+    against the port's own device="cpu" call: winners agree on >= 99.9%
+    of the 5 sigma interior, and there the lock-in's phase within 1e-4
+    rad."""
+    import torch
+    from pygpa_tpu_torch.gpa import wfr4
+    from pygpa_tpu_torch.ops import _build
+    from pygpa_tpu_torch.ops.wfr import _plan_zoom
+    wlists, sigma = config2g_banks(ks)
+    step = float(np.linalg.norm(ks, axis=1).mean()) / 2.5 / 3
+    crop = img[:1024, :1024].contiguous()
+    crop_h = crop.cpu()
+    b = 5 * sigma
+    for k, wl in zip(ks, wlists):
+        routes = ["zoom" if _plan_zoom(s, wl, float(sigma)) is not None
+                  else "full-FFT" for s in ((SIZE, SIZE), (1024, 1024))]
+        def call():
+            return wfr4(img, sigma, wl, k, step, device=DEVICE)
+        g, launches = counted_run("14c", call)
+        dt, peak = timed(call, 2)
+        if not (torch.isfinite(g["lockin"]).all()
+                and tuple(g["w"].shape) == (2, SIZE, SIZE)):
+            raise RuntimeError("[14c] wfr4 output bad")
+        gc = wfr4(crop, sigma, wl, k, step, device=DEVICE)
+        gh = wfr4(crop_h, sigma, wl, k, step, device="cpu")
+        same = (gc["w"].cpu() == gh["w"]).all(0)[b:-b, b:-b]
+        dph = torch.angle(gc["lockin"].cpu() * gh["lockin"].conj())
+        dph = float(dph[b:-b, b:-b][same].abs().max())
+        frac = float(same.double().mean())
+        say(f"[14c] wfr4 at k = {k.tolist()}, P = {len(wl)}, dk = {step!r}: "
+            f"route {routes[0]} at 4096^2, {routes[1]} at 1024^2; "
+            f"launches {launches}; seconds per call {dt!r} (2 runs after "
+            f"warm-up), peak device memory {peak!r} GiB; 1024^2 crop, card "
+            f"vs CPU: winners agree on {frac!r} of the 5 sigma interior "
+            f"(bound {WFR4_AGREE}), lock-in phase there within {dph!r} rad "
+            f"(bound {WFR4_PHASE})")
+        if not (frac >= WFR4_AGREE and dph < WFR4_PHASE):
+            raise RuntimeError("[14c] the card's wfr4 disagrees with the CPU's")
+    del g, gc, gh, crop, crop_h
+
+
+def drive_wff(img):
+    """Phase 14d: gt.gpa.wff on a 1024^2 crop of the bench fixture (mean
+    removed) plus seeded Gaussian noise of the crop's own std, at
+    tests/test_imagetools.py's sizes scaled 8x (sigma 64, 16 -> 128 px
+    border; the threshold 3 noise stds), its grid -0.3..0.3 rad/px
+    covering the lattice's first- and second-order peaks: correlation
+    with the clean crop > 0.97 and above the noisy input's."""
+    import torch
+    from pygpa_tpu_torch.gpa import wff
+    clean = img[:1024, :1024].double()
+    clean = clean - clean.mean()
+    std = float(clean.std())
+    noise = np.random.default_rng(14).normal(size=(1024, 1024)) * std
+    noisy = (clean + torch.as_tensor(noise, device=DEVICE)).float()
+    def call():
+        return wff(noisy, 64, [3 * std], -0.3, 0.3, device=DEVICE)
+    out, launches = counted_run("14d", call)
+    dt, peak = timed(call, 2)
+    sl = np.s_[128:-128, 128:-128]
+
+    def corr(a):
+        a, c = a[sl].double().flatten(), clean[sl].flatten()
+        a, c = a - a.mean(), c - c.mean()
+        return float((a * c).sum() / torch.sqrt((a * a).sum() * (c * c).sum()))
+
+    c0, c1 = corr(noisy), corr(out[0])
+    say(f"[14d] wff(noisy 1024^2 crop, sigma 64, threshold 3 std, "
+        f"-0.3..0.3 rad/px): launches {launches}; correlation with the "
+        f"clean crop {c1!r} (gate > {GATE_WFF}), the noisy input's {c0!r}; "
+        f"seconds per call {dt!r} (2 runs after warm-up), peak device "
+        f"memory {peak!r} GiB")
+    if not (c1 > GATE_WFF and c1 > c0):
+        raise RuntimeError("[14d] WFF GATE FAILED")
 
 
 def main():
@@ -2725,6 +3150,27 @@ def main():
     drive_lockin(img, ks)
     path_launches["12e"] = drive_vv(img, ks)
     say(f"    phase 12 took {time.perf_counter() - t12!r} s")
+
+    # ---- 13. benchmarks/run_all.py configs 1, 2, 5 and 6
+    say(f"    card before phase 13: {card_state()}")
+    t13 = time.perf_counter()
+    path_launches["13a"] = drive_short("13a", 512, {"unwrap_coarse": 4},
+                                       title="config 1", kernels=True)
+    path_launches["13b"] = drive_short("13b", 1024, {"unwrap_coarse": 4},
+                                       r_k=0.015, theta=3.0, gate=0.6,
+                                       mult=2, title="config 2",
+                                       kernels=True)
+    path_launches["13c"] = drive_config5()
+    path_launches["13d"] = drive_config6()
+    say(f"    phase 13 took {time.perf_counter() - t13!r} s")
+
+    # ---- 14. config 5f and the Kerelsky fits, wfr4, WFF
+    t14 = time.perf_counter()
+    drive_5f()
+    drive_kerelsky_fits()
+    drive_wfr4(img, ks)
+    drive_wff(img)
+    say(f"    phase 14 took {time.perf_counter() - t14!r} s")
 
     kernels = []
     for name, (src, rep) in KERNELS.items():

@@ -1,6 +1,7 @@
-"""Geometric phase analysis: lock-in, WFR variants, peak detection,
-displacement-field reconstruction and undistortion, under the
-reference's names (pygpa_tpu.gpa without wff, not ported yet)."""
+"""Geometric phase analysis: lock-in, WFR variants (wfr4's k-continuity
+scan included), peak detection, displacement-field reconstruction,
+undistortion and windowed Fourier filtering, under the reference's names
+(all of pygpa_tpu.gpa)."""
 from .api import (  # noqa: F401
     GPA, optGPA, vecGPA,
     wfr, wfr2, wfr3, wfr4, optwfr2,
@@ -24,3 +25,4 @@ from .peaks import (  # noqa: F401
 from .kgeometry import (  # noqa: F401
     average_lattice_vector, calc_diff_from_isotropic, ratio2angle, f2angle,
 )
+from .wff import wff  # noqa: F401

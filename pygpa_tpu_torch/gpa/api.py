@@ -2,10 +2,10 @@
 pygpa_tpu/gpa/api.py). GPA, optGPA and vecGPA are the spatial lock-in
 (ops.lockin). The WFR variants are thin wrappers over one
 sweep (ops.wfr.wfr_sweep: on the card the zoom kernel, with its
-gradient emission for the *_grad names); the *_vec variants are the
-same sweep, kept as aliases. Candidate grids are built on the host with
-np.arange, row-major in (wx, wy), as the reference iterates them, so
-ties break the same way.
+gradient emission for the *_grad names; for wfr4 the k-continuity
+scan); the *_vec variants are the same sweep, kept as aliases.
+Candidate grids are built on the host with np.arange, row-major in
+(wx, wy), as the reference iterates them, so ties break the same way.
 
 Each wrapper takes the image (numpy or a tensor) and `device`: None
 means the card, "cpu" the plain route (core.entry_device)."""
@@ -67,10 +67,10 @@ def wfr3(image, sigma, klist, kref, device=None):
 
 
 def wfr4(image, sigma, klist, kref, dk, device=None):
-    """wfr3 with the k-continuity constraint; raises NotImplementedError
-    (the wfr4 continuity scans, ROADMAP queue 1 item 5)."""
-    raise NotImplementedError("wfr4: the wfr4 k-continuity scans are not "
-                              "ported: ROADMAP queue 1 item 5")
+    """wfr3 with the k-continuity constraint: a candidate takes a pixel
+    only within 2 sqrt(2) dk of the pixel's current winner."""
+    return wfr_sweep(entry_tensor(image, device), np.asarray(klist),
+                     np.asarray(kref), sigma, continuity_dk=dk)
 
 
 def wfr2_only_lockin(image, sigma, kx, ky, kw, kstep, device=None):

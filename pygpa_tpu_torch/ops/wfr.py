@@ -1,5 +1,5 @@
-"""Windowed-Fourier-ridge sweeps (counterpart of pygpa_tpu/ops/wfr.py
-without the k-continuity variant).
+"""Windowed-Fourier-ridge sweeps (counterpart of pygpa_tpu/ops/wfr.py,
+the wfr4 k-continuity scans included).
 
 A sweep evaluates, for a Bragg peak and every candidate reference
 vector w of its bank, the full-resolution demodulated lock-in
@@ -28,7 +28,13 @@ Routes, chosen as the reference chooses them:
   128, its plain twin on the CPU; the reference's XLA route, with
   np.gradient of each candidate's phase, otherwise);
 - the full-FFT sweep (``_wfr_sweep_chunked``), one inverse FFT per
-  candidate, where no zoom window pays off (np.gradient gradients).
+  candidate, where no zoom window pays off (np.gradient gradients);
+- the wfr4 continuity scans (``continuity_dk``): one candidate at a
+  time in the bank's order, a candidate winning a pixel only if it also
+  lies within 2 sqrt(2) dk of that pixel's current winner; on the zoom
+  window as two DFT products a candidate (``torch.matmul`` in float32,
+  TF32 off; analytic gradients) or one inverse FFT a candidate
+  (np.gradient gradients).
 """
 import math
 from dataclasses import dataclass
@@ -39,6 +45,7 @@ import torch
 from . import sweep as _sweep
 from . import zoom_sweep as _zoom
 from ..core.fourier import _fftfreq
+from ..core.interp import no_tf32
 from ..core.mathtools import wrap_to_pi
 from .sweep import np_gradient_2d as _np_gradient_2d
 
@@ -522,6 +529,115 @@ def _wfr_sweep_chunked(spectrum, wlist, sigma, chunk, with_grad=False):
     return best_absq, best_lockin, best_idx, best_grad
 
 
+def _continuity_init(wl, n, m, cdtype, with_grad):
+    """The continuity scans' carry: |M|^2, the winner's lock-in (complex)
+    and candidate (starting at the bank's first), and its gradient."""
+    rdt, dev = wl.dtype, wl.device
+    return (torch.zeros((n, m), dtype=rdt, device=dev),
+            torch.zeros((n, m), dtype=cdtype, device=dev),
+            wl[0].expand(n, m, 2).clone(),
+            torch.zeros((n, m, 2), dtype=rdt, device=dev)
+            if with_grad else None)
+
+
+def _continuity_wins(absq, best_absq, best_w, w, lim):
+    """Pixels candidate w takes: a larger |M|^2 than the winner's, and
+    |w - winner|^2 < 8 dk^2 (lim)."""
+    d0 = best_w[..., 0] - w[0]
+    d1 = best_w[..., 1] - w[1]
+    return (absq > best_absq) & (d0 * d0 + d1 * d1 < lim)
+
+
+def _wfr_sweep_sequential(spectrum, wlist, sigma, dk, with_grad=False):
+    """The wfr4 continuity scan with one inverse FFT of the bandpassed
+    spectrum a candidate, in the bank's order: (best_absq, best_lockin,
+    best_w (n, m, 2), best_grad (the winner's np.gradient of -angle M,
+    (n, m, 2), or None))."""
+    n, m = spectrum.shape
+    rdt = _real_dtype(spectrum)
+    dev = spectrum.device
+    fx = _fftfreq(n, rdt, dev)
+    fy = _fftfreq(m, rdt, dev)
+    s2 = torch.tensor(2.0 * np.pi ** 2 * sigma ** 2, dtype=rdt, device=dev)
+    wl = torch.as_tensor(np.asarray(wlist), device=dev).to(rdt)
+    best_absq, best_lockin, best_w, best_grad = _continuity_init(
+        wl, n, m, spectrum.dtype, with_grad)
+    lim = 8.0 * dk * dk
+    for i in range(wl.shape[0]):
+        w = wl[i]
+        gx = torch.exp(-s2 * (fx + w[0]) ** 2)
+        gy = torch.exp(-s2 * (fy + w[1]) ** 2)
+        Mw = torch.fft.ifft2(spectrum * (gx[:, None] * gy[None, :]).to(
+            spectrum.dtype))
+        absq = Mw.real * Mw.real + Mw.imag * Mw.imag
+        t = _continuity_wins(absq, best_absq, best_w, w, lim)
+        best_absq = torch.where(t, absq, best_absq)
+        best_lockin = torch.where(t, Mw, best_lockin)
+        best_w = torch.where(t[..., None], w, best_w)
+        if with_grad:
+            ggx, ggy = _np_gradient_2d(-torch.atan2(Mw.imag, Mw.real))
+            best_grad = torch.where(t[..., None],
+                                    torch.stack([ggx, ggy], dim=-1),
+                                    best_grad)
+    return best_absq, best_lockin, best_w, best_grad
+
+
+def _wfr_sweep_sequential_zoom(spectrum, wlist, idx0, idx1, sigma, dk,
+                               with_grad=False):
+    """The wfr4 continuity scan on the zoom window: a candidate's
+    full-resolution lock-in is two DFT products of the Gaussian-weighted
+    window, [Tr | Ti] = [A0c | A0s] [[Swr, Swi], [-Swi, Swr]] and
+    [Mr | Mi] = [Tr | Ti] [[A1c^T, A1s^T], [-A1s^T, A1c^T]], in float32
+    with TF32 off (or float64); the gradients are the analytic
+    derivatives of the band-limited interpolant, (Im M Re D - Re M Im D)
+    / max(|M|^2, 1e-30). Returns as _wfr_sweep_sequential."""
+    n, m = spectrum.shape
+    ops, gops = _zoom_operands(spectrum, wlist, idx0, idx1, sigma,
+                               with_grad)
+    Sr, Si, gxs, gys, A0c, A0s, A1c, A1s = ops
+    rdt, dev = Sr.dtype, Sr.device
+    wl = torch.as_tensor(np.asarray(wlist), device=dev).to(rdt)
+    A0 = torch.cat([A0c, A0s], dim=1)                          # (n, 2 W0)
+    B = torch.cat([torch.cat([A1c.T, A1s.T], dim=1),
+                   torch.cat([-A1s.T, A1c.T], dim=1)])         # (2 W1, 2 m)
+    BB = B
+    if with_grad:
+        # [Mr | Mi | Myr | Myi] from one product: A1y = (2 pi i f1) A1
+        S2r, S2i, A1yc, A1ys = gops
+        BB = torch.cat([B, torch.cat([torch.cat([A1yc.T, A1ys.T], dim=1),
+                                      torch.cat([-A1ys.T, A1yc.T], dim=1)])],
+                       dim=1)                                  # (2 W1, 4 m)
+
+    def window(gx, gy, xr, xi):
+        """[[Swr, Swi], [-Swi, Swr]] of the weighted window x."""
+        wr = gx[:, None] * xr * gy[None, :]
+        wi = gx[:, None] * xi * gy[None, :]
+        return torch.cat([torch.cat([wr, wi], dim=1),
+                          torch.cat([-wi, wr], dim=1)])
+
+    best_absq, best_lockin, best_w, best_grad = _continuity_init(
+        wl, n, m, spectrum.dtype, with_grad)
+    lim = 8.0 * dk * dk
+    with no_tf32():
+        for i in range(wl.shape[0]):
+            w, gx, gy = wl[i], gxs[i], gys[i]
+            MM = (A0 @ window(gx, gy, Sr, Si)) @ BB
+            Mr, Mi = MM[:, :m], MM[:, m:2 * m]
+            absq = Mr * Mr + Mi * Mi
+            t = _continuity_wins(absq, best_absq, best_w, w, lim)
+            best_absq = torch.where(t, absq, best_absq)
+            best_lockin = torch.where(t, torch.complex(Mr, Mi), best_lockin)
+            best_w = torch.where(t[..., None], w, best_w)
+            if with_grad:
+                Mx = (A0 @ window(gx, gy, S2r, S2i)) @ B
+                gi = torch.stack([
+                    _sweep.winner_gradients(Mr, Mi, Mx[:, :m], Mx[:, m:]),
+                    _sweep.winner_gradients(Mr, Mi, MM[:, 2 * m:3 * m],
+                                            MM[:, 3 * m:])], dim=-1)
+                best_grad = torch.where(t[..., None], gi, best_grad)
+    return best_absq, best_lockin, best_w, best_grad
+
+
 def _grad_rebase(grad, kref):
     """The wfr2_grad_opt epilogue: wrap_to_pi(2 (g - 2 pi kref)) / 2 in
     the reference's (x + pi) mod 2 pi - pi form, kref broadcasting over
@@ -545,32 +661,48 @@ def wfr_sweep(image, wlist, kref, sigma, *, with_grad=False, with_w=True,
     when with_w, 'absq' (winner |M|^2) when return_absq, 'grad' ((N, M,
     2) the winner's phase gradient along rows and columns, rebased to
     kref as wrap_to_pi(2 (g - 2 pi kref)) / 2) when with_grad.
-    continuity_dk raises NotImplementedError (the wfr4 continuity scans,
-    ROADMAP queue 1 item 5)."""
-    if continuity_dk is not None:
-        raise NotImplementedError(
-            "wfr_sweep(continuity_dk=...) is not ported: the wfr4 "
-            "k-continuity scans are ROADMAP queue 1 item 5")
+    continuity_dk (wfr4) scans the candidates one at a time in the bank's
+    order under the k-continuity constraint |w - winner| < 2 sqrt(2) dk,
+    on the zoom window unless zoom is False or no window pays off; its
+    'w' is the winning candidates, whatever with_w says."""
     if spectrum is None:
         spectrum = torch.fft.fft2(image)
     shape = tuple(spectrum.shape)
     rdt = _real_dtype(spectrum)
     wl_h = np.asarray(wlist)
-    plan = None
-    if zoom == "auto" or zoom is True:
-        plan = _plan_zoom(shape, wl_h, float(sigma))
-        if zoom is True and plan is None:
-            raise ValueError("wfr_sweep(zoom=True): the bandpass window "
-                             "spans most of the spectrum; zoom would not "
-                             "be worthwhile (use zoom='auto' or "
-                             "zoom=False)")
-    chunk = int(min(chunk, wl_h.shape[0]))
-    if plan is not None:
-        best_absq, best_lockin, best_idx, best_grad = _wfr_sweep_zoom(
-            spectrum, wl_h, plan[0], plan[1], float(sigma), chunk, with_grad)
+    w_field = None
+    if continuity_dk is not None:
+        plan = _plan_zoom(shape, wl_h, float(sigma)) \
+            if zoom is not False else None
+        if plan is not None:
+            best_absq, best_lockin, w_field, best_grad = \
+                _wfr_sweep_sequential_zoom(spectrum, wl_h, plan[0], plan[1],
+                                           float(sigma), float(continuity_dk),
+                                           with_grad)
+        else:
+            best_absq, best_lockin, w_field, best_grad = \
+                _wfr_sweep_sequential(spectrum, wl_h, float(sigma),
+                                      float(continuity_dk), with_grad)
     else:
-        best_absq, best_lockin, best_idx, best_grad = _wfr_sweep_chunked(
-            spectrum, wl_h, float(sigma), chunk, with_grad)
+        plan = None
+        if zoom == "auto" or zoom is True:
+            plan = _plan_zoom(shape, wl_h, float(sigma))
+            if zoom is True and plan is None:
+                raise ValueError("wfr_sweep(zoom=True): the bandpass window "
+                                 "spans most of the spectrum; zoom would "
+                                 "not be worthwhile (use zoom='auto' or "
+                                 "zoom=False)")
+        chunk = int(min(chunk, wl_h.shape[0]))
+        if plan is not None:
+            best_absq, best_lockin, best_idx, best_grad = _wfr_sweep_zoom(
+                spectrum, wl_h, plan[0], plan[1], float(sigma), chunk,
+                with_grad)
+        else:
+            best_absq, best_lockin, best_idx, best_grad = _wfr_sweep_chunked(
+                spectrum, wl_h, float(sigma), chunk, with_grad)
+        if with_w:
+            wl = torch.as_tensor(wl_h, device=spectrum.device).to(rdt)
+            w_field = wl[best_idx.long()]
     k = torch.tensor(np.asarray(kref, np.float64),
                      device=spectrum.device).to(rdt)
     if rebase:
@@ -586,9 +718,8 @@ def wfr_sweep(image, wlist, kref, sigma, *, with_grad=False, with_w=True,
         out = {"lockin": best_lockin}
     if return_absq:
         out["absq"] = best_absq
-    if with_w:
-        wl = torch.as_tensor(wl_h, device=spectrum.device).to(rdt)
-        out["w"] = wl[best_idx.long()].permute(2, 0, 1)
+    if w_field is not None:
+        out["w"] = w_field.permute(2, 0, 1)
     if with_grad:
         out["grad"] = _grad_rebase(best_grad, k)
     return out

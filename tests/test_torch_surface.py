@@ -1,8 +1,9 @@
 """The port's package surface: `import pygpa_tpu_torch as gt` in a fresh
-interpreter with JAX blocked, the README quick start's names under
-gt., the subpackages' exports mirroring pygpa_tpu's, the new entry
-points' device rule, and examples/quickstart.py's chain at 256^2 on the
-CPU held to pygpa_tpu's output on the same image."""
+interpreter with JAX blocked, the README quick start's names (and the
+analysis names: wfr4, wff, the Kerelsky fits) under gt., the
+subpackages' exports mirroring pygpa_tpu's, the new entry points'
+device rule, and examples/quickstart.py's chain at 256^2 on the CPU held
+to pygpa_tpu's output on the same image."""
 import inspect
 import os
 import subprocess
@@ -23,7 +24,10 @@ QUICK_START = ("gpa.extract_primary_ks", "gpa.refine_ks", "gpa.iterate_GPA",
                "gpa.GPA", "gpa.optGPA", "gpa.vecGPA",
                "gpa.extract_displacement_field", "gpa.undistort_image",
                "gpa.pipeline.make_displacement_extractor",
-               "props.calc_props_from_kvecs4", "ucell.unit_cell_average")
+               "props.calc_props_from_kvecs4", "ucell.unit_cell_average",
+               "gpa.wfr4", "gpa.wff", "props.Kerelsky_plus",
+               "props.Kerelsky_Jac", "props.Kerelsky_J",
+               "props.iterate_J_leastsq")
 
 
 def test_fresh_import_without_jax():
@@ -58,11 +62,12 @@ def _public(mod):
 
 
 @pytest.mark.parametrize("sub,missing", [
-    ("gpa", {"wff"}), ("solvers", set()), ("ops", set()),
-    ("core", set()), ("props", None), ("ucell", None), ("lattices", None)])
+    ("gpa", set()), ("solvers", set()), ("ops", set()),
+    ("core", set()), ("props", set()), ("ucell", None), ("lattices", None)])
 def test_subpackage_exports(sub, missing):
-    """Each subpackage exports the reference's names (less what is not
-    ported yet: gpa.wff); core holds mathtools, fourier and interp."""
+    """Each subpackage exports the reference's names (gpa and props all
+    of them, wff and the Kerelsky fits included); core holds mathtools,
+    fourier and interp."""
     tmod, jmod = getattr(tg, sub), getattr(jg, sub)
     if sub == "core":
         for name in ("mathtools", "fourier", "interp"):
@@ -89,6 +94,17 @@ def _entry(name):
         return tg.gpa.iterate_GPA(img, ks, 8, iters=1, kmax_iter=2, kmax=2)
     if name == "GPA":
         return tg.gpa.GPA(img, 0.1, 0.02)
+    if name == "wfr4":
+        return tg.gpa.wfr4(img, 8, ks[:1], ks[0], 0.01)
+    if name == "wff":
+        return tg.gpa.wff(img, 4, [1.0], 0.3, 0.6)
+    if name == "iterate_J_leastsq":
+        return tg.props.iterate_J_leastsq(np.eye(2)[None], np.zeros(4))
+    if name == "Kerelsky_J":
+        return tg.props.Kerelsky_J(np.zeros((2, 2, 2, 2)), ks)
+    if name == "moire_props_from_Jac_2_Kerelsky":
+        return tg.props.moire_props_from_Jac_2_Kerelsky(
+            ks, np.tile(np.eye(2), (2, 2, 1, 1)), 1.0)
     if name in ("optGPA", "gpa_lockin"):
         return getattr(tg.gpa if name == "optGPA" else tg.ops, name)(
             img, ks[0])
@@ -97,7 +113,9 @@ def _entry(name):
 
 @pytest.mark.parametrize("name", ["extract_primary_ks", "refine_ks",
                                   "iterate_GPA", "GPA", "optGPA", "vecGPA",
-                                  "gpa_lockin", "gpa_lockin_batch"])
+                                  "gpa_lockin", "gpa_lockin_batch", "wfr4",
+                                  "wff", "iterate_J_leastsq", "Kerelsky_J",
+                                  "moire_props_from_Jac_2_Kerelsky"])
 def test_new_entry_points_default_to_the_card(name):
     """With no `device`, a new entry point moves its numpy input to the
     card; where torch has no CUDA it raises instead of running on the
@@ -105,6 +123,10 @@ def test_new_entry_points_default_to_the_card(name):
     _build.launches.clear()
     if torch.cuda.is_available():
         out = _entry(name)
+        if isinstance(out, dict):
+            out = out["lockin"]
+        if name in ("Kerelsky_J", "moire_props_from_Jac_2_Kerelsky"):
+            out = out[0]    # X and props, beside host results
         assert isinstance(out, (np.ndarray, tuple)) or \
             out.device.type == "cuda"
         return

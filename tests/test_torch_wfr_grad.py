@@ -297,8 +297,8 @@ def test_api_wrappers_match_reference():
     lattice (the plain routes on both sides): lock-ins within 1e-9 of
     their peak, winning candidates equal, wfr2_grad_opt's gradients
     within 1e-9 rad/px; generate_klists identical; the spatial lock-in
-    names within 1e-9 of their peak; wfr4 raises NotImplementedError
-    naming its ROADMAP item."""
+    names within 1e-9 of their peak; wfr4 (dk 0.01) with the reference's
+    winners and its lock-in within 1e-9 of the peak."""
     img, k, wl, sigma = _single_peak(128, np.float64)
     kw = np.linalg.norm(k) / 2.5
     args = (sigma, k[0], k[1], kw, kw / 3)
@@ -337,5 +337,9 @@ def test_api_wrappers_match_reference():
         lg = getattr(tapi, name)(*a, sigma, device="cpu").numpy()
         assert lg.shape == lw.shape
         assert np.abs(lg - lw).max() <= 1e-9 * np.abs(lw).max()
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 5"):
-        tapi.wfr4(img, sigma, klist, ks[0], 0.01, device="cpu")
+    want = japi.wfr4(jnp.asarray(img), sigma, klist, ks[0], 0.01)
+    got = tapi.wfr4(img, sigma, klist, ks[0], 0.01, device="cpu")
+    np.testing.assert_array_equal(got["w"].numpy(), np.asarray(want["w"]))
+    lw = np.asarray(want["lockin"])
+    assert np.abs(got["lockin"].numpy() - lw).max() <= 1e-9 * np.abs(
+        lw).max()

@@ -175,15 +175,23 @@ def test_multi_refuses_the_grouped_phase_weight_emission():
             < 1e-4
 
 
-def test_unported_sweep_options_raise():
-    """continuity_dk (the wfr4 scans) still raises, naming its ROADMAP
-    item; with_grad returns the winner gradient (n, m, 2), rebased to
-    [-pi/2, pi/2), within 1e-4 rad/px of the reference's np.gradient
-    route on the 5 sigma interior (the analytic form here: the zoom
-    kernel's twin)."""
+def test_continuity_and_grad_options_match_reference():
+    """continuity_dk (the wfr4 scan, on the zoom window here) runs and
+    matches the reference's: winning candidates on >= 99% of the 5 sigma
+    interior, the lock-in within 1e-4 of its peak there; with_grad
+    returns the winner gradient (n, m, 2), rebased to [-pi/2, pi/2),
+    within 1e-4 rad/px of the reference's np.gradient route on the 5
+    sigma interior (the analytic form here: the zoom kernel's twin)."""
     img, k, wl, sigma = _lattice(128)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 5"):
-        TW.wfr_sweep(torch.from_numpy(img), wl, k, sigma, continuity_dk=0.01)
+    b = 5 * sigma
+    dk = float(wl[1, 1] - wl[0, 1])      # one step of the bank
+    g4 = TW.wfr_sweep(torch.from_numpy(img), wl, k, sigma, continuity_dk=dk)
+    w4 = W.wfr_sweep(jnp.asarray(img), wl, k, sigma, continuity_dk=dk)
+    same = (g4["w"].numpy() == np.asarray(w4["w"])).all(0)[b:-b, b:-b]
+    assert same.mean() >= 0.99
+    lw = np.asarray(w4["lockin"])[b:-b, b:-b]
+    assert np.abs(g4["lockin"].numpy()[b:-b, b:-b] - lw)[same].max() \
+        <= 1e-4 * np.abs(lw).max()
     got = TW.wfr_sweep(torch.from_numpy(img), wl, k, sigma, with_grad=True)
     want = W.wfr_sweep(jnp.asarray(img), wl, k, sigma, with_grad=True)
     g = got["grad"].numpy()
