@@ -133,6 +133,29 @@ Phases, each printed on its own lines:
    interior, the lock-in's phase within 1e-4 rad there); (d) gt.gpa.wff
    on a noisy 1024^2 crop (correlation with the clean crop > 0.97 and
    above the noisy input's). No hand kernel runs in phase 14.
+15. the batch axis: (a) run_all.py config 1b: 16 x 512^2 config 1
+   lattices (image i shifted by 0.31 i px) through one call of
+   make_displacement_extractor((512, 512), ks, unwrap_coarse=4), its
+   launches per stack against one image's (equal), each image's u less
+   its mean within 0.02 px on the 8 sigma interior, the stack against the
+   loop of run(images[i]) (interior p99 < 1e-3, max < 1e-2 px; bits and
+   their cause printed), seconds per stack, Mpix/s, the loop's seconds
+   and peak memory; then check_path_kernels on a stack of 4 (the lattice
+   displaced by bench_field and three shifts of it) and each batched
+   kernel against its own single-image launch on each image's slice;
+   the batched kernels' rows of the kernels line (sweep_uv_1b,
+   presmooth_1b, applyq_1b, cg_poisson_1b) are timed on config 1b's own
+   stack; (b) config 5 as one call: 13c's four 4096^2 tiles stacked
+   through one call of its extractor, then props_from_u per tile, tile
+   0's gates and each tile's u against 13c's loop, seconds per step and
+   peak memory; (c) a 16384^2 mosaic from disk: config 5's lattice
+   rendered in float64 on the card, scaled to uint16 and written with
+   gt.data.write_mosaic into a temporary directory, then
+   MosaicTiles.batches(4096, batch_size=4) (the loader built with g++)
+   through 15b's extractor, every tile held to config 5's gates, one
+   stack's u through gt.io's checkpoint and back with equal bits, the
+   pass's seconds, per stack the host read and device ms, and the
+   device's idle share over a pass (torch.profiler).
 
 Phase 3 also holds the grouped sweep (kernel and float32 twin against
 the float64 twin; stages 1, 2 and the uv epilogue timed apart, with
@@ -297,6 +320,9 @@ PATH_KERNELS = {4: ("sweep_uv", "presmooth", "applyq", "cg_poisson"),
                 # 8192^2: the 2048^2 coarse and correction solves take the
                 # torch CG loop (above ops.cg.MAX_SIDE)
                 "13d": ("sweep_uv", "presmooth", "applyq"),
+                # phase 15: the stacks run the path's four kernels
+                "15a": ("sweep_uv", "presmooth", "applyq", "cg_poisson"),
+                "15b": ("sweep_uv", "presmooth", "applyq", "cg_poisson"),
                 # the fits, wfr4 and WFF run no hand kernel
                 "14a": (), "14b": (), "14c": (), "14d": ()}
 # each gradient path's launches of the sweeps: exactly these counts
@@ -623,11 +649,12 @@ def p99(t):
 
 
 def sweep_stats(got, want):
-    """check_sweep's numbers of one sweep's outputs against another's."""
+    """check_sweep's numbers of one sweep's outputs against another's (one
+    image's, or a stack's with a leading image axis)."""
     ux, uy, wn = got
     vx, vy, vn = want
-    dx = (ux - vx)[:, :, 1:].abs()
-    dy = (uy - vy)[:, 1:, :].abs()
+    dx = (ux - vx)[..., 1:].abs()
+    dy = (uy - vy)[..., 1:, :].abs()
     dwn = (wn - vn).abs() / (vn.abs() + 1e-9)
     return {"dudx_p99": p99(dx), "dudy_p99": p99(dy),
             "wnorm_rel_max": float(dwn.max()), "wnorm_rel_p99": p99(dwn)}
@@ -1321,7 +1348,10 @@ def check_path_kernels(label, fn, img_d):
     3's checks and bounds), at the config's own shapes. That run is on
     the config's lattice displaced by bench_field, so the twin's
     gradient planes are far from 0 (their p99 must exceed SWEEP_SCALE, 10
-    times the sweep's bound): a kernel that writes zeros fails."""
+    times the sweep's bound): a kernel that writes zeros fails. img_d may
+    be a stack (phase 15a's displaced_stack). Returns the captured calls (sweep_uv,
+    presmooth, applyq, cg_poisson) and each kernel's largest absolute
+    difference from its twin."""
     import torch
     from pygpa_tpu_torch.ops import cg, sweep, vcycle, wfr
     from pygpa_tpu_torch.solvers import unwrap
@@ -1332,26 +1362,31 @@ def check_path_kernels(label, fn, img_d):
         fn(img_d)
         torch.cuda.synchronize()
     say(f"[{label}] kernels vs twins on one run's inputs (the lattice "
-        f"displaced by bench_field): sweep_uv {len(c_sw.calls)}, presmooth "
+        f"displaced by bench_field, scaled per image in a stack): sweep_uv {len(c_sw.calls)}, presmooth "
         f"{[tuple(a[0].shape) for a in c_ps.calls]}, applyq "
         f"{[tuple(a[0].shape) for a in c_aq.calls]}, cg "
         f"{[tuple(a[0].shape) + (a[3],) for a in c_cg.calls]}")
     if not (c_sw.calls and c_ps.calls and c_aq.calls):
         raise RuntimeError(f"[{label}] a kernel of the path was not called")
+    errs = {"sweep_uv": 0.0, "presmooth": 0.0, "applyq": 0.0,
+            "cg_poisson": 0.0}
     for args in c_sw.calls:
         ux, uy, _ = sweep.sweep_uv_plain(*args)
-        scale = min(p99(ux[..., 1:].abs()), p99(uy[:, 1:].abs()))
+        scale = min(p99(ux[..., 1:].abs()), p99(uy[..., 1:, :].abs()))
         say(f"  sweep_uv {tuple(args[0].shape)}: the twin's p99 |gradient| "
             f"{scale!r} (must exceed {SWEEP_SCALE})")
         if not scale > SWEEP_SCALE:
             raise RuntimeError(f"[{label}] the sweep's gradients are too "
                                "small to hold the kernel")
         del ux, uy
-        check_sweep(sweep, args)
+        errs["sweep_uv"] = max(errs["sweep_uv"], check_sweep(sweep, args))
     for ps in c_ps.calls:
-        check_vcycle(vcycle, ps, c_aq.calls)
+        e_ps, e_aq = check_vcycle(vcycle, ps, c_aq.calls)
+        errs["presmooth"] = max(errs["presmooth"], e_ps)
+        errs["applyq"] = max(errs["applyq"], e_aq)
     if c_cg.calls:
-        check_cg(cg, c_cg.calls)
+        errs["cg_poisson"] = check_cg(cg, c_cg.calls)
+    return (c_sw.calls, c_ps.calls, c_aq.calls, c_cg.calls), errs
 
 
 def drive_short(label, size, kw, r_k=0.1, theta=7.0, gate=0.02, mult=8,
@@ -2521,6 +2556,553 @@ def drive_wff(img):
         raise RuntimeError("[14d] WFF GATE FAILED")
 
 
+# ---- phase 15: the batch axis (config 1b, config 5 as one batched call,
+# a 16384^2 mosaic from disk through the tile loader and checkpoints)
+BATCH_P99, BATCH_MAX = 1e-3, 1e-2   # batch vs loop, phase 13's path bounds
+GATE_1B = 0.02                       # run_all.py config 1b, dc-free
+# the batched kernels' rows of the kernels line: kernel -> the row of the
+# single-image kernel it extends
+BATCH_ROWS = {"sweep_uv_1b": "sweep_uv", "presmooth_1b": "presmooth",
+              "applyq_1b": "applyq", "cg_poisson_1b": "cg_poisson"}
+MOSAIC = 16384
+
+
+FIELD_SPREAD = 0.1   # px: each displaced image from 0 and from the others
+
+
+def lattice_stack(size, shifts):
+    """Config 1's lattice (r_k 0.1, theta 7 deg, order 2, float32) at
+    `size`, one image a constant shift (px, both axes) of `shifts`; on
+    DEVICE."""
+    import torch
+    from pygpa_tpu_torch.lattices import hexlattice_gen
+    base = np.zeros((2, size, size), np.float32)
+    return torch.stack([hexlattice_gen(0.1, 7.0, order=2, size=size,
+                                       shift=base + np.float32(c),
+                                       dtype=torch.float32, device=DEVICE)
+                        for c in shifts])
+
+
+def hole_radius(size):
+    """The distance of each pixel (size, size) from the centre of
+    displaced_stack's hole, (-size / 4, size / 4) from the image's
+    centre, and the hole's radius, size / 10."""
+    import torch
+    S = size // 2
+    ax = torch.arange(-S, S, dtype=torch.float32, device=DEVICE)
+    return torch.hypot(ax[:, None] + S / 2, ax[None, :] - S / 2), S / 5
+
+
+def displaced_stack(size, nb, r_k=0.1, theta=7.0, scale=1.0):
+    """nb lattices (r_k, theta, order 2, float32) at `size` on DEVICE, each
+    with a field of its own: image i displaced by bench_field(size) *
+    scale * (i + 1) / nb plus 1b's constant shift of 0.31 i px; the last
+    image has a hole of seeded noise (3 times the lattice's std; at
+    hole_radius) off centre, so its weight differs from the others' where
+    its phases are garbage. A batched path that mixes the images up,
+    returns zeros or hands one image another's weight fails a
+    stack-vs-loop check on it (a shared weight moves the last image by
+    ~0.7 px at 256^2, outside the hole too)."""
+    import torch
+    from pygpa_tpu_torch.lattices import hexlattice_gen
+    field = bench_field(size) * np.float32(scale)
+    r, rad = hole_radius(size)
+    env = 1 - torch.exp(-(r / rad) ** 4)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(7)
+    imgs = []
+    for i in range(nb):
+        im = hexlattice_gen(r_k, theta, order=2, size=size,
+                            shift=field * np.float32((i + 1) / nb)
+                            + np.float32(0.31 * i),
+                            dtype=torch.float32, device=DEVICE)
+        if i == nb - 1:
+            noise = torch.randn((size, size), generator=gen, device=DEVICE)
+            im = im * env + 3 * im.std() * noise * (1 - env)
+        imgs.append(im)
+    return torch.stack(imgs)
+
+
+def batch_vs_loop(u, loop, b):
+    """(interior p99, max |u - loop| over every image, bits equal)."""
+    import torch
+    d = (u - loop)[..., b:-b, b:-b].abs()
+    return p99(d), float(d.max()), torch.equal(u, loop)
+
+
+def hold_displaced(label, fn, imgs, b):
+    """A displaced_stack through one call of fn against the loop of
+    fn(images[i]) within 15a's bounds, after checking that the loop's
+    fields (dc removed, interior) lie over FIELD_SPREAD from 0 and from
+    each other, so that a mix-up or a shared weight would show. The
+    last image is held outside its hole (out to 1.5 times its radius,
+    where the lattice is back to 99%, plus 3 sigma of the sweep's
+    window): inside, the phases are noise, and a near-tie winner that
+    flips between the stack's windows and one image's (an ulp apart)
+    may move u by pixels; that maximum is printed."""
+    import torch
+    u = fn(imgs)
+    loop = torch.stack([fn(im) for im in imgs])
+    ui = loop[..., b:-b, b:-b]
+    ui = ui - ui.mean(dim=(-2, -1), keepdim=True)
+    size = float(ui.abs().amax(dim=(1, 2, 3)).min())
+    apart = min(float((ui[i] - ui[j]).abs().max())
+                for i in range(len(ui)) for j in range(i))
+    r, rad = hole_radius(imgs.shape[-1])
+    inside = r < 1.5 * rad + 3 * b / 8
+    d = (u - loop).abs()
+    in_hole = float(d[-1][:, inside].max())
+    d[-1][:, inside] = 0
+    d = d[..., b:-b, b:-b]
+    bp99, bmax = p99(d), float(d.max())
+    say(f"    {tuple(imgs.shape)} stack with a field of its own in each "
+        f"image (displaced_stack; the last with a hole of noise): the "
+        f"smallest field {size!r} px, the closest two images {apart!r} px "
+        f"apart (each must exceed {FIELD_SPREAD}); stack vs loop interior, "
+        f"the hole aside, p99 {bp99!r} max {bmax!r} px (bounds {BATCH_P99}, "
+        f"{BATCH_MAX}); in the hole, max {in_hole!r} px; bits equal: "
+        f"{torch.equal(u, loop)}")
+    if not (size > FIELD_SPREAD and apart > FIELD_SPREAD):
+        raise RuntimeError(f"[{label}] the displaced stack's fields are too "
+                           "close to tell the images apart")
+    if not (bp99 < BATCH_P99 and bmax < BATCH_MAX):
+        raise RuntimeError(f"[{label}] the displaced stack differs from its "
+                           "images' calls")
+
+
+def windows_cause(fn, imgs):
+    """Why a stack's fields may differ from its images' own calls: whether
+    the stack's spectrum windows (one set of products for every image)
+    equal each image's own, and if they do, whether the sweep's outputs
+    do."""
+    import torch
+    from pygpa_tpu_torch.ops import sweep, wfr
+    sw = wfr.GroupedSweep(fn.plan, device=imgs.device)
+    img0 = imgs - imgs.mean(dim=(-2, -1), keepdim=True)
+    Sr, Si = sw.windows(img0)
+    one = [sw.windows(img0[i]) for i in range(imgs.shape[0])]
+    dw = max(float((Sr[i] - o[0]).abs().max()) for i, o in enumerate(one))
+    if dw > 0:
+        return (f"the stack's windows differ from each image's own by up to "
+                f"{dw!r} (cuBLAS picks other products for the stack's "
+                "shapes), which can flip a near-tie winner")
+    rest = (sw.gx, sw.gy, sw.A0c, sw.A0s, sw.A1cb, sw.A1sb, sw.run, sw.off,
+            sw.kconst, fn.plan.dr, sw.banded)
+    uv = sweep.sweep_uv(Sr, Si, *rest)
+    same = all(torch.equal(g[i], o) for i, (r, q) in enumerate(one)
+               for g, o in zip(uv, sweep.sweep_uv(r, q, *rest)))
+    if not same:
+        return ("the stack's windows equal each image's own, its sweep "
+                "outputs do not")
+    return ("the stack's windows and sweep outputs equal each image's own; "
+            "the unwrap's batched torch products and reductions (block "
+            "means, resizes, dots) round in another order")
+
+
+def check_slices(label, calls):
+    """Each batched kernel call of a stack's run against the kernel's own
+    single-image launch on each image's slice. A block's arithmetic does
+    not depend on the image index or the stack's size, so the bits must
+    be equal: any difference is an image read or written at another
+    image's offset, and fails."""
+    import torch
+    from pygpa_tpu_torch.ops import cg, sweep, vcycle
+    c_sw, c_ps, c_aq, c_cg = calls
+    worst = {}
+
+    def hold(name, got, one, i):
+        for g, o in zip(got, one):
+            g = g[i].reshape(o.shape)
+            if not torch.equal(g, o):
+                worst[name] = max(worst.get(name, 0.0),
+                                  float((g - o).abs().max()))
+    for a in c_sw:
+        got = sweep.sweep_uv(*a)
+        for i in range(a[0].shape[0]):
+            hold("sweep_uv", got, sweep.sweep_uv(
+                a[0][i].contiguous(), a[1][i].contiguous(), *a[2:]), i)
+    for a in c_ps:
+        got = vcycle.presmooth(*a)
+        for i in range(a[0].shape[0]):
+            hold("presmooth", got, vcycle.presmooth(
+                *(t[i].contiguous() for t in a[:3]),
+                a[3][i].reshape(a[3].shape[-2:]).contiguous(), *a[4:]), i)
+    for a in c_aq:
+        got = (vcycle.applyq(*a),)
+        for i in range(a[0].shape[0]):
+            hold("applyq", got, (vcycle.applyq(
+                a[0][i].contiguous(),
+                a[1][i].reshape(a[1].shape[-2:]).contiguous()),), i)
+    for a in c_cg:
+        got = (cg.cg_poisson(*a),)
+        for i in range(a[0].shape[0]):
+            hold("cg_poisson", got, (cg.cg_poisson(
+                a[0][i].contiguous(),
+                *(w[i].reshape(w.shape[-2:]).contiguous() for w in a[1:3]),
+                a[3]),), i)
+    say(f"[{label}] each batched kernel against its single-image launch on "
+        f"each image's slice: "
+        f"{'the same bits everywhere' if not worst else worst}")
+    if worst:
+        raise RuntimeError(f"[{label}] a batched kernel differs from its "
+                           f"single-image launch on an image's slice (largest "
+                           f"absolute differences {worst})")
+
+
+def batch_rows(calls, errs, launches):
+    """The batched kernels' rows of the kernels line, from the first
+    captured call of each kernel in a run of config 1b's stack: kernel
+    and twin ms (CUDA events), the bound from those inputs, the launches
+    of 15a's counted run, and the largest absolute difference from the
+    twin of the 16-image displaced check (errs)."""
+    from pygpa_tpu_torch.ops import cg, sweep, vcycle
+    c_sw, c_ps, c_aq, c_cg = calls
+    rows = {}
+    a = c_sw[0]
+    Bs, G, _, W0, Wb = a[0].shape
+    P, n, m = a[2].shape[1], a[4].shape[1], a[6].shape[1]
+    f1, f2 = 8 * Bs * G * P * n * W0 * Wb, 8 * Bs * G * P * n * m * Wb
+    _, b_tc = zoom_bounds(tensor_bytes(a, sweep.sweep_uv_plain(*a)), f1, f2)
+    rows["sweep_uv_1b"] = dict(
+        ms=cuda_ms(lambda: sweep.sweep_uv(*a), 5),
+        plain_ms=cuda_ms(lambda: sweep.sweep_uv_plain(*a), 2),
+        bound_ms=b_tc, bound_by="operations")
+    a = c_ps[0]
+    rows["presmooth_1b"] = dict(
+        ms=cuda_ms(lambda: vcycle.presmooth(*a), 20),
+        plain_ms=cuda_ms(lambda: vcycle.presmooth_plain(*a), 5),
+        **bound_row(tensor_bytes(a, vcycle.presmooth_plain(*a)),
+                    40 * a[0].numel()))
+    a = c_aq[0]
+    rows["applyq_1b"] = dict(
+        ms=cuda_ms(lambda: vcycle.applyq(*a), 20),
+        plain_ms=cuda_ms(lambda: vcycle.applyq_plain(*a), 5),
+        **bound_row(tensor_bytes(a, vcycle.applyq_plain(*a)),
+                    12 * a[0].numel()))
+    a = c_cg[0]
+    npx = a[0].shape[-2] * a[0].shape[-1]
+    b_ms, b_by = bound(tensor_bytes(a[:3], a[0]),
+                       a[0].numel() * a[3] * (5 * np.log2(npx) + 12))
+    rows["cg_poisson_1b"] = dict(
+        ms=cuda_ms(lambda: cg.cg_poisson(*a), 10),
+        plain_ms=cuda_ms(lambda: cg.cg_poisson_plain(*a), 5),
+        bound_ms=b_ms, bound_by=b_by)
+    shapes = {"sweep_uv_1b": tuple(c_sw[0][0].shape),
+              "presmooth_1b": tuple(c_ps[0][0].shape),
+              "applyq_1b": tuple(c_aq[0][0].shape),
+              "cg_poisson_1b": tuple(c_cg[0][0].shape) + (c_cg[0][3],)}
+    for name, r in rows.items():
+        single = BATCH_ROWS[name]
+        r.update(max_abs_err=errs[single], library_ms=None,
+                 launches=launches.get(single, 0))
+        say(f"    {name} {shapes[name]}: kernel {r['ms']!r} ms, twin "
+            f"{r['plain_ms']!r} ms, bound {r['bound_ms']!r} ms "
+            f"({r['bound_by']}), launches a stack {r['launches']}")
+    return rows
+
+
+def drive_1b():
+    """Phase 15a: run_all.py config 1b: 16 x 512^2 config 1 lattices (image
+    i shifted by 0.31 i px) through one call of
+    make_displacement_extractor((512, 512), ks, unwrap_coarse=4) (ks the
+    port's float64 generate_ks(0.1, 7.0)[:3]): launches per stack against
+    one image's (equal, or fail), the gate (each image's u less its mean,
+    8 sigma interior max < 0.02 px), the stack against a loop of
+    run(images[i]) (interior p99 < 1e-3, max < 1e-2 px; bits and their
+    cause printed), seconds per stack, Mpix/s, the loop's seconds, peak
+    memory; then, on a displaced_stack of 16 (a field of its own in each
+    image, one with a hole of noise), the stack against its loop,
+    check_path_kernels (each batched kernel against its twin, phase 3's
+    bounds) and check_slices (against its own single-image launches, bit
+    for bit). Returns (the stack's launches, the batched kernels'
+    rows)."""
+    import torch
+    from pygpa_tpu_torch.gpa import pipeline
+    from pygpa_tpu_torch.lattices import generate_ks
+    from pygpa_tpu_torch.ops import wfr
+    from pygpa_tpu_torch.solvers import unwrap
+    size, nb = 512, 16
+    ks = generate_ks(0.1, 7.0)[:3]
+    imgs = lattice_stack(size, [0.31 * i for i in range(nb)])
+    fn = pipeline.make_displacement_extractor((size, size), ks,
+                                              unwrap_coarse=4, device=DEVICE)
+    u, launches = counted_run("15a", lambda: fn(imgs))
+    _, one = counted_run("15a", lambda: fn(imgs[0]))
+    say(f"[15a] config 1b: 16 x 512^2 through one call of "
+        f"make_displacement_extractor((512, 512), ks, unwrap_coarse=4): "
+        f"launches per stack {launches}, per image {one}")
+    say(f"    {plan_line(fn)}; routes: {json.dumps(launch_routes(launches))}")
+    if any(launches.get(k) != one.get(k) for k in PATH_KERNELS["15a"]):
+        raise RuntimeError("[15a] the stack launches its kernels more often "
+                           "than one image")
+    if tuple(u.shape) != (nb, 2, size, size) or not torch.isfinite(u).all():
+        raise RuntimeError(f"[15a] output bad, shape {tuple(u.shape)}")
+    b = 8 * int(np.ceil(1 / np.linalg.norm(ks, axis=1).min()))
+    ui = u[..., b:-b, b:-b]
+    per = (ui - ui.mean(dim=(-2, -1), keepdim=True)).abs().amax(
+        dim=(1, 2, 3))
+    gates = {"u_err_interior_dcfree_px_max": float(per.max()),
+             "per_image": [float(v) for v in per],
+             "gated": f"<{GATE_1B} each image, 8 sigma border"}
+    say(f"    gates: {json.dumps(gates)}")
+    if not gates["u_err_interior_dcfree_px_max"] < GATE_1B:
+        raise RuntimeError("[15a] ACCURACY GATE FAILED")
+    loop = torch.stack([fn(im) for im in imgs])
+    bp99, bmax, bits = batch_vs_loop(u, loop, b)
+    say(f"    stack vs the loop of run(images[i]): interior p99 {bp99!r} max "
+        f"{bmax!r} px (bounds {BATCH_P99}, {BATCH_MAX}); bits equal: {bits}"
+        + ("" if bits else f" ({windows_cause(fn, imgs)})"))
+    if not (bp99 < BATCH_P99 and bmax < BATCH_MAX):
+        raise RuntimeError("[15a] the stack differs from its images' calls")
+    del u, loop, ui
+    dt, peak = timed(lambda: fn(imgs), REPS_NEW)
+    dt_loop, peak_loop = timed(lambda: [fn(im) for im in imgs], REPS_NEW)
+    say(f"    seconds per stack {dt!r}, Mpix/s "
+        f"{nb * size * size / 1e6 / dt!r}; the 16-image loop {dt_loop!r} s "
+        f"({nb * size * size / 1e6 / dt_loop!r} Mpix/s) ({REPS_NEW} runs "
+        f"after warm-up, host clock, synchronized); peak device memory "
+        f"{peak!r} GiB (loop {peak_loop!r})")
+    # 16 images with fields of their own: the stack against its loop, the
+    # batched kernels against their twins and their single-image launches
+    img_d = displaced_stack(size, nb)
+    hold_displaced("15a", fn, img_d, b)
+    calls16, errs = check_path_kernels("15a", fn, img_d)
+    check_slices("15a", calls16)
+    del img_d, calls16
+    # the inputs of config 1b's own stack, for the rows' times and bounds
+    with Capture(wfr._sweep, "sweep_uv", keep=1) as c_sw, \
+            Capture(unwrap._vcycle, "presmooth", keep=1) as c_ps, \
+            Capture(unwrap._vcycle, "applyq", keep=1) as c_aq, \
+            Capture(unwrap._cg, "cg_poisson", keep=1) as c_cg:
+        fn(imgs)
+        torch.cuda.synchronize()
+    rows = batch_rows((c_sw.calls, c_ps.calls, c_aq.calls, c_cg.calls),
+                      errs, launches)
+    return launches, rows
+
+
+def config5_tiles():
+    """Phase 13c's four 4096^2 tiles (the lattice and its three flips)
+    stacked (4, 4096, 4096), its extractor and its k-vectors."""
+    import torch
+    from pygpa_tpu_torch.gpa import pipeline
+    from pygpa_tpu_torch.lattices import generate_ks, hexlattice_gen
+    img = hexlattice_gen(0.02, 5.0, order=2, size=SIZE, dtype=torch.float32,
+                         device=DEVICE)
+    tiles = torch.stack([img, img.flip(0), img.flip(1), img.flip(0, 1)])
+    ks = generate_ks(0.02, 5.0)[:3]
+    extract = pipeline.make_displacement_extractor(
+        (SIZE, SIZE), ks, chunk=4, unwrap_coarse=4, device=DEVICE)
+    return tiles, extract, ks
+
+
+def props_gates(props, b):
+    """The config-5 gates of each tile's properties (4, n, m) in a list:
+    (max |theta| on the interior, max |kappa - 1| there), device scalars."""
+    import torch
+    return [torch.stack([p[0][b:-b, b:-b].abs().max(),
+                         (p[3][b:-b, b:-b] - 1.0).abs().max()])
+            for p in props]
+
+
+def drive_config5_batched():
+    """Phase 15b: config 5's step as one batched call: the four tiles
+    (4, 4096, 4096) through one call of 13c's extractor, then
+    props_from_u per tile. Gates (13c's): tile 0's interior max |theta| <
+    0.01 deg, max |kappa - 1| < 0.001; each tile's u against 13c's loop
+    within 15a's bounds, and so a displaced_stack of four 4096^2 tiles;
+    seconds per step, launches, peak memory."""
+    import torch
+    from pygpa_tpu_torch.props import props_from_u
+    tiles, extract, ks = config5_tiles()
+
+    def step():
+        us = extract(tiles)
+        return us, [props_from_u(u, 1.0) for u in us]
+
+    (us, props), launches = counted_run("15b", step)
+    say(f"[15b] config 5 as one call: {tuple(tiles.shape)} through the "
+        f"extractor (chunk=4, unwrap_coarse=4) + props_from_u per tile: "
+        f"launches in one step {launches}")
+    b = 8 * int(np.ceil(1 / np.linalg.norm(ks, axis=1).min()))
+    th, ka = (float(v) for v in props_gates(props[:1], b)[0])
+    gates = {"theta_offset_interior_deg": th, "kappa_err_interior": ka,
+             "gated": f"theta<{GATE_5_THETA}, kappa<{GATE_5_KAPPA}"}
+    say(f"    gates (tile 0): {json.dumps(gates)}")
+    if not (th < GATE_5_THETA and ka < GATE_5_KAPPA):
+        raise RuntimeError("[15b] ACCURACY GATE FAILED")
+    del props
+    loop = torch.stack([extract(t) for t in tiles])
+    bp99, bmax, bits = batch_vs_loop(us, loop, b)
+    say(f"    each tile's u vs 13c's loop: interior p99 {bp99!r} max {bmax!r} "
+        f"px (bounds {BATCH_P99}, {BATCH_MAX}); bits equal: {bits}")
+    if not (bp99 < BATCH_P99 and bmax < BATCH_MAX):
+        raise RuntimeError("[15b] the batched call differs from the loop")
+    del us, loop
+    # the flips of a perfect lattice all give u ~ 0: four tiles with fields
+    # of their own (bench_field at a quarter, up to 2.5% strain) tell a
+    # mix-up or a shared weight apart
+    img_d = displaced_stack(SIZE, 4, r_k=0.02, theta=5.0, scale=0.25)
+    hold_displaced("15b", extract, img_d, b)
+    del img_d
+    dt, peak = timed(step, 2)
+    say(f"    seconds per step {dt!r}, Mpix/s {4 * SIZE * SIZE / 1e6 / dt!r} "
+        f"(2 runs after warm-up, host clock, synchronized; 13c's loop "
+        f"0.2421-0.2471 s, PERF.md section 5); peak device memory {peak!r} "
+        f"GiB (13c: 5.61)")
+    return launches, extract, ks
+
+
+def render_mosaic(path):
+    """Config 5's lattice (r_k 0.02, theta 5 deg, order 2) at 16384^2,
+    rendered in float64 on the card, scaled to 0-60000 and written as a
+    uint16 GPAM mosaic (512 MiB) to `path`. Returns (render s, write s)."""
+    import torch
+    from pygpa_tpu_torch import data
+    from pygpa_tpu_torch.lattices import hexlattice_gen
+    t0 = time.perf_counter()
+    img = hexlattice_gen(0.02, 5.0, order=2, size=MOSAIC,
+                         dtype=torch.float64, device=DEVICE)
+    lo, hi = img.min(), img.max()
+    img = torch.round((img - lo) * (60000.0 / (hi - lo))).to(torch.int32)
+    host = img.cpu().numpy().astype(np.uint16)
+    del img
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    data.write_mosaic(path, host)
+    return t1 - t0, time.perf_counter() - t1
+
+
+def idle_share(call):
+    """(device busy ms, wall ms, idle share) of one call of `call` from
+    torch.profiler's device records (the union of their intervals); None
+    busy when the profiler records no device activity."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    busy, end = 0.0, None
+    for a, z in spans:
+        if end is None or a > end:
+            busy += z - a
+            end = z
+        elif z > end:
+            busy += z - end
+            end = z
+    if busy == 0:
+        return None, wall, None
+    return busy / 1e3, wall, 1 - busy / 1e3 / wall
+
+
+def drive_mosaic(extract, ks):
+    """Phase 15c: a 16384^2 mosaic from disk: render_mosaic into a
+    temporary directory, MosaicTiles(path).batches(4096, batch_size=4) (16
+    tiles in 4 stacks), each stack through 15b's extractor and
+    props_from_u per tile; every tile held to config 5's gates (interior
+    max |theta| < 0.01 deg, max |kappa - 1| < 0.001); one stack's u saved
+    with io.save_checkpoint and loaded back with equal bits; render and
+    write seconds, the pass's seconds and Mpix/s, per stack the host
+    read_tiles ms and the device ms, the device idle share over one pass
+    (torch.profiler), peak memory. Every tile is a translated perfect
+    lattice, whose u is ~0, so the gates cannot tell a path that returns
+    zeros: the same extractor at the same stack shape is held on
+    displaced tiles in 15b."""
+    import tempfile
+    import torch
+    from pygpa_tpu_torch import data, io
+    from pygpa_tpu_torch.props import props_from_u
+    b = 8 * int(np.ceil(1 / np.linalg.norm(ks, axis=1).min()))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "mosaic.gpam")
+        t_render, t_write = render_mosaic(path)
+        say(f"[15c] a {MOSAIC}^2 mosaic from disk: rendered in float64 on the "
+            f"card and scaled to uint16 in {t_render!r} s, written "
+            f"({os.path.getsize(path)} bytes) in {t_write!r} s")
+
+        def one_pass(record=None, keep=None):
+            """The tiled pass: per stack the host read, then the extractor
+            and the properties (no host sync inside); the gates' maxima
+            stay on the device until the end."""
+            maxima = []
+            with data.MosaicTiles(path) as mt:
+                stacks = mt.batches(SIZE, batch_size=4)
+                for k in range(len(mt.grid(SIZE)) // 4):
+                    t0 = time.perf_counter()
+                    tiles, coords = next(stacks)
+                    t1 = time.perf_counter()
+                    tiles = torch.as_tensor(tiles, device=DEVICE)
+                    t2 = time.perf_counter()
+                    ev0 = torch.cuda.Event(enable_timing=True)
+                    ev1 = torch.cuda.Event(enable_timing=True)
+                    ev0.record()
+                    us = extract(tiles)
+                    maxima += props_gates([props_from_u(u, 1.0)
+                                           for u in us], b)
+                    ev1.record()
+                    if record is not None:
+                        record.append((coords, (t1 - t0) * 1e3,
+                                       (t2 - t1) * 1e3, ev0, ev1))
+                    if keep is not None and k == 0:
+                        keep.append(us)
+            return torch.stack(maxima)
+
+        one_pass()                                   # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        rec, kept = [], []
+        t0 = time.perf_counter()
+        maxima = one_pass(rec, kept)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        stacks = [{"origins": c, "host_read_ms": h, "copy_ms": cp,
+                   "device_ms": e0.elapsed_time(e1)}
+                  for c, h, cp, e0, e1 in rec]
+        ntiles = sum(len(s["origins"]) for s in stacks)
+        say(f"    {len(stacks)} stacks, {ntiles} tiles: the pass {dt!r} s, "
+            f"{ntiles * SIZE * SIZE / 1e6 / dt!r} Mpix/s (host clock, "
+            f"synchronized, after a warm-up pass); peak device memory "
+            f"{peak!r} GiB")
+        for s in stacks:
+            say(f"    stack at {s['origins']}: host read_tiles "
+                f"{s['host_read_ms']!r} ms, copy to the card (waits for the "
+                f"stream) {s['copy_ms']!r} ms, device {s['device_ms']!r} ms "
+                f"(CUDA events)")
+        th, ka = maxima[:, 0].cpu().numpy(), maxima[:, 1].cpu().numpy()
+        gates = {"theta_offset_interior_deg_max": float(th.max()),
+                 "kappa_err_interior_max": float(ka.max()),
+                 "per_tile_theta": [float(v) for v in th],
+                 "per_tile_kappa": [float(v) for v in ka],
+                 "gated": f"theta<{GATE_5_THETA}, kappa<{GATE_5_KAPPA}, "
+                          "every tile"}
+        say(f"    gates: {json.dumps(gates)}")
+        if ntiles != 16 or not (th.max() < GATE_5_THETA
+                                and ka.max() < GATE_5_KAPPA):
+            raise RuntimeError("[15c] ACCURACY GATE FAILED")
+        busy, wall, idle = idle_share(one_pass)
+        say(f"    device over one pass (torch.profiler): busy {busy!r} ms of "
+            f"{wall!r} ms, idle share {idle!r}")
+        ck = os.path.join(tmp, "stack0.npz")
+        io.save_checkpoint(ck, u=kept[0], kvecs=ks)
+        back = io.load_checkpoint(ck, device_put=True)
+        same = torch.equal(back["u"], kept[0]) and np.array_equal(
+            back["kvecs"].cpu().numpy(), ks)
+        say(f"    checkpoint of stack 0's u {tuple(kept[0].shape)}: saved and "
+            f"loaded back, bits equal: {same}")
+        if not same:
+            raise RuntimeError("[15c] the checkpoint does not round-trip")
+    return idle
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3172,12 +3754,26 @@ def main():
     drive_wff(img)
     say(f"    phase 14 took {time.perf_counter() - t14!r} s")
 
+    # ---- 15. the batch axis: config 1b, config 5 as one call, a mosaic
+    say(f"    card before phase 15: {card_state()}")
+    t15 = time.perf_counter()
+    path_launches["15a"], rows_1b = drive_1b()
+    path_launches["15b"], extract5, ks5 = drive_config5_batched()
+    drive_mosaic(extract5, ks5)
+    del extract5
+    say(f"    phase 15 took {time.perf_counter() - t15!r} s")
+
     kernels = []
     for name, (src, rep) in KERNELS.items():
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": rep,
                         "launches": path_launches[PATH_OF[name]][name],
                         **rows[name]})
+    # the batched kernels at config 1b's stack (launches: 15a's run)
+    for name, r in rows_1b.items():
+        src, rep = KERNELS[BATCH_ROWS[name]]
+        kernels.append({"name": name, "route": "cuda", "source": src,
+                        "replaces": rep, **r})
     say(card_line())
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

@@ -1,11 +1,12 @@
 """pygpa_tpu_torch — Geometric Phase Analysis on PyTorch and CUDA.
 
-The PyTorch port of ``pygpa_tpu`` (all but its parallel, imagetools,
-Kerelsky, WFF and module-path shims so far), for NVIDIA Hopper cards
-(sm_90a). The layout mirrors ``pygpa_tpu``
-(``config``, ``core``, ``lattices``, ``ops``, ``solvers``, ``gpa``) so
-each module's counterpart is found by name. The package imports torch
-and numpy only.
+The PyTorch port of ``pygpa_tpu`` (all but its imagetools, viz,
+gpa.prep, module-path shims, tpugpa mirror and the multi-device part of
+parallel so far), for NVIDIA Hopper cards (sm_90a). The layout mirrors
+``pygpa_tpu`` (``config``, ``core``, ``lattices``, ``ops``, ``solvers``,
+``gpa``, ``props``, ``ucell``, ``parallel``, ``data``, ``io``) so each
+module's counterpart is found by name. The package imports torch and
+numpy only.
 
 Every kernel the JAX package wrote in Pallas for the TPU is a CUDA C++
 kernel here (``csrc/*.cu``, built with nvcc at first use by
@@ -27,6 +28,11 @@ README's quick start, from a raw image::
     cell = gt.ucell.unit_cell_average(image, ks[:2], u=u, z=2)
     fn = gt.gpa.pipeline.make_displacement_extractor(image.shape, ks)
     u = fn(image)
+    us = fn(stack)                  # (B, n, m) -> (B, 2, n, m)
+
+A mosaic on disk goes through the same extractor in stacks of tiles
+(``gt.data.MosaicTiles(path).batches(tile, batch_size)``), and
+``gt.io.save_checkpoint`` keeps the results.
 
 Importing the package builds nothing: the kernels are compiled at their
 first launch (``ops._build``).
@@ -41,3 +47,6 @@ from . import ops  # noqa: E402,F401
 from . import gpa  # noqa: E402,F401
 from . import props  # noqa: E402,F401
 from . import ucell  # noqa: E402,F401
+from . import parallel  # noqa: E402,F401
+from . import data  # noqa: E402,F401
+from . import io  # noqa: E402,F401

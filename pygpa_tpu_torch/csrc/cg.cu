@@ -39,6 +39,10 @@
 //   update_p       rz, beta (guarded), p = z + beta p;
 //   applyq_pq      Q p with the aligned cyclic stencil, p.Qp partials;
 //   update_x       as above.
+// The weights WWx, WWy are one (n, m) pair per cpw consecutive planes:
+// cpw = B shares one pair with every plane; a stack of images whose
+// components are cpw planes each gives each image its own pair (plane b
+// reads pair b / cpw).
 // rz, pq, alpha and beta never leave the device: every block of the
 // update kernels reduces the same partials in the same fixed order, so
 // a solve needs no host sync, no float atomics, and repeats bit for bit.
@@ -208,15 +212,17 @@ __global__ void __launch_bounds__(NT) update_p_kernel(
   if (blockIdx.x == 0 && threadIdx.x == 0) rzhist[b * kmax + k] = rz;
 }
 
-// Q p with the aligned cyclic stencil (weights shared across the batch)
+// Q p with the aligned cyclic stencil (plane b with weight pair b / cpw)
 // and the p.Qp partials; grid (nb, B)
 __global__ void __launch_bounds__(NT) applyq_pq_kernel(
     const float* __restrict__ p, const float* __restrict__ WWx,
     const float* __restrict__ WWy, float* __restrict__ qp,
-    float* __restrict__ part, int n, int m) {
+    float* __restrict__ part, int n, int m, int cpw) {
   __shared__ float sh[NT];
   const int b = blockIdx.y;
   const size_t nm = (size_t)n * m;
+  WWx += (size_t)(b / cpw) * nm;
+  WWy += (size_t)(b / cpw) * nm;
   const float* pb = p + b * nm;
   const size_t base = (size_t)blockIdx.x * NT * RED;
   float v = 0.f;
@@ -303,17 +309,20 @@ struct EpiDot {
 // rz = sum(part_rz); beta = rzprev != 0 ? rz / rzprev : 0; p = z (k = 0)
 // or z + beta p_old, formed at each point and at its four neighbours
 // (the same fmaf, so a neighbour's value is the one its own thread
-// stores); Q p with the aligned cyclic stencil into qp, p into p_new,
-// p.Qp partials; block 0 stores rz as rzhist[b, k]. grid (nb, B)
+// stores); Q p with the aligned cyclic stencil (plane b with weight pair
+// b / cpw) into qp, p into p_new, p.Qp partials; block 0 stores rz as
+// rzhist[b, k]. grid (nb, B)
 __global__ void __launch_bounds__(NT) p_applyq_kernel(
     const float* __restrict__ z, const float* __restrict__ p_old,
     float* __restrict__ p_new, const float* __restrict__ WWx,
     const float* __restrict__ WWy, float* __restrict__ qp,
     const float* __restrict__ part_rz, int nb_rz, float* __restrict__ rzhist,
-    float* __restrict__ part_pq, int k, int kmax, int n, int m) {
+    float* __restrict__ part_pq, int k, int kmax, int n, int m, int cpw) {
   __shared__ float sh[NT];
   const int b = blockIdx.y;
   const size_t nm = (size_t)n * m;
+  WWx += (size_t)(b / cpw) * nm;
+  WWy += (size_t)(b / cpw) * nm;
   const float rz = reduce_partials(part_rz + b * nb_rz, nb_rz, sh);
   const float rzprev = k == 0 ? 1.0f : rzhist[b * kmax + k - 1];
   const float beta = rzprev != 0.f ? rz / rzprev : 0.f;
@@ -356,7 +365,7 @@ struct Pass {
 // the FFT-route solve at sides n = 2 NN, m = 2 NM; r holds rk0, phi 0
 template <int NN, int NM>
 int fft_solve(const float* WWx, const float* WWy, float* phi, float* ws,
-              const float* const* tabs, int B, int kmax,
+              const float* const* tabs, int B, int cpw, int kmax,
               cudaStream_t stream) {
   using L = Pass<NM>;
   using S = Pass<NN>;
@@ -392,7 +401,7 @@ int fft_solve(const float* WWx, const float* WWy, float* phi, float* ws,
                                            EpiDot{r, part_rz, 0.f});
     p_applyq_kernel<<<gred, NT, 0, stream>>>(z, p_old, p, WWx, WWy, qp,
                                              part_rz, n / L::C, rzhist,
-                                             part_pq, k, kmax, n, m);
+                                             part_pq, k, kmax, n, m, cpw);
     update_x_kernel<<<gred, NT, 0, stream>>>(phi, r, p, qp, part_pq, rzhist,
                                              k, kmax, nm);
     const cudaError_t err = cudaGetLastError();
@@ -403,13 +412,13 @@ int fft_solve(const float* WWx, const float* WWy, float* phi, float* ws,
 
 template <int NN>
 int fft_solve_m(int m, const float* WWx, const float* WWy, float* phi,
-                float* ws, const float* const* tabs, int B, int kmax,
-                cudaStream_t stream) {
+                float* ws, const float* const* tabs, int B, int cpw,
+                int kmax, cudaStream_t stream) {
   switch (m) {
-    case 128: return fft_solve<NN, 64>(WWx, WWy, phi, ws, tabs, B, kmax, stream);
-    case 256: return fft_solve<NN, 128>(WWx, WWy, phi, ws, tabs, B, kmax, stream);
-    case 512: return fft_solve<NN, 256>(WWx, WWy, phi, ws, tabs, B, kmax, stream);
-    case 1024: return fft_solve<NN, 512>(WWx, WWy, phi, ws, tabs, B, kmax, stream);
+    case 128: return fft_solve<NN, 64>(WWx, WWy, phi, ws, tabs, B, cpw, kmax, stream);
+    case 256: return fft_solve<NN, 128>(WWx, WWy, phi, ws, tabs, B, cpw, kmax, stream);
+    case 512: return fft_solve<NN, 256>(WWx, WWy, phi, ws, tabs, B, cpw, kmax, stream);
+    case 1024: return fft_solve<NN, 512>(WWx, WWy, phi, ws, tabs, B, cpw, kmax, stream);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -432,15 +441,17 @@ long long cg_fft_workspace_floats(int B, int n, int m, int kmax) {
                      (size_t)B * kmax);
 }
 
-// The FFT route. rk0, phi: (B, n, m); WWx, WWy: (n, m); tabs: the
-// ops/dct.py tables (lane forward at m, sub forward at n, sub inverse at
-// n, lane inverse at m); n, m in {128, 256, 512, 1024}
+// The FFT route. rk0, phi: (B, n, m); WWx, WWy: (B / cpw, n, m), plane
+// b's pair b / cpw; tabs: the ops/dct.py tables (lane forward at m, sub
+// forward at n, sub inverse at n, lane inverse at m); n, m in {128, 256,
+// 512, 1024}
 int cg_poisson_fft(const float* rk0, const float* WWx, const float* WWy,
                    float* phi, float* ws, const float* tab_lane_f,
                    const float* tab_sub_f, const float* tab_sub_i,
-                   const float* tab_lane_i, int B, int n, int m, int kmax,
-                   cudaStream_t stream) {
-  if (!fft_side(n) || !fft_side(m) || B < 1 || kmax < 1)
+                   const float* tab_lane_i, int B, int cpw, int n, int m,
+                   int kmax, cudaStream_t stream) {
+  if (!fft_side(n) || !fft_side(m) || B < 1 || kmax < 1 || cpw < 1 ||
+      B % cpw)
     return (int)cudaErrorInvalidValue;
   const size_t nm = plane(n, m);
   cudaError_t err;
@@ -452,10 +463,10 @@ int cg_poisson_fft(const float* rk0, const float* WWx, const float* WWy,
     return (int)err;
   const float* tabs[4] = {tab_lane_f, tab_sub_f, tab_sub_i, tab_lane_i};
   switch (n) {
-    case 128: return fft_solve_m<64>(m, WWx, WWy, phi, ws, tabs, B, kmax, stream);
-    case 256: return fft_solve_m<128>(m, WWx, WWy, phi, ws, tabs, B, kmax, stream);
-    case 512: return fft_solve_m<256>(m, WWx, WWy, phi, ws, tabs, B, kmax, stream);
-    default: return fft_solve_m<512>(m, WWx, WWy, phi, ws, tabs, B, kmax, stream);
+    case 128: return fft_solve_m<64>(m, WWx, WWy, phi, ws, tabs, B, cpw, kmax, stream);
+    case 256: return fft_solve_m<128>(m, WWx, WWy, phi, ws, tabs, B, cpw, kmax, stream);
+    case 512: return fft_solve_m<256>(m, WWx, WWy, phi, ws, tabs, B, cpw, kmax, stream);
+    default: return fft_solve_m<512>(m, WWx, WWy, phi, ws, tabs, B, cpw, kmax, stream);
   }
 }
 
@@ -467,11 +478,12 @@ long long cg_workspace_floats(int B, int n, int m, int kmax) {
                      2 * B * nb + (size_t)B * kmax);
 }
 
-// The dense route. rk0, phi: (B, n, m); WWx, WWy: (n, m); n, m % 128
-// == 0 and n * m % (NT * RED) == 0
+// The dense route. rk0, phi: (B, n, m); WWx, WWy: (B / cpw, n, m), plane
+// b's pair b / cpw; n, m % 128 == 0 and n * m % (NT * RED) == 0
 int cg_poisson(const float* rk0, const float* WWx, const float* WWy,
-               float* phi, float* ws, int B, int n, int m, int kmax,
-               cudaStream_t stream) {
+               float* phi, float* ws, int B, int cpw, int n, int m,
+               int kmax, cudaStream_t stream) {
+  if (B < 1 || cpw < 1 || B % cpw) return (int)cudaErrorInvalidValue;
   const size_t nm = plane(n, m);
   const int nb = (int)(nm / (NT * RED));
   float* r = ws;
@@ -519,7 +531,8 @@ int cg_poisson(const float* rk0, const float* WWx, const float* WWy,
     dot_partials_kernel<<<gred, NT, 0, stream>>>(r, z, part_rz, nm);
     update_p_kernel<<<gred, NT, 0, stream>>>(z, p, part_rz, rzhist, k, kmax,
                                              nm);
-    applyq_pq_kernel<<<gred, NT, 0, stream>>>(p, WWx, WWy, qp, part_pq, n, m);
+    applyq_pq_kernel<<<gred, NT, 0, stream>>>(p, WWx, WWy, qp, part_pq, n, m,
+                                              cpw);
     update_x_kernel<<<gred, NT, 0, stream>>>(phi, r, p, qp, part_pq, rzhist, k,
                                              kmax, nm);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;

@@ -45,6 +45,15 @@
 //                 tournament's store;
 //   sweep_uv:     one thread per pixel: wrapped shifted diffs against the
 //                 left / upper neighbour and the 2x2 weighted lstsq.
+// A stack of B images of one shape and plan (the factory's batch axis)
+// runs in the same launches: stage 1's and stage 2's grids put the image
+// beside the group on z, the uv epilogue runs a thread per pixel of every
+// image, each image summing its own G peaks; the plan's operands (gx, gy,
+// the bases, run, off, kc) are shared, and each block's arithmetic is the
+// single image's, so an image's outputs are its own launch's bits. A
+// stack whose grid z would pass CUDA's 65535 is split into launches of
+// as many images as fit. The gradient emission's launches (band flags,
+// winner products) take one image.
 // Bound on an H100: stage 2's G*P*n*m*Wb complex MACs (1.86 TFLOP at the
 // 4096^2 bench), three times over as 3xTF32 at 495 TFLOP/s dense TF32
 // (~11.3 ms; 27.8 ms in float32 FMA), plus stage 1's float32 FMA. The
@@ -69,6 +78,7 @@ constexpr int APAD = TILE + 4;
 constexpr int NT = 256;    // 16 x 16 threads, 4 x 4 outputs each
 constexpr float PI_F = 3.14159265358979f;
 constexpr float TWO_PI_F = 6.283185307179586f;
+constexpr int MAX_GRID_Z = 65535;   // CUDA's gridDim.z limit
 
 // acc(4x4 complex) += a(4, complex column slice) x b(4, complex row slice)
 __device__ __forceinline__ void cmac(const float* ar_s, const float* ai_s,
@@ -111,31 +121,38 @@ __device__ __forceinline__ float wrap_diff(float x) {
   return __fsub_rn(x, __fmul_rn(TWO_PI_F, q));
 }
 
-// grid (Wb/64, n/64, G*P). flags (G, n/64, P) or null: with flags, only
-// the blocks of flagged (64-row band, candidate) pairs run; the rows of
-// the others are left unwritten.
+// grid (Wb/64, n/64, B*G*P): z = (b G + g) P + i for image b of the
+// stack (its windows Sr, Si (B, G, H, W0, Wb) and its T rows; the other
+// operands are the images' shared plan). flags (B, G, n/64, P) or null:
+// with flags, only the blocks of flagged (64-row band, candidate) pairs
+// run; the rows of the others are left unwritten. STACK false: one
+// image's grid (z = g P + i), its indices computed as before the image
+// axis, so a single image keeps that code.
+template <bool STACK>
 __global__ void __launch_bounds__(NT) stage1_kernel(
     const float* __restrict__ Sr, const float* __restrict__ Si,
     const float* __restrict__ gx, const float* __restrict__ gy,
     const float* __restrict__ A0c, const float* __restrict__ A0s,
     const int* __restrict__ run, const int* __restrict__ flags,
-    float* __restrict__ T, int H, int P, int n, int W0, int Wb) {
+    float* __restrict__ T, int G, int H, int P, int n, int W0, int Wb) {
   __shared__ __align__(16) float Ar[BK][APAD];
   __shared__ __align__(16) float Ai[BK][APAD];
   __shared__ __align__(16) float Br[BK][TILE];
   __shared__ __align__(16) float Bi[BK][TILE];
   const int c0 = blockIdx.x * TILE;
   const int r0 = blockIdx.y * TILE;
-  const int gi = blockIdx.z;  // g * P + i
-  const int g = gi / P;
-  if (flags && !flags[((size_t)g * gridDim.y + blockIdx.y) * P + gi - g * P])
+  const int bg = blockIdx.z / P;       // b * G + g
+  const int i = blockIdx.z - bg * P;
+  const int g = STACK ? bg % G : bg;
+  const int gi = STACK ? g * P + i : (int)blockIdx.z;  // shared operands' row
+  if (flags && !flags[((size_t)bg * gridDim.y + blockIdx.y) * P + i])
     return;
   const int h = run[gi];
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const float* a0c = A0c + (size_t)g * n * W0;
   const float* a0s = A0s + (size_t)g * n * W0;
   const float* gxi = gx + (size_t)gi * W0;
-  const size_t so = ((size_t)g * H + h) * W0 * Wb;
+  const size_t so = ((size_t)bg * H + h) * W0 * Wb;
   const float* sr = Sr + so;
   const float* si = Si + so;
 
@@ -170,7 +187,7 @@ __global__ void __launch_bounds__(NT) stage1_kernel(
   const size_t ld = 2 * (size_t)Wb;
 #pragma unroll
   for (int a = 0; a < 4; ++a) {
-    float* trow = T + ((size_t)gi * n + r0 + ty * 4 + a) * ld;
+    float* trow = T + ((size_t)blockIdx.z * n + r0 + ty * 4 + a) * ld;
 #pragma unroll
     for (int b = 0; b < 4; ++b) {
       const int c = c0 + tx * 4 + b;
@@ -181,25 +198,28 @@ __global__ void __launch_bounds__(NT) stage1_kernel(
   }
 }
 
-// grid (m/64, n/64, G); T (G, P, n, 2 Wb); A1c, A1s (G, m, Wb), the
-// base-band column basis; off (G, P) band offsets; dynamic smem ZSMEM.
-// WIN (the gradient emission's tournament): also each pixel's winner,
-// Re M, Im M and candidate index, to mro, mio, ixo (G, n, m); the store
-// alone differs, not the products or the tournament
-template <bool WIN>
+// grid (m/64, n/64, B*G), z = b G + g; T (B, G, P, n, 2 Wb); A1c, A1s
+// (G, m, Wb), the base-band column basis, and off (G, P), the band
+// offsets, shared by the stack's images; dynamic smem ZSMEM. WIN (the
+// gradient emission's tournament): also each pixel's winner, Re M, Im M
+// and candidate index, to mro, mio, ixo (B, G, n, m); the store alone
+// differs, not the products or the tournament. STACK false: one image
+// (z = g), indexed as before the image axis
+template <bool WIN, bool STACK>
 __global__ void __launch_bounds__(ZNT, 1) grouped_stage2_kernel(
     const float* __restrict__ T, const float* __restrict__ A1c,
     const float* __restrict__ A1s, const int* __restrict__ off,
     float* __restrict__ ph, float* __restrict__ wt,
-    int P, int n, int m, int Wb, int dr, int banded,
+    int G, int P, int n, int m, int Wb, int dr, int banded,
     float* __restrict__ mro, float* __restrict__ mio,
     int* __restrict__ ixo) {
   extern __shared__ __align__(16) float smem[];
   const int c0 = blockIdx.x * ZT, r0 = blockIdx.y * ZT;
-  const int g = blockIdx.z;
+  const int bg = blockIdx.z;           // b * G + g
+  const int g = STACK ? bg % G : bg;
   float br[2][2][4], bi[2][2][4];
   int bx[2][2][4];
-  sweep_tc_tile<true, true>(T + (size_t)g * P * n * 2 * Wb,
+  sweep_tc_tile<true, true>(T + (size_t)bg * P * n * 2 * Wb,
                       A1c + (size_t)g * m * Wb, A1s + (size_t)g * m * Wb,
                       P, n, Wb, Wb, r0, c0, smem, br, bi, bx);
   int rw, cl;
@@ -209,7 +229,7 @@ __global__ void __launch_bounds__(ZNT, 1) grouped_stage2_kernel(
   const float ramp = (float)(6.283185307179586 / (double)m);
   const float inside = (float)(1.0 + 1e-6);
   const float rim = 1e-6f;
-  const size_t plane = (size_t)g * n * m;
+  const size_t plane = (size_t)bg * n * m;
 #pragma unroll
   for (int a = 0; a < 2; ++a)
 #pragma unroll
@@ -252,7 +272,9 @@ __global__ void __launch_bounds__(ZNT, 1) grouped_stage2_kernel(
       }
 }
 
-// one thread per pixel; kc = (G, 5): k0, k1, k0*k0, k0*k1, k1*k1
+// grid (ceil(n m / NT), B): one thread per pixel of image blockIdx.y;
+// ph, wt (B, G, n, m), each image summing its own G peaks; kc = (G, 5):
+// k0, k1, k0*k0, k0*k1, k1*k1, shared; ux, uy (B, 2, n, m), wn (B, n, m)
 __global__ void __launch_bounds__(NT) uv_kernel(
     const float* __restrict__ ph, const float* __restrict__ wt,
     const float* __restrict__ kc, float* __restrict__ ux,
@@ -260,13 +282,19 @@ __global__ void __launch_bounds__(NT) uv_kernel(
   const size_t nm = (size_t)n * m;
   const size_t idx = (size_t)blockIdx.x * NT + threadIdx.x;
   if (idx >= nm) return;
+  const size_t b = blockIdx.y;
+  ph += b * G * nm;
+  wt += b * G * nm;
+  ux += b * 2 * nm;
+  uy += b * 2 * nm;
+  wn += b * nm;
   const int r = (int)(idx / m), c = (int)(idx % m);
   float a00x = 0.f, a01x = 0.f, a11x = 0.f, r0x = 0.f, r1x = 0.f;
   float a00y = 0.f, a01y = 0.f, a11y = 0.f, r0y = 0.f, r1y = 0.f;
   float wsq = 0.f;
   for (int g = 0; g < G; ++g) {
-    const float* p = ph + g * nm;
-    const float* w = wt + g * nm;
+    const float* p = ph + (size_t)g * nm;
+    const float* w = wt + (size_t)g * nm;
     const float k0 = kc[g * 5 + 0], k1 = kc[g * 5 + 1];
     const float k00 = kc[g * 5 + 2], k01 = kc[g * 5 + 3], k11 = kc[g * 5 + 4];
     const float pc = p[idx], wc = w[idx];
@@ -439,19 +467,36 @@ __global__ void __launch_bounds__(ZNT, 1) winner_products_kernel(
       });
 }
 
-template <bool WIN>
+// images a launch takes so that its grid's z = images * per_image stays
+// within CUDA's gridDim.z limit (0: one image is already over it)
+int images_per_launch(int per_image) {
+  return per_image > MAX_GRID_Z ? 0 : MAX_GRID_Z / per_image;
+}
+
+// WIN takes one image (the gradient emission); a stack runs the STACK
+// instance in launches of as many images as gridDim.z allows
+template <bool WIN, bool STACK>
 int launch_stage2(const float* T, const float* A1c, const float* A1s,
-                  const int* off, float* ph, float* wt, int G, int P, int n,
-                  int m, int Wb, int dr, int banded, float* mro, float* mio,
-                  int* ixo, cudaStream_t stream) {
+                  const int* off, float* ph, float* wt, int B, int G, int P,
+                  int n, int m, int Wb, int dr, int banded, float* mro,
+                  float* mio, int* ixo, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      grouped_stage2_kernel<WIN>,
+      grouped_stage2_kernel<WIN, STACK>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)ZSMEM);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(m / ZT, n / ZT, G);
-  grouped_stage2_kernel<WIN><<<grid, ZNT, ZSMEM, stream>>>(
-      T, A1c, A1s, off, ph, wt, P, n, m, Wb, dr, banded, mro, mio, ixo);
-  return (int)cudaGetLastError();
+  const int per = images_per_launch(G);
+  if (per == 0) return (int)cudaErrorInvalidConfiguration;
+  const size_t tb = (size_t)G * P * n * 2 * Wb, pb = (size_t)G * n * m;
+  for (int b0 = 0; b0 < B; b0 += per) {
+    const int bc = B - b0 < per ? B - b0 : per;
+    dim3 grid(m / ZT, n / ZT, bc * G);
+    grouped_stage2_kernel<WIN, STACK><<<grid, ZNT, ZSMEM, stream>>>(
+        T + b0 * tb, A1c, A1s, off, ph + b0 * pb, wt + b0 * pb, G, P, n, m,
+        Wb, dr, banded, WIN ? mro + b0 * pb : nullptr,
+        WIN ? mio + b0 * pb : nullptr, WIN ? ixo + b0 * pb : nullptr);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
+  return 0;
 }
 
 template <bool SPLIT>
@@ -476,33 +521,57 @@ int launch_products(const float* T, const float* Tx, const float* Bc,
 
 extern "C" {
 
+// B images: Sr, Si (B, G, H, W0, Wb), flags (B, G, n/64, P) or null, T
+// (B, G, P, n, 2 Wb); the rest is shared. Stacks whose B G P is over the
+// gridDim.z limit go in launches of as many images as it allows
 int sweep_stage1(const float* Sr, const float* Si, const float* gx,
                  const float* gy, const float* A0c, const float* A0s,
-                 const int* run, const int* flags, float* T, int G, int H,
-                 int P, int n, int W0, int Wb, cudaStream_t stream) {
-  dim3 grid(Wb / TILE, n / TILE, G * P);
-  stage1_kernel<<<grid, NT, 0, stream>>>(Sr, Si, gx, gy, A0c, A0s, run,
-                                         flags, T, H, P, n, W0, Wb);
-  return (int)cudaGetLastError();
+                 const int* run, const int* flags, float* T, int B, int G,
+                 int H, int P, int n, int W0, int Wb, cudaStream_t stream) {
+  const int per = images_per_launch(G * P);
+  if (per == 0) return (int)cudaErrorInvalidConfiguration;
+  const size_t sb = (size_t)G * H * W0 * Wb, tb = (size_t)G * P * n * 2 * Wb;
+  const size_t fb = (size_t)G * (n / TILE) * P;
+  for (int b0 = 0; b0 < B; b0 += per) {
+    const int bc = B - b0 < per ? B - b0 : per;
+    dim3 grid(Wb / TILE, n / TILE, bc * G * P);
+    if (B == 1)
+      stage1_kernel<false><<<grid, NT, 0, stream>>>(
+          Sr, Si, gx, gy, A0c, A0s, run, flags, T, G, H, P, n, W0, Wb);
+    else
+      stage1_kernel<true><<<grid, NT, 0, stream>>>(
+          Sr + b0 * sb, Si + b0 * sb, gx, gy, A0c, A0s, run,
+          flags ? flags + b0 * fb : nullptr, T + b0 * tb, G, H, P, n, W0,
+          Wb);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
 }
 
-// T (G, P, n, 2 Wb), A1c and A1s (G, m, Wb), all contiguous float32; n,
-// m and Wb multiples of 64
+// T (B, G, P, n, 2 Wb), A1c and A1s (G, m, Wb), all contiguous float32;
+// n, m and Wb multiples of 64; ph, wt (B, G, n, m)
 int sweep_stage2(const float* T, const float* A1c, const float* A1s,
-                 const int* off, float* ph, float* wt, int G, int P, int n,
-                 int m, int Wb, int dr, int banded, cudaStream_t stream) {
-  return launch_stage2<false>(T, A1c, A1s, off, ph, wt, G, P, n, m, Wb, dr,
-                              banded, nullptr, nullptr, nullptr, stream);
+                 const int* off, float* ph, float* wt, int B, int G, int P,
+                 int n, int m, int Wb, int dr, int banded,
+                 cudaStream_t stream) {
+  return B == 1
+             ? launch_stage2<false, false>(T, A1c, A1s, off, ph, wt, 1, G, P,
+                                           n, m, Wb, dr, banded, nullptr,
+                                           nullptr, nullptr, stream)
+             : launch_stage2<false, true>(T, A1c, A1s, off, ph, wt, B, G, P,
+                                          n, m, Wb, dr, banded, nullptr,
+                                          nullptr, nullptr, stream);
 }
 
 // the same launch that also stores each pixel's winner (Re M, Im M,
-// index) to mro, mio, ixo (G, n, m)
+// index) to mro, mio, ixo (G, n, m); one image
 int sweep_stage2_winners(const float* T, const float* A1c, const float* A1s,
                          const int* off, float* ph, float* wt, float* mro,
                          float* mio, int* ixo, int G, int P, int n, int m,
                          int Wb, int dr, int banded, cudaStream_t stream) {
-  return launch_stage2<true>(T, A1c, A1s, off, ph, wt, G, P, n, m, Wb, dr,
-                             banded, mro, mio, ixo, stream);
+  return launch_stage2<true, false>(T, A1c, A1s, off, ph, wt, 1, G, P, n, m,
+                                    Wb, dr, banded, mro, mio, ixo, stream);
 }
 
 // idx (G, n, m) int32 in [0, P), flags (G, n/64, P) int32; n, m multiples
@@ -535,11 +604,13 @@ int sweep_winner_products(const float* T, const float* Tx, const float* Bc,
                                         stream);
 }
 
+// ph, wt (B, G, n, m); ux, uy (B, 2, n, m), wn (B, n, m); B <= 65535
 int sweep_uv(const float* ph, const float* wt, const float* kc, float* ux,
-             float* uy, float* wn, int G, int n, int m, cudaStream_t stream) {
+             float* uy, float* wn, int B, int G, int n, int m,
+             cudaStream_t stream) {
   const size_t nm = (size_t)n * m;
-  const unsigned blocks = (unsigned)((nm + NT - 1) / NT);
-  uv_kernel<<<blocks, NT, 0, stream>>>(ph, wt, kc, ux, uy, wn, G, n, m);
+  const dim3 grid((unsigned)((nm + NT - 1) / NT), B);
+  uv_kernel<<<grid, NT, 0, stream>>>(ph, wt, kc, ux, uy, wn, G, n, m);
   return (int)cudaGetLastError();
 }
 

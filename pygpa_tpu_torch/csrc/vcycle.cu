@@ -17,7 +17,7 @@
 // column (row lags, the y fluxes) stay in registers; the x neighbours
 // (phi, WW, the x fluxes, d, Q's x flux) go through small shared rows,
 // two barriers a step. w, the weights, D and Dinv are built once a tile
-// for all batch planes (up to 2 a launch). Each input element is read
+// for the block's planes (up to 2 of one image). Each input element is read
 // about (PT / (PT - 4)) (1 + 4 / rows) times, more where the last column
 // tile overhangs the plane: 1.11 at the bench's (2, 4096^2)
 // (ops/vcycle.presmooth_traffic counts it).
@@ -32,13 +32,20 @@
 // k - 1; the row above, its WW and its y fluxes stay in registers, the x
 // neighbours come from the neighbouring lanes by warp shuffles, and lanes
 // 0 and 31 load one halo column each. No shared memory, no barrier. w and
-// the weights are built once a pixel for all planes (up to 2 a launch).
+// the weights are built once a pixel for the block's planes (up to 2).
 // Each input element is read (QCOLS + 2) / QCOLS (1 + 2 / rows) times
 // (ops/vcycle.applyq_traffic counts it). Three rows live in registers
 // (the row above, the current one, the prefetched next), 96-113 registers
 // for two planes, so the launch bounds allow 4 blocks an SM (16 warps)
 // without spills; at 6 or 8 blocks the two-plane instances spill and run
 // slower (0.14, 0.20 ms against 0.12 at the bench's shape).
+// Image axis: the planes are I images of C planes each (the multigrid's
+// two displacement components), image i with its own weight plane w[i]
+// (a weight shared by every plane is one image of all of them). A block
+// takes BP <= 2 planes of one image, a group, on grid axis z (presmooth)
+// or y (applyq), so a stack of images runs in one launch (C odd: one more
+// launch for every image's last plane); presmooth's first group of an
+// image writes that image's Dinv. Plane offsets are size_t.
 // Neighbours wrap cyclically, as in the aligned forms (zero tails +
 // the global last-row mask). Bound on an H100: device memory. All
 // arithmetic uses the _rn intrinsics so no FMA contraction changes the
@@ -53,13 +60,24 @@ namespace {
 constexpr int PT = 128;                   // presmooth threads = staged columns
 constexpr int PC = PT - 4;                // output columns a block
 constexpr int PMIN_BLOCKS = 8;            // blocks an SM (launch bounds)
-constexpr int MAXB = 2;                   // batch planes a launch
+constexpr int MAXB = 2;                   // planes a block (of one image)
 
 __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
 __device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
 __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
 
-// grid (ceil(m / PC), ceil(n / rows)), PT threads; BP batch planes.
+// the first plane of grid group z (of gpi groups an image): image z /
+// gpi's planes start at (z / gpi) cpi; the group's at BP (z % gpi) +
+// poff past them
+__device__ __forceinline__ size_t group_plane(int z, int gpi, int cpi,
+                                              int bp, int poff) {
+  const int img = z / gpi;
+  return (size_t)img * cpi + (size_t)(z - img * gpi) * bp + poff;
+}
+
+// grid (ceil(m / PC), ceil(n / rows), images * gpi), PT threads; BP
+// planes a block, from plane group_plane(blockIdx.z, ...) on, with image
+// blockIdx.z / gpi's weight w and (its group 0, dinv_out given) Dinv.
 // Thread s owns column j = j0 - 2 + s; step k loads row k and writes
 // row k - 2, for k from r0 - 2 to r1 + 1.
 template <int BP>
@@ -68,7 +86,8 @@ __global__ void __launch_bounds__(PT, PMIN_BLOCKS) presmooth_kernel(
     const float* __restrict__ dyc, const float* __restrict__ w,
     float* __restrict__ r_out, float* __restrict__ d_out,
     float* __restrict__ dinv_out, float* __restrict__ rrow,
-    int n, int m, int rows, int cr, float omega) {
+    int n, int m, int rows, int cr, float omega, int cpi, int gpi,
+    int poff) {
   __shared__ float s_phi[BP][PT], s_ww[PT], s_d[BP][PT];
   __shared__ float s_tx[2][BP][PT], s_wwx[2][PT], s_qx[2][BP][PT];
   const int s = threadIdx.x;
@@ -83,6 +102,19 @@ __global__ void __launch_bounds__(PT, PMIN_BLOCKS) presmooth_kernel(
   const int r1 = min(r0 + rows, n);
   const size_t nm = (size_t)n * m;
   const size_t mr = (size_t)(n / cr) * m;
+  {
+    const size_t p0 = group_plane(blockIdx.z, gpi, cpi, BP, poff);
+    const size_t img = blockIdx.z / gpi;
+    phi += p0 * nm;
+    dxc += p0 * nm;
+    dyc += p0 * nm;
+    r_out += p0 * nm;
+    d_out += p0 * nm;
+    rrow += p0 * mr;
+    w += img * nm;
+    dinv_out = dinv_out && blockIdx.z % gpi == 0 ? dinv_out + img * nm
+                                                 : nullptr;
+  }
 
   float nphi[BP], ndx[BP], ndy[BP], nw;
   auto load = [&](int k) {
@@ -189,11 +221,13 @@ __global__ void __launch_bounds__(PT, PMIN_BLOCKS) presmooth_kernel(
 template <int BP>
 void launch_presmooth(const float* phi, const float* dxc, const float* dyc,
                       const float* w, float* r, float* d, float* dinv,
-                      float* rrow, int n, int m, int rows, int cr,
-                      float omega, cudaStream_t stream) {
-  dim3 grid((m + PC - 1) / PC, (n + rows - 1) / rows);
-  presmooth_kernel<BP><<<grid, PT, 0, stream>>>(phi, dxc, dyc, w, r, d, dinv,
-                                                rrow, n, m, rows, cr, omega);
+                      float* rrow, int I, int C, int gpi, int poff, int n,
+                      int m, int rows, int cr, float omega,
+                      cudaStream_t stream) {
+  dim3 grid((m + PC - 1) / PC, (n + rows - 1) / rows, I * gpi);
+  presmooth_kernel<BP><<<grid, PT, 0, stream>>>(
+      phi, dxc, dyc, w, r, d, dinv, rrow, n, m, rows, cr, omega, C, gpi,
+      poff);
 }
 
 // torch.minimum's rule: a NaN operand wins
@@ -224,17 +258,27 @@ __device__ __forceinline__ void load_cols(const float* __restrict__ row,
   }
 }
 
-// grid ceil(tiles * strips / QWARPS) blocks of QT threads; BP batch
-// planes. Warp g owns column tile g % tiles and row strip g / tiles;
+// grid (ceil(tiles * strips / QWARPS), images * gpi) blocks of QT
+// threads; BP planes a block, from plane group_plane(blockIdx.y, ...)
+// on, with image blockIdx.y / gpi's weight w. Warp g owns column tile
+// g % tiles and row strip g / tiles;
 // lane l its columns c0 = tile * QCOLS + QW l .. c0 + QW - 1 (loaded
 // wrapped, stored where < m). Step k loads row k and writes row k - 1,
 // for k from r0 - 1 to r1.
 template <int BP, bool VEC>
 __global__ void __launch_bounds__(QT, QMIN_BLOCKS) applyq_strip_kernel(
     const float* __restrict__ p, const float* __restrict__ w,
-    float* __restrict__ q, int n, int m, int rows, int tiles, int strips) {
+    float* __restrict__ q, int n, int m, int rows, int tiles, int strips,
+    int cpi, int gpi, int poff) {
   const int g = blockIdx.x * QWARPS + (threadIdx.x >> 5);
   if (g >= tiles * strips) return;          // whole warps only
+  {
+    const size_t nm = (size_t)n * m;
+    const size_t p0 = group_plane(blockIdx.y, gpi, cpi, BP, poff);
+    p += p0 * nm;
+    q += p0 * nm;
+    w += (size_t)(blockIdx.y / gpi) * nm;
+  }
   const int lane = threadIdx.x & 31;
   const int j0 = (g % tiles) * QCOLS, c0 = j0 + lane * QW;
   const int r0 = (g / tiles) * rows, r1 = min(r0 + rows, n);
@@ -355,63 +399,61 @@ __global__ void __launch_bounds__(QT, QMIN_BLOCKS) applyq_strip_kernel(
 }
 
 template <int BP>
-void launch_applyq(const float* p, const float* w, float* q, int n, int m,
-                   int rows, bool vec, cudaStream_t stream) {
+void launch_applyq(const float* p, const float* w, float* q, int I, int C,
+                   int gpi, int poff, int n, int m, int rows, bool vec,
+                   cudaStream_t stream) {
   const int tiles = (m + QCOLS - 1) / QCOLS, strips = (n + rows - 1) / rows;
-  const int blocks = (tiles * strips + QWARPS - 1) / QWARPS;
+  const dim3 grid((tiles * strips + QWARPS - 1) / QWARPS, I * gpi);
   if (vec)
-    applyq_strip_kernel<BP, true><<<blocks, QT, 0, stream>>>(
-        p, w, q, n, m, rows, tiles, strips);
+    applyq_strip_kernel<BP, true><<<grid, QT, 0, stream>>>(
+        p, w, q, n, m, rows, tiles, strips, C, gpi, poff);
   else
-    applyq_strip_kernel<BP, false><<<blocks, QT, 0, stream>>>(
-        p, w, q, n, m, rows, tiles, strips);
+    applyq_strip_kernel<BP, false><<<grid, QT, 0, stream>>>(
+        p, w, q, n, m, rows, tiles, strips, C, gpi, poff);
 }
 
 }  // namespace
 
 extern "C" {
 
-// rows: output rows a block (a multiple of 16, so of cr); planes go in
-// launches of up to MAXB, the first of which writes dinv
+// I images of C planes (phi, dxc, dyc, r, d (I, C, n, m); rrow (I, C,
+// n / cr, m)), image i with weight w[i] and Dinv dinv[i] (I, n, m).
+// rows: output rows a block (a multiple of 16, so of cr). One launch
+// takes every image's pairs of planes (or its plane, C = 1) and writes
+// Dinv; with C odd and > 1 a second takes every image's last plane
 int vcycle_presmooth(const float* phi, const float* dxc, const float* dyc,
                      const float* w, float* r, float* d, float* dinv,
-                     float* rrow, int B, int n, int m, int rows, int cr,
-                     float omega, cudaStream_t stream) {
-  const size_t nm = (size_t)n * m, mr = (size_t)(n / cr) * m;
-  for (int b0 = 0; b0 < B; b0 += MAXB) {
-    const int bp = B - b0 < MAXB ? B - b0 : MAXB;
-    const size_t o = (size_t)b0 * nm, orr = (size_t)b0 * mr;
-    float* di = b0 == 0 ? dinv : nullptr;
-    if (bp == 1)
-      launch_presmooth<1>(phi + o, dxc + o, dyc + o, w, r + o, d + o, di,
-                          rrow + orr, n, m, rows, cr, omega, stream);
-    else
-      launch_presmooth<2>(phi + o, dxc + o, dyc + o, w, r + o, d + o, di,
-                          rrow + orr, n, m, rows, cr, omega, stream);
-    const cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-  }
-  return 0;
+                     float* rrow, int I, int C, int n, int m, int rows,
+                     int cr, float omega, cudaStream_t stream) {
+  if (C == 1)
+    launch_presmooth<1>(phi, dxc, dyc, w, r, d, dinv, rrow, I, 1, 1, 0, n,
+                        m, rows, cr, omega, stream);
+  else
+    launch_presmooth<MAXB>(phi, dxc, dyc, w, r, d, dinv, rrow, I, C,
+                           C / MAXB, 0, n, m, rows, cr, omega, stream);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || C == 1 || C % MAXB == 0) return (int)e;
+  launch_presmooth<1>(phi, dxc, dyc, w, r, d, nullptr, rrow, I, C, 1, C - 1,
+                      n, m, rows, cr, omega, stream);
+  return (int)cudaGetLastError();
 }
 
-// rows: output rows a warp; planes go in launches of up to MAXB. 16-byte
-// loads and stores where m % 4 == 0 and every pointer is 16-byte aligned
-int vcycle_applyq(const float* p, const float* w, float* q, int B, int n,
-                  int m, int rows, cudaStream_t stream) {
-  const size_t nm = (size_t)n * m;
+// I images of C planes (p, q (I, C, n, m)), image i with weight w[i]
+// (I, n, m); launches as vcycle_presmooth's. rows: output rows a warp.
+// 16-byte loads and stores where m % 4 == 0 and every pointer is 16-byte
+// aligned
+int vcycle_applyq(const float* p, const float* w, float* q, int I, int C,
+                  int n, int m, int rows, cudaStream_t stream) {
   const bool vec = m % QW == 0 &&
                    (((uintptr_t)p | (uintptr_t)w | (uintptr_t)q) & 15) == 0;
-  for (int b0 = 0; b0 < B; b0 += MAXB) {
-    const int bp = B - b0 < MAXB ? B - b0 : MAXB;
-    const size_t o = (size_t)b0 * nm;
-    if (bp == 1)
-      launch_applyq<1>(p + o, w, q + o, n, m, rows, vec, stream);
-    else
-      launch_applyq<2>(p + o, w, q + o, n, m, rows, vec, stream);
-    const cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-  }
-  return 0;
+  if (C == 1)
+    launch_applyq<1>(p, w, q, I, 1, 1, 0, n, m, rows, vec, stream);
+  else
+    launch_applyq<MAXB>(p, w, q, I, C, C / MAXB, 0, n, m, rows, vec, stream);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || C == 1 || C % MAXB == 0) return (int)e;
+  launch_applyq<1>(p, w, q, I, C, 1, C - 1, n, m, rows, vec, stream);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -274,7 +274,18 @@ def make_displacement_extractor(shape, kvecs, sigma=None,
 
     Returns run(image, events=None) -> u (2, n, m). `events`, a list,
     collects (stage name, CUDA event) pairs after each stage (sweep,
-    lstsq, unwrap levels, deconvolve) for stage timing on the card."""
+    lstsq, unwrap levels, deconvolve) for stage timing on the card.
+
+    run also takes a stack of images (B, n, m) and returns (B, 2, n, m),
+    image i's field what run(images[i]) gives (jax.vmap of the
+    reference's run): each image is mean-subtracted on its own, and on
+    the grouped routes the stack goes through each stage at once (one
+    grouped sweep launch, the multigrid's CG, presmooth and applyq
+    launches and torch passes over all of it, each image's components
+    with its own weight), as many launches as one image. Where the
+    grouped plan does not apply (float64, sides off multiples of 128)
+    the per-peak route runs image by image (its batch axis is ROADMAP
+    queue 1 item 11). `events` is stamped once per stage either way."""
     device = entry_device(device)
     kvecs_h = np.asarray(kvecs, np.float64)
     knorms = np.linalg.norm(kvecs_h, axis=1)
@@ -295,7 +306,21 @@ def make_displacement_extractor(shape, kvecs, sigma=None,
 
     def run(image, events=None):
         image = torch.as_tensor(image, device=device).to(dtype)
-        img0 = image - image.mean()
+        stack = image.dim() == 3
+        if image.dim() not in (2, 3):
+            raise ValueError("run takes an image (n, m) or a stack (B, n, "
+                             f"m), got {tuple(image.shape)}")
+        if stack and sweep is None:
+            us = [run_one(im) for im in image]
+            stamp(events, "per-image route")
+            return torch.stack(us)
+        return run_one(image, events)
+
+    def run_one(image, events=None):
+        if image.dim() == 3:
+            img0 = image - image.mean(dim=(-2, -1), keepdim=True)
+        else:
+            img0 = image - image.mean()
         if sweep is not None and fused_uv:
             uv = sweep(img0)
             stamp(events, "sweep")

@@ -93,6 +93,9 @@ def reconstruct_u_inv_from_demod(kvecs, phases_demod, weights, kmax=10,
     phases_demod + 2 pi k . r): the plane-wave ramp enters the wrapped
     differences as a constant per-axis shift, so no full-size rebase is
     needed. Equal to reconstruct_u_inv_from_phases on rebased phases.
+    phases_demod and weights are (G, n, m), giving u (2, n, m), or a
+    stack (B, G, n, m), giving (B, 2, n, m), each image with its own
+    weight norm.
 
     The differences wrap as the uv epilogue's do (ops.sweep.wrap_diff),
     not in the reference's (x + pi) form: each is near 2 pi k, and in
@@ -101,11 +104,18 @@ def reconstruct_u_inv_from_demod(kvecs, phases_demod, weights, kmax=10,
     dc-free error over its 0.0012 px gate)."""
     K = (2 * math.pi) * torch.as_tensor(kvecs, dtype=phases_demod.dtype,
                                         device=phases_demod.device)
-    dbdx = wrap_diff(torch.diff(phases_demod, dim=2) + K[:, 1, None, None])
-    dbdy = wrap_diff(torch.diff(phases_demod, dim=1) + K[:, 0, None, None])
-    dudx = weighted_lstsq_stack(dbdx, K, weights[:, :, : dbdx.shape[2]])
-    dudy = weighted_lstsq_stack(dbdy, K, weights[:, : dbdy.shape[1], :])
-    wnorm = torch.linalg.vector_norm(weights, dim=0)
+    # the peaks' axis leads for the lstsq; the solution's two components
+    # go back beside the image axis
+    ph = phases_demod.movedim(-3, 0)
+    wt = weights.movedim(-3, 0)
+    dbdx = wrap_diff(torch.diff(ph, dim=-1) + K[:, 1].reshape(
+        (-1,) + (1,) * (ph.dim() - 1)))
+    dbdy = wrap_diff(torch.diff(ph, dim=-2) + K[:, 0].reshape(
+        (-1,) + (1,) * (ph.dim() - 1)))
+    dudx = weighted_lstsq_stack(dbdx, K, wt[..., : dbdx.shape[-1]])
+    dudy = weighted_lstsq_stack(dbdy, K, wt[..., : dbdy.shape[-2], :])
+    dudx, dudy = dudx.movedim(0, -3), dudy.movedim(0, -3)
+    wnorm = torch.linalg.vector_norm(wt, dim=0)
     stamp(events, "lstsq")
     return _integrate_uv(dudx, dudy, wnorm, kmax=kmax,
                          unwrap_coarse=unwrap_coarse,
@@ -115,9 +125,12 @@ def reconstruct_u_inv_from_demod(kvecs, phases_demod, weights, kmax=10,
 def _integrate_uv(dudx, dudy, wnorm, kmax=10, unwrap_coarse=None,
                   refine_iters=3, events=None):
     """Integrate the per-pixel displacement gradients dudx (2, n, m-1)
-    and dudy (2, n-1, m) with wnorm (n, m) as the shared weight: the
-    multigrid unwrap when unwrap_coarse is set, the exact early-stopping
-    CG otherwise."""
+    and dudy (2, n-1, m) with wnorm (n, m) as the weight of both
+    components (a stack: (B, 2, ...) with wnorm (B, n, m), image b's
+    components with its own weight): the multigrid unwrap when
+    unwrap_coarse is set, the exact early-stopping CG otherwise."""
+    if wnorm.dim() > 2:
+        wnorm = wnorm.unsqueeze(-3)      # (B, 1, n, m) beside (B, 2, ...)
     if unwrap_coarse:
         kmg = min(int(kmax), DEFAULTS.unwrap_kmax_mg)
         return phase_unwrap_prediff_mg(dudx, dudy, wnorm, kmax=kmg,
@@ -131,9 +144,10 @@ def reconstruct_u_inv_from_uv(dudx_s, dudy_s, wnorm, kmax=10,
                               unwrap_coarse=None, refine_iters=3,
                               events=None):
     """Reconstruction from the sweep's SHIFTED displacement-gradient
-    planes (2, n, m): position j holds the diff ending at j, so column 0
-    of dudx_s and row 0 of dudy_s are dropped here."""
-    return _integrate_uv(dudx_s[:, :, 1:], dudy_s[:, 1:, :], wnorm,
+    planes (2, n, m) (a stack: (B, 2, n, m) with wnorm (B, n, m)):
+    position j holds the diff ending at j, so column 0 of dudx_s and row
+    0 of dudy_s are dropped here."""
+    return _integrate_uv(dudx_s[..., 1:], dudy_s[..., 1:, :], wnorm,
                          kmax=kmax, unwrap_coarse=unwrap_coarse,
                          refine_iters=refine_iters, events=events)
 

@@ -26,8 +26,11 @@ the device (no host sync inside the loop) and reduce block partials in
 a fixed order, so a solve repeats bit for bit. The plain twin uses the
 FFT-based DCT pair of core.fourier.
 
-rk0 carries a batch axis (..., n, m); WWx, WWy are (n, m), shared by
-the batch. Returns phi shaped like rk0.
+rk0 carries batch axes (..., n, m); WWx, WWy (..., n, m) broadcast
+against it with their axes leading (ops.vcycle.image_axis): (n, m) is
+one pair shared by every plane, (B, 1, n, m) beside rk0 (B, C, n, m) is
+image b's own pair for its C planes (the kernel reads plane i's pair
+i // C). Returns phi shaped like rk0.
 """
 import ctypes
 
@@ -36,6 +39,7 @@ import torch
 from . import _build
 from . import dct as _dct
 from .vcycle import _q as _apply_q
+from .vcycle import image_axis
 from ..core.fourier import dct2n, idct2n
 
 _NT_RED = 256 * 16   # elements per reduction block (csrc/cg.cu)
@@ -114,11 +118,16 @@ def cg_poisson(rk0, WWx, WWy, kmax):
                          f"and kmax >= 1 (got n={n}, m={m}, kmax={kmax})")
     rk_b = rk0.reshape((-1, n, m)).contiguous()
     B = rk_b.shape[0]
+    I, C = image_axis("cg_poisson", rk0, WWx)
+    if tuple(WWy.shape) != tuple(WWx.shape):
+        raise ValueError(f"cg_poisson: WWx {tuple(WWx.shape)} and WWy "
+                         f"{tuple(WWy.shape)} differ")
+    WWx, WWy = (t.reshape((I, n, m)).contiguous() for t in (WWx, WWy))
     _build.check_tensor("cg_poisson", "rk0", rk_b, (B, n, m),
                         torch.float32, rk0.device)
     for name, t in (("WWx", WWx), ("WWy", WWy)):
-        _build.check_tensor("cg_poisson", name, t, (n, m), torch.float32,
-                            rk0.device)
+        _build.check_tensor("cg_poisson", name, t, (I, n, m),
+                            torch.float32, rk0.device)
     phi = torch.empty_like(rk_b)
     fft = fft_route(n, m)
     with torch.cuda.device(rk0.device):
@@ -135,11 +144,11 @@ def cg_poisson(rk0, WWx, WWy, kmax):
             tabs = [_dct._device_table(s, inv, rk0.device).data_ptr()
                     for s, inv in ((m, False), (n, False), (n, True),
                                    (m, True))]
-            fn = _build.bind("cg_poisson_fft", "pppppppppiiiip")
-            code = fn(*ptrs, *tabs, B, n, m, kmax, stream)
+            fn = _build.bind("cg_poisson_fft", "pppppppppiiiiip")
+            code = fn(*ptrs, *tabs, B, C, n, m, kmax, stream)
         else:
-            fn = _build.bind("cg_poisson", "pppppiiiip")
-            code = fn(*ptrs, B, n, m, kmax, stream)
+            fn = _build.bind("cg_poisson", "pppppiiiiip")
+            code = fn(*ptrs, B, C, n, m, kmax, stream)
     _build.check(code, "cg_poisson")
     _build.launches["cg_poisson"] += 1
     return phi.reshape(rk0.shape)

@@ -65,6 +65,16 @@ not the reference's (x + pi) form, which rounds a near-zero float32
 difference to the spacing at pi: a coherent bias that the unwrap
 integrates into a ~1e-3 px ripple on the bench fixture.
 
+The uv and phase/weight emissions also take a stack of B images planned
+alike (the factory's batch axis): windows (B, G, H, W0, Wb) and the
+plan's other operands shared, outputs with a leading image axis. The
+stack runs in the launches of one image (the image beside the group on
+stage 1's and stage 2's grid z, the epilogue a thread per pixel of every
+image), each image's outputs the bits of its own launch; a stack whose
+B G P passes CUDA's gridDim.z limit (65535) goes in launches of as many
+images as fit. The gradient emission takes one image and refuses a stack
+(ROADMAP queue 1 item 11). The twins run a stack image by image.
+
 The plain twins :func:`sweep_uv_plain`, :func:`sweep_pw_plain` and
 :func:`sweep_grad_plain` run the same stages with torch ops
 (``sweep_grad_plain`` keeps every candidate's gradients and the
@@ -82,6 +92,8 @@ from . import _build
 _PI = 3.14159265358979
 _TWO_PI = 6.283185307179586
 TILE = 64          # stage-1/2 output tile (rows x columns), csrc/sweep.cu
+MAX_GRID_Z = 65535  # CUDA's gridDim.z limit: stage 1 runs G P blocks a
+                    # (row, column) tile an image on it
 
 
 def wrap_pi(x):
@@ -256,10 +268,20 @@ def _uv_plain(ph, wt, kconst):
     return ux, uy, torch.sqrt(wsq)
 
 
+def _per_image(fn, Sr, Si, *rest):
+    """fn on each image of a stack (windows (B, G, H, W0, Wb)), its
+    outputs stacked on a leading image axis."""
+    outs = [fn(Sr[b], Si[b], *rest) for b in range(Sr.shape[0])]
+    return tuple(torch.stack(o) for o in zip(*outs))
+
+
 def sweep_uv_plain(Sr, Si, gx, gy, A0c, A0s, A1c, A1s, run, off, kconst,
                    dr, banded):
     """Plain PyTorch twin of the CUDA sweep (same arguments as
-    :func:`sweep_uv`)."""
+    :func:`sweep_uv`); a stack runs image by image."""
+    if Sr.dim() == 5:
+        return _per_image(sweep_uv_plain, Sr, Si, gx, gy, A0c, A0s, A1c,
+                          A1s, run, off, kconst, dr, banded)
     T = _stage1_plain(Sr, Si, gx, gy, A0c, A0s, run)
     ph, wt = _stage2_plain(T, A1c, A1s, off, int(dr), bool(banded))
     return _uv_plain(ph, wt, kconst)
@@ -267,7 +289,10 @@ def sweep_uv_plain(Sr, Si, gx, gy, A0c, A0s, A1c, A1s, run, off, kconst,
 
 def sweep_pw_plain(Sr, Si, gx, gy, A0c, A0s, A1c, A1s, run, off, dr, banded):
     """Plain PyTorch twin of emission (a) (same arguments as
-    :func:`sweep_pw`)."""
+    :func:`sweep_pw`); a stack runs image by image."""
+    if Sr.dim() == 5:
+        return _per_image(sweep_pw_plain, Sr, Si, gx, gy, A0c, A0s, A1c,
+                          A1s, run, off, dr, banded)
     T = _stage1_plain(Sr, Si, gx, gy, A0c, A0s, run)
     return _stage2_plain(T, A1c, A1s, off, int(dr), bool(banded))
 
@@ -335,13 +360,19 @@ def kernel_supported(n, m, W0, Wb, P):
 
 def _check(op, Sr, Si, gx, gy, A0c, A0s, A1c, A1s, run, off, kconst=None,
            grad_ops=None):
-    """Raise unless the operands are what the launches of `op` take."""
-    G, H, W0, Wb = Sr.shape
+    """Raise unless the operands are what the launches of `op` take
+    (windows (G, H, W0, Wb) or a stack (B, G, H, W0, Wb))."""
+    if Sr.dim() not in (4, 5):
+        raise ValueError(f"{op}: windows must be (G, H, W0, Wb) or (B, G, "
+                         f"H, W0, Wb), got {tuple(Sr.shape)}")
+    lead = tuple(Sr.shape[:-4])
+    G, H, W0, Wb = Sr.shape[-4:]
     P = gx.shape[1]
     n = A0c.shape[1]
     m = A1c.shape[1]
     f32, i32 = torch.float32, torch.int32
-    named = [("Sr", Sr, (G, H, W0, Wb), f32), ("Si", Si, (G, H, W0, Wb), f32),
+    win = lead + (G, H, W0, Wb)
+    named = [("Sr", Sr, win, f32), ("Si", Si, win, f32),
              ("gx", gx, (G, P, W0), f32), ("gy", gy, (G, P, Wb), f32),
              ("A0c", A0c, (G, n, W0), f32), ("A0s", A0s, (G, n, W0), f32),
              ("A1c", A1c, (G, m, Wb), f32), ("A1s", A1s, (G, m, Wb), f32),
@@ -354,6 +385,7 @@ def _check(op, Sr, Si, gx, gy, A0c, A0s, A1c, A1s, run, off, kconst=None,
             ((G, H, W0, Wb), (G, H, W0, Wb), (G, m, Wb), (G, m, Wb)))]
     for name, t, shape, dt in named:
         _build.check_tensor(op, name, t, shape, dt, Sr.device)
+    _grid_z_ok(op, G, P)
     if not kernel_supported(n, m, W0, Wb, P):
         raise ValueError(
             f"{op} kernel needs n, m, Wb multiples of {TILE}, W0 a "
@@ -361,25 +393,49 @@ def _check(op, Sr, Si, gx, gy, A0c, A0s, A1c, A1s, run, off, kconst=None,
             f"Wb={Wb}, P={P})")
 
 
+def _grid_z_ok(op, G, P):
+    """Raise where one image's stage-1 grid z (G P) passes CUDA's limit
+    (a stack is split into launches of whole images, an image is not)."""
+    if G * P > MAX_GRID_Z:
+        raise ValueError(f"{op}: G * P = {G * P} blocks on stage 1's grid z "
+                         f"pass CUDA's gridDim.z limit of {MAX_GRID_Z}")
+
+
 def stage1(Sr, Si, gx, gy, A0c, A0s, run, flags=None):
-    """Stage 1 (checked operands): T (G, P, n, 2 Wb). With band flags
-    (G, n/64, P) int32, only the rows of flagged (64-row band, candidate)
-    pairs are computed (the gradient emission's Tx, counted as
-    "grad_stage1"); the kernel leaves the others unwritten."""
+    """Stage 1 (checked operands): T (G, P, n, 2 Wb), or (B, G, P, n,
+    2 Wb) for a stack of windows (B, G, H, W0, Wb). With band flags
+    (G, n/64, P) int32 (one image), only the rows of flagged (64-row
+    band, candidate) pairs are computed (the gradient emission's Tx,
+    counted as "grad_stage1"); the kernel leaves the others
+    unwritten."""
+    stack = Sr.dim() == 5
+    if stack and flags is not None:
+        raise ValueError("stage1: band flags take one image's windows "
+                         "(the gradient emission has no image axis yet, "
+                         "ROADMAP queue 1 item 11)")
     if not _on_card("stage1", Sr):
+        if stack:
+            return torch.stack([_stage1_plain(Sr[b], Si[b], gx, gy, A0c, A0s,
+                                              run)
+                                for b in range(Sr.shape[0])])
         return _stage1_plain(Sr, Si, gx, gy, A0c, A0s, run, flags)
-    G, H, W0, Wb = Sr.shape
+    lead = tuple(Sr.shape[:-4])
+    B = Sr.shape[0] if stack else 1
+    G, H, W0, Wb = Sr.shape[-4:]
     P, n, dev = gx.shape[1], A0c.shape[1], Sr.device
+    _grid_z_ok("stage1", G, P)
     if flags is not None:
         _build.check_tensor("stage1", "flags", flags, (G, n // TILE, P),
                             torch.int32, dev)
-    T = torch.empty((G, P, n, 2 * Wb), dtype=torch.float32, device=dev)
+    T = torch.empty(lead + (G, P, n, 2 * Wb), dtype=torch.float32,
+                    device=dev)
     with torch.cuda.device(dev):
-        _build.check(_build.bind("sweep_stage1", "pppppppppiiiiiip")(
+        _build.check(_build.bind("sweep_stage1", "pppppppppiiiiiiip")(
             Sr.data_ptr(), Si.data_ptr(), gx.data_ptr(), gy.data_ptr(),
             A0c.data_ptr(), A0s.data_ptr(), run.data_ptr(),
             0 if flags is None else flags.data_ptr(), T.data_ptr(),
-            G, H, P, n, W0, Wb, torch.cuda.current_stream(dev).cuda_stream),
+            B, G, H, P, n, W0, Wb,
+            torch.cuda.current_stream(dev).cuda_stream),
             "sweep_stage1")
     if flags is not None:
         _build.launches["grad_stage1"] += 1
@@ -388,23 +444,35 @@ def stage1(Sr, Si, gx, gy, A0c, A0s, run, flags=None):
 
 def stage2(T, A1c, A1s, off, dr, banded, winners=False):
     """Stage 2 on the tensor cores and the tournament (checked operands):
-    the winner phase and rim-masked weight planes (G, n, m); with winners
-    (the gradient emission's tournament) also each pixel's winner: Re M,
+    the winner phase and rim-masked weight planes (G, n, m), or (B, G, n,
+    m) for a stack T (B, G, P, n, 2 Wb); with winners (the gradient
+    emission's tournament, one image) also each pixel's winner: Re M,
     Im M (float32) and its candidate index (int32), (G, n, m) each, from
     the same launch with a wider store."""
+    stack = T.dim() == 5
+    if stack and winners:
+        raise ValueError("stage2: the winners' store takes one image (the "
+                         "gradient emission has no image axis yet, ROADMAP "
+                         "queue 1 item 11)")
     if not _on_card("stage2", T):
+        if stack:
+            return tuple(torch.stack(o) for o in zip(*(
+                _stage2_plain(t, A1c, A1s, off, int(dr), bool(banded))
+                for t in T)))
         return _stage2_plain(T, A1c, A1s, off, int(dr), bool(banded),
                              winners=winners)
-    G, P, n, Wb = T.shape[0], T.shape[1], T.shape[2], T.shape[3] // 2
+    lead = tuple(T.shape[:-4])
+    B = T.shape[0] if stack else 1
+    G, P, n, Wb = T.shape[-4], T.shape[-3], T.shape[-2], T.shape[-1] // 2
     m, dev = A1c.shape[1], T.device
-    ph = torch.empty((G, n, m), dtype=torch.float32, device=dev)
+    ph = torch.empty(lead + (G, n, m), dtype=torch.float32, device=dev)
     wt = torch.empty_like(ph)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         if not winners:
-            _build.check(_build.bind("sweep_stage2", "ppppppiiiiiiip")(
+            _build.check(_build.bind("sweep_stage2", "ppppppiiiiiiiip")(
                 T.data_ptr(), A1c.data_ptr(), A1s.data_ptr(), off.data_ptr(),
-                ph.data_ptr(), wt.data_ptr(), G, P, n, m, Wb, int(dr),
+                ph.data_ptr(), wt.data_ptr(), B, G, P, n, m, Wb, int(dr),
                 int(bool(banded)), stream), "sweep_stage2")
             return ph, wt
         mr = torch.empty_like(ph)
@@ -507,16 +575,23 @@ def winner_grads(T, S2r, S2i, gx, gy, A0c, A0s, run, A1c, A1s, A1yc, A1ys,
 
 
 def epilogue(ph, wt, kconst):
-    """The uv epilogue on the card: (dudx_s, dudy_s, wnorm)."""
-    G, n, m = ph.shape
+    """The uv epilogue on the card: (dudx_s, dudy_s, wnorm) from the
+    phase and weight planes (G, n, m), or with a leading image axis
+    from a stack's (B, G, n, m)."""
+    lead = tuple(ph.shape[:-3])
+    G, n, m = ph.shape[-3:]
+    B = ph.shape[0] if lead else 1
+    if B > MAX_GRID_Z:
+        raise ValueError(f"epilogue: {B} images pass CUDA's gridDim.y limit "
+                         f"of {MAX_GRID_Z} (an image a row of its grid)")
     dev = ph.device
-    ux = torch.empty((2, n, m), dtype=torch.float32, device=dev)
+    ux = torch.empty(lead + (2, n, m), dtype=torch.float32, device=dev)
     uy = torch.empty_like(ux)
-    wn = torch.empty((n, m), dtype=torch.float32, device=dev)
+    wn = torch.empty(lead + (n, m), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        _build.check(_build.bind("sweep_uv", "ppppppiiip")(
+        _build.check(_build.bind("sweep_uv", "ppppppiiiip")(
             ph.data_ptr(), wt.data_ptr(), kconst.data_ptr(), ux.data_ptr(),
-            uy.data_ptr(), wn.data_ptr(), G, n, m,
+            uy.data_ptr(), wn.data_ptr(), B, G, n, m,
             torch.cuda.current_stream(dev).cuda_stream), "sweep_uv")
     return ux, uy, wn
 
@@ -532,10 +607,11 @@ def _on_card(op, Sr):
 def sweep_uv(Sr, Si, gx, gy, A0c, A0s, A1c, A1s, run, off, kconst, dr,
              banded):
     """Grouped banded sweep -> (dudx_s (2, n, m), dudy_s (2, n, m),
-    wnorm (n, m)), float32.
+    wnorm (n, m)), float32; for a stack of B images (windows (B, G, H,
+    W0, Wb)) each output has a leading image axis.
 
     Sr, Si : (G, H, W0, Wb) spectrum windows (pre-scaled by 1/(n*m)),
-        band-sliced per run h.
+        band-sliced per run h, or a stack (B, G, H, W0, Wb).
     gx : (G, P, W0) row Gaussian factors; gy : (G, P, Wb) column
         factors band-sliced per candidate.
     A0c, A0s : (G, n, W0) row inverse-DFT bases.
@@ -560,8 +636,8 @@ def sweep_uv(Sr, Si, gx, gy, A0c, A0s, A1c, A1s, run, off, kconst, dr,
 
 def sweep_pw(Sr, Si, gx, gy, A0c, A0s, A1c, A1s, run, off, dr, banded):
     """Emission (a): the winners' phase (banded column ramp applied) and
-    rim-masked weight, (G, n, m) each, float32 (arguments as
-    :func:`sweep_uv`, without kconst)."""
+    rim-masked weight, (G, n, m) each, float32, or (B, G, n, m) for a
+    stack (arguments as :func:`sweep_uv`, without kconst)."""
     if not _on_card("sweep_pw", Sr):
         return sweep_pw_plain(Sr, Si, gx, gy, A0c, A0s, A1c, A1s, run, off,
                               dr, banded)
@@ -579,7 +655,12 @@ def sweep_grad(Sr, Si, S2r, S2i, gx, gy, A0c, A0s, A1c, A1s, A1yc, A1ys,
     along rows and columns, before any rebase. S2r, S2i (G, H, W0, Wb)
     are the row-derivative windows (2 pi i f0) S band-sliced like Sr,
     Si; A1yc, A1ys (G, m, Wb) the base band's column-derivative basis
-    (2 pi i f1) A1; the rest as :func:`sweep_uv`."""
+    (2 pi i f1) A1; the rest as :func:`sweep_uv`. One image: a stack of
+    windows raises."""
+    if Sr.dim() != 4:
+        raise ValueError("sweep_grad takes one image's windows (G, H, W0, "
+                         f"Wb), got {tuple(Sr.shape)}: the gradient emission "
+                         "has no image axis yet (ROADMAP queue 1 item 11)")
     if not _on_card("sweep_grad", Sr):
         return sweep_grad_plain(Sr, Si, S2r, S2i, gx, gy, A0c, A0s, A1c,
                                 A1s, A1yc, A1ys, run, off, dr, banded)

@@ -16,8 +16,8 @@ neighbour IS the reference semantics.
 
 CUDA route (``csrc/vcycle.cu``): presmooth walks column strips down
 the rows, a 128-thread block owning 124 output columns and a 2-column
-halo on each side, all batch planes in one block (w and the weights,
-D and Dinv built once), one input row a step and output row k - 2 at
+halo on each side, two planes of one image in one block (w and the
+weights, D and Dinv built once), one input row a step and output row k - 2 at
 step k (the chain needs neighbours of neighbours); applyq marches the
 same way over a one-pixel neighbourhood, a warp owning 128 columns (4 a
 lane, 16-byte loads where the rows allow) and a strip of rows, the x
@@ -27,8 +27,14 @@ intrinsics without FMA contraction, so the kernel's arithmetic is the
 twin's, operation for operation, and applyq's outputs are the twin's
 bits.
 
-phi, dxc, dyc and p carry a batch axis (the displacement components);
-w is one (n, m) plane shared by the batch. The multigrid takes the
+phi, dxc, dyc and p carry batch axes (..., C, n, m): the displacement
+components and, for a stack, the images. w (..., n, m) broadcasts
+against them with its axes leading: (n, m) is one weight shared by
+every plane, (B, 1, n, m) beside planes (B, C, n, m) is image b's own
+weight for its C planes; Dinv comes back shaped like w. Each block
+takes up to PRESMOOTH_PLANES planes of one image, its groups on one
+grid axis, so a stack runs in one launch (two where C is odd and > 1).
+The multigrid takes the
 kernels where :func:`vcycle_kernel_ok` holds and the twins elsewhere,
 as the reference routes by its ``_vcycle_kernel_ok``; a wrapper handed
 a CUDA tensor outside the kernels' limits raises.
@@ -42,11 +48,12 @@ PRESMOOTH_COLS = 32
 PRESMOOTH_THREADS = 128                     # csrc/vcycle.cu PT: staged columns
 PRESMOOTH_TILE = PRESMOOTH_THREADS - 4      # output columns a block
 PRESMOOTH_BLOCKS_PER_SM = 8                 # its launch bounds
-PRESMOOTH_PLANES = 2                        # batch planes a launch (MAXB)
+PRESMOOTH_PLANES = 2                        # planes of an image a block (MAXB)
 APPLYQ_COLS = 128                           # csrc/vcycle.cu QCOLS: columns a warp
 APPLYQ_WARPS = 4                            # warps a block (QT / 32)
 APPLYQ_BLOCKS_PER_SM = 4                    # its launch bounds
 APPLYQ_MIN_ROWS = 16                        # fewest rows a strip
+MAX_GROUPS = 65535                          # CUDA's gridDim.y/z limit
 
 
 def supported(n, m, cr):
@@ -73,16 +80,23 @@ def presmooth_tiling(n, m, sms):
     return rows, (tiles, -(-n // rows))
 
 
-def presmooth_traffic(B, n, m, cr, sms):
-    """Bytes the presmooth kernel moves on a card with `sms` SMs: every
-    block reads its PRESMOOTH_THREADS columns of rows + 4 input rows (w
-    once a launch of up to PRESMOOTH_PLANES planes, phi, dxc, dyc each
-    plane) and writes r, d, Dinv once and rrow."""
+def _groups(B, images):
+    """Block groups of B planes in `images` images: up to
+    PRESMOOTH_PLANES planes of one image a group."""
+    return images * -(-(B // images) // PRESMOOTH_PLANES)
+
+
+def presmooth_traffic(B, n, m, cr, sms, images=1):
+    """Bytes the presmooth kernel moves on a card with `sms` SMs for B
+    planes in `images` images: every block reads its PRESMOOTH_THREADS
+    columns of rows + 4 input rows (its image's w once a group of up to
+    PRESMOOTH_PLANES planes, phi, dxc, dyc each plane) and writes r, d,
+    rrow and each image's Dinv once."""
     rows, (tiles, strips) = presmooth_tiling(n, m, sms)
     rows_read = sum(min(rows, n - k * rows) + 4 for k in range(strips))
-    launches = -(-B // PRESMOOTH_PLANES)
-    reads = (3 * B + launches) * rows_read * tiles * PRESMOOTH_THREADS
-    writes = (2 * B + 1) * n * m + B * (n // cr) * m
+    reads = (3 * B + _groups(B, images)) * rows_read * tiles \
+        * PRESMOOTH_THREADS
+    writes = (2 * B + images) * n * m + B * (n // cr) * m
     return 4 * (reads + writes)
 
 
@@ -99,22 +113,22 @@ def applyq_tiling(n, m, sms):
     return rows, (tiles, -(-n // rows))
 
 
-def applyq_traffic(B, n, m, sms):
-    """Bytes the applyq kernel moves on a card with `sms` SMs: every warp
-    reads its APPLYQ_COLS columns and 2 halo columns of rows + 2 input
-    rows (w once a launch of up to PRESMOOTH_PLANES planes, p each plane)
-    and writes its rows of q once."""
+def applyq_traffic(B, n, m, sms, images=1):
+    """Bytes the applyq kernel moves on a card with `sms` SMs for B
+    planes in `images` images: every warp reads its APPLYQ_COLS columns
+    and 2 halo columns of rows + 2 input rows (its image's w once a
+    group of up to PRESMOOTH_PLANES planes, p each plane) and writes its
+    rows of q once."""
     rows, (tiles, strips) = applyq_tiling(n, m, sms)
     rows_read = sum(min(rows, n - k * rows) + 2 for k in range(strips))
-    launches = -(-B // PRESMOOTH_PLANES)
-    reads = (B + launches) * rows_read * tiles * (APPLYQ_COLS + 2)
+    reads = (B + _groups(B, images)) * rows_read * tiles * (APPLYQ_COLS + 2)
     return 4 * (reads + B * n * m)
 
 
 def vcycle_kernel_ok(phi, w, cr):
     """The reference's _vcycle_kernel_ok read for the card: the V-branch
-    kernels take CUDA float32 planes phi (..., n, m) and w (n, m) whose
-    shape and coarse factor cr the kernels support."""
+    kernels take CUDA float32 planes phi (..., n, m) and w (..., n, m)
+    whose shape and coarse factor cr the kernels support."""
     n, m = phi.shape[-2:]
     return (phi.device.type == "cuda" and phi.dtype == torch.float32
             and w.dtype == torch.float32 and supported(n, m, cr))
@@ -178,9 +192,35 @@ def _batched(x, n, m):
     return x.reshape((-1, n, m)).contiguous()
 
 
+def image_axis(op, planes, w):
+    """(I, C): the planes (..., n, m) as I images of C planes each, image
+    i's weight w[i], for a weight w (..., n, m) that broadcasts against
+    them with its axes leading (all its leading sizes 1: one image of
+    every plane). Raises for any other weight."""
+    n, m = planes.shape[-2:]
+    lead = tuple(planes.shape[:-2])
+    wl = tuple(w.shape[:-2])
+    if tuple(w.shape[-2:]) != (n, m) or len(wl) > len(lead):
+        raise ValueError(f"{op}: weight {tuple(w.shape)} does not match "
+                         f"planes {tuple(planes.shape)}")
+    wl = (1,) * (len(lead) - len(wl)) + wl
+    k = max((j + 1 for j, s in enumerate(wl) if s != 1), default=0)
+    if wl[:k] != lead[:k] or any(s != 1 for s in wl[k:]):
+        raise ValueError(f"{op}: weight {tuple(w.shape)} must broadcast "
+                         f"against planes {tuple(planes.shape)} with its "
+                         "image axes leading")
+    I = int(torch.Size(lead[:k]).numel())
+    C = int(torch.Size(lead[k:]).numel())
+    if I * -(-C // PRESMOOTH_PLANES) > MAX_GROUPS:
+        raise ValueError(f"{op}: {I} images of {C} planes take more block "
+                         f"groups than CUDA's grid limit of {MAX_GROUPS}")
+    return I, C
+
+
 def presmooth(phi, dxc, dyc, w, cr, omega):
     """Fused V-branch pre-smooth: (r, d, Dinv, rrow) with r, d shaped
-    like phi, Dinv (n, m) and rrow (..., n/cr, m)."""
+    like phi, Dinv like w and rrow (..., n/cr, m); w (..., n, m) as
+    :func:`image_axis` takes it."""
     if phi.device.type == "cpu":
         return presmooth_plain(phi, dxc, dyc, w, int(cr), omega)
     if phi.device.type != "cuda":
@@ -193,52 +233,57 @@ def presmooth(phi, dxc, dyc, w, cr, omega):
             f"{PRESMOOTH_COLS} == 0 and cr dividing {PRESMOOTH_ROWS} "
             f"(got n={n}, m={m}, cr={cr})")
     lead = phi.shape[:-2]
-    phi_b, dxc_b, dyc_b = (_batched(t, n, m) for t in (phi, dxc, dyc))
+    I, C = image_axis("presmooth", phi, w)
+    phi_b, dxc_b, dyc_b, w_b = (_batched(t, n, m)
+                                for t in (phi, dxc, dyc, w))
     B = phi_b.shape[0]
     for name, t, shape in (("phi", phi_b, (B, n, m)), ("dxc", dxc_b,
                            (B, n, m)), ("dyc", dyc_b, (B, n, m)),
-                           ("w", w, (n, m))):
+                           ("w", w_b, (I, n, m))):
         _build.check_tensor("presmooth", name, t, shape, torch.float32,
                             phi.device)
     r = torch.empty_like(phi_b)
     d = torch.empty_like(phi_b)
-    dinv = torch.empty((n, m), dtype=phi.dtype, device=phi.device)
+    dinv = torch.empty_like(w_b)
     rrow = torch.empty((B, n // cr, m), dtype=phi.dtype, device=phi.device)
     with torch.cuda.device(phi.device):
         props = torch.cuda.get_device_properties(phi.device)
         rows, _ = presmooth_tiling(n, m, props.multi_processor_count)
-        fn = _build.bind("vcycle_presmooth", "ppppppppiiiiifp")
+        fn = _build.bind("vcycle_presmooth", "ppppppppiiiiiifp")
         _build.check(fn(phi_b.data_ptr(), dxc_b.data_ptr(), dyc_b.data_ptr(),
-                        w.data_ptr(), r.data_ptr(), d.data_ptr(),
-                        dinv.data_ptr(), rrow.data_ptr(), B, n, m, rows, cr,
-                        float(omega),
+                        w_b.data_ptr(), r.data_ptr(), d.data_ptr(),
+                        dinv.data_ptr(), rrow.data_ptr(), I, C, n, m, rows,
+                        cr, float(omega),
                         torch.cuda.current_stream(phi.device).cuda_stream),
                      "vcycle_presmooth")
     _build.launches["presmooth"] += 1
-    return (r.reshape(lead + (n, m)), d.reshape(lead + (n, m)), dinv,
-            rrow.reshape(lead + (n // cr, m)))
+    return (r.reshape(lead + (n, m)), d.reshape(lead + (n, m)),
+            dinv.reshape(w.shape), rrow.reshape(lead + (n // cr, m)))
 
 
 def applyq(p, w):
     """Q p = A^T (W^T W) A p with the aligned min-neighbour weights of
-    `w` (n, m); p is (..., n, m)."""
+    `w` (..., n, m) (as :func:`image_axis` takes it); p is (..., n,
+    m)."""
     if p.device.type == "cpu":
         return applyq_plain(p, w)
     if p.device.type != "cuda":
         raise ValueError(f"applyq: unsupported device {p.device}")
     n, m = p.shape[-2:]
-    p_b = _batched(p, n, m)
+    I, C = image_axis("applyq", p, w)
+    p_b, w_b = _batched(p, n, m), _batched(w, n, m)
     B = p_b.shape[0]
     _build.check_tensor("applyq", "p", p_b, (B, n, m), torch.float32,
                         p.device)
-    _build.check_tensor("applyq", "w", w, (n, m), torch.float32, p.device)
+    _build.check_tensor("applyq", "w", w_b, (I, n, m), torch.float32,
+                        p.device)
     q = torch.empty_like(p_b)
     with torch.cuda.device(p.device):
         props = torch.cuda.get_device_properties(p.device)
         rows, _ = applyq_tiling(n, m, props.multi_processor_count)
-        fn = _build.bind("vcycle_applyq", "pppiiiip")
-        _build.check(fn(p_b.data_ptr(), w.data_ptr(), q.data_ptr(), B, n, m,
-                        rows,
+        fn = _build.bind("vcycle_applyq", "pppiiiiip")
+        _build.check(fn(p_b.data_ptr(), w_b.data_ptr(), q.data_ptr(), I, C,
+                        n, m, rows,
                         torch.cuda.current_stream(p.device).cuda_stream),
                      "vcycle_applyq")
     _build.launches["applyq"] += 1

@@ -180,17 +180,35 @@ def _zoom_basis(n, idx, dtype=torch.float32, device=None):
 
 
 def _dft_windows(image, A0c_flat, A0s_flat, A1c, A1s):
-    """Forward-DFT spectrum windows of a real image as skinny DFT
-    products (no full-size FFT): A0*_flat are the (n, G*W0) row bases,
-    A1c/A1s the (G, m, W1) column bases. Returns raw (unnormalized)
-    (Sr, Si), each (G, W0, W1)."""
-    G, m, _ = A1c.shape
+    """Forward-DFT spectrum windows of a real image (n, m), or of each
+    image of a stack (B, n, m), as skinny DFT products (no full-size
+    FFT): A0*_flat are the (n, G*W0) row bases, A1c/A1s the (G, m, W1)
+    column bases. A stack takes as many products as one image: the row
+    products over the images side by side (n, B m), the column products
+    with the images' rows stacked per group. Returns raw (unnormalized)
+    (Sr, Si), each (G, W0, W1), or (B, G, W0, W1) for a stack."""
+    images = image if image.dim() == 3 else image[None]
+    B, n, m = images.shape
+    G = A1c.shape[0]
     W0 = A0c_flat.shape[1] // G
-    Ur = (A0c_flat.T @ image).reshape(G, W0, m)
-    Ui = (-(A0s_flat.T @ image)).reshape(G, W0, m)
+    X = images.permute(1, 0, 2).reshape(n, B * m)
+
+    def per_group(U):
+        # (G W0, B m) -> (G, B W0, m)
+        return U.reshape(G, W0, B, m).permute(0, 2, 1, 3).reshape(
+            G, B * W0, m)
+
+    Ur = per_group(A0c_flat.T @ X)
+    Ui = per_group(-(A0s_flat.T @ X))
     Sr = Ur @ A1c + Ui @ A1s
     Si = Ui @ A1c - Ur @ A1s
-    return Sr, Si
+
+    def per_image(S):
+        # (G, B W0, W1) -> (B, G, W0, W1), or (G, W0, W1) for one image
+        S = S.reshape(G, B, W0, -1).transpose(0, 1)
+        return S if image.dim() == 3 else S[0]
+
+    return per_image(Sr), per_image(Si)
 
 
 @dataclass(frozen=True)
@@ -273,7 +291,12 @@ class GroupedSweep:
 
     Called on a mean-subtracted float32 image (its windows taken by
     skinny DFT products) or, with `spectrum`, on windows of a given
-    fft2."""
+    fft2. The uv and phase/weight emissions also take a stack of images
+    (B, n, m) of the plan's shape, each mean-subtracted, and return each
+    output with a leading image axis: the stack's windows come from as
+    many products as one image's (_dft_windows) and its sweep from the
+    launches of one (ops.sweep). The gradient emission and the spectrum
+    form take one image."""
 
     def __init__(self, plan, device=None, emit="uv"):
         if emit not in _EMISSIONS:
@@ -357,15 +380,18 @@ class GroupedSweep:
         self.scale = torch.tensor(1.0 / (n * m), dtype=dt, device=device)
 
     def _bands(self, X):
-        """(G, W0, W1) windows band-sliced per run: (G, H, W0, Wb)."""
+        """(..., G, W0, W1) windows band-sliced per run: (..., G, H, W0,
+        Wb)."""
         Wb = self.Wb
-        return torch.stack([torch.stack([X[g, :, off:off + Wb]
-                                         for _, off in rg])
-                            for g, rg in enumerate(self.runs)]).contiguous()
+        return torch.stack([torch.stack([X[..., g, :, off:off + Wb]
+                                         for _, off in rg], dim=-3)
+                            for g, rg in enumerate(self.runs)],
+                           dim=-4).contiguous()
 
     def _scaled(self, img0=None, spectrum=None):
-        """The normalized (G, W0, W1) windows: skinny DFT products of the
-        image, or the window bins of a given fft2."""
+        """The normalized (G, W0, W1) windows ((B, G, W0, W1) for a stack
+        of images): skinny DFT products of the image(s), or the window
+        bins of a given fft2."""
         if spectrum is None:
             Sr, Si = _dft_windows(img0, self.A0c_flat, self.A0s_flat,
                                   self.A1c, self.A1s)
@@ -382,12 +408,18 @@ class GroupedSweep:
 
     def __call__(self, img0, spectrum=None):
         src = img0 if spectrum is None else spectrum
-        if tuple(src.shape) != self.plan.shape or \
+        stack = spectrum is None and src.dim() == 3
+        if tuple(src.shape[-2:]) != self.plan.shape or \
+                src.dim() != 2 + stack or \
                 (spectrum is None and img0.dtype != torch.float32) or \
                 (spectrum is not None and spectrum.dtype != torch.complex64):
             raise ValueError(f"GroupedSweep planned for float32 "
-                             f"{self.plan.shape}, got {src.dtype} "
+                             f"{self.plan.shape} (or a stack (B, "
+                             f"*{self.plan.shape})), got {src.dtype} "
                              f"{tuple(src.shape)}")
+        if stack and self.emit == "grad":
+            raise ValueError("the gradient emission takes one image: it has "
+                             "no image axis yet (ROADMAP queue 1 item 11)")
         Sr, Si = self._scaled(img0, spectrum)
         Sr4, Si4 = self._bands(Sr), self._bands(Si)
         common = (self.gx, self.gy, self.A0c, self.A0s, self.A1cb, self.A1sb,

@@ -5,12 +5,18 @@ and their ``_cg_unwrap``), the multigrid-accelerated
 ``phase_unwrap_prediff_mg`` (weighted or not, any schedule, the "v" and
 "vv" V-branches) and the reference's API-parity names.
 
-Leading axes are batch axes (the two displacement components); the
-reference vmaps over them. Each component keeps its own early stop: the
-loop runs the iterations with a per-component done mask and freezes a
-finished component (torch.where), which equals the reference's vmapped
-while_loop. The preconditioner's 2D DCTs go through core.fourier, which
-routes 4096- and 8192-long float32 axes to the ops.dct kernels.
+Leading axes are batch axes (the two displacement components, and for a
+stack of images the images before them); the reference vmaps over
+them. A weight (..., n, m) broadcasts against the planes (..., C, n,
+m): one (n, m) plane shared by every plane, or (B, 1, n, m) giving image
+b's C components its own; the min-neighbour weights, the coarse levels'
+block means, the V-branch's Jacobi diagonal and the kernels follow it,
+and every CG dot and line-search sum stays per plane. Each component
+keeps its own early stop: the loop runs the iterations with a
+per-component done mask and freezes a finished component (torch.where),
+which equals the reference's vmapped while_loop. The preconditioner's
+2D DCTs go through core.fourier, which routes 4096- and 8192-long
+float32 axes to the ops.dct kernels.
 
 The multigrid keeps every plane (..., n, m) with a structurally zero
 last column (x-diffs) or row (y-diffs), so neighbour shifts are cyclic
@@ -177,8 +183,8 @@ def phase_unwrap_prediff(dx, dy, weight=None, kmax=DEFAULTS.unwrap_kmax,
                          return_iters=False, events=None):
     """Unwrap from phase gradients dx = diff(psi, -1) (..., n, m-1) and
     dy = diff(psi, -2) (..., n-1, m) with the exact early-stopping CG;
-    weight (n, m) is shared by the batch. `events` (a list) collects a
-    CUDA timing event after the solve."""
+    weight (..., n, m) broadcasts against the batch (module docstring).
+    `events` (a list) collects a CUDA timing event after the solve."""
     dx = wrap_to_pi(dx)
     dy = wrap_to_pi(dy)
     rk, WWx, WWy = _residual(dx, dy, weight)
@@ -238,8 +244,10 @@ def _avg_right(m_in, cols, c, dtype=torch.float32, device=None):
     """(m_in, cols) right-multiplication block-averaging matrix."""
     i = torch.arange(m_in, device=device)[:, None]
     j = torch.arange(cols, device=device)[None, :]
+    # torch.full, not torch.tensor: a host value copied to the card would
+    # wait for the stream, stalling the host behind the queued work
     return torch.where(i // c == j,
-                       torch.tensor(1.0 / c, dtype=dtype, device=device),
+                       torch.full((), 1.0 / c, dtype=dtype, device=device),
                        torch.zeros((), dtype=dtype, device=device))
 
 
@@ -279,10 +287,10 @@ def upsample(phi, nc, mc):
         for j in range(cfac):
             o = (j + 0.5) / cfac - 0.5
             if o < 0:
-                t = torch.tensor(1.0 + o, dtype=dt, device=phi.device)
+                t = torch.full((), 1.0 + o, dtype=dt, device=phi.device)
                 pieces.append((1 - t) * prev + t * phi)
             else:
-                t = torch.tensor(o, dtype=dt, device=phi.device)
+                t = torch.full((), o, dtype=dt, device=phi.device)
                 pieces.append((1 - t) * phi + t * nxt)
         phi = torch.stack(pieces, dim=-2).reshape(
             phi.shape[:-2] + (rin * cfac, phi.shape[-1]))
@@ -322,8 +330,9 @@ def phase_unwrap_prediff_mg(dx, dy, weight=None, kmax=10, coarse=4,
     second correct-and-smooth round on the updated residual).
 
     dx : (..., n, m-1) and dy : (..., n-1, m) phase differences (or
-    already aligned (..., n, m)); weight : (n, m) shared by the batch,
-    or None for the unweighted problem. schedule : ((factor, iters),
+    already aligned (..., n, m)); weight : (..., n, m) broadcasting
+    against the batch (the module docstring), or None for the
+    unweighted problem. schedule : ((factor, iters),
     ...) coarsest -> finest, default_schedule's when None. `events` (a
     list) collects CUDA timing events per level."""
     dx = wrap_to_pi(dx)

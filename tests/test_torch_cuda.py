@@ -1119,3 +1119,231 @@ def test_uv_and_zoom_outputs_keep_their_bits(dev):
         got[f"zoom_P{P}_W1{W1}"] = sha(tz.zoom_sweep(*ops))
         got[f"zoom_pw_P{P}_W1{W1}"] = sha(tz.zoom_sweep(*ops, dr=10))
     assert got == KEPT_BITS
+
+
+# ---- the image axis: stacks of images with per-image weights, each
+# kernel against its twin and against its own single-image launch on each
+# image's slice (bit for bit: a block's arithmetic does not depend on the
+# stack)
+
+
+def _lattice_stack(B, size, dev):
+    """B config 1 lattices (r_k 0.1, theta 7 deg, order 2) at `size`,
+    image i displaced by a smooth field scaled by (i + 1) / B and shifted
+    by 0.31 i px, each mean-subtracted; the plan's k-vectors."""
+    ks = generate_ks(0.1, 7.0)[:3]
+    S = size // 2
+    xp, yp = np.meshgrid(np.arange(-S, S), np.arange(-S, S), indexing="ij")
+    bump = 0.1 * xp * np.exp(-0.5 * ((xp / (S / 4)) ** 2
+                                     + 1.2 * (yp / (S / 3)) ** 2))
+    imgs = []
+    for i in range(B):
+        u = np.stack([bump * (i + 1) / B + 0.31 * i,
+                      np.full_like(bump, 0.31 * i)]).astype(np.float32)
+        im = hexlattice_gen(0.1, 7.0, order=2, size=size, shift=u,
+                            dtype=torch.float32, device=dev)
+        imgs.append(im - im.mean())
+    return torch.stack(imgs), ks
+
+
+@pytest.mark.parametrize("B", [1, 3, 16])
+@pytest.mark.parametrize("emit", ["uv", "pw"])
+def test_batched_sweep_kernel(dev, B, emit):
+    """The grouped sweep's uv and phase/weight emissions on a stack of B
+    256^2 lattices: one launch, each image's outputs the bits of its own
+    single-image launch on the same windows, and the stack against the
+    twin run image by image (uv: test_sweep_kernel's flip-tolerant
+    bounds; pw: test_grouped_sweep_tensor_core_kernel's)."""
+    imgs, ks = _lattice_stack(B, 256, dev)
+    sigma = int(np.ceil(1 / np.linalg.norm(ks, axis=1).min()))
+    plan = twfr.plan_sweep((256, 256), candidate_banks(ks), sigma,
+                           2 * sigma, ks, gauss_cut=7.0)
+    sw = twfr.GroupedSweep(plan, device=dev, emit=emit)
+    Sr, Si = sw.windows(imgs)
+    assert Sr.shape[:2] == (B, 3)
+    rest = (sw.gx, sw.gy, sw.A0c, sw.A0s, sw.A1cb, sw.A1sb, sw.run, sw.off)
+    rest += (sw.kconst,) if emit == "uv" else ()
+    rest += (plan.dr, sw.banded)
+    fn = tsweep.sweep_uv if emit == "uv" else tsweep.sweep_pw
+    twin = tsweep.sweep_uv_plain if emit == "uv" else tsweep.sweep_pw_plain
+    name = "sweep_" + emit
+    before = _build.launches[name]
+    got = fn(Sr, Si, *rest)
+    assert _build.launches[name] == before + 1
+    for i in range(B):
+        one = fn(Sr[i].contiguous(), Si[i].contiguous(), *rest)
+        for g, o in zip(got, one):
+            assert torch.equal(g[i], o), (emit, B, i)
+    want = twin(Sr, Si, *rest)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and torch.isfinite(g).all()
+    if emit == "uv":
+        dx = (got[0] - want[0])[..., 1:].abs().flatten()
+        dy = (got[1] - want[1])[..., 1:, :].abs().flatten()
+        assert float(torch.quantile(dx[::7], 0.99)) < 1e-3
+        assert float(torch.quantile(dy[::7], 0.99)) < 1e-3
+        assert float(((got[2] - want[2]).abs()
+                      / (want[2].abs() + 1e-9)).max()) < 5e-3
+        return
+    dph = torch.remainder(got[0] - want[0] + np.pi, 2 * np.pi) - np.pi
+    dph = dph.abs().flatten()
+    rel = ((got[1] - want[1]).abs() / (want[1].abs() + 1e-9)).flatten()
+    assert float((dph > 1e-4).double().mean()) < 1e-2
+    assert float(torch.quantile(dph[::7], 0.99)) < 5e-5
+    assert float(torch.quantile(rel[::7], 0.99)) < 5e-5
+
+
+@pytest.mark.parametrize("G,P,W0,Wb,n,m", [(3, 5, 64, 128, 256, 320),
+                                           (2, 9, 32, 64, 128, 192)])
+def test_batched_sweep_steps_at_other_shapes(dev, G, P, W0, Wb, n, m):
+    """Stage 1, stage 2 and the uv epilogue on a stack of 3 images of
+    synthetic operands (_grouped_ops' plan, each image its own windows):
+    each image's T, phase, weight and uv planes the bits of its own
+    single-image launch, and stage 2 against its float32 twin within
+    test_grouped_sweep_tensor_core_kernel's bounds."""
+    args = _grouped_ops(G, P, W0, Wb, n, m, 70 + n, dev)
+    g = np.random.default_rng(71)
+    Sr, Si = (torch.from_numpy(g.normal(size=(3, G, 2, W0, Wb)).astype(
+        np.float32)).to(dev) for _ in range(2))
+    T = tsweep.stage1(Sr, Si, *args[2:6], args[8])
+    assert T.shape == (3, G, P, n, 2 * Wb)
+    ph, wt = tsweep.stage2(T, args[6], args[7], args[9], 6, True)
+    uv = tsweep.epilogue(ph, wt, args[10])
+    for i in range(3):
+        Ti = tsweep.stage1(Sr[i].contiguous(), Si[i].contiguous(),
+                           *args[2:6], args[8])
+        assert torch.equal(T[i], Ti)
+        pi, wi = tsweep.stage2(Ti, args[6], args[7], args[9], 6, True)
+        assert torch.equal(ph[i], pi) and torch.equal(wt[i], wi)
+        for a, b in zip(uv, tsweep.epilogue(pi, wi, args[10])):
+            assert torch.equal(a[i], b)
+    pp, pw = tsweep.stage2(T.cpu(), *(a.cpu() for a in (args[6], args[7],
+                                                          args[9])), 6, True)
+    dph = torch.remainder(ph.cpu() - pp + np.pi, 2 * np.pi) - np.pi
+    dph = dph.abs().flatten()
+    rel = ((wt.cpu() - pw).abs() / (pw.abs() + 1e-9)).flatten()
+    assert float((dph > 1e-4).double().mean()) < 1e-2
+    assert float(torch.quantile(dph[::3], 0.99)) < 5e-5
+    assert float(torch.quantile(rel[::3], 0.99)) < 5e-5
+
+
+def test_stage1_splits_stacks_past_the_grid_limit(dev):
+    """A stack whose stage-1 grid z (B G P) passes CUDA's 65535 runs in
+    launches of whole images: the last image's T is the bits of its own
+    launch. One image over the limit raises, naming it."""
+    G, P, W0, Wb, n = 1, 48, 16, 64, 64
+    B = tsweep.MAX_GRID_Z // (G * P) + 2
+    g = np.random.default_rng(72)
+    T_ = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+    a0 = twfr._zoom_basis(n, np.arange(W0))
+    ops = (T_(g.uniform(0.2, 1, size=(G, P, W0))),
+           T_(g.uniform(0.2, 1, size=(G, P, Wb))),
+           a0[0][None].to(dev).contiguous(), a0[1][None].to(dev).contiguous(),
+           torch.zeros((G, P), dtype=torch.int32, device=dev))
+    Sr = T_(g.normal(size=(B, G, 1, W0, Wb)))
+    Si = T_(g.normal(size=(B, G, 1, W0, Wb)))
+    T = tsweep.stage1(Sr, Si, *ops)
+    for i in (0, B - 1):
+        assert torch.equal(T[i], tsweep.stage1(Sr[i].contiguous(),
+                                               Si[i].contiguous(), *ops))
+    del T
+    with pytest.raises(ValueError, match="65535"):
+        tsweep._grid_z_ok("stage1", 1366, 48)
+
+
+def _image_weights(B, n, m, seed, dev):
+    g = np.random.default_rng(seed)
+    w = g.uniform(0.05, 1.0, size=(B, 1, n, m))
+    w[..., :8, :] = w[..., -8:, :] = w[..., :8] = w[..., -8:] = 1e-6
+    return torch.from_numpy(w.astype(np.float32)).to(dev)
+
+
+@pytest.mark.parametrize("B,C,n,m,cr", [(1, 2, 256, 384, 4),
+                                        (3, 2, 256, 384, 4),
+                                        (16, 2, 256, 384, 4),
+                                        (3, 3, 48, 96, 2),
+                                        (5, 1, 1024, 160, 16)])
+def test_vcycle_kernels_with_per_image_weights(dev, B, C, n, m, cr):
+    """presmooth and applyq on B images of C planes, image b with its own
+    weight (B, 1, n, m): one launch per call (C odd and > 1: two inside
+    it), each image's outputs the bits of its own one-weight launch,
+    presmooth within 1e-5 of its twin and applyq its twin's bits."""
+    phi, dxc, dyc = (_planes((B, C, n, m), s, dev) for s in (81, 82, 83))
+    w = _image_weights(B, n, m, 84, dev)
+    before = (_build.launches["presmooth"], _build.launches["applyq"])
+    got = tvc.presmooth(phi, dxc, dyc, w, cr, 0.8)
+    q = tvc.applyq(phi, w)
+    assert (_build.launches["presmooth"], _build.launches["applyq"]) == (
+        before[0] + 1, before[1] + 1)
+    assert got[2].shape == (B, 1, n, m)
+    want = tvc.presmooth_plain(phi, dxc, dyc, w, cr, 0.8)
+    for g, t in zip(got, want):
+        assert g.shape == t.shape and _rel(g, t) <= 1e-5
+    assert torch.equal(q, tvc.applyq_plain(phi, w))
+    for i in range(B):
+        one = tvc.presmooth(phi[i], dxc[i], dyc[i], w[i, 0], cr, 0.8)
+        for g, o in zip(got, one):
+            assert torch.equal(g[i].reshape(o.shape), o)
+        assert torch.equal(q[i], tvc.applyq(phi[i], w[i, 0]))
+
+
+@pytest.mark.parametrize("B,n,m,kmax", [(1, 256, 256, 6), (3, 256, 256, 6),
+                                        (16, 256, 256, 6),
+                                        (3, 384, 640, 4),
+                                        (2, 1024, 1024, 4)])
+def test_cg_kernel_with_per_image_weights(dev, B, n, m, kmax):
+    """The CG kernel on B images of 2 planes, image b with its own
+    weights (B, 1, n, m), on the FFT route and (384 x 640) the dense
+    one: one launch, within 1e-4 of its twin, and each image's solution
+    the bits of its own one-weight launch."""
+    from pygpa_tpu_torch.solvers.unwrap import _residual_aligned
+    dxp, dyp = _planes((B, 2, n, m), 91, dev), _planes((B, 2, n, m), 92,
+                                                       dev)
+    dxp[..., -1] = 0
+    dyp[..., -1, :] = 0
+    rk, WWx, WWy = _residual_aligned(dxp, dyp,
+                                     _image_weights(B, n, m, 93, dev))
+    assert WWx.shape == (B, 1, n, m)
+    before = _build.launches["cg_poisson"]
+    got = tcg.cg_poisson(rk, WWx, WWy, kmax)
+    assert _build.launches["cg_poisson"] == before + 1
+    assert torch.isfinite(got).all()
+    assert _rel(got, tcg.cg_poisson_plain(rk, WWx, WWy, kmax)) <= 1e-4
+    for i in range(B):
+        assert torch.equal(got[i], tcg.cg_poisson(
+            rk[i].contiguous(), WWx[i, 0].contiguous(),
+            WWy[i, 0].contiguous(), kmax))
+
+
+@pytest.mark.parametrize("size,nb,kw", [(512, 16, {}),
+                                        (1024, 2, {"chunk": 4})])
+def test_extractor_stack_makes_no_host_sync(dev, size, nb, kw):
+    """One call of the multigrid extractor on a stack (config 1b's 16 x
+    512^2, and two 1024^2 images) makes no synchronizing CUDA operation
+    from the port's code (torch.cuda.set_sync_debug_mode("warn"), each
+    warning's call site): the host never waits for the card inside the
+    call, so a tile loader's host reads can overlap the device work
+    queued before them. Found on the card: the multigrid's block-mean
+    and resize weights copied host scalars to the card, a sync each."""
+    import os
+    import warnings
+    from pygpa_tpu_torch.gpa.pipeline import make_displacement_extractor
+    imgs, ks = _lattice_stack(nb, size, dev)
+    fn = make_displacement_extractor((size, size), ks, unwrap_coarse=4,
+                                     device=dev, **kw)
+    fn(imgs)
+    torch.cuda.synchronize()
+    pkg = os.path.dirname(os.path.abspath(tsweep.__file__))
+    pkg = os.path.dirname(pkg)
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn(imgs)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    ours = [f"{w.filename}:{w.lineno}" for w in rec
+            if "synchroniz" in str(w.message)
+            and os.path.abspath(w.filename).startswith(pkg)]
+    assert not ours, ours

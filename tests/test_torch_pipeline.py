@@ -175,7 +175,8 @@ def test_port_imports_no_jax():
             "    names.add(m.name)\n"
             "new = {'core.interp', 'ops.warp', 'ops.drizzle', 'ops.expand', "
             "'ucell', 'ucell.averaging', 'gpa.api', 'gpa.kgeometry', "
-            "'props', 'props.jacobians'}\n"
+            "'props', 'props.jacobians', 'data', 'io', 'parallel', "
+            "'parallel.sharded'}\n"
             "assert {'pygpa_tpu_torch.' + n for n in new} <= names, names\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'pygpa_tpu' or "
