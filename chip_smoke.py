@@ -156,6 +156,41 @@ Phases, each printed on its own lines:
    stack's u through gt.io's checkpoint and back with equal bits, the
    pass's seconds, per stack the host read and device ms, and the
    device's idle share over a pass (torch.profiler).
+16. one launch per stage for a stack on the eager path and on both
+   gradient emissions, and the utilities: (a) config 5's four 4096^2
+   tiles through one call of gt.parallel.extract_displacement_field_batch
+   (one fft2, one zoom sweep launch pair a peak for the stack, the exact
+   CG on every tile at once): launches per stack against one image's
+   (zoom_sweep 3 and the DCTs' count, equal or fail), config 5's gates
+   (tile 0's, as run_all.py's; every tile printed), the stack against the loop of four eager calls (interior
+   p99 < 1e-3, max < 1e-2 px), seconds and peak memory of both, four
+   displaced tiles held against their loop (hold_displaced), each batched
+   zoom launch against its single-image launches bit for bit (any
+   difference fails) and against its twin (check_zoom, on the displaced
+   tiles but for the last one's hole of noise, and on config 5's);
+   then 15c's sixteen mosaic tiles through the same call, which splits
+   them into calls that fit the card's free memory: the calls' sizes,
+   seconds, the peak against the estimate the split rests on, and
+   config 5's gates on every tile; (b) config 1b's
+   16 x 512^2 through the same call, its gate, the stack against its
+   loop and seconds of both, a displaced stack of 16 held alike; (c)
+   config 2g's step on a stack of two 4096^2 images (the bench fixture
+   and the same lattice displaced by the bench's field) through the zoom
+   gradient emission (float32 ks, 3 "zoom_grad") and the grouped one
+   (float64 ks, 1 "sweep_grad"): launches per stack against one image's,
+   the gates on the first image, the stack's maps against the plain
+   twins' (each image's max within a tenth of each gate, as phase 10,
+   but at the pixels where a winner flips between kernel and twin at a
+   near tie: both winners' float64 |M|^2 within check_zoom's |M|^2
+   bounds of the top candidate's, each flip's gaps printed), seconds of
+   stack and loop, each batched
+   emission's bits against its single-image launches and the emission
+   against its twin; (d) prep_image on the bench fixture with a zero
+   border, generate_mask on 15c's 16 tiles, tpugpa's tpuGPA,
+   wfr2_grad_opt and wfr2_only_lockin on the bench fixture (the zoom
+   kernel's launches counted), each timed and held to the same call on
+   the CPU (the sweeps on a 1024^2 crop). The kernels line adds
+   zoom_sweep_stack (16a), zoom_grad_stack and sweep_grad_stack (16c).
 
 Phase 3 also holds the grouped sweep (kernel and float32 twin against
 the float64 twin; stages 1, 2 and the uv epilogue timed apart, with
@@ -324,10 +359,18 @@ PATH_KERNELS = {4: ("sweep_uv", "presmooth", "applyq", "cg_poisson"),
                 "15a": ("sweep_uv", "presmooth", "applyq", "cg_poisson"),
                 "15b": ("sweep_uv", "presmooth", "applyq", "cg_poisson"),
                 # the fits, wfr4 and WFF run no hand kernel
-                "14a": (), "14b": (), "14c": (), "14d": ()}
+                "14a": (), "14b": (), "14c": (), "14d": (),
+                # phase 16: the eager path and both gradient emissions on
+                # stacks (16b at 512^2: the exact CG's DCTs on the twins)
+                "16a": ("zoom_sweep", "dct_lane", "dct_sub"),
+                "16b": ("zoom_sweep",),
+                "16ca": ("zoom_grad",) + GRAD_STEPS,
+                "16cb": ("sweep_grad",) + GRAD_STEPS}
 # each gradient path's launches of the sweeps: exactly these counts
 PATH_SWEEPS = {"10a": {"zoom_grad": 3}, "10b": {"sweep_grad": 1},
-               "11a": {"zoom_grad": 3}, "11b": {"sweep_pw": 1}}
+               "11a": {"zoom_grad": 3}, "11b": {"sweep_pw": 1},
+               "16a": {"zoom_sweep": 3}, "16b": {"zoom_sweep": 3},
+               "16ca": {"zoom_grad": 3}, "16cb": {"sweep_grad": 1}}
 SWEEP_NAMES = ("sweep_uv", "sweep_pw", "sweep_grad", "zoom_sweep",
                "zoom_grad")
 # the sweeps' kernels (mangled-name keys): phase 2 fails if one spills
@@ -807,15 +850,20 @@ def cg_l2_bytes(B, n, m):
 ZOOM_AGREE = 0.99      # winner agreement, kernel vs twin
 
 
-def check_zoom(zs, calls, dr):
+ABSQ_RTOL, ABSQ_ATOL = 1e-4, 1e-7   # check_zoom's |M|^2 bounds
+
+
+def check_zoom(zs, calls, dr, keep=None):
     """The zoom-sweep kernel against its twin on each peak's inputs,
     flip-tolerant (tests/test_lockin_wfr.py's kernel bounds): winners
-    agree on > 99% of pixels; where they agree, |M|^2 within rtol 1e-4
-    (atol 1e-7 of its maximum: float32 sums carry that much absolute
-    noise), Re/Im within 1e-3 of the largest |M|, the weight within
-    rtol 1e-5 (atol 1e-6), and the phase within 1e-5 rad modulo 2 pi
-    where |M| is at least 1e-3 of its maximum (below that atan2
-    amplifies the same absolute noise)."""
+    agree on > 99% of pixels; where they agree, |M|^2 within rtol
+    ABSQ_RTOL (atol ABSQ_ATOL of its maximum: float32 sums carry that
+    much absolute noise), Re/Im within 1e-3 of the largest |M|, the
+    weight within rtol 1e-5 (atol 1e-6), and the phase within 1e-5 rad
+    modulo 2 pi where |M| is at least 1e-3 of its maximum (below that
+    atan2 amplifies the same absolute noise). `keep`, a boolean mask
+    broadcast to the planes: the bounds hold there (where the lattice
+    is), the largest phase difference elsewhere is printed."""
     import torch
     mabs = 0.0
     for args in calls:
@@ -824,22 +872,29 @@ def check_zoom(zs, calls, dr):
         torch.cuda.synchronize()
         same = got[3] == want[3]
         agree = float(same.float().mean())
+        dph = torch.remainder(got[4] - want[4] + np.pi, 2 * np.pi).sub(
+            np.pi).abs()
+        left = ""
+        if keep is not None:
+            out = same & ~keep & (want[0] >= 1e-6 * want[0].max())
+            left = (f" (outside the held pixels {float(dph[out].max())!r} "
+                    f"rad)" if bool(out.any()) else "")
+            same = same & keep
         amax = float(want[0].max())
         top = amax ** 0.5
         d = [(g - w).abs() for g, w in zip(got, want)]
-        ex_a = float((d[0] - 1e-4 * want[0].abs())[same].max())
+        ex_a = float((d[0] - ABSQ_RTOL * want[0].abs())[same].max())
         ex_w = float((d[5] - 1e-5 * want[5].abs())[same].max())
         live = same & (want[0] >= 1e-6 * amax)
-        ph = float(torch.remainder(got[4] - want[4] + np.pi, 2 * np.pi)
-                   .sub(np.pi).abs()[live].max())
+        ph = float(dph[live].max())
         dre, dim = float(d[1][same].max()), float(d[2][same].max())
         mabs = max(mabs, dre, dim)
-        say(f"  zoom_sweep P={args[2].shape[0]} W0={args[0].shape[0]} "
-            f"W1={args[0].shape[1]} vs twin: winners agree {agree!r}; "
+        say(f"  zoom_sweep P={args[2].shape[0]} windows "
+            f"{tuple(args[0].shape)} vs twin: winners agree {agree!r}; "
             f"absq excess over rtol {ex_a / amax!r} of max, re "
             f"{dre / top!r}, im {dim / top!r} of max |M|, phase {ph!r} "
-            f"rad, weight excess over rtol {ex_w!r}")
-        ok = (agree > ZOOM_AGREE and ex_a <= 1e-7 * amax
+            f"rad{left}, weight excess over rtol {ex_w!r}")
+        ok = (agree > ZOOM_AGREE and ex_a <= ABSQ_ATOL * amax
               and dre <= 1e-3 * top and dim <= 1e-3 * top and ph <= 1e-5
               and ex_w <= 1e-6)
         if not (ok and all(bool(torch.isfinite(g).all()) for g in got[:3])):
@@ -1463,16 +1518,22 @@ def config2g_banks(ks):
 def config2g_step(ks):
     """Config 2g's step as run_all.py builds it: mean subtraction,
     wfr_sweep_phase_weight_multi(with_grad=True, krefs=ks) and
-    calc_props_from_phasegradient on float32 k-vectors."""
+    calc_props_from_phasegradient on float32 k-vectors. A stack (B, n,
+    m) goes through the sweep in one call (each image less its own
+    mean) and gives (B, 4, n, m)."""
+    import torch
     from pygpa_tpu_torch.ops.wfr import wfr_sweep_phase_weight_multi
     from pygpa_tpu_torch.props import calc_props_from_phasegradient
     wlists, sigma = config2g_banks(ks)
     kv = np.asarray(ks, np.float32)
 
     def step(image):
-        img0 = image - image.mean()
+        img0 = image - image.mean(dim=(-2, -1), keepdim=True)
         _, weights, grads = wfr_sweep_phase_weight_multi(
             img0, wlists, sigma, 2 * sigma, with_grad=True, krefs=ks)
+        if image.dim() == 3:
+            return torch.stack([calc_props_from_phasegradient(kv, g, w, 1.0)
+                                for g, w in zip(grads, weights)])
         return calc_props_from_phasegradient(kv, grads, weights, 1.0)
     return step, sigma
 
@@ -2593,6 +2654,15 @@ def hole_radius(size):
     return torch.hypot(ax[:, None] + S / 2, ax[None, :] - S / 2), S / 5
 
 
+def hole_pixels(size, b):
+    """displaced_stack's hole as the checks set it apart in the last
+    image: out to 1.5 times its radius, where the lattice is back to
+    99%, plus 3 sigma of the sweep's window (b = 8 sigma); (size, size)
+    bool."""
+    r, rad = hole_radius(size)
+    return r < 1.5 * rad + 3 * b / 8
+
+
 def displaced_stack(size, nb, r_k=0.1, theta=7.0, scale=1.0):
     """nb lattices (r_k, theta, order 2, float32) at `size` on DEVICE, each
     with a field of its own: image i displaced by bench_field(size) *
@@ -2648,8 +2718,7 @@ def hold_displaced(label, fn, imgs, b):
     size = float(ui.abs().amax(dim=(1, 2, 3)).min())
     apart = min(float((ui[i] - ui[j]).abs().max())
                 for i in range(len(ui)) for j in range(i))
-    r, rad = hole_radius(imgs.shape[-1])
-    inside = r < 1.5 * rad + 3 * b / 8
+    inside = hole_pixels(imgs.shape[-1], b)
     d = (u - loop).abs()
     in_hole = float(d[-1][:, inside].max())
     d[-1][:, inside] = 0
@@ -3015,7 +3084,8 @@ def drive_mosaic(extract, ks):
     (torch.profiler), peak memory. Every tile is a translated perfect
     lattice, whose u is ~0, so the gates cannot tell a path that returns
     zeros: the same extractor at the same stack shape is held on
-    displaced tiles in 15b."""
+    displaced tiles in 15b. Returns the idle share and the 16 tiles in
+    one host stack (16, 4096, 4096) float32, for phase 16d."""
     import tempfile
     import torch
     from pygpa_tpu_torch import data, io
@@ -3100,7 +3170,743 @@ def drive_mosaic(extract, ks):
             f"loaded back, bits equal: {same}")
         if not same:
             raise RuntimeError("[15c] the checkpoint does not round-trip")
-    return idle
+        # the 16 tiles in one stack on the host, for phase 16d
+        with data.MosaicTiles(path) as mt:
+            tiles16, _ = next(mt.batches(SIZE, batch_size=16))
+    return idle, tiles16
+
+
+# ---- phase 16: one launch per stage for a stack on the eager path (its
+# zoom sweeps) and on both gradient emissions; the utilities' device calls
+# the stack rows of the kernels line: row -> the single-image kernel's row
+STACK_ROWS = {"zoom_sweep_stack": "zoom_sweep",
+              "zoom_grad_stack": "zoom_grad",
+              "sweep_grad_stack": "sweep_grad"}
+PREP_REL = 1e-3      # 16d prep_image, card vs CPU: max |d| / max |CPU|
+LOCKIN_REL = 1e-5    # 16d tpuGPA, card vs CPU: max |d| / max |CPU|
+
+
+def eager_fn(ks):
+    """The eager path on DEVICE: a stack through one call of
+    gt.parallel.extract_displacement_field_batch, an image through
+    extract_displacement_field."""
+    from pygpa_tpu_torch import parallel
+    from pygpa_tpu_torch.gpa import pipeline
+
+    def fn(x):
+        if x.dim() == 3:
+            return parallel.extract_displacement_field_batch(x, ks,
+                                                             device=DEVICE)
+        return pipeline.extract_displacement_field(x, ks, device=DEVICE)
+    return fn
+
+
+def same_launches(label, stack, one, names):
+    """Fail unless the stack's run launched each of `names` as often as
+    one image's run."""
+    if any(stack.get(k, 0) != one.get(k, 0) for k in names):
+        raise RuntimeError(f"[{label}] the stack launches its kernels more "
+                           f"often than one image: {stack} vs {one}")
+
+
+def stack_bits(label, fn, calls, kws, stacked, kw_stacked=()):
+    """Each captured batched call of a kernel wrapper `fn` against its own
+    launch on each image's slice, bit for bit (check_slices' rule: a
+    block's arithmetic does not depend on the image index, so any
+    difference is an image read or written at another image's offset,
+    and fails). `stacked`: the positions of the stacked arguments;
+    kw_stacked: (keyword, positions within its tuple)."""
+    import torch
+    worst = 0.0
+    n_img = 0
+    for a, kw in zip(calls, kws):
+        got = fn(*a, **kw)
+        B = a[stacked[0]].shape[0]
+        n_img += B
+        for i in range(B):
+            ai = tuple(x[i].contiguous() if k in stacked else x
+                       for k, x in enumerate(a))
+            ki = dict(kw)
+            for name, pos in kw_stacked:
+                ki[name] = tuple(x[i].contiguous() if k in pos else x
+                                 for k, x in enumerate(kw[name]))
+            for g, o in zip(got, fn(*ai, **ki)):
+                if not torch.equal(g[i], o):
+                    worst = max(worst, float((g[i].double()
+                                              - o.double()).abs().max()))
+    say(f"    [{label}] {len(calls)} batched calls ({n_img} image slices) "
+        f"against their single-image launches: "
+        f"{'the same bits everywhere' if worst == 0 else worst}")
+    if worst:
+        raise RuntimeError(f"[{label}] a batched launch differs from its "
+                           f"single-image launch (largest |d| {worst!r})")
+
+
+def steps_bits(label, sw, T, win, ops, split, kernels):
+    """Each launch of a gradient emission on a stack against its own
+    launch on each image's slice, bit for bit: stage 1 (T), the
+    tournament (win: Re M, Im M, index), then the band flags, stage 1 of
+    the row-derivative windows on the flagged pairs (its flagged rows)
+    and the winner products, all in the grouped layout (T (B, G, P, n,
+    2K), win (B, G, n, m); ops = (S2r, S2i, gx, gy, A0c, A0s, run, A1c,
+    A1s, A1yc, A1ys, off, banded), S2r, S2i (B, G, H, W0, K)). kernels:
+    {"stage1": (stacked T, per-image T), "tournament": (stacked win,
+    per-image wins)} from the emission's own first two launches. Fails
+    on any difference."""
+    import torch
+    S2r, S2i, gx, gy, A0c, A0s, run, A1c, A1s, A1yc, A1ys, off, banded = ops
+    P = T.shape[-3]
+    flags = sw.band_winners(win[2], P)
+    Tx = sw.stage1(S2r, S2i, gx, gy, A0c, A0s, run, flags)
+    g = sw.winner_products(T, Tx, A1c, A1s, A1yc, A1ys, *win, flags, off,
+                           banded, split)
+    bad = [k for k, (st, one) in kernels.items()
+           if not all(torch.equal(x[i], y) for i in range(len(one))
+                      for x, y in zip(st, one[i]))]
+    for i in range(T.shape[0]):
+        wi = tuple(w[i].contiguous() for w in win)
+        fi = sw.band_winners(wi[2], P)
+        if not torch.equal(flags[i], fi):
+            bad.append(f"band flags (image {i})")
+        Txi = sw.stage1(S2r[i].contiguous(), S2i[i].contiguous(), gx, gy,
+                        A0c, A0s, run, fi)
+        rows = fi.permute(0, 2, 1).repeat_interleave(64, dim=2).bool()
+        if not torch.equal(Tx[i][rows], Txi[rows]):
+            bad.append(f"flagged stage 1 (image {i})")
+        gi = sw.winner_products(T[i].contiguous(), Txi, A1c, A1s, A1yc,
+                                A1ys, *wi, fi, off, banded, split)
+        if not all(torch.equal(x[i], y) for x, y in zip(g, gi)):
+            bad.append(f"winner products (image {i})")
+    say(f"    [{label}] each launch of the emission on the stack against "
+        f"its single-image launch (stage 1, tournament, band flags, "
+        f"flagged stage 1, winner products): "
+        f"{'the same bits everywhere' if not bad else bad}")
+    if bad:
+        raise RuntimeError(f"[{label}] batched launches differ from their "
+                           f"single-image launches: {bad}")
+
+
+def zoom_stack_row(zs, calls, err, launches):
+    """The zoom_sweep_stack row from the captured batched calls (one a
+    peak): kernel and twin ms summed over the peaks, the bound of the
+    stack's work (stage 1's 8 B P n W0 W1 FLOP in float32 FMA, stage 2's
+    8 B P n m W1 three times over at the dense TF32 rate, or its bytes)."""
+    ms = plain = 0.0
+    nbytes = f1 = f2 = 0
+    for a in calls:
+        B, W0, W1 = a[0].shape
+        P, n, m = a[2].shape[0], a[4].shape[0], a[6].shape[0]
+        ms += cuda_ms(lambda a=a: zs.zoom_sweep(*a), 3)
+        plain += cuda_ms(lambda a=a: zs.zoom_sweep_plain(*a), 1)
+        nbytes += tensor_bytes(a) + 4 * B * n * m * 4
+        f1 += 8 * B * P * n * W0 * W1
+        f2 += 8 * B * P * n * m * W1
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                bound_ms=zoom_bounds(nbytes, f1, f2)[1],
+                bound_by="operations", library_ms=None,
+                launches=launches.get("zoom_sweep", 0))
+
+
+def drive_eager_stack():
+    """Phase 16a: config 5's four 4096^2 tiles through one call of
+    gt.parallel.extract_displacement_field_batch (one fft2, one zoom sweep
+    launch pair a peak, the lstsq and the exact CG on every tile at once):
+    launches per stack against one image's, config 5's gates on tile 0
+    (props_from_u; every tile's values printed), the stack against the loop of four eager calls,
+    seconds and peak memory of both; four displaced tiles
+    (displaced_stack) held against their loop (hold_displaced), each
+    batched zoom launch on them against its single-image launches (bits),
+    and against its twin (check_zoom) on them, the last image's hole
+    aside, and on the tiles. Returns (launches, the zoom_sweep_stack
+    row)."""
+    import torch
+    from pygpa_tpu_torch.ops import wfr
+    from pygpa_tpu_torch.ops import zoom_sweep as zs
+    from pygpa_tpu_torch.props import props_from_u
+    tiles, _, ks = config5_tiles()
+    fn = eager_fn(ks)
+    u, launches = counted_run("16a", lambda: fn(tiles))
+    _, one = counted_run("16a", lambda: fn(tiles[0]))
+    say(f"[16a] the eager path on config 5's {tuple(tiles.shape)} tiles in "
+        f"one call of gt.parallel.extract_displacement_field_batch: "
+        f"launches per stack {launches}, per image {one}")
+    same_launches("16a", launches, one, ("zoom_sweep", "dct_lane",
+                                         "dct_sub"))
+    if tuple(u.shape) != (4, 2, SIZE, SIZE) or not torch.isfinite(u).all():
+        raise RuntimeError(f"[16a] output bad, shape {tuple(u.shape)}")
+    sigma = int(np.ceil(1 / np.linalg.norm(ks, axis=1).min()))
+    b = 8 * sigma
+    # config 5's gates are tile 0's (run_all.py): a flipped tile mirrors
+    # the lattice, which the unflipped k-vectors read as a twist of 2 x
+    # 5 deg; every tile's values are printed
+    mx = props_gates([props_from_u(x, 1.0) for x in u], b)
+    th = [float(v[0]) for v in mx]
+    ka = [float(v[1]) for v in mx]
+    say(f"    gates (tile 0; run_all.py's): theta {th[0]!r}, kappa "
+        f"{ka[0]!r} (theta < {GATE_5_THETA}, kappa < {GATE_5_KAPPA}); every "
+        f"tile: theta {th}, kappa {ka}")
+    if not (th[0] < GATE_5_THETA and ka[0] < GATE_5_KAPPA):
+        raise RuntimeError("[16a] ACCURACY GATE FAILED")
+    loop = torch.stack([fn(t) for t in tiles])
+    bp99, bmax, bits = batch_vs_loop(u, loop, b)
+    say(f"    stack vs the loop of four eager calls: interior p99 {bp99!r} "
+        f"max {bmax!r} px (bounds {BATCH_P99}, {BATCH_MAX}); bits equal: "
+        f"{bits}")
+    if not (bp99 < BATCH_P99 and bmax < BATCH_MAX):
+        raise RuntimeError("[16a] the stack differs from its images' calls")
+    del u, loop
+    dt, peak = timed(lambda: fn(tiles), 2)
+    dt_loop, peak_loop = timed(lambda: [fn(t) for t in tiles], 2)
+    say(f"    seconds per stack {dt!r} ({4 * SIZE * SIZE / 1e6 / dt!r} "
+        f"Mpix/s), the loop of four eager calls {dt_loop!r} s (2 runs after "
+        f"warm-up each, host clock, synchronized); peak device memory "
+        f"{peak!r} GiB (loop {peak_loop!r})")
+    img_d = displaced_stack(SIZE, 4, r_k=0.02, theta=5.0, scale=0.25)
+    hold_displaced("16a", fn, img_d, b)
+    with Capture(wfr._zoom, "zoom_sweep") as c:
+        fn(img_d)
+        torch.cuda.synchronize()
+    del img_d
+    stack_bits("16a zoom_sweep", zs.zoom_sweep, c.calls, c.kws, (0, 1))
+    # against the twin within phase 3's bounds: on the displaced stack
+    # where the lattice is (the last image's hole aside: there |M| falls
+    # where atan2 lifts float32 rounding above them), and on the tiles
+    keep = torch.ones((4, SIZE, SIZE), dtype=torch.bool, device=DEVICE)
+    keep[-1] = ~hole_pixels(SIZE, b)
+    check_zoom(zs, c.calls, 2 * sigma, keep)
+    with Capture(wfr._zoom, "zoom_sweep") as c:
+        fn(tiles)
+        torch.cuda.synchronize()
+    err = check_zoom(zs, c.calls, 2 * sigma)
+    row = zoom_stack_row(zs, c.calls, err, launches)
+    say(f"    zoom_sweep_stack {tuple(c.calls[0][0].shape)} x 3 peaks: "
+        f"kernel {row['ms']!r} ms, twin {row['plain_ms']!r} ms, bound "
+        f"{row['bound_ms']!r} ms (operations), launches a stack "
+        f"{row['launches']}")
+    return launches, row
+
+
+def drive_eager_chunks(tiles16, ks):
+    """Phase 16a, its second part: 15c's sixteen 4096^2 mosaic tiles
+    (config 5's lattice, a host stack) through one call of
+    gt.parallel.extract_displacement_field_batch: the calls it splits
+    the stack into on the card's free memory (images_per_call), their
+    sizes, seconds and peak device memory. The estimate the split rests
+    on (EAGER_BYTES_PER_PIXEL) must cover the peak: the largest call of
+    c images may take no more than c + 1 estimated images above what
+    was allocated before it. Config 5's gates hold on every tile
+    (interior max |theta| < 0.01 deg, max |kappa - 1| < 0.001)."""
+    import torch
+    from pygpa_tpu_torch.parallel import sharded
+    from pygpa_tpu_torch.props import props_from_u
+    tiles = torch.as_tensor(tiles16).to(DEVICE)
+    fn = eager_fn(ks)
+    sizes = []
+    run = sharded.extract_displacement_field
+
+    def spy(images, *a, **kw):
+        sizes.append(images.shape[0])
+        return run(images, *a, **kw)
+    cap = sharded._cap(tiles)
+    sharded.extract_displacement_field = spy
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        u = fn(tiles)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+    finally:
+        sharded.extract_displacement_field = run
+    est = sharded.EAGER_BYTES_PER_PIXEL * SIZE * SIZE
+    say(f"[16a] 15c's {tuple(tiles.shape)} tiles in one call of the eager "
+        f"batch: at most {cap} images a call on the card's free memory, "
+        f"calls of {sizes}; {dt!r} s (the first call at these shapes, host "
+        f"clock, synchronized); peak device memory above the inputs "
+        f"{peak / 2**30!r} GiB, the estimate for a call of {max(sizes)} "
+        f"and the fixed part {(max(sizes) + 1) * est / 2**30!r} GiB")
+    if tuple(u.shape) != (16, 2, SIZE, SIZE) or not torch.isfinite(u).all():
+        raise RuntimeError(f"[16a] output bad, shape {tuple(u.shape)}")
+    if peak > (max(sizes) + 1) * est:
+        raise RuntimeError("[16a] the eager call's peak passes its memory "
+                           "estimate")
+    b = 8 * int(np.ceil(1 / np.linalg.norm(ks, axis=1).min()))
+    mx = [[float(v) for v in x] for x in props_gates(
+        [props_from_u(x, 1.0) for x in u], b)]
+    say(f"    gates (every tile): max theta {max(v[0] for v in mx)!r}, "
+        f"max kappa {max(v[1] for v in mx)!r} (theta < {GATE_5_THETA}, "
+        f"kappa < {GATE_5_KAPPA})")
+    if not all(v[0] < GATE_5_THETA and v[1] < GATE_5_KAPPA for v in mx):
+        raise RuntimeError("[16a] ACCURACY GATE FAILED on a mosaic tile")
+
+
+def drive_eager_1b():
+    """Phase 16b: config 1b (16 x 512^2, image i shifted 0.31 i px)
+    through the same call: launches per stack against one image's, 1b's
+    gate on each image (dc-free, 8 sigma interior), the stack against its
+    loop, seconds of both; then a displaced_stack of 16 held against its
+    loop, and each batched zoom launch against its single-image
+    launches. Returns the stack's launches."""
+    import torch
+    from pygpa_tpu_torch.lattices import generate_ks
+    from pygpa_tpu_torch.ops import wfr
+    from pygpa_tpu_torch.ops import zoom_sweep as zs
+    size, nb = 512, 16
+    ks = generate_ks(0.1, 7.0)[:3]
+    fn = eager_fn(ks)
+    imgs = lattice_stack(size, [0.31 * i for i in range(nb)])
+    u, launches = counted_run("16b", lambda: fn(imgs))
+    _, one = counted_run("16b", lambda: fn(imgs[0]))
+    say(f"[16b] config 1b's 16 x 512^2 through the eager batch call: "
+        f"launches per stack {launches}, per image {one}")
+    same_launches("16b", launches, one, ("zoom_sweep",))
+    b = 8 * int(np.ceil(1 / np.linalg.norm(ks, axis=1).min()))
+    ui = u[..., b:-b, b:-b]
+    per = (ui - ui.mean(dim=(-2, -1), keepdim=True)).abs().amax(
+        dim=(1, 2, 3))
+    say(f"    gates: dc-free interior max per image "
+        f"{[float(v) for v in per]} (< {GATE_1B} each)")
+    if not float(per.max()) < GATE_1B:
+        raise RuntimeError("[16b] ACCURACY GATE FAILED")
+    loop = torch.stack([fn(im) for im in imgs])
+    bp99, bmax, bits = batch_vs_loop(u, loop, b)
+    say(f"    stack vs loop: interior p99 {bp99!r} max {bmax!r} px (bounds "
+        f"{BATCH_P99}, {BATCH_MAX}); bits equal: {bits}")
+    if not (bp99 < BATCH_P99 and bmax < BATCH_MAX):
+        raise RuntimeError("[16b] the stack differs from its images' calls")
+    del u, loop, ui
+    dt, peak = timed(lambda: fn(imgs), REPS_NEW)
+    dt_loop, _ = timed(lambda: [fn(im) for im in imgs], REPS_NEW)
+    say(f"    seconds per stack {dt!r} ({nb * size * size / 1e6 / dt!r} "
+        f"Mpix/s), the 16-image loop {dt_loop!r} s ({REPS_NEW} runs after "
+        f"warm-up, host clock, synchronized); peak device memory {peak!r} "
+        f"GiB")
+    img_d = displaced_stack(size, nb)
+    hold_displaced("16b", fn, img_d, b)
+    with Capture(wfr._zoom, "zoom_sweep") as c:
+        fn(img_d)
+        torch.cuda.synchronize()
+    stack_bits("16b zoom_sweep", zs.zoom_sweep, c.calls, c.kws, (0, 1))
+    return launches
+
+
+def zoom_grad_stack_row(zs, sw, calls, kws, launches):
+    """zoom_grad on 16c's captured batched calls against the float32
+    twin (winners agree on > GRAD_AGREE of the pixels; the gradients
+    within GRAD_RTOL, GRAD_ATOL there, or fail), and its row: kernel and
+    twin ms summed over the peaks, the bound of the work the stack needs
+    (phase 3's zoom_grad bound, counting the twin's band and tile
+    winners)."""
+    import torch
+    mabs = ms = plain = 0.0
+    nbytes = f1 = f2 = 0
+    for a, kw in zip(calls, kws):
+        gops = kw["grad_ops"]
+        got = zs.zoom_sweep(*a, grad_ops=gops)
+        want = zs.zoom_sweep_plain(*a, grad_ops=gops)
+        same = got[3] == want[3]
+        agree = float(same.float().mean())
+        ok = agree > GRAD_AGREE
+        for k in (4, 5):
+            ex, dmax = grad_excess(got[k], want[k], same)
+            ok &= ex <= 0 and bool(torch.isfinite(got[k]).all())
+            mabs = max(mabs, dmax)
+        B, W0, W1 = a[0].shape
+        P, n, m = a[2].shape[0], a[4].shape[0], a[6].shape[0]
+        say(f"  zoom_grad stack {(B, W0, W1)} P={P} vs twin: winners agree "
+            f"{agree!r}; max |kernel - twin| of the gradients there "
+            f"{mabs!r}")
+        if not ok:
+            raise RuntimeError("[16c] the batched zoom_grad disagrees with "
+                               "its twin")
+        pairs, wins = winner_counts(sw, want[3], P)
+        del got, want
+        ms += cuda_ms(lambda a=a: zs.zoom_sweep(*a, grad_ops=gops), 3)
+        plain += cuda_ms(lambda a=a: zs.zoom_sweep_plain(*a, grad_ops=gops),
+                         1)
+        nbytes += tensor_bytes(a, gops) + 6 * B * n * m * 4
+        f1 += 8 * B * P * n * W0 * W1 + 8 * pairs * 64 * W0 * W1
+        f2 += 8 * B * P * n * m * W1 + 2 * 8 * wins * 64 * 64 * W1
+    return dict(max_abs_err=mabs, ms=ms, plain_ms=plain,
+                bound_ms=zoom_bounds(nbytes, f1, f2)[1],
+                bound_by="operations", library_ms=None,
+                launches=launches.get("zoom_grad", 0))
+
+
+def sweep_grad_stack_row(sw, a, launches):
+    """sweep_grad (emission (b)) on 16c's captured batched call against
+    the float32 twin (phase 3's rule: the phases within 1e-3 rad and the
+    gradients within GRAD_RTOL, GRAD_ATOL on all but 1 - GRAD_AGREE of
+    the pixels, and where the phases agree every gradient within
+    GRAD_SLIP), and its row: kernel and twin ms, the bound of the work the
+    stack needs (stage 1 in full and on the twin's band winners in
+    float32 FMA, stage 2 and the winner products in 3xTF32)."""
+    import torch
+    got = sw.sweep_grad(*a)
+    want = sw.sweep_grad_plain(*a, winners=True)
+    dph = (torch.remainder(got[0] - want[0] + np.pi, 2 * np.pi)
+           - np.pi).abs()
+    agree = dph < 1e-3
+    bad = ~agree
+    mabs = 0.0
+    for k in (2, 3):
+        d = (got[k] - want[k]).abs()
+        bad |= d > GRAD_ATOL + GRAD_RTOL * want[k].abs()
+        mabs = max(mabs, float(d[agree].max()))
+    frac = float(bad.double().mean())
+    B, G, _, W0, Wb = a[0].shape
+    P, n, m = a[4].shape[1], a[6].shape[1], a[8].shape[1]
+    say(f"  sweep_grad stack {tuple(a[0].shape)} P={P} vs twin: pixels off "
+        f"the bounds {frac!r} (bound {1 - GRAD_AGREE!r}); where the phases "
+        f"agree max |kernel - twin| of the gradients {mabs!r} (bound "
+        f"{GRAD_SLIP})")
+    if not (frac < 1 - GRAD_AGREE and mabs < GRAD_SLIP
+            and all(bool(torch.isfinite(g).all()) for g in got)):
+        raise RuntimeError("[16c] the batched sweep_grad disagrees with its "
+                           "twin")
+    idx = want[6]
+    pairs = int(sw.band_winners_plain(idx, P).sum())
+    wins = sum(tile_winners(x, P) for x in idx.reshape(-1, n, m))
+    del got, want, idx
+    f1 = 8 * B * G * P * n * W0 * Wb + 8 * pairs * 64 * W0 * Wb
+    f2 = 8 * B * G * P * n * m * Wb + 2 * 8 * wins * 64 * 64 * Wb
+    nbytes = tensor_bytes(a) + 4 * B * G * n * m * 4
+    return dict(max_abs_err=mabs, ms=cuda_ms(lambda: sw.sweep_grad(*a), 3),
+                plain_ms=cuda_ms(lambda: sw.sweep_grad_plain(*a), 1),
+                bound_ms=zoom_bounds(nbytes, f1, f2)[1],
+                bound_by="operations", library_ms=None,
+                launches=launches.get("sweep_grad", 0))
+
+
+def candidate_absq(Sr, Si, gx, gy, A0c, A0s, run, A1c, A1s, pix):
+    """Every candidate's |M|^2 (k, P) in float64 at k pixels pix (k, 3)
+    = (group, row, column) of one image, from its windows Sr, Si (G, H,
+    W0, Wb) and the plan's operands in the grouped layout (gx (G, P,
+    W0), gy (G, P, Wb), A0c, A0s (G, n, W0), run (G, P), A1c, A1s (G, m,
+    Wb)): ops.sweep's plain stage 1 on the pixels' rows, then each
+    pixel's column of stage 2 (M = T_i . B1; the banded column ramp has
+    modulus 1)."""
+    import torch
+    from pygpa_tpu_torch.ops import sweep as sw
+    d = torch.float64
+    out = []
+    for s in range(0, pix.shape[0], 1024):
+        g, r, c = pix[s:s + 1024].long().unbind(1)
+        rows, ri = torch.unique(r, return_inverse=True)
+        T = sw._stage1_plain(Sr.to(d), Si.to(d), gx.to(d), gy.to(d),
+                             A0c[:, rows].to(d), A0s[:, rows].to(d), run)
+        Tp = T[g, :, ri]                                  # (k, P, 2 Wb)
+        ac, as_ = A1c[g, c].to(d), A1s[g, c].to(d)        # (k, Wb)
+        mr = (Tp * torch.cat([ac, -as_], 1)[:, None]).sum(-1)
+        mi = (Tp * torch.cat([as_, ac], 1)[:, None]).sum(-1)
+        out.append(mr * mr + mi * mi)
+        del T, Tp
+    return torch.cat(out)
+
+
+def near_ties(label, name, c):
+    """The pixels (B, n, m) of 16c's captured sweep calls (`c`; `name`
+    the emission) where a peak's (a group's) winner differs between the
+    kernel and its float32 twin and both winners' float64 |M|^2 lie
+    within the kernel's |M|^2 bounds (check_zoom: ABSQ_RTOL of the
+    largest candidate's, ABSQ_ATOL of the plane's largest) of the
+    largest: near ties that float32 rounding decides. Prints every such
+    flip (image, group, row, column, both winners, the gap between the
+    top two candidates and each winner's gap to the top, relative to
+    the top); a flip that is not a near tie is printed and stays held."""
+    import torch
+    from pygpa_tpu_torch.ops import sweep as sw
+    from pygpa_tpu_torch.ops import zoom_sweep as zs
+    parts = []   # (kernel winners, twin winners (B, G, n, m), twin's
+    #              largest |M|^2 (B, G), one image's operands)
+    if name == "zoom_grad":
+        for a in c.calls:
+            k = zs.zoom_sweep(*a)[3]
+            w = zs.zoom_sweep_plain(*a)
+            run = torch.zeros((1, a[2].shape[0]), dtype=torch.int32,
+                              device=DEVICE)
+            parts.append((k[:, None], w[3][:, None],
+                          w[0].amax(dim=(-2, -1))[:, None],
+                          lambda b, a=a, run=run: (
+                              a[0][b][None, None], a[1][b][None, None],
+                              a[2][None], a[3][None], a[4][None],
+                              a[5][None], run, a[6][None], a[7][None])))
+            del w
+    else:
+        a = c.calls[0]
+        T = sw.stage1(a[0], a[1], *a[4:8], a[12])
+        k = sw.stage2(T, a[8], a[9], a[13], a[14], a[15], winners=True)[4]
+        del T
+        w = sw.sweep_grad_plain(*a, winners=True)
+        parts.append((k, w[6], (w[4] ** 2 + w[5] ** 2).amax(dim=(-2, -1)),
+                      lambda b, a=a: (a[0][b], a[1][b], *a[4:8], a[12],
+                                      a[8], a[9])))
+        del w
+    B, _, n, m = parts[0][0].shape
+    ties = torch.zeros((B, n, m), dtype=torch.bool, device=DEVICE)
+    rows, n_flip, n_tie = [], 0, 0
+    for p, (k, w, amax, ops) in enumerate(parts):
+        flip = (k != w).nonzero()                   # (F, 4): b, g, r, c
+        n_flip += flip.shape[0]
+        for b in flip[:, 0].unique().tolist():
+            f = flip[flip[:, 0] == b]
+            q = candidate_absq(*ops(b), f[:, 1:])
+            top = q.topk(2, dim=1).values
+            ik = k[b, f[:, 1], f[:, 2], f[:, 3]].long()[:, None]
+            it = w[b, f[:, 1], f[:, 2], f[:, 3]].long()[:, None]
+            gk = (top[:, 0] - q.gather(1, ik)[:, 0]) / top[:, 0]
+            gt = (top[:, 0] - q.gather(1, it)[:, 0]) / top[:, 0]
+            tol = ABSQ_RTOL + ABSQ_ATOL * amax[b, f[:, 1]].double() / top[:, 0]
+            tie = torch.maximum(gk, gt) <= tol
+            ties[b, f[tie, 2], f[tie, 3]] = True
+            n_tie += int(tie.sum())
+            for j in range(f.shape[0]):
+                rows.append(
+                    f"(image {b}, {'peak' if name == 'zoom_grad' else 'group'}"
+                    f" {p if name == 'zoom_grad' else int(f[j, 1])}, row "
+                    f"{int(f[j, 2])}, column {int(f[j, 3])}: kernel "
+                    f"{int(ik[j])}, twin {int(it[j])}; top two "
+                    f"{float((top[j, 0] - top[j, 1]) / top[j, 0])!r} apart, "
+                    f"the winners {float(gk[j])!r} and {float(gt[j])!r} "
+                    f"below the top; "
+                    f"{'a near tie' if bool(tie[j]) else 'NOT a near tie'})")
+    say(f"    [{label}] winners that differ between the kernel and its "
+        f"float32 twin: {n_flip}, of which near ties (both winners' "
+        f"float64 |M|^2 within rtol {ABSQ_RTOL} of the top candidate's, "
+        f"atol {ABSQ_ATOL} of the plane's largest) {n_tie}; relative "
+        f"gaps in float64:")
+    for r in rows[:24]:
+        say(f"      {r}")
+    if len(rows) > 24:
+        say(f"      ... {len(rows) - 24} more")
+    return ties
+
+
+def drive_grad_stack(img, img_d):
+    """Phase 16c: config 2g's step on a stack of two 4096^2 images (the
+    bench fixture and the same lattice displaced by the bench's field),
+    through both gradient emissions: (a) float32 k-vectors, the zoom
+    form (c), three "zoom_grad" launch chains; (b) float64 k-vectors,
+    the grouped form (b), one "sweep_grad" chain. Each: launches per
+    stack against one image's, config 2g's gates on the first image, the
+    stack's property maps against the same step on the plain twins (each
+    image's max within a tenth of each gate, as phase 10, on every pixel
+    but those where a winner flips between kernel and twin at a near tie
+    (near_ties), whose float64 gaps are printed), seconds of the stack
+    and of the loop, each batched emission against its single-image
+    launches (bits) and against its twin, and its stack row. Returns
+    ({label: launches}, rows)."""
+    import torch
+    from pygpa_tpu_torch.ops import sweep as sw
+    from pygpa_tpu_torch.ops import wfr
+    from pygpa_tpu_torch.ops import zoom_sweep as zs
+    from pygpa_tpu_torch.props import get_initial_props
+    stack = torch.stack([img, img_d])
+    launched, rows = {}, {}
+    for label, ks, name in (("16ca", KS_BENCH_F32, "zoom_grad"),
+                            ("16cb", np.asarray(KS_BENCH_F32, np.float64),
+                             "sweep_grad")):
+        step, sigma = config2g_step(ks)
+        props, launches = counted_run(label, lambda: step(stack))
+        _, one = counted_run(label, lambda: step(img))
+        say(f"[{label}] config 2g on a stack {tuple(stack.shape)} (the second "
+            f"image displaced), {name}: launches per stack {launches}, per "
+            f"image {one}")
+        same_launches(label, launches, one, (name,) + GRAD_STEPS)
+        b = 4 * sigma
+        theta0 = float(np.float32(float(get_initial_props(ks)[1])))
+        th = float((props[0, 0] - theta0)[b:-b, b:-b].abs().max())
+        ka = float((props[0, 3] - 1.005)[b:-b, b:-b].abs().max())
+        say(f"    gates (first image): theta {th!r} deg, kappa {ka!r} "
+            f"(theta < {GATE_2G_THETA}, kappa < {GATE_2G_KAPPA})")
+        if not (th < GATE_2G_THETA and ka < GATE_2G_KAPPA):
+            raise RuntimeError(f"[{label}] ACCURACY GATE FAILED")
+        with plain_versions():
+            pp = step(stack)
+        with Capture(wfr._zoom if name == "zoom_grad" else wfr._sweep,
+                     "zoom_sweep" if name == "zoom_grad" else "sweep_grad"
+                     ) as c:
+            step(stack)
+            torch.cuda.synchronize()
+        # each image as phase 10 holds it (max over the interior within a
+        # tenth of each gate), but for the pixels where a winner flips at
+        # a near tie between the kernels and the twins
+        tie = near_ties(label, name, c)[..., b:-b, b:-b]
+        dth = (props[:, 0] - pp[:, 0])[..., b:-b, b:-b].abs()
+        dka = (props[:, 3] - pp[:, 3])[..., b:-b, b:-b].abs()
+        held = [(float(dth[i][~tie[i]].max()), float(dka[i][~tie[i]].max()))
+                for i in range(2)]
+        every = [(float(dth[i].max()), float(dka[i].max())) for i in range(2)]
+        say(f"    with kernels vs plain versions, 4 sigma interior, the "
+            f"near ties aside ({int(tie[0].sum())}, {int(tie[1].sum())} "
+            f"pixels): max |dtheta| {held[0][0]!r}, {held[1][0]!r} deg, max "
+            f"|dkappa| {held[0][1]!r}, {held[1][1]!r} (first, displaced "
+            f"image; bounds {GATE_2G_THETA / 10}, {GATE_2G_KAPPA / 10}); "
+            f"on every pixel {every[0][0]!r}, {every[1][0]!r} deg, "
+            f"{every[0][1]!r}, {every[1][1]!r}")
+        if not all(h[0] < GATE_2G_THETA / 10 and h[1] < GATE_2G_KAPPA / 10
+                   for h in held):
+            raise RuntimeError(f"[{label}] kernels change the result")
+        del props, pp, tie
+        dt, peak = timed(lambda: step(stack), 2)
+        dt_loop, _ = timed(lambda: [step(x) for x in stack], 2)
+        say(f"    seconds per stack {dt!r}, the loop of two calls "
+            f"{dt_loop!r} s (2 runs after warm-up each, host clock, "
+            f"synchronized); peak device memory {peak!r} GiB")
+        if name == "zoom_grad":
+            stack_bits(label + " zoom_grad", zs.zoom_sweep, c.calls, c.kws,
+                       (0, 1), (("grad_ops", (0, 1)),))
+            for a, kw in zip(c.calls, c.kws):
+                S2r, S2i, A1yc, A1ys = kw["grad_ops"]
+                T = zs.stage1(*a[:6])
+                out = zs.stage2(T, a[6], a[7], None)
+                ones = [zs.stage1(a[0][i].contiguous(),
+                                  a[1][i].contiguous(), *a[2:6])
+                        for i in range(a[0].shape[0])]
+                run = torch.zeros((1, a[2].shape[0]), dtype=torch.int32,
+                                  device=T.device)
+                steps_bits(label, sw, T.unsqueeze(-4),
+                           tuple(o.unsqueeze(-3) for o in out[1:4]),
+                           (S2r[:, None, None], S2i[:, None, None],
+                            a[2][None], a[3][None], a[4][None], a[5][None],
+                            run, a[6][None], a[7][None], A1yc[None],
+                            A1ys[None], None, False), False,
+                           {"stage1": ((T,), [(t,) for t in ones]),
+                            "tournament": (out, [zs.stage2(t, a[6], a[7],
+                                                           None)
+                                                 for t in ones])})
+                del T, out, ones
+            rows["zoom_grad_stack"] = zoom_grad_stack_row(
+                zs, sw, c.calls, c.kws, launches)
+        else:
+            stack_bits(label + " sweep_grad", sw.sweep_grad, c.calls, c.kws,
+                       (0, 1, 2, 3))
+            a = c.calls[0]
+            T = sw.stage1(a[0], a[1], *a[4:8], a[12])
+            win = sw.stage2(T, a[8], a[9], a[13], a[14], a[15], winners=True)
+            ones = [sw.stage1(a[0][i].contiguous(), a[1][i].contiguous(),
+                              *a[4:8], a[12]) for i in range(a[0].shape[0])]
+            steps_bits(label, sw, T, win[2:],
+                       (a[2], a[3], *a[4:8], a[12], *a[8:12], a[13], a[15]),
+                       True,
+                       {"stage1": ((T,), [(t,) for t in ones]),
+                        "tournament": (win, [sw.stage2(
+                            t, a[8], a[9], a[13], a[14], a[15],
+                            winners=True) for t in ones])})
+            del T, win, ones
+            rows["sweep_grad_stack"] = sweep_grad_stack_row(
+                sw, c.calls[0], launches)
+        r = rows[name + "_stack"]
+        say(f"    {name}_stack: kernel {r['ms']!r} ms, twin "
+            f"{r['plain_ms']!r} ms, bound {r['bound_ms']!r} ms "
+            f"(operations), launches a stack {r['launches']}")
+        launched[label] = launches
+        del c
+    return launched, rows
+
+
+def drive_utilities(img, ks, tiles16):
+    """Phase 16d: the utilities' device calls at 4096^2, each timed on
+    the card and held to the same call with device="cpu": prep_image on
+    the bench fixture with a zero border (trim_nans2 peels it; max |card
+    - CPU| / max |CPU| < PREP_REL), generate_mask on 15c's 16-tile stack
+    with a zeroed block (masks equal), and the tpugpa mirror on the bench
+    fixture (tpuGPA: < LOCKIN_REL of the largest lock-in; wfr2_grad_opt
+    and wfr2_only_lockin through the zoom kernel, launches counted, and
+    on a 1024^2 crop against the CPU: winners agree on >= WFR4_AGREE of
+    the 5 sigma interior, the lock-in phase within WFR4_PHASE rad and
+    the gradients within GRAD_RTOL, GRAD_ATOL there)."""
+    import torch
+    from pygpa_tpu_torch import imagetools, tpugpa
+    from pygpa_tpu_torch.config import DEFAULTS
+    from pygpa_tpu_torch.gpa.prep import prep_image
+    raw = img.clone()
+    raw[:5] = 0
+    raw[:, -3:] = 0
+    host = raw.cpu().numpy()
+    del raw
+    # one call each way: the host's quantiles and NaN trim, which both
+    # run, take most of the card's call
+    (dc, _, _), _, t_c = counted(lambda: prep_image(host, device=DEVICE))
+    t0 = time.perf_counter()
+    dh, _, _ = prep_image(host, device="cpu")
+    t_h = time.perf_counter() - t0
+    e = float((dc.cpu() - dh).abs().max() / dh.abs().max())
+    say(f"[16d] prep_image on the {host.shape} bench fixture with a zero "
+        f"border: trimmed to {tuple(dc.shape)}; card {t_c!r} s, CPU {t_h!r} "
+        f"s; max |card - CPU| / max |CPU| {e!r} (bound {PREP_REL})")
+    if not (tuple(dc.shape) == tuple(dh.shape) and e < PREP_REL):
+        raise RuntimeError("[16d] prep_image on the card disagrees with the "
+                           "CPU")
+    del dc, dh, host
+    tiles_h = np.array(tiles16, np.float32)
+    tiles_h[5, 1000:1400, 2000:2600] = 0
+    tiles = torch.as_tensor(tiles_h, device=DEVICE)
+    imagetools.generate_mask(tiles, 0, r=20, device=DEVICE)
+    mc, _, t_c = counted(lambda: imagetools.generate_mask(tiles, 0, r=20,
+                                                          device=DEVICE))
+    t0 = time.perf_counter()
+    mh = imagetools.generate_mask(tiles_h, 0, r=20, device="cpu")
+    t_h = time.perf_counter() - t0
+    same = torch.equal(mc.cpu(), mh)
+    say(f"[16d] generate_mask on 15c's {tuple(tiles.shape)} tiles (a zeroed "
+        f"block in tile 5): {float(mh.double().mean())!r} of the pixels "
+        f"kept; card {t_c!r} s, CPU {t_h!r} s; masks equal: {same}")
+    if not same:
+        raise RuntimeError("[16d] generate_mask on the card disagrees with "
+                           "the CPU")
+    del tiles, tiles_h, mc, mh
+    k = np.asarray(ks[0], np.float64)
+    kn = np.linalg.norm(ks, axis=1)
+    sigma = int(np.ceil(1 / kn.min()))
+    kw = kn.mean() / DEFAULTS.kw_scale
+    kstep = kw / DEFAULTS.ksteps
+    calls = {
+        "tpuGPA": lambda x, d: tpugpa.tpuGPA(x, k, sigma, device=d),
+        "wfr2_grad_opt": lambda x, d: tpugpa.wfr2_grad_opt(
+            x, sigma, k[0], k[1], kw, kstep, device=d),
+        "wfr2_only_lockin": lambda x, d: tpugpa.wfr2_only_lockin(
+            x, sigma, k, kw, kstep, device=d)}
+    want_launch = {"tpuGPA": {}, "wfr2_grad_opt": {"zoom_grad": 1},
+                   "wfr2_only_lockin": {"zoom_sweep": 1}}
+    for name, call in calls.items():
+        call(img, DEVICE)
+        out, launches, dt = counted(lambda: call(img, DEVICE))
+        say(f"[16d] tpugpa.{name} on the {SIZE}^2 bench fixture: {dt!r} s "
+            f"(one synchronized call after a warm-up); launches {launches}")
+        if any(launches.get(n, 0) != v for n, v in want_launch[name].items()):
+            raise RuntimeError(f"[16d] tpugpa.{name} did not run the zoom "
+                               "kernel")
+    crop = img[:1024, :1024].contiguous()
+    crop_h = crop.cpu()
+    lc, lh = (calls["tpuGPA"](x, d).cpu() for x, d in ((crop, DEVICE),
+                                                       (crop_h, "cpu")))
+    e = float((lc - lh).abs().max() / lh.abs().max())
+    gc, gh = (calls["wfr2_grad_opt"](x, d) for x, d in ((crop, DEVICE),
+                                                        (crop_h, "cpu")))
+    oc = calls["wfr2_only_lockin"](crop, DEVICE).cpu()
+    oh = calls["wfr2_only_lockin"](crop_h, "cpu")
+    b = 5 * sigma
+    same = (gc["w"].cpu() == gh["w"]).all(0)[b:-b, b:-b]
+    frac = float(same.double().mean())
+    dph = torch.angle(gc["lockin"].cpu() * gh["lockin"].conj())
+    dph = float(dph[b:-b, b:-b][same].abs().max())
+    dpo = float(torch.angle(oc * oh.conj())[b:-b, b:-b][same].abs().max())
+    gd = (gc["grad"].cpu() - gh["grad"]).abs()[b:-b, b:-b][same]
+    gex = float((gd - GRAD_ATOL - GRAD_RTOL
+                 * gh["grad"][b:-b, b:-b][same].abs()).max())
+    say(f"    1024^2 crop, card vs CPU: tpuGPA max |d| / max |CPU| {e!r} "
+        f"(bound {LOCKIN_REL}); wfr2_grad_opt winners agree on {frac!r} of "
+        f"the 5 sigma interior (bound {WFR4_AGREE}), its lock-in phase there "
+        f"within {dph!r} rad and wfr2_only_lockin's within {dpo!r} rad "
+        f"(bound {WFR4_PHASE}), the gradients' excess over rtol "
+        f"{GRAD_RTOL}, atol {GRAD_ATOL} {gex!r} (<= 0 passes)")
+    if not (e < LOCKIN_REL and frac >= WFR4_AGREE and dph < WFR4_PHASE
+            and dpo < WFR4_PHASE and gex <= 0):
+        raise RuntimeError("[16d] the tpugpa mirror on the card disagrees "
+                           "with the CPU")
 
 
 def main():
@@ -3759,9 +4565,23 @@ def main():
     t15 = time.perf_counter()
     path_launches["15a"], rows_1b = drive_1b()
     path_launches["15b"], extract5, ks5 = drive_config5_batched()
-    drive_mosaic(extract5, ks5)
+    _, tiles16 = drive_mosaic(extract5, ks5)
     del extract5
     say(f"    phase 15 took {time.perf_counter() - t15!r} s")
+
+    # ---- 16. one launch per stage for a stack on the eager path and on
+    # both gradient emissions; the utilities' device calls
+    say(f"    card before phase 16: {card_state()}")
+    t16 = time.perf_counter()
+    path_launches["16a"], row_z = drive_eager_stack()
+    drive_eager_chunks(tiles16, ks5)
+    path_launches["16b"] = drive_eager_1b()
+    launches_c, rows_16 = drive_grad_stack(img, img_d)
+    path_launches.update(launches_c)
+    rows_16["zoom_sweep_stack"] = row_z
+    drive_utilities(img, ks32, tiles16)
+    del tiles16
+    say(f"    phase 16 took {time.perf_counter() - t16!r} s")
 
     kernels = []
     for name, (src, rep) in KERNELS.items():
@@ -3774,6 +4594,11 @@ def main():
         src, rep = KERNELS[BATCH_ROWS[name]]
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": rep, **r})
+    # the stack rows of phase 16 (launches: the stack's counted run)
+    for name in STACK_ROWS:
+        src, rep = KERNELS[STACK_ROWS[name]]
+        kernels.append({"name": name, "route": "cuda", "source": src,
+                        "replaces": rep, **rows_16[name]})
     say(card_line())
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

@@ -1,12 +1,15 @@
 """pygpa_tpu_torch — Geometric Phase Analysis on PyTorch and CUDA.
 
-The PyTorch port of ``pygpa_tpu`` (all but its imagetools, viz,
-gpa.prep, module-path shims, tpugpa mirror and the multi-device part of
-parallel so far), for NVIDIA Hopper cards (sm_90a). The layout mirrors
-``pygpa_tpu`` (``config``, ``core``, ``lattices``, ``ops``, ``solvers``,
-``gpa``, ``props``, ``ucell``, ``parallel``, ``data``, ``io``) so each
-module's counterpart is found by name. The package imports torch and
-numpy only.
+The PyTorch port of ``pygpa_tpu`` (all but the multi-device part of
+parallel and ops.kernel_smoke so far), for NVIDIA Hopper cards
+(sm_90a). The layout mirrors ``pygpa_tpu`` (``config``, ``core``,
+``lattices``, ``ops``, ``solvers``, ``gpa``, ``props``, ``ucell``,
+``parallel``, ``data``, ``io``, ``imagetools``, ``viz``, ``tpugpa`` and
+the pyGPA module-path shims ``geometric_phase_analysis``,
+``phase_unwrap``, ``property_extract``, ``unit_cell_averaging``,
+``mathtools``) so each module's counterpart is found by name. The
+package imports torch and numpy only (viz imports matplotlib inside its
+functions).
 
 Every kernel the JAX package wrote in Pallas for the TPU is a CUDA C++
 kernel here (``csrc/*.cu``, built with nvcc at first use by
@@ -29,6 +32,7 @@ README's quick start, from a raw image::
     fn = gt.gpa.pipeline.make_displacement_extractor(image.shape, ks)
     u = fn(image)
     us = fn(stack)                  # (B, n, m) -> (B, 2, n, m)
+    us = gt.parallel.extract_displacement_field_batch(stack, ks)
 
 A mosaic on disk goes through the same extractor in stacks of tiles
 (``gt.data.MosaicTiles(path).batches(tile, batch_size)``), and
@@ -50,3 +54,11 @@ from . import ucell  # noqa: E402,F401
 from . import parallel  # noqa: E402,F401
 from . import data  # noqa: E402,F401
 from . import io  # noqa: E402,F401
+from . import imagetools  # noqa: E402,F401
+# pyGPA module-path compatibility surface
+from . import mathtools  # noqa: E402,F401
+from . import geometric_phase_analysis  # noqa: E402,F401
+from . import phase_unwrap  # noqa: E402,F401
+from . import property_extract  # noqa: E402,F401
+from . import unit_cell_averaging  # noqa: E402,F401
+from . import tpugpa  # noqa: E402,F401

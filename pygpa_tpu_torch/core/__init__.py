@@ -20,6 +20,21 @@ def entry_tensor(x, device):
     return torch.as_tensor(x, device=entry_device(device))
 
 
+def host_to_device(a, device, dtype=None):
+    """A host array (numpy or array-like) as a tensor on `device`, cast to
+    `dtype` on the host first (IEEE rounding, the bits a cast on the card
+    gives). To the card it goes from pinned memory without blocking, so
+    the host does not wait for the stream (a copy from pageable memory
+    does); the pinned buffer is held until the copy has run."""
+    t = torch.from_numpy(np.array(a))     # a writable host copy
+    if dtype is not None:
+        t = t.to(dtype)
+    device = torch.device(device) if device is not None else t.device
+    if device.type != "cuda" or not torch.cuda.is_available():
+        return t.to(device)     # without a card: torch's own CUDA error
+    return t.pin_memory().to(device, non_blocking=True)
+
+
 # after entry_device: the ops modules these import take it from here
 from . import mathtools  # noqa: E402,F401
 from . import fourier  # noqa: E402,F401

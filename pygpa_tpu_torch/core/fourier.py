@@ -16,21 +16,34 @@ from .mathtools import as_tensor
 
 
 def _fftfreq(n, dtype, device):
-    # float64 on the host, then one cast (jnp.fft.fftfreq(n).astype)
-    return torch.as_tensor(np.fft.fftfreq(n), device=device).to(dtype)
+    """np.fft.fftfreq(n).astype(dtype) built on `device`: the integer bins
+    times 1 / n in float64 (numpy's own arithmetic), then one cast, so
+    the bits are numpy's and nothing is copied from the host (a copy to
+    the card waits for its stream)."""
+    k = torch.arange(n, dtype=torch.float64, device=device)
+    k = torch.where(k < (n + 1) // 2, k, k - n)
+    return (k * (1.0 / n)).to(dtype)
 
 
 def _real_dtype(dtype):
     return dtype.to_real() if dtype.is_complex else dtype
 
 
+def _gauss_s2(sigma, dtype):
+    """2 pi^2 sigma^2 rounded as in `dtype` (2 pi^2 and sigma each
+    rounded, then the square and the product), as a Python float that
+    the dtype holds exactly."""
+    t = np.float32 if dtype == torch.float32 else np.float64
+    return float(t(2.0 * np.pi ** 2) * t(float(sigma)) ** 2)
+
+
 def fourier_gaussian_multiplier(shape, sigma, dtype=torch.float32,
                                 device=None, shift=(0.0, 0.0)):
     """Fourier-domain Gaussian window exp(-2 pi^2 sigma^2 |f + shift|^2)
     on an fft2 grid (scipy.ndimage.fourier_gaussian's multiplier at
-    shift 0). The frequencies are cast to `dtype` before the shift is
-    added, so a float64 tensor shift gives a float64 window, as JAX
-    promotes a float64 k-vector (lockin_from_spectrum)."""
+    shift 0), built on `device`. The frequencies are cast to `dtype`
+    before the shift is added, so a float64 tensor shift gives a float64
+    window, as JAX promotes a float64 k-vector (lockin_from_spectrum)."""
     sdt = dtype
     for s in shift:
         if isinstance(s, torch.Tensor):
@@ -38,14 +51,13 @@ def fourier_gaussian_multiplier(shape, sigma, dtype=torch.float32,
     fx = _fftfreq(shape[0], dtype, device).to(sdt) + shift[0]
     fy = _fftfreq(shape[1], dtype, device).to(sdt) + shift[1]
     arg = fx[:, None] ** 2 + fy[None, :] ** 2
-    s2 = torch.tensor(2.0 * np.pi ** 2, dtype=dtype, device=device) \
-        * torch.tensor(float(sigma), dtype=dtype, device=device) ** 2
-    return torch.exp(-s2 * arg)
+    return torch.exp(-_gauss_s2(sigma, dtype) * arg)
 
 
 def laplacian_transfer(shape, dtype=torch.float32, device=None):
     """DFT transfer of the periodic 5-point Laplacian (centre 4,
-    neighbours -1), skimage.restoration.uft.laplacian's convention."""
+    neighbours -1), skimage.restoration.uft.laplacian's convention,
+    built on `device`."""
     fx = _fftfreq(shape[0], dtype, device)
     fy = _fftfreq(shape[1], dtype, device)
     lap = (2 * torch.cos(2 * math.pi * fx)[:, None]
@@ -53,13 +65,20 @@ def laplacian_transfer(shape, dtype=torch.float32, device=None):
     return -lap
 
 
+def wiener_filter(transfer, laplacian, balance):
+    """The Wiener estimator's Fourier filter H / (H^2 + balance L^2) for a
+    real transfer H and the Laplacian regularizer's transfer L
+    (skimage.restoration.wiener's)."""
+    H, L = transfer, laplacian
+    return H / (H * H + balance * L * L)
+
+
 def wiener_deconvolve(image, transfer, balance):
     """Tikhonov-regularized Wiener deconvolution with the Laplacian
     regularizer: IFFT[H / (H^2 + balance L^2) FFT(y)] for a real
     transfer H (skimage.restoration.wiener's estimator)."""
     L = laplacian_transfer(image.shape[-2:], image.dtype, image.device)
-    H = transfer
-    filt = H / (H * H + balance * L * L)
+    filt = wiener_filter(transfer, L, balance)
     return torch.fft.ifft2(torch.fft.fft2(image) * filt).real
 
 

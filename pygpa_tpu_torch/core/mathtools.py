@@ -24,6 +24,10 @@ def wrap_to_pi(x):
     return (x + math.pi) % (2 * math.pi) - math.pi
 
 
+# the reference's name (pyGPA.mathtools.wrapToPi)
+wrapToPi = wrap_to_pi
+
+
 def periodic_average(X, period=2 * math.pi, weights=1.0, axis=None):
     """Weighted circular mean of X with period `period`: the angle of the
     mean unit phasor, rescaled to the period (over all elements, or

@@ -52,8 +52,11 @@
 // the bases, run, off, kc) are shared, and each block's arithmetic is the
 // single image's, so an image's outputs are its own launch's bits. A
 // stack whose grid z would pass CUDA's 65535 is split into launches of
-// as many images as fit. The gradient emission's launches (band flags,
-// winner products) take one image.
+// as many images as fit. The gradient emissions take a stack alike: the
+// tournament that stores the winners, the band flags (one row of their
+// grid an (image, group) pair), stage 1 on the flagged pairs and the
+// winner products (image beside the group on grid z) index each image's
+// planes by b G + g and share the plan's operands.
 // Bound on an H100: stage 2's G*P*n*m*Wb complex MACs (1.86 TFLOP at the
 // 4096^2 bench), three times over as 3xTF32 at 495 TFLOP/s dense TF32
 // (~11.3 ms; 27.8 ms in float32 FMA), plus stage 1's float32 FMA. The
@@ -125,10 +128,8 @@ __device__ __forceinline__ float wrap_diff(float x) {
 // stack (its windows Sr, Si (B, G, H, W0, Wb) and its T rows; the other
 // operands are the images' shared plan). flags (B, G, n/64, P) or null:
 // with flags, only the blocks of flagged (64-row band, candidate) pairs
-// run; the rows of the others are left unwritten. STACK false: one
-// image's grid (z = g P + i), its indices computed as before the image
-// axis, so a single image keeps that code.
-template <bool STACK>
+// run; the rows of the others are left unwritten. One image is the
+// stack of B = 1.
 __global__ void __launch_bounds__(NT) stage1_kernel(
     const float* __restrict__ Sr, const float* __restrict__ Si,
     const float* __restrict__ gx, const float* __restrict__ gy,
@@ -143,8 +144,8 @@ __global__ void __launch_bounds__(NT) stage1_kernel(
   const int r0 = blockIdx.y * TILE;
   const int bg = blockIdx.z / P;       // b * G + g
   const int i = blockIdx.z - bg * P;
-  const int g = STACK ? bg % G : bg;
-  const int gi = STACK ? g * P + i : (int)blockIdx.z;  // shared operands' row
+  const int g = bg % G;
+  const int gi = g * P + i;            // the shared operands' row
   if (flags && !flags[((size_t)bg * gridDim.y + blockIdx.y) * P + i])
     return;
   const int h = run[gi];
@@ -203,9 +204,9 @@ __global__ void __launch_bounds__(NT) stage1_kernel(
 // offsets, shared by the stack's images; dynamic smem ZSMEM. WIN (the
 // gradient emission's tournament): also each pixel's winner, Re M, Im M
 // and candidate index, to mro, mio, ixo (B, G, n, m); the store alone
-// differs, not the products or the tournament. STACK false: one image
-// (z = g), indexed as before the image axis
-template <bool WIN, bool STACK>
+// differs, not the products or the tournament. One image is the stack
+// of B = 1.
+template <bool WIN>
 __global__ void __launch_bounds__(ZNT, 1) grouped_stage2_kernel(
     const float* __restrict__ T, const float* __restrict__ A1c,
     const float* __restrict__ A1s, const int* __restrict__ off,
@@ -216,7 +217,7 @@ __global__ void __launch_bounds__(ZNT, 1) grouped_stage2_kernel(
   extern __shared__ __align__(16) float smem[];
   const int c0 = blockIdx.x * ZT, r0 = blockIdx.y * ZT;
   const int bg = blockIdx.z;           // b * G + g
-  const int g = STACK ? bg % G : bg;
+  const int g = bg % G;
   float br[2][2][4], bi[2][2][4];
   int bx[2][2][4];
   sweep_tc_tile<true, true>(T + (size_t)bg * P * n * 2 * Wb,
@@ -342,7 +343,8 @@ __global__ void __launch_bounds__(NT) uv_kernel(
 
 // grid (n/64, G): flags[g][band][i] = 1 where candidate i wins a pixel
 // of the 64-row band of idx (G, n, m), else 0; dynamic smem P ints. The
-// tournament's indices lie in [0, P).
+// tournament's indices lie in [0, P). A stack's (B, G, n, m) planes are
+// B G such planes, g = b G + g on the grid's y.
 __global__ void __launch_bounds__(NT) band_flags_kernel(
     const int* __restrict__ idx, int* __restrict__ flags, int P, int m) {
   extern __shared__ int seen[];
@@ -368,14 +370,16 @@ size_t products_smem(int P) {
          (size_t)(P < ZT * ZT ? P : ZT * ZT) * sizeof(int);
 }
 
-// The winner products of the gradient emission: grid (m/64, n/64, G).
+// The winner products of the gradient emission: grid (m/64, n/64, B G),
+// z = b G + g (one image: B = 1).
 // T, Tx (G, P, n, 2K) stage 1 of S and of the row-derivative window S2;
 // Bc, Bs the column basis and Byc, Bys the f1-scaled one, (G, m, K); mr,
 // mi, idx (G, n, m) the winners the tournament stored; flags (G, n/64, P)
 // the band winners (only flagged rows of Tx are read); off (G, P) band
-// offsets or null. For each candidate i that wins a pixel of the tile,
-// in order, two jobs through one tc_products ring, Mx = Tx_i . B1 and My =
-// T_i . B1y, and at the pixels i wins
+// offsets or null. A stack's T, Tx, winners, flags and outputs carry the
+// image axis before G, the bases and off are shared. For each candidate i that wins a pixel of the
+// tile, in order, two jobs through one tc_products ring, Mx = Tx_i . B1
+// and My = T_i . B1y, and at the pixels i wins
 //   gx = (Im M Re Mx - Re M Im Mx) / max(|M|^2, 1e-30),  gy alike from My,
 // the derivatives of -angle(M) along rows and columns, gy less
 // off_i * 2 pi / m when off is given (the banded column ramp's slope).
@@ -387,15 +391,17 @@ __global__ void __launch_bounds__(ZNT, 1) winner_products_kernel(
     const float* __restrict__ Bs, const float* __restrict__ Byc,
     const float* __restrict__ Bys, const float* mr, const float* mi,
     const int* __restrict__ idx, const int* __restrict__ flags,
-    const int* __restrict__ off, float* gxo, float* gyo, int P, int n,
-    int m, int K) {
+    const int* __restrict__ off, float* gxo, float* gyo, int G, int P,
+    int n, int m, int K) {
   extern __shared__ __align__(16) float smem[];
   float* s_mr = smem + ZSTAGES * ZSTAGE;
   float* s_mi = s_mr + ZT * ZT;
   int* s_ix = reinterpret_cast<int*>(s_mi + ZT * ZT);
   int* s_win = s_ix + ZT * ZT;
-  const int c0 = blockIdx.x * ZT, r0 = blockIdx.y * ZT, g = blockIdx.z;
-  const size_t plane = (size_t)g * n * m;
+  const int c0 = blockIdx.x * ZT, r0 = blockIdx.y * ZT;
+  const int bg = blockIdx.z;           // b * G + g
+  const int g = bg % G;                // the shared operands' group
+  const size_t plane = (size_t)bg * n * m;
   for (int e = threadIdx.x; e < ZT * ZT; e += ZNT) {
     const size_t o = plane + (size_t)(r0 + (e >> 6)) * m + c0 + (e & 63);
     s_mr[e] = mr[o];
@@ -410,7 +416,7 @@ __global__ void __launch_bounds__(ZNT, 1) winner_products_kernel(
   };
   // the tile's winning candidates, in order: a block vote on each of the
   // band's winners
-  const int* fl = flags + ((size_t)g * gridDim.y + blockIdx.y) * P;
+  const int* fl = flags + ((size_t)bg * gridDim.y + blockIdx.y) * P;
   int nw = 0;
   for (int i = 0; i < P; ++i) {
     if (!__ldg(fl + i)) continue;
@@ -429,8 +435,8 @@ __global__ void __launch_bounds__(ZNT, 1) winner_products_kernel(
   __syncthreads();
   const size_t cand = (size_t)n * 2 * K;
   const size_t basis = (size_t)g * m * K;
-  const float* Tg = T + (size_t)g * P * cand;
-  const float* Txg = Tx + (size_t)g * P * cand;
+  const float* Tg = T + (size_t)bg * P * cand;
+  const float* Txg = Tx + (size_t)bg * P * cand;
   const float ramp = (float)(6.283185307179586 / (double)m);
   // job 2w: Mx of the w-th winner, job 2w + 1: its My
   tc_products<SPLIT>(
@@ -473,15 +479,14 @@ int images_per_launch(int per_image) {
   return per_image > MAX_GRID_Z ? 0 : MAX_GRID_Z / per_image;
 }
 
-// WIN takes one image (the gradient emission); a stack runs the STACK
-// instance in launches of as many images as gridDim.z allows
-template <bool WIN, bool STACK>
+// a stack goes in launches of as many images as gridDim.z allows
+template <bool WIN>
 int launch_stage2(const float* T, const float* A1c, const float* A1s,
                   const int* off, float* ph, float* wt, int B, int G, int P,
                   int n, int m, int Wb, int dr, int banded, float* mro,
                   float* mio, int* ixo, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      grouped_stage2_kernel<WIN, STACK>,
+      grouped_stage2_kernel<WIN>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)ZSMEM);
   if (err != cudaSuccess) return (int)err;
   const int per = images_per_launch(G);
@@ -490,7 +495,7 @@ int launch_stage2(const float* T, const float* A1c, const float* A1s,
   for (int b0 = 0; b0 < B; b0 += per) {
     const int bc = B - b0 < per ? B - b0 : per;
     dim3 grid(m / ZT, n / ZT, bc * G);
-    grouped_stage2_kernel<WIN, STACK><<<grid, ZNT, ZSMEM, stream>>>(
+    grouped_stage2_kernel<WIN><<<grid, ZNT, ZSMEM, stream>>>(
         T + b0 * tb, A1c, A1s, off, ph + b0 * pb, wt + b0 * pb, G, P, n, m,
         Wb, dr, banded, WIN ? mro + b0 * pb : nullptr,
         WIN ? mio + b0 * pb : nullptr, WIN ? ixo + b0 * pb : nullptr);
@@ -499,22 +504,33 @@ int launch_stage2(const float* T, const float* A1c, const float* A1s,
   return 0;
 }
 
+// a stack goes in launches of as many images as gridDim.z allows
 template <bool SPLIT>
 int launch_products(const float* T, const float* Tx, const float* Bc,
                     const float* Bs, const float* Byc, const float* Bys,
                     const float* mr, const float* mi, const int* idx,
                     const int* flags, const int* off, float* gxo, float* gyo,
-                    int G, int P, int n, int m, int K, cudaStream_t stream) {
+                    int B, int G, int P, int n, int m, int K,
+                    cudaStream_t stream) {
   const size_t smem = products_smem(P);
   cudaError_t err = cudaFuncSetAttribute(
       winner_products_kernel<SPLIT>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(m / ZT, n / ZT, G);
-  winner_products_kernel<SPLIT><<<grid, ZNT, smem, stream>>>(
-      T, Tx, Bc, Bs, Byc, Bys, mr, mi, idx, flags, off, gxo, gyo, P, n, m,
-      K);
-  return (int)cudaGetLastError();
+  const int per = images_per_launch(G);
+  if (per == 0) return (int)cudaErrorInvalidConfiguration;
+  const size_t tb = (size_t)G * P * n * 2 * K, pb = (size_t)G * n * m;
+  const size_t fb = (size_t)G * (n / TILE) * P;
+  for (int b0 = 0; b0 < B; b0 += per) {
+    const int bc = B - b0 < per ? B - b0 : per;
+    winner_products_kernel<SPLIT>
+        <<<dim3(m / ZT, n / ZT, bc * G), ZNT, smem, stream>>>(
+            T + b0 * tb, Tx + b0 * tb, Bc, Bs, Byc, Bys, mr + b0 * pb,
+            mi + b0 * pb, idx + b0 * pb, flags + b0 * fb, off, gxo + b0 * pb,
+            gyo + b0 * pb, G, P, n, m, K);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
+  return 0;
 }
 
 }  // namespace
@@ -535,14 +551,9 @@ int sweep_stage1(const float* Sr, const float* Si, const float* gx,
   for (int b0 = 0; b0 < B; b0 += per) {
     const int bc = B - b0 < per ? B - b0 : per;
     dim3 grid(Wb / TILE, n / TILE, bc * G * P);
-    if (B == 1)
-      stage1_kernel<false><<<grid, NT, 0, stream>>>(
-          Sr, Si, gx, gy, A0c, A0s, run, flags, T, G, H, P, n, W0, Wb);
-    else
-      stage1_kernel<true><<<grid, NT, 0, stream>>>(
-          Sr + b0 * sb, Si + b0 * sb, gx, gy, A0c, A0s, run,
-          flags ? flags + b0 * fb : nullptr, T + b0 * tb, G, H, P, n, W0,
-          Wb);
+    stage1_kernel<<<grid, NT, 0, stream>>>(
+        Sr + b0 * sb, Si + b0 * sb, gx, gy, A0c, A0s, run,
+        flags ? flags + b0 * fb : nullptr, T + b0 * tb, G, H, P, n, W0, Wb);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
@@ -555,27 +566,24 @@ int sweep_stage2(const float* T, const float* A1c, const float* A1s,
                  const int* off, float* ph, float* wt, int B, int G, int P,
                  int n, int m, int Wb, int dr, int banded,
                  cudaStream_t stream) {
-  return B == 1
-             ? launch_stage2<false, false>(T, A1c, A1s, off, ph, wt, 1, G, P,
-                                           n, m, Wb, dr, banded, nullptr,
-                                           nullptr, nullptr, stream)
-             : launch_stage2<false, true>(T, A1c, A1s, off, ph, wt, B, G, P,
-                                          n, m, Wb, dr, banded, nullptr,
-                                          nullptr, nullptr, stream);
+  return launch_stage2<false>(T, A1c, A1s, off, ph, wt, B, G, P, n, m, Wb,
+                              dr, banded, nullptr, nullptr, nullptr, stream);
 }
 
 // the same launch that also stores each pixel's winner (Re M, Im M,
-// index) to mro, mio, ixo (G, n, m); one image
+// index) to mro, mio, ixo (B, G, n, m)
 int sweep_stage2_winners(const float* T, const float* A1c, const float* A1s,
                          const int* off, float* ph, float* wt, float* mro,
-                         float* mio, int* ixo, int G, int P, int n, int m,
-                         int Wb, int dr, int banded, cudaStream_t stream) {
-  return launch_stage2<true, false>(T, A1c, A1s, off, ph, wt, 1, G, P, n, m,
-                                    Wb, dr, banded, mro, mio, ixo, stream);
+                         float* mio, int* ixo, int B, int G, int P, int n,
+                         int m, int Wb, int dr, int banded,
+                         cudaStream_t stream) {
+  return launch_stage2<true>(T, A1c, A1s, off, ph, wt, B, G, P, n, m, Wb,
+                             dr, banded, mro, mio, ixo, stream);
 }
 
 // idx (G, n, m) int32 in [0, P), flags (G, n/64, P) int32; n, m multiples
-// of 64
+// of 64; a stack passes its B G planes as G (bands of more than 65535
+// planes go in several launches)
 int sweep_band_winners(const int* idx, int* flags, int G, int P, int n,
                        int m, cudaStream_t stream) {
   const size_t smem = (size_t)P * sizeof(int);
@@ -583,25 +591,31 @@ int sweep_band_winners(const int* idx, int* flags, int G, int P, int n,
       band_flags_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  band_flags_kernel<<<dim3(n / TILE, G), NT, smem, stream>>>(idx, flags, P,
-                                                             m);
-  return (int)cudaGetLastError();
+  const size_t ib = (size_t)n * m, fb = (size_t)(n / TILE) * P;
+  for (int g0 = 0; g0 < G; g0 += MAX_GRID_Z) {
+    const int gc = G - g0 < MAX_GRID_Z ? G - g0 : MAX_GRID_Z;
+    band_flags_kernel<<<dim3(n / TILE, gc), NT, smem, stream>>>(
+        idx + g0 * ib, flags + g0 * fb, P, m);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
+  return 0;
 }
 
-// the winner products (winner_products_kernel); split selects the
-// grouped sweep's chain rounding (SPLIT), else the zoom sweep's
+// the winner products (winner_products_kernel) of B images; split
+// selects the grouped sweep's chain rounding (SPLIT), else the zoom
+// sweep's
 int sweep_winner_products(const float* T, const float* Tx, const float* Bc,
                           const float* Bs, const float* Byc,
                           const float* Bys, const float* mr, const float* mi,
                           const int* idx, const int* flags, const int* off,
-                          float* gxo, float* gyo, int G, int P, int n, int m,
-                          int K, int split, cudaStream_t stream) {
+                          float* gxo, float* gyo, int B, int G, int P, int n,
+                          int m, int K, int split, cudaStream_t stream) {
   return split ? launch_products<true>(T, Tx, Bc, Bs, Byc, Bys, mr, mi, idx,
-                                       flags, off, gxo, gyo, G, P, n, m, K,
-                                       stream)
+                                       flags, off, gxo, gyo, B, G, P, n, m,
+                                       K, stream)
                : launch_products<false>(T, Tx, Bc, Bs, Byc, Bys, mr, mi, idx,
-                                        flags, off, gxo, gyo, G, P, n, m, K,
-                                        stream);
+                                        flags, off, gxo, gyo, B, G, P, n, m,
+                                        K, stream);
 }
 
 // ph, wt (B, G, n, m); ux, uy (B, 2, n, m), wn (B, n, m); B <= 65535

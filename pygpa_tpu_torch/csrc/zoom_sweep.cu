@@ -36,8 +36,10 @@
 
 namespace {
 
-// grid (m/64, n/64); T (P, n, 2 W1); A1c, A1s (m, W1); dynamic smem
-// ZSMEM
+// grid (m/64, n/64, B), image z of a stack with T (B, P, n, 2 W1) and
+// its outputs (B, n, m) (one image: B = 1); A1c, A1s (m, W1), the column
+// basis, shared; a block's arithmetic is one image's, so an image's
+// outputs are its own launch's bits; dynamic smem ZSMEM
 __global__ void __launch_bounds__(ZNT, 1) zoom_stage2_kernel(
     const float* __restrict__ T, const float* __restrict__ A1c,
     const float* __restrict__ A1s, float* __restrict__ best_absq,
@@ -45,6 +47,16 @@ __global__ void __launch_bounds__(ZNT, 1) zoom_stage2_kernel(
     int* __restrict__ best_idx, float* __restrict__ ph,
     float* __restrict__ wt, int P, int n, int m, int W1, int dr) {
   extern __shared__ __align__(16) float smem[];
+  const size_t z = blockIdx.z, plane = z * n * m;
+  T += z * P * n * 2 * W1;
+  best_absq += plane;
+  best_r += plane;
+  best_i += plane;
+  best_idx += plane;
+  if (dr >= 0) {   // else ph, wt alias best_absq and are not written
+    ph += plane;
+    wt += plane;
+  }
   const int c0 = blockIdx.x * ZT, r0 = blockIdx.y * ZT;
   float br[2][2][4], bi[2][2][4];
   int bx[2][2][4];
@@ -87,25 +99,34 @@ __global__ void __launch_bounds__(ZNT, 1) zoom_stage2_kernel(
       }
 }
 
+constexpr int MAX_GRID_Z = 65535;   // CUDA's gridDim.z limit
+
 }  // namespace
 
 extern "C" {
 
-// T (P, n, 2 W1), A1c and A1s (m, W1), all contiguous float32; n, m and
-// W1 multiples of 64
+// B images: T (B, P, n, 2 W1), the outputs (B, n, m); A1c and A1s (m, W1)
+// shared; all contiguous float32; n, m and W1 multiples of 64. Stacks
+// past gridDim.z go in launches of whole images
 int zoom_sweep_stage2(const float* T, const float* A1c, const float* A1s,
                       float* best_absq, float* best_r, float* best_i,
-                      int* best_idx, float* ph, float* wt, int P, int n,
-                      int m, int W1, int dr, cudaStream_t stream) {
+                      int* best_idx, float* ph, float* wt, int B, int P,
+                      int n, int m, int W1, int dr, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       zoom_stage2_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)ZSMEM);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(m / ZT, n / ZT);
-  zoom_stage2_kernel<<<grid, ZNT, ZSMEM, stream>>>(
-      T, A1c, A1s, best_absq, best_r, best_i, best_idx, ph, wt, P, n, m, W1,
-      dr);
-  return (int)cudaGetLastError();
+  const size_t tb = (size_t)P * n * 2 * W1, pb = (size_t)n * m;
+  const size_t eb = dr >= 0 ? pb : 0;   // ph, wt alias best_absq when off
+  for (int b0 = 0; b0 < B; b0 += MAX_GRID_Z) {
+    const int bc = B - b0 < MAX_GRID_Z ? B - b0 : MAX_GRID_Z;
+    zoom_stage2_kernel<<<dim3(m / ZT, n / ZT, bc), ZNT, ZSMEM, stream>>>(
+        T + b0 * tb, A1c, A1s, best_absq + b0 * pb, best_r + b0 * pb,
+        best_i + b0 * pb, best_idx + b0 * pb, ph + b0 * eb, wt + b0 * eb, P,
+        n, m, W1, dr);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
+  return 0;
 }
 
 }  // extern "C"

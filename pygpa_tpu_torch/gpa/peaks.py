@@ -148,11 +148,8 @@ def extract_primary_ks(image, plot=False, threshold=0.7,
     three primary ks emerge. Returns (primary_ks (N, 2), all_ks (N+M,
     2)) as numpy arrays. The image moves to `device` (None: the card;
     "cpu" for the plain route); each attempt copies one candidate record
-    to the host. plot=True needs imagetools.fftplot, not ported yet."""
-    if plot:
-        raise NotImplementedError(
-            "extract_primary_ks(plot=True): imagetools.fftplot is not "
-            "ported: ROADMAP queue 1 item 7")
+    to the host. plot=True draws the smoothed spectrum with all and
+    primary ks (viz.fftplot) beside the image (matplotlib)."""
     image = entry_tensor(image, device)
     rec = _peak_candidates(image, sigma, threshold, pix_norm_range[0],
                            pix_norm_range[1], bool(DoG)).cpu().numpy()
@@ -228,4 +225,17 @@ def extract_primary_ks(image, plot=False, threshold=0.7,
             primary_ks, all_ks = again(threshold, sigma)
         else:
             primary_ks = all_ks.copy()
+
+    if plot:
+        import matplotlib.pyplot as plt
+
+        from ..viz import fftplot
+        smooth_h = _peak_image(image, sigma, bool(DoG)).cpu().numpy()
+        _, ax = plt.subplots(ncols=2, figsize=[12, 8])
+        fftplot(smooth_h, d=NMPERPIXEL, ax=ax[0], pcolormesh=False,
+                origin="lower")
+        ax[0].scatter(*(all_ks / NMPERPIXEL).T, color="red", alpha=0.2, s=50)
+        ax[0].scatter(*(np.asarray(primary_ks) / NMPERPIXEL).T,
+                      color="black", alpha=0.7, s=50, marker="x")
+        ax[1].imshow(image.cpu().numpy().T, origin="lower")
     return primary_ks, all_ks

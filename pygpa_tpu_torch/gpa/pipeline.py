@@ -21,13 +21,15 @@ Everything that does not depend on the image (the sweep plan, DFT
 bases, Gaussian factors) is built once by the factory on `device`.
 """
 
+
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..config import DEFAULTS
 from ..core import entry_device, interp
-from ..core.fourier import fourier_gaussian_multiplier, wiener_deconvolve
+from ..core.fourier import (fourier_gaussian_multiplier,
+                            laplacian_transfer, wiener_filter)
 from ..ops.sweep import rim_weights
 from ..ops.wfr import (GroupedSweep, SweepPlan, plan_sweep, wfr_sweep,
                        wfr_sweep_phase_weight_multi)
@@ -188,29 +190,54 @@ def _next_fast_fft_size(n):
     return best
 
 
+def _deconvolve_pads(n, m, dr):
+    """gaussian_deconvolve's padding of an (n, m) plane: reflect by 2 dr
+    on each side, widened at the end to the next 5-smooth FFT size while
+    the extra pad stays below the reflectable width (the exact 2 dr pad
+    is kept on tiny images). Returns the (row, column) extra pads."""
+    pn = _next_fast_fft_size(n + 4 * dr)
+    pm = _next_fast_fft_size(m + 4 * dr)
+    en = pn - n - 4 * dr if pn - n - 2 * dr < n else 0
+    em = pm - m - 4 * dr if pm - m - 2 * dr < m else 0
+    return en, em
+
+
+def deconvolution_filter(shape, sigma, dr, balance, dtype, device):
+    """gaussian_deconvolve's Fourier filter for planes of `shape`: the
+    Gaussian transfer and the Laplacian transfer of the padded shape,
+    built on `device` from device-side frequencies (no host copy, so no
+    wait on the stream), and combined."""
+    n, m = shape
+    en, em = _deconvolve_pads(n, m, dr)
+    padded = (n + 4 * dr + en, m + 4 * dr + em)
+    H = fourier_gaussian_multiplier(padded, sigma, dtype, device)
+    return wiener_filter(H, laplacian_transfer(padded, dtype, device),
+                         balance)
+
+
+def _deconvolve(data, filt, dr):
+    """Pad, filter by deconvolution_filter's `filt` and crop."""
+    n, m = data.shape[-2], data.shape[-1]
+    en, em = _deconvolve_pads(n, m, dr)
+    lead = data.shape[:-2]
+    x = data.reshape((-1, n, m))
+    # F.pad orders (left, right, top, bottom) from the last axis
+    padded = F.pad(x, (2 * dr, 2 * dr + em, 2 * dr, 2 * dr + en),
+                   mode="reflect")
+    out = torch.fft.ifft2(torch.fft.fft2(padded) * filt).real
+    out = out[..., 2 * dr: 2 * dr + n, 2 * dr: 2 * dr + m]
+    return out.reshape(lead + (n, m))
+
+
 def gaussian_deconvolve(data, sigma, dr=DEFAULTS.wiener_pad,
                         balance=DEFAULTS.wiener_balance):
     """Wiener-deconvolve a (stack of) image(s) (..., n, m) by the GPA
     Gaussian window: reflect-pad by 2*dr (widened to the next 5-smooth
     FFT size), divide by the Gaussian transfer with Laplacian
     regularization, crop."""
-    n, m = data.shape[-2], data.shape[-1]
-    pn = _next_fast_fft_size(n + 4 * dr)
-    pm = _next_fast_fft_size(m + 4 * dr)
-    # the extra pad must stay below the reflectable width; the exact
-    # 2*dr pad is kept on tiny images
-    en = pn - n - 4 * dr if pn - n - 2 * dr < n else 0
-    em = pm - m - 4 * dr if pm - m - 2 * dr < m else 0
-    lead = data.shape[:-2]
-    x = data.reshape((-1, n, m))
-    # F.pad orders (left, right, top, bottom) from the last axis
-    padded = F.pad(x, (2 * dr, 2 * dr + em, 2 * dr, 2 * dr + en),
-                   mode="reflect")
-    H = fourier_gaussian_multiplier(padded.shape[-2:], sigma, data.dtype,
-                                    data.device)
-    out = wiener_deconvolve(padded, H, balance)
-    out = out[..., 2 * dr: 2 * dr + n, 2 * dr: 2 * dr + m]
-    return out.reshape(lead + (n, m))
+    filt = deconvolution_filter(tuple(data.shape[-2:]), sigma, dr, balance,
+                                data.dtype, data.device)
+    return _deconvolve(data, filt, dr)
 
 
 def candidate_banks(kvecs, kwscale=DEFAULTS.kw_scale,
@@ -284,8 +311,9 @@ def make_displacement_extractor(shape, kvecs, sigma=None,
     launches and torch passes over all of it, each image's components
     with its own weight), as many launches as one image. Where the
     grouped plan does not apply (float64, sides off multiples of 128)
-    the per-peak route runs image by image (its batch axis is ROADMAP
-    queue 1 item 11). `events` is stamped once per stage either way."""
+    the per-peak route sweeps each peak on the whole stack (the zoom
+    kernel where its gate holds, the twins elsewhere), as many launches
+    as one image. `events` is stamped once per stage either way."""
     device = entry_device(device)
     kvecs_h = np.asarray(kvecs, np.float64)
     knorms = np.linalg.norm(kvecs_h, axis=1)
@@ -303,17 +331,17 @@ def make_displacement_extractor(shape, kvecs, sigma=None,
     sweep = None if plan is None else GroupedSweep(
         plan, device=device, emit="uv" if fused_uv else "pw")
     kv = torch.tensor(kvecs_h, device=device).to(dtype)
+    # the deconvolution's transfer, built on the device once for the
+    # fixed shape
+    filt = deconvolution_filter(
+        tuple(int(s) for s in shape), sig, dr, DEFAULTS.wiener_balance,
+        dtype, device) if deconvolve else None
 
     def run(image, events=None):
         image = torch.as_tensor(image, device=device).to(dtype)
-        stack = image.dim() == 3
         if image.dim() not in (2, 3):
             raise ValueError("run takes an image (n, m) or a stack (B, n, "
                              f"m), got {tuple(image.shape)}")
-        if stack and sweep is None:
-            us = [run_one(im) for im in image]
-            stamp(events, "per-image route")
-            return torch.stack(us)
         return run_one(image, events)
 
     def run_one(image, events=None):
@@ -338,7 +366,7 @@ def make_displacement_extractor(shape, kvecs, sigma=None,
                                              unwrap_coarse=unwrap_coarse,
                                              events=events)
         if deconvolve:
-            u = gaussian_deconvolve(u, sig, dr)
+            u = _deconvolve(u, filt, dr)
             stamp(events, "deconvolve")
         return u
 
@@ -370,7 +398,16 @@ def extract_displacement_field(image, kvecs, sigma=None,
     collects (stage name, CUDA event) pairs after the fft2, the sweeps,
     the lstsq, the unwrap and the deconvolution. with_grad adds each
     peak's winner phase gradient to its g-dict ('grad' (n, m, 2),
-    wfr2_grad_opt's), returned with return_gs."""
+    wfr2_grad_opt's), returned with return_gs.
+
+    A stack of images (B, n, m) gives (B, 2, n, m), image i's field the
+    one this call gives on images[i] (jax.vmap of the reference's
+    eager function): each image less its own mean, one fft2 of the stack,
+    one zoom sweep per peak on the whole stack (the launches of one
+    image), and the lstsq and the early-stopping CG on every image at
+    once, each component stopping on its own norm; the g-dicts then
+    hold (B, ...) arrays. With `wfr_func` the stack is a loop over the
+    images (the seam takes one image)."""
     # the k-vectors keep their dtype: kw, kstep and the np.arange banks
     # are computed in it, as the reference does (float32 and float64
     # k-vectors can give banks of different lengths)
@@ -386,7 +423,22 @@ def extract_displacement_field(image, kvecs, sigma=None,
     if not isinstance(image, torch.Tensor):
         image = np.asarray(image)
     image = torch.as_tensor(image, device=entry_device(device))
-    img0 = image - image.mean()
+    if image.dim() not in (2, 3):
+        raise ValueError("extract_displacement_field takes an image (n, m) "
+                         f"or a stack (B, n, m), got {tuple(image.shape)}")
+    if image.dim() == 3 and wfr_func is not None:
+        # the seam takes one image (the reference vmaps it, which a torch
+        # callable does not allow): the stack is a loop
+        outs = [extract_displacement_field(
+            im, kvecs_h, sigma, kwscale, ksteps, True, wfr_func, deconvolve,
+            with_grad, chunk, unwrap_kmax, events, im.device)
+            for im in image]
+        u = torch.stack([o[0] for o in outs])
+        if not return_gs:
+            return u
+        return u, [{k: torch.stack([o[1][p][k] for o in outs])
+                    for k in outs[0][1][p]} for p in range(len(kvecs_h))]
+    img0 = image - image.mean(dim=(-2, -1), keepdim=True)
     gs = []
     if wfr_func is not None:
         for pk in kvecs_h:
@@ -403,11 +455,11 @@ def extract_displacement_field(image, kvecs, sigma=None,
             gs.append(wfr_sweep(img0, wlist, pk, sigma, with_grad=with_grad,
                                 chunk=chunk, spectrum=spectrum))
     stamp(events, "sweeps")
-    lockins = torch.stack([g["lockin"] for g in gs])
+    lockins = torch.stack([g["lockin"] for g in gs], dim=-3)
     phases = torch.angle(lockins)
     dr = 2 * sigma
-    weights = torch.abs(lockins) * rim_weights(*image.shape, dr, image.dtype,
-                                               image.device)
+    weights = torch.abs(lockins) * rim_weights(*image.shape[-2:], dr,
+                                               image.dtype, image.device)
     u = reconstruct_u_inv_from_phases(kvecs_h, phases, weights,
                                       kmax=unwrap_kmax, events=events)
     if deconvolve:

@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 from ..config import DEFAULTS
-from ..core import entry_tensor
+from ..core import entry_tensor, host_to_device
 from ..core.mathtools import fit_plane, wrap_to_pi
 from ..ops.lockin import gpa_lockin_batch
 from ..ops.sweep import wrap_diff
@@ -65,22 +65,35 @@ def reconstruct_u_inv_from_phases(kvecs, phases, weights,
     """Reconstruct u (2, n, m) from wrapped phases (G, n, m) and weights
     (G, n, m) along kvecs (G, 2): wrapped differences, per-pixel
     weighted lstsq, then the exact weighted unwrap of each component.
-    With pre_diff, phases is (G, n, m, 2) holding the x- and y-diffs.
+    With pre_diff, phases is (G, n, m, 2) holding the x- and y-diffs. A
+    stack (B, G, n, m) gives (B, 2, n, m), each image unwrapped against
+    its own weight norm and each component stopping on its own norm.
     `events` (a list) collects CUDA timing events after the lstsq and
     the unwrap."""
-    K = (2 * math.pi) * torch.as_tensor(kvecs, dtype=phases.dtype,
-                                        device=phases.device)
-    if pre_diff:
-        dbdx = wrap_to_pi(phases[..., 0])[:, :, :-1]
-        dbdy = wrap_to_pi(phases[..., 1])[:, :-1]
+    if isinstance(kvecs, torch.Tensor):
+        K = kvecs.to(phases.device, phases.dtype)
     else:
-        dbdx = wrap_to_pi(torch.diff(phases, dim=2))
-        dbdy = wrap_to_pi(torch.diff(phases, dim=1))
-    dudx = weighted_lstsq_stack(dbdx, K, weights[:, :, : dbdx.shape[2]])
-    dudy = weighted_lstsq_stack(dbdy, K, weights[:, : dbdy.shape[1], :])
+        K = host_to_device(np.asarray(kvecs), phases.device, phases.dtype)
+    K = (2 * math.pi) * K
+    # the peaks' axis leads for the lstsq; the solution's two components
+    # go back beside the image axis
+    pk = -4 if pre_diff else -3
+    ph = phases.movedim(pk, 0)
+    wt = weights.movedim(-3, 0)
+    if pre_diff:
+        dbdx = wrap_to_pi(ph[..., 0])[..., :-1]
+        dbdy = wrap_to_pi(ph[..., 1])[..., :-1, :]
+    else:
+        dbdx = wrap_to_pi(torch.diff(ph, dim=-1))
+        dbdy = wrap_to_pi(torch.diff(ph, dim=-2))
+    dudx = weighted_lstsq_stack(dbdx, K, wt[..., : dbdx.shape[-1]])
+    dudy = weighted_lstsq_stack(dbdy, K, wt[..., : dbdy.shape[-2], :])
+    dudx, dudy = dudx.movedim(0, -3), dudy.movedim(0, -3)
     stamp(events, "lstsq")
     if weighted_unwrap:
-        wnorm = torch.linalg.vector_norm(weights, dim=0)
+        wnorm = torch.linalg.vector_norm(wt, dim=0)
+        if wnorm.dim() > 2:
+            wnorm = wnorm.unsqueeze(-3)  # (B, 1, n, m) beside (B, 2, ...)
         return phase_unwrap_prediff(dudx, dudy, wnorm, kmax=kmax,
                                     events=events)
     return phase_unwrap_prediff(dudx, dudy, events=events)

@@ -6,9 +6,11 @@ weights, u, k-vectors) can be persisted and property extraction resumed
 without re-running the sweeps. save_checkpoint / load_checkpoint write
 and read a plain .npz, the same files the JAX package's pair reads and
 writes. save_tensors / load_tensors keep a dict of tensors with
-torch.save / torch.load(weights_only=True), where the reference's
-orbax pair (save_checkpoint_orbax / restore_checkpoint_orbax) keeps a
-pytree of arrays.
+torch.save / torch.load(weights_only=True); save_checkpoint_orbax /
+restore_checkpoint_orbax are the same pair under the names of the
+reference's orbax pair, so an import switched from pygpa_tpu.io keeps
+working (a flat dict of tensors or arrays in place of its pytree; orbax
+is not used).
 """
 import os
 
@@ -62,3 +64,24 @@ def load_tensors(path, device=None):
     the host); the counterpart of pygpa_tpu.io.restore_checkpoint_orbax."""
     return torch.load(os.path.abspath(path), map_location=device,
                       weights_only=True)
+
+
+def save_checkpoint_orbax(path, tree):
+    """pygpa_tpu.io.save_checkpoint_orbax's name for :func:`save_tensors`:
+    `tree` is a flat dict of tensors (any device) or arrays."""
+    save_tensors(path, tree)
+
+
+def restore_checkpoint_orbax(path, abstract_tree=None):
+    """pygpa_tpu.io.restore_checkpoint_orbax's name for
+    :func:`load_tensors`: the dict saved by save_checkpoint_orbax, its
+    tensors on the host; a given `abstract_tree` (a dict of the same
+    keys) places each tensor on the device of its entry, where that
+    entry is a tensor, as orbax restores into the shardings it is
+    given."""
+    out = load_tensors(path)
+    if abstract_tree is None:
+        return out
+    return {k: v.to(abstract_tree[k].device)
+            if isinstance(abstract_tree.get(k), torch.Tensor) else v
+            for k, v in out.items()}

@@ -65,15 +65,15 @@ not the reference's (x + pi) form, which rounds a near-zero float32
 difference to the spacing at pi: a coherent bias that the unwrap
 integrates into a ~1e-3 px ripple on the bench fixture.
 
-The uv and phase/weight emissions also take a stack of B images planned
-alike (the factory's batch axis): windows (B, G, H, W0, Wb) and the
-plan's other operands shared, outputs with a leading image axis. The
-stack runs in the launches of one image (the image beside the group on
-stage 1's and stage 2's grid z, the epilogue a thread per pixel of every
-image), each image's outputs the bits of its own launch; a stack whose
-B G P passes CUDA's gridDim.z limit (65535) goes in launches of as many
-images as fit. The gradient emission takes one image and refuses a stack
-(ROADMAP queue 1 item 11). The twins run a stack image by image.
+Every emission also takes a stack of B images planned alike (the
+factory's batch axis): windows (B, G, H, W0, Wb) and the plan's other
+operands shared, outputs with a leading image axis. The stack runs in
+the launches of one image (the image beside the group on stage 1's,
+stage 2's and the winner products' grid z, the epilogue a thread per
+pixel of every image, the band flags a row of their grid per (image,
+group) pair), each image's outputs the bits of its own launch; a stack
+whose B G P passes CUDA's gridDim.z limit (65535) goes in launches of as
+many images as fit. The twins run a stack image by image.
 
 The plain twins :func:`sweep_uv_plain`, :func:`sweep_pw_plain` and
 :func:`sweep_grad_plain` run the same stages with torch ops
@@ -118,9 +118,10 @@ def rim_weights(n, m, dr, dtype, device=None):
     ii = torch.arange(n, device=device)[:, None]
     jj = torch.arange(m, device=device)[None, :]
     interior = (ii >= dr) & (ii < n - dr) & (jj >= dr) & (jj < m - dr)
+    # filled on the device: no host scalar is copied (a copy waits)
     return torch.where(interior,
-                       torch.tensor(1.0 + 1e-6, dtype=dtype, device=device),
-                       torch.tensor(1e-6, dtype=dtype, device=device))
+                       torch.full((), 1.0 + 1e-6, dtype=dtype, device=device),
+                       torch.full((), 1e-6, dtype=dtype, device=device))
 
 
 def np_gradient_2d(ph):
@@ -301,7 +302,14 @@ def sweep_grad_plain(Sr, Si, S2r, S2i, gx, gy, A0c, A0s, A1c, A1s, A1yc,
                      A1ys, run, off, dr, banded, winners=False):
     """Plain PyTorch twin of emission (b) (same arguments as
     :func:`sweep_grad`); with `winners`, the tournament's (Re M, Im M,
-    index) planes follow the four outputs."""
+    index) planes follow the four outputs. A stack runs image by
+    image."""
+    if Sr.dim() == 5:
+        outs = [sweep_grad_plain(Sr[b], Si[b], S2r[b], S2i[b], gx, gy, A0c,
+                                 A0s, A1c, A1s, A1yc, A1ys, run, off, dr,
+                                 banded, winners)
+                for b in range(Sr.shape[0])]
+        return tuple(torch.stack(o) for o in zip(*outs))
     T = _stage1_plain(Sr, Si, gx, gy, A0c, A0s, run)
     Tx = _stage1_plain(S2r, S2i, gx, gy, A0c, A0s, run)
     return _stage2_plain(T, A1c, A1s, off, int(dr), bool(banded), Tx, A1yc,
@@ -310,10 +318,12 @@ def sweep_grad_plain(Sr, Si, S2r, S2i, gx, gy, A0c, A0s, A1c, A1s, A1yc,
 
 def band_winners_plain(idx, P):
     """Plain twin of :func:`band_winners`."""
-    G, n, m = idx.shape
-    flags = torch.zeros((G, n // TILE, P), dtype=torch.int32,
+    n, m = idx.shape[-2:]
+    lead = idx.shape[:-2]
+    flat = idx.reshape(-1, n // TILE, TILE * m).long()
+    flags = torch.zeros((flat.shape[0], n // TILE, P), dtype=torch.int32,
                         device=idx.device)
-    return flags.scatter_(2, idx.long().reshape(G, n // TILE, TILE * m), 1)
+    return flags.scatter_(2, flat, 1).reshape(lead + (n // TILE, P))
 
 
 def winner_products_plain(T, Tx, A1c, A1s, A1yc, A1ys, mr, mi, idx, flags,
@@ -321,7 +331,18 @@ def winner_products_plain(T, Tx, A1c, A1s, A1yc, A1ys, mr, mi, idx, flags,
     """Plain twin of :func:`winner_products` (its arguments; `split`
     concerns the kernel's rounding alone): per flagged (band, candidate)
     pair, the band's rows of Tx_i . B1 and T_i . B1y, and the gradients
-    at the pixels the candidate wins."""
+    at the pixels the candidate wins. A stack runs image by image."""
+    if T.dim() == 5:
+        outs = [winner_products_plain(T[b], Tx[b], A1c, A1s, A1yc, A1ys,
+                                      mr[b], mi[b], idx[b], flags[b], off,
+                                      banded)
+                for b in range(T.shape[0])]
+        gx, gy = (torch.stack(o) for o in zip(*outs))
+        if out is None:
+            return gx, gy
+        out[0].copy_(gx)
+        out[1].copy_(gy)
+        return out
     G, P, n, _ = T.shape
     m = A1c.shape[1]
     gx = torch.zeros_like(mr)
@@ -382,7 +403,7 @@ def _check(op, Sr, Si, gx, gy, A0c, A0s, A1c, A1s, run, off, kconst=None,
     if grad_ops is not None:
         named += [(k, t, s, f32) for k, t, s in zip(
             ("S2r", "S2i", "A1yc", "A1ys"), grad_ops,
-            ((G, H, W0, Wb), (G, H, W0, Wb), (G, m, Wb), (G, m, Wb)))]
+            (win, win, (G, m, Wb), (G, m, Wb)))]
     for name, t, shape, dt in named:
         _build.check_tensor(op, name, t, shape, dt, Sr.device)
     _grid_z_ok(op, G, P)
@@ -404,20 +425,17 @@ def _grid_z_ok(op, G, P):
 def stage1(Sr, Si, gx, gy, A0c, A0s, run, flags=None):
     """Stage 1 (checked operands): T (G, P, n, 2 Wb), or (B, G, P, n,
     2 Wb) for a stack of windows (B, G, H, W0, Wb). With band flags
-    (G, n/64, P) int32 (one image), only the rows of flagged (64-row
-    band, candidate) pairs are computed (the gradient emission's Tx,
-    counted as "grad_stage1"); the kernel leaves the others
-    unwritten."""
+    (G, n/64, P) int32, or (B, G, n/64, P) for a stack, only the rows of
+    flagged (64-row band, candidate) pairs are computed (the gradient
+    emission's Tx, counted as "grad_stage1"); the kernel leaves the
+    others unwritten."""
     stack = Sr.dim() == 5
-    if stack and flags is not None:
-        raise ValueError("stage1: band flags take one image's windows "
-                         "(the gradient emission has no image axis yet, "
-                         "ROADMAP queue 1 item 11)")
     if not _on_card("stage1", Sr):
         if stack:
-            return torch.stack([_stage1_plain(Sr[b], Si[b], gx, gy, A0c, A0s,
-                                              run)
-                                for b in range(Sr.shape[0])])
+            return torch.stack([_stage1_plain(
+                Sr[b], Si[b], gx, gy, A0c, A0s, run,
+                None if flags is None else flags[b])
+                for b in range(Sr.shape[0])])
         return _stage1_plain(Sr, Si, gx, gy, A0c, A0s, run, flags)
     lead = tuple(Sr.shape[:-4])
     B = Sr.shape[0] if stack else 1
@@ -425,8 +443,8 @@ def stage1(Sr, Si, gx, gy, A0c, A0s, run, flags=None):
     P, n, dev = gx.shape[1], A0c.shape[1], Sr.device
     _grid_z_ok("stage1", G, P)
     if flags is not None:
-        _build.check_tensor("stage1", "flags", flags, (G, n // TILE, P),
-                            torch.int32, dev)
+        _build.check_tensor("stage1", "flags", flags,
+                            lead + (G, n // TILE, P), torch.int32, dev)
     T = torch.empty(lead + (G, P, n, 2 * Wb), dtype=torch.float32,
                     device=dev)
     with torch.cuda.device(dev):
@@ -446,18 +464,15 @@ def stage2(T, A1c, A1s, off, dr, banded, winners=False):
     """Stage 2 on the tensor cores and the tournament (checked operands):
     the winner phase and rim-masked weight planes (G, n, m), or (B, G, n,
     m) for a stack T (B, G, P, n, 2 Wb); with winners (the gradient
-    emission's tournament, one image) also each pixel's winner: Re M,
-    Im M (float32) and its candidate index (int32), (G, n, m) each, from
-    the same launch with a wider store."""
+    emission's tournament) also each pixel's winner: Re M, Im M
+    (float32) and its candidate index (int32), shaped as the phases,
+    from the same launch with a wider store."""
     stack = T.dim() == 5
-    if stack and winners:
-        raise ValueError("stage2: the winners' store takes one image (the "
-                         "gradient emission has no image axis yet, ROADMAP "
-                         "queue 1 item 11)")
     if not _on_card("stage2", T):
         if stack:
             return tuple(torch.stack(o) for o in zip(*(
-                _stage2_plain(t, A1c, A1s, off, int(dr), bool(banded))
+                _stage2_plain(t, A1c, A1s, off, int(dr), bool(banded),
+                              winners=winners)
                 for t in T)))
         return _stage2_plain(T, A1c, A1s, off, int(dr), bool(banded),
                              winners=winners)
@@ -477,12 +492,12 @@ def stage2(T, A1c, A1s, off, dr, banded, winners=False):
             return ph, wt
         mr = torch.empty_like(ph)
         mi = torch.empty_like(ph)
-        idx = torch.empty((G, n, m), dtype=torch.int32, device=dev)
+        idx = torch.empty(ph.shape, dtype=torch.int32, device=dev)
         _build.check(_build.bind("sweep_stage2_winners",
-                                 "pppppppppiiiiiiip")(
+                                 "pppppppppiiiiiiiip")(
             T.data_ptr(), A1c.data_ptr(), A1s.data_ptr(), off.data_ptr(),
             ph.data_ptr(), wt.data_ptr(), mr.data_ptr(), mi.data_ptr(),
-            idx.data_ptr(), G, P, n, m, Wb, int(dr), int(bool(banded)),
+            idx.data_ptr(), B, G, P, n, m, Wb, int(dr), int(bool(banded)),
             stream), "sweep_stage2_winners")
     return ph, wt, mr, mi, idx
 
@@ -490,21 +505,27 @@ def stage2(T, A1c, A1s, off, dr, banded, winners=False):
 def band_winners(idx, P):
     """The gradient emission's band flags: (G, n/64, P) int32, 1 where
     candidate i wins a pixel of the 64-row band of the tournament's index
-    plane idx (G, n, m) int32 (values in [0, P)), else 0. One launch,
-    counted as "grad_flags"; nothing waits for the host."""
+    plane idx (G, n, m) int32 (values in [0, P)), else 0; a stack's
+    (B, G, n, m) gives (B, G, n/64, P). One launch, counted as
+    "grad_flags"; nothing waits for the host."""
     if not _on_card("band_winners", idx):
         return band_winners_plain(idx, P)
-    G, n, m = idx.shape
-    _build.check_tensor("band_winners", "idx", idx, (G, n, m), torch.int32,
-                        idx.device)
+    n, m = idx.shape[-2:]
+    lead = tuple(idx.shape[:-2])
+    if idx.dim() < 3 or not idx.is_contiguous() \
+            or idx.dtype != torch.int32:
+        raise ValueError("band_winners: idx must be a contiguous int32 "
+                         "tensor (G, n, m) or (B, G, n, m), got "
+                         f"{idx.dtype} {tuple(idx.shape)}")
     if n % TILE or m % TILE or P < 1:
         raise ValueError(f"band_winners needs n, m multiples of {TILE} and "
                          f"P >= 1 (got n={n}, m={m}, P={P})")
-    flags = torch.empty((G, n // TILE, P), dtype=torch.int32,
+    planes = idx.numel() // (n * m)
+    flags = torch.empty(lead + (n // TILE, P), dtype=torch.int32,
                         device=idx.device)
     with torch.cuda.device(idx.device):
         _build.check(_build.bind("sweep_band_winners", "ppiiiip")(
-            idx.data_ptr(), flags.data_ptr(), G, P, n, m,
+            idx.data_ptr(), flags.data_ptr(), planes, P, n, m,
             torch.cuda.current_stream(idx.device).cuda_stream),
             "sweep_band_winners")
     _build.launches["grad_flags"] += 1
@@ -524,24 +545,30 @@ def winner_products(T, Tx, A1c, A1s, A1yc, A1ys, mr, mi, idx, flags, off,
     takes the grouped sweep's tensor-core chain rounding (the small
     products in a chain of their own), else the zoom sweep's. `out`
     (two (G, n, m) float32 tensors, which may be mr and mi) receives
-    the gradients. One launch, counted as "grad_products"."""
+    the gradients. A stack carries a leading image axis on T, Tx, the
+    winners, the flags and the outputs (the bases and off are shared).
+    One launch, counted as "grad_products"."""
     if not _on_card("winner_products", T):
         return winner_products_plain(T, Tx, A1c, A1s, A1yc, A1ys, mr, mi,
                                      idx, flags, off, banded, out)
-    G, P, n, K2 = T.shape
+    lead = tuple(T.shape[:-4])
+    B = T.shape[0] if lead else 1
+    G, P, n, K2 = T.shape[-4:]
     m, dev = A1c.shape[1], T.device
     f32 = torch.float32
-    named = [("T", T, (G, P, n, K2), f32), ("Tx", Tx, (G, P, n, K2), f32)]
+    named = [("T", T, lead + (G, P, n, K2), f32),
+             ("Tx", Tx, lead + (G, P, n, K2), f32)]
     named += [(k, t, (G, m, K2 // 2), f32) for k, t in
               zip(("A1c", "A1s", "A1yc", "A1ys"), (A1c, A1s, A1yc, A1ys))]
-    named += [("mr", mr, (G, n, m), f32), ("mi", mi, (G, n, m), f32),
-              ("idx", idx, (G, n, m), torch.int32),
-              ("flags", flags, (G, n // TILE, P), torch.int32)]
+    plane = lead + (G, n, m)
+    named += [("mr", mr, plane, f32), ("mi", mi, plane, f32),
+              ("idx", idx, plane, torch.int32),
+              ("flags", flags, lead + (G, n // TILE, P), torch.int32)]
     if banded:
         named.append(("off", off, (G, P), torch.int32))
     gxo, gyo = out if out is not None else (torch.empty_like(mr),
                                             torch.empty_like(mr))
-    named += [("gx", gxo, (G, n, m), f32), ("gy", gyo, (G, n, m), f32)]
+    named += [("gx", gxo, plane, f32), ("gy", gyo, plane, f32)]
     for name, t, shape, dt in named:
         _build.check_tensor("winner_products", name, t, shape, dt, dev)
     if n % TILE or m % TILE or K2 % (2 * TILE):
@@ -549,12 +576,12 @@ def winner_products(T, Tx, A1c, A1s, A1yc, A1ys, mr, mi, idx, flags, off,
                          f"{TILE} (got n={n}, m={m}, K={K2 // 2})")
     with torch.cuda.device(dev):
         _build.check(_build.bind("sweep_winner_products",
-                                 "pppppppppppppiiiiiip")(
+                                 "pppppppppppppiiiiiiip")(
             T.data_ptr(), Tx.data_ptr(), A1c.data_ptr(), A1s.data_ptr(),
             A1yc.data_ptr(), A1ys.data_ptr(), mr.data_ptr(), mi.data_ptr(),
             idx.data_ptr(), flags.data_ptr(),
             off.data_ptr() if banded else 0, gxo.data_ptr(), gyo.data_ptr(),
-            G, P, n, m, K2 // 2, int(bool(split)),
+            B, G, P, n, m, K2 // 2, int(bool(split)),
             torch.cuda.current_stream(dev).cuda_stream),
             "sweep_winner_products")
     _build.launches["grad_products"] += 1
@@ -566,9 +593,11 @@ def winner_grads(T, S2r, S2i, gx, gy, A0c, A0s, run, A1c, A1s, A1yc, A1ys,
     """Steps 2-4 of a gradient emission after its tournament (T its
     stage 1; mr, mi, idx its winners): the band flags, stage 1 of the
     row-derivative windows S2r, S2i on the flagged pairs only (Tx), and
-    the winner products. Returns (gx, gy) (G, n, m); each step runs its
-    kernel on CUDA tensors and its plain twin on CPU ones."""
-    flags = band_winners(idx, T.shape[1])
+    the winner products. Returns (gx, gy) (G, n, m), or (B, G, n, m) for
+    a stack; each step runs its kernel on CUDA tensors and its plain
+    twin on CPU ones."""
+    P = T.shape[-3]
+    flags = band_winners(idx, P)
     Tx = stage1(S2r, S2i, gx, gy, A0c, A0s, run, flags)
     return winner_products(T, Tx, A1c, A1s, A1yc, A1ys, mr, mi, idx, flags,
                            off, banded, split, out)
@@ -655,12 +684,9 @@ def sweep_grad(Sr, Si, S2r, S2i, gx, gy, A0c, A0s, A1c, A1s, A1yc, A1ys,
     along rows and columns, before any rebase. S2r, S2i (G, H, W0, Wb)
     are the row-derivative windows (2 pi i f0) S band-sliced like Sr,
     Si; A1yc, A1ys (G, m, Wb) the base band's column-derivative basis
-    (2 pi i f1) A1; the rest as :func:`sweep_uv`. One image: a stack of
-    windows raises."""
-    if Sr.dim() != 4:
-        raise ValueError("sweep_grad takes one image's windows (G, H, W0, "
-                         f"Wb), got {tuple(Sr.shape)}: the gradient emission "
-                         "has no image axis yet (ROADMAP queue 1 item 11)")
+    (2 pi i f1) A1; the rest as :func:`sweep_uv`. A stack of windows
+    (B, G, H, W0, Wb), S2r and S2i alike, gives (B, G, n, m) each in the
+    launches of one image."""
     if not _on_card("sweep_grad", Sr):
         return sweep_grad_plain(Sr, Si, S2r, S2i, gx, gy, A0c, A0s, A1c,
                                 A1s, A1yc, A1ys, run, off, dr, banded)

@@ -44,6 +44,7 @@ import torch
 
 from . import sweep as _sweep
 from . import zoom_sweep as _zoom
+from ..core import host_to_device
 from ..core.fourier import _fftfreq
 from ..core.interp import no_tf32
 from ..core.mathtools import wrap_to_pi
@@ -173,7 +174,7 @@ def _plan_col_groups(wlists, plans, m, sigma, *, pad_bins=6,
 def _zoom_basis(n, idx, dtype=torch.float32, device=None):
     """cos/sin of the inverse-DFT submatrix e^{2 pi i r idx / n}, (n, W);
     the product r*idx is reduced mod n in exact integers first."""
-    idx = torch.as_tensor(np.asarray(idx, np.int64), device=device)
+    idx = host_to_device(np.asarray(idx, np.int64), device)
     r = torch.arange(n, dtype=torch.int64, device=device)[:, None]
     ang = ((r * idx[None, :]) % n).to(dtype) * (2 * math.pi / n)
     return torch.cos(ang), torch.sin(ang)
@@ -291,12 +292,11 @@ class GroupedSweep:
 
     Called on a mean-subtracted float32 image (its windows taken by
     skinny DFT products) or, with `spectrum`, on windows of a given
-    fft2. The uv and phase/weight emissions also take a stack of images
-    (B, n, m) of the plan's shape, each mean-subtracted, and return each
-    output with a leading image axis: the stack's windows come from as
-    many products as one image's (_dft_windows) and its sweep from the
-    launches of one (ops.sweep). The gradient emission and the spectrum
-    form take one image."""
+    fft2. Every emission also takes a stack of images (B, n, m) of the
+    plan's shape, each mean-subtracted, and returns each output with a
+    leading image axis: the stack's windows come from as many products as
+    one image's (_dft_windows) and its sweep from the launches of one
+    (ops.sweep). The spectrum form takes one image."""
 
     def __init__(self, plan, device=None, emit="uv"):
         if emit not in _EMISSIONS:
@@ -417,9 +417,6 @@ class GroupedSweep:
                              f"{self.plan.shape} (or a stack (B, "
                              f"*{self.plan.shape})), got {src.dtype} "
                              f"{tuple(src.shape)}")
-        if stack and self.emit == "grad":
-            raise ValueError("the gradient emission takes one image: it has "
-                             "no image axis yet (ROADMAP queue 1 item 11)")
         Sr, Si = self._scaled(img0, spectrum)
         Sr4, Si4 = self._bands(Sr), self._bands(Si)
         common = (self.gx, self.gy, self.A0c, self.A0s, self.A1cb, self.A1sb,
@@ -431,7 +428,7 @@ class GroupedSweep:
             return _sweep.sweep_pw(Sr4, Si4, *common, self.plan.dr,
                                    self.banded)
         # S2 = (2 pi i f0) S, from the normalized windows (the reference's
-        # -tpf0 Si, tpf0 Sr)
+        # -tpf0 Si, tpf0 Sr); a stack's windows broadcast over the images
         t = self.tpf0[:, :, None]
         S2r4, S2i4 = self._bands(-t * Si), self._bands(t * Sr)
         return _sweep.sweep_grad(Sr4, Si4, S2r4, S2i4, self.gx, self.gy,
@@ -457,26 +454,35 @@ def _real_dtype(spectrum):
     return torch.empty((), dtype=spectrum.dtype).real.dtype
 
 
+def _rounded(x, dtype):
+    """x rounded to `dtype` (float32 or float64) as a Python float, which
+    a tensor of that dtype then takes exactly: a host scalar that needs
+    no copy to the card."""
+    return float(np.float32(x)) if dtype == torch.float32 else float(x)
+
+
 def _zoom_operands(spectrum, wlist, idx0, idx1, sigma, with_grad=False):
     """The zoom sweep's operands, as the reference builds them: the
-    (W0, W1) spectrum window pre-scaled by 1/(n m), the Gaussian factors
-    gx (P, W0), gy (P, W1) and the DFT bases A0c/A0s (n, W0), A1c/A1s
-    (m, W1); with_grad also returns the gradient operands (S2r, S2i,
-    A1yc, A1ys): S2 = (2 pi i f0) S pre-scaled and A1y = (2 pi i f1) A1
-    (else None)."""
-    n, m = spectrum.shape
+    (W0, W1) spectrum window pre-scaled by 1/(n m) ((B, W0, W1) from a
+    stack of spectra (B, n, m)), the Gaussian factors gx (P, W0), gy (P,
+    W1) and the DFT bases A0c/A0s (n, W0), A1c/A1s (m, W1), shared by a
+    stack's images; with_grad also returns the gradient operands (S2r,
+    S2i, A1yc, A1ys): S2 = (2 pi i f0) S pre-scaled and A1y = (2 pi i f1)
+    A1 (else None). The host's numbers reach the card without a wait on
+    the stream (host_to_device, scalars as Python numbers)."""
+    n, m = spectrum.shape[-2:]
     rdt = _real_dtype(spectrum)
     dev = spectrum.device
-    i0 = torch.as_tensor(np.asarray(idx0, np.int64), device=dev)
-    i1 = torch.as_tensor(np.asarray(idx1, np.int64), device=dev)
-    S = spectrum.index_select(0, i0).index_select(1, i1)
-    scale = torch.tensor(1.0 / (n * m), dtype=rdt, device=dev)
+    i0 = host_to_device(np.asarray(idx0, np.int64), dev)
+    i1 = host_to_device(np.asarray(idx1, np.int64), dev)
+    S = spectrum.index_select(-2, i0).index_select(-1, i1)
+    scale = _rounded(1.0 / (n * m), rdt)
     A0c, A0s = _zoom_basis(n, idx0, rdt, dev)
     A1c, A1s = _zoom_basis(m, idx1, rdt, dev)
     f0 = torch.where(i0 < n // 2 + n % 2, i0, i0 - n).to(rdt) / n
     f1 = torch.where(i1 < m // 2 + m % 2, i1, i1 - m).to(rdt) / m
-    s2 = torch.tensor(2.0 * np.pi ** 2 * sigma ** 2, dtype=rdt, device=dev)
-    w = torch.as_tensor(np.asarray(wlist), device=dev).to(rdt)
+    s2 = _rounded(2.0 * np.pi ** 2 * sigma ** 2, rdt)
+    w = host_to_device(np.asarray(wlist), dev, rdt)
     gx = torch.exp(-s2 * (f0[None, :] + w[:, 0:1]) ** 2)
     gy = torch.exp(-s2 * (f1[None, :] + w[:, 1:2]) ** 2)
     ops = (S.real * scale, S.imag * scale, gx, gy, A0c, A0s, A1c, A1s)
@@ -494,7 +500,7 @@ def _kernel_route(spectrum):
     """The reference's fused-sweep gate: float32, sides multiples of
     128 (ops.zoom_sweep runs the kernel on the card, its twin on the
     CPU); float64 and other sides take the plain twin."""
-    n, m = spectrum.shape
+    n, m = spectrum.shape[-2:]
     return (_real_dtype(spectrum) == torch.float32
             and n % 128 == 0 and m % 128 == 0)
 
@@ -503,9 +509,11 @@ def _wfr_sweep_zoom(spectrum, wlist, idx0, idx1, sigma, chunk,
                     with_grad=False):
     """Band-limited sweep on the (idx0, idx1) window: (best_absq,
     best_lockin (complex), best_idx, best_grad ((n, m, 2) winner
-    gradients of -angle M, or None)). The kernel route's gradients are
-    analytic, the plain route's np.gradient of each candidate's phase,
-    as the reference's two routes compute them."""
+    gradients of -angle M, or None)); a stack of spectra (B, n, m) gives
+    each with a leading image axis, through the launches of one image on
+    the kernel route. The kernel route's gradients are analytic, the
+    plain route's np.gradient of each candidate's phase, as the
+    reference's two routes compute them."""
     ops, gops = _zoom_operands(spectrum, wlist, idx0, idx1, sigma,
                                with_grad)
     if _kernel_route(spectrum):
@@ -520,7 +528,7 @@ def _wfr_sweep_zoom(spectrum, wlist, idx0, idx1, sigma, chunk,
 
 def _wfr_sweep_zoom_pw(spectrum, wlist, idx0, idx1, sigma, dr):
     """Zoom sweep emitting the winner phase and rim-masked weight (the
-    float32 kernel route)."""
+    float32 kernel route; a stack of spectra gives (B, n, m) planes)."""
     ops, _ = _zoom_operands(spectrum, wlist, idx0, idx1, sigma)
     return _zoom.zoom_sweep(*ops, dr=int(dr))[4:]
 
@@ -528,35 +536,41 @@ def _wfr_sweep_zoom_pw(spectrum, wlist, idx0, idx1, sigma, dr):
 def _wfr_sweep_chunked(spectrum, wlist, sigma, chunk, with_grad=False):
     """Full-FFT sweep: one inverse FFT of the Gaussian-bandpassed
     spectrum per candidate, `chunk` candidates per batched FFT; with_grad
-    adds the winner's np.gradient of -angle(M) (n, m, 2), else None."""
-    n, m = spectrum.shape
+    adds the winner's np.gradient of -angle(M) (n, m, 2), else None. A
+    stack of spectra (B, n, m) gives each output with a leading image
+    axis."""
+    n, m = spectrum.shape[-2:]
+    lead = tuple(spectrum.shape[:-2])
     rdt = _real_dtype(spectrum)
     dev = spectrum.device
     fx = _fftfreq(n, rdt, dev)
     fy = _fftfreq(m, rdt, dev)
-    s2 = torch.tensor(2.0 * np.pi ** 2 * sigma ** 2, dtype=rdt, device=dev)
-    wl = torch.as_tensor(np.asarray(wlist), device=dev).to(rdt)
-    best_absq = torch.zeros((n, m), dtype=rdt, device=dev)
-    best_lockin = torch.zeros((n, m), dtype=spectrum.dtype, device=dev)
-    best_idx = torch.zeros((n, m), dtype=torch.int32, device=dev)
-    best_grad = torch.zeros((n, m, 2), dtype=rdt, device=dev) \
+    s2 = _rounded(2.0 * np.pi ** 2 * sigma ** 2, rdt)
+    wl = host_to_device(np.asarray(wlist), dev, rdt)
+    best_absq = torch.zeros(lead + (n, m), dtype=rdt, device=dev)
+    best_lockin = torch.zeros(lead + (n, m), dtype=spectrum.dtype,
+                              device=dev)
+    best_idx = torch.zeros(lead + (n, m), dtype=torch.int32, device=dev)
+    best_grad = torch.zeros(lead + (n, m, 2), dtype=rdt, device=dev) \
         if with_grad else None
     for s in range(0, wl.shape[0], chunk):
         ws = wl[s:s + chunk]
         gx = torch.exp(-s2 * (fx[None, :] + ws[:, 0:1]) ** 2)
         gy = torch.exp(-s2 * (fy[None, :] + ws[:, 1:2]) ** 2)
         G = (gx[:, :, None] * gy[:, None, :]).to(spectrum.dtype)
-        Mw = torch.fft.ifft2(spectrum[None] * G)
+        Mw = torch.fft.ifft2(spectrum[..., None, :, :] * G)
         absq = Mw.real * Mw.real + Mw.imag * Mw.imag
         if with_grad:
             ggx, ggy = _np_gradient_2d(-torch.atan2(Mw.imag, Mw.real))
         for i in range(ws.shape[0]):
-            better = absq[i] > best_absq
-            best_absq = torch.where(better, absq[i], best_absq)
-            best_lockin = torch.where(better, Mw[i], best_lockin)
+            a = absq[..., i, :, :]
+            better = a > best_absq
+            best_absq = torch.where(better, a, best_absq)
+            best_lockin = torch.where(better, Mw[..., i, :, :], best_lockin)
             best_idx = torch.where(better, s + i, best_idx)
             if with_grad:
-                gi = torch.stack([ggx[i], ggy[i]], dim=-1)
+                gi = torch.stack([ggx[..., i, :, :], ggy[..., i, :, :]],
+                                 dim=-1)
                 best_grad = torch.where(better[..., None], gi, best_grad)
     return best_absq, best_lockin, best_idx, best_grad
 
@@ -590,8 +604,8 @@ def _wfr_sweep_sequential(spectrum, wlist, sigma, dk, with_grad=False):
     dev = spectrum.device
     fx = _fftfreq(n, rdt, dev)
     fy = _fftfreq(m, rdt, dev)
-    s2 = torch.tensor(2.0 * np.pi ** 2 * sigma ** 2, dtype=rdt, device=dev)
-    wl = torch.as_tensor(np.asarray(wlist), device=dev).to(rdt)
+    s2 = _rounded(2.0 * np.pi ** 2 * sigma ** 2, rdt)
+    wl = host_to_device(np.asarray(wlist), dev, rdt)
     best_absq, best_lockin, best_w, best_grad = _continuity_init(
         wl, n, m, spectrum.dtype, with_grad)
     lim = 8.0 * dk * dk
@@ -683,8 +697,11 @@ def wfr_sweep(image, wlist, kref, sigma, *, with_grad=False, with_w=True,
     """WFR sweep of one Bragg peak over the candidates `wlist` (P, 2),
     rebased to `kref` (pygpa_tpu.ops.wfr.wfr_sweep).
 
-    image is the mean-subtracted (N, M) image; `spectrum`, its fft2,
-    may be passed to share it across peaks. zoom: "auto" plans the
+    image is the mean-subtracted (N, M) image, or a stack (B, N, M) of
+    them, each returned array then with a leading image axis (the zoom
+    kernel takes the stack in the launches of one image; the continuity
+    scans run image by image); `spectrum`, its fft2, may be passed to
+    share it across peaks. zoom: "auto" plans the
     zoom window and falls back to the full-FFT sweep when it would not
     pay off, True demands it, False forces the full-FFT sweep.
 
@@ -699,7 +716,13 @@ def wfr_sweep(image, wlist, kref, sigma, *, with_grad=False, with_w=True,
     'w' is the winning candidates, whatever with_w says."""
     if spectrum is None:
         spectrum = torch.fft.fft2(image)
-    shape = tuple(spectrum.shape)
+    if spectrum.dim() == 3 and continuity_dk is not None:
+        outs = [wfr_sweep(None, wlist, kref, sigma, with_grad=with_grad,
+                          with_w=with_w, continuity_dk=continuity_dk,
+                          chunk=chunk, spectrum=sp, zoom=zoom, rebase=rebase,
+                          return_absq=return_absq) for sp in spectrum]
+        return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+    shape = tuple(spectrum.shape[-2:])
     rdt = _real_dtype(spectrum)
     wl_h = np.asarray(wlist)
     w_field = None
@@ -733,10 +756,9 @@ def wfr_sweep(image, wlist, kref, sigma, *, with_grad=False, with_w=True,
             best_absq, best_lockin, best_idx, best_grad = _wfr_sweep_chunked(
                 spectrum, wl_h, float(sigma), chunk, with_grad)
         if with_w:
-            wl = torch.as_tensor(wl_h, device=spectrum.device).to(rdt)
+            wl = host_to_device(wl_h, spectrum.device, rdt)
             w_field = wl[best_idx.long()]
-    k = torch.tensor(np.asarray(kref, np.float64),
-                     device=spectrum.device).to(rdt)
+    k = host_to_device(np.asarray(kref, np.float64), spectrum.device, rdt)
     if rebase:
         # separable rank-1 plane wave e^{2 pi i kref . r}
         phx = (2 * np.pi) * (torch.arange(shape[0], dtype=rdt,
@@ -751,7 +773,7 @@ def wfr_sweep(image, wlist, kref, sigma, *, with_grad=False, with_w=True,
     if return_absq:
         out["absq"] = best_absq
     if w_field is not None:
-        out["w"] = w_field.permute(2, 0, 1)
+        out["w"] = w_field.movedim(-1, -3)
     if with_grad:
         out["grad"] = _grad_rebase(best_grad, k)
     return out
@@ -763,13 +785,14 @@ def wfr_sweep_phase_weight(image, wlist, kref, sigma, dr, *, spectrum=None,
     * (mask + 1e-6) of one peak's sweep, the inputs of
     reconstruct_u_inv_from_demod. Emitted by the zoom kernel route
     (float32, sides multiples of 128, P <= 48, a zoom plan at
-    `gauss_cut`); computed from wfr_sweep otherwise."""
+    `gauss_cut`); computed from wfr_sweep otherwise. A stack of images
+    (B, N, M) gives (B, N, M) planes."""
     if int(dr) < 1:
         raise ValueError("wfr_sweep_phase_weight requires dr >= 1 "
                          f"(got {dr})")
     if spectrum is None:
         spectrum = torch.fft.fft2(image)
-    shape = tuple(spectrum.shape)
+    shape = tuple(spectrum.shape[-2:])
     wl_h = np.asarray(wlist)
     plan = _plan_zoom(shape, wl_h, float(sigma), gauss_cut=gauss_cut)
     if plan is not None and _kernel_route(spectrum) and wl_h.shape[0] <= 48:
@@ -794,12 +817,18 @@ def wfr_sweep_phase_weight_multi(image, wlists, sigma, dr, *, spectrum=None,
 
     with_grad=True also returns grads (G, N, M, 2), each peak's
     wfr2_grad_opt winner phase gradient rebased to its nominal k-vector
-    (krefs (G, 2), required): wrap_to_pi(2 (g - 2 pi k)) / 2."""
+    (krefs (G, 2), required): wrap_to_pi(2 (g - 2 pi k)) / 2.
+
+    A stack of images (B, N, M) (without `spectrum`) gives (B, G, N, M)
+    planes and (B, G, N, M, 2) gradients in one call: the grouped sweep
+    takes it in the launches of one image, the per-peak route sweeps
+    each peak on the whole stack (the zoom kernel where its gate holds,
+    the twins elsewhere)."""
     if with_grad and krefs is None:
         raise ValueError(
             "wfr_sweep_phase_weight_multi(with_grad=True) requires "
             "krefs (the per-peak nominal k-vectors)")
-    shape = tuple(spectrum.shape if spectrum is not None else image.shape)
+    shape = tuple((spectrum if spectrum is not None else image).shape[-2:])
     rdt = image.dtype if spectrum is None else _real_dtype(spectrum)
     dev = image.device if spectrum is None else spectrum.device
     plan = plan_sweep(shape, wlists, sigma, dr, gauss_cut=gauss_cut,
@@ -811,7 +840,7 @@ def wfr_sweep_phase_weight_multi(image, wlists, sigma, dr, *, spectrum=None,
         if not with_grad:
             return out
         ph, wt, ggx, ggy = out
-        k = torch.tensor(np.asarray(krefs, np.float64), device=dev).to(rdt)
+        k = host_to_device(np.asarray(krefs, np.float64), dev, rdt)
         return ph, wt, _grad_rebase(torch.stack([ggx, ggy], dim=-1),
                                     k[:, None, None, :])
     if spectrum is None:
@@ -833,6 +862,9 @@ def wfr_sweep_phase_weight_multi(image, wlists, sigma, dr, *, spectrum=None,
                                         gauss_cut=gauss_cut)
         phs.append(ph)
         wts.append(wt)
+    # the peaks' axis sits before the planes (and a stack's images before
+    # it)
     if with_grad:
-        return torch.stack(phs), torch.stack(wts), torch.stack(gds)
-    return torch.stack(phs), torch.stack(wts)
+        return (torch.stack(phs, dim=-3), torch.stack(wts, dim=-3),
+                torch.stack(gds, dim=-4))
+    return torch.stack(phs, dim=-3), torch.stack(wts, dim=-3)

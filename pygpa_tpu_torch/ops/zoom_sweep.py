@@ -41,7 +41,12 @@ the winner products, Mx and My for just the candidates that win a
 pixel of each tile, in the zoom sweep's chain rounding. The eager path
 on it lies nearer the same path with a float64 zoom sweep than the
 path on the float32 twin does (chip_smoke.py, phase 5). Shape limits:
-n, m and W1 multiples of 64, W0 a multiple of 16. Bound on an H100 by
+n, m and W1 multiples of 64, W0 a multiple of 16. A stack of B
+windows (B, W0, W1) of one plan (the eager path's batch axis) runs in
+the launches of one window, the image on stage 1's and stage 2's grid z
+and beside the group in the gradient steps, each image's outputs (B, n,
+m) the bits of its own launch; stacks past CUDA's gridDim.z (65535) go
+in launches of whole images. Bound on an H100 by
 stage 2's P*n*m*8*W1 FLOP, three times over, at the dense TF32 rate
 (about 26 ms for the three 4096^2 bench peaks; 65 ms in float32 FMA,
 the kernel this one replaced). Launch counts: "zoom_sweep", "zoom_grad"
@@ -67,7 +72,15 @@ def zoom_sweep_plain(Sr, Si, gx, gy, A0c, A0s, A1c, A1s, dr=None, chunk=8,
     """Plain PyTorch twin (same arguments as :func:`zoom_sweep`; `chunk`
     candidates are evaluated per batched product). fd_grad=True adds the
     winner's np.gradient of -angle(M) (the reference's XLA route)
-    instead of the analytic grad_ops gradients."""
+    instead of the analytic grad_ops gradients. A stack of windows
+    (B, W0, W1) runs image by image."""
+    if Sr.dim() == 3:
+        outs = [zoom_sweep_plain(
+            Sr[b], Si[b], gx, gy, A0c, A0s, A1c, A1s, dr, chunk,
+            None if grad_ops is None else (grad_ops[0][b], grad_ops[1][b],
+                                           *grad_ops[2:]), fd_grad)
+            for b in range(Sr.shape[0])]
+        return tuple(torch.stack(o) for o in zip(*outs))
     P = gx.shape[0]
     n, m = A0c.shape[0], A1c.shape[0]
     rdt, dev = Sr.dtype, Sr.device
@@ -119,18 +132,23 @@ def zoom_sweep_plain(Sr, Si, gx, gy, A0c, A0s, A1c, A1s, dr=None, chunk=8,
 
 
 def _check(Sr, Si, gx, gy, A0c, A0s, A1c, A1s, grad_ops=None):
-    """Raise unless the operands are what the launches take."""
-    W0, W1 = Sr.shape
+    """Raise unless the operands are what the launches take (one window
+    (W0, W1) or a stack (B, W0, W1))."""
+    if Sr.dim() not in (2, 3):
+        raise ValueError("zoom_sweep: the window must be (W0, W1) or (B, W0, "
+                         f"W1), got {tuple(Sr.shape)}")
+    win = tuple(Sr.shape)
+    W0, W1 = win[-2:]
     P = gx.shape[0]
     n, m = A0c.shape[0], A1c.shape[0]
     f32, dev = torch.float32, Sr.device
-    named = [("Sr", Sr, (W0, W1)), ("Si", Si, (W0, W1)), ("gx", gx, (P, W0)),
+    named = [("Sr", Sr, win), ("Si", Si, win), ("gx", gx, (P, W0)),
              ("gy", gy, (P, W1)), ("A0c", A0c, (n, W0)),
              ("A0s", A0s, (n, W0)), ("A1c", A1c, (m, W1)),
              ("A1s", A1s, (m, W1))]
     if grad_ops is not None:
         named += list(zip(("S2r", "S2i", "A1yc", "A1ys"), grad_ops,
-                          ((W0, W1), (W0, W1), (m, W1), (m, W1))))
+                          (win, win, (m, W1), (m, W1))))
     for name, t, shape in named:
         _build.check_tensor("zoom_sweep", name, t, shape, f32, dev)
     if n % TILE or m % TILE or W0 % 16 or W1 % TILE or P < 1:
@@ -138,34 +156,47 @@ def _check(Sr, Si, gx, gy, A0c, A0s, A1c, A1s, grad_ops=None):
             f"zoom_sweep kernel needs n, m, W1 multiples of {TILE}, W0 a "
             f"multiple of 16 and P >= 1 (got n={n}, m={m}, W0={W0}, "
             f"W1={W1}, P={P})")
+    _sweep._grid_z_ok("zoom_sweep", 1, P)
+
+
+def _groups(X):
+    """A window (W0, W1) or a stack (B, W0, W1) as the grouped sweep's
+    windows of one group and one band run: (1, 1, W0, W1) or (B, 1, 1,
+    W0, W1)."""
+    return X.unsqueeze(-3).unsqueeze(-4)
 
 
 def stage1(Sr, Si, gx, gy, A0c, A0s):
     """Stage 1 on the card (checked operands): T (P, n, 2 W1), the rows
     [Re | Im] of ((A0c + i A0s) . gx_i) @ (Sr + i Si) . gy_i: the grouped
-    sweep's stage 1 with one group and one band run."""
+    sweep's stage 1 with one group and one band run; a stack of windows
+    (B, W0, W1) gives (B, P, n, 2 W1) from one launch."""
     run = torch.zeros((1, gx.shape[0]), dtype=torch.int32, device=Sr.device)
-    return _sweep.stage1(Sr[None, None], Si[None, None], gx[None], gy[None],
-                         A0c[None], A0s[None], run)[0]
+    return _sweep.stage1(_groups(Sr), _groups(Si), gx[None], gy[None],
+                         A0c[None], A0s[None], run).squeeze(-4)
 
 
 def stage2(T, A1c, A1s, dr):
     """Stage 2 and the tournament on the card (checked operands): the
-    outputs of :func:`zoom_sweep` without gradients, from stage 1's T."""
-    P, n, W1 = T.shape[0], T.shape[1], T.shape[2] // 2
+    outputs of :func:`zoom_sweep` without gradients, from stage 1's T
+    (P, n, 2 W1), or (B, P, n, 2 W1) for a stack, giving (B, n, m)
+    planes from one launch."""
+    lead = tuple(T.shape[:-3])
+    B = T.shape[0] if lead else 1
+    P, n, W1 = T.shape[-3], T.shape[-2], T.shape[-1] // 2
     m, dev = A1c.shape[0], T.device
-    ba = torch.empty((n, m), dtype=torch.float32, device=dev)
+    ba = torch.empty(lead + (n, m), dtype=torch.float32, device=dev)
     br = torch.empty_like(ba)
     bi = torch.empty_like(ba)
-    bx = torch.empty((n, m), dtype=torch.int32, device=dev)
+    bx = torch.empty(ba.shape, dtype=torch.int32, device=dev)
     emit = dr is not None
     ph = torch.empty_like(ba) if emit else ba
     wt = torch.empty_like(ba) if emit else ba
     with torch.cuda.device(dev):
-        _build.check(_build.bind("zoom_sweep_stage2", "pppppppppiiiiip")(
+        _build.check(_build.bind("zoom_sweep_stage2", "pppppppppiiiiiip")(
             T.data_ptr(), A1c.data_ptr(), A1s.data_ptr(), ba.data_ptr(),
             br.data_ptr(), bi.data_ptr(), bx.data_ptr(), ph.data_ptr(),
-            wt.data_ptr(), P, n, m, W1, int(dr) if emit else -1,
+            wt.data_ptr(), B, P, n, m, W1, int(dr) if emit else -1,
             torch.cuda.current_stream(dev).cuda_stream), "zoom_sweep_stage2")
     out = (ba, br, bi, bx)
     return out + (ph, wt) if emit else out
@@ -177,29 +208,33 @@ def winner_grads(T, out, gx, gy, A0c, A0s, A1c, A1s, grad_ops):
     the row-derivative window on the flagged pairs and winner products
     (:func:`pygpa_tpu_torch.ops.sweep.winner_grads`) as one group with
     one band run, in the zoom sweep's tensor-core chain rounding:
-    (grad_x, grad_y) (n, m)."""
+    (grad_x, grad_y) (n, m), or (B, n, m) for a stack (T (B, P, n,
+    2 W1), the windows of grad_ops (B, W0, W1))."""
     S2r, S2i, A1yc, A1ys = grad_ops
     run = torch.zeros((1, gx.shape[0]), dtype=torch.int32, device=T.device)
     gxo, gyo = _sweep.winner_grads(
-        T[None], S2r[None, None], S2i[None, None], gx[None], gy[None],
+        T.unsqueeze(-4), _groups(S2r), _groups(S2i), gx[None], gy[None],
         A0c[None], A0s[None], run, A1c[None], A1s[None], A1yc[None],
-        A1ys[None], out[1][None], out[2][None], out[3][None], None, False,
-        False)
-    return gxo[0], gyo[0]
+        A1ys[None], out[1].unsqueeze(-3), out[2].unsqueeze(-3),
+        out[3].unsqueeze(-3), None, False, False)
+    return gxo.squeeze(-3), gyo.squeeze(-3)
 
 
 def zoom_sweep(Sr, Si, gx, gy, A0c, A0s, A1c, A1s, dr=None, grad_ops=None):
     """Zoom sweep of one Bragg peak -> (best_absq, best_r, best_i,
     best_idx) planes (n, m) [+ (grad_x, grad_y) when grad_ops is given]
-    [+ (phase, weight) when dr is given].
+    [+ (phase, weight) when dr is given]; for a stack of windows (B, W0,
+    W1) each plane is (B, n, m), from the launches of one window.
 
-    Sr, Si : (W0, W1) spectrum window, pre-scaled by 1/(n*m).
+    Sr, Si : (W0, W1) spectrum window, pre-scaled by 1/(n*m), or a stack
+        (B, W0, W1) of windows at the same bins.
     gx, gy : (P, W0), (P, W1) per-candidate Gaussian factors.
     A0c, A0s : (n, W0) row inverse-DFT basis; A1c, A1s : (m, W1) column
         basis.
     dr : border of the interior weight mask (emission off when None).
     grad_ops : (S2r, S2i, A1yc, A1ys), the pre-scaled row-derivative
-        window (W0, W1) and the column-derivative basis (m, W1); the
+        window (W0, W1) (a stack: (B, W0, W1)) and the column-derivative
+        basis (m, W1); the
         gradients are those of -angle(M) of the winner, along rows and
         columns, before any rebase.
     best_idx is int32; a pixel whose |M|^2 is 0 for every candidate

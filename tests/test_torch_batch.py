@@ -3,8 +3,10 @@ stack (B, n, m) through make_displacement_extractor's run against
 jax.jit(jax.vmap(the reference's run)) on every route, the stack
 against the port's own per-image calls, the V-branch and CG twins with
 per-image weights against a loop of their one-weight forms,
-parallel.extract_displacement_field_batch against the reference's, and
-the gradient emission refusing a stack."""
+parallel.extract_displacement_field_batch against the reference's, the
+eager path on a stack against the vmapped reference, and both gradient
+emissions and the per-peak route on a stack against a loop of
+single-image calls."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -234,21 +236,169 @@ def test_extract_displacement_field_batch_matches_reference():
                                          device="cpu")
 
 
-def test_gradient_emission_refuses_a_stack():
-    """The gradient emission has no image axis: GroupedSweep(emit="grad")
-    and ops.sweep.sweep_grad raise ValueError naming the ROADMAP item
-    on a stack."""
+@pytest.mark.parametrize("shape,itemsize,free,want", [
+    ((4096, 4096), 4, 80e9, 15), ((4096, 4096), 4, 45e9, 8),
+    ((4096, 4096), 8, 80e9, 7), ((512, 512), 4, 1e6, 1),
+    ((96, 96), 8, 80e9, 15069)])
+def test_images_per_call_fits_the_free_memory(shape, itemsize, free, want):
+    """The eager batch call's chunk: the free memory over the estimated
+    per-image peak (EAGER_BYTES_PER_PIXEL a float32 pixel, scaled by the
+    itemsize), less one image for the call's fixed part, at least 1."""
+    from pygpa_tpu_torch.parallel import sharded
+    got = sharded.images_per_call(shape, itemsize, free)
+    assert got == want
+    per = sharded.EAGER_BYTES_PER_PIXEL * shape[0] * shape[1] * itemsize / 4
+    assert got == 1 or (got + 1) * per <= free
+
+
+def test_extract_displacement_field_batch_in_chunks(monkeypatch):
+    """A stack that does not fit one call goes in equal chunks of whole
+    images (8 images at 3 a call: 3, 3 and 2), each image's field and
+    g-dicts the bits of the one-call run."""
+    from pygpa_tpu_torch.parallel import sharded
+    batch, ks = _parallel_stack()
+    one_u, one_gs = extract_displacement_field_batch(batch, ks, device="cpu",
+                                                     return_gs=True)
+    sizes = []
+    run = sharded.extract_displacement_field
+
+    def spy(images, *a, **kw):
+        sizes.append(images.shape[0])
+        return run(images, *a, **kw)
+    monkeypatch.setattr(sharded, "_cap", lambda images: 3)
+    monkeypatch.setattr(sharded, "extract_displacement_field", spy)
+    u = extract_displacement_field_batch(batch, ks, device="cpu")
+    u_gs, gs = extract_displacement_field_batch(batch, ks, device="cpu",
+                                                return_gs=True)
+    assert sizes == [3, 3, 2, 3, 3, 2]
+    assert torch.equal(u, one_u) and torch.equal(u_gs, one_u)
+    assert len(gs) == len(one_gs) == 3
+    for g, w in zip(gs, one_gs):
+        assert g.keys() == w.keys()
+        assert all(torch.equal(g[k], w[k]) for k in w)
+
+
+def _close(got, want, agree):
+    """A gradient plane against its twin's where the winners agree:
+    p99 of |got - want| within 1e-4 of the plane's mean magnitude there
+    (the twin's products take other shapes, so rounding differs; where
+    |M| is small the ratio's rounding grows)."""
+    sc = float(want[agree].abs().mean())
+    d = (got - want).abs()[agree]
+    assert float(torch.quantile(d[::5], 0.99)) < 1e-4 * sc
+
+
+@pytest.mark.parametrize("emission", ["grouped", "zoom"])
+def test_gradient_emission_takes_a_stack(emission):
+    """Both gradient emissions take a stack of two 128^2 stack_1b images
+    in one call through their steps (band flags, stage 1 on the flagged
+    pairs, winner products; on the CPU each step's twin): the grouped
+    one (GroupedSweep(emit="grad"), ops.sweep.sweep_grad_steps) and the
+    zoom one (ops.zoom_sweep.winner_grads after stage 1 and the
+    tournament). Each image's planes are the bits of its own call; the
+    steps' phases and weights are the sweep twin's bits and their
+    gradients lie near the twin's where the winners agree."""
     size = 128
     ks = np.array(generate_ks(R_K, THETA))[:3]
     wl = tpipe.candidate_banks(ks)
-    plan = twfr.plan_sweep((size, size), wl, 10, 20, ks)
     imgs = torch.from_numpy(stack_1b(nb=2, size=size))
-    with pytest.raises(ValueError, match="item 11"):
-        twfr.GroupedSweep(plan, emit="grad")(imgs)
-    sw = twfr.GroupedSweep(plan, emit="uv")
-    Sr, Si = sw.windows(imgs)
-    assert Sr.shape[:2] == (2, 3)
-    with pytest.raises(ValueError, match="item 11"):
-        tsweep.sweep_grad(Sr, Si, Sr, Si, sw.gx, sw.gy, sw.A0c, sw.A0s,
-                          sw.A1cb, sw.A1sb, sw.A1cb, sw.A1sb, sw.run,
-                          sw.off, 20, sw.banded)
+    img0 = imgs - imgs.mean(dim=(-2, -1), keepdim=True)
+    if emission == "grouped":
+        plan = twfr.plan_sweep((size, size), wl, 10, 20, ks)
+        sw = twfr.GroupedSweep(plan, emit="grad")
+        want = sw(img0)
+        assert [tuple(w.shape) for w in want] == [(2, 3, size, size)] * 4
+        Sr, Si = sw._scaled(img0)
+        t = sw.tpf0[:, :, None]
+        args = (sw._bands(Sr), sw._bands(Si), sw._bands(-t * Si),
+                sw._bands(t * Sr), sw.gx, sw.gy, sw.A0c, sw.A0s, sw.A1cb,
+                sw.A1sb, sw.A1ycb, sw.A1ysb, sw.run, sw.off, plan.dr,
+                sw.banded)
+        got = tsweep.sweep_grad_steps(*args)
+        for b in range(2):
+            one = sw(img0[b])
+            step = tsweep.sweep_grad_steps(*(a[b] for a in args[:4]),
+                                           *args[4:])
+            for k in range(4):
+                assert torch.equal(want[k][b], one[k])
+                assert torch.equal(got[k][b], step[k])
+        agree = torch.ones_like(want[0], dtype=torch.bool)
+    else:
+        from pygpa_tpu_torch.ops import zoom_sweep as tz
+        spectrum = torch.fft.fft2(img0)
+        zp = twfr._plan_zoom((size, size), wl[0], 10.0)
+        ops, gops = twfr._zoom_operands(spectrum, wl[0], zp[0], zp[1],
+                                        10.0, with_grad=True)
+        assert ops[0].shape[0] == 2 and gops[0].shape == ops[0].shape
+        T = tz.stage1(*ops[:6])
+        P, W1 = wl[0].shape[0], ops[0].shape[-1]
+        assert T.shape == (2, P, size, 2 * W1)
+        want = tz.zoom_sweep_plain(*ops, grad_ops=gops)
+        got = want[:4] + tz.winner_grads(T, want, *ops[2:], gops)
+        for b in range(2):
+            bops = (ops[0][b], ops[1][b]) + ops[2:]
+            bg = (gops[0][b], gops[1][b]) + gops[2:]
+            one = tz.zoom_sweep_plain(*bops, grad_ops=bg)
+            step = tz.winner_grads(T[b], tuple(o[b] for o in want),
+                                   *ops[2:], bg)
+            for k in range(6):
+                assert torch.equal(want[k][b], one[k])
+            for k in (0, 1):
+                assert torch.equal(got[4 + k][b], step[k])
+        agree = want[0] >= 1e-2 * want[0].amax(dim=(-2, -1), keepdim=True)
+    for k in (2, 3) if emission == "grouped" else (4, 5):
+        assert torch.isfinite(got[k]).all()
+        _close(got[k], want[k], agree)
+
+
+def test_eager_stack_matches_vmapped_reference():
+    """extract_displacement_field on a stack of 3 x 128^2 stack_1b images
+    (a field of its own in each, a hole of noise in the last) in one
+    call, against jax.jit(jax.vmap(the reference's eager function)) on
+    its XLA route, each image's interior within 1e-3 px away from the
+    hole (the eager path's bound, test_torch_exact.py), and each image
+    the bits of the port's own eager call on it."""
+    size = 128
+    imgs = stack_1b(size=size)
+    ks = np.array(generate_ks(R_K, THETA))[:3]
+    want = np.asarray(jax.jit(jax.vmap(
+        lambda im: jpipe.extract_displacement_field(im, ks)))(
+            jnp.asarray(imgs)))
+    got = tpipe.extract_displacement_field(torch.from_numpy(imgs), ks,
+                                           device="cpu")
+    assert got.shape == (3, 2, size, size) and got.dtype == torch.float32
+    distinct_fields(want)
+    d = np.abs(interior(got.numpy() - want))
+    assert d[:2].max() < 1e-3
+    flip_tolerant(got.numpy()[2:], want[2:], 1e-3, 5e-1)
+    for i in range(3):
+        one = tpipe.extract_displacement_field(torch.from_numpy(imgs[i]), ks,
+                                               device="cpu")
+        assert torch.equal(got[i], one)
+
+
+def test_per_peak_phase_weight_stack_equals_a_loop():
+    """wfr_sweep_phase_weight_multi on a stack (2 x 128^2) through the
+    per-peak route (banks of unequal lengths), with and without
+    gradients: (B, G, n, m) planes and (B, G, n, m, 2) gradients, each
+    image the bits of its own call."""
+    size = 128
+    ks = np.array(generate_ks(R_K, THETA))[:3]
+    kw = np.linalg.norm(ks, axis=1).mean() / 2.5
+    wl = [np.stack([a.ravel() for a in np.meshgrid(
+        np.arange(k[0] - kw, k[0] + kw, kw / d),
+        np.arange(k[1] - kw, k[1] + kw, kw / d), indexing="ij")], -1)
+        for k, d in zip(ks, (3, 3.5, 2.5))]
+    imgs = torch.from_numpy(stack_1b(nb=2, size=size))
+    img0 = imgs - imgs.mean(dim=(-2, -1), keepdim=True)
+    for grad in (False, True):
+        kw_ = {"with_grad": True, "krefs": ks} if grad else {}
+        got = twfr.wfr_sweep_phase_weight_multi(img0, wl, 10, 20, **kw_)
+        assert got[0].shape == (2, 3, size, size)
+        if grad:
+            assert got[2].shape == (2, 3, size, size, 2)
+        for b in range(2):
+            one = twfr.wfr_sweep_phase_weight_multi(img0[b], wl, 10, 20,
+                                                    **kw_)
+            for g, o in zip(got, one):
+                assert torch.equal(g[b], o)

@@ -1251,6 +1251,123 @@ def test_stage1_splits_stacks_past_the_grid_limit(dev):
         tsweep._grid_z_ok("stage1", 1366, 48)
 
 
+def _zoom_stack_ops(B, P, W0, W1, n, m, seed, dev):
+    """_zoom_ops' plan with a stack of B seeded windows (B, W0, W1), and
+    the gradient operands: B row-derivative windows and a seeded
+    column-derivative basis (m, W1)."""
+    ops = _zoom_ops(P, W0, W1, n, m, seed, dev)
+    g = np.random.default_rng(seed + 1)
+    T_ = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)
+    win = [T_(g.normal(size=(B, W0, W1))) for _ in range(4)]
+    basis = [T_(g.normal(size=(m, W1))) for _ in range(2)]
+    return win[:2] + ops[2:], (win[2], win[3], basis[0], basis[1])
+
+
+@pytest.mark.parametrize("B", [1, 3, 16])
+@pytest.mark.parametrize("P,W1", [(5, 64), (42, 256)])
+def test_batched_zoom_kernels(dev, B, P, W1):
+    """The zoom sweep on a stack of B windows: one stage-1 and one
+    stage-2 launch for the stack (and with gradients one "zoom_grad",
+    the three gradient steps once each), each image's outputs, phase and
+    weight, and gradients the bits of its own single-window launch, and
+    the stack against the twin run window by window (check_zoom's bounds;
+    the gradients _grad_close's)."""
+    from pygpa_tpu_torch.ops import zoom_sweep as tz
+    n, m = 128, 192
+    ops, gops = _zoom_stack_ops(B, P, 64, W1, n, m, 100 + B + P, dev)
+    before = dict(_build.launches)
+    got = tz.zoom_sweep(*ops, dr=10)
+    assert _build.launches["zoom_sweep"] == before.get("zoom_sweep", 0) + 1
+    gr = tz.zoom_sweep(*ops, dr=10, grad_ops=gops)
+    for name in ("zoom_grad", "grad_flags", "grad_stage1", "grad_products"):
+        assert _build.launches[name] == before.get(name, 0) + 1, name
+    assert all(o.shape == (B, n, m) for o in got + gr)
+    for x, y in zip(gr[:4] + gr[6:], got):
+        assert torch.equal(x, y)
+    for i in range(B):
+        one = (ops[0][i].contiguous(), ops[1][i].contiguous()) + tuple(
+            ops[2:])
+        gone = (gops[0][i].contiguous(), gops[1][i].contiguous()) + tuple(
+            gops[2:])
+        for x, y in zip(got, tz.zoom_sweep(*one, dr=10)):
+            assert torch.equal(x[i], y), ("plain", i)
+        for x, y in zip(gr, tz.zoom_sweep(*one, dr=10, grad_ops=gone)):
+            assert torch.equal(x[i], y), ("grad", i)
+    want = tz.zoom_sweep_plain(*ops, dr=10, grad_ops=gops)
+    for i in range(B):
+        wi = tuple(w[i] for w in want)
+        gi = tuple(g[i] for g in gr)
+        _zoom_agree(gi[:4] + gi[6:], wi[:4] + wi[6:], phase_weight=P > 1)
+        agree = gi[3] == wi[3]
+        for k in (4, 5):
+            assert torch.isfinite(gi[k]).all()
+            _grad_close(gi[k], wi[k], agree, wi[0])
+
+
+@pytest.mark.parametrize("B", [1, 3, 16])
+def test_batched_gradient_steps(dev, B):
+    """The grouped gradient emission (b) on a stack of B images of
+    synthetic windows, banded: the tournament that stores the winners,
+    the band flags, stage 1 on the flagged pairs and the winner products
+    each take the stack in one launch ("sweep_grad" once), and each
+    image's planes are the bits of its own single-image emission; the
+    flags equal their twin's and the stack's gradients meet
+    _grad_close's bounds against the twin's steps."""
+    G, P, W0, Wb, n, m = 3, 9, 64, 128, 256, 320
+    a = list(_grad_ops_grouped(G, P, W0, Wb, n, m, 120 + B, dev, True))
+    g = np.random.default_rng(121 + B)
+    for k in range(4):
+        a[k] = torch.from_numpy(g.normal(size=(B, G, 2, W0, Wb)).astype(
+            np.float32)).to(dev)
+    before = dict(_build.launches)
+    got = tsweep.sweep_grad(*a)
+    for name in ("sweep_grad", "grad_flags", "grad_stage1", "grad_products"):
+        assert _build.launches[name] == before.get(name, 0) + 1, name
+    assert all(o.shape == (B, G, n, m) for o in got)
+    for i in range(B):
+        one = tsweep.sweep_grad(*(x[i].contiguous() for x in a[:4]), *a[4:])
+        for x, y in zip(got, one):
+            assert torch.equal(x[i], y), i
+    T = tsweep.stage1(*a[:2], *a[4:8], a[12])
+    ph, wt, mr, mi, idx = tsweep.stage2(T, a[8], a[9], a[13], a[14], True,
+                                        winners=True)
+    assert torch.equal(ph, got[0]) and torch.equal(wt, got[1])
+    flags = tsweep.band_winners(idx, P)
+    assert flags.shape == (B, G, n // 64, P)
+    assert torch.equal(flags, tsweep.band_winners_plain(idx.cpu(), P).to(dev))
+    Tx = tsweep.stage1(a[2], a[3], *a[4:8], a[12], flags)
+    want = tsweep.winner_products_plain(
+        *(x.cpu() for x in (T, Tx, a[8], a[9], a[10], a[11], mr, mi, idx,
+                            flags, a[13])), True)
+    every = torch.ones(idx.shape, dtype=torch.bool)
+    for k in (0, 1):
+        _grad_close(got[2 + k].cpu(), want[k], every,
+                    (mr * mr + mi * mi).cpu())
+
+
+def test_zoom_stage2_splits_stacks_past_the_grid_limit(dev):
+    """A zoom stack of more windows than CUDA's gridDim.z (65535) runs in
+    launches of whole images (stage 1 and stage 2 both): the first and
+    the last window's outputs are the bits of their own launches."""
+    from pygpa_tpu_torch.ops import zoom_sweep as tz
+    B, P, W0, W1, n = tsweep.MAX_GRID_Z + 2, 1, 16, 64, 64
+    g = np.random.default_rng(73)
+    T_ = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+    a0 = twfr._zoom_basis(n, np.arange(W0))
+    a1 = twfr._zoom_basis(n, np.arange(W1))
+    ops = [T_(g.normal(size=(B, W0, W1))), T_(g.normal(size=(B, W0, W1))),
+           T_(g.uniform(0.2, 1, size=(P, W0))),
+           T_(g.uniform(0.2, 1, size=(P, W1))), a0[0].to(dev).contiguous(),
+           a0[1].to(dev).contiguous(), a1[0].to(dev).contiguous(),
+           a1[1].to(dev).contiguous()]
+    got = tz.zoom_sweep(*ops, dr=4)
+    for i in (0, B - 1):
+        one = tz.zoom_sweep(ops[0][i].contiguous(), ops[1][i].contiguous(),
+                            *ops[2:], dr=4)
+        for x, y in zip(got, one):
+            assert torch.equal(x[i], y), i
+
+
 def _image_weights(B, n, m, seed, dev):
     g = np.random.default_rng(seed)
     w = g.uniform(0.05, 1.0, size=(B, 1, n, m))
@@ -1316,21 +1433,38 @@ def test_cg_kernel_with_per_image_weights(dev, B, n, m, kmax):
 
 
 @pytest.mark.parametrize("size,nb,kw", [(512, 16, {}),
-                                        (1024, 2, {"chunk": 4})])
+                                        (1024, 2, {"chunk": 4}),
+                                        (512, 3, {"deconvolve": True}),
+                                        (512, 3, "eager"),
+                                        (512, 3, "batch")])
 def test_extractor_stack_makes_no_host_sync(dev, size, nb, kw):
     """One call of the multigrid extractor on a stack (config 1b's 16 x
-    512^2, and two 1024^2 images) makes no synchronizing CUDA operation
-    from the port's code (torch.cuda.set_sync_debug_mode("warn"), each
-    warning's call site): the host never waits for the card inside the
-    call, so a tile loader's host reads can overlap the device work
-    queued before them. Found on the card: the multigrid's block-mean
-    and resize weights copied host scalars to the card, a sync each."""
+    512^2, two 1024^2 images, and three with the Wiener deconvolution),
+    and of the eager extract_displacement_field and of
+    parallel.extract_displacement_field_batch (which reads the free
+    memory to size its calls) on a stack of three,
+    makes no synchronizing CUDA operation from the port's code
+    (torch.cuda.set_sync_debug_mode("warn"), each warning's call site):
+    the host never waits for the card inside the call, so a tile
+    loader's host reads can overlap the device work queued before them.
+    Found on the card: the multigrid's block-mean and resize weights and
+    the deconvolution's transfer copied host data to the card, a sync
+    each."""
     import os
     import warnings
-    from pygpa_tpu_torch.gpa.pipeline import make_displacement_extractor
+    from pygpa_tpu_torch.gpa.pipeline import (extract_displacement_field,
+                                              make_displacement_extractor)
+    from pygpa_tpu_torch.parallel import extract_displacement_field_batch
     imgs, ks = _lattice_stack(nb, size, dev)
-    fn = make_displacement_extractor((size, size), ks, unwrap_coarse=4,
-                                     device=dev, **kw)
+    if kw == "eager":
+        def fn(x):
+            return extract_displacement_field(x, ks, device=dev)
+    elif kw == "batch":
+        def fn(x):
+            return extract_displacement_field_batch(x, ks, device=dev)
+    else:
+        fn = make_displacement_extractor((size, size), ks, unwrap_coarse=4,
+                                         device=dev, **kw)
     fn(imgs)
     torch.cuda.synchronize()
     pkg = os.path.dirname(os.path.abspath(tsweep.__file__))

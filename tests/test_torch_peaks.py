@@ -213,9 +213,21 @@ def test_extract_primary_ks_recursion(monkeypatch, case, capsys):
 
 
 def test_extract_primary_ks_plot_names_its_item():
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        tpeaks.extract_primary_ks(np.zeros((16, 16)), plot=True,
-                                  device="cpu")
+    """plot=True, once refused until viz was ported (ROADMAP queue 1 item
+    7), now draws the two panels (viz.fftplot of the smoothed spectrum,
+    the image) and returns what plot=False does, even where no k is
+    found."""
+    pytest.importorskip("matplotlib")
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+    img = np.zeros((16, 16))
+    got = tpeaks.extract_primary_ks(img, plot=True, device="cpu")
+    assert len(plt.gcf().axes) == 2
+    plt.close("all")
+    want = tpeaks.extract_primary_ks(img, device="cpu")
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
 
 
 def test_subpixel_and_refine_ks(testset_gaussian):

@@ -160,6 +160,44 @@ def test_gaussian_deconvolve_matches(shape, sigma, dr):
                                atol=1e-5 * np.abs(want).max())
 
 
+def _host_built(shape, sigma, dtype):
+    """The deconvolution's Gaussian and Laplacian transfers as they were
+    built from host arrays (np.fft.fftfreq in float64, cast once; the
+    scalar 2 pi^2 sigma^2 from 0-dim tensors of `dtype`)."""
+    fx, fy = (torch.as_tensor(np.fft.fftfreq(n)).to(dtype) for n in shape)
+    s2 = torch.tensor(2.0 * np.pi ** 2, dtype=dtype) \
+        * torch.tensor(float(sigma), dtype=dtype) ** 2
+    H = torch.exp(-s2 * (fx[:, None] ** 2 + fy[None, :] ** 2))
+    L = -(2 * torch.cos(2 * np.pi * fx)[:, None]
+          + 2 * torch.cos(2 * np.pi * fy)[None, :] - 4.0)
+    return H, L
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape,sigma", [((96, 80), 6), ((135, 256), 10),
+                                         ((1, 7), 3), ((500, 375), 51)])
+def test_deconvolution_transfer_keeps_its_bits(shape, sigma, dtype):
+    """The Gaussian and Laplacian transfers and the Wiener filter of
+    gaussian_deconvolve, now built on the device without a host copy,
+    equal the host-built ones bit for bit at odd, even and one-long
+    sides in float32 and float64; the padded filter the deconvolution
+    uses is the one built from them."""
+    from pygpa_tpu_torch.core import fourier as tf
+    H0, L0 = _host_built(shape, sigma, dtype)
+    H = tf.fourier_gaussian_multiplier(shape, sigma, dtype, "cpu")
+    L = tf.laplacian_transfer(shape, dtype, "cpu")
+    assert H.dtype == L.dtype == dtype
+    assert torch.equal(H, H0) and torch.equal(L, L0)
+    assert torch.equal(tf.wiener_filter(H, L, 5000.0),
+                       H0 / (H0 * H0 + 5000.0 * L0 * L0))
+    n, m = 2 * shape[0] + 8, 2 * shape[1] + 8
+    en, em = tpipe._deconvolve_pads(n, m, 4)
+    Hp, Lp = _host_built((n + 16 + en, m + 16 + em), sigma, dtype)
+    filt = tpipe.deconvolution_filter((n, m), sigma, 4, 5000.0, dtype,
+                                      torch.device("cpu"))
+    assert torch.equal(filt, Hp / (Hp * Hp + 5000.0 * Lp * Lp))
+
+
 def test_next_fast_fft_size_matches():
     for n in list(range(1, 300)) + [4096 + 4 * 102, 4504, 8192 + 408]:
         assert tpipe._next_fast_fft_size(n) == jpipe._next_fast_fft_size(n)

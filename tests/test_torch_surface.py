@@ -28,23 +28,33 @@ QUICK_START = ("gpa.extract_primary_ks", "gpa.refine_ks", "gpa.iterate_GPA",
                "gpa.wfr4", "gpa.wff", "props.Kerelsky_plus",
                "props.Kerelsky_Jac", "props.Kerelsky_J",
                "props.iterate_J_leastsq")
+# the utilities and the pyGPA module-path shims under gt.
+SURFACE = ("imagetools.gauss_homogenize2", "imagetools.generate_mask",
+           "imagetools.trim_nans2", "imagetools.fftplot", "viz.fftplot",
+           "viz.to_KovesiRGB", "tpugpa.cuGPA", "tpugpa.wfr2_grad_opt",
+           "geometric_phase_analysis.prep_image", "gpa.prep.prep_image",
+           "phase_unwrap.phase_unwrap", "property_extract.u2J",
+           "unit_cell_averaging.unit_cell_average", "mathtools.wrapToPi",
+           "io.save_checkpoint_orbax", "io.restore_checkpoint_orbax")
 
 
 def test_fresh_import_without_jax():
     """A fresh interpreter where `import jax` fails imports the package
-    and reaches the quick start's names; no module of pygpa_tpu is
-    loaded and nothing is built."""
+    and reaches the quick start's names and the utilities and shims; no
+    module of pygpa_tpu is loaded, nor matplotlib (viz imports it inside
+    its functions), and nothing is built."""
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
             "import pygpa_tpu_torch as gt\n"
-            f"for name in {QUICK_START!r}:\n"
+            f"for name in {QUICK_START + SURFACE!r}:\n"
             "    obj = gt\n"
             "    for part in name.split('.'):\n"
             "        obj = getattr(obj, part)\n"
             "    assert callable(obj), name\n"
             "bad = [m for m, v in sys.modules.items() if v is not None "
             "and (m == 'pygpa_tpu' or m.startswith('pygpa_tpu.') "
-            "or m == 'jax' or m.startswith('jax.'))]\n"
+            "or m == 'jax' or m.startswith('jax.') "
+            "or m.split('.')[0] == 'matplotlib')]\n"
             "assert not bad, bad\n"
             "from pygpa_tpu_torch.ops import _build\n"
             "assert _build._lib is None and _build.build_seconds is None\n"
@@ -69,13 +79,11 @@ PARALLEL_MISSING = {"make_mesh", "batch_sharding", "wfr_sweep_sharded",
                     "phase_unwrap_prediff_sharded",
                     "reconstruct_u_inv_from_demod_sharded",
                     "extract_displacement_field_sharded"}
-# the reference's modules the port has not yet (ROADMAP queue 1 items 7-9;
-# the Pallas kernel modules are csrc/*.cu and their ops/ wrappers here)
-MODULES_MISSING = {"geometric_phase_analysis", "gpa/prep", "imagetools",
-                   "mathtools", "ops/kernel_smoke", "parallel/fft",
-                   "parallel/mesh", "parallel/unwrap", "phase_unwrap",
-                   "property_extract", "tpugpa", "unit_cell_averaging",
-                   "viz"}
+# the reference's modules the port has not yet (ROADMAP queue 1 items 8
+# and 9; the Pallas kernel modules are csrc/*.cu and their ops/ wrappers
+# here)
+MODULES_MISSING = {"ops/kernel_smoke", "parallel/fft", "parallel/mesh",
+                   "parallel/unwrap"}
 
 
 @pytest.mark.parametrize("sub,missing", [
@@ -111,12 +119,13 @@ def _modules(pkg):
 
 def test_modules_still_missing():
     """The reference's modules the port lacks are MODULES_MISSING and its
-    Pallas kernel modules, no more; gt.data, gt.io and gt.parallel are
-    there as in the reference."""
+    Pallas kernel modules, no more; gt.data, gt.io, gt.parallel,
+    gt.imagetools and the shims are there as in the reference."""
     missing = _modules(jg) - _modules(tg)
     pallas = {m for m in missing if m.startswith("ops/pallas_")}
     assert missing - pallas == MODULES_MISSING
-    for name in ("data", "io", "parallel"):
+    for name in ("data", "io", "parallel", "imagetools", "tpugpa",
+                 "geometric_phase_analysis", "mathtools"):
         assert inspect.ismodule(getattr(tg, name))
     assert callable(tg.data.MosaicTiles) and callable(tg.io.save_checkpoint)
 
