@@ -191,6 +191,32 @@ Phases, each printed on its own lines:
    kernel's launches counted), each timed and held to the same call on
    the CPU (the sweeps on a 1024^2 crop). The kernels line adds
    zoom_sweep_stack (16a), zoom_grad_stack and sweep_grad_stack (16c).
+17. the multi-device API (gt.parallel) on a world of one: an NCCL
+   process group through a file store in a temporary directory and
+   make_mesh(1) on the card (NCCL takes one rank a card; several ranks
+   are held on the CPU through gloo, tests/test_torch_parallel.py):
+   (a) extract_displacement_field_sharded(img, ks, mesh,
+   unwrap_coarse=4) on the bench fixture against the bench's three
+   gates and the single-card factory at unwrap_coarse=4 (interior p99 <
+   1e-3 px, max < 1e-2), its launches (3 "zoom_sweep": the row-block
+   sweeps, the multigrid on the sharded preconditioner's twins at
+   1024^2); (b) the same with the exact CG (unwrap_coarse=None: the
+   pencil DCT's local passes on the DCT kernels at 4096) against the
+   gates and the eager extract_displacement_field alike; (c) the zoom
+   kernel on 17a's row-block calls against zoom_sweep_plain on the same
+   operands (check_zoom, phase 3's bounds; the winner flips that are
+   not near ties, near_ties, at most 1 - 0.99 of the pixels), timed
+   beside the twin; (d) wfr_sweep_sharded against ops.wfr.wfr_sweep on
+   the same full-FFT route; (e) fft2_sharded / ifft2_sharded against
+   torch.fft; (f) dct2n_sharded / idct2n_sharded against core.fourier
+   (the DCT kernels' counters rising), the local passes of 17b timed
+   against their twins; (g) extract_displacement_field_batch(mesh=...)
+   on two images against the same call without a mesh (the same bits);
+   (h) ops.kernel_smoke.run_kernel_smoke(device="cuda") (every entry's
+   launch counter rising). Each call's seconds and peak device memory
+   are printed; the group is destroyed at the end. The kernels line
+   adds zoom_sweep_sharded (17a's launches) and dct_lane_sharded,
+   dct_sub_sharded (17b's).
 
 Phase 3 also holds the grouped sweep (kernel and float32 twin against
 the float64 twin; stages 1, 2 and the uv epilogue timed apart, with
@@ -365,12 +391,21 @@ PATH_KERNELS = {4: ("sweep_uv", "presmooth", "applyq", "cg_poisson"),
                 "16a": ("zoom_sweep", "dct_lane", "dct_sub"),
                 "16b": ("zoom_sweep",),
                 "16ca": ("zoom_grad",) + GRAD_STEPS,
-                "16cb": ("sweep_grad",) + GRAD_STEPS}
+                "16cb": ("sweep_grad",) + GRAD_STEPS,
+                # phase 17: the row-sharded pipeline (multigrid on the
+                # sharded preconditioner: no CG or V-branch kernel, the
+                # 1024^2 levels' DCTs on the twins) and with the exact CG
+                # (the pencil DCT's passes at 4096 on the kernels); the
+                # batch over the mesh
+                "17a": ("zoom_sweep",),
+                "17b": ("zoom_sweep", "dct_lane", "dct_sub"),
+                "17g": ("zoom_sweep", "dct_lane", "dct_sub")}
 # each gradient path's launches of the sweeps: exactly these counts
 PATH_SWEEPS = {"10a": {"zoom_grad": 3}, "10b": {"sweep_grad": 1},
                "11a": {"zoom_grad": 3}, "11b": {"sweep_pw": 1},
                "16a": {"zoom_sweep": 3}, "16b": {"zoom_sweep": 3},
-               "16ca": {"zoom_grad": 3}, "16cb": {"sweep_grad": 1}}
+               "16ca": {"zoom_grad": 3}, "16cb": {"sweep_grad": 1},
+               "17a": {"zoom_sweep": 3}, "17b": {"zoom_sweep": 3}}
 SWEEP_NAMES = ("sweep_uv", "sweep_pw", "sweep_grad", "zoom_sweep",
                "zoom_grad")
 # the sweeps' kernels (mangled-name keys): phase 2 fails if one spills
@@ -3909,6 +3944,263 @@ def drive_utilities(img, ks, tiles16):
                            "with the CPU")
 
 
+# ---- phase 17: the multi-device API on a world of one
+SHARDED_P99, SHARDED_MAX = 1e-3, 1e-2   # 17a/17b vs the single card, px
+FFT_REL = 1e-5       # 17e: max |pencil - torch.fft| / max |torch.fft|
+SWEEP_LOCKIN = 1e-4  # 17d: max |d lock-in| / max |lock-in| where w agree
+REPS_17 = 3
+
+
+def world_of_one(backend="nccl"):
+    """A process group of one rank through a file store in a new
+    temporary directory; returns the directory (removed by the caller
+    after dist.destroy_process_group())."""
+    import tempfile
+    import torch.distributed as dist
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_world_")
+    dist.init_process_group(backend, init_method=f"file://{tmp}/store",
+                            rank=0, world_size=1)
+    return tmp
+
+
+def zoom_rows_row(zs, calls, err, launches):
+    """The zoom_sweep_sharded row from 17a's captured row-block calls (one
+    a peak): kernel and twin ms summed over the peaks; the bound of the
+    work (stage 1's 8 P r W0 W1 FLOP in float32 FMA, stage 2's 8 P r m W1
+    three times over at the dense TF32 rate, or the bytes)."""
+    ms = plain = 0.0
+    nbytes = f1 = f2 = 0
+    for a in calls:
+        W0, W1 = a[0].shape
+        P, r, m = a[2].shape[0], a[4].shape[0], a[6].shape[0]
+        ms += cuda_ms(lambda a=a: zs.zoom_sweep(*a), 3)
+        plain += cuda_ms(lambda a=a: zs.zoom_sweep_plain(*a), 1)
+        nbytes += tensor_bytes(a) + 4 * r * m * 4
+        f1 += 8 * P * r * W0 * W1
+        f2 += 8 * P * r * m * W1
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                bound_ms=zoom_bounds(nbytes, f1, f2)[1],
+                bound_by="operations", library_ms=None,
+                launches=launches.get("zoom_sweep", 0))
+
+
+def hold_row_block(zs, calls, dr):
+    """17c: check_zoom on the row-block calls, then the winner flips
+    between kernel and twin that are not near ties (near_ties) held to at
+    most 1 - ZOOM_AGREE of the pixels."""
+    import types
+    import torch
+    err = check_zoom(zs, calls, dr)
+    stack = types.SimpleNamespace(calls=[(a[0][None], a[1][None], *a[2:])
+                                         for a in calls])
+    ties = near_ties("17c", "zoom_grad", stack)
+    for p, a in enumerate(calls):
+        flip = zs.zoom_sweep(*a)[3] != zs.zoom_sweep_plain(*a)[3]
+        # near_ties marks a pixel where any peak flips at a near tie
+        hard = float((flip & ~ties[0]).float().mean())
+        say(f"    [17c] peak {p}: winner flips {int(flip.sum())}, not near "
+            f"ties {hard!r} of the pixels (bound {1 - ZOOM_AGREE})")
+        if hard > 1 - ZOOM_AGREE:
+            raise RuntimeError("[17c] the row-block zoom kernel flips "
+                               "winners away from near ties")
+    torch.cuda.synchronize()
+    return err
+
+
+def drive_sharded(img, img_d, u_true, ks, backend="nccl"):
+    """Phase 17 (module docstring): the multi-device API on a world of
+    one. Returns ({path label: launches}, {kernels-line rows})."""
+    import shutil
+    import torch
+    import torch.distributed as dist
+    from pygpa_tpu_torch import parallel as par
+    from pygpa_tpu_torch.core import fourier
+    from pygpa_tpu_torch.gpa import pipeline
+    from pygpa_tpu_torch.ops import _build
+    from pygpa_tpu_torch.ops import dct as dm
+    from pygpa_tpu_torch.ops import wfr
+    from pygpa_tpu_torch.ops import zoom_sweep as zs
+    from pygpa_tpu_torch.ops.kernel_smoke import run_kernel_smoke
+
+    tmp = world_of_one(backend)
+    launches, rows = {}, {}
+    try:
+        mesh = par.make_mesh(1, device_type=DEVICE)
+        say(f"[17] {backend} world of {dist.get_world_size()}, mesh "
+            f"{mesh.mesh_dim_names} {tuple(mesh.shape)} on "
+            f"{mesh.device_type}")
+        sigma = int(np.ceil(1 / np.linalg.norm(ks, axis=1).min()))
+        dr = 2 * sigma
+
+        def sharded_u(im, coarse):
+            return par.extract_displacement_field_sharded(
+                im, ks, mesh, unwrap_coarse=coarse).full_tensor()
+
+        # (a), (b): the row-sharded pipeline, multigrid and exact CG
+        for label, coarse, single, what in (
+                ("17a", 4, pipeline.make_displacement_extractor(
+                    (SIZE, SIZE), ks, unwrap_coarse=4, device=DEVICE),
+                 "the single-card factory at unwrap_coarse=4"),
+                ("17b", None, lambda im: pipeline.extract_displacement_field(
+                    im, ks, device=DEVICE),
+                 "the eager extract_displacement_field")):
+            with Capture(zs, "zoom_sweep") as c_zs, \
+                    Capture(dm, "dct_lane", keep=1) as c_dl, \
+                    Capture(dm, "idct_lane", keep=1) as c_il, \
+                    Capture(dm, "dct_sub", keep=1) as c_ds, \
+                    Capture(dm, "idct_sub", keep=1) as c_is:
+                u, launches[label] = counted_run(
+                    label, lambda c=coarse: sharded_u(img, c))
+            say(f"    [{label}] extract_displacement_field_sharded(img, ks, "
+                f"mesh, unwrap_coarse={coarse}): launches {launches[label]}")
+            ud = pipeline.gaussian_deconvolve(sharded_u(img_d, coarse), sigma,
+                                              dr)
+            if tuple(u.shape) != (2, SIZE, SIZE) or \
+                    not bool(torch.isfinite(u).all()):
+                raise RuntimeError(f"[{label}] bad output {tuple(u.shape)}")
+            g = gate_values(u, ud, u_true, ks)
+            say(f"    [{label}] gates: interior {g[0]!r}, dc-free {g[1]!r}, "
+                f"deformed {g[2]!r} px (bounds {GATE_INTERIOR}, "
+                f"{GATE_DCFREE}, {GATE_DEFORMED})")
+            if not (g[0] < GATE_INTERIOR and g[1] < GATE_DCFREE
+                    and g[2] < GATE_DEFORMED):
+                raise RuntimeError(f"[{label}] ACCURACY GATE FAILED")
+            ref = single(img)
+            d99, dmax = interior_dist(u, ref, ks)
+            say(f"    [{label}] vs {what}: interior p99 {d99!r}, max "
+                f"{dmax!r} px (bounds {SHARDED_P99}, {SHARDED_MAX})")
+            if not (d99 < SHARDED_P99 and dmax < SHARDED_MAX):
+                raise RuntimeError(f"[{label}] the sharded pipeline strays "
+                                   f"from {what}")
+            dt, peak = timed(lambda c=coarse: sharded_u(img, c), REPS_17)
+            dt1, peak1 = timed(lambda: single(img), REPS_17)
+            say(f"    [{label}] seconds {dt!r} (peak {peak!r} GiB); {what} "
+                f"{dt1!r} s (peak {peak1!r} GiB); {REPS_17} runs, host "
+                f"clock, synchronized")
+            if label == "17a":
+                zcalls = list(c_zs.calls[-3:])
+            else:
+                dct_in = {"dct_lane": c_dl.calls[0][0],
+                          "idct_lane": c_il.calls[0][0],
+                          "dct_sub": c_ds.calls[0][0],
+                          "idct_sub": c_is.calls[0][0]}
+            del u, ud, ref
+
+        # (c) the zoom kernel on 17a's row blocks against its twin
+        say(f"    [17c] row-block calls: P = "
+            f"{[a[2].shape[0] for a in zcalls]}, rows "
+            f"{[a[4].shape[0] for a in zcalls]}, windows "
+            f"{[tuple(a[0].shape) for a in zcalls]}")
+        e_z = hold_row_block(zs, zcalls, dr)
+        rows["zoom_sweep_sharded"] = zoom_rows_row(zs, zcalls, e_z,
+                                                   launches["17a"])
+
+        # (d) the candidate-sharded sweep against the single-card one
+        img0 = img - img.mean()
+        k = np.asarray(ks[0], np.float64)
+        kw = np.linalg.norm(ks, axis=1).mean() / 2.5
+        wl = pipeline.arange_bank(k, kw, kw / 3)
+        got = par.wfr_sweep_sharded(img0, wl, k, sigma, mesh, with_grad=True)
+        want = wfr.wfr_sweep(img0, wl, k, sigma, with_grad=True, zoom=False)
+        same = (got["w"] == want["w"]).all(0)
+        agree = float(same.float().mean())
+        dl = float((got["lockin"] - want["lockin"]).abs()[same].max()
+                   / want["lockin"].abs().max())
+        dg = float((got["grad"] - want["grad"]).abs()[same].max())
+        say(f"    [17d] wfr_sweep_sharded (P={wl.shape[0]}) vs "
+            f"ops.wfr.wfr_sweep(zoom=False): winners agree {agree!r}; where "
+            f"they agree lock-in {dl!r} of max, grad {dg!r} rad/px (bounds "
+            f"{ZOOM_AGREE}, {SWEEP_LOCKIN})")
+        if not (agree > ZOOM_AGREE and dl < SWEEP_LOCKIN):
+            raise RuntimeError("[17d] wfr_sweep_sharded strays from "
+                               "wfr_sweep")
+        dt, peak = timed(lambda: par.wfr_sweep_sharded(
+            img0, wl, k, sigma, mesh, with_grad=True), 1)
+        say(f"    [17d] seconds {dt!r} (peak {peak!r} GiB)")
+        del got, want, same
+
+        # (e) the pencil FFT
+        spec = par.fft2_sharded(img, mesh)
+        ref = torch.fft.fft2(img)
+        e_f = rel_err(spec.full_tensor(), ref)
+        back = par.ifft2_sharded(spec, mesh).full_tensor()
+        e_b = rel_err(back.real, img)
+        say(f"    [17e] fft2_sharded vs torch.fft.fft2: rel err {e_f!r}; "
+            f"ifft2_sharded back: {e_b!r} (bound {FFT_REL})")
+        if not (e_f < FFT_REL and e_b < FFT_REL):
+            raise RuntimeError("[17e] the pencil FFT strays from torch.fft")
+        dt, peak = timed(lambda: par.ifft2_sharded(par.fft2_sharded(
+            img, mesh), mesh), REPS_17)
+        say(f"    [17e] fft2 + ifft2 seconds {dt!r} (peak {peak!r} GiB)")
+        del spec, ref, back
+
+        # (f) the pencil DCT, and its local passes against their twins
+        x = img_d - img_d.mean()
+        _build.launches.clear()
+        y = par.dct2n_sharded(x, mesh)
+        xb = par.idct2n_sharded(y, mesh).full_tensor()
+        torch.cuda.synchronize()
+        n_dct = {c: _build.launches[c] for c in ("dct_lane", "dct_sub")}
+        y = y.full_tensor()
+        e_y = rel_err(y, fourier.dct2n(x))
+        e_x = rel_err(xb, fourier.idct2n(fourier.dct2n(x)))
+        say(f"    [17f] dct2n_sharded vs core.fourier.dct2n: rel err {e_y!r} "
+            f"(bits {'equal' if torch.equal(y, fourier.dct2n(x)) else 'differ'}"
+            f"), idct2n_sharded {e_x!r} (bound {DCT_BOUND}); launches "
+            f"{n_dct}")
+        if not (e_y <= DCT_BOUND and e_x <= DCT_BOUND
+                and all(v >= 2 for v in n_dct.values())):
+            raise RuntimeError("[17f] the pencil DCT strays from "
+                               "core.fourier or skips its kernels")
+        dt, peak = timed(lambda: par.idct2n_sharded(par.dct2n_sharded(
+            x, mesh), mesh), REPS_17)
+        say(f"    [17f] dct2n + idct2n seconds {dt!r} (peak {peak!r} GiB)")
+        del x, y, xb
+        e_dct = check_dct(dm, dct_in)
+        for kern, inv in (("dct_lane", "idct_lane"), ("dct_sub", "idct_sub")):
+            t = [(cuda_ms(lambda f=getattr(dm, nm), a=dct_in[nm]: f(a), 10),
+                  cuda_ms(lambda f=getattr(dm, nm + "_plain"),
+                          a=dct_in[nm]: f(a), 10),
+                  bound(2 * tensor_bytes(dct_in[nm]),
+                        dct_ops(dct_in[nm], -1 if "lane" in nm else -2)))
+                 for nm in (kern, inv)]
+            rows[kern + "_sharded"] = dict(
+                max_abs_err=e_dct[kern], ms=(t[0][0] + t[1][0]) / 2,
+                plain_ms=(t[0][1] + t[1][1]) / 2,
+                bound_ms=(t[0][2][0] + t[1][2][0]) / 2, bound_by=t[0][2][1],
+                library_ms=None, launches=launches["17b"].get(kern, 0))
+            say(f"    [17f] {kern} on 17b's local passes "
+                f"{tuple(dct_in[kern].shape)}: kernel {rows[kern + '_sharded']['ms']!r} "
+                f"ms, twin {rows[kern + '_sharded']['plain_ms']!r} ms, bound "
+                f"{rows[kern + '_sharded']['bound_ms']!r} ms")
+
+        # (g) the batch over the mesh against the same call without one
+        stack = torch.stack([img, img_d])
+        ub, launches["17g"] = counted_run(
+            "17g", lambda: par.extract_displacement_field_batch(
+                stack, ks, mesh=mesh).full_tensor())
+        u1 = par.extract_displacement_field_batch(stack, ks, device=DEVICE)
+        say(f"    [17g] extract_displacement_field_batch(mesh=...) vs no "
+            f"mesh: bits {'equal' if torch.equal(ub, u1) else 'DIFFER'}; "
+            f"launches {launches['17g']}")
+        if not torch.equal(ub, u1):
+            raise RuntimeError("[17g] the mesh changes the batch's bits")
+        dt, peak = timed(lambda: par.extract_displacement_field_batch(
+            stack, ks, mesh=mesh).full_tensor(), REPS_17)
+        say(f"    [17g] seconds {dt!r} (peak {peak!r} GiB)")
+        del stack, ub, u1
+
+        # (h) every kernel entry once at small shapes
+        t0 = time.perf_counter()
+        run_kernel_smoke(device=DEVICE)
+        say(f"    [17h] run_kernel_smoke(device={DEVICE!r}): every entry's "
+            f"launch counter rose; {time.perf_counter() - t0!r} s")
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches, rows
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4583,6 +4875,13 @@ def main():
     del tiles16
     say(f"    phase 16 took {time.perf_counter() - t16!r} s")
 
+    # ---- 17. the multi-device API on a world of one
+    say(f"    card before phase 17: {card_state()}")
+    t17 = time.perf_counter()
+    launches_17, rows_17 = drive_sharded(img, img_d, u_true, ks)
+    path_launches.update(launches_17)
+    say(f"    phase 17 took {time.perf_counter() - t17!r} s")
+
     kernels = []
     for name, (src, rep) in KERNELS.items():
         kernels.append({"name": name, "route": "cuda", "source": src,
@@ -4599,6 +4898,14 @@ def main():
         src, rep = KERNELS[STACK_ROWS[name]]
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": rep, **rows_16[name]})
+    # the zoom kernel on 17a's row blocks, the DCT kernels on 17b's
+    # pencil passes (launches: the counted runs)
+    for name, base in (("zoom_sweep_sharded", "zoom_sweep"),
+                       ("dct_lane_sharded", "dct_lane"),
+                       ("dct_sub_sharded", "dct_sub")):
+        src, rep = KERNELS[base]
+        kernels.append({"name": name, "route": "cuda", "source": src,
+                        "replaces": rep, **rows_17[name]})
     say(card_line())
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

@@ -258,6 +258,16 @@ def candidate_banks(kvecs, kwscale=DEFAULTS.kw_scale,
     return banks
 
 
+def arange_bank(pk, kw, kstep):
+    """One peak's candidate bank as the eager path builds it: np.arange
+    from pk - kw to pk + kw in steps of kstep along each axis, (P, 2) in
+    their dtype."""
+    wx, wy = np.meshgrid(np.arange(pk[0] - kw, pk[0] + kw, kstep),
+                         np.arange(pk[1] - kw, pk[1] + kw, kstep),
+                         indexing="ij")
+    return np.stack([wx.ravel(), wy.ravel()], -1)
+
+
 def plan_from_numpy(shape, sigma, dr, wl, idx0s, idx1s, col_groups,
                     uv_ks):
     """The port's sweep plan from a host plan given as numpy/tuples (the
@@ -448,12 +458,9 @@ def extract_displacement_field(image, kvecs, sigma=None,
         spectrum = torch.fft.fft2(img0)
         stamp(events, "fft2")
         for pk in kvecs_h:
-            wxs = np.arange(pk[0] - kw, pk[0] + kw, kstep)
-            wys = np.arange(pk[1] - kw, pk[1] + kw, kstep)
-            wx, wy = np.meshgrid(wxs, wys, indexing="ij")
-            wlist = np.stack([wx.ravel(), wy.ravel()], -1)
-            gs.append(wfr_sweep(img0, wlist, pk, sigma, with_grad=with_grad,
-                                chunk=chunk, spectrum=spectrum))
+            gs.append(wfr_sweep(img0, arange_bank(pk, kw, kstep), pk, sigma,
+                                with_grad=with_grad, chunk=chunk,
+                                spectrum=spectrum))
     stamp(events, "sweeps")
     lockins = torch.stack([g["lockin"] for g in gs], dim=-3)
     phases = torch.angle(lockins)

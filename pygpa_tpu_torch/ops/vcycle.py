@@ -42,6 +42,7 @@ a CUDA tensor outside the kernels' limits raises.
 import torch
 
 from . import _build
+from ..core.rows import is_last_row, roll_rows
 
 PRESMOOTH_ROWS = 16   # the gate's row and column multiples
 PRESMOOTH_COLS = 32
@@ -134,43 +135,44 @@ def vcycle_kernel_ok(phi, w, cr):
             and w.dtype == torch.float32 and supported(n, m, cr))
 
 
-def _masks(n, m, device):
+def _masks(n, m, device, rows=None):
     lane = torch.arange(m, device=device)[None, :] < (m - 1)
-    row = torch.arange(n, device=device)[:, None] != (n - 1)
-    return lane, row
+    return lane, ~is_last_row(n, device, rows)
 
 
-def _weights(w, lane, row):
+def _weights(w, lane, row, rows=None):
     zero = torch.zeros((), dtype=w.dtype, device=w.device)
     WW = w * w
     WWx = torch.where(lane, torch.minimum(WW, torch.roll(WW, -1, -1)), zero)
-    WWy = torch.where(row, torch.minimum(WW, torch.roll(WW, -1, -2)), zero)
+    WWy = torch.where(row, torch.minimum(WW, roll_rows(WW, -1, rows)), zero)
     return WWx, WWy
 
 
-def _q(p, WWx, WWy):
+def _q(p, WWx, WWy, rows=None):
     tx = WWx * (torch.roll(p, -1, -1) - p)
-    ty = WWy * (torch.roll(p, -1, -2) - p)
-    return tx - torch.roll(tx, 1, -1) + ty - torch.roll(ty, 1, -2)
+    ty = WWy * (roll_rows(p, -1, rows) - p)
+    return tx - torch.roll(tx, 1, -1) + ty - roll_rows(ty, 1, rows)
 
 
-def presmooth_plain(phi, dxc, dyc, w, cr, omega):
-    """Plain PyTorch twin of the presmooth kernel."""
+def presmooth_plain(phi, dxc, dyc, w, cr, omega, rows=None):
+    """Plain PyTorch twin of the presmooth kernel; `rows`, a
+    core.rows.RowBlock, runs it on this rank's block of the rows (the
+    row-sharded multigrid), its row neighbours from the adjacent ranks."""
     n, m = phi.shape[-2:]
-    lane, row = _masks(n, m, phi.device)
+    lane, row = _masks(n, m, phi.device, rows)
     zero = torch.zeros((), dtype=phi.dtype, device=phi.device)
-    WWx, WWy = _weights(w, lane, row)
+    WWx, WWy = _weights(w, lane, row, rows)
     rdx = dxc - torch.where(lane, torch.roll(phi, -1, -1) - phi, zero)
-    rdy = dyc - torch.where(row, torch.roll(phi, -1, -2) - phi, zero)
+    rdy = dyc - torch.where(row, roll_rows(phi, -1, rows) - phi, zero)
     WWdx = WWx * rdx
     WWdy = WWy * rdy
-    rk = WWdx - torch.roll(WWdx, 1, -1) + WWdy - torch.roll(WWdy, 1, -2)
-    D = -(WWx + torch.roll(WWx, 1, -1) + WWy + torch.roll(WWy, 1, -2))
+    rk = WWdx - torch.roll(WWdx, 1, -1) + WWdy - roll_rows(WWdy, 1, rows)
+    D = -(WWx + torch.roll(WWx, 1, -1) + WWy + roll_rows(WWy, 1, rows))
     one = torch.ones((), dtype=phi.dtype, device=phi.device)
     dinv = torch.where(D.abs() > 1e-8,
                        float(omega) / torch.where(D != 0, D, one), zero)
     d = rk * dinv
-    r = rk - _q(d, WWx, WWy)
+    r = rk - _q(d, WWx, WWy, rows)
     # rows past the last whole block of cr (shapes the kernel refuses)
     # do not enter the restriction, as in the multigrid's block means
     rows = n // cr
@@ -179,12 +181,13 @@ def presmooth_plain(phi, dxc, dyc, w, cr, omega):
     return r, d, dinv, rrow
 
 
-def applyq_plain(p, w):
-    """Plain PyTorch twin of the applyq kernel."""
+def applyq_plain(p, w, rows=None):
+    """Plain PyTorch twin of the applyq kernel (`rows` as
+    :func:`presmooth_plain` takes it)."""
     n, m = p.shape[-2:]
-    lane, row = _masks(n, m, p.device)
-    WWx, WWy = _weights(w, lane, row)
-    return _q(p, WWx, WWy)
+    lane, row = _masks(n, m, p.device, rows)
+    WWx, WWy = _weights(w, lane, row, rows)
+    return _q(p, WWx, WWy, rows)
 
 
 def _batched(x, n, m):

@@ -171,11 +171,13 @@ def _plan_col_groups(wlists, plans, m, sigma, *, pad_bins=6,
     return [np.asarray(o) for o in orders], col_groups, Wb
 
 
-def _zoom_basis(n, idx, dtype=torch.float32, device=None):
-    """cos/sin of the inverse-DFT submatrix e^{2 pi i r idx / n}, (n, W);
+def _zoom_basis(n, idx, dtype=torch.float32, device=None, rows=None):
+    """cos/sin of the inverse-DFT submatrix e^{2 pi i r idx / n}, (n, W)
+    (only the rows r in range(*rows) when rows = (start, stop) is given);
     the product r*idx is reduced mod n in exact integers first."""
     idx = host_to_device(np.asarray(idx, np.int64), device)
-    r = torch.arange(n, dtype=torch.int64, device=device)[:, None]
+    r0, r1 = (0, n) if rows is None else rows
+    r = torch.arange(r0, r1, dtype=torch.int64, device=device)[:, None]
     ang = ((r * idx[None, :]) % n).to(dtype) * (2 * math.pi / n)
     return torch.cos(ang), torch.sin(ang)
 
@@ -470,14 +472,27 @@ def _zoom_operands(spectrum, wlist, idx0, idx1, sigma, with_grad=False):
     S2i, A1yc, A1ys): S2 = (2 pi i f0) S pre-scaled and A1y = (2 pi i f1)
     A1 (else None). The host's numbers reach the card without a wait on
     the stream (host_to_device, scalars as Python numbers)."""
-    n, m = spectrum.shape[-2:]
-    rdt = _real_dtype(spectrum)
     dev = spectrum.device
     i0 = host_to_device(np.asarray(idx0, np.int64), dev)
     i1 = host_to_device(np.asarray(idx1, np.int64), dev)
     S = spectrum.index_select(-2, i0).index_select(-1, i1)
+    return _window_operands(S, spectrum.shape[-2:], wlist, idx0, idx1,
+                            sigma, with_grad)
+
+
+def _window_operands(S, shape, wlist, idx0, idx1, sigma, with_grad=False,
+                     rows=None):
+    """_zoom_operands from the raw spectrum window S (W0, W1) (or (B, W0,
+    W1)) of an (n, m) = `shape` spectrum at the bins (idx0, idx1); `rows`
+    = (start, stop) builds only those rows of the row basis A0c/A0s (the
+    output rows of a row block)."""
+    n, m = shape
+    rdt = _real_dtype(S)
+    dev = S.device
+    i0 = host_to_device(np.asarray(idx0, np.int64), dev)
+    i1 = host_to_device(np.asarray(idx1, np.int64), dev)
     scale = _rounded(1.0 / (n * m), rdt)
-    A0c, A0s = _zoom_basis(n, idx0, rdt, dev)
+    A0c, A0s = _zoom_basis(n, idx0, rdt, dev, rows)
     A1c, A1s = _zoom_basis(m, idx1, rdt, dev)
     f0 = torch.where(i0 < n // 2 + n % 2, i0, i0 - n).to(rdt) / n
     f1 = torch.where(i1 < m // 2 + m % 2, i1, i1 - m).to(rdt) / m
@@ -691,6 +706,19 @@ def _grad_rebase(grad, kref):
     return wrap_to_pi(2.0 * (grad - 2 * math.pi * kref)) / 2.0
 
 
+def _rebased(lockin, k):
+    """lockin (..., n, m) times the separable rank-1 plane wave
+    e^{2 pi i k . r}, k (2,) in lockin's real dtype on its device."""
+    n, m = lockin.shape[-2:]
+    phx = (2 * np.pi) * (torch.arange(n, dtype=k.dtype, device=k.device)
+                         * k[0])
+    phy = (2 * np.pi) * (torch.arange(m, dtype=k.dtype, device=k.device)
+                         * k[1])
+    px = torch.complex(torch.cos(phx), torch.sin(phx))
+    py = torch.complex(torch.cos(phy), torch.sin(phy))
+    return lockin * px[:, None] * py[None, :]
+
+
 def wfr_sweep(image, wlist, kref, sigma, *, with_grad=False, with_w=True,
               continuity_dk=None, chunk=8, spectrum=None, zoom="auto",
               rebase=True, return_absq=False):
@@ -759,17 +787,7 @@ def wfr_sweep(image, wlist, kref, sigma, *, with_grad=False, with_w=True,
             wl = host_to_device(wl_h, spectrum.device, rdt)
             w_field = wl[best_idx.long()]
     k = host_to_device(np.asarray(kref, np.float64), spectrum.device, rdt)
-    if rebase:
-        # separable rank-1 plane wave e^{2 pi i kref . r}
-        phx = (2 * np.pi) * (torch.arange(shape[0], dtype=rdt,
-                                          device=spectrum.device) * k[0])
-        phy = (2 * np.pi) * (torch.arange(shape[1], dtype=rdt,
-                                          device=spectrum.device) * k[1])
-        px = torch.complex(torch.cos(phx), torch.sin(phx))
-        py = torch.complex(torch.cos(phy), torch.sin(phy))
-        out = {"lockin": best_lockin * px[:, None] * py[None, :]}
-    else:
-        out = {"lockin": best_lockin}
+    out = {"lockin": _rebased(best_lockin, k) if rebase else best_lockin}
     if return_absq:
         out["absq"] = best_absq
     if w_field is not None:

@@ -1,10 +1,29 @@
-"""Batch pipelines on one card (counterpart of the single-device part of
-pygpa_tpu/parallel/sharded.py)."""
+"""Sharded GPA pipelines (counterpart of pygpa_tpu/parallel/sharded.py).
+
+Two axes of parallelism, composable on one mesh (every rank of the
+torch.distributed world calling the same function):
+
+- batch: a stack of images (mosaic tiles, time series) is sharded over
+  the mesh's batch axis; each rank runs the whole per-image pipeline on
+  its images (the single-card stack call), no cross-image communication.
+  Without a mesh the stack runs on one card in one call (the launches
+  of one image), or in chunks of whole images where it would not fit.
+- candidates: the WFR candidate grid of one image is split across the
+  ranks; each sweeps its slice against the (replicated) spectrum, and
+  the per-pixel winners combine in the reference's argmax tree of
+  all_reduce MAX / MIN / SUM.
+"""
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import DTensor
 
-from ..core import entry_tensor
+from ..core import entry_tensor, host_to_device
 from ..gpa.pipeline import extract_displacement_field
+from ..ops.wfr import (_grad_rebase, _real_dtype, _rebased,
+                       _wfr_sweep_chunked)
+from .mesh import axis_info, local_block, mesh_device, sharded
 
 # Peak device bytes that one more image adds to an eager call on a stack,
 # per pixel of a float32 image: 264 on an H100 80GB HBM3 at 700 W
@@ -35,6 +54,55 @@ def _cap(images):
     return images_per_call(images.shape[-2:], images.element_size(), free)
 
 
+def wfr_sweep_sharded(image, wlist, kref, sigma, mesh, axis="batch",
+                      with_grad=False, chunk=8):
+    """WFR sweep of one image (n, m) with the candidate grid sharded over
+    the mesh dimension `axis` (every rank holding the whole image).
+
+    The bank (P, 2) is padded with 1e3 candidates (zero passband) to a
+    multiple of the axis size D; rank r sweeps candidates [r P/D, (r+1)
+    P/D) with the full-FFT sweep (ops.wfr._wfr_sweep_chunked) on the
+    replicated spectrum, and the winners combine in the reference's
+    argmax tree: all_reduce MAX of |M|^2, then MIN of the rank claiming
+    it (so the lowest global candidate wins ties, the reference's
+    sequential first max), then SUM of the winner's lock-in, index and
+    gradient. Returns ops.wfr.wfr_sweep's dict (every rank the same
+    tensors): 'lockin' rebased to kref, 'w' (2, n, m) and, with
+    with_grad, 'grad' (n, m, 2)."""
+    group, rank, world = axis_info(mesh, axis)
+    if isinstance(image, DTensor):
+        image = image.full_tensor()
+    image = entry_tensor(image, mesh_device(mesh))
+    wl_h = np.asarray(wlist)
+    pad = (-wl_h.shape[0]) % world
+    wl = np.concatenate([wl_h, np.full((pad, 2), 1e3, wl_h.dtype)])
+    per = wl.shape[0] // world
+    spectrum = torch.fft.fft2(image - image.mean())
+    absq, lockin, idx, grad = _wfr_sweep_chunked(
+        spectrum, wl[rank * per:(rank + 1) * per], float(sigma),
+        int(min(chunk, per)), with_grad)
+    gmax = absq.clone()
+    dist.all_reduce(gmax, op=dist.ReduceOp.MAX, group=group)
+    claim = torch.where(absq == gmax, rank, world).to(torch.int32)
+    dist.all_reduce(claim, op=dist.ReduceOp.MIN, group=group)
+    mine = claim == rank
+    lockin = torch.where(mine, lockin, torch.zeros((), dtype=lockin.dtype,
+                                                   device=lockin.device))
+    dist.all_reduce(torch.view_as_real(lockin), op=dist.ReduceOp.SUM,
+                    group=group)
+    idx = torch.where(mine, idx + rank * per, 0).to(torch.int64)
+    dist.all_reduce(idx, op=dist.ReduceOp.SUM, group=group)
+    rdt = _real_dtype(spectrum)
+    k = host_to_device(np.asarray(kref, np.float64), image.device, rdt)
+    w = host_to_device(wl, image.device, rdt)
+    out = {"lockin": _rebased(lockin, k), "w": w[idx].movedim(-1, -3)}
+    if with_grad:
+        grad = torch.where(mine[..., None], grad, 0.0)
+        dist.all_reduce(grad, op=dist.ReduceOp.SUM, group=group)
+        out["grad"] = _grad_rebase(grad, k)
+    return out
+
+
 def extract_displacement_field_batch(images, kvecs, mesh=None,
                                      axis="batch", device=None, **kwargs):
     """Displacement fields (B, 2, n, m) of a stack of images (B, n, m):
@@ -53,14 +121,29 @@ def extract_displacement_field_batch(images, kvecs, mesh=None,
     take two calls of 8 on an 80 GB card.
 
     The stack moves to `device` (None: the card; "cpu" for the plain
-    route, one call). `mesh` and `axis` are the reference's batch
-    sharding over a device mesh, which the multi-device half of ROADMAP
-    queue 1 item 8 ports: a mesh raises NotImplementedError."""
+    route, one call). With a `mesh` (a DeviceMesh, every rank calling)
+    the batch is sharded over its dimension `axis`: `images` is the full
+    stack or a DTensor sharded on axis 0 that way, B splits evenly, each
+    rank runs its B/D images through the call above on the mesh's device
+    (`device`, if given, must be that device's type), and the result is
+    a DTensor sharded on the batch axis (with return_gs, each g-dict
+    array too)."""
     if mesh is not None:
-        raise NotImplementedError(
-            "extract_displacement_field_batch: sharding the batch over a "
-            "device mesh is not ported yet (ROADMAP queue 1 item 8, its "
-            "multi-device half); pass mesh=None for one card")
+        if not isinstance(mesh, DeviceMesh):
+            raise TypeError("mesh must be a torch.distributed DeviceMesh "
+                            f"(gt.parallel.make_mesh), got {type(mesh)}")
+        dev = mesh_device(mesh)
+        if device is not None and torch.device(device).type != dev.type:
+            raise ValueError(f"device {device!r} differs from the mesh's "
+                             f"{mesh.device_type!r}")
+        local = local_block(images, mesh, axis, 0)
+        out = extract_displacement_field_batch(local, kvecs, device=dev,
+                                               **kwargs)
+        if not kwargs.get("return_gs"):
+            return sharded(out, mesh, axis, 0)
+        return sharded(out[0], mesh, axis, 0), [
+            {k: sharded(v, mesh, axis, 0) for k, v in g.items()}
+            for g in out[1]]
     images = entry_tensor(images, device)
     if images.dim() != 3:
         raise ValueError("images must be a stack (B, n, m), got "

@@ -29,6 +29,19 @@ iterations no-ops), every other level to the early-stopping loop. The
 V-branch stencil passes run in the ops.vcycle kernels where
 ``vcycle_kernel_ok`` holds (the reference's ``_vcycle_kernel_ok``) and
 in their plain twins, the reference's XLA stencils, elsewhere.
+
+The reference's seam for the row-sharded solver is kept: ``_cg_unwrap``
+takes a ``precond`` override of the DCT preconditioner and
+``phase_unwrap_prediff_mg`` a ``precond_factory`` (level shape ->
+precond); either turns the CG and V-branch kernels off, as the
+reference does. The multigrid's row-axis primitives (the rolls, the
+last-row masks, the block means and upsampling along rows, every dot,
+norm and line-search sum) take one optional row context ``rows`` (a
+core.rows.RowBlock): the planes are then this rank's block of the rows
+and those primitives exchange one halo row with the adjacent ranks or
+all-reduce over the group (parallel/unwrap.py). With ``rows=None`` they
+are the single-device torch calls. Each early stop reads all-reduced
+norms, so every rank runs the same iterations.
 """
 
 import torch
@@ -38,6 +51,7 @@ import torch.nn.functional as F
 from ..config import DEFAULTS
 from ..core.fourier import dct2n, idct2n
 from ..core.mathtools import wrap_to_pi
+from ..core.rows import clamped_neighbours, plane_sum, roll_rows
 from ..ops import cg as _cg
 from ..ops import vcycle as _vcycle
 from ..ops.cg import poisson_scale
@@ -101,20 +115,24 @@ def cg_kernel_ok(shape, dtype):
     return dtype == torch.float32 and _cg.supported(n, m)
 
 
-def _cg_unwrap(rk0, WWx, WWy, kmax, aligned=False):
+def _cg_unwrap(rk0, WWx, WWy, kmax, aligned=False, precond=None, rows=None):
     """PCG on the weighted Poisson system from phi = 0. Returns (phi,
     iterations per batch element). Aligned (multigrid) solves that
     cg_kernel_ok admits run the ops.cg kernel for kmax iterations; all
-    others run the early-stopping loop."""
+    others run the early-stopping loop. `precond` (a callable rk -> zk)
+    replaces the DCT preconditioner and keeps the kernel off, as the
+    reference's does; `rows` (core.rows.RowBlock) solves on this rank's
+    block of the rows (aligned planes only)."""
     kmax = int(kmax)
-    if aligned and kmax >= 1 and cg_kernel_ok(rk0.shape, rk0.dtype):
+    if aligned and precond is None and rows is None and kmax >= 1 \
+            and cg_kernel_ok(rk0.shape, rk0.dtype):
         phi = _cg.cg_poisson(rk0, WWx, WWy, kmax)
         return phi, torch.full(rk0.shape[:-2], kmax, dtype=torch.int32,
                                device=rk0.device)
-    return _cg_unwrap_body(rk0, WWx, WWy, kmax, aligned)
+    return _cg_unwrap_body(rk0, WWx, WWy, kmax, aligned, precond, rows)
 
 
-def _cg_unwrap_body(rk0, WWx, WWy, kmax, aligned):
+def _cg_unwrap_body(rk0, WWx, WWy, kmax, aligned, precond=None, rows=None):
     """The reference's early-stopping PCG loop, batched: a component
     stops at ||r|| < eps ||r0|| (eps 1e-6 in float32, 1e-9 in float64),
     at rz == 0 or after kmax iterations (at least one, as the
@@ -122,16 +140,28 @@ def _cg_unwrap_body(rk0, WWx, WWy, kmax, aligned):
     starts done when its rk0 is all zero; a stopped component is frozen
     while the others run on. On the card all iterations are enqueued
     without a host sync (frozen iterations change nothing); a CPU run
-    leaves the loop once every component is done."""
+    leaves the loop once every component is done. With `rows` the dots
+    and the all-zero test are all-reduced over the row group, so every
+    rank stops at the same iteration."""
     dt = rk0.dtype
-    n, m = rk0.shape[-2:]
     lead = rk0.shape[:-2]
-    scale = poisson_scale(n, m, dt, rk0.device)
-    apply_q = _apply_q_aligned if aligned else _apply_q
+    if precond is None:
+        scale = poisson_scale(*rk0.shape[-2:], dt, rk0.device)
+
+        def precond(r):
+            return solve_poisson(r, scale)
+    if rows is not None and not aligned:
+        raise ValueError("a row-sharded CG solve takes aligned planes")
+
+    def apply_q(p):
+        if aligned:
+            return _apply_q_aligned(p, WWx, WWy, rows)
+        return _apply_q(p, WWx, WWy)
+
     eps = 1e-9 if dt == torch.float64 else 1e-6
 
     def dot(a, b):
-        return (a * b).sum((-2, -1), keepdim=True)
+        return plane_sum(a * b, rows)
 
     one = torch.ones(lead + (1, 1), dtype=dt, device=rk0.device)
     zero = torch.zeros_like(one)
@@ -142,15 +172,17 @@ def _cg_unwrap_body(rk0, WWx, WWy, kmax, aligned):
     rzprev = one
     k = torch.zeros(lead + (1, 1), dtype=torch.int32, device=rk0.device)
     done = (rk0 == 0).all(-1, keepdim=True).all(-2, keepdim=True)
+    if rows is not None:
+        done = rows.all(done)
     for it in range(max(kmax, 1)):
         if rk0.device.type == "cpu" and bool(done.all()):
             break
-        zk = solve_poisson(rk, scale)
+        zk = precond(rk)
         rz = dot(rk, zk)
         beta = torch.where(rzprev != 0,
                            rz / torch.where(rzprev != 0, rzprev, one), zero)
         pk_new = zk if it == 0 else zk + beta * pk
-        Qpk = apply_q(pk_new, WWx, WWy)
+        Qpk = apply_q(pk_new)
         pq = dot(pk_new, Qpk)
         alpha = torch.where(pq != 0, rz / torch.where(pq != 0, pq, one),
                             zero)
@@ -208,9 +240,12 @@ def phase_unwrap_mg(psi, weight=None, kmax=10, coarse=4, **kw):
                                    coarse=coarse, **kw)
 
 
-def _mask_last(a, axis):
-    """Zero the last slice along `axis`."""
+def _mask_last(a, axis, rows=None):
+    """Zero the last slice along `axis` (along rows with `rows`: the
+    global last row, on the last rank)."""
     out = a.clone()
+    if axis == -2 and rows is not None and not rows.last:
+        return out
     out.select(axis, a.shape[axis] - 1).zero_()
     return out
 
@@ -222,21 +257,22 @@ def _pad_last(a, axis):
     return torch.cat([a, a.new_zeros(shape)], dim=axis)
 
 
-def _residual_aligned(dxp, dyp, weight):
+def _residual_aligned(dxp, dyp, weight, rows=None):
     """Weighted residual rk and aligned min-neighbour weights WWx/WWy
     (zero last column / row) from aligned diffs; weight None is the
     unweighted problem (WWx, WWy ones but for the zero tails)."""
     if weight is None:
         WWx = _mask_last(torch.ones_like(dxp), -1)
-        WWy = _mask_last(torch.ones_like(dyp), -2)
+        WWy = _mask_last(torch.ones_like(dyp), -2, rows)
     else:
         WW = weight * weight
         WWx = _mask_last(torch.minimum(WW, torch.roll(WW, -1, -1)), -1)
-        WWy = _mask_last(torch.minimum(WW, torch.roll(WW, -1, -2)), -2)
+        WWy = _mask_last(torch.minimum(WW, roll_rows(WW, -1, rows)), -2,
+                         rows)
     WWdx = WWx * dxp
     WWdy = WWy * dyp
     rk = (WWdx - torch.roll(WWdx, 1, -1)
-          + WWdy - torch.roll(WWdy, 1, -2))
+          + WWdy - roll_rows(WWdy, 1, rows))
     return rk, WWx, WWy
 
 
@@ -267,22 +303,28 @@ def _resize_right(m_in, m_out, dtype=torch.float32, device=None):
 
 def block_mean(a, rows, cols, c):
     """Average c x c blocks over the last two axes: rows by reshape-mean,
-    columns by the averaging product."""
+    columns by the averaging product. On a row block whose rows c
+    divides, the row means are the block's own."""
     a = a[..., : rows * c, : cols * c]
     a = a.reshape(a.shape[:-2] + (rows, c, cols * c)).mean(-2)
     return a @ _avg_right(cols * c, cols, c, a.dtype, a.device)
 
 
-def upsample(phi, nc, mc):
+def upsample(phi, nc, mc, rows=None):
     """Linear resize of the last two axes to (nc, mc): integer-factor
     rows as a shifted-plane interleave (the resize's own samples),
-    columns by the interpolation product."""
+    columns by the interpolation product. With `rows` phi is this rank's
+    block and nc its block's rows after the resize, an integer factor
+    of its rows (the taps beyond the block come from the adjacent
+    ranks)."""
     dt = phi.dtype
     rin = phi.shape[-2]
+    if rows is not None and (nc % rin or nc < rin):
+        raise ValueError(f"a row-sharded upsample takes integer factors "
+                         f"(block rows {rin} -> {nc})")
     if nc % rin == 0 and nc // rin > 1:
         cfac = nc // rin
-        prev = torch.cat([phi[..., :1, :], phi[..., :-1, :]], dim=-2)
-        nxt = torch.cat([phi[..., 1:, :], phi[..., -1:, :]], dim=-2)
+        prev, nxt = clamped_neighbours(phi, rows)
         pieces = []
         for j in range(cfac):
             o = (j + 0.5) / cfac - 0.5
@@ -318,8 +360,9 @@ def default_schedule(n, m, kmax, coarse, refine_iters=3):
 
 
 def phase_unwrap_prediff_mg(dx, dy, weight=None, kmax=10, coarse=4,
-                            refine_iters=3, schedule=None, v_coarse_mult=4,
-                            events=None):
+                            refine_iters=3, precision=None, schedule=None,
+                            precond_factory=None, v_coarse_mult=4,
+                            events=None, rows=None):
     """Multigrid-accelerated gradient integration (reference
     pygpa_tpu.solvers.unwrap.phase_unwrap_prediff_mg, aligned kernel
     route): coarse weighted-Poisson CG solve, then progressively finer
@@ -334,62 +377,100 @@ def phase_unwrap_prediff_mg(dx, dy, weight=None, kmax=10, coarse=4,
     against the batch (the module docstring), or None for the
     unweighted problem. schedule : ((factor, iters),
     ...) coarsest -> finest, default_schedule's when None. `events` (a
-    list) collects CUDA timing events per level."""
+    list) collects CUDA timing events per level.
+
+    precond_factory : the reference's seam, a callable (level rows,
+    level cols) -> precond (rk -> zk) replacing each level's DCT
+    preconditioner; with it the CG and V-branch kernels are off, as in
+    the reference. precision : the reference's MXU pass split, accepted
+    and unused (the products here run in the planes' dtype).
+    rows : a core.rows.RowBlock: dx, dy (aligned) and weight are this
+    rank's block of the rows of planes (..., n, m) split evenly over the
+    row group, every level's factor divides the block's rows, and the
+    factory's preconditioners act on row blocks
+    (parallel/unwrap.py); the result is this rank's block."""
+    del precision
+    if rows is not None and precond_factory is None:
+        raise ValueError("a row-sharded multigrid needs a precond_factory "
+                         "whose preconditioners act on row blocks")
     dx = wrap_to_pi(dx)
     dy = wrap_to_pi(dy)
-    n = dx.shape[-2]
+    n_loc = dx.shape[-2]
+    world = 1 if rows is None else rows.world
+    n = n_loc * world
     m = dy.shape[-1]
+    if rows is not None and tuple(dx.shape[-2:]) != tuple(dy.shape[-2:]):
+        raise ValueError("a row-sharded multigrid takes aligned (..., n, m) "
+                         f"planes, got dx {tuple(dx.shape)}, dy "
+                         f"{tuple(dy.shape)}")
     if schedule is None:
         schedule = default_schedule(n, m, kmax, coarse, refine_iters)
+    if rows is not None:
+        factors = {int(c) for c, _ in schedule} | {
+            int(v_coarse_mult) * int(c) for c, it in schedule
+            if isinstance(it, str)}
+        if any(n_loc % c for c in factors):
+            raise ValueError(f"row-sharded multigrid: the block's {n_loc} "
+                             f"rows are not a multiple of every level "
+                             f"factor {sorted(factors)}")
     dxp = _pad_last(dx, -1) if dx.shape[-1] == m - 1 else dx
-    dyp = _pad_last(dy, -2) if dy.shape[-2] == n - 1 else dy
+    dyp = _pad_last(dy, -2) if dy.shape[-2] == n_loc - 1 else dy
 
     def level_data(c):
         if c == 1:
             return dxp, dyp, weight
-        nc, mc = n // c, m // c
+        nc, mc = n_loc // c, m // c
         # coarse differences = c * block-averaged fine differences (no
         # re-wrapping); the last coarse column/row mixes pad values and
         # is masked back to the structural zero
         dxyc = block_mean(torch.stack([dxp, dyp], 0), nc, mc, c) * c
         wc = None if weight is None else block_mean(weight, nc, mc, c)
-        return _mask_last(dxyc[0], -1), _mask_last(dxyc[1], -2), wc
+        return _mask_last(dxyc[0], -1), _mask_last(dxyc[1], -2, rows), wc
+
+    def precond(c):
+        return None if precond_factory is None \
+            else precond_factory((n // c, m // c))
 
     phi = None
     for c, iters in schedule:
         c = int(c)
         dxc, dyc, wc = level_data(c)
-        nc, mc = n // c, m // c
+        nc, mc = n_loc // c, m // c
         if phi is None:
-            rk, WWx, WWy = _residual_aligned(dxc, dyc, wc)
-            phi, _ = _cg_unwrap(rk, WWx, WWy, iters, aligned=True)
+            rk, WWx, WWy = _residual_aligned(dxc, dyc, wc, rows)
+            phi, _ = _cg_unwrap(rk, WWx, WWy, iters, aligned=True,
+                                precond=precond(c), rows=rows)
             stamp(events, "unwrap_coarse")
             continue
-        phi = upsample(phi, nc, mc)
+        phi = upsample(phi, nc, mc, rows)
         if isinstance(iters, str):
             if iters not in ("v", "vv"):
                 raise ValueError(
                     f"schedule iters must be an int, 'v' or 'vv' (got "
                     f"{iters!r}); check DEFAULTS.unwrap_mg_final")
+            cv = int(v_coarse_mult) * c
             phi = phi + _v_branch(phi, dxc, dyc, wc, int(v_coarse_mult),
-                                  level_data(int(v_coarse_mult) * c), kmax,
-                                  2 if iters == "vv" else 1)
+                                  level_data(cv), kmax,
+                                  2 if iters == "vv" else 1,
+                                  precond(cv), rows)
             stamp(events, "unwrap_v")
             continue
         # residual gradients are small and unwrapped by construction
         rdx = dxc - _mask_last(torch.roll(phi, -1, -1) - phi, -1)
-        rdy = dyc - _mask_last(torch.roll(phi, -1, -2) - phi, -2)
+        rdy = dyc - _mask_last(roll_rows(phi, -1, rows) - phi, -2, rows)
         if iters > 0:
-            rk, WWx, WWy = _residual_aligned(rdx, rdy, wc)
-            dphi, _ = _cg_unwrap(rk, WWx, WWy, iters, aligned=True)
+            rk, WWx, WWy = _residual_aligned(rdx, rdy, wc, rows)
+            dphi, _ = _cg_unwrap(rk, WWx, WWy, iters, aligned=True,
+                                 precond=precond(c), rows=rows)
             phi = phi + dphi
         stamp(events, f"unwrap_level{c}")
     if int(schedule[-1][0]) != 1:
-        phi = upsample(phi, n, m)
+        phi = upsample(phi, n_loc, m, rows)
     return phi
 
 
-def _v_branch(phi, dxc, dyc, wc, cv, coarse_data, kmax, rounds):
+def _v_branch(phi, dxc, dyc, wc, cv, coarse_data, kmax, rounds,
+              precond=None, rows=None):
     """The V-branch's update d of phi on its level (..., nc, mc):
     damped-Jacobi pre-smooth, then `rounds` times a coarse-grid
     correction of the residual on the level cv times coarser
@@ -399,22 +480,28 @@ def _v_branch(phi, dxc, dyc, wc, cv, coarse_data, kmax, rounds):
     V-branch; the reference restricts by the finest level's sides, so it
     runs the branch on that level only. The pre-smooth and Q p run in
     the ops.vcycle kernels where vcycle_kernel_ok holds (weighted levels
-    only, as the reference gates them) and in their twins elsewhere;
+    only, as the reference gates them, and without a `precond` for the
+    correction's CG) and in their twins elsewhere;
     the unweighted level hands the twins weights of ones, whose
-    min-neighbour weights are the unweighted problem's."""
+    min-neighbour weights are the unweighted problem's. `rows` as
+    phase_unwrap_prediff_mg takes it."""
     nc, mc = phi.shape[-2:]
-    if wc is not None and _vcycle.vcycle_kernel_ok(phi, wc, cv):
+    if wc is not None and precond is None \
+            and _vcycle.vcycle_kernel_ok(phi, wc, cv):
         presmooth, applyq = _vcycle.presmooth, _vcycle.applyq
     else:
-        presmooth = _vcycle.presmooth_plain
-        applyq = _vcycle.applyq_plain
+        def presmooth(*a):
+            return _vcycle.presmooth_plain(*a, rows=rows)
+
+        def applyq(p, w):
+            return _vcycle.applyq_plain(p, w, rows=rows)
     if wc is None:
         wc = torch.ones((nc, mc), dtype=phi.dtype, device=phi.device)
     # fused pre-smooth: residual gradients, weights, residual, Jacobi
     # diagonal, d = Dinv rk, r = rk - Q d, and the row half of the
     # restriction of r
     r, d, Dinv, rrow = presmooth(phi, dxc, dyc, wc, cv, _JACOBI_OMEGA)
-    _, WWxv, WWyv = _residual_aligned(*coarse_data)
+    _, WWxv, WWyv = _residual_aligned(*coarse_data, rows)
     vk = int(kmax) if DEFAULTS.unwrap_mg_v_kmax is None \
         else int(DEFAULTS.unwrap_mg_v_kmax)
     one = torch.ones((), dtype=phi.dtype, device=phi.device)
@@ -426,11 +513,12 @@ def _v_branch(phi, dxc, dyc, wc, cv, coarse_data, kmax, rounds):
                                     rrow.device)
         else:
             r2c = block_mean(r, nc // cv, mc // cv, cv)
-        dcor, _ = _cg_unwrap(r2c, WWxv, WWyv, vk, aligned=True)
-        dcu = upsample(dcor, nc, mc)
+        dcor, _ = _cg_unwrap(r2c, WWxv, WWyv, vk, aligned=True,
+                             precond=precond, rows=rows)
+        dcu = upsample(dcor, nc, mc, rows)
         q = applyq(dcu, wc)
-        num = (r * dcu).sum((-2, -1), keepdim=True)
-        den = (dcu * q).sum((-2, -1), keepdim=True)
+        num = plane_sum(r * dcu, rows)
+        den = plane_sum(dcu * q, rows)
         alpha = torch.where(den != 0, num / torch.where(den != 0, den, one),
                             torch.zeros_like(den))
         d = d + alpha * dcu

@@ -220,7 +220,8 @@ def test_extract_displacement_field_batch_matches_reference():
     """The port's extract_displacement_field_batch on tests/test_parallel.py's
     rolled and flipped stack (8 x 96^2, float64) against the
     reference's (jax.vmap of the eager function) within 1e-8 px, image 1
-    against the port's eager call, and a mesh raising."""
+    against the port's eager call, and a mesh that is no DeviceMesh
+    refused (the sharded batch itself: tests/test_torch_parallel.py)."""
     batch, ks = _parallel_stack()
     want = np.asarray(j_batch(batch, ks))
     got = extract_displacement_field_batch(batch, ks, device="cpu")
@@ -231,7 +232,7 @@ def test_extract_displacement_field_batch_matches_reference():
     np.testing.assert_allclose(
         got[1].numpy(), np.asarray(jgpa.extract_displacement_field(
             batch[1], ks)), rtol=0, atol=1e-8)
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         extract_displacement_field_batch(batch, ks, mesh=object(),
                                          device="cpu")
 

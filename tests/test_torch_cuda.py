@@ -1481,3 +1481,10 @@ def test_extractor_stack_makes_no_host_sync(dev, size, nb, kw):
             if "synchroniz" in str(w.message)
             and os.path.abspath(w.filename).startswith(pkg)]
     assert not ours, ours
+
+
+def test_kernel_smoke_launches_every_entry(dev):
+    """ops.kernel_smoke on the card: every kernel entry launches (its
+    counter rises) and gives finite outputs."""
+    from pygpa_tpu_torch.ops.kernel_smoke import run_kernel_smoke
+    assert run_kernel_smoke(device=dev)

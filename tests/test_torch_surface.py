@@ -71,19 +71,12 @@ def _public(mod):
             if not n.startswith("_") and not inspect.ismodule(v)}
 
 
-# the reference's parallel names that wait for the multi-device half of
-# ROADMAP queue 1 item 8
-PARALLEL_MISSING = {"make_mesh", "batch_sharding", "wfr_sweep_sharded",
-                    "fft2_sharded", "ifft2_sharded", "wfr_sweep_spatial",
-                    "dct2n_sharded", "idct2n_sharded",
-                    "phase_unwrap_prediff_sharded",
-                    "reconstruct_u_inv_from_demod_sharded",
-                    "extract_displacement_field_sharded"}
-# the reference's modules the port has not yet (ROADMAP queue 1 items 8
-# and 9; the Pallas kernel modules are csrc/*.cu and their ops/ wrappers
+# the reference's parallel names and modules the port lacks: none since
+# the multi-device half of ROADMAP queue 1 item 8 and item 9's kernel
+# smoke (the Pallas kernel modules are csrc/*.cu and their ops/ wrappers
 # here)
-MODULES_MISSING = {"ops/kernel_smoke", "parallel/fft", "parallel/mesh",
-                   "parallel/unwrap"}
+PARALLEL_MISSING = set()
+MODULES_MISSING = set()
 
 
 @pytest.mark.parametrize("sub,missing", [
@@ -92,9 +85,10 @@ MODULES_MISSING = {"ops/kernel_smoke", "parallel/fft", "parallel/mesh",
     ("parallel", PARALLEL_MISSING)])
 def test_subpackage_exports(sub, missing):
     """Each subpackage exports the reference's names (gpa and props all
-    of them, wff and the Kerelsky fits included; parallel its single-card
-    extract_displacement_field_batch); core holds mathtools, fourier and
-    interp."""
+    of them, wff and the Kerelsky fits included; parallel the meshes, the
+    sharded sweeps, the pencil FFT and DCT and the row-sharded unwrap and
+    pipeline besides extract_displacement_field_batch); core holds
+    mathtools, fourier and interp."""
     tmod, jmod = getattr(tg, sub), getattr(jg, sub)
     if sub == "core":
         for name in ("mathtools", "fourier", "interp"):
