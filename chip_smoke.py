@@ -12,9 +12,10 @@ Phases, each printed on its own lines:
    1, the gradient emissions' band flags and winner products; the
    phase fails if one spills), the bilinear and displacement-form cubic
    warps, the CG's fused DCT passes and stencil kernel and the
-   drizzle's shared-memory kernel, the proof that both stage 2s and
-   the winner products run on the tensor cores (HMMA instructions in
-   their SASS, cuobjdump -sass) and that the drizzle's shared-memory
+   drizzle's shared-memory kernel, the proof that both stage 2s run on
+   Hopper's warpgroup wgmma (HGMMA instructions in their SASS and no
+   HMMA, cuobjdump -sass) and the winner products on mma.sync (HMMA),
+   and that the drizzle's shared-memory
    adds are native ATOMS.ADD, not a compare-and-swap loop, or the phase
    fails;
 3. each kernel against its plain PyTorch twin on the card, on the
@@ -348,6 +349,11 @@ KERNELS = {
                     "pygpa_tpu/ops/pallas_sweep.py:96"),
     "grad_products": ("pygpa_tpu_torch/csrc/sweep.cu",
                       "pygpa_tpu/ops/pallas_sweep.py:96"),
+    # the column basis split for both stage 2s' tensor cores (the TPU
+    # kernels split theirs inside, _split_bf16; timed on the bench
+    # extractor's basis)
+    "split_basis": ("pygpa_tpu_torch/csrc/sweep.cu",
+                    "pygpa_tpu/ops/pallas_sweep.py:370"),
 }
 # the path whose counted run a kernel's "launches" reports
 PATH_OF = {"sweep_uv": 4, "presmooth": 4, "applyq": 4, "cg_poisson": 4,
@@ -355,7 +361,7 @@ PATH_OF = {"sweep_uv": 4, "presmooth": 4, "applyq": 4, "cg_poisson": 4,
            "warp_bilinear": "7a", "warp_cubic": "7b", "expand": "8a",
            "drizzle": "8a", "zoom_grad": "10a", "sweep_grad": "10b",
            "sweep_pw": "11b", "grad_flags": "10a", "grad_stage1": "10a",
-           "grad_products": "10a"}
+           "grad_products": "10a", "split_basis": 4}
 # the gradient emissions' launches after the tournament, one each per
 # emission call
 GRAD_STEPS = ("grad_flags", "grad_stage1", "grad_products")
@@ -408,10 +414,18 @@ PATH_SWEEPS = {"10a": {"zoom_grad": 3}, "10b": {"sweep_grad": 1},
                "17a": {"zoom_sweep": 3}, "17b": {"zoom_sweep": 3}}
 SWEEP_NAMES = ("sweep_uv", "sweep_pw", "sweep_grad", "zoom_sweep",
                "zoom_grad")
+# stage 2 of either sweep splits its column basis first, in its own launch
+for _k, _v in PATH_KERNELS.items():
+    if set(_v) & set(SWEEP_NAMES):
+        PATH_KERNELS[_k] = _v + ("split_basis",)
 # the sweeps' kernels (mangled-name keys): phase 2 fails if one spills
 SWEEP_KERNELS = ("zoom_stage2_kernel", "grouped_stage2_kernel",
                  "stage1_kernel", "band_flags_kernel",
-                 "winner_products_kernel")
+                 "winner_products_kernel", "split_basis_kernel")
+# the tournaments' stage 2 (wgmma: HGMMA in their SASS and no HMMA) and
+# the winner products (mma.sync: HMMA)
+WGMMA_KERNELS = ("zoom_stage2_kernel", "grouped_stage2_kernel")
+MMA_SYNC_KERNELS = ("winner_products_kernel",)
 GATE_2G_THETA, GATE_2G_KAPPA = 0.01, 0.001   # run_all.py config 2g
 DEVICE = "cuda"     # where phases 9-11, 13 and 14 put their work
 GRAD_RTOL, GRAD_ATOL, GRAD_AGREE = 2e-3, 2e-5, 1 - 2e-4
@@ -614,10 +628,25 @@ def sass_functions(lib_path, key):
             if key in f.split("\n", 1)[0]]
 
 
-def hmma_count(lib_path, key):
-    """HMMA (tensor-core) instructions in the SASS of the kernels of the
-    built library whose mangled name holds `key`."""
-    return sum(f.count("HMMA") for f in sass_functions(lib_path, key))
+def sass_count(lib_path, key, op):
+    """Occurrences of the SASS opcode `op` (HGMMA: warpgroup wgmma; HMMA:
+    mma.sync) in the kernels of the built library whose mangled name
+    holds `key`."""
+    return sum(f.count(op) for f in sass_functions(lib_path, key))
+
+
+def stage2_rate(label, ms, flops2, kernel_ms=None):
+    """Print stage 2's time apart (the split and the tournament launch;
+    the tournament kernel's device time beside it when the profiler
+    gave one), its achieved rate of TF32 tensor-core products (three a
+    float32 product) and its share of the 3xTF32 bound, against the aim
+    of half the bound."""
+    b = 3 * flops2 / TF32_FLOP_S * 1e3
+    t = ms if kernel_ms is None else kernel_ms
+    say(f"    {label} stage 2: {ms!r} ms (split and tournament launches), "
+        f"tournament kernel {kernel_ms!r} ms device; "
+        f"{3 * flops2 / t / 1e9!r} TFLOP/s of TF32 products, {b / t!r} of "
+        f"its 3xTF32 bound {b!r} ms (aim: at least 0.5)")
 
 
 def sass_ops(lib_path, key, prefixes):
@@ -886,6 +915,25 @@ ZOOM_AGREE = 0.99      # winner agreement, kernel vs twin
 
 
 ABSQ_RTOL, ABSQ_ATOL = 1e-4, 1e-7   # check_zoom's |M|^2 bounds
+
+
+def check_split(sw, A1c, A1s):
+    """The basis split against its twin on stage 2's own basis, bit for
+    bit (both round to TF32 by the same rule); its row: the bytes it
+    must move bound it (the basis read once, its four planes written
+    once)."""
+    import torch
+    got, want = sw.split_basis(A1c, A1s), sw.split_basis_plain(A1c, A1s)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    say(f"  split_basis {tuple(A1c.shape)} -> {tuple(got.shape)} vs twin: "
+        f"bit for bit {torch.equal(got, want)}, max |delta| {err!r}")
+    if not torch.equal(got, want):
+        raise RuntimeError("split_basis kernel disagrees with its twin")
+    return dict(max_abs_err=err,
+                ms=cuda_ms(lambda: sw.split_basis(A1c, A1s), 20),
+                plain_ms=cuda_ms(lambda: sw.split_basis_plain(A1c, A1s), 20),
+                **bound_row(tensor_bytes(A1c, A1s, got), 0))
 
 
 def check_zoom(zs, calls, dr, keep=None):
@@ -1779,6 +1827,8 @@ def check_zoom_grad(zs, sw, calls, kws):
         t.update({k: v[0] for k, v in parts.items()})
         say_parts(f"zoom_grad P={P}", t, (pairs, wins), twin, P, n // 64,
                   n * m // 4096)
+        stage2_rate(f"zoom_grad P={P} W1={W1} tournament", t["tournament"],
+                    8 * P * n * m * W1)
         del T, out
         k_ms += t["call"]
         t_ms += cuda_ms(lambda a=a: zs.zoom_sweep_plain(*a, grad_ops=gops),
@@ -1918,6 +1968,10 @@ def check_grouped_emissions(sw, args):
     say_parts(f"sweep_grad G={G} P={P} Wb={Wb}", t, (pairs, wins), twin, P,
               G * n // 64, G * n * m // 4096)
     f1, f2 = 8 * G * P * n * W0 * Wb, 8 * G * P * n * m * Wb
+    stage2_rate(f"sweep_grad G={G} P={P} Wb={Wb} tournament (winners "
+                "stored)", t["tournament"], f2)
+    stage2_rate(f"sweep_pw G={G} P={P} Wb={Wb} tournament", t["tournament_pw"],
+                f2)
     f1x = 8 * twin[0] * 64 * W0 * Wb
     fg = 2 * 8 * twin[1] * 64 * 64 * Wb
     pw_b = zoom_bounds(tensor_bytes(pw_args, pw), f1, f2)[1]
@@ -4249,11 +4303,15 @@ def main():
         say(f"    ptxas {key}: {lines}")
         if key in SWEEP_KERNELS and spill_bytes(lines):
             raise RuntimeError(f"{key} spills registers (ptxas)")
-    for key in ("zoom_stage2_kernel", "grouped_stage2_kernel",
-                "winner_products_kernel"):
-        n_hmma = hmma_count(lib._name, key)
-        say(f"    {key} SASS: {n_hmma} HMMA instructions (cuobjdump -sass)")
-        if n_hmma == 0:
+    for key in WGMMA_KERNELS + MMA_SYNC_KERNELS:
+        n_hg, n_hm = (sass_count(lib._name, key, op)
+                      for op in ("HGMMA", "HMMA"))
+        say(f"    {key} SASS: {n_hg} HGMMA, {n_hm} HMMA instructions "
+            "(cuobjdump -sass)")
+        if key in WGMMA_KERNELS and (n_hg == 0 or n_hm):
+            raise RuntimeError(f"{key}: its products are not all warpgroup "
+                               "wgmma (HGMMA) in its SASS")
+        if key in MMA_SYNC_KERNELS and n_hm == 0:
             raise RuntimeError(f"{key} has no HMMA in its SASS: its "
                                "products do not run on the tensor cores")
     atoms = sass_ops(lib._name, "drizzle_shared_kernel", ("ATOM", "RED"))
@@ -4303,7 +4361,13 @@ def main():
                 sw_args[12]), 3),
             "uv": cuda_ms(lambda: sw_mod.epilogue(ph_sw, wt_sw,
                                                   sw_args[10]), 3)}
+    sw_dev, _ = device_kernels(lambda: sw_mod.stage2(
+        T_sw, sw_args[6], sw_args[7], sw_args[9], sw_args[11], sw_args[12]),
+        3)
     del T_sw, ph_sw, wt_sw
+    stage2_rate(f"sweep_uv G={G} P={P} Wb={Wb}", sw_t["stage2"], f2,
+                kernel_ms(sw_dev, "grouped_stage2_kernel"))
+    rows["split_basis"] = check_split(sw_mod, sw_args[6], sw_args[7])
     s2_fp32, s2_tc = zoom_bounds(0, 0, f2)
     say(f"    sweep_uv G={G} P={P} W0={W0} Wb={Wb}: call {sw_t['call']!r} ms "
         f"(stage 1 {sw_t['stage1']!r}, stage 2 {sw_t['stage2']!r}, uv "
@@ -4426,7 +4490,8 @@ def main():
     # FMA) and stage 2 (3xTF32 on the tensor cores) alone, and the twin;
     # FLOP: 8 P n W0 W1 in stage 1 and 8 P n m W1 in stage 2 (the twin's
     # products, as torch's flop counter counts them)
-    zs = {"call": 0.0, "stage1": 0.0, "stage2": 0.0, "twin": 0.0}
+    zs = {"call": 0.0, "stage1": 0.0, "stage2": 0.0, "twin": 0.0,
+          "stage2_kernel": 0.0}
     zs_bytes = flops1 = flops2 = 0
     for a in c_zs.calls:
         (W0, W1), P = a[0].shape, a[2].shape[0]
@@ -4437,20 +4502,27 @@ def main():
              "stage2": cuda_ms(lambda T=T, a=a: zs_mod.stage2(
                  T, a[6], a[7], None), 3),
              "twin": cuda_ms(lambda a=a: zs_mod.zoom_sweep_plain(*a), 2)}
+        z_dev, _ = device_kernels(lambda T=T, a=a: zs_mod.stage2(
+            T, a[6], a[7], None), 3)
         del T
         f1, f2 = 8 * P * n * W0 * W1, 8 * P * n * m * W1
+        zs["stage2_kernel"] += kernel_ms(z_dev, "zoom_stage2_kernel") or 0.0
+        stage2_rate(f"zoom_sweep P={P} W1={W1}", t["stage2"], f2,
+                    kernel_ms(z_dev, "zoom_stage2_kernel"))
         s2_fp32, s2_tc = zoom_bounds(0, 0, f2)
         say(f"    zoom_sweep P={P} W0={W0} W1={W1}: call {t['call']!r} ms "
             f"(stage 1 {t['stage1']!r}, stage 2 {t['stage2']!r}), twin "
             f"{t['twin']!r} ms; stage 1 bound {f1 / FP32_FLOP_S * 1e3!r} ms "
             f"(float32 FMA); stage 2 bounds {s2_fp32!r} ms (float32 FMA), "
             f"{s2_tc!r} ms (3xTF32)")
-        for k in zs:
+        for k in t:
             zs[k] += t[k]
         zs_bytes += tensor_bytes(a) + 6 * n * m * 4
         flops1 += f1
         flops2 += f2
     b_fp32, b_tc = zoom_bounds(zs_bytes, flops1, flops2)
+    stage2_rate("zoom_sweep, three peaks,", zs["stage2"], flops2,
+                zs["stage2_kernel"] or None)
     say(f"    zoom_sweep, three peaks: call {zs['call']!r} ms, stage 1 "
         f"{zs['stage1']!r} ms, stage 2 {zs['stage2']!r} ms; bound "
         f"{b_fp32!r} ms in float32 FMA, {b_tc!r} ms with stage 2 in "

@@ -19,20 +19,26 @@
 //                 band flags, only the blocks of flagged (64-row band,
 //                 candidate) pairs run (the gradient emission's Tx, on
 //                 the row-derivative windows S2 = (2 pi i f0) S);
+//   sweep_split_basis: the base-band column basis split for the tensor
+//                 cores once a call: (G, 6, m, Wb) planes -hi(A1s),
+//                 hi(A1c), hi(A1s), -lo(A1s), lo(A1c), lo(A1s), hi =
+//                 cvt.rna.tf32(x), lo = cvt.rna.tf32(x - hi) (also the
+//                 zoom sweep's);
 //   sweep_stage2: per 64x64 pixel tile of group g (blockIdx.z), M_i =
 //                 T_i @ A1^T for every candidate i on the tensor cores
-//                 (sweep_tc.cuh, shared with the zoom sweep: 3xTF32
-//                 mma.sync, chains restarting every 32 columns of Wb,
-//                 the hi.hi products in a chain apart from the two small
+//                 (sweep_tc.cuh, shared with the zoom sweep: 3xTF32 on
+//                 Hopper's warpgroup wgmma, fed by a TMA ring over T
+//                 and the split basis loaded two stages ahead, chains
+//                 restarting every 32 columns of Wb, the hi.hi
+//                 products in a chain apart from the two small
 //                 ones (SPLIT), which lands |M| nearer its float64 value
-//                 than the float32 twin's products; the column basis
-//                 streamed with T through a cp.async ring, so any Wb
-//                 that is a multiple of 64 runs) with the running best
-//                 |M|^2 (strict '>', candidate 0 taken first) in
-//                 registers; emits the winner phase (atan2 + banded
-//                 column ramp) and the rim-masked weight, (G, n, m) each
-//                 (emission (a) ends here); sweep_stage2_winners is the
-//                 same launch that also stores each pixel's winner (Re M,
+//                 than the float32 twin's products; any Wb that is a
+//                 multiple of 64 runs) with the running best |M|^2
+//                 (strict '>', candidate 0 taken first) in registers;
+//                 emits the winner phase (atan2 + banded column ramp)
+//                 and the rim-masked weight, (G, n, m) each (emission
+//                 (a) ends here); sweep_stage2_winners is the same
+//                 launch that also stores each pixel's winner (Re M,
 //                 Im M, index) for the gradient emission (b);
 //   sweep_band_winners: which candidates win a pixel of each 64-row band
 //                 (G, n/64, P), from the index plane;
@@ -42,7 +48,7 @@
 //                 tc_products ring, and the gradients of -angle(M) at
 //                 the pixels it wins (less off * 2 pi / m on the column
 //                 gradient of a banded winner), M read back from the
-//                 tournament's store;
+//                 tournament's store (mma.sync: sweep_tc.cuh says why);
 //   sweep_uv:     one thread per pixel: wrapped shifted diffs against the
 //                 left / upper neighbour and the 2x2 weighted lstsq.
 // A stack of B images of one shape and plan (the factory's batch axis)
@@ -199,32 +205,31 @@ __global__ void __launch_bounds__(NT) stage1_kernel(
   }
 }
 
-// grid (m/64, n/64, B*G), z = b G + g; T (B, G, P, n, 2 Wb); A1c, A1s
-// (G, m, Wb), the base-band column basis, and off (G, P), the band
-// offsets, shared by the stack's images; dynamic smem ZSMEM. WIN (the
-// gradient emission's tournament): also each pixel's winner, Re M, Im M
-// and candidate index, to mro, mio, ixo (B, G, n, m); the store alone
-// differs, not the products or the tournament. One image is the stack
-// of B = 1.
+// grid (m/64, n/64, B*G), z = b G + g; T (B, G, P, n, 2 Wb) the map tmT
+// (rows of 2 Wb); tmB the split base-band column basis (G, 6, m, Wb) as
+// 6 G planes, and off (G, P), the band offsets, shared by the stack's
+// images; dynamic smem WSMEM. WIN (the gradient emission's tournament):
+// also each pixel's winner, Re M, Im M and candidate index, to mro, mio,
+// ixo (B, G, n, m); the store alone differs, not the products or the
+// tournament. One image is the stack of B = 1.
 template <bool WIN>
-__global__ void __launch_bounds__(ZNT, 1) grouped_stage2_kernel(
-    const float* __restrict__ T, const float* __restrict__ A1c,
-    const float* __restrict__ A1s, const int* __restrict__ off,
-    float* __restrict__ ph, float* __restrict__ wt,
-    int G, int P, int n, int m, int Wb, int dr, int banded,
-    float* __restrict__ mro, float* __restrict__ mio,
-    int* __restrict__ ixo) {
-  extern __shared__ __align__(16) float smem[];
+__global__ void __launch_bounds__(WNT, 1) grouped_stage2_kernel(
+    const __grid_constant__ CUtensorMap tmT,
+    const __grid_constant__ CUtensorMap tmB, const int* __restrict__ off,
+    float* __restrict__ ph, float* __restrict__ wt, int G, int P, int n,
+    int m, int Wb, int dr, int banded, float* __restrict__ mro,
+    float* __restrict__ mio, int* __restrict__ ixo) {
+  extern __shared__ __align__(16) float smem[];   // aligned to 1024 inside
   const int c0 = blockIdx.x * ZT, r0 = blockIdx.y * ZT;
   const int bg = blockIdx.z;           // b * G + g
   const int g = bg % G;
-  float br[2][2][4], bi[2][2][4];
-  int bx[2][2][4];
-  sweep_tc_tile<true, true>(T + (size_t)bg * P * n * 2 * Wb,
-                      A1c + (size_t)g * m * Wb, A1s + (size_t)g * m * Wb,
-                      P, n, Wb, Wb, r0, c0, smem, br, bi, bx);
+  float br[16], bi[16];
+  int bx[16];
+  wg_sweep_tile<true, true>(&tmT, &tmB, bg * P * n + r0, n, P, Wb, c0,
+                            6 * g, reinterpret_cast<unsigned char*>(smem), br,
+                            bi, bx);
   int rw, cl;
-  tc_pixel(r0, c0, &rw, &cl);
+  wg_pixel(r0, c0, &rw, &cl);
 
   const float inv_m = (float)(1.0 / (double)m);
   const float ramp = (float)(6.283185307179586 / (double)m);
@@ -232,45 +237,78 @@ __global__ void __launch_bounds__(ZNT, 1) grouped_stage2_kernel(
   const float rim = 1e-6f;
   const size_t plane = (size_t)bg * n * m;
 #pragma unroll
-  for (int a = 0; a < 2; ++a)
+  for (int jc = 0; jc < 4; ++jc)
 #pragma unroll
-    for (int b = 0; b < 2; ++b)
+    for (int h = 0; h < 2; ++h) {
+      // results 4 jc + 2 h + j: row rw + 8 h, columns cl + 8 jc + j
+      const int r = rw + 8 * h;
+      float pv[2], wv[2];
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = rw + a * 16 + h * 8;
-        float pv[2], wv[2];
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const int e = 2 * h + j;
-          const int c = cl + b * 8 + j;
-          const float mr = br[a][b][e], mi = bi[a][b][e];
-          float pht = atan2f(mi, mr);
-          if (banded) {
-            // winner lock-in = base-band value x e^{2 pi i c off / m};
-            // off * c < 2^24 is exact in float32
-            const int oi = __ldg(off + g * P + bx[a][b][e]);
-            float rr = __fmul_rn((float)oi, (float)c);
-            rr = __fsub_rn(rr,
-                           __fmul_rn((float)m, floorf(__fmul_rn(rr, inv_m))));
-            pht = wrap_pi(__fadd_rn(pht, __fmul_rn(rr, ramp)));
-          }
-          const bool interior = r >= dr && r < n - dr && c >= dr && c < m - dr;
-          pv[j] = pht;
-          wv[j] = __fmul_rn(sqrtf(fmaxf(absq(mr, mi), 0.f)),
-                            interior ? inside : rim);
+      for (int j = 0; j < 2; ++j) {
+        const int e = 4 * jc + 2 * h + j;
+        const int c = cl + 8 * jc + j;
+        const float mr = br[e], mi = bi[e];
+        float pht = atan2f(mi, mr);
+        if (banded) {
+          // winner lock-in = base-band value x e^{2 pi i c off / m};
+          // off * c < 2^24 is exact in float32
+          const int oi = __ldg(off + g * P + bx[e]);
+          float rr = __fmul_rn((float)oi, (float)c);
+          rr = __fsub_rn(rr,
+                         __fmul_rn((float)m, floorf(__fmul_rn(rr, inv_m))));
+          pht = wrap_pi(__fadd_rn(pht, __fmul_rn(rr, ramp)));
         }
-        const size_t o = plane + (size_t)r * m + cl + b * 8;
-        *reinterpret_cast<float2*>(ph + o) = make_float2(pv[0], pv[1]);
-        *reinterpret_cast<float2*>(wt + o) = make_float2(wv[0], wv[1]);
-        if (WIN) {
-          *reinterpret_cast<float2*>(mro + o) =
-              make_float2(br[a][b][2 * h], br[a][b][2 * h + 1]);
-          *reinterpret_cast<float2*>(mio + o) =
-              make_float2(bi[a][b][2 * h], bi[a][b][2 * h + 1]);
-          *reinterpret_cast<int2*>(ixo + o) =
-              make_int2(bx[a][b][2 * h], bx[a][b][2 * h + 1]);
-        }
+        const bool interior = r >= dr && r < n - dr && c >= dr && c < m - dr;
+        pv[j] = pht;
+        wv[j] = __fmul_rn(sqrtf(fmaxf(absq(mr, mi), 0.f)),
+                          interior ? inside : rim);
       }
+      const int e = 4 * jc + 2 * h;
+      const size_t o = plane + (size_t)r * m + cl + 8 * jc;
+      *reinterpret_cast<float2*>(ph + o) = make_float2(pv[0], pv[1]);
+      *reinterpret_cast<float2*>(wt + o) = make_float2(wv[0], wv[1]);
+      if (WIN) {
+        *reinterpret_cast<float2*>(mro + o) = make_float2(br[e], br[e + 1]);
+        *reinterpret_cast<float2*>(mio + o) = make_float2(bi[e], bi[e + 1]);
+        *reinterpret_cast<int2*>(ixo + o) = make_int2(bx[e], bx[e + 1]);
+      }
+    }
+}
+
+// the column basis split for the tensor cores: bc, bs (G, m, K) as G
+// planes of per = m K / 4 float4s -> out (G, 6, m, K): -hi(bs), hi(bc),
+// hi(bs), -lo(bs), lo(bc), lo(bs) with split()'s rounding, the negation
+// a flip of the sign bit; a float4 of each input a thread
+__device__ __forceinline__ float4 tf32x4(const uint32_t (&v)[4],
+                                         uint32_t sign) {
+  return make_float4(
+      __uint_as_float(v[0] ^ sign), __uint_as_float(v[1] ^ sign),
+      __uint_as_float(v[2] ^ sign), __uint_as_float(v[3] ^ sign));
+}
+
+__global__ void __launch_bounds__(NT) split_basis_kernel(
+    const float4* __restrict__ bc, const float4* __restrict__ bs,
+    float4* __restrict__ out, size_t per, size_t total) {
+  const size_t e = (size_t)blockIdx.x * NT + threadIdx.x;
+  if (e >= total) return;
+  const size_t g = e / per;
+  float4* o = out + g * 5 * per + e;   // (g 6 + 0) per + (e - g per)
+  const float4 c = bc[e], s = bs[e];
+  uint32_t ch[4], cl[4], sh[4], sl[4];
+  split(c.x, ch[0], cl[0]);
+  split(c.y, ch[1], cl[1]);
+  split(c.z, ch[2], cl[2]);
+  split(c.w, ch[3], cl[3]);
+  split(s.x, sh[0], sl[0]);
+  split(s.y, sh[1], sl[1]);
+  split(s.z, sh[2], sl[2]);
+  split(s.w, sh[3], sl[3]);
+  o[0] = tf32x4(sh, SIGN);
+  o[per] = tf32x4(ch, 0);
+  o[2 * per] = tf32x4(sh, 0);
+  o[3 * per] = tf32x4(sl, SIGN);
+  o[4 * per] = tf32x4(cl, 0);
+  o[5 * per] = tf32x4(sl, 0);
 }
 
 // grid (ceil(n m / NT), B): one thread per pixel of image blockIdx.y;
@@ -481,24 +519,31 @@ int images_per_launch(int per_image) {
 
 // a stack goes in launches of as many images as gridDim.z allows
 template <bool WIN>
-int launch_stage2(const float* T, const float* A1c, const float* A1s,
-                  const int* off, float* ph, float* wt, int B, int G, int P,
-                  int n, int m, int Wb, int dr, int banded, float* mro,
-                  float* mio, int* ixo, cudaStream_t stream) {
+int launch_stage2(const float* T, const float* Bsplit, const int* off,
+                  float* ph, float* wt, int B, int G, int P, int n, int m,
+                  int Wb, int dr, int banded, float* mro, float* mio,
+                  int* ixo, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       grouped_stage2_kernel<WIN>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)ZSMEM);
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)WSMEM);
   if (err != cudaSuccess) return (int)err;
   const int per = images_per_launch(G);
   if (per == 0) return (int)cudaErrorInvalidConfiguration;
+  CUtensorMap tmB;
+  if ((err = basis_map(&tmB, Bsplit, WPLANES * G, m, Wb)) != cudaSuccess)
+    return (int)err;
   const size_t tb = (size_t)G * P * n * 2 * Wb, pb = (size_t)G * n * m;
   for (int b0 = 0; b0 < B; b0 += per) {
     const int bc = B - b0 < per ? B - b0 : per;
+    CUtensorMap tmT;
+    if ((err = t_map(&tmT, T + b0 * tb, (uint64_t)bc * G * P * n, Wb)) !=
+        cudaSuccess)
+      return (int)err;
     dim3 grid(m / ZT, n / ZT, bc * G);
-    grouped_stage2_kernel<WIN><<<grid, ZNT, ZSMEM, stream>>>(
-        T + b0 * tb, A1c, A1s, off, ph + b0 * pb, wt + b0 * pb, G, P, n, m,
-        Wb, dr, banded, WIN ? mro + b0 * pb : nullptr,
-        WIN ? mio + b0 * pb : nullptr, WIN ? ixo + b0 * pb : nullptr);
+    grouped_stage2_kernel<WIN><<<grid, WNT, WSMEM, stream>>>(
+        tmT, tmB, off, ph + b0 * pb, wt + b0 * pb, G, P, n, m, Wb, dr,
+        banded, WIN ? mro + b0 * pb : nullptr, WIN ? mio + b0 * pb : nullptr,
+        WIN ? ixo + b0 * pb : nullptr);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }
   return 0;
@@ -560,25 +605,38 @@ int sweep_stage1(const float* Sr, const float* Si, const float* gx,
   return 0;
 }
 
-// T (B, G, P, n, 2 Wb), A1c and A1s (G, m, Wb), all contiguous float32;
-// n, m and Wb multiples of 64; ph, wt (B, G, n, m)
-int sweep_stage2(const float* T, const float* A1c, const float* A1s,
-                 const int* off, float* ph, float* wt, int B, int G, int P,
-                 int n, int m, int Wb, int dr, int banded,
-                 cudaStream_t stream) {
-  return launch_stage2<false>(T, A1c, A1s, off, ph, wt, B, G, P, n, m, Wb,
-                              dr, banded, nullptr, nullptr, nullptr, stream);
+// A1c, A1s (G, m, K) -> out (G, 6, m, K), all contiguous float32, K a
+// multiple of 4: the planes -hi(A1s), hi(A1c), hi(A1s), -lo(A1s),
+// lo(A1c), lo(A1s) that stage 2's tensor cores read
+int sweep_split_basis(const float* A1c, const float* A1s, float* out, int G,
+                      int m, int K, cudaStream_t stream) {
+  const size_t per = (size_t)m * K / 4, total = (size_t)G * per;
+  if (total == 0) return 0;
+  split_basis_kernel<<<(unsigned)((total + NT - 1) / NT), NT, 0, stream>>>(
+      reinterpret_cast<const float4*>(A1c),
+      reinterpret_cast<const float4*>(A1s), reinterpret_cast<float4*>(out),
+      per, total);
+  return (int)cudaGetLastError();
+}
+
+// T (B, G, P, n, 2 Wb) and Bsplit (G, 6, m, Wb) (sweep_split_basis of A1c,
+// A1s), all contiguous float32; n, m and Wb multiples of 64; ph, wt (B,
+// G, n, m)
+int sweep_stage2(const float* T, const float* Bsplit, const int* off,
+                 float* ph, float* wt, int B, int G, int P, int n, int m,
+                 int Wb, int dr, int banded, cudaStream_t stream) {
+  return launch_stage2<false>(T, Bsplit, off, ph, wt, B, G, P, n, m, Wb, dr,
+                              banded, nullptr, nullptr, nullptr, stream);
 }
 
 // the same launch that also stores each pixel's winner (Re M, Im M,
 // index) to mro, mio, ixo (B, G, n, m)
-int sweep_stage2_winners(const float* T, const float* A1c, const float* A1s,
-                         const int* off, float* ph, float* wt, float* mro,
-                         float* mio, int* ixo, int B, int G, int P, int n,
-                         int m, int Wb, int dr, int banded,
-                         cudaStream_t stream) {
-  return launch_stage2<true>(T, A1c, A1s, off, ph, wt, B, G, P, n, m, Wb,
-                             dr, banded, mro, mio, ixo, stream);
+int sweep_stage2_winners(const float* T, const float* Bsplit, const int* off,
+                         float* ph, float* wt, float* mro, float* mio,
+                         int* ixo, int B, int G, int P, int n, int m, int Wb,
+                         int dr, int banded, cudaStream_t stream) {
+  return launch_stage2<true>(T, Bsplit, off, ph, wt, B, G, P, n, m, Wb, dr,
+                             banded, mro, mio, ixo, stream);
 }
 
 // idx (G, n, m) int32 in [0, P), flags (G, n/64, P) int32; n, m multiples

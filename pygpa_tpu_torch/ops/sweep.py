@@ -22,12 +22,15 @@ CUDA route (``csrc/sweep.cu``), launches on the current stream:
    rows into a (G, P, n, 2*Wb) float32 scratch (float32 FMA);
 2. stage 2 + tournament: M_i = T_i @ [A1c | -A1s], [A1s | A1c] per
    64x64 pixel tile on the tensor cores (``csrc/sweep_tc.cuh``, shared
-   with the zoom sweep: 3xTF32 ``mma.sync``, tensor-core chains that
-   restart every 32 columns of Wb with float32 adds between, the hi.hi
-   products in a chain apart from the two small ones, T and the column
-   basis streamed through a ``cp.async`` ring, so any Wb that is a
-   multiple of 64 runs), looped over the candidates with the running
-   best kept in registers; emits the phase and weight planes (G, n, m);
+   with the zoom sweep: 3xTF32 on Hopper's warpgroup ``wgmma``, fed by a
+   TMA ring over T and the column basis loaded two stages ahead; the
+   basis is split into its TF32 hi and lo planes once a call by
+   :func:`split_basis`, its own launch, counted "split_basis";
+   tensor-core chains that restart every 32 columns of Wb with float32
+   adds between, the hi.hi products in a chain apart from the two small
+   ones, so any Wb that is a multiple of 64 runs), looped over the
+   candidates with the running best kept in registers; emits the phase
+   and weight planes (G, n, m);
 3. (uv) the uv epilogue, one thread per pixel reading its left and
    upper neighbours from device memory; or (b) the gradients, after a
    tournament launch that also stores each pixel's winner (Re M, Im M,
@@ -39,10 +42,11 @@ CUDA route (``csrc/sweep.cu``), launches on the current stream:
    candidates a band), and the winner products ("grad_products"): per
    tile, for each candidate that wins one of its pixels, Tx_i @ B1 and
    T_i @ B1y (the base band's f1-scaled basis A1y = (2 pi i f1) A1) as
-   two jobs of one ``cp.async`` ring, then the gradients at the pixels
-   it wins, the banded winner's column gradient less its ramp's slope
-   off * 2 pi / m. Nothing waits for the host between these launches;
-   the zoom sweep runs the same three for its gradient emission.
+   two jobs of one ``cp.async`` ring on ``mma.sync``, then the
+   gradients at the pixels it wins, the banded winner's column gradient
+   less its ramp's slope off * 2 pi / m. Nothing waits for the host
+   between these launches; the zoom sweep runs the same three for its
+   gradient emission.
 
 What bounds it on an H100: stage 2's G*P*n*m*Wb complex multiply-adds
 (1.86 TFLOP at the 4096^2 bench shapes), three times over at the
@@ -371,6 +375,48 @@ def winner_products_plain(T, Tx, A1c, A1s, A1yc, A1ys, mr, mi, idx, flags,
     return out
 
 
+def _tf32_rna(x):
+    """cvt.rna.tf32.f32 of a float32 tensor by bit operations: the
+    mantissa rounded to its top 10 bits, half away from zero."""
+    return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def split_basis_plain(A1c, A1s):
+    """The plain twin of :func:`split_basis`."""
+    (ch, cl), (sh, sl) = ((hi, _tf32_rna(x - hi)) for x, hi in (
+        (x, _tf32_rna(x.contiguous())) for x in (A1c, A1s)))
+    return torch.stack([-sh, ch, sh, -sl, cl, sl], dim=-3)
+
+
+def split_basis(A1c, A1s):
+    """The column basis A1c, A1s (G, m, K) float32 split for stage 2's
+    tensor cores: (G, 6, m, K) planes -hi(A1s), hi(A1c), hi(A1s),
+    -lo(A1s), lo(A1c), lo(A1s) with hi = tf32(x), lo = tf32(x - hi),
+    tf32 rounding to nearest with ties away from zero (cvt.rna), the
+    negation a flip of the sign bit (a warpgroup's 32 columns of the
+    first three planes are the rows [-s | c | s] whose windows [c | s]
+    and [-s | c] the Tr and Ti products read, and likewise the lo
+    planes). A CUDA tensor runs
+    ``csrc/sweep.cu``'s split_basis_kernel (counted "split_basis"), a
+    CPU tensor :func:`split_basis_plain`."""
+    if not _on_card("split_basis", A1c):
+        return split_basis_plain(A1c, A1s)
+    G, m, K = A1c.shape
+    for name, t in (("A1c", A1c), ("A1s", A1s)):
+        _build.check_tensor("split_basis", name, t, (G, m, K),
+                            torch.float32, A1c.device)
+    if K % 4:
+        raise ValueError(f"split_basis: K must be a multiple of 4, got {K}")
+    out = torch.empty((G, 6, m, K), dtype=torch.float32, device=A1c.device)
+    with torch.cuda.device(A1c.device):
+        _build.check(_build.bind("sweep_split_basis", "pppiiip")(
+            A1c.data_ptr(), A1s.data_ptr(), out.data_ptr(), G, m, K,
+            torch.cuda.current_stream(A1c.device).cuda_stream),
+            "sweep_split_basis")
+    _build.launches["split_basis"] += 1
+    return out
+
+
 def kernel_supported(n, m, W0, Wb, P):
     """Shapes the CUDA sweep takes: n, m and the band width Wb multiples
     of TILE (any Wb: the column basis streams through shared memory),
@@ -482,23 +528,24 @@ def stage2(T, A1c, A1s, off, dr, banded, winners=False):
     m, dev = A1c.shape[1], T.device
     ph = torch.empty(lead + (G, n, m), dtype=torch.float32, device=dev)
     wt = torch.empty_like(ph)
+    Bs = split_basis(A1c, A1s)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         if not winners:
-            _build.check(_build.bind("sweep_stage2", "ppppppiiiiiiiip")(
-                T.data_ptr(), A1c.data_ptr(), A1s.data_ptr(), off.data_ptr(),
-                ph.data_ptr(), wt.data_ptr(), B, G, P, n, m, Wb, int(dr),
+            _build.check(_build.bind("sweep_stage2", "pppppiiiiiiiip")(
+                T.data_ptr(), Bs.data_ptr(), off.data_ptr(), ph.data_ptr(),
+                wt.data_ptr(), B, G, P, n, m, Wb, int(dr),
                 int(bool(banded)), stream), "sweep_stage2")
             return ph, wt
         mr = torch.empty_like(ph)
         mi = torch.empty_like(ph)
         idx = torch.empty(ph.shape, dtype=torch.int32, device=dev)
         _build.check(_build.bind("sweep_stage2_winners",
-                                 "pppppppppiiiiiiiip")(
-            T.data_ptr(), A1c.data_ptr(), A1s.data_ptr(), off.data_ptr(),
-            ph.data_ptr(), wt.data_ptr(), mr.data_ptr(), mi.data_ptr(),
-            idx.data_ptr(), B, G, P, n, m, Wb, int(dr), int(bool(banded)),
-            stream), "sweep_stage2_winners")
+                                 "ppppppppiiiiiiiip")(
+            T.data_ptr(), Bs.data_ptr(), off.data_ptr(), ph.data_ptr(),
+            wt.data_ptr(), mr.data_ptr(), mi.data_ptr(), idx.data_ptr(), B,
+            G, P, n, m, Wb, int(dr), int(bool(banded)), stream),
+            "sweep_stage2_winners")
     return ph, wt, mr, mi, idx
 
 

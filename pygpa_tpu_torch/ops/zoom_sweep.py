@@ -24,16 +24,18 @@ along rows and columns, gx = (Im M Re Mx - Re M Im Mx) / |M|^2 with Mx
 = A0 (gx_i . S2 . gy_i) A1^T, and gy alike with My = A0 (gx_i . S .
 gy_i) A1y^T: exact derivatives of the band-limited interpolant.
 
-CUDA route, two launches on the current stream: stage 1 is the
+CUDA route, three launches on the current stream: stage 1 is the
 grouped sweep's ``sweep_stage1`` (``csrc/sweep.cu``, float32 FMA) with
-one group and one band run, into a (P, n, 2 W1) float32 scratch T;
-stage 2 is ``csrc/zoom_sweep.cu`` on the tensor cores in 3xTF32 (each
-float32 product as lo.hi + hi.lo + hi.hi of TF32 halves; one float32
-tensor-core chain per 32 columns of W1, since the tensor cores truncate
-their adds, and the chains' sums added in float32 registers with
-rounding to nearest), with T and the column basis streamed through a
-cp.async ring and the tournament in registers. The gradient emission
-runs the same two launches (its tournament, phase and weight are the
+one group and one band run, into a (P, n, 2 W1) float32 scratch T; the
+grouped sweep's ``split_basis`` splits the column basis into its TF32
+hi and lo planes; stage 2 is ``csrc/zoom_sweep.cu`` on Hopper's
+tensor-core path in 3xTF32 (warpgroup ``wgmma`` fed by a TMA ring over
+T and the split basis, loaded two stages ahead; each float32 product
+as lo.hi + hi.lo + hi.hi of TF32 halves; one float32 tensor-core chain
+per 32 columns of W1, since the tensor cores truncate their adds, and
+the chains' sums added in float32 registers with rounding to nearest),
+with the tournament in registers. The gradient emission
+runs the same launches (its tournament, phase and weight are the
 plain launch's bits) and then the grouped sweep's gradient steps
 (``ops.sweep.winner_grads``): the band flags, stage 1 on S2 for the
 (64-row band, candidate) pairs that win a pixel of the band (Tx), and
@@ -192,11 +194,12 @@ def stage2(T, A1c, A1s, dr):
     emit = dr is not None
     ph = torch.empty_like(ba) if emit else ba
     wt = torch.empty_like(ba) if emit else ba
+    Bs = _sweep.split_basis(A1c[None], A1s[None])
     with torch.cuda.device(dev):
-        _build.check(_build.bind("zoom_sweep_stage2", "pppppppppiiiiiip")(
-            T.data_ptr(), A1c.data_ptr(), A1s.data_ptr(), ba.data_ptr(),
-            br.data_ptr(), bi.data_ptr(), bx.data_ptr(), ph.data_ptr(),
-            wt.data_ptr(), B, P, n, m, W1, int(dr) if emit else -1,
+        _build.check(_build.bind("zoom_sweep_stage2", "ppppppppiiiiiip")(
+            T.data_ptr(), Bs.data_ptr(), ba.data_ptr(), br.data_ptr(),
+            bi.data_ptr(), bx.data_ptr(), ph.data_ptr(), wt.data_ptr(), B, P,
+            n, m, W1, int(dr) if emit else -1,
             torch.cuda.current_stream(dev).cuda_stream), "zoom_sweep_stage2")
     out = (ba, br, bi, bx)
     return out + (ph, wt) if emit else out

@@ -1121,6 +1121,109 @@ def test_uv_and_zoom_outputs_keep_their_bits(dev):
     assert got == KEPT_BITS
 
 
+def _stage2_float64(T, A1c, A1s):
+    """Every candidate's M (P, n, m) of stage 2, complex128, from stage
+    1's float32 T (P, n, 2K) and the column basis (m, K) in float64."""
+    K = A1c.shape[1]
+    T64, c, s = T.double(), A1c.double(), A1s.double()
+    Tr, Ti = T64[..., :K], T64[..., K:]
+    return torch.complex(Tr @ c.T - Ti @ s.T, Tr @ s.T + Ti @ c.T)
+
+
+@pytest.mark.parametrize("n,m", [(64, 64), (64, 192), (192, 64)])
+@pytest.mark.parametrize("K", [32, 64, 256, 512])
+@pytest.mark.parametrize("P", [1, 49])
+def test_zoom_tournament_ring_and_boxes(dev, P, K, n, m):
+    """The zoom tournament's wgmma stage 2 straight from a seeded T, at
+    the ring's edges: one candidate (one fill and drain, P K / 32 stages
+    fewer than the ring's 4 when K = 32) and 49 (the ring crossing 48
+    candidate boundaries); K from one 32-column stage to 16; one tile and
+    a tile row or column of three. Winners agree with the float64
+    tournament at > 99% of the pixels (near ties may flip) and, against
+    the float64 M of the kernel's own winners, the rms error of M is
+    within 1e-6 of the rms of M (3xTF32: ~2^-22 a product); the basis
+    split counts one launch with the tournament."""
+    from pygpa_tpu_torch.ops import zoom_sweep as tz
+    g = np.random.default_rng(7 * P + K + n + 3 * m)
+    f = lambda *s: torch.from_numpy(
+        g.normal(size=s).astype(np.float32)).to(dev)
+    T, A1c, A1s = f(P, n, 2 * K), f(m, K), f(m, K)
+    before = _build.launches["split_basis"]
+    ba, br, bi, bx = tz.stage2(T, A1c, A1s, None)
+    assert _build.launches["split_basis"] == before + 1
+    M64 = _stage2_float64(T, A1c, A1s)
+    want = M64.abs().square().argmax(0)
+    assert float((bx.long() == want).double().mean()) > 0.99
+    ref = M64.gather(0, bx.long()[None])[0]
+    err = torch.complex(br.double(), bi.double()) - ref
+    rel = float(err.abs().square().mean().sqrt()
+                / ref.abs().square().mean().sqrt())
+    assert rel <= 1e-6, rel
+
+
+@pytest.mark.parametrize("banded", [True, False])
+@pytest.mark.parametrize("n,m", [(64, 192), (192, 64)])
+@pytest.mark.parametrize("P,Wb", [(1, 64), (49, 128)])
+def test_grouped_tournament_ring_and_boxes(dev, P, Wb, n, m, banded):
+    """The grouped tournament (SPLIT chains, candidate 0 taken first)
+    straight from a seeded T of two groups, each group's basis planes a
+    box coordinate apart: its phase and weight against the float64
+    twin's stage 2, banded and not, with test_grouped_sweep_tensor_core_
+    kernel's flip-tolerant bounds; the winners launch stores the same
+    planes."""
+    G, dr = 2, 6
+    g = np.random.default_rng(P + Wb + n + 5 * m + banded)
+    f = lambda *s: torch.from_numpy(
+        g.normal(size=s).astype(np.float32)).to(dev)
+    T, A1c, A1s = f(G, P, n, 2 * Wb), f(G, m, Wb), f(G, m, Wb)
+    off = torch.from_numpy(g.integers(0, m, size=(G, P)).astype(
+        np.int32)).to(dev)
+    ph, wt = tsweep.stage2(T, A1c, A1s, off, dr, banded)
+    win = tsweep.stage2(T, A1c, A1s, off, dr, banded, winners=True)
+    assert torch.equal(win[0], ph) and torch.equal(win[1], wt)
+    pp, pw = tsweep._stage2_plain(T.double(), A1c.double(), A1s.double(),
+                                  off, dr, banded)
+    dph = (torch.remainder(ph.double() - pp + np.pi, 2 * np.pi)
+           - np.pi).abs().flatten()
+    rel = ((wt.double() - pw).abs() / (pw.abs() + 1e-9)).flatten()
+    assert float((dph > 1e-4).double().mean()) < 1e-2
+    assert float(torch.quantile(dph, 0.99)) < 5e-5
+    assert float(torch.quantile(rel, 0.99)) < 5e-5
+    assert float(rel.max()) < 2e-2
+
+
+def test_grouped_stage2_splits_stacks_past_the_grid_limit(dev):
+    """A grouped stack whose B G passes CUDA's gridDim.z (65535) runs its
+    tournament in launches of whole images (one T map each): the first
+    and the last image's planes are the bits of their own launches."""
+    G, P, n, m, Wb = 3, 1, 64, 64, 64
+    B = tsweep.MAX_GRID_Z // G + 1
+    g = np.random.default_rng(79)
+    f = lambda *s: torch.from_numpy(
+        g.normal(size=s).astype(np.float32)).to(dev)
+    T, A1c, A1s = f(B, G, P, n, 2 * Wb), f(G, m, Wb), f(G, m, Wb)
+    off = torch.zeros((G, P), dtype=torch.int32, device=dev)
+    got = tsweep.stage2(T, A1c, A1s, off, 4, False)
+    for i in (0, B - 1):
+        one = tsweep.stage2(T[i].contiguous(), A1c, A1s, off, 4, False)
+        for x, y in zip(got, one):
+            assert torch.equal(x[i], y), i
+
+
+def test_split_basis_kernel(dev):
+    """The basis split on the card is its twin's bits (the zoom sweep's
+    (1, m, K) and the grouped sweep's (G, m, K)); each call counts one
+    launch."""
+    g = np.random.default_rng(83)
+    for shape in ((1, 192, 256), (3, 320, 128)):
+        c, s_ = (torch.from_numpy(g.normal(size=shape).astype(np.float32))
+                 .to(dev) for _ in range(2))
+        before = _build.launches["split_basis"]
+        got = tsweep.split_basis(c, s_)
+        assert _build.launches["split_basis"] == before + 1
+        assert torch.equal(got, tsweep.split_basis_plain(c, s_))
+
+
 # ---- the image axis: stacks of images with per-image weights, each
 # kernel against its twin and against its own single-image launch on each
 # image's slice (bit for bit: a block's arithmetic does not depend on the

@@ -14,6 +14,7 @@ from pygpa_tpu.lattices import generate_ks, hexlattice_gen
 from pygpa_tpu.ops.pallas_sweep import fused_zoom_sweep
 import pygpa_tpu_torch.ops.wfr as TW
 from pygpa_tpu_torch.ops import _build
+from pygpa_tpu_torch.ops import sweep as TSW
 from pygpa_tpu_torch.ops import zoom_sweep as TZ
 
 torch.set_num_threads(2)
@@ -344,6 +345,68 @@ def test_tf32_rounding_by_bits():
     assert not (lo.view(np.uint32) & 0x1FFF).any()
     err = np.abs(hi.astype(np.float64) + lo - x) / np.abs(x)
     assert err.max() <= 2.0 ** -22
+
+
+def _split_cases(seed, shape):
+    """Seeded basis planes with the rounding's edge cases written in:
+    exact half-ulp ties of both signs, zeros of both signs, values just
+    below and above a tie, subnormals, and magnitudes near float32's
+    largest."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=shape).astype(np.float32)
+    b = x.reshape(-1).view(np.uint32)
+    edge = np.array([0x3F801000, 0xBF801000, 0x00000000, 0x80000000,
+                     0x3F800FFF, 0x3F801001, 0x00001234, 0x80FFF000,
+                     0x7F7FEFFF, 0xFF7FEFFF, 0x40490FDB, 0xC0490FDB],
+                    np.uint32)
+    b[:edge.size] = edge
+    return b.view(np.float32).reshape(shape)
+
+
+@pytest.mark.parametrize("shape", [(1, 64, 64), (3, 128, 32), (2, 64, 256)])
+def test_split_basis_twin_is_the_kernels_rounding(shape):
+    """The basis split's twin (ops.sweep.split_basis_plain, the bits the
+    split kernel must give on the card) against the bit emulation of
+    cvt.rna above: planes -hi(A1s), hi(A1c), hi(A1s), -lo(A1s), lo(A1c),
+    lo(A1s), bit for bit (the negation a sign-bit flip, zeros included),
+    each a TF32 value (13 low mantissa bits clear)."""
+    c, s = _split_cases(11, shape), _split_cases(12, shape)
+    got = TSW.split_basis_plain(torch.from_numpy(c), torch.from_numpy(s))
+    assert got.shape == shape[:1] + (6,) + shape[1:]
+    (ch, cl), (sh, sl) = _split(c), _split(s)
+    flip = lambda x: (x.view(np.uint32) ^ np.uint32(0x80000000)).view(
+        np.float32)
+    want = np.stack([flip(sh), ch, sh, flip(sl), cl, sl], axis=1)
+    np.testing.assert_array_equal(got.numpy().view(np.uint32),
+                                  want.view(np.uint32))
+    assert not (got.numpy().view(np.uint32) & 0x1FFF).any()
+
+
+def test_split_of_the_negated_basis_is_the_negated_split():
+    """Why the -A1s planes are A1s's split with the sign bit flipped
+    rather than a split of -A1s: the two agree (cvt.rna rounds half away
+    from zero on both signs) but for the sign of a zero lo, where x is a
+    TF32 value; the flip is what the mma.sync kernel took (Ti times the
+    sign-flipped split of A1s), so the products keep their bits, the
+    signs of zeros included."""
+    x = _split_cases(13, (2, 64, 64))
+    for got, want in zip(_split(-x), _split(x)):
+        np.testing.assert_array_equal(got, -want)
+    lo = _split(x)[1]
+    differ = _split(-x)[1].view(np.uint32) != (-lo).view(np.uint32)
+    assert differ.any() and (lo[differ] == 0).all()
+
+
+def test_split_basis_wrapper_dispatch():
+    """A CPU tensor runs the split's twin and counts no launch; another
+    device raises."""
+    c = torch.from_numpy(_split_cases(14, (1, 64, 64)))
+    _build.launches.clear()
+    assert torch.equal(TSW.split_basis(c, -c),
+                       TSW.split_basis_plain(c, -c))
+    assert sum(_build.launches.values()) == 0
+    with pytest.raises(ValueError, match="device"):
+        TSW.split_basis(c.to("meta"), c.to("meta"))
 
 
 def test_three_tf32_passes_meet_the_kernel_bounds_and_one_does_not():
