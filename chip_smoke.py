@@ -35,11 +35,11 @@ Phases, each printed on its own lines:
    kernel ran; seconds per image and Mpix/s over 5 runs after warm-up,
    per-stage CUDA-event times and peak device memory;
 5. the README's eager path, extract_displacement_field(img, ks) on the
-   same fixture (one zoom sweep per Bragg peak, the exact CG on the DCT
-   kernels), and
+   same fixture (one zoom sweep per Bragg peak, the exact CG on the
+   early-stopping CG kernel), and
 6. the README's factory at its defaults,
    make_displacement_extractor((4096, 4096), ks, device="cuda") (the
-   grouped sweep, then the exact CG on the DCT kernels);
+   grouped sweep, then the exact CG on the early-stopping kernel);
    each with its launch counts, the whole path against the same path
    on the plain twins (max < 1e-2 px: near-tie winner flips) and, since
    the sweep kernels sum more accurately than their float32 twins,
@@ -224,7 +224,8 @@ the float64 twin; stages 1, 2 and the uv epilogue timed apart, with
 stage 2's float32-FMA and 3xTF32 bounds), the zoom-sweep kernel (all
 three peaks of the eager path; stage 1 and stage 2 timed apart, with
 stage 2's float32-FMA and 3xTF32 bounds), the four DCT directions (on
-the exact CG's own residual), the warp kernels (the displacement-form
+the first transform of each direction of the exact CG's
+preconditioner on phase 5's residual), the warp kernels (the displacement-form
 cubic warp on the first Picard step of phase 7b, both planes in place,
 and on its final 'constant' warp, with the coordinate form on the same
 positions; the first bilinear warp of 7a's coarse inversion: both
@@ -247,7 +248,16 @@ route) and a dense-route call at (2, 384, 640), each against its twin
 and bit for bit against itself, with its kernel launches per iteration
 (torch.profiler; at most 6 on the FFT route), the L2 traffic of its
 launch chain and, on the FFT route, the dense route's error and time on
-the same inputs. For each kernel it computes the bound from those inputs (the larger of
+the same inputs. The early-stopping CG kernel (cg_unwrap) runs phase
+5's exact solve (2, 4096^2, kmax 10, the row), config 6's 2048^2
+levels (kmax 6 and 4) and 4096^2 refinement (13d's inputs, from one run
+of its extractor on the displaced 8192^2 lattice), a (4, 2) stack of
+displaced 512^2 images with their own weights (16b's path) and 12b's
+4086^2 unwrap (refine_ks: the route of the other sides), each against
+its twin (phi within 1e-4, k per plane equal, bit for bit over two
+calls), with each plane's stop margin, ms a call, launches an
+iteration (at most 6 on the FFT route) and the HBM traffic of its
+launch chain. For each kernel it computes the bound from those inputs (the larger of
 their bytes, each input read once and each output written once, over
 3.35 TB/s and their float32 operations over 67 TFLOP/s: the sweeps'
 8 G P n Wb (W0 + m) from their shapes with stage 2 three times over at
@@ -320,6 +330,10 @@ KERNELS = {
                "pygpa_tpu/ops/pallas_vcycle.py:217"),
     "cg_poisson": ("pygpa_tpu_torch/csrc/cg.cu",
                    "pygpa_tpu/ops/pallas_cg.py:109"),
+    # the early-stopping CG: the reference's lax.while_loop, which XLA
+    # fuses on the TPU (its Pallas CG takes only VMEM-sized levels)
+    "cg_unwrap": ("pygpa_tpu_torch/csrc/cg_unwrap.cu",
+                  "pygpa_tpu/solvers/unwrap.py:215"),
     "zoom_sweep": ("pygpa_tpu_torch/csrc/zoom_sweep.cu",
                    "pygpa_tpu/ops/pallas_sweep.py:96"),
     "dct_lane": ("pygpa_tpu_torch/csrc/dct.cu",
@@ -357,7 +371,8 @@ KERNELS = {
 }
 # the path whose counted run a kernel's "launches" reports
 PATH_OF = {"sweep_uv": 4, "presmooth": 4, "applyq": 4, "cg_poisson": 4,
-           "zoom_sweep": 5, "dct_lane": 5, "dct_sub": 5,
+           "zoom_sweep": 5, "cg_unwrap": 5, "dct_lane": "17b",
+           "dct_sub": "17b",
            "warp_bilinear": "7a", "warp_cubic": "7b", "expand": "8a",
            "drizzle": "8a", "zoom_grad": "10a", "sweep_grad": "10b",
            "sweep_pw": "11b", "grad_flags": "10a", "grad_stage1": "10a",
@@ -367,45 +382,48 @@ PATH_OF = {"sweep_uv": 4, "presmooth": 4, "applyq": 4, "cg_poisson": 4,
 GRAD_STEPS = ("grad_flags", "grad_stage1", "grad_products")
 # kernels each driven path must launch
 PATH_KERNELS = {4: ("sweep_uv", "presmooth", "applyq", "cg_poisson"),
-                5: ("zoom_sweep", "dct_lane", "dct_sub"),
-                6: ("sweep_uv", "dct_lane", "dct_sub"),
+                5: ("zoom_sweep", "cg_unwrap"),
+                6: ("sweep_uv", "cg_unwrap"),
                 "7a": ("presmooth", "applyq", "cg_poisson", "warp_bilinear",
                        "warp_cubic"),
                 "7b": ("warp_cubic",),
                 "8a": ("drizzle", "expand"),
                 "8b": ("drizzle", "expand"),
                 "9a": ("sweep_uv",),
-                "9b": (),
+                # 500^2: the 125^2 coarse solve on the early-stopping
+                # kernel's other sides, the V-branch on its twins
+                "9b": ("cg_unwrap",),
                 "10a": ("zoom_grad",) + GRAD_STEPS,
                 "10b": ("sweep_grad",) + GRAD_STEPS,
-                "11a": ("zoom_grad", "dct_lane", "dct_sub") + GRAD_STEPS,
-                "11b": ("sweep_pw", "dct_lane", "dct_sub"),
+                "11a": ("zoom_grad", "cg_unwrap") + GRAD_STEPS,
+                "11b": ("sweep_pw", "cg_unwrap"),
                 "12e": ("sweep_uv", "presmooth", "applyq", "cg_poisson"),
                 "13a": ("sweep_uv", "presmooth", "applyq", "cg_poisson"),
                 "13b": ("sweep_uv", "presmooth", "applyq", "cg_poisson"),
                 "13c": ("sweep_uv", "presmooth", "applyq", "cg_poisson"),
-                # 8192^2: the 2048^2 coarse and correction solves take the
-                # torch CG loop (above ops.cg.MAX_SIDE)
-                "13d": ("sweep_uv", "presmooth", "applyq"),
+                # 8192^2: the 2048^2 coarse and correction solves (above
+                # ops.cg.MAX_SIDE) take the early-stopping kernel
+                "13d": ("sweep_uv", "presmooth", "applyq", "cg_unwrap"),
                 # phase 15: the stacks run the path's four kernels
                 "15a": ("sweep_uv", "presmooth", "applyq", "cg_poisson"),
                 "15b": ("sweep_uv", "presmooth", "applyq", "cg_poisson"),
                 # the fits, wfr4 and WFF run no hand kernel
                 "14a": (), "14b": (), "14c": (), "14d": (),
                 # phase 16: the eager path and both gradient emissions on
-                # stacks (16b at 512^2: the exact CG's DCTs on the twins)
-                "16a": ("zoom_sweep", "dct_lane", "dct_sub"),
-                "16b": ("zoom_sweep",),
+                # stacks (the exact CG on the early-stopping kernel)
+                "16a": ("zoom_sweep", "cg_unwrap"),
+                "16b": ("zoom_sweep", "cg_unwrap"),
                 "16ca": ("zoom_grad",) + GRAD_STEPS,
                 "16cb": ("sweep_grad",) + GRAD_STEPS,
                 # phase 17: the row-sharded pipeline (multigrid on the
                 # sharded preconditioner: no CG or V-branch kernel, the
                 # 1024^2 levels' DCTs on the twins) and with the exact CG
-                # (the pencil DCT's passes at 4096 on the kernels); the
-                # batch over the mesh
+                # (the torch loop through the seam: the pencil DCT's
+                # passes at 4096 on the DCT kernels); the batch over the
+                # mesh (each rank's eager call: the early-stopping kernel)
                 "17a": ("zoom_sweep",),
                 "17b": ("zoom_sweep", "dct_lane", "dct_sub"),
-                "17g": ("zoom_sweep", "dct_lane", "dct_sub")}
+                "17g": ("zoom_sweep", "cg_unwrap")}
 # each gradient path's launches of the sweeps: exactly these counts
 PATH_SWEEPS = {"10a": {"zoom_grad": 3}, "10b": {"sweep_grad": 1},
                "11a": {"zoom_grad": 3}, "11b": {"sweep_pw": 1},
@@ -902,13 +920,109 @@ def dense_cg_call(torch, B, n, m, kmax):
     return rk, WWx, WWy, kmax
 
 
-def cg_l2_bytes(B, n, m):
-    """Bytes one FFT-route iteration moves through L2, each launch's
-    planes read and written once: the four passes (2, 2, 2 and 3 planes
-    of (B, n, m)), p_applyq (z, p_old, p, Qp and the two (n, m) weights)
-    and update_x (phi, r, p, Qp read; phi, r written)."""
-    plane, ww = 4 * B * n * m, 4 * n * m
+def chain_bytes(B, n, m, I=1):
+    """Bytes one FFT-route iteration of either CG kernel moves, each
+    launch's planes read and written once: the four passes (2, 2, 2 and 3
+    planes of (B, n, m)), the p/stencil kernel (z, p_old, p, Qp and the I
+    weight pairs) and the phi/r kernel (phi, r, p, Qp read; phi, r
+    written). cg_poisson's stay in L2 (at 1024^2); at the exact path's
+    4096^2 they are HBM bytes."""
+    plane, ww = 4 * B * n * m, 4 * I * n * m
     return (2 + 2 + 2 + 3) * plane + 4 * plane + 2 * ww + 6 * plane
+
+
+def kernel_names(fn):
+    """Names of the CUDA kernels one call of fn() launches, in order
+    (torch.profiler, after a warm-up call; copies and fills left out);
+    None when the profiler records no device activity."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA
+             and not e.name.lower().startswith(("memcpy", "memset"))]
+    return names or None
+
+
+# the early-stopping kernel's launches inside an iteration (the DCT
+# passes, step_p, step_x; eigen_rz on the other sides)
+UNWRAP_ITER_KERNELS = ("dct_kernel", "step_p_kernel", "step_x_kernel",
+                       "eigen_rz_kernel")
+
+
+def check_cg_unwrap(cg, calls, label):
+    """The early-stopping CG kernel against its twin on each captured
+    call (rk0, WWx, WWy, kmax, aligned): phi within PATH_AGREE (1e-4,
+    normwise relative: float32 sums in another order), k per plane equal
+    to the twin's, a second call bit for bit, finite; printed: each
+    plane's stop margin (||r|| after its last iteration over its
+    threshold 1e-6 ||r0||: below 1 it stopped by the norm), ms a call,
+    the twin's ms, launches an iteration (torch.profiler; the FFT route
+    fails above 6), the bound and, on the FFT route, the HBM traffic of
+    its launch chain. Returns (largest |delta|, a row per call)."""
+    import torch
+    mabs, rows = 0.0, []
+    for args in calls:
+        rk0, WWx, WWy, kmax, aligned = args[:5]
+        lead = rk0.shape[:-2]
+        nk = torch.empty(lead + (2,), device=rk0.device)
+        nt = torch.empty_like(nk)
+        got, k = cg.cg_unwrap(*args[:5], norms=nk)
+        again, k2 = cg.cg_unwrap(*args[:5])
+        want, kw = cg.cg_unwrap_plain(*args[:5], norms=nt)
+        torch.cuda.synchronize()
+        e = rel_err(got, want)
+        same = bool(torch.equal(got, again)) and bool(torch.equal(k, k2))
+        mabs = max(mabs, float((got - want).abs().max()))
+        n, m = rk0.shape[-2:]
+        B = int(np.prod(lead))
+        fft = cg.unwrap_fft_route(n, m)
+        k_ms = cuda_ms(lambda a=args: cg.cg_unwrap(*a[:5]), 5)
+        t_ms = cuda_ms(lambda a=args: cg.cg_unwrap_plain(*a[:5]), 3)
+        names = kernel_names(lambda a=args: cg.cg_unwrap(*a[:5]))
+        per_it = None if names is None else sum(
+            any(x in nm for x in UNWRAP_ITER_KERNELS)
+            for nm in names) / max(int(kmax), 1)
+        # the work this run's data needs: each plane's own iterations of
+        # an FFT-form 2D DCT pair and the stencil
+        work = float(k.sum()) * n * m * (5 * np.log2(n * m) + 12)
+        b_ms, b_by = bound(tensor_bytes(rk0, WWx, WWy, got), work)
+        line = (f"  [{label}] cg_unwrap {tuple(rk0.shape)} "
+                f"{'aligned' if aligned else 'unaligned'} kmax {kmax} "
+                f"({'FFT' if fft else 'other sides'} route) vs twin: phi rel "
+                f"err {e!r} (bound {PATH_AGREE}); k {k.flatten().tolist()}, "
+                f"twin {kw.flatten().tolist()}; stop margin ||r|| / thr "
+                f"{(nk[..., 0] / nk[..., 1]).flatten().tolist()}, twin "
+                f"{(nt[..., 0] / nt[..., 1]).flatten().tolist()}; two runs "
+                f"bit-identical: {same}; kernel {k_ms!r} ms, twin {t_ms!r} "
+                f"ms, bound {b_ms!r} ms ({b_by}); launches an iteration "
+                f"{per_it!r} (torch.profiler)")
+        if fft:
+            tr = chain_bytes(B, n, m, int(np.prod(WWx.shape[:-2])))
+            line += (f"; HBM traffic of the launch chain {tr!r} bytes an "
+                     f"iteration ({tr / HBM_BYTES_S * 1e3!r} ms an iteration "
+                     f"at the HBM rate, {tr * float(k.max()) / HBM_BYTES_S * 1e3!r}"
+                     f" ms for the call's longest plane)")
+        say(line)
+        by_kernel, _ = device_kernels(lambda a=args: cg.cg_unwrap(*a[:5]))
+        say(f"      device ms per kernel over the call: "
+            f"{json.dumps(by_kernel)}")
+        ok = (np.isfinite(e) and e <= PATH_AGREE and same
+              and bool(torch.equal(k, kw)) and bool(torch.isfinite(got).all()))
+        if fft and per_it is not None and per_it > 6:
+            raise RuntimeError(f"[{label}] the FFT-route early-stopping CG "
+                               f"launches {per_it} kernels an iteration")
+        if not ok:
+            raise RuntimeError(f"[{label}] cg_unwrap kernel disagrees with "
+                               "its twin or does not repeat")
+        rows.append(dict(ms=k_ms, plain_ms=t_ms, bound_ms=b_ms, bound_by=b_by,
+                         library_ms=None))
+    return mabs, rows
 
 
 ZOOM_AGREE = 0.99      # winner agreement, kernel vs twin
@@ -1028,6 +1142,7 @@ def plain_versions():
              (vcycle, "presmooth", vcycle.presmooth_plain),
              (vcycle, "applyq", vcycle.applyq_plain),
              (cg, "cg_poisson", cg.cg_poisson_plain),
+             (cg, "cg_unwrap", cg.cg_unwrap_plain),
              (fourier, "dct_kernel_ok", lambda n, dtype: False)]
     saved = [(m, k, getattr(m, k)) for m, k, _ in swaps]
     for m, k, v in swaps:
@@ -1207,8 +1322,8 @@ def drive_path(num, label, call, call_deconv, img, img_d, u_true, ks,
         f"({REPS_EXACT} runs after warm-up, host clock, synchronized)")
     say(f"    stage ms (CUDA events, deconvolving run): "
         f"{json.dumps(stages)}")
-    say(f"    unwrap stage (the exact CG on the DCT kernels) "
-        f"{stages.get('unwrap')!r} ms")
+    say(f"    unwrap stage (the exact CG on the early-stopping kernel) "
+        f"{stages.get('unwrap')!r} ms; card {card_line()}")
     say(f"    peak device memory {peak / 2**30!r} GiB")
     return launches
 
@@ -1471,7 +1586,7 @@ def launch_routes(launches):
         return f"kernels {n}" if n else None
     dct = [k for k in launches if k.startswith("dct")]
     return {"sweep": runs("sweep_uv") or "no grouped sweep kernel",
-            "CG solves": runs("cg_poisson")
+            "CG solves": runs("cg_poisson", "cg_unwrap")
             or "torch CG loop (no CG kernel launch)",
             "DCT": runs(*dct) or "twins (no DCT kernel launch)",
             "V-branch": runs("presmooth", "applyq") or "twins"}
@@ -1489,14 +1604,16 @@ def check_path_kernels(label, fn, img_d):
     times the sweep's bound): a kernel that writes zeros fails. img_d may
     be a stack (phase 15a's displaced_stack). Returns the captured calls (sweep_uv,
     presmooth, applyq, cg_poisson) and each kernel's largest absolute
-    difference from its twin."""
+    difference from its twin; the early-stopping CG's calls (config 6's
+    levels past ops.cg.MAX_SIDE) are held to its twin too."""
     import torch
     from pygpa_tpu_torch.ops import cg, sweep, vcycle, wfr
     from pygpa_tpu_torch.solvers import unwrap
     with Capture(wfr._sweep, "sweep_uv") as c_sw, \
             Capture(unwrap._vcycle, "presmooth") as c_ps, \
             Capture(unwrap._vcycle, "applyq") as c_aq, \
-            Capture(unwrap._cg, "cg_poisson") as c_cg:
+            Capture(unwrap._cg, "cg_poisson") as c_cg, \
+            Capture(unwrap._cg, "cg_unwrap") as c_cu:
         fn(img_d)
         torch.cuda.synchronize()
     say(f"[{label}] kernels vs twins on one run's inputs (the lattice "
@@ -1524,6 +1641,8 @@ def check_path_kernels(label, fn, img_d):
         errs["applyq"] = max(errs["applyq"], e_aq)
     if c_cg.calls:
         errs["cg_poisson"] = check_cg(cg, c_cg.calls)
+    if c_cu.calls:
+        errs["cg_unwrap"], _ = check_cg_unwrap(cg, c_cu.calls, label)
     return (c_sw.calls, c_ps.calls, c_aq.calls, c_cg.calls), errs
 
 
@@ -2520,7 +2639,8 @@ def drive_config6():
         f"{dmax!r} px (bounds 1e-3, 1e-2); seconds per image {dt!r}, Mpix/s "
         f"{size * size / 1e6 / dt!r} (2 runs after warm-up, host clock, "
         f"synchronized); peak device memory {peak!r} GiB")
-    say(f"    stage ms (CUDA events): {json.dumps(stages)}")
+    say(f"    stage ms (CUDA events): {json.dumps(stages)}; card "
+        f"{card_line()}")
     if not (p99 < 1e-3 and dmax < 1e-2):
         raise RuntimeError("[13d] kernels change the result")
     del u, ui
@@ -2529,6 +2649,47 @@ def drive_config6():
                            dtype=torch.float32, device=DEVICE)
     check_path_kernels("13d", fn, img_d)
     return launches
+
+
+def config6_unwrap_calls():
+    """The early-stopping CG calls one run of config 6's extractor (phase
+    13d: 8192^2, chunk=4, unwrap_coarse=4) hands the kernel on the
+    lattice displaced by bench_field: the 2048^2 coarse and correction
+    solves (aligned, kmax 6 and 4) and the 4096^2 refinement step."""
+    import torch
+    from pygpa_tpu_torch.gpa import pipeline
+    from pygpa_tpu_torch.lattices import generate_ks, hexlattice_gen
+    from pygpa_tpu_torch.solvers import unwrap
+    size = 2 * SIZE
+    ks = generate_ks(R_K, THETA, kappa=KAPPA, psi=PSI)[:3]
+    img_d = hexlattice_gen(R_K, THETA, order=2, size=size, kappa=KAPPA,
+                           psi=PSI, shift=bench_field(size),
+                           dtype=torch.float32, device=DEVICE)
+    fn = pipeline.make_displacement_extractor(
+        (size, size), ks, chunk=4, unwrap_coarse=4, device=DEVICE)
+    with Capture(unwrap._cg, "cg_unwrap") as c:
+        fn(img_d)
+        torch.cuda.synchronize()
+    return c.calls
+
+
+def unwrap_stage(label, call):
+    """One call(events) with its stage times (CUDA events), printed with
+    the "unwrap" stage and the card's name and power limit."""
+    import torch
+    events = []
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    start.record()
+    call(events)
+    torch.cuda.synchronize()
+    stages, prev = {}, start
+    for name, ev in events:
+        stages[name] = prev.elapsed_time(ev)
+        prev = ev
+    say(f"    [{label}] stage ms (CUDA events): {json.dumps(stages)}; unwrap "
+        f"stage {stages.get('unwrap')!r} ms; card {card_line()}")
+    return stages
 
 
 def moire_ks(theta, psi, epsilon, a, xi):
@@ -3282,11 +3443,12 @@ def eager_fn(ks):
     from pygpa_tpu_torch import parallel
     from pygpa_tpu_torch.gpa import pipeline
 
-    def fn(x):
+    def fn(x, events=None):
         if x.dim() == 3:
-            return parallel.extract_displacement_field_batch(x, ks,
-                                                             device=DEVICE)
-        return pipeline.extract_displacement_field(x, ks, device=DEVICE)
+            return parallel.extract_displacement_field_batch(
+                x, ks, device=DEVICE, events=events)
+        return pipeline.extract_displacement_field(x, ks, device=DEVICE,
+                                                   events=events)
     return fn
 
 
@@ -3419,8 +3581,7 @@ def drive_eager_stack():
     say(f"[16a] the eager path on config 5's {tuple(tiles.shape)} tiles in "
         f"one call of gt.parallel.extract_displacement_field_batch: "
         f"launches per stack {launches}, per image {one}")
-    same_launches("16a", launches, one, ("zoom_sweep", "dct_lane",
-                                         "dct_sub"))
+    same_launches("16a", launches, one, ("zoom_sweep", "cg_unwrap"))
     if tuple(u.shape) != (4, 2, SIZE, SIZE) or not torch.isfinite(u).all():
         raise RuntimeError(f"[16a] output bad, shape {tuple(u.shape)}")
     sigma = int(np.ceil(1 / np.linalg.norm(ks, axis=1).min()))
@@ -3445,6 +3606,7 @@ def drive_eager_stack():
         raise RuntimeError("[16a] the stack differs from its images' calls")
     del u, loop
     dt, peak = timed(lambda: fn(tiles), 2)
+    unwrap_stage("16a", lambda ev: fn(tiles, events=ev))
     dt_loop, peak_loop = timed(lambda: [fn(t) for t in tiles], 2)
     say(f"    seconds per stack {dt!r} ({4 * SIZE * SIZE / 1e6 / dt!r} "
         f"Mpix/s), the loop of four eager calls {dt_loop!r} s (2 runs after "
@@ -3550,7 +3712,7 @@ def drive_eager_1b():
     _, one = counted_run("16b", lambda: fn(imgs[0]))
     say(f"[16b] config 1b's 16 x 512^2 through the eager batch call: "
         f"launches per stack {launches}, per image {one}")
-    same_launches("16b", launches, one, ("zoom_sweep",))
+    same_launches("16b", launches, one, ("zoom_sweep", "cg_unwrap"))
     b = 8 * int(np.ceil(1 / np.linalg.norm(ks, axis=1).min()))
     ui = u[..., b:-b, b:-b]
     per = (ui - ui.mean(dim=(-2, -1), keepdim=True)).abs().amax(
@@ -3567,6 +3729,7 @@ def drive_eager_1b():
         raise RuntimeError("[16b] the stack differs from its images' calls")
     del u, loop, ui
     dt, peak = timed(lambda: fn(imgs), REPS_NEW)
+    unwrap_stage("16b", lambda ev: fn(imgs, events=ev))
     dt_loop, _ = timed(lambda: [fn(im) for im in imgs], REPS_NEW)
     say(f"    seconds per stack {dt!r} ({nb * size * size / 1e6 / dt!r} "
         f"Mpix/s), the 16-image loop {dt_loop!r} s ({REPS_NEW} runs after "
@@ -4276,6 +4439,8 @@ def main():
     from pygpa_tpu_torch.ops import warp as warp_mod
     from pygpa_tpu_torch.solvers import unwrap as unwrap_mod
     from pygpa_tpu_torch.ucell import averaging as ucell_mod
+    from pygpa_tpu_torch import gpa as gt_gpa
+    from pygpa_tpu_torch.lattices import generate_ks
 
     # ---- 1. the card
     card = card_line()
@@ -4450,7 +4615,7 @@ def main():
                 f"twin {t_ms!r} ms, bound {b_ms!r} ms ({b_by}); kernel "
                 f"launches per iteration {per_it!r} (torch.profiler)")
         if fft:
-            l2 = cg_l2_bytes(B, n_cg, m_cg)
+            l2 = chain_bytes(B, n_cg, m_cg)
             with cg_dense_route():
                 d_ms = cuda_ms(lambda a=a: cg_mod.cg_poisson(*a), 10)
             line += (f"; L2 traffic of the launch chain {l2!r} bytes per "
@@ -4469,16 +4634,13 @@ def main():
                               plain_ms=cg_rows[0][1], bound_ms=cg_rows[0][2],
                               bound_by=cg_rows[0][3], library_ms=None)
     del dense_call
-    # the eager path's inputs: one zoom sweep per Bragg peak, and the
-    # first transform of each direction in its exact CG
+    # the eager path's inputs: one zoom sweep per Bragg peak and its
+    # exact early-stopping CG solve
     ks32 = KS_BENCH_F32
     if np.abs(ks32 - ks).max() > 1e-8:
         raise RuntimeError("KS_BENCH_F32 is not the bench fixture's ks")
     with Capture(wfr_mod._zoom, "zoom_sweep") as c_zs, \
-            Capture(fourier_mod._dct, "dct_lane", keep=1) as c_dl, \
-            Capture(fourier_mod._dct, "idct_lane", keep=1) as c_il, \
-            Capture(fourier_mod._dct, "dct_sub", keep=1) as c_ds, \
-            Capture(fourier_mod._dct, "idct_sub", keep=1) as c_is:
+            Capture(unwrap_mod._cg, "cg_unwrap", keep=1) as c_cu:
         pipeline.extract_displacement_field(img, ks32)
         torch.cuda.synchronize()
     say(f"    captured eager-path calls: zoom_sweep P = "
@@ -4550,8 +4712,39 @@ def main():
     rows.update(check_zoom_grad(zs_mod, sw_mod, c_zg.calls, c_zg.kws))
     rows.update(check_grouped_emissions(sw_mod, sg))
     del c_zg, c_sg, sg
-    dct_in = {"dct_lane": c_dl.calls[0][0], "idct_lane": c_il.calls[0][0],
-              "dct_sub": c_ds.calls[0][0], "idct_sub": c_is.calls[0][0]}
+    # the early-stopping CG on the inputs its paths hand it: phase 5's
+    # exact solve (the row), 13d's 2048^2 levels and 4096^2 refinement,
+    # a stack of four displaced 512^2 images with their own weights (16b's
+    # path), and 12b's 4086^2 unwraps (refine_ks: the other sides)
+    cu_calls = {"5": c_cu.calls, "13d": config6_unwrap_calls()}
+    ks1 = generate_ks(0.1, 7.0)[:3]
+    stack = displaced_stack(512, 4)
+    with Capture(unwrap_mod._cg, "cg_unwrap", keep=1) as c_st:
+        pipeline.extract_displacement_field(stack, ks1)
+        torch.cuda.synchronize()
+    with Capture(unwrap_mod._cg, "cg_unwrap", keep=1) as c_rk:
+        gt_gpa.refine_ks(img, np.asarray(ks32))
+        torch.cuda.synchronize()
+    cu_calls["16b"], cu_calls["12b"] = c_st.calls, c_rk.calls
+    del stack
+    say(f"    captured early-stopping CG calls: "
+        f"{ {k: [tuple(a[0].shape) + (a[3], a[4]) for a in v] for k, v in cu_calls.items()} }")
+    e_cu, cu_rows = 0.0, {}
+    for label, calls in cu_calls.items():
+        e, r = check_cg_unwrap(cg_mod, calls, label)
+        e_cu = max(e_cu, e)
+        cu_rows[label] = r
+    rows["cg_unwrap"] = dict(max_abs_err=e_cu, **cu_rows["5"][0])
+    # the DCT kernels on the first transform of each direction in the
+    # exact CG's preconditioner (phase 5's residual, through the twins)
+    rk5 = cu_calls["5"][0][0]
+    y5 = dct_mod.dct_lane_plain(rk5)
+    zh5 = dct_mod.dct_sub_plain(y5) / cg_mod.poisson_scale(
+        *rk5.shape[-2:], rk5.dtype, rk5.device)
+    dct_in = {"dct_lane": rk5, "dct_sub": y5.contiguous(),
+              "idct_sub": zh5.contiguous(),
+              "idct_lane": dct_mod.idct_sub_plain(zh5).contiguous()}
+    del cu_calls, y5, zh5
     e_dct = check_dct(dct_mod, dct_in)
     dct_ms = {name: (cuda_ms(lambda f=getattr(dct_mod, name), x=x: f(x), 10),
                      cuda_ms(lambda f=getattr(dct_mod, name + "_plain"),
@@ -4685,7 +4878,7 @@ def main():
     say(f"      device ms per kernel over the call: {json.dumps(ex_by)}")
     # the captured operands would count in phase 4's peak memory
     del c_sw, c_ps, c_aq, c_aq7, c_cg, sw_args, ps_args, aq_args, rk0, outs
-    del c_zs, c_dl, c_il, c_ds, c_is, dct_in, x
+    del c_zs, c_cu, c_st, c_rk, rk5, dct_in, x
     del c_wc, wc_calls, coef, u_wc, c_wb, wb, wb_out, c_dz, dz, dz_out, c_ex
     del ex, ex_out, a
     for name, r in rows.items():

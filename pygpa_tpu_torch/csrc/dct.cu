@@ -6,8 +6,9 @@
 // entries dct_sub / idct_sub). Wrapper, twiddle tables and plain twins:
 // pygpa_tpu_torch/ops/dct.py. The kernel itself (radix DFTs, Stockham
 // pass, load and store) is in dct_fft.cuh, which the multigrid CG
-// (cg.cu) shares for its preconditioner; this file sets the line counts
-// per block for n >= 1024 and binds the entries.
+// (cg.cu) and the early-stopping CG (cg_unwrap.cu) share for their
+// preconditioners; this file sets the line counts per block for n >= 1024
+// and binds the entries.
 //
 // What bounds it on an H100: memory. A (2, 4096, 4096) float32 call
 // reads 134 MB and writes 134 MB, 0.080 ms at 3.35 TB/s; the FFT form

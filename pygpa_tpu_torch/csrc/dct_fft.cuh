@@ -14,12 +14,17 @@
 //                          inverse lane kernel's store);
 //   done(scratch)          after the last store, by every thread of
 //                          the block, with the block's shared memory
-//                          free (only where Epi::REDUCES).
-// Store writes each value as it is; cg.cu adds epilogues that scale or
-// reduce on the way out.
+//                          free (only where Epi::REDUCES);
+//   skip()                 at the block's start: true makes the whole
+//                          block return before it loads anything (only
+//                          where Epi::SKIPS is declared true).
+// Store writes each value as it is; cg.cu and cg_unwrap.cu add epilogues
+// that scale, reduce or skip on the way out.
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -181,6 +186,13 @@ __device__ __forceinline__ void fft_pass(float2* z, const float2* tw) {
   __syncthreads();
 }
 
+// Epi::SKIPS where the epilogue declares it, else false
+template <class E, class = void>
+struct epi_skips : std::false_type {};
+template <class E>
+struct epi_skips<E, std::void_t<decltype(E::SKIPS)>>
+    : std::bool_constant<E::SKIPS> {};
+
 // the plain epilogue: every output value stored as it is
 struct Store {
   static constexpr bool REDUCES = false;  // no done()
@@ -213,6 +225,9 @@ __global__ void __launch_bounds__(C * N / 32) dct_kernel(
   constexpr int T = C * N / 32;
   constexpr int DATA = C * N + C * N / 16;  // padded complex slots
   constexpr int TAB = N + (N + 1) + (N / 2 + 1);
+  if constexpr (epi_skips<Epi>::value) {
+    if (epi.skip()) return;
+  }
   extern __shared__ float2 sm[];
   float2* z = sm;
   float* zf = reinterpret_cast<float*>(sm);

@@ -3,10 +3,13 @@ dct/idct, type 2, norm=None) for n in {1024, 2048, 4096, 8192}.
 
 Replaces the TPU kernels ``pygpa_tpu/ops/pallas_dct2.py``
 ``_fwd_lane_kernel`` (axis -1: ``dct_lane``, ``idct_lane``) and
-``_fwd_sub_kernel`` (axis -2: ``dct_sub``, ``idct_sub``). The exact-CG
-unwrap's preconditioner ``idct2n(dct2n(r) / eigenvalues)`` runs here on
-large images (core.fourier routes an axis here where the reference's
-``_pallas_dct_ok`` would: n >= 4096).
+``_fwd_sub_kernel`` (axis -2: ``dct_sub``, ``idct_sub``). core.fourier's
+2D pair routes an axis here where the reference's ``_pallas_dct_ok``
+would (n >= 4096): the row-sharded solver's pencil DCT, the unweighted
+multigrid's Poisson solve, the torch CG loop (float64 aside) and the
+early-stopping kernel's solves off its FFT sides. The early-stopping
+kernel's FFT route (csrc/cg_unwrap.cu) runs the same passes inside its
+own launches, so the eager paths launch no dct_lane or dct_sub.
 
 Method (``csrc/dct.cu``): Makhoul's DCT through a real FFT of the
 permuted line, done as a complex FFT of n/2 points in shared memory

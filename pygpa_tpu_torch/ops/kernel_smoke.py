@@ -17,14 +17,16 @@ checks each output's shape and finiteness:
 - the DCT passes (``csrc/dct.cu``): lane and sub, forward and inverse;
 - the V-branch's presmooth and applyq (``csrc/vcycle.cu``);
 - the CG (``csrc/cg.cu``) on its FFT route (128^2) and its dense route
-  (384^2);
+  (384^2); the early-stopping CG (``csrc/cg_unwrap.cu``) on its FFT
+  route (128 x 256, the exact path's unaligned weights) and at other
+  sides (96 x 80, aligned);
 - the drizzle and the unit-cell expand (``csrc/drizzle.cu``,
   ``csrc/expand.cu``), each on its shared-memory route (a small cell)
   and its other route (a cell past a block's shared memory).
 
 Shapes respect each kernel's limits: the sweeps take n, m and the band
 width in multiples of 64, the DCT an axis of 1024 or more, the CG sides
-in multiples of 128. On the card (device None or "cuda") every entry
+in multiples of 128, the early-stopping CG sides 2 ... 8192. On the card (device None or "cuda") every entry
 must raise its launch counter in ops._build.launches, so a twin hidden
 behind a kernel's name fails the smoke; on the CPU the wrappers run
 their plain twins. The reference's refined-sweep branch is not ported
@@ -39,7 +41,9 @@ from . import _build
 
 # entry -> the launch counters it must raise on the card
 ENTRIES = {
-    "grouped uv": ("sweep_uv",),
+    # stage 2 of either sweep splits its column basis in a launch of its
+    # own ("split_basis") before the tournament
+    "grouped uv": ("sweep_uv", "split_basis"),
     "grouped phase/weight": ("sweep_pw",),
     "grouped gradients": ("sweep_grad", "grad_flags", "grad_stage1",
                           "grad_products"),
@@ -47,7 +51,7 @@ ENTRIES = {
     "banded phase/weight": ("sweep_pw",),
     "banded gradients": ("sweep_grad", "grad_flags", "grad_stage1",
                          "grad_products"),
-    "zoom plain": ("zoom_sweep",),
+    "zoom plain": ("zoom_sweep", "split_basis"),
     "zoom gradients": ("zoom_grad", "grad_flags", "grad_stage1",
                        "grad_products"),
     "zoom phase/weight": ("zoom_sweep",),
@@ -66,6 +70,8 @@ ENTRIES = {
     "applyq": ("applyq",),
     "cg fft route": ("cg_poisson",),
     "cg dense route": ("cg_poisson",),
+    "cg unwrap fft route": ("cg_unwrap",),
+    "cg unwrap other sides": ("cg_unwrap",),
     "drizzle shared": ("drizzle",),
     "drizzle global": ("drizzle",),
     "expand shared": ("expand",),
@@ -230,6 +236,18 @@ def run_kernel_smoke(verbose=False, device=None):
         rk = torch.randn((side, side), generator=g).to(dev)
         ww = (0.1 + torch.rand((side, side), generator=g)).to(dev) ** 2
         entry(label, lambda: cg.cg_poisson(rk, ww, ww, 3))
+
+    # --- the early-stopping CG, both routes ---
+    for label, (n, m), aligned in (("cg unwrap fft route", (128, 256), False),
+                                   ("cg unwrap other sides", (96, 80), True)):
+        if cg.unwrap_fft_route(n, m) != (label == "cg unwrap fft route"):
+            raise AssertionError(f"kernel smoke [{label}]: {n} x {m} takes "
+                                 "the other route")
+        rk = torch.randn((2, n, m), generator=g)
+        rk = (rk - rk.mean((-2, -1), keepdim=True)).to(dev)
+        ww = (0.1 + torch.rand((n, m), generator=g)).to(dev) ** 2
+        wx, wy = (ww, ww) if aligned else (ww[:, 1:], ww[1:])
+        entry(label, lambda: cg.cg_unwrap(rk, wx, wy, 3, aligned)[0])
 
     # --- the drizzle and the expand, each on both routes ---
     ks2 = np.asarray(ks[:2], np.float64)

@@ -14,9 +14,13 @@ block means, the V-branch's Jacobi diagonal and the kernels follow it,
 and every CG dot and line-search sum stays per plane. Each component
 keeps its own early stop: the loop runs the iterations with a
 per-component done mask and freezes a finished component (torch.where),
-which equals the reference's vmapped while_loop. The preconditioner's
-2D DCTs go through core.fourier, which routes 4096- and 8192-long
-float32 axes to the ops.dct kernels.
+which equals the reference's vmapped while_loop. On the card a float32
+solve runs that loop as the ops.cg early-stopping kernel (cg_unwrap:
+its own DCT passes where both sides are powers of two from 128 to 8192,
+core.fourier's DCT pair between its launches elsewhere); float64, the
+CPU and the row-sharded seam run it in torch (ops.cg.cg_unwrap_plain),
+its preconditioner's 2D DCTs through core.fourier, which routes 4096-
+and 8192-long float32 axes to the ops.dct kernels.
 
 The multigrid keeps every plane (..., n, m) with a structurally zero
 last column (x-diffs) or row (y-diffs), so neighbour shifts are cyclic
@@ -25,7 +29,8 @@ reference stencils entry for entry. Its CG solves route as the
 reference's ``_cg_kernel_ok`` does: float32 levels with sides that are
 multiples of 128 and at most 1024 go to the ops.cg kernel (fixed
 iteration count; the guarded coefficients make post-convergence
-iterations no-ops), every other level to the early-stopping loop. The
+iterations no-ops), every other level to the early-stopping loop (the
+kernel above, on the card). The
 V-branch stencil passes run in the ops.vcycle kernels where
 ``vcycle_kernel_ok`` holds (the reference's ``_vcycle_kernel_ok``) and
 in their plain twins, the reference's XLA stencils, elsewhere.
@@ -46,8 +51,6 @@ norms, so every rank runs the same iterations.
 
 import torch
 
-import torch.nn.functional as F
-
 from ..config import DEFAULTS
 from ..core.fourier import dct2n, idct2n
 from ..core.mathtools import wrap_to_pi
@@ -55,7 +58,6 @@ from ..core.rows import clamped_neighbours, plane_sum, roll_rows
 from ..ops import cg as _cg
 from ..ops import vcycle as _vcycle
 from ..ops.cg import poisson_scale
-from ..ops.vcycle import _q as _apply_q_aligned
 
 _JACOBI_OMEGA = 0.8   # damped-Jacobi factor (2D optimum 4/5)
 
@@ -77,17 +79,8 @@ def solve_poisson(rho, scale=None):
     return idct2n(dct2n(rho) / scale)
 
 
-def _diff0(a, axis):
-    """diff along `axis` with a zero prepended and appended."""
-    pad = (1, 1) if axis == -1 else (0, 0, 1, 1)
-    return torch.diff(F.pad(a, pad), dim=axis)
-
-
-def _apply_q(p, WWx, WWy):
-    """Weighted transformation (A^T)(W^T W)(A) p on unaligned planes:
-    WWx (..., n, m-1), WWy (..., n-1, m)."""
-    return (_diff0(WWx * torch.diff(p, dim=-1), -1)
-            + _diff0(WWy * torch.diff(p, dim=-2), -2))
+_diff0 = _cg._diff0
+_apply_q = _cg.apply_q_unaligned
 
 
 def _residual(dx, dy, weight):
@@ -115,87 +108,35 @@ def cg_kernel_ok(shape, dtype):
     return dtype == torch.float32 and _cg.supported(n, m)
 
 
+def cg_unwrap_kernel_ok(shape, dtype):
+    """Whether a solve that the reference runs as its early-stopping loop
+    (pygpa_tpu's _cg_unwrap_body) takes the ops.cg early-stopping kernel
+    on the card: float32 and a shape ops.cg.unwrap_supported admits
+    (sides 2 ... 8192, at most 65535 planes)."""
+    return dtype == torch.float32 and _cg.unwrap_supported(shape)
+
+
 def _cg_unwrap(rk0, WWx, WWy, kmax, aligned=False, precond=None, rows=None):
     """PCG on the weighted Poisson system from phi = 0. Returns (phi,
     iterations per batch element). Aligned (multigrid) solves that
-    cg_kernel_ok admits run the ops.cg kernel for kmax iterations; all
-    others run the early-stopping loop. `precond` (a callable rk -> zk)
-    replaces the DCT preconditioner and keeps the kernel off, as the
-    reference's does; `rows` (core.rows.RowBlock) solves on this rank's
-    block of the rows (aligned planes only)."""
+    cg_kernel_ok admits run the ops.cg fixed-iteration kernel for kmax
+    iterations, as the reference's _cg_kernel_ok routes them; every
+    other solve is the reference's early-stopping loop, on the ops.cg
+    early-stopping kernel where cg_unwrap_kernel_ok holds (its wrapper
+    runs the twin on a CPU tensor) and as the torch loop otherwise.
+    `precond` (a callable rk -> zk) replaces the DCT preconditioner and
+    keeps the kernels off, as the reference's does; `rows`
+    (core.rows.RowBlock) solves on this rank's block of the rows
+    (aligned planes only), on the torch loop."""
     kmax = int(kmax)
-    if aligned and precond is None and rows is None and kmax >= 1 \
-            and cg_kernel_ok(rk0.shape, rk0.dtype):
-        phi = _cg.cg_poisson(rk0, WWx, WWy, kmax)
-        return phi, torch.full(rk0.shape[:-2], kmax, dtype=torch.int32,
-                               device=rk0.device)
-    return _cg_unwrap_body(rk0, WWx, WWy, kmax, aligned, precond, rows)
-
-
-def _cg_unwrap_body(rk0, WWx, WWy, kmax, aligned, precond=None, rows=None):
-    """The reference's early-stopping PCG loop, batched: a component
-    stops at ||r|| < eps ||r0|| (eps 1e-6 in float32, 1e-9 in float64),
-    at rz == 0 or after kmax iterations (at least one, as the
-    reference's while_loop runs its body once before testing k), and
-    starts done when its rk0 is all zero; a stopped component is frozen
-    while the others run on. On the card all iterations are enqueued
-    without a host sync (frozen iterations change nothing); a CPU run
-    leaves the loop once every component is done. With `rows` the dots
-    and the all-zero test are all-reduced over the row group, so every
-    rank stops at the same iteration."""
-    dt = rk0.dtype
-    lead = rk0.shape[:-2]
-    if precond is None:
-        scale = poisson_scale(*rk0.shape[-2:], dt, rk0.device)
-
-        def precond(r):
-            return solve_poisson(r, scale)
-    if rows is not None and not aligned:
-        raise ValueError("a row-sharded CG solve takes aligned planes")
-
-    def apply_q(p):
-        if aligned:
-            return _apply_q_aligned(p, WWx, WWy, rows)
-        return _apply_q(p, WWx, WWy)
-
-    eps = 1e-9 if dt == torch.float64 else 1e-6
-
-    def dot(a, b):
-        return plane_sum(a * b, rows)
-
-    one = torch.ones(lead + (1, 1), dtype=dt, device=rk0.device)
-    zero = torch.zeros_like(one)
-    norm_r0 = torch.sqrt(dot(rk0, rk0))
-    phi = torch.zeros_like(rk0)
-    rk = rk0
-    pk = torch.zeros_like(rk0)
-    rzprev = one
-    k = torch.zeros(lead + (1, 1), dtype=torch.int32, device=rk0.device)
-    done = (rk0 == 0).all(-1, keepdim=True).all(-2, keepdim=True)
-    if rows is not None:
-        done = rows.all(done)
-    for it in range(max(kmax, 1)):
-        if rk0.device.type == "cpu" and bool(done.all()):
-            break
-        zk = precond(rk)
-        rz = dot(rk, zk)
-        beta = torch.where(rzprev != 0,
-                           rz / torch.where(rzprev != 0, rzprev, one), zero)
-        pk_new = zk if it == 0 else zk + beta * pk
-        Qpk = apply_q(pk_new)
-        pq = dot(pk_new, Qpk)
-        alpha = torch.where(pq != 0, rz / torch.where(pq != 0, pq, one),
-                            zero)
-        phi = torch.where(done, phi, phi + alpha * pk_new)
-        rk_new = rk - alpha * Qpk
-        stop = ((k + 1 >= kmax) | (torch.sqrt(dot(rk_new, rk_new))
-                                   < eps * norm_r0) | (rz == 0))
-        rk = torch.where(done, rk, rk_new)
-        pk = torch.where(done, pk, pk_new)
-        rzprev = torch.where(done, rzprev, rz)
-        k = torch.where(done, k, k + 1)
-        done = done | stop
-    return phi, k.reshape(lead)
+    if precond is None and rows is None:
+        if aligned and kmax >= 1 and cg_kernel_ok(rk0.shape, rk0.dtype):
+            phi = _cg.cg_poisson(rk0, WWx, WWy, kmax)
+            return phi, torch.full(rk0.shape[:-2], kmax, dtype=torch.int32,
+                                   device=rk0.device)
+        if cg_unwrap_kernel_ok(rk0.shape, rk0.dtype):
+            return _cg.cg_unwrap(rk0, WWx, WWy, kmax, aligned)
+    return _cg.cg_unwrap_plain(rk0, WWx, WWy, kmax, aligned, precond, rows)
 
 
 def phase_unwrap(psi, weight=None, kmax=DEFAULTS.unwrap_kmax,

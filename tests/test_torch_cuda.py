@@ -460,8 +460,9 @@ def test_multigrid_1152_runs_early_stopping_levels(dev):
 
 
 def test_exact_cg_through_the_dct_kernels(dev, monkeypatch):
-    """The exact CG at 4096^2 on the card with its preconditioner on the
-    DCT kernels, against the same solve on the FFT twins (also on the
+    """The exact CG at 4096^2 on the card as the torch loop (the
+    early-stopping kernel's gate turned off) with its preconditioner on
+    the DCT kernels, against the same solve on the FFT twins (also on the
     card): relative 1e-4, the same iteration counts."""
     from pygpa_tpu_torch.core import fourier as tf
     from pygpa_tpu_torch.solvers import unwrap as tu
@@ -471,6 +472,7 @@ def test_exact_cg_through_the_dct_kernels(dev, monkeypatch):
     dy = torch.from_numpy(g.normal(size=(2, n - 1, n)).astype(np.float32))
     w = torch.from_numpy(g.uniform(0.1, 1.0, size=(n, n)).astype(np.float32))
     dx, dy, w = dx.to(dev), dy.to(dev), w.to(dev)
+    monkeypatch.setattr(tu, "cg_unwrap_kernel_ok", lambda *a: False)
     _build.launches.clear()
     got, kg = tu.phase_unwrap_prediff(dx, dy, w, kmax=5, return_iters=True)
     assert _build.launches["dct_lane"] == 10
@@ -479,6 +481,169 @@ def test_exact_cg_through_the_dct_kernels(dev, monkeypatch):
     want, kw = tu.phase_unwrap_prediff(dx, dy, w, kmax=5, return_iters=True)
     assert torch.equal(kg, kw)
     assert _rel(got, want) <= 1e-4
+
+
+def test_exact_cg_through_the_unwrap_kernel(dev):
+    """The exact CG at 4096^2 on the card takes the early-stopping kernel
+    (one cg_unwrap launch, its own DCT passes: no dct_lane or dct_sub
+    launch), within 1e-4 of the torch loop on the DCT kernels, with the
+    same iteration counts."""
+    from pygpa_tpu_torch.solvers import unwrap as tu
+    n = 4096
+    g = np.random.default_rng(19)
+    dx = torch.from_numpy(g.normal(size=(2, n, n - 1)).astype(np.float32))
+    dy = torch.from_numpy(g.normal(size=(2, n - 1, n)).astype(np.float32))
+    w = torch.from_numpy(g.uniform(0.1, 1.0, size=(n, n)).astype(np.float32))
+    dx, dy, w = dx.to(dev), dy.to(dev), w.to(dev)
+    _build.launches.clear()
+    got, kg = tu.phase_unwrap_prediff(dx, dy, w, kmax=5, return_iters=True)
+    assert _build.launches["cg_unwrap"] == 1
+    assert _build.launches["dct_lane"] == _build.launches["dct_sub"] == 0
+    rk, WWx, WWy = tu._residual(tu.wrap_to_pi(dx), tu.wrap_to_pi(dy), w)
+    want, kw = tcg.cg_unwrap_plain(rk, WWx, WWy, 5, False)
+    assert torch.equal(kg, kw)
+    assert _rel(got, want) <= 1e-4
+
+
+def _unwrap_problem(lead, n, m, aligned, seed, dev, per_image=False):
+    """rk, WWx, WWy of the exact path's residual (unaligned) or the
+    multigrid's (aligned) from random gradients (lead + (n, m)) and a
+    weight with a 1e-6 rim: one (n, m) weight, or (per_image) one per
+    image (B, 1, n, m) of a (B, 2) stack, image 0's uniform (its planes
+    stop by the norm) and the last image's second plane zero (done at
+    the start)."""
+    from pygpa_tpu_torch.solvers import unwrap as tu
+    dx = _planes(lead + (n, m), seed, dev)
+    dy = _planes(lead + (n, m), seed + 1, dev)
+    if per_image:
+        w = _image_weights(lead[0], n, m, seed + 2, dev)
+        w[0] = 0.5
+        dx[-1, 1] = 0
+        dy[-1, 1] = 0
+    else:
+        w = _weight(n, m, seed + 2, dev)
+    if aligned:
+        dx[..., -1] = 0
+        dy[..., -1, :] = 0
+        return tu._residual_aligned(dx, dy, w)
+    return tu._residual(dx[..., :-1], dy[..., :-1, :], w)
+
+
+def _kernel_launches(fn):
+    """Names of the CUDA kernels one call of fn() launches (torch.profiler;
+    copies and fills left out), after a warm-up call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA
+            and not e.name.lower().startswith(("memcpy", "memset"))]
+
+
+def _check_unwrap(rk, WWx, WWy, kmax, aligned):
+    """The early-stopping kernel against its twin: one counted launch,
+    finite, the twin's k per plane, relative 1e-4 of the twin, bit for
+    bit over two calls, and its launches an iteration (six on the FFT
+    route; three besides the DCTs elsewhere). Both float32 solves are
+    also held to the same solve in float64: the kernel no further from it
+    than the twin (10% and 1e-5 of slack). Where the twin itself strays
+    from it by more than 2e-4 (float32 rounding amplified by a plane's
+    softest modes: 1.1e-3 at 4096 x 128, where kernel and twin differ by
+    1.7e-4), the kernel is held within half that of the twin instead of
+    1e-4. Returns k."""
+    n, m = rk.shape[-2:]
+    before = _build.launches["cg_unwrap"]
+    got, k = tcg.cg_unwrap(rk, WWx, WWy, kmax, aligned)
+    assert _build.launches["cg_unwrap"] == before + 1
+    again, k2 = tcg.cg_unwrap(rk, WWx, WWy, kmax, aligned)
+    want, kw = tcg.cg_unwrap_plain(rk, WWx, WWy, kmax, aligned)
+    w64, _ = tcg.cg_unwrap_plain(rk.double(), WWx.double(), WWy.double(),
+                                 kmax, aligned)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert torch.equal(k, kw), (k, kw)
+    twin64 = _rel(want.double(), w64)
+    assert _rel(got, want) <= max(1e-4, 0.5 * twin64), (_rel(got, want),
+                                                         twin64)
+    assert _rel(got.double(), w64) <= 1.1 * twin64 + 1e-5
+    assert torch.equal(got, again) and torch.equal(k, k2)
+    names = _kernel_launches(lambda: tcg.cg_unwrap(rk, WWx, WWy, kmax,
+                                                   aligned))
+    ours = [x for x in names if any(s in x for s in (
+        "dct_kernel", "step_p_kernel", "step_x_kernel", "eigen_rz_kernel"))]
+    assert sum("init_kernel" in x for x in names) == 1
+    per_it = 6 if tcg.unwrap_fft_route(n, m) else 3
+    assert len(ours) == per_it * max(kmax, 1), names
+    return k
+
+
+@pytest.mark.parametrize("B,n,m,aligned,kmax", [
+    (2, 128, 128, False, 10), (2, 512, 512, False, 10),
+    (2, 2048, 2048, True, 6), (2, 2048, 2048, True, 4),
+    (2, 4096, 4096, False, 10), (2, 4096, 128, False, 10),
+    (1, 128, 4096, True, 3), (2, 250, 374, False, 10),
+    (2, 250, 374, True, 6), (2, 4086, 4086, False, 3),
+    (2, 64, 96, True, 6)])
+def test_cg_unwrap_kernel(dev, B, n, m, aligned, kmax):
+    """The early-stopping kernel on the FFT route (powers of two from 128
+    to 4096, both layouts) and elsewhere (250 x 374, 4086^2, 64 x 96)."""
+    rk, WWx, WWy = _unwrap_problem((B,), n, m, aligned, 95, dev)
+    _check_unwrap(rk, WWx, WWy, kmax, aligned)
+
+
+@pytest.mark.parametrize("B,n,m,aligned", [(2, 8192, 128, False),
+                                           (1, 128, 8192, True)])
+def test_cg_unwrap_kernel_at_8192(dev, B, n, m, aligned):
+    """At a side of 8192 the float32 Neumann eigenvalue next to the origin
+    rounds to 0 in the reference's formula (2 (cos(pi / 8192) + 1 - 2),
+    pygpa_tpu's _poisson_scale too), so a float32 solve divides by zero:
+    the kernel's 8192-point passes give its twin's non-finite planes and
+    k, and its six launches an iteration."""
+    assert int((tcg.poisson_scale(n, m, torch.float32, dev) == 0).sum()) == 1
+    rk, WWx, WWy = _unwrap_problem((B,), n, m, aligned, 95, dev)
+    got, k = tcg.cg_unwrap(rk, WWx, WWy, 3, aligned)
+    want, kw = tcg.cg_unwrap_plain(rk, WWx, WWy, 3, aligned)
+    assert torch.equal(k, kw)
+    assert torch.equal(torch.isfinite(got), torch.isfinite(want))
+    names = _kernel_launches(lambda: tcg.cg_unwrap(rk, WWx, WWy, 3, aligned))
+    assert sum(any(s in x for s in ("dct_kernel", "step_p_kernel",
+                                     "step_x_kernel")) for x in names) == 18
+
+
+@pytest.mark.parametrize("B,n,m,aligned", [(3, 256, 256, False),
+                                           (3, 512, 512, True),
+                                           (4, 250, 374, False)])
+def test_cg_unwrap_kernel_with_per_image_weights(dev, B, n, m, aligned):
+    """A (B, 2) stack with weights (B, 1, n, m): planes stop by the norm
+    (image 0), by kmax and at the start (the last image's zero plane),
+    each as its twin says; each image's solution the bits of its own
+    one-weight call."""
+    rk, WWx, WWy = _unwrap_problem((B, 2), n, m, aligned, 97, dev,
+                                   per_image=True)
+    assert WWx.shape[:2] == (B, 1)
+    k = _check_unwrap(rk, WWx, WWy, 12, aligned)
+    assert (k[0] < 12).all() and k[-1, 1] == 0 and (k[1] == 12).all()
+    got, _ = tcg.cg_unwrap(rk, WWx, WWy, 12, aligned)
+    for i in range(B):
+        one, ki = tcg.cg_unwrap(rk[i].contiguous(), WWx[i, 0].contiguous(),
+                                WWy[i, 0].contiguous(), 12, aligned)
+        assert torch.equal(got[i], one) and torch.equal(k[i], ki)
+
+
+def test_cg_unwrap_kernel_refuses(dev):
+    """Outside its limits the wrapper raises instead of running the
+    twin: float64, a side past 8192, a side of 1."""
+    z = torch.zeros((2, 16, 16), device=dev)
+    with pytest.raises(ValueError):
+        tcg.cg_unwrap(z.double(), z.double(), z.double(), 3, True)
+    for shape in ((1, 8200, 8), (2, 1, 64)):
+        z = torch.zeros(shape, device=dev)
+        with pytest.raises(ValueError):
+            tcg.cg_unwrap(z, z, z, 3, True)
 
 
 def _warp_coords(kind, n, m, dev):
@@ -1539,13 +1704,15 @@ def test_cg_kernel_with_per_image_weights(dev, B, n, m, kmax):
                                         (1024, 2, {"chunk": 4}),
                                         (512, 3, {"deconvolve": True}),
                                         (512, 3, "eager"),
-                                        (512, 3, "batch")])
+                                        (512, 3, "batch"),
+                                        (512, 3, "factory")])
 def test_extractor_stack_makes_no_host_sync(dev, size, nb, kw):
     """One call of the multigrid extractor on a stack (config 1b's 16 x
     512^2, two 1024^2 images, and three with the Wiener deconvolution),
-    and of the eager extract_displacement_field and of
+    and of the eager extract_displacement_field, of
     parallel.extract_displacement_field_batch (which reads the free
-    memory to size its calls) on a stack of three,
+    memory to size its calls) and of the factory at its defaults (the
+    exact early-stopping CG kernel) on a stack of three,
     makes no synchronizing CUDA operation from the port's code
     (torch.cuda.set_sync_debug_mode("warn"), each warning's call site):
     the host never waits for the card inside the call, so a tile
@@ -1565,6 +1732,8 @@ def test_extractor_stack_makes_no_host_sync(dev, size, nb, kw):
     elif kw == "batch":
         def fn(x):
             return extract_displacement_field_batch(x, ks, device=dev)
+    elif kw == "factory":
+        fn = make_displacement_extractor((size, size), ks, device=dev)
     else:
         fn = make_displacement_extractor((size, size), ks, unwrap_coarse=4,
                                          device=dev, **kw)

@@ -41,3 +41,19 @@ def test_kernel_smoke_refuses_a_missing_card():
         pytest.skip("a card is present; chip_smoke.py runs this path")
     with pytest.raises((AssertionError, RuntimeError), match="CUDA|NVIDIA"):
         run_kernel_smoke()
+
+
+def test_kernel_smoke_covers_every_launch_counter():
+    """Every launch counter a kernel wrapper of ops/ raises (each
+    `_build.launches[...] += 1`) belongs to an entry of the smoke, the
+    early-stopping CG's "cg_unwrap" among them."""
+    import pathlib
+    import re
+    ops = pathlib.Path(_build.__file__).parent
+    counters = set()
+    for src in ops.glob("*.py"):
+        counters |= set(re.findall(r'launches\["(\w+)"\] \+= 1',
+                                   src.read_text()))
+    covered = {c for names in ENTRIES.values() for c in names}
+    assert "cg_unwrap" in counters
+    assert counters <= covered, counters - covered
