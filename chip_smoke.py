@@ -96,7 +96,8 @@ Phases, each printed on its own lines:
    extract_primary_ks(img, DoG=False, subpixel=True) within 0.5/size,
    then refine_ks on those ks (sign-aligned and ordered to the true
    ones) within 0.15/size, with no DCT kernel launch (iterate_GPA trims
-   5 px, so its unwraps run at 4086^2 on the DCT twins); (c)
+   5 px, so its unwraps run at 4086^2, on cg_unwrap's chirp-z passes);
+   its seconds per call (the first and the second); (c)
    extract_displacement_field from the refined ks against phase 5's u
    from the true ks: each component's least-squares plane removed on
    the 8 sigma interior (a k error is a uniform strain), max < 0.02 px;
@@ -253,11 +254,13 @@ the same inputs. The early-stopping CG kernel (cg_unwrap) runs phase
 levels (kmax 6 and 4) and 4096^2 refinement (13d's inputs, from one run
 of its extractor on the displaced 8192^2 lattice), a (4, 2) stack of
 displaced 512^2 images with their own weights (16b's path) and 12b's
-4086^2 unwrap (refine_ks: the route of the other sides), each against
-its twin (phi within 1e-4, k per plane equal, bit for bit over two
-calls), with each plane's stop margin, ms a call, launches an
-iteration (at most 6 on the FFT route) and the HBM traffic of its
-launch chain. For each kernel it computes the bound from those inputs (the larger of
+(3, 4086^2) unwrap (refine_ks: the chirp-z passes on both axes), each
+against its twin (phi within 1e-4, k per plane equal, bit for bit over
+two calls), with the route it took, each plane's stop margin, ms a call,
+launches an iteration (on the FFT route at most 6 and no cuFFT kernel;
+each label's route is also stated in the script, and a call fails where
+its chirp-z and Stockham pass launches differ from it, or 12b captured
+no call) and the HBM traffic of its launch chain. For each kernel it computes the bound from those inputs (the larger of
 their bytes, each input read once and each output written once, over
 3.35 TB/s and their float32 operations over 67 TFLOP/s: the sweeps'
 8 G P n Wb (W0 + m) from their shapes with stage 2 three times over at
@@ -397,6 +400,10 @@ PATH_KERNELS = {4: ("sweep_uv", "presmooth", "applyq", "cg_poisson"),
                 "10b": ("sweep_grad",) + GRAD_STEPS,
                 "11a": ("zoom_grad", "cg_unwrap") + GRAD_STEPS,
                 "11b": ("sweep_pw", "cg_unwrap"),
+                # the quick start's exact unwraps at 4086^2 (the 5-px
+                # trim): the early-stopping kernel's chirp-z passes
+                "12b": ("cg_unwrap",),
+                "12d": ("cg_unwrap",),
                 "12e": ("sweep_uv", "presmooth", "applyq", "cg_poisson"),
                 "13a": ("sweep_uv", "presmooth", "applyq", "cg_poisson"),
                 "13b": ("sweep_uv", "presmooth", "applyq", "cg_poisson"),
@@ -689,9 +696,11 @@ def device_kernels(fn, reps=1):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.02)   # kernel_names: the trace's first milliseconds
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
+        time.sleep(0.02)
     recs = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
             if e.device_type == DeviceType.CUDA]
     if not recs:
@@ -931,41 +940,79 @@ def chain_bytes(B, n, m, I=1):
     return (2 + 2 + 2 + 3) * plane + 4 * plane + 2 * ww + 6 * plane
 
 
-def kernel_names(fn):
-    """Names of the CUDA kernels one call of fn() launches, in order
-    (torch.profiler, after a warm-up call; copies and fills left out);
-    None when the profiler records no device activity."""
+def kernel_names(fn, traces=3):
+    """Names of the CUDA kernels one call of fn() launches (torch.profiler,
+    after a warm-up call; copies and fills left out), each as often as the
+    most that any of `traces` traces of one call holds it: a trace on the
+    card now and then lacks the device events of a call's first
+    milliseconds (never adds one), so the call also starts and ends 20 ms
+    inside the trace. None when the profiler records no device
+    activity."""
+    import collections
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA
-             and not e.name.lower().startswith(("memcpy", "memset"))]
-    return names or None
+    most = collections.Counter()
+    for _ in range(traces):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.02)
+            fn()
+            torch.cuda.synchronize()
+            time.sleep(0.02)
+        most |= collections.Counter(
+            e.name for e in prof.events() if e.device_type == DeviceType.CUDA
+            and not e.name.lower().startswith(("memcpy", "memset")))
+    return list(most.elements()) or None
 
 
 # the early-stopping kernel's launches inside an iteration (the DCT
-# passes, step_p, step_x; eigen_rz on the other sides)
-UNWRAP_ITER_KERNELS = ("dct_kernel", "step_p_kernel", "step_x_kernel",
-                       "eigen_rz_kernel")
+# passes, Stockham or chirp-z, step_p, step_x; eigen_rz on the other
+# sides)
+UNWRAP_ITER_KERNELS = ("dct_kernel", "czt_kernel", "step_p_kernel",
+                       "step_x_kernel", "eigen_rz_kernel")
 
 
-def check_cg_unwrap(cg, calls, label):
+def route_count(names):
+    """Launches of each DCT pass kind, and of eigen_rz, among a call's
+    kernel names (None without them)."""
+    return {x: None if names is None else sum(x in nm for nm in names)
+            for x in ("czt_kernel", "dct_kernel", "eigen_rz_kernel")}
+
+
+def unwrap_route(cg, n, m):
+    """The early-stopping kernel's route at n x m, in words: its own DCT
+    passes (each axis Stockham at a power of two, chirp-z at another even
+    side) or core.fourier's DCT pair between its launches."""
+    if not cg.unwrap_fft_route(n, m):
+        return "other sides: core.fourier's DCT pair between 3 launches"
+    kind = ["Stockham" if s in cg.UNWRAP_FFT_SIDES else "chirp-z"
+            for s in (n, m)]
+    return f"FFT route: {kind[0]} sub pass, {kind[1]} lane pass"
+
+
+def check_cg_unwrap(cg, calls, label, czt=None):
     """The early-stopping CG kernel against its twin on each captured
     call (rk0, WWx, WWy, kmax, aligned): phi within PATH_AGREE (1e-4,
     normwise relative: float32 sums in another order), k per plane equal
     to the twin's, a second call bit for bit, finite; printed: each
     plane's stop margin (||r|| after its last iteration over its
     threshold 1e-6 ||r0||: below 1 it stopped by the norm), ms a call,
-    the twin's ms, launches an iteration (torch.profiler; the FFT route
-    fails above 6), the bound and, on the FFT route, the HBM traffic of
-    its launch chain. Returns (largest |delta|, a row per call)."""
+    the twin's ms, launches an iteration (torch.profiler; the FFT route,
+    chirp-z passes included, fails above 6 or with a cuFFT kernel in the
+    solve), the route, the bound and, on the FFT route, the HBM traffic
+    of its launch chain. `czt`, where given, is the route every call must
+    have taken, stated apart from ops.cg's gate: that many of its four
+    DCT passes an iteration chirp-z (czt_kernel) and the rest Stockham
+    (dct_kernel), six launches an iteration, no eigen_rz or cuFFT kernel;
+    no captured call then fails too. Returns (largest |delta|, a row per
+    call)."""
+    import collections
     import torch
+    if czt is not None and not calls:
+        raise RuntimeError(f"[{label}] no early-stopping CG call captured")
     mabs, rows = 0.0, []
     for args in calls:
         rk0, WWx, WWy, kmax, aligned = args[:5]
@@ -988,20 +1035,23 @@ def check_cg_unwrap(cg, calls, label):
         per_it = None if names is None else sum(
             any(x in nm for x in UNWRAP_ITER_KERNELS)
             for nm in names) / max(int(kmax), 1)
+        cufft = None if names is None else sorted(
+            {nm for nm in names if "fft" in nm.lower()})
         # the work this run's data needs: each plane's own iterations of
         # an FFT-form 2D DCT pair and the stencil
         work = float(k.sum()) * n * m * (5 * np.log2(n * m) + 12)
         b_ms, b_by = bound(tensor_bytes(rk0, WWx, WWy, got), work)
         line = (f"  [{label}] cg_unwrap {tuple(rk0.shape)} "
                 f"{'aligned' if aligned else 'unaligned'} kmax {kmax} "
-                f"({'FFT' if fft else 'other sides'} route) vs twin: phi rel "
+                f"({unwrap_route(cg, n, m)}) vs twin: phi rel "
                 f"err {e!r} (bound {PATH_AGREE}); k {k.flatten().tolist()}, "
                 f"twin {kw.flatten().tolist()}; stop margin ||r|| / thr "
                 f"{(nk[..., 0] / nk[..., 1]).flatten().tolist()}, twin "
                 f"{(nt[..., 0] / nt[..., 1]).flatten().tolist()}; two runs "
                 f"bit-identical: {same}; kernel {k_ms!r} ms, twin {t_ms!r} "
                 f"ms, bound {b_ms!r} ms ({b_by}); launches an iteration "
-                f"{per_it!r} (torch.profiler)")
+                f"{per_it!r}, cuFFT kernels in the call {cufft} "
+                "(torch.profiler)")
         if fft:
             tr = chain_bytes(B, n, m, int(np.prod(WWx.shape[:-2])))
             line += (f"; HBM traffic of the launch chain {tr!r} bytes an "
@@ -1014,9 +1064,37 @@ def check_cg_unwrap(cg, calls, label):
             f"{json.dumps(by_kernel)}")
         ok = (np.isfinite(e) and e <= PATH_AGREE and same
               and bool(torch.equal(k, kw)) and bool(torch.isfinite(got).all()))
-        if fft and per_it is not None and per_it > 6:
+        if fft and per_it is not None and (per_it > 6 or cufft):
             raise RuntimeError(f"[{label}] the FFT-route early-stopping CG "
-                               f"launches {per_it} kernels an iteration")
+                               f"launches {per_it} kernels an iteration, "
+                               f"cuFFT kernels {cufft}")
+        if czt is not None:
+            its = max(int(kmax), 1)
+            want_count = {"czt_kernel": czt * its,
+                          "dct_kernel": (4 - czt) * its,
+                          "eigen_rz_kernel": 0}
+            count = route_count(names)
+            # a trace can lose a launch's event, never add one: trace
+            # again (each name at its most) before calling it a fault
+            for _ in range(2):
+                if names is None or count == want_count:
+                    break
+                more = kernel_names(lambda a=args: cg.cg_unwrap(*a[:5]))
+                names = list((collections.Counter(names)
+                              | collections.Counter(more or ())).elements())
+                count = route_count(names)
+            per_it = sum(any(x in nm for x in UNWRAP_ITER_KERNELS)
+                         for nm in names or ()) / its
+            say(f"      route held to {czt} chirp-z and {4 - czt} "
+                f"Stockham passes an iteration: launches in the call "
+                f"{count}, expected {want_count}")
+            if not (fft and per_it == 6 and not cufft
+                    and count == want_count):
+                raise RuntimeError(
+                    f"[{label}] the early-stopping CG did not take the "
+                    f"route expected ({czt} chirp-z passes an iteration): "
+                    f"FFT route {fft}, launches an iteration {per_it}, "
+                    f"{count}, cuFFT kernels {cufft}")
         if not ok:
             raise RuntimeError(f"[{label}] cg_unwrap kernel disagrees with "
                                "its twin or does not repeat")
@@ -2382,10 +2460,15 @@ def drive_peaks(img, ks):
         f"to the true ks {(d_sub * size).tolist()} / size (gate "
         f"{GATE_SUBPIXEL}); refine_ks(img, pks3): launches {launches} "
         f"({n_dct} DCT kernel launches: iterate_GPA trims 5 px, so its "
-        f"exact unwraps run at {size - 10}^2 on the DCT twins); refined "
+        f"exact unwraps run at {size - 10}^2, each one cg_unwrap launch "
+        f"with its chirp-z passes inside); refined "
         f"{refined.tolist()}, distance {(d_ref * size).tolist()} / size "
         f"(gate {GATE_REFINE}); seconds per call {dt!r} (first), {dt2!r} "
         "(second; host clock, synchronized)")
+    missing = [k for k in PATH_KERNELS["12b"] if not launches.get(k)]
+    if missing:
+        raise RuntimeError(f"[12b] kernels of the path not launched: "
+                           f"{missing} (launches {launches})")
     if not (np.all(d_sub < GATE_SUBPIXEL / size) and n_dct == 0
             and np.all(d_ref < GATE_REFINE / size)):
         raise RuntimeError("[12b] sub-bin peaks or refine_ks: GATE FAILED")
@@ -2458,6 +2541,10 @@ def drive_lockin(img, ks):
         f"{sig}): launches {launches_i}; correction {corr.tolist()}, offset "
         f"left {left.tolist()} (gate < {ITERATE_LEFT}); seconds per call "
         f"{dt_i!r} (one run, host clock, synchronized)")
+    missing = [k for k in PATH_KERNELS["12d"] if not launches_i.get(k)]
+    if missing:
+        raise RuntimeError(f"[12d] kernels of the path not launched: "
+                           f"{missing} (launches {launches_i})")
     if not (bits and bits_gpa and np.all(left < ITERATE_LEFT)):
         raise RuntimeError("[12d] lock-in: GATE FAILED")
 
@@ -4715,7 +4802,8 @@ def main():
     # the early-stopping CG on the inputs its paths hand it: phase 5's
     # exact solve (the row), 13d's 2048^2 levels and 4096^2 refinement,
     # a stack of four displaced 512^2 images with their own weights (16b's
-    # path), and 12b's 4086^2 unwraps (refine_ks: the other sides)
+    # path), and 12b's first (3, 4086^2) unwrap (refine_ks: the chirp-z
+    # passes)
     cu_calls = {"5": c_cu.calls, "13d": config6_unwrap_calls()}
     ks1 = generate_ks(0.1, 7.0)[:3]
     stack = displaced_stack(512, 4)
@@ -4729,9 +4817,12 @@ def main():
     del stack
     say(f"    captured early-stopping CG calls: "
         f"{ {k: [tuple(a[0].shape) + (a[3], a[4]) for a in v] for k, v in cu_calls.items()} }")
+    # the route each call must take, apart from ops.cg's gate: chirp-z
+    # passes an iteration (4086^2: both axes; the rest powers of two)
+    cu_czt = {"5": 0, "13d": 0, "16b": 0, "12b": 4}
     e_cu, cu_rows = 0.0, {}
     for label, calls in cu_calls.items():
-        e, r = check_cg_unwrap(cg_mod, calls, label)
+        e, r = check_cg_unwrap(cg_mod, calls, label, czt=cu_czt[label])
         e_cu = max(e_cu, e)
         cu_rows[label] = r
     rows["cg_unwrap"] = dict(max_abs_err=e_cu, **cu_rows["5"][0])

@@ -22,15 +22,22 @@
 // writing).
 //
 // Routes (ops/cg.py unwrap_fft_route):
-//   FFT route, both sides powers of two from 128 to 8192: six launches an
-//     iteration. The four one-axis DCT passes of dct_fft.cuh (shared with
-//     dct.cu and cg.cu): lane forward; sub forward, its store dividing by
-//     the eigenvalue; sub inverse; lane inverse, its store forming the
-//     r.z partials. Then step_p (p at each point and its four neighbours,
-//     Qp, the p.Qp partials) and step_x (phi, r, the ||r||^2 partials
-//     and the plane's stop test). Each pass is dispatched by its own side
-//     (7 sides x 4 passes), not by the pair of sides.
-//   Other sides (n, m >= 2): the DCT pair stays core.fourier's (the DCT
+//   FFT route, each side a power of two from 128 to 8192 or an even side
+//     from 130 to 4094 (pass_side): six launches an iteration. The four
+//     one-axis DCT passes of dct_fft.cuh: lane forward; sub forward, its
+//     store dividing by the eigenvalue; sub inverse; lane inverse, its
+//     store forming the r.z partials. Then step_p (p at each point and
+//     its four neighbours, Qp, the p.Qp partials) and step_x (phi, r, the
+//     ||r||^2 partials and the plane's stop test). Each pass is dispatched
+//     by its own side, not by the pair of sides: at a power of two
+//     dct_kernel's Stockham pass (shared with dct.cu and cg.cu; 7 sides x
+//     4 passes), at another even side czt_kernel's chirp-z pass
+//     (cg_unwrap_czt.cu: Makhoul's frame around an L-point convolution,
+//     L = 256 ... 4096; 5 lengths x 4 passes). Every pass's grid has the
+//     plane on y, so a lane pass's last block of a plane may be ragged
+//     (e.g. 4086 rows under a 4096-point lane pass).
+//   Other sides (odd, under 128, or past 4094 and not a power of two):
+//     the DCT pair stays core.fourier's (the DCT
 //     kernels on the axes they take, their twins elsewhere), driven from
 //     the wrapper; eigen_rz divides the transform by the eigenvalues and
 //     forms rz from the spectrum, <r, idct2n(y / lambda)> = sum_kl w_k w_l
@@ -53,149 +60,22 @@
 // Bound on an H100: HBM bytes. At the eager call's (2, 4096, 4096) the
 // state (~0.8 GB) does not fit the 50 MB L2, so an iteration moves about
 // 20 passes of a plane pair (134 MB each): 9 through the four DCT passes,
-// 5 in step_p, 6 in step_x; ~0.8 ms at 3.35 TB/s.
+// 5 in step_p, 6 in step_x; ~0.8 ms at 3.35 TB/s. A chirp-z pass moves the
+// same bytes as a Stockham pass but does two L-point FFTs of a line's N =
+// n / 2 points (L ~ 2N), about four times the shared-memory work.
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "cg_unwrap.cuh"
 #include "dct_fft.cuh"
 
 namespace {
 
+using namespace cgu;
+
 constexpr int NT = 256;         // threads of the elementwise kernels
 constexpr int RED = 16;         // elements a thread
 constexpr int TILE = NT * RED;  // elements a block
-
-// the per-plane state, B entries each
-struct State {
-  float* rz;      // <r, z> of the iteration
-  float* pq;      // <p, Qp>
-  float* rzprev;  // rz of the plane's last iteration (1 before its first)
-  float* thr;     // 1e-6 ||rk0||
-  float* rnorm;   // ||r|| after the plane's last iteration (||rk0|| before)
-  int* done;
-  int* k;
-  unsigned int* count;  // blocks of the running launch that have finished
-};
-
-// sc: (5, B) floats rz, pq, rzprev, thr, rnorm; si: (3, B) ints done, k,
-// count
-State state(float* sc, int* si, int B) {
-  return {sc, sc + B, sc + 2 * B, sc + 3 * B, sc + 4 * B, si, si + B,
-          reinterpret_cast<unsigned int*>(si + 2 * B)};
-}
-
-// fixed-order tree over the block (blockDim.x a power of two)
-__device__ __forceinline__ float block_sum(float v, float* sh) {
-  sh[threadIdx.x] = v;
-  __syncthreads();
-  for (int s = blockDim.x / 2; s > 0; s >>= 1) {
-    if (threadIdx.x < s) sh[threadIdx.x] += sh[threadIdx.x + s];
-    __syncthreads();
-  }
-  const float out = sh[0];
-  __syncthreads();
-  return out;
-}
-
-// Called by every thread after thread 0 stored the block's partial: true
-// in the block that finished last of the plane's nb (which then resets
-// the counter for the next launch).
-__device__ __forceinline__ bool last_block(unsigned int* count, int nb,
-                                           float* sh) {
-  int* flag = reinterpret_cast<int*>(sh);
-  if (threadIdx.x == 0) {
-    __threadfence();  // the partial is visible before the count
-    const unsigned int before = atomicAdd(count, 1u);
-    const int last = before == (unsigned int)(nb - 1);
-    if (last) *count = 0u;
-    *flag = last;
-  }
-  __syncthreads();
-  const bool last = *flag != 0;
-  __syncthreads();
-  return last;
-}
-
-// the plane's nb partials added in the same order in every solve (read
-// from L2: other blocks stored them)
-__device__ __forceinline__ float sum_partials(const float* part, int nb,
-                                              float* sh) {
-  float v = 0.f;
-  for (int t = threadIdx.x; t < nb; t += blockDim.x) v += __ldcg(part + t);
-  return block_sum(v, sh);
-}
-
-// 2 (cos(pi i / n) + cos(pi j / m) - 2) from the axes' cosines cn, cm
-// (ops/cg.py _cos_axis: the twin's own float32 cos values), added and
-// scaled as ops/cg.py poisson_scale does, so the eigenvalues are the
-// twin's bits; the caller keeps [0, 0]
-__device__ __forceinline__ float eigen(const float* __restrict__ cn,
-                                       const float* __restrict__ cm, int i,
-                                       int j) {
-  return __fmul_rn(2.0f, __fsub_rn(__fadd_rn(cn[i], cm[j]), 2.0f));
-}
-
-// ---- epilogues of the DCT passes (dct_fft.cuh): a block of a done plane
-// returns at its start
-
-// plain stores (lane forward, sub inverse)
-struct StoreLive : Store {
-  static constexpr bool SKIPS = true;
-  const int* done;
-  int per;  // lane passes: blocks a plane along grid x; sub passes: 0
-  __device__ __forceinline__ bool skip() const {
-    return done[per ? blockIdx.x / per : blockIdx.y] != 0;
-  }
-};
-
-// sub forward: y / eigenvalue (i, j), [0, 0] as it is
-struct EpiEigenLive {
-  static constexpr bool REDUCES = false;
-  static constexpr bool SKIPS = true;
-  const int* done;
-  const float* cn;  // cos(pi i / n), i < n
-  const float* cm;  // cos(pi j / m), j < m
-  __device__ __forceinline__ bool skip() const {
-    return done[blockIdx.y] != 0;
-  }
-  __device__ __forceinline__ void put(float* y, size_t o, float v, int i,
-                                      int j) {
-    y[o] = (i == 0 && j == 0) ? v : __fdiv_rn(v, eigen(cn, cm, i, j));
-  }
-};
-
-// lane inverse: store z, add r.z into the thread's sum; done() stores the
-// block's partial and, in the plane's last block, rz
-struct EpiDotLive {
-  static constexpr bool REDUCES = true;
-  static constexpr bool SKIPS = true;
-  const float* r;
-  float* part;
-  State S;
-  int per;
-  float acc;
-  __device__ __forceinline__ bool skip() const {
-    return S.done[blockIdx.x / per] != 0;
-  }
-  __device__ __forceinline__ void put4(float* y, size_t base, int i,
-                                       float4 v) {
-    reinterpret_cast<float4*>(y + base)[i] = v;
-    const float4 q = reinterpret_cast<const float4*>(r + base)[i];
-    acc = fmaf(q.x, v.x, acc);
-    acc = fmaf(q.y, v.y, acc);
-    acc = fmaf(q.z, v.z, acc);
-    acc = fmaf(q.w, v.w, acc);
-  }
-  __device__ __forceinline__ void done(float* sh) {
-    const float s = block_sum(acc, sh);
-    const int b = blockIdx.x / per;
-    if (threadIdx.x == 0) part[blockIdx.x] = s;
-    if (last_block(S.count + b, per, sh)) {
-      const float rz = sum_partials(part + (size_t)b * per, per, sh);
-      if (threadIdx.x == 0) S.rz[b] = rz;
-    }
-  }
-};
 
 // lines a block of a pass over lines of n = 2N: at N <= 512 as cg.cu's
 // passes (4096 complex values, 32 KB, within the default 48 KB); above,
@@ -209,11 +89,11 @@ struct Lines {
   static_assert(SMEM <= 227 * 1024, "fits a block's shared memory");
 };
 
-// one pass: lane (x: `lines` rows of 2N, plane_rows rows a plane) or sub
-// (x: B planes of 2N rows, `lines` columns)
+// one pass over B planes: lane (`lines` rows of 2N a plane) or sub (2N
+// rows, `lines` columns a plane); grid (blocks a plane, B)
 template <int N, bool SUB, bool INV, class Epi>
 int pass(const float* x, float* y, const float2* tab, int lines, int B,
-         int plane_rows, Epi epi, cudaStream_t stream) {
+         Epi epi, cudaStream_t stream) {
   using L = Lines<N, SUB>;
   if constexpr (L::SMEM > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -221,41 +101,34 @@ int pass(const float* x, float* y, const float2* tab, int lines, int B,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::SMEM);
     if (err != cudaSuccess) return (int)err;
   }
-  dim3 grid;
-  if constexpr (SUB) {
-    grid = dim3((lines + L::C - 1) / L::C, B);
-  } else {
-    grid = dim3(lines / L::C);
-    epi.per = plane_rows / L::C;
-  }
+  const dim3 grid((lines + L::C - 1) / L::C, B);
   dct_kernel<N, L::C, SUB, INV, Epi><<<grid, L::T, L::SMEM, stream>>>(
       x, y, tab, lines, epi);
   return (int)cudaGetLastError();
 }
 
-// the pass at a side in 128 ... 8192
+// the pass at a side: the Stockham pass at a power of two in 128 ... 8192,
+// the chirp-z pass at an even side in 130 ... 4094 (cg_unwrap_czt.cu)
 template <bool SUB, bool INV, class Epi>
 int pass_at(int side, const float* x, float* y, const float* tab, int lines,
-            int B, int plane_rows, Epi epi, cudaStream_t stream) {
+            int B, Epi epi, cudaStream_t stream) {
   const float2* t = reinterpret_cast<const float2*>(tab);
   switch (side) {
-    case 128: return pass<64, SUB, INV>(x, y, t, lines, B, plane_rows, epi, stream);
-    case 256: return pass<128, SUB, INV>(x, y, t, lines, B, plane_rows, epi, stream);
-    case 512: return pass<256, SUB, INV>(x, y, t, lines, B, plane_rows, epi, stream);
-    case 1024: return pass<512, SUB, INV>(x, y, t, lines, B, plane_rows, epi, stream);
-    case 2048: return pass<1024, SUB, INV>(x, y, t, lines, B, plane_rows, epi, stream);
-    case 4096: return pass<2048, SUB, INV>(x, y, t, lines, B, plane_rows, epi, stream);
-    case 8192: return pass<4096, SUB, INV>(x, y, t, lines, B, plane_rows, epi, stream);
+    case 128: return pass<64, SUB, INV>(x, y, t, lines, B, epi, stream);
+    case 256: return pass<128, SUB, INV>(x, y, t, lines, B, epi, stream);
+    case 512: return pass<256, SUB, INV>(x, y, t, lines, B, epi, stream);
+    case 1024: return pass<512, SUB, INV>(x, y, t, lines, B, epi, stream);
+    case 2048: return pass<1024, SUB, INV>(x, y, t, lines, B, epi, stream);
+    case 4096: return pass<2048, SUB, INV>(x, y, t, lines, B, epi, stream);
+    case 8192: return pass<4096, SUB, INV>(x, y, t, lines, B, epi, stream);
   }
-  return (int)cudaErrorInvalidValue;
+  return czt_pass_at<SUB, INV>(side, x, y, tab, lines, B, epi, stream);
 }
 
-bool fft_side(int s) {
-  return s >= 128 && s <= 8192 && (s & (s - 1)) == 0;
+// sides whose lines have a pass of their own (ops/cg.py unwrap_pass_side)
+bool pass_side(int s) {
+  return (s >= 128 && s <= 8192 && (s & (s - 1)) == 0) || czt_side(s);
 }
-
-// lines a lane block at side m (Lines<m / 2, false>::C)
-int lane_lines(int m) { return m <= 1024 ? 8192 / m : 16384 / m; }
 
 // ---- the elementwise kernels, grid (ceil(n m / TILE), B)
 
@@ -463,11 +336,11 @@ bool shape_ok(int B, int cpw, int n, int m) {
 
 extern "C" {
 
-// floats of the partials buffer (B planes at n x m)
+// floats of the partials buffer (B planes at n x m): a plane's blocks of
+// the elementwise kernels or of a lane pass (at most n)
 long long cg_unwrap_part_floats(int B, int n, int m) {
   const long long nb = ((long long)n * m + TILE - 1) / TILE;
-  const long long lane = fft_side(m) ? n / lane_lines(m) : 0;
-  return (long long)B * (nb > lane ? nb : lane);
+  return (long long)B * (nb > n ? nb : n);
 }
 
 // The solve's start. rk0, r, phi: (B, n, m); part: cg_unwrap_part_floats;
@@ -488,8 +361,9 @@ int cg_unwrap_init(const float* rk0, float* r, float* phi, float* part,
 // The FFT route's max(kmax, 1) iterations after cg_unwrap_init. WWx, WWy:
 // (B / cpw, n, m) aligned (zero last column / row); z, x1, p0, p1, qp:
 // (B, n, m) scratch; tabs: the ops/dct.py tables (lane forward at m, sub
-// forward at n, sub inverse at n, lane inverse at m); cn, cm: the axes'
-// cosines (ops/cg.py _cos_axis); n, m powers of two in 128 ... 8192
+// forward at n, sub inverse at n, lane inverse at m: kernel_tables at a
+// power of two, bluestein_tables at a chirp-z side); cn, cm: the axes'
+// cosines (ops/cg.py _cos_axis); n, m pass sides (pass_side)
 int cg_unwrap_fft(const float* WWx, const float* WWy, float* r, float* phi,
                   float* z, float* x1, float* p0, float* p1, float* qp,
                   float* part, float* sc, int* si, const float* tab_lane_f,
@@ -497,7 +371,7 @@ int cg_unwrap_fft(const float* WWx, const float* WWy, float* r, float* phi,
                   const float* tab_lane_i, const float* cn, const float* cm,
                   int B, int cpw, int n, int m, int kmax, int aligned,
                   cudaStream_t stream) {
-  if (!shape_ok(B, cpw, n, m) || !fft_side(n) || !fft_side(m))
+  if (!shape_ok(B, cpw, n, m) || !pass_side(n) || !pass_side(m))
     return (int)cudaErrorInvalidValue;
   const State S = state(sc, si, B);
   float* pbuf[2] = {p0, p1};
@@ -506,17 +380,17 @@ int cg_unwrap_fft(const float* WWx, const float* WWy, float* r, float* phi,
   for (int it = 0; it < iters; ++it) {
     float* p_old = pbuf[it & 1];
     float* p_new = pbuf[(it + 1) & 1];
-    if ((code = pass_at<false, false>(m, r, x1, tab_lane_f, B * n, B, n,
-                                      StoreLive{{}, S.done, 0}, stream)))
+    if ((code = pass_at<false, false>(m, r, x1, tab_lane_f, n, B,
+                                      StoreLive{S.done}, stream)))
       return code;
-    if ((code = pass_at<true, false>(n, x1, z, tab_sub_f, m, B, n,
+    if ((code = pass_at<true, false>(n, x1, z, tab_sub_f, m, B,
                                      EpiEigenLive{S.done, cn, cm}, stream)))
       return code;
-    if ((code = pass_at<true, true>(n, z, x1, tab_sub_i, m, B, n,
-                                    StoreLive{{}, S.done, 0}, stream)))
+    if ((code = pass_at<true, true>(n, z, x1, tab_sub_i, m, B,
+                                    StoreLive{S.done}, stream)))
       return code;
-    if ((code = pass_at<false, true>(m, x1, z, tab_lane_i, B * n, B, n,
-                                     EpiDotLive{r, part, S, 0, 0.f}, stream)))
+    if ((code = pass_at<false, true>(m, x1, z, tab_lane_i, n, B,
+                                     EpiDotLive{r, part, S, 0.f}, stream)))
       return code;
     if ((code = step(z, p_old, p_new, qp, r, phi, WWx, WWy, part, S, B, cpw,
                      n, m, it == 0, kmax, aligned, stream)))

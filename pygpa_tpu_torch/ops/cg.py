@@ -41,13 +41,18 @@ plane whose rk0 is all zero done at the start, and a done plane frozen
 while the others run on. Its plain twin :func:`cg_unwrap_plain` is that
 loop in torch (which ``solvers.unwrap`` also runs for float64, for the
 row-sharded solver's ``precond``/``rows`` and on the CPU). The kernel
-takes float32 sides 2 ... 8192 (:func:`unwrap_supported`): both sides
-powers of two from 128 (:func:`unwrap_fft_route`) run each iteration as
-six launches (the four DCT passes of ``dct_fft.cuh`` with the eigenvalue
-division and the r.z partials in their stores, then the p/stencil and
-the phi/r/stop kernels); other sides keep core.fourier's DCT pair and
-add three launches an iteration. Scalars, done flags and counts stay on
-the device; a done plane's blocks return at once.
+takes float32 sides 2 ... 8192 (:func:`unwrap_supported`). Where each
+side has a DCT pass of its own (:func:`unwrap_pass_side`: a power of two
+from 128 to 8192, a Stockham pass; an even side from 130 to 4094, a
+chirp-z pass on a Stockham plan of L = 256 ... 4096 points), the FFT
+route (:func:`unwrap_fft_route`) runs each iteration as six launches
+(the four DCT passes of ``dct_fft.cuh`` with the eigenvalue division and
+the r.z partials in their stores, then the p/stencil and the phi/r/stop
+kernels): the exact path's 4086^2 (the 5 px trim of ``iterate_GPA``),
+500^2 or 4096 x 4086. Other sides (odd, under 128, past 4094 and not a
+power of two) keep core.fourier's DCT pair and add three launches an
+iteration. Scalars, done flags and counts stay on the device; a done
+plane's blocks return at once.
 """
 import ctypes
 import functools
@@ -180,8 +185,11 @@ def cg_poisson(rk0, WWx, WWy, kmax):
 # (ops/dct.RADICES), in-plane offsets are int; planes lie on grid y
 UNWRAP_MAX_SIDE = 8192
 UNWRAP_MAX_PLANES = 65535
-# both sides in UNWRAP_FFT_SIDES: the DCT passes run inside the solve
+# sides of the Stockham DCT passes inside the solve: powers of two
 UNWRAP_FFT_SIDES = tuple(2 * N for N in sorted(_dct.RADICES))
+# the largest side of the chirp-z passes: its L, 4096, is the largest
+# length with a Stockham plan
+UNWRAP_CZT_MAX = 4094
 _UNWRAP_TILE = 256 * 16   # elements per block of its elementwise kernels
 
 
@@ -203,11 +211,19 @@ def unwrap_supported(shape):
             and 1 <= planes <= UNWRAP_MAX_PLANES)
 
 
+def unwrap_pass_side(s):
+    """True where a side has a DCT pass inside the early-stopping kernel:
+    a power of two in UNWRAP_FFT_SIDES (the Stockham pass) or an even
+    side from 130 to UNWRAP_CZT_MAX (the chirp-z pass)."""
+    return s in UNWRAP_FFT_SIDES or (s % 2 == 0
+                                     and 128 < s <= UNWRAP_CZT_MAX)
+
+
 def unwrap_fft_route(n, m):
     """True where the early-stopping kernel runs its preconditioner as
-    its own DCT passes (both sides powers of two, 128 ... 8192); elsewhere
-    core.fourier's DCT pair runs between its launches."""
-    return n in UNWRAP_FFT_SIDES and m in UNWRAP_FFT_SIDES
+    its own DCT passes (both sides pass sides, unwrap_pass_side);
+    elsewhere core.fourier's DCT pair runs between its launches."""
+    return unwrap_pass_side(n) and unwrap_pass_side(m)
 
 
 def _diff0(a, axis):

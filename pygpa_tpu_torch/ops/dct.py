@@ -9,7 +9,9 @@ would (n >= 4096): the row-sharded solver's pencil DCT, the unweighted
 multigrid's Poisson solve, the torch CG loop (float64 aside) and the
 early-stopping kernel's solves off its FFT sides. The early-stopping
 kernel's FFT route (csrc/cg_unwrap.cu) runs the same passes inside its
-own launches, so the eager paths launch no dct_lane or dct_sub.
+own launches, so the eager paths launch no dct_lane or dct_sub; at its
+even sides that are not powers of two it runs a chirp-z pass of the same
+frame (``csrc/dct_fft.cuh`` czt_kernel, tables :func:`bluestein_tables`).
 
 Method (``csrc/dct.cu``): Makhoul's DCT through a real FFT of the
 permuted line, done as a complex FFT of n/2 points in shared memory
@@ -105,11 +107,45 @@ def kernel_tables(n, inverse):
     return tw, w, root(4 * np.arange(N // 2 + 1))
 
 
+def czt_length(n):
+    """L of the chirp-z pass over a line of even n: the power of two >=
+    n - 1 (= 2N - 1, N = n / 2)."""
+    return 1 << (n - 2).bit_length()
+
+
+def bluestein_tables(n, inverse):
+    """The chirp-z pass's complex128 tables for a line of even n whose
+    N = n/2 has no Stockham plan (csrc/dct_fft.cuh czt_kernel), s = -1
+    forward and +1 inverse, L = czt_length(n): tw[m] = e^(-2 pi i m / L)
+    (m < L, both directions: the kernel's inverse FFT_L is a conjugated
+    forward one), the chirp c[m] = e^(i pi s m^2 / N) (m < N), Bh =
+    FFT_L(b) / L of b = conj(c) laid out circularly (b_j at j and L - j,
+    zero between N and L - N), and kernel_tables' w (N + 1) and A
+    (N/2 + 1). Angles come from integers before the float64 cos/sin (m^2
+    reduced mod 2N for the chirp); Bh is a float64 FFT of that chirp."""
+    N = n // 2
+    L = czt_length(n)
+    s = 1.0 if inverse else -1.0
+    m = np.arange(L, dtype=np.int64)
+    ang = m.astype(np.float64) * (2 * np.pi / L)
+    tw = np.cos(ang) - 1j * np.sin(ang)
+    M = (m[:N] * m[:N]) % (2 * N)
+    ang = M.astype(np.float64) * (np.pi / N)
+    c = np.cos(ang) + 1j * s * np.sin(ang)
+    b = np.zeros(L, complex)
+    b[:N] = np.conj(c)
+    b[L - N + 1:] = np.conj(c[1:])[::-1]
+    _, w, A = kernel_tables(n, inverse)
+    return tw, c, np.fft.fft(b) / L, w, A
+
+
 @functools.lru_cache(maxsize=32)
 def _device_table(n, inverse, device):
-    """tw, w and A one after the other as interleaved (re, im) float32
-    on `device`."""
-    t = np.concatenate(kernel_tables(n, inverse))
+    """The kernels' table at n as interleaved (re, im) float32 on
+    `device`: kernel_tables' tw, w and A one after the other where n / 2
+    has a Stockham plan, else bluestein_tables' tw_L, c, Bh, w and A."""
+    tables = kernel_tables if n // 2 in RADICES else bluestein_tables
+    t = np.concatenate(tables(n, inverse))
     ri = np.stack([t.real, t.imag], -1).astype(np.float32)
     return torch.from_numpy(np.ascontiguousarray(ri)).to(device)
 

@@ -71,6 +71,7 @@ ENTRIES = {
     "cg fft route": ("cg_poisson",),
     "cg dense route": ("cg_poisson",),
     "cg unwrap fft route": ("cg_unwrap",),
+    "cg unwrap chirp-z route": ("cg_unwrap",),
     "cg unwrap other sides": ("cg_unwrap",),
     "drizzle shared": ("drizzle",),
     "drizzle global": ("drizzle",),
@@ -237,10 +238,13 @@ def run_kernel_smoke(verbose=False, device=None):
         ww = (0.1 + torch.rand((side, side), generator=g)).to(dev) ** 2
         entry(label, lambda: cg.cg_poisson(rk, ww, ww, 3))
 
-    # --- the early-stopping CG, both routes ---
+    # --- the early-stopping CG: its own passes (Stockham; chirp-z on
+    # both axes) and the other sides ---
     for label, (n, m), aligned in (("cg unwrap fft route", (128, 256), False),
+                                   ("cg unwrap chirp-z route", (250, 130),
+                                    True),
                                    ("cg unwrap other sides", (96, 80), True)):
-        if cg.unwrap_fft_route(n, m) != (label == "cg unwrap fft route"):
+        if cg.unwrap_fft_route(n, m) != (label != "cg unwrap other sides"):
             raise AssertionError(f"kernel smoke [{label}]: {n} x {m} takes "
                                  "the other route")
         rk = torch.randn((2, n, m), generator=g)

@@ -16,6 +16,7 @@ import pygpa_tpu_torch.solvers.unwrap as TU
 from pygpa_tpu_torch.core.fourier import dct2n, idct2n
 from pygpa_tpu_torch.ops import _build
 from pygpa_tpu_torch.ops import cg as tcg
+from pygpa_tpu_torch.ops import dct as tdct
 from pygpa_tpu_torch.ops.vcycle import _q
 
 from test_torch_unwrap import _close, _problem
@@ -202,8 +203,8 @@ def test_spectral_rz_is_the_direct_dot(n, m):
 
 def test_gate_truth_table():
     """cg_unwrap_kernel_ok: float32, sides 2 ... 8192, at most 65535
-    planes; the FFT route where both sides are powers of two 128 ...
-    8192."""
+    planes; the FFT route where each side is a power of two 128 ... 8192
+    or an even side 130 ... 4094 (the chirp-z pass), in any pairing."""
     ok = TU.cg_unwrap_kernel_ok
     f32, f64 = torch.float32, torch.float64
     for shape in ((2, 4096, 4096), (2, 2048, 2048), (16, 2, 512, 512),
@@ -215,10 +216,30 @@ def test_gate_truth_table():
                   (65536, 2, 8), (0, 64, 64)):
         assert not ok(shape, f32), shape
     assert tcg.UNWRAP_FFT_SIDES == (128, 256, 512, 1024, 2048, 4096, 8192)
-    for n, m in ((128, 128), (4096, 4096), (2048, 8192), (128, 1024)):
-        assert tcg.unwrap_fft_route(n, m)
-    for n, m in ((4086, 4086), (64, 64), (4096, 4086), (384, 640)):
-        assert not tcg.unwrap_fft_route(n, m)
+    for n, m in ((128, 128), (4096, 4096), (2048, 8192), (128, 1024),
+                 (4086, 4086), (4096, 4086), (4086, 4096), (500, 500),
+                 (250, 374), (384, 640), (130, 4094), (8192, 2050)):
+        assert tcg.unwrap_fft_route(n, m), (n, m)
+    for n, m in ((64, 64), (4087, 4086), (4086, 4087), (4098, 4096),
+                 (8190, 8190), (126, 256), (256, 126), (125, 125)):
+        assert not tcg.unwrap_fft_route(n, m), (n, m)
+
+
+def test_pass_side_truth_table():
+    """unwrap_pass_side: the powers of two 128 ... 8192 (Stockham) and the
+    even sides 130 ... 4094 (chirp-z, whose L = 256 ... 4096 has a plan);
+    not odd sides, sides under 128, or non-powers of two past 4094."""
+    side = tcg.unwrap_pass_side
+    yes = [128, 130, 250, 374, 500, 1022, 1026, 2046, 4086, 4094, 4096,
+           8192, 6144 // 2, 2 * 1000]
+    no = [2, 64, 96, 126, 127, 129, 131, 4085, 4087, 4095, 4098, 6144,
+          8190, 8194, 16384]
+    assert all(side(s) for s in yes), [s for s in yes if not side(s)]
+    assert not any(side(s) for s in no), [s for s in no if side(s)]
+    for s in range(130, 4096, 2):
+        assert side(s)
+        if s // 2 not in tdct.RADICES:
+            assert tdct.czt_length(s) in tdct.RADICES
 
 
 def test_route(monkeypatch):

@@ -529,26 +529,40 @@ def _unwrap_problem(lead, n, m, aligned, seed, dev, per_image=False):
     return tu._residual(dx[..., :-1], dy[..., :-1, :], w)
 
 
-def _kernel_launches(fn):
+def _kernel_launches(fn, traces=3):
     """Names of the CUDA kernels one call of fn() launches (torch.profiler;
-    copies and fills left out), after a warm-up call."""
+    copies and fills left out), after a warm-up call. On the card a trace
+    now and then lacks the device events of a call's first milliseconds
+    (never adds one), so the call starts 20 ms into the trace and ends 20
+    ms before its end, and each name is counted as often as the most that
+    any of `traces` traces of one call holds it."""
+    import collections
+    import time
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA
-            and not e.name.lower().startswith(("memcpy", "memset"))]
+    most = collections.Counter()
+    for _ in range(traces):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.02)
+            fn()
+            torch.cuda.synchronize()
+            time.sleep(0.02)
+        most |= collections.Counter(
+            e.name for e in prof.events() if e.device_type == DeviceType.CUDA
+            and not e.name.lower().startswith(("memcpy", "memset")))
+    return list(most.elements())
 
 
-def _check_unwrap(rk, WWx, WWy, kmax, aligned):
+def _check_unwrap(rk, WWx, WWy, kmax, aligned, czt):
     """The early-stopping kernel against its twin: one counted launch,
     finite, the twin's k per plane, relative 1e-4 of the twin, bit for
-    bit over two calls, and its launches an iteration (six on the FFT
-    route; three besides the DCTs elsewhere). Both float32 solves are
+    bit over two calls, and the route the case states: `czt` of the four
+    DCT passes an iteration chirp-z and the rest Stockham, six launches
+    an iteration with no eigen_rz or cuFFT kernel in the solve; or, with
+    `czt` None, the other sides' three besides the DCTs. Both float32 solves are
     also held to the same solve in float64: the kernel no further from it
     than the twin (10% and 1e-5 of slack). Where the twin itself strays
     from it by more than 2e-4 (float32 rounding amplified by a plane's
@@ -574,25 +588,37 @@ def _check_unwrap(rk, WWx, WWy, kmax, aligned):
     names = _kernel_launches(lambda: tcg.cg_unwrap(rk, WWx, WWy, kmax,
                                                    aligned))
     ours = [x for x in names if any(s in x for s in (
-        "dct_kernel", "step_p_kernel", "step_x_kernel", "eigen_rz_kernel"))]
+        "dct_kernel", "czt_kernel", "step_p_kernel", "step_x_kernel",
+        "eigen_rz_kernel"))]
     assert sum("init_kernel" in x for x in names) == 1
-    per_it = 6 if tcg.unwrap_fft_route(n, m) else 3
-    assert len(ours) == per_it * max(kmax, 1), names
+    its = max(kmax, 1)
+    fft = czt is not None
+    assert tcg.unwrap_fft_route(n, m) == fft
+    assert len(ours) == (6 if fft else 3) * its, names
+    if fft:
+        assert not [x for x in names if "fft" in x.lower()], names
+        assert sum("czt_kernel" in x for x in names) == czt * its, names
+        assert sum("dct_kernel" in x for x in names) == (4 - czt) * its
+        assert not [x for x in names if "eigen_rz_kernel" in x], names
     return k
 
 
-@pytest.mark.parametrize("B,n,m,aligned,kmax", [
-    (2, 128, 128, False, 10), (2, 512, 512, False, 10),
-    (2, 2048, 2048, True, 6), (2, 2048, 2048, True, 4),
-    (2, 4096, 4096, False, 10), (2, 4096, 128, False, 10),
-    (1, 128, 4096, True, 3), (2, 250, 374, False, 10),
-    (2, 250, 374, True, 6), (2, 4086, 4086, False, 3),
-    (2, 64, 96, True, 6)])
-def test_cg_unwrap_kernel(dev, B, n, m, aligned, kmax):
+@pytest.mark.parametrize("B,n,m,aligned,kmax,czt", [
+    (2, 128, 128, False, 10, 0), (2, 512, 512, False, 10, 0),
+    (2, 2048, 2048, True, 6, 0), (2, 2048, 2048, True, 4, 0),
+    (2, 4096, 4096, False, 10, 0), (2, 4096, 128, False, 10, 0),
+    (1, 128, 4096, True, 3, 0), (2, 250, 374, False, 10, 4),
+    (2, 250, 374, True, 6, 4), (2, 4086, 4086, False, 3, 4),
+    (2, 4096, 4086, False, 3, 2), (2, 4086, 4096, True, 3, 2),
+    (2, 64, 96, True, 6, None)])
+def test_cg_unwrap_kernel(dev, B, n, m, aligned, kmax, czt):
     """The early-stopping kernel on the FFT route (powers of two from 128
-    to 4096, both layouts) and elsewhere (250 x 374, 4086^2, 64 x 96)."""
+    to 4096, both layouts; the chirp-z passes at 250 x 374 and 4086^2 and
+    beside a 4096-point pass at 4096 x 4086 and 4086 x 4096) and
+    elsewhere (64 x 96): `czt` is the chirp-z passes an iteration the
+    case must run, None for the other sides."""
     rk, WWx, WWy = _unwrap_problem((B,), n, m, aligned, 95, dev)
-    _check_unwrap(rk, WWx, WWy, kmax, aligned)
+    _check_unwrap(rk, WWx, WWy, kmax, aligned, czt)
 
 
 @pytest.mark.parametrize("B,n,m,aligned", [(2, 8192, 128, False),
@@ -614,10 +640,13 @@ def test_cg_unwrap_kernel_at_8192(dev, B, n, m, aligned):
                                      "step_x_kernel")) for x in names) == 18
 
 
-@pytest.mark.parametrize("B,n,m,aligned", [(3, 256, 256, False),
-                                           (3, 512, 512, True),
-                                           (4, 250, 374, False)])
-def test_cg_unwrap_kernel_with_per_image_weights(dev, B, n, m, aligned):
+@pytest.mark.parametrize("B,n,m,aligned,czt", [(3, 256, 256, False, 0),
+                                               (3, 512, 512, True, 0),
+                                               (4, 250, 374, False, 4),
+                                               (3, 500, 500, True, 4),
+                                               (3, 96, 80, False, None)])
+def test_cg_unwrap_kernel_with_per_image_weights(dev, B, n, m, aligned,
+                                                 czt):
     """A (B, 2) stack with weights (B, 1, n, m): planes stop by the norm
     (image 0), by kmax and at the start (the last image's zero plane),
     each as its twin says; each image's solution the bits of its own
@@ -625,7 +654,7 @@ def test_cg_unwrap_kernel_with_per_image_weights(dev, B, n, m, aligned):
     rk, WWx, WWy = _unwrap_problem((B, 2), n, m, aligned, 97, dev,
                                    per_image=True)
     assert WWx.shape[:2] == (B, 1)
-    k = _check_unwrap(rk, WWx, WWy, 12, aligned)
+    k = _check_unwrap(rk, WWx, WWy, 12, aligned, czt)
     assert (k[0] < 12).all() and k[-1, 1] == 0 and (k[1] == 12).all()
     got, _ = tcg.cg_unwrap(rk, WWx, WWy, 12, aligned)
     for i in range(B):

@@ -2,8 +2,10 @@
 the CPU) against pygpa_tpu.ops.pallas_dct2 in interpret mode and
 scipy.fft, the kernels' FFT form with their twiddle tables against
 scipy through a float64 numpy emulation of the kernels' arithmetic (at
-every plan: the DCT kernels' lengths and the multigrid CG's), and the
-dct2n/idct2n route against the reference's _pallas_dct_ok gate."""
+every plan: the DCT kernels' lengths and the multigrid CG's; and the
+early-stopping CG's chirp-z pass at even lengths whose half has no
+plan, on 1-D lines), and the dct2n/idct2n route against the reference's
+_pallas_dct_ok gate."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -109,21 +111,42 @@ def _vpos(n):
     return np.where(j % 2 == 0, j // 2, n - 1 - (j - 1) // 2)
 
 
-def _kernel_form(x, n, inverse):
+def _czt(z, tw, c, bh):
+    """csrc/dct_fft.cuh czt_kernel's N-point FFT of the last axis (the
+    direction is the tables'): the chirp, zero padding to L, the L-point
+    Stockham passes, conj(Y Bh), the passes again, c conj(.)."""
+    L, N = tw.size, c.size
+    a = np.zeros(z.shape[:-1] + (L,), complex)
+    a[..., :N] = z * c
+    r = _fft(np.conj(_fft(a, tw, False) * bh), tw, False)
+    return c * np.conj(r[..., :N])
+
+
+def _kernel_form(x, n, inverse, czt=False):
     """numpy float64 emulation of csrc/dct.cu along the last axis, with
     the wrapper's own tables (TD.kernel_tables): the forward permutes
     into v, packs z_m = v_2m + i v_(2m+1), runs the passes and splits
     each pair Z_k, Z_(N-k) into y_k, y_(n-k), y_(N-k), y_(N+k); the
     inverse packs F into Z' pair by pair, runs the inverse passes and
-    undoes the permutation."""
+    undoes the permutation. `czt`: czt_kernel's form instead, the same
+    frame (N odd or even) around the chirp-z (TD.bluestein_tables)."""
     N = n // 2
-    tw, w, A = TD.kernel_tables(n, inverse)
+    if czt:
+        tw, c, bh, w, A = TD.bluestein_tables(n, inverse)
+
+        def fft(z, inv):
+            return _czt(z, tw, c, bh)
+    else:
+        tw, w, A = TD.kernel_tables(n, inverse)
+
+        def fft(z, inv):
+            return _fft(z, tw, inv)
     x = np.asarray(x, np.float64)
     ks = range(N // 2 + 1)
     if not inverse:
         v = np.empty_like(x)
         v[..., _vpos(n)] = x
-        Z = _fft(v[..., 0::2] + 1j * v[..., 1::2], tw, False)
+        Z = fft(v[..., 0::2] + 1j * v[..., 1::2], False)
         y = np.empty_like(x)
         for k in ks:
             Zk, Zm = Z[..., k], Z[..., (N - k) % N]
@@ -135,7 +158,7 @@ def _kernel_form(x, n, inverse):
                 y[..., n - k] = -P1.imag
             if k == 0:
                 y[..., N] = P2.real
-            elif k < N // 2:
+            elif 2 * k != N:
                 y[..., N - k] = P2.real
                 y[..., N + k] = -P2.imag
         return y
@@ -146,9 +169,9 @@ def _kernel_form(x, n, inverse):
         F2 = (x[..., N - k] - 1j * x[..., N + k]) * w[N - k]
         S, itD = F1 + np.conj(F2), 1j * A[k] * (F1 - np.conj(F2))
         Z[..., k] = S + itD
-        if 0 < k < N // 2:
+        if k and 2 * k != N:
             Z[..., N - k] = np.conj(S - itD)
-    z = _fft(Z, tw, True)
+    z = fft(Z, True)
     v = np.stack([z.real, z.imag], -1).reshape(x.shape)
     return v[..., _vpos(n)]
 
@@ -202,6 +225,63 @@ def test_kernel_tables_are_exact_roots(n):
     assert dev.shape == (flat.size, 2) and dev.dtype == np.float32
     np.testing.assert_allclose(dev[:, 0], flat.real, atol=6e-8)
     np.testing.assert_allclose(dev[:, 1], flat.imag, atol=6e-8)
+
+
+# even lengths whose half has no Stockham plan, as the early-stopping
+# CG meets them: 250 x 374, config 1's 500^2, iterate_GPA's 4086^2, and
+# the ends of L = 256 (130) and L = 1024 (1022); N odd and even
+CZT_SIZES = [130, 250, 374, 500, 1022, 4086]
+
+
+@pytest.mark.parametrize("n", CZT_SIZES)
+def test_bluestein_tables_reproduce_scipy(n):
+    """czt_kernel's arithmetic in float64 with the wrapper's chirp-z
+    tables (Makhoul's frame; the chirp, the L-point Stockham passes of
+    the plan, conj(Y Bh), the passes again) reproduces scipy's DCT-II
+    and its inverse to 1e-12."""
+    assert n // 2 not in TD.RADICES
+    x = np.random.default_rng(n).normal(size=(2, n))
+    for inverse, ref in ((False, sdct(x, type=2, axis=-1)),
+                         (True, sidct(x, type=2, axis=-1))):
+        got = _kernel_form(x, n, inverse, czt=True)
+        assert np.abs(got - ref).max() <= 1e-12 * np.abs(ref).max()
+
+
+@pytest.mark.parametrize("n", CZT_SIZES)
+def test_bluestein_tables_are_exact(n):
+    """L is the power of two >= 2N - 1 and has a plan; tw_L holds the L-th
+    roots, the chirp e^(-+ i pi m^2 / N) (the inverse's conjugates the
+    forward's), Bh = FFT_L(conj chirp, laid out circularly) / L, so it is
+    even (Bh_k = Bh_(L-k)); w and A are kernel_tables'; the float32
+    device table (tw_L, c, Bh, w, A) lies within 1 ulp of the float64
+    one."""
+    N = n // 2
+    L = TD.czt_length(n)
+    assert L in TD.RADICES and L >= 2 * N - 1 and L // 2 < 2 * N - 1
+    tw, c, bh, w, A = TD.bluestein_tables(n, False)
+    itw, ic, ibh, iw, iA = TD.bluestein_tables(n, True)
+    assert (tw.shape, c.shape, bh.shape) == ((L,), (N,), (L,))
+    np.testing.assert_allclose(tw ** L, 1, atol=1e-9)
+    np.testing.assert_array_equal(itw, tw)
+    m = np.arange(N, dtype=np.float64)
+    np.testing.assert_allclose(c, np.exp(-1j * np.pi * m * m / N),
+                               atol=1e-9)
+    np.testing.assert_array_equal(ic, np.conj(c))
+    b = np.zeros(L, complex)
+    b[:N] = np.conj(c)
+    b[L - N + 1:] = np.conj(c[1:])[::-1]
+    np.testing.assert_allclose(bh, np.fft.fft(b) / L, atol=1e-15)
+    np.testing.assert_allclose(bh[1:], bh[1:][::-1], atol=1e-14)
+    for got, want in zip((w, A, iw, iA), TD.kernel_tables(n, False)[1:]
+                         + TD.kernel_tables(n, True)[1:]):
+        np.testing.assert_array_equal(got, want)
+    for inverse in (False, True):
+        dev = TD._device_table(n, inverse, torch.device("cpu")).numpy()
+        flat = np.concatenate(TD.bluestein_tables(n, inverse))
+        assert dev.shape == (flat.size, 2) and dev.dtype == np.float32
+        for part, ref in ((dev[:, 0], flat.real), (dev[:, 1], flat.imag)):
+            assert np.all(np.abs(part.astype(np.float64) - ref)
+                          <= np.spacing(np.abs(part)))
 
 
 def test_route_matches_reference_gate(monkeypatch):
