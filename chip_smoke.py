@@ -96,14 +96,16 @@ Phases, each printed on its own lines:
    extract_primary_ks(img, DoG=False, subpixel=True) within 0.5/size,
    then refine_ks on those ks (sign-aligned and ordered to the true
    ones) within 0.15/size, with no DCT kernel launch (iterate_GPA trims
-   5 px, so its unwraps run at 4086^2, on cg_unwrap's chirp-z passes);
-   its seconds per call (the first and the second); (c)
+   5 px, so its unwraps run at 4086^2, on cg_unwrap's chirp-z passes,
+   and its plane fits on fit_plane, both launched in the counted run);
+   its seconds per call (the first and the second) and how far the
+   refined ks lie from refine_ks on the fit's twin; (c)
    extract_displacement_field from the refined ks against phase 5's u
    from the true ks: each component's least-squares plane removed on
    the 8 sigma interior (a k error is a uniform strain), max < 0.02 px;
    (d) vecGPA against three optGPA calls and GPA against optGPA, bit
    for bit, and iterate_GPA from ks + (0.002, -0.001) cancelling at
-   least 65% of the offset; (e) the bench extractor with the "vv"
+   least 65% of the offset (cg_unwrap and fit_plane launched); (e) the bench extractor with the "vv"
    finest level (unwrap_mg_final replaced in the unwrap module's
    DEFAULTS): presmooth once and applyq three times a call (once with
    "v"), the bench's interior and dc-free gates, the same path on the
@@ -247,7 +249,8 @@ same way.
 The CG kernel runs both calls phase 4 captures (kmax 6 and 4, the FFT
 route) and a dense-route call at (2, 384, 640), each against its twin
 and bit for bit against itself, with its kernel launches per iteration
-(torch.profiler; at most 6 on the FFT route), the L2 traffic of its
+(exactly 6 on the FFT route, read from the call's captured CUDA
+graph), the L2 traffic of its
 launch chain and, on the FFT route, the dense route's error and time on
 the same inputs. The early-stopping CG kernel (cg_unwrap) runs phase
 5's exact solve (2, 4096^2, kmax 10, the row), config 6's 2048^2
@@ -257,10 +260,24 @@ displaced 512^2 images with their own weights (16b's path) and 12b's
 (3, 4086^2) unwrap (refine_ks: the chirp-z passes on both axes), each
 against its twin (phi within 1e-4, k per plane equal, bit for bit over
 two calls), with the route it took, each plane's stop margin, ms a call,
-launches an iteration (on the FFT route at most 6 and no cuFFT kernel;
-each label's route is also stated in the script, and a call fails where
-its chirp-z and Stockham pass launches differ from it, or 12b captured
-no call) and the HBM traffic of its launch chain. For each kernel it computes the bound from those inputs (the larger of
+launches an iteration and the HBM traffic of its launch chain. Every
+call, here and in phases 13 and 15a, is held to the route its shape
+gives (stated_route, worked out by powers of two and even sides apart
+from ops.cg's gate): exactly its launches an iteration of each DCT pass
+kind (chirp-z, Stockham), of eigen_rz and in all (6 on the FFT route,
+with no cuFFT kernel; 3 besides core.fourier's DCT pair at other
+sides), read from the call's captured CUDA graph (ops._build's
+graph_kernels, which cannot lose a launch as a torch.profiler trace
+can); phase 3 also states
+each label's chirp-z passes (4 for 12b's 4086^2, 0 elsewhere) and fails
+where a label captured no call. The plane fit's kernel (fit_plane)
+runs 12b's three fits of the (3, 4086^2) unwrapped phases, from the
+true ks and from ks + (0.002, -0.001) (slopes ~1e-2 rad/px), each against
+the twin's fit of a float64 copy (slopes within 1e-5 of the larger
+|slope|, the offset within 1e-5 of |offset|; the float32 twin's
+distances beside), bit for bit over two calls, with exactly iters + 1
+launches and no other kernel, ms a fit, device ms a step and the bound
+of iters + 1 reads of the stack. For each kernel it computes the bound from those inputs (the larger of
 their bytes, each input read once and each output written once, over
 3.35 TB/s and their float32 operations over 67 TFLOP/s: the sweeps'
 8 G P n Wb (W0 + m) from their shapes with stage 2 three times over at
@@ -339,6 +356,10 @@ KERNELS = {
                   "pygpa_tpu/solvers/unwrap.py:215"),
     "zoom_sweep": ("pygpa_tpu_torch/csrc/zoom_sweep.cu",
                    "pygpa_tpu/ops/pallas_sweep.py:96"),
+    # the robust plane fit: the reference's lax.fori_loop of IRLS steps,
+    # which XLA fuses on the TPU (no Pallas kernel)
+    "fit_plane": ("pygpa_tpu_torch/csrc/fit_plane.cu",
+                  "pygpa_tpu/core/mathtools.py:49"),
     "dct_lane": ("pygpa_tpu_torch/csrc/dct.cu",
                  "pygpa_tpu/ops/pallas_dct2.py:132"),
     "dct_sub": ("pygpa_tpu_torch/csrc/dct.cu",
@@ -374,7 +395,7 @@ KERNELS = {
 }
 # the path whose counted run a kernel's "launches" reports
 PATH_OF = {"sweep_uv": 4, "presmooth": 4, "applyq": 4, "cg_poisson": 4,
-           "zoom_sweep": 5, "cg_unwrap": 5, "dct_lane": "17b",
+           "zoom_sweep": 5, "cg_unwrap": 5, "fit_plane": "12b", "dct_lane": "17b",
            "dct_sub": "17b",
            "warp_bilinear": "7a", "warp_cubic": "7b", "expand": "8a",
            "drizzle": "8a", "zoom_grad": "10a", "sweep_grad": "10b",
@@ -401,9 +422,10 @@ PATH_KERNELS = {4: ("sweep_uv", "presmooth", "applyq", "cg_poisson"),
                 "11a": ("zoom_grad", "cg_unwrap") + GRAD_STEPS,
                 "11b": ("sweep_pw", "cg_unwrap"),
                 # the quick start's exact unwraps at 4086^2 (the 5-px
-                # trim): the early-stopping kernel's chirp-z passes
-                "12b": ("cg_unwrap",),
-                "12d": ("cg_unwrap",),
+                # trim): the early-stopping kernel's chirp-z passes; its
+                # plane fits of the unwrapped phases
+                "12b": ("cg_unwrap", "fit_plane"),
+                "12d": ("cg_unwrap", "fit_plane"),
                 "12e": ("sweep_uv", "presmooth", "applyq", "cg_poisson"),
                 "13a": ("sweep_uv", "presmooth", "applyq", "cg_poisson"),
                 "13b": ("sweep_uv", "presmooth", "applyq", "cg_poisson"),
@@ -696,7 +718,7 @@ def device_kernels(fn, reps=1):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        time.sleep(0.02)   # kernel_names: the trace's first milliseconds
+        time.sleep(0.02)   # a trace can lack its first milliseconds
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
@@ -940,46 +962,11 @@ def chain_bytes(B, n, m, I=1):
     return (2 + 2 + 2 + 3) * plane + 4 * plane + 2 * ww + 6 * plane
 
 
-def kernel_names(fn, traces=3):
-    """Names of the CUDA kernels one call of fn() launches (torch.profiler,
-    after a warm-up call; copies and fills left out), each as often as the
-    most that any of `traces` traces of one call holds it: a trace on the
-    card now and then lacks the device events of a call's first
-    milliseconds (never adds one), so the call also starts and ends 20 ms
-    inside the trace. None when the profiler records no device
-    activity."""
-    import collections
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    most = collections.Counter()
-    for _ in range(traces):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            time.sleep(0.02)
-            fn()
-            torch.cuda.synchronize()
-            time.sleep(0.02)
-        most |= collections.Counter(
-            e.name for e in prof.events() if e.device_type == DeviceType.CUDA
-            and not e.name.lower().startswith(("memcpy", "memset")))
-    return list(most.elements()) or None
-
-
 # the early-stopping kernel's launches inside an iteration (the DCT
 # passes, Stockham or chirp-z, step_p, step_x; eigen_rz on the other
 # sides)
 UNWRAP_ITER_KERNELS = ("dct_kernel", "czt_kernel", "step_p_kernel",
                        "step_x_kernel", "eigen_rz_kernel")
-
-
-def route_count(names):
-    """Launches of each DCT pass kind, and of eigen_rz, among a call's
-    kernel names (None without them)."""
-    return {x: None if names is None else sum(x in nm for nm in names)
-            for x in ("czt_kernel", "dct_kernel", "eigen_rz_kernel")}
 
 
 def unwrap_route(cg, n, m):
@@ -993,6 +980,31 @@ def unwrap_route(cg, n, m):
     return f"FFT route: {kind[0]} sub pass, {kind[1]} lane pass"
 
 
+def stated_route(n, m):
+    """The early-stopping kernel's launches an iteration at n x m, worked
+    out from the sides alone (apart from ops.cg's gate): where each side
+    is a power of two from 128 to 8192 or even from 130 to 4094, the FFT
+    route, whose four DCT passes (two a side) are chirp-z off the powers
+    of two and Stockham on them, then step_p and step_x: six; at other
+    sides (odd, under 128, past 4094 and not a power of two), eigen_rz,
+    step_p and step_x besides core.fourier's DCT pair, whose forward and
+    inverse pass are the Stockham kernel on a power-of-two side from 4096
+    and torch's FFTs elsewhere. Returns (fft, {kernel: launches an
+    iteration}, UNWRAP_ITER_KERNELS launches an iteration)."""
+    def pow2(s):
+        return s & (s - 1) == 0
+
+    sides = (n, m)
+    if all((pow2(s) and 128 <= s <= 8192) or (s % 2 == 0 and 130 <= s <= 4094)
+           for s in sides):
+        czt = sum(2 for s in sides if not pow2(s))
+        return True, {"czt_kernel": czt, "dct_kernel": 4 - czt,
+                      "eigen_rz_kernel": 0}, 6
+    dct = sum(2 for s in sides if pow2(s) and 4096 <= s <= 8192)
+    return False, {"czt_kernel": 0, "dct_kernel": dct,
+                   "eigen_rz_kernel": 1}, 3 + dct
+
+
 def check_cg_unwrap(cg, calls, label, czt=None):
     """The early-stopping CG kernel against its twin on each captured
     call (rk0, WWx, WWy, kmax, aligned): phi within PATH_AGREE (1e-4,
@@ -1000,17 +1012,18 @@ def check_cg_unwrap(cg, calls, label, czt=None):
     to the twin's, a second call bit for bit, finite; printed: each
     plane's stop margin (||r|| after its last iteration over its
     threshold 1e-6 ||r0||: below 1 it stopped by the norm), ms a call,
-    the twin's ms, launches an iteration (torch.profiler; the FFT route,
-    chirp-z passes included, fails above 6 or with a cuFFT kernel in the
-    solve), the route, the bound and, on the FFT route, the HBM traffic
-    of its launch chain. `czt`, where given, is the route every call must
-    have taken, stated apart from ops.cg's gate: that many of its four
-    DCT passes an iteration chirp-z (czt_kernel) and the rest Stockham
-    (dct_kernel), six launches an iteration, no eigen_rz or cuFFT kernel;
-    no captured call then fails too. Returns (largest |delta|, a row per
-    call)."""
-    import collections
+    the twin's ms, launches an iteration, the route, the bound and, on
+    the FFT route, the HBM traffic of its launch chain. Every call is
+    held to the route stated_route works out from its shape: ops.cg's
+    gate must take it, and the launches of the call's captured graph
+    (_build.graph_kernels: exact, where a torch.profiler trace can read
+    low) must be exactly the route's, of each DCT pass kind, of eigen_rz
+    and in all an iteration, with no cuFFT kernel on the FFT route.
+    `czt`, where given, is the chirp-z passes an iteration the caller
+    states for every call, which the shapes must give, and no captured
+    call fails. Returns (largest |delta|, a row per call)."""
     import torch
+    from pygpa_tpu_torch.ops import _build
     if czt is not None and not calls:
         raise RuntimeError(f"[{label}] no early-stopping CG call captured")
     mabs, rows = 0.0, []
@@ -1028,15 +1041,21 @@ def check_cg_unwrap(cg, calls, label, czt=None):
         mabs = max(mabs, float((got - want).abs().max()))
         n, m = rk0.shape[-2:]
         B = int(np.prod(lead))
-        fft = cg.unwrap_fft_route(n, m)
+        fft, route, route_it = stated_route(n, m)
+        if czt is not None and not (fft and route["czt_kernel"] == czt):
+            raise RuntimeError(f"[{label}] {n} x {m} does not give the "
+                               f"route stated ({czt} chirp-z passes an "
+                               f"iteration): {route}")
+        its = max(int(kmax), 1)
+        want_count = {x: c * its for x, c in route.items()}
+
         k_ms = cuda_ms(lambda a=args: cg.cg_unwrap(*a[:5]), 5)
         t_ms = cuda_ms(lambda a=args: cg.cg_unwrap_plain(*a[:5]), 3)
-        names = kernel_names(lambda a=args: cg.cg_unwrap(*a[:5]))
-        per_it = None if names is None else sum(
-            any(x in nm for x in UNWRAP_ITER_KERNELS)
-            for nm in names) / max(int(kmax), 1)
-        cufft = None if names is None else sorted(
-            {nm for nm in names if "fft" in nm.lower()})
+        graph = _build.graph_kernels(lambda a=args: cg.cg_unwrap(*a[:5]))
+        g_count = {x: sum(x in nm for nm in graph) for x in route}
+        g_per_it = sum(any(x in nm for x in UNWRAP_ITER_KERNELS)
+                       for nm in graph) / its
+        cufft = sorted({nm for nm in graph if "fft" in nm.lower()})
         # the work this run's data needs: each plane's own iterations of
         # an FFT-form 2D DCT pair and the stencil
         work = float(k.sum()) * n * m * (5 * np.log2(n * m) + 12)
@@ -1050,8 +1069,8 @@ def check_cg_unwrap(cg, calls, label, czt=None):
                 f"{(nt[..., 0] / nt[..., 1]).flatten().tolist()}; two runs "
                 f"bit-identical: {same}; kernel {k_ms!r} ms, twin {t_ms!r} "
                 f"ms, bound {b_ms!r} ms ({b_by}); launches an iteration "
-                f"{per_it!r}, cuFFT kernels in the call {cufft} "
-                "(torch.profiler)")
+                f"{g_per_it!r} in the captured graph (route: {route_it}), "
+                f"cuFFT kernels in the call {cufft}")
         if fft:
             tr = chain_bytes(B, n, m, int(np.prod(WWx.shape[:-2])))
             line += (f"; HBM traffic of the launch chain {tr!r} bytes an "
@@ -1062,45 +1081,111 @@ def check_cg_unwrap(cg, calls, label, czt=None):
         by_kernel, _ = device_kernels(lambda a=args: cg.cg_unwrap(*a[:5]))
         say(f"      device ms per kernel over the call: "
             f"{json.dumps(by_kernel)}")
+        say(f"      route stated from the shape: {route} an iteration, "
+            f"{route_it} launches an iteration in all; launches in the "
+            f"call {g_count} (graph), expected {want_count}")
         ok = (np.isfinite(e) and e <= PATH_AGREE and same
               and bool(torch.equal(k, kw)) and bool(torch.isfinite(got).all()))
-        if fft and per_it is not None and (per_it > 6 or cufft):
-            raise RuntimeError(f"[{label}] the FFT-route early-stopping CG "
-                               f"launches {per_it} kernels an iteration, "
-                               f"cuFFT kernels {cufft}")
-        if czt is not None:
-            its = max(int(kmax), 1)
-            want_count = {"czt_kernel": czt * its,
-                          "dct_kernel": (4 - czt) * its,
-                          "eigen_rz_kernel": 0}
-            count = route_count(names)
-            # a trace can lose a launch's event, never add one: trace
-            # again (each name at its most) before calling it a fault
-            for _ in range(2):
-                if names is None or count == want_count:
-                    break
-                more = kernel_names(lambda a=args: cg.cg_unwrap(*a[:5]))
-                names = list((collections.Counter(names)
-                              | collections.Counter(more or ())).elements())
-                count = route_count(names)
-            per_it = sum(any(x in nm for x in UNWRAP_ITER_KERNELS)
-                         for nm in names or ()) / its
-            say(f"      route held to {czt} chirp-z and {4 - czt} "
-                f"Stockham passes an iteration: launches in the call "
-                f"{count}, expected {want_count}")
-            if not (fft and per_it == 6 and not cufft
-                    and count == want_count):
-                raise RuntimeError(
-                    f"[{label}] the early-stopping CG did not take the "
-                    f"route expected ({czt} chirp-z passes an iteration): "
-                    f"FFT route {fft}, launches an iteration {per_it}, "
-                    f"{count}, cuFFT kernels {cufft}")
+        if fft != cg.unwrap_fft_route(n, m) or g_per_it != route_it or \
+                g_count != want_count or (fft and cufft):
+            raise RuntimeError(
+                f"[{label}] the early-stopping CG did not take the route "
+                f"stated for {n} x {m} ({route}, {route_it} launches an "
+                f"iteration): gate's FFT route {cg.unwrap_fft_route(n, m)}, "
+                f"launches an iteration {g_per_it}, {g_count}, cuFFT "
+                f"kernels {cufft}")
         if not ok:
             raise RuntimeError(f"[{label}] cg_unwrap kernel disagrees with "
                                "its twin or does not repeat")
         rows.append(dict(ms=k_ms, plain_ms=t_ms, bound_ms=b_ms, bound_by=b_by,
                          library_ms=None))
     return mabs, rows
+
+
+FIT_AGREE = 1e-5   # the plane fit: slopes within this of the larger
+#                    |slope|, the offset within this of |offset|, of the
+#                    twin's fit of a float64 copy
+
+
+def check_fit(fit, calls, label):
+    """The plane fit's kernel against its twin on each captured call
+    (image, mask, f_scale, iters): the kernel's coefficients against the
+    twin's fit of a float64 copy, the slopes (p0, p1) within FIT_AGREE of
+    the larger |slope| of each plane and the offset p2 within FIT_AGREE
+    of |p2| (tests/test_torch_lockin.py's float32 bound, applied to the
+    slopes and the offset apart: at 4086^2 the offset is many radians and
+    a slope ~1e-2 rad/px); the float32 twin's distances printed beside
+    them; finite; a second call bit for bit; exactly iters + 1 launches,
+    counted by the wrapper and in the call's captured graph
+    (_build.graph_kernels), and no other kernel in the fit (no solver
+    library). Printed: ms a fit, the twin's ms, device ms a step, the
+    bound of iters + 1 reads of the stack. Returns (largest |delta|, the
+    first call's row)."""
+    import torch
+    from pygpa_tpu_torch.ops import _build
+    if not calls:
+        raise RuntimeError(f"[{label}] no plane fit captured")
+    mabs, rows = 0.0, []
+    for args in calls:
+        img, mask, f_scale, iters = args[:4]
+        its = int(iters) + 1
+
+        def call(a=args):
+            return fit.fit_plane_irls(*a[:4])
+
+        before = _build.launches["fit_plane"]
+        got = call()
+        counted = _build.launches["fit_plane"] - before
+        again = call()
+        want = fit.fit_plane_irls_plain(img.double(), mask, f_scale, iters)
+        twin = fit.fit_plane_irls_plain(img, mask, f_scale, iters)
+        torch.cuda.synchronize()
+        w = want.reshape(-1, 3)
+        slope = w[:, :2].abs().amax(-1)
+
+        def dist(x):
+            d = (x.double().reshape(-1, 3) - w).abs()
+            return ((d[:, :2].amax(-1) / slope).tolist(),
+                    (d[:, 2] / w[:, 2].abs()).tolist())
+
+        (k_sl, k_off), (t_sl, t_off) = dist(got), dist(twin)
+        mabs = max(mabs, float((got.double() - want).abs().max()))
+        same = bool(torch.equal(got, again))
+        graph = _build.graph_kernels(call)
+        g_steps = sum("irls_step_kernel" in nm for nm in graph)
+        other = sorted({nm for nm in graph if "irls_step_kernel" not in nm})
+        k_ms = cuda_ms(call, 5)
+        t_ms = cuda_ms(lambda: fit.fit_plane_irls_plain(img, mask, f_scale,
+                                                        iters), 2)
+        by_kernel, _ = device_kernels(call)
+        dev_ms = kernel_ms(by_kernel, "irls_step_kernel")
+        step_ms = None if dev_ms is None else dev_ms / its
+        # each step reads the stack (and the mask) once: ~20 float32
+        # operations a pixel
+        nbytes = tensor_bytes(img) + (0 if mask is None else mask.numel())
+        b_ms, b_by = bound(its * nbytes, its * 20 * img.numel())
+        say(f"  [{label}] fit_plane {tuple(img.shape)} "
+            f"{'no mask' if mask is None else tuple(mask.shape)} iters "
+            f"{iters}: kernel {got.reshape(-1, 3).tolist()}, float64 twin "
+            f"{w.tolist()}; kernel from the float64 twin: slopes "
+            f"{k_sl} of the larger |slope|, offset {k_off} of |offset| "
+            f"(bound {FIT_AGREE}); float32 twin from it: slopes {t_sl}, "
+            f"offset {t_off}; two runs bit-identical: {same}; launches "
+            f"{counted} counted, {g_steps} irls_step_kernel in the captured "
+            f"graph, other kernels {other} (expected {its}, none); kernel "
+            f"{k_ms!r} ms a "
+            f"fit, twin {t_ms!r} ms; device {dev_ms!r} ms a fit, {step_ms!r} "
+            f"ms a step; bound {b_ms!r} ms a fit ({b_by}: {its} reads of "
+            f"{nbytes} bytes), {b_ms / its!r} ms a step")
+        if not (bool(torch.isfinite(got).all()) and same and counted == its
+                and max(k_sl) <= FIT_AGREE and max(k_off) <= FIT_AGREE
+                and g_steps == its and not other):
+            raise RuntimeError(f"[{label}] fit_plane kernel disagrees with "
+                               "its twin, does not repeat or does not "
+                               f"launch {its} steps and nothing else")
+        rows.append(dict(ms=k_ms, plain_ms=t_ms, bound_ms=b_ms,
+                         bound_by=b_by, library_ms=None))
+    return mabs, rows[0]
 
 
 ZOOM_AGREE = 0.99      # winner agreement, kernel vs twin
@@ -1206,8 +1291,8 @@ def plain_versions():
     """Every kernel wrapper swapped for its plain twin (the DCT route
     predicate off), to drive a path on the card without its kernels."""
     from pygpa_tpu_torch.core import fourier
-    from pygpa_tpu_torch.ops import (cg, drizzle, expand, sweep, vcycle, warp,
-                                     zoom_sweep)
+    from pygpa_tpu_torch.ops import (cg, drizzle, expand, fit, sweep, vcycle,
+                                     warp, zoom_sweep)
     swaps = [(warp, "warp_bilinear", warp.warp_bilinear_plain),
              (warp, "warp_cubic", warp.warp_cubic_plain),
              (warp, "warp_cubic_disp", warp.warp_cubic_disp_plain),
@@ -1221,7 +1306,8 @@ def plain_versions():
              (vcycle, "applyq", vcycle.applyq_plain),
              (cg, "cg_poisson", cg.cg_poisson_plain),
              (cg, "cg_unwrap", cg.cg_unwrap_plain),
-             (fourier, "dct_kernel_ok", lambda n, dtype: False)]
+             (fourier, "dct_kernel_ok", lambda n, dtype: False),
+             (fit, "fit_kernel_ok", lambda *a: False)]
     saved = [(m, k, getattr(m, k)) for m, k, _ in swaps]
     for m, k, v in swaps:
         setattr(m, k, v)
@@ -1230,6 +1316,19 @@ def plain_versions():
     finally:
         for m, k, v in saved:
             setattr(m, k, v)
+
+
+@contextlib.contextmanager
+def fit_twins():
+    """The plane fit's route gate off (ops.fit.fit_kernel_ok), so the
+    fits run the twin on the card, every other kernel as built."""
+    from pygpa_tpu_torch.ops import fit
+    real = fit.fit_kernel_ok
+    fit.fit_kernel_ok = lambda *a: False
+    try:
+        yield
+    finally:
+        fit.fit_kernel_ok = real
 
 
 def gate_values(u, ud, u_true, ks):
@@ -2415,8 +2514,9 @@ def counted(call):
 
 def drive_peaks(img, ks):
     """Phases 12a and 12b: Bragg peaks from the raw 4096^2 image, then
-    refine_ks. Returns the refined ks (host numpy, in the true ks'
-    order)."""
+    refine_ks (and how far its result lies from refine_ks on the plane
+    fit's twin). Returns the refined ks (host numpy, in the true ks'
+    order) and the counted refine_ks run's launches."""
     import pygpa_tpu_torch as gt
     from pygpa_tpu_torch.gpa import peaks as peaks_mod
     true = np.asarray(ks, np.float64)
@@ -2454,6 +2554,9 @@ def drive_peaks(img, ks):
                       if len(pks_s) > 3 else pks_s, true)
     refined, launches, dt = counted(lambda: gt.gpa.refine_ks(img, pks3))
     _, _, dt2 = counted(lambda: gt.gpa.refine_ks(img, pks3))
+    with fit_twins():
+        refined_twin = gt.gpa.refine_ks(img, pks3)
+    d_twin = np.abs(refined - refined_twin).max()
     d_ref = np.linalg.norm(refined - true, axis=-1)
     n_dct = sum(launches.get(k, 0) for k in ("dct_lane", "dct_sub"))
     say(f"[12b] extract_primary_ks(img, DoG=False, subpixel=True): distance "
@@ -2464,7 +2567,8 @@ def drive_peaks(img, ks):
         f"with its chirp-z passes inside); refined "
         f"{refined.tolist()}, distance {(d_ref * size).tolist()} / size "
         f"(gate {GATE_REFINE}); seconds per call {dt!r} (first), {dt2!r} "
-        "(second; host clock, synchronized)")
+        f"(second; host clock, synchronized); max |refined - refined on "
+        f"the fit's twin| {d_twin!r} (1 / px)")
     missing = [k for k in PATH_KERNELS["12b"] if not launches.get(k)]
     if missing:
         raise RuntimeError(f"[12b] kernels of the path not launched: "
@@ -2472,7 +2576,7 @@ def drive_peaks(img, ks):
     if not (np.all(d_sub < GATE_SUBPIXEL / size) and n_dct == 0
             and np.all(d_ref < GATE_REFINE / size)):
         raise RuntimeError("[12b] sub-bin peaks or refine_ks: GATE FAILED")
-    return refined
+    return refined, launches
 
 
 def drive_refined_u(img, ks32, refined):
@@ -4523,6 +4627,7 @@ def main():
     from pygpa_tpu_torch.ops import wfr as wfr_mod
     from pygpa_tpu_torch.ops import drizzle as drizzle_mod
     from pygpa_tpu_torch.ops import expand as expand_mod
+    from pygpa_tpu_torch.ops import fit as fit_mod
     from pygpa_tpu_torch.ops import warp as warp_mod
     from pygpa_tpu_torch.solvers import unwrap as unwrap_mod
     from pygpa_tpu_torch.ucell import averaging as ucell_mod
@@ -4694,13 +4799,14 @@ def main():
                            rk0.numel() * kmax * (5 * np.log2(npx) + 12))
         k_ms = cuda_ms(lambda a=a: cg_mod.cg_poisson(*a), 10)
         t_ms = cuda_ms(lambda a=a: cg_mod.cg_poisson_plain(*a), 10)
-        by_kernel, kern = device_kernels(lambda a=a: cg_mod.cg_poisson(*a))
-        per_it = None if kern is None else kern / kmax
+        by_kernel, _ = device_kernels(lambda a=a: cg_mod.cg_poisson(*a))
         fft = cg_mod.fft_route(n_cg, m_cg)
+        g_per_it = len(_build.graph_kernels(
+            lambda a=a: cg_mod.cg_poisson(*a))) / kmax
         line = (f"    cg_poisson {tuple(rk0.shape)} kmax {kmax} "
                 f"({'FFT' if fft else 'dense'} route): kernel {k_ms!r} ms, "
                 f"twin {t_ms!r} ms, bound {b_ms!r} ms ({b_by}); kernel "
-                f"launches per iteration {per_it!r} (torch.profiler)")
+                f"launches per iteration {g_per_it!r} (captured graph)")
         if fft:
             l2 = chain_bytes(B, n_cg, m_cg)
             with cg_dense_route():
@@ -4709,9 +4815,11 @@ def main():
                      f"iteration ({l2 * kmax / HBM_BYTES_S * 1e3!r} ms at "
                      f"the HBM rate for the call); the dense route on the "
                      f"same inputs {d_ms!r} ms")
-            if per_it is not None and per_it > 6:
-                raise RuntimeError(f"the FFT-route CG launches {per_it} "
-                                   "kernels per iteration, more than 6")
+            # exactly six launches an iteration (four DCT passes, the
+            # p/stencil and x/r kernels)
+            if g_per_it != 6:
+                raise RuntimeError(f"the FFT-route CG launches {g_per_it} "
+                                   f"kernels per iteration, not 6")
         say(line)
         say(f"      device ms per kernel over the call: "
             f"{json.dumps(by_kernel)}")
@@ -4810,8 +4918,14 @@ def main():
     with Capture(unwrap_mod._cg, "cg_unwrap", keep=1) as c_st:
         pipeline.extract_displacement_field(stack, ks1)
         torch.cuda.synchronize()
-    with Capture(unwrap_mod._cg, "cg_unwrap", keep=1) as c_rk:
+    with Capture(unwrap_mod._cg, "cg_unwrap", keep=1) as c_rk, \
+            Capture(fit_mod, "fit_plane_irls") as c_fit:
         gt_gpa.refine_ks(img, np.asarray(ks32))
+        torch.cuda.synchronize()
+    # the fits again from ks off by 12d's offset: the first round's
+    # phases then slope by ~1e-2 rad/px to offsets of many radians
+    with Capture(fit_mod, "fit_plane_irls") as c_fit_off:
+        gt_gpa.refine_ks(img, np.asarray(ks32) + ITERATE_OFFSET)
         torch.cuda.synchronize()
     cu_calls["16b"], cu_calls["12b"] = c_st.calls, c_rk.calls
     del stack
@@ -4826,6 +4940,17 @@ def main():
         e_cu = max(e_cu, e)
         cu_rows[label] = r
     rows["cg_unwrap"] = dict(max_abs_err=e_cu, **cu_rows["5"][0])
+    # the plane fit on 12b's inputs: refine_ks's three fits of the
+    # (3, 4086^2) unwrapped phase stacks, from the true ks (near-flat
+    # phases) and from ks + 12d's offset (the row)
+    say(f"    captured plane fits (12b): "
+        f"{[tuple(a[0].shape) + (a[3],) for a in c_fit.calls]}, from ks "
+        f"+ {ITERATE_OFFSET.tolist()}: "
+        f"{[tuple(a[0].shape) + (a[3],) for a in c_fit_off.calls]}")
+    e_fit, fit_row = check_fit(fit_mod, c_fit_off.calls, "12b, ks + offset")
+    e_flat, _ = check_fit(fit_mod, c_fit.calls, "12b")
+    rows["fit_plane"] = dict(max_abs_err=max(e_fit, e_flat), **fit_row)
+    del c_fit, c_fit_off
     # the DCT kernels on the first transform of each direction in the
     # exact CG's preconditioner (phase 5's residual, through the twins)
     rk5 = cu_calls["5"][0][0]
@@ -5181,7 +5306,7 @@ def main():
     # ---- 12. the README quick start from the raw image
     say(f"    card before phase 12: {card_state()}")
     t12 = time.perf_counter()
-    refined = drive_peaks(img, ks)
+    refined, path_launches["12b"] = drive_peaks(img, ks)
     drive_refined_u(img, ks32, refined)
     drive_lockin(img, ks)
     path_launches["12e"] = drive_vv(img, ks)

@@ -46,51 +46,6 @@ def periodic_difference(X, Y, period=2 * math.pi):
     return torch.angle(Z) * period / (2 * math.pi)
 
 
-def _fit_plane_irls(image, mask, f_scale, iters):
-    """Huber-loss plane fit a0 x + a1 y + a2 over the last two axes (a
-    batch of planes in one call) by iteratively reweighted least
-    squares: weights min(1, f_scale / |r|), each step the 3x3 weighted
-    normal equations, solved batched with torch.linalg.solve_ex (no
-    host sync). The normal equations' sums go through row and column
-    sums (x and y are separable), so a step is a few passes over the
-    planes. The coordinates are taken from the grid's centre (half
-    integers, exact in any float dtype) and the offset is moved back at
-    the end: the same fit, with normal equations that keep their digits
-    in float32. Returns (..., 3)."""
-    nx, ny = image.shape[-2:]
-    dt, dev = image.dtype, image.device
-    cx, cy = (nx - 1) / 2, (ny - 1) / 2
-    x = torch.arange(nx, dtype=dt, device=dev) - cx
-    y = torch.arange(ny, dtype=dt, device=dev) - cy
-    xx, yy = x[:, None], y[None, :]
-    img = torch.where(mask, image, torch.zeros((), dtype=dt, device=dev))
-    maskf = mask.to(dt)
-
-    def solve(w):
-        wm = w * maskf
-        q = wm * img
-        rw, cw = wm.sum(-1), wm.sum(-2)        # over y; over x
-        rq, cq = q.sum(-1), q.sum(-2)
-        sxy = ((wm * yy).sum(-1) * x).sum(-1)
-        sx, sx1, s1 = (rw * x * x).sum(-1), (rw * x).sum(-1), rw.sum(-1)
-        sy, sy1 = (cw * y * y).sum(-1), (cw * y).sum(-1)
-        A = torch.stack([sx, sxy, sx1, sxy, sy, sy1, sx1, sy1, s1],
-                        -1).reshape(s1.shape + (3, 3))
-        rhs = torch.stack([(rq * x).sum(-1), (cq * y).sum(-1), rq.sum(-1)],
-                          -1)
-        return torch.linalg.solve_ex(A, rhs)[0]
-
-    p = solve(torch.ones_like(image))
-    for _ in range(int(iters)):
-        plane = p[..., 0, None, None] * xx + (p[..., 1, None, None] * yy
-                                              + p[..., 2, None, None])
-        r = img - plane
-        w = torch.clamp(f_scale / torch.clamp(r.abs(), min=1e-30), max=1.0)
-        p = solve(w)
-    return torch.stack([p[..., 0], p[..., 1],
-                        p[..., 2] - p[..., 0] * cx - p[..., 1] * cy], -1)
-
-
 def lfit_func(x, image, xx, yy):
     """Plane residuals image - (ax xx + ay yy + b), flattened."""
     ax, ay, b = x
@@ -110,22 +65,23 @@ def lfit_func_mask(x, image, xx, yy, mask):
 def fit_plane(image, verbose=False, iters=60, f_scale=1.0):
     """Fit a plane a0 x + a1 y + a2 through `image` (..., nx, ny) with a
     Huber loss (scipy least_squares(loss='huber')'s M-estimate); returns
-    (..., 3). Leading axes are fitted in one batch."""
-    image = as_tensor(image)
-    mask = torch.ones(image.shape, dtype=torch.bool, device=image.device)
-    return _fit_plane_irls(image, mask, f_scale, iters)
+    (..., 3). Leading axes are fitted in one batch: on the card in float32
+    by ops.fit's kernel, elsewhere by its twin (ops.fit.fit_plane)."""
+    from ..ops import fit    # at the call: the ops package imports this
+    return fit.fit_plane(as_tensor(image), None, f_scale, iters)
 
 
 def fit_plane_masked(image, verbose=False, mask=False, iters=60,
                      f_scale=1.0):
     """fit_plane over the pixels where `mask` (boolean) holds."""
     image = as_tensor(image)
-    if mask is False or mask is None:
-        mask = torch.ones(image.shape, dtype=torch.bool, device=image.device)
-    else:
+    if mask is False:
+        mask = None
+    elif mask is not None:
         mask = torch.as_tensor(as_tensor(mask), dtype=torch.bool,
                                device=image.device)
-    return _fit_plane_irls(image, mask, f_scale, iters)
+    from ..ops import fit
+    return fit.fit_plane(image, mask, f_scale, iters)
 
 
 def remove_negative_duplicates(ks, atol_scale="min"):

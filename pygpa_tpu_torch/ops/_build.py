@@ -160,3 +160,36 @@ def check_tensor(op, name, t, shape, dtype, device):
         raise ValueError(f"{op}: {name} must be a contiguous {dtype} tensor "
                          f"of shape {tuple(shape)} on {device}, got "
                          f"{t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def graph_kernels(fn):
+    """Names of the CUDA kernels one call of fn() launches, one a launch,
+    read from a CUDA graph captured from the call (torch.cuda.CUDAGraph
+    with keep_graph, printed by libcuda's cuGraphDebugDotPrint); copies
+    and fills left out. Unlike a torch.profiler trace, which can lose a
+    prefix of a process's device events (scripts/profiler_loss.py), it
+    cannot miss a launch. A warm-up call runs first; the captured call
+    does not run. For checks on the card, not used by any route."""
+    import re
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    drv = ctypes.CDLL("libcuda.so.1")
+    drv.cuGraphDebugDotPrint.argtypes = [ctypes.c_void_p, ctypes.c_char_p,
+                                         ctypes.c_uint]
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(g):
+        fn()
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "call.dot")
+        code = drv.cuGraphDebugDotPrint(g.raw_cuda_graph(), path.encode(), 0)
+        if code != 0:
+            raise RuntimeError(f"cuGraphDebugDotPrint failed ({code})")
+        with open(path) as f:
+            dot = f.read()
+    g.reset()
+    torch.cuda.synchronize()
+    # each node's label is its index, then its kind (MEMSET, MEMCPY, ...)
+    # or, for a kernel node, the kernel's name
+    kinds = re.findall(r'label="\d+\n([^\n"]*)', dot)
+    return [k for k in kinds if not re.fullmatch(r"[A-Z_]+", k)]

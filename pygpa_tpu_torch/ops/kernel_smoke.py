@@ -22,7 +22,9 @@ checks each output's shape and finiteness:
   sides (96 x 80, aligned);
 - the drizzle and the unit-cell expand (``csrc/drizzle.cu``,
   ``csrc/expand.cu``), each on its shared-memory route (a small cell)
-  and its other route (a cell past a block's shared memory).
+  and its other route (a cell past a block's shared memory);
+- the plane fit's IRLS steps (``csrc/fit_plane.cu``), with no mask and
+  with one mask shared by the planes.
 
 Shapes respect each kernel's limits: the sweeps take n, m and the band
 width in multiples of 64, the DCT an axis of 1024 or more, the CG sides
@@ -77,6 +79,8 @@ ENTRIES = {
     "drizzle global": ("drizzle",),
     "expand shared": ("expand",),
     "expand l1": ("expand",),
+    "fit plane": ("fit_plane",),
+    "fit plane masked": ("fit_plane",),
 }
 
 
@@ -109,7 +113,7 @@ def run_kernel_smoke(verbose=False, device=None):
     `device` (None: the card); returns True, raising on a bad output or,
     on the card, on an entry whose kernel did not launch."""
     from ..core import entry_device
-    from . import cg, dct, drizzle, expand, vcycle, warp, wfr
+    from . import cg, dct, drizzle, expand, fit, vcycle, warp, wfr
     from ..ucell.averaging import calc_ucell_parameters
 
     dev = entry_device(device)
@@ -274,6 +278,14 @@ def run_kernel_smoke(verbose=False, device=None):
                                  "the other expand route")
         entry(label, lambda: expand.expand_cell(cell, ks2, rmin, z, 1, None,
                                                 src.shape))
+
+    # --- the plane fit, unmasked and with a shared mask ---
+    xf = torch.arange(48.0)[:, None] * 0.3 - torch.arange(40.0) * 0.7
+    planes = (xf + torch.randn((2, 48, 40), generator=g)).to(dev)
+    fmask = (torch.rand((48, 40), generator=g) > 0.3).to(dev)
+    entry("fit plane", lambda: fit.fit_plane_irls(planes, None, 1.0, 5))
+    entry("fit plane masked",
+          lambda: fit.fit_plane_irls(planes, fmask, 1.0, 5))
     return True
 
 

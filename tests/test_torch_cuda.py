@@ -529,38 +529,12 @@ def _unwrap_problem(lead, n, m, aligned, seed, dev, per_image=False):
     return tu._residual(dx[..., :-1], dy[..., :-1, :], w)
 
 
-def _kernel_launches(fn, traces=3):
-    """Names of the CUDA kernels one call of fn() launches (torch.profiler;
-    copies and fills left out), after a warm-up call. On the card a trace
-    now and then lacks the device events of a call's first milliseconds
-    (never adds one), so the call starts 20 ms into the trace and ends 20
-    ms before its end, and each name is counted as often as the most that
-    any of `traces` traces of one call holds it."""
-    import collections
-    import time
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    most = collections.Counter()
-    for _ in range(traces):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            time.sleep(0.02)
-            fn()
-            torch.cuda.synchronize()
-            time.sleep(0.02)
-        most |= collections.Counter(
-            e.name for e in prof.events() if e.device_type == DeviceType.CUDA
-            and not e.name.lower().startswith(("memcpy", "memset")))
-    return list(most.elements())
-
-
 def _check_unwrap(rk, WWx, WWy, kmax, aligned, czt):
     """The early-stopping kernel against its twin: one counted launch,
     finite, the twin's k per plane, relative 1e-4 of the twin, bit for
-    bit over two calls, and the route the case states: `czt` of the four
-    DCT passes an iteration chirp-z and the rest Stockham, six launches
+    bit over two calls, and the route the case states (launches read from
+    the call's captured CUDA graph, _build.graph_kernels): `czt` of the
+    four DCT passes an iteration chirp-z and the rest Stockham, six launches
     an iteration with no eigen_rz or cuFFT kernel in the solve; or, with
     `czt` None, the other sides' three besides the DCTs. Both float32 solves are
     also held to the same solve in float64: the kernel no further from it
@@ -585,8 +559,8 @@ def _check_unwrap(rk, WWx, WWy, kmax, aligned, czt):
                                                          twin64)
     assert _rel(got.double(), w64) <= 1.1 * twin64 + 1e-5
     assert torch.equal(got, again) and torch.equal(k, k2)
-    names = _kernel_launches(lambda: tcg.cg_unwrap(rk, WWx, WWy, kmax,
-                                                   aligned))
+    names = _build.graph_kernels(lambda: tcg.cg_unwrap(rk, WWx, WWy, kmax,
+                                                        aligned))
     ours = [x for x in names if any(s in x for s in (
         "dct_kernel", "czt_kernel", "step_p_kernel", "step_x_kernel",
         "eigen_rz_kernel"))]
@@ -635,7 +609,8 @@ def test_cg_unwrap_kernel_at_8192(dev, B, n, m, aligned):
     want, kw = tcg.cg_unwrap_plain(rk, WWx, WWy, 3, aligned)
     assert torch.equal(k, kw)
     assert torch.equal(torch.isfinite(got), torch.isfinite(want))
-    names = _kernel_launches(lambda: tcg.cg_unwrap(rk, WWx, WWy, 3, aligned))
+    names = _build.graph_kernels(lambda: tcg.cg_unwrap(rk, WWx, WWy, 3,
+                                                       aligned))
     assert sum(any(s in x for s in ("dct_kernel", "step_p_kernel",
                                      "step_x_kernel")) for x in names) == 18
 
@@ -1789,3 +1764,68 @@ def test_kernel_smoke_launches_every_entry(dev):
     counter rises) and gives finite outputs."""
     from pygpa_tpu_torch.ops.kernel_smoke import run_kernel_smoke
     assert run_kernel_smoke(device=dev)
+
+
+def _fit_stack(B, n, m, seed, outliers):
+    """B tilted planes (slopes ~1e-2 rad/px, offsets of several radians,
+    as the quick start's unwrapped phases) with unit noise and a share
+    `outliers` of gross outliers (+-10 ... 100), float32."""
+    rng = np.random.default_rng(seed)
+    xx, yy = np.meshgrid(np.arange(n), np.arange(m), indexing="ij")
+    out = np.empty((B, n, m), np.float32)
+    for b in range(B):
+        a0, a1 = rng.uniform(-0.02, 0.02, size=2)
+        p = a0 * xx + a1 * yy + rng.uniform(5.0, 30.0) \
+            + rng.normal(size=(n, m))
+        bad = rng.uniform(size=(n, m)) < outliers
+        p[bad] += rng.choice([-1.0, 1.0], size=int(bad.sum())) \
+            * rng.uniform(10.0, 100.0, size=int(bad.sum()))
+        out[b] = p
+    return out
+
+
+@pytest.mark.parametrize("case", ["1x48x40", "3x4086x4086",
+                                  "2x500x374 shared mask",
+                                  "2x500x374 per-image mask", "16x512x512",
+                                  "2x256x320 20% outliers"])
+def test_fit_plane_kernel(dev, case):
+    """The plane fit's kernel (ops.fit, csrc/fit_plane.cu) against its
+    twin's fit of a float64 copy: the slopes within 1e-5 of the larger
+    |slope| of each plane, the offset within 1e-5 of |offset| (the
+    float32 bound test_fit_plane_matches holds the twin to, applied to
+    the slopes and the offset apart: at 4086^2 the offset is many
+    radians and a slope ~1e-2 rad/px); a second call bit for bit; finite;
+    exactly iters + 1 launches, counted by the wrapper and in the call's
+    captured graph (ops._build.graph_kernels), with no other kernel (no
+    solver library) in the fit."""
+    from pygpa_tpu_torch.ops import fit as tfit
+    dims, *rest = case.split(" ")
+    B, n, m = (int(s) for s in dims.split("x"))
+    img = torch.from_numpy(_fit_stack(
+        B, n, m, B * n + m, 0.2 if "20%" in case else 0.05)).to(dev)
+    mask = None
+    if "mask" in case:
+        g = np.random.default_rng(n)
+        mk = g.uniform(size=(n, m)) > 0.3
+        mk[n // 4:n // 2, m // 3:m // 2] = False
+        mask = torch.from_numpy(mk if "shared" in case
+                                else np.stack([mk, mk[::-1]])).to(dev)
+    iters = 60
+    before = _build.launches["fit_plane"]
+    got = tfit.fit_plane_irls(img, mask, 1.0, iters)
+    counted = _build.launches["fit_plane"] - before
+    again = tfit.fit_plane_irls(img, mask, 1.0, iters)
+    want = tfit.fit_plane_irls_plain(img.double(), mask, 1.0, iters)
+    torch.cuda.synchronize()
+    graph = _build.graph_kernels(lambda: tfit.fit_plane_irls(img, mask, 1.0,
+                                                             iters))
+    assert got.shape == (B, 3) and got.dtype == torch.float32
+    assert bool(torch.isfinite(got).all())
+    assert torch.equal(got, again)
+    assert counted == iters + 1
+    assert len(graph) == iters + 1, graph
+    assert all("irls_step_kernel" in nm for nm in graph), graph
+    d = (got.double() - want).abs()
+    slope = want[:, :2].abs().amax(-1)
+    assert bool((d[:, :2].amax(-1) <= 1e-5 * slope).all()), (got, want)
+    assert bool((d[:, 2] <= 1e-5 * want[:, 2].abs()).all()), (got, want)
