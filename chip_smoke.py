@@ -256,11 +256,14 @@ the same inputs. The early-stopping CG kernel (cg_unwrap) runs phase
 5's exact solve (2, 4096^2, kmax 10, the row), config 6's 2048^2
 levels (kmax 6 and 4) and 4096^2 refinement (13d's inputs, from one run
 of its extractor on the displaced 8192^2 lattice), a (4, 2) stack of
-displaced 512^2 images with their own weights (16b's path) and 12b's
-(3, 4086^2) unwrap (refine_ks: the chirp-z passes on both axes), each
+displaced 512^2 images with their own weights (16b's path), 12b's
+(3, 4086^2) unwrap (refine_ks: the chirp-z passes on both axes) and
+seeded aligned solves whose sides cover every chirp-z length L = 256 ...
+4096 with N odd and even on both axes (CZT_COVER), each
 against its twin (phi within 1e-4, k per plane equal, bit for bit over
 two calls), with the route it took, each plane's stop margin, ms a call,
-launches an iteration and the HBM traffic of its launch chain. Every
+launches an iteration, the HBM traffic of its launch chain and, on the
+chirp-z passes, each pass kind's device ms a plane-pass. Every
 call, here and in phases 13 and 15a, is held to the route its shape
 gives (stated_route, worked out by powers of two and even sides apart
 from ops.cg's gate): exactly its launches an iteration of each DCT pass
@@ -269,7 +272,8 @@ with no cuFFT kernel; 3 besides core.fourier's DCT pair at other
 sides), read from the call's captured CUDA graph (ops._build's
 graph_kernels, which cannot lose a launch as a torch.profiler trace
 can); phase 3 also states
-each label's chirp-z passes (4 for 12b's 4086^2, 0 elsewhere) and fails
+each label's chirp-z passes (4 for 12b's 4086^2 and the cover, 0
+elsewhere) and fails
 where a label captured no call. The plane fit's kernel (fit_plane)
 runs 12b's three fits of the (3, 4086^2) unwrapped phases, from the
 true ks and from ks + (0.002, -0.001) (slopes ~1e-2 rad/px), each against
@@ -1081,6 +1085,14 @@ def check_cg_unwrap(cg, calls, label, czt=None):
         by_kernel, _ = device_kernels(lambda a=args: cg.cg_unwrap(*a[:5]))
         say(f"      device ms per kernel over the call: "
             f"{json.dumps(by_kernel)}")
+        if route["czt_kernel"] and by_kernel is not None:
+            # a chirp-z pass kind runs once a plane-iteration (a done
+            # plane's blocks return at their start)
+            pi = float(k.sum())
+            say(f"      chirp-z device ms a plane-pass over {pi:.0f} "
+                f"plane-iterations: " + json.dumps(
+                    {x: v / pi for x, v in by_kernel.items()
+                     if "czt_kernel" in x}))
         say(f"      route stated from the shape: {route} an iteration, "
             f"{route_it} launches an iteration in all; launches in the "
             f"call {g_count} (graph), expected {want_count}")
@@ -1100,6 +1112,12 @@ def check_cg_unwrap(cg, calls, label, czt=None):
         rows.append(dict(ms=k_ms, plain_ms=t_ms, bound_ms=b_ms, bound_by=b_by,
                          library_ms=None))
     return mabs, rows
+
+
+# sides of phase 3's chirp-z cover: each L = 256 ... 4096 with N odd and
+# even, on the sub (first) and the lane (second) axis
+CZT_COVER = ((130, 252), (252, 130), (374, 500), (1000, 1022),
+             (1500, 2046), (3000, 4092), (4094, 3000))
 
 
 FIT_AGREE = 1e-5   # the plane fit: slopes within this of the larger
@@ -4934,6 +4952,11 @@ def main():
     # the route each call must take, apart from ops.cg's gate: chirp-z
     # passes an iteration (4086^2: both axes; the rest powers of two)
     cu_czt = {"5": 0, "13d": 0, "16b": 0, "12b": 4}
+    # and the chirp-z passes at every length L = 256 ... 4096 with N =
+    # side / 2 odd and even on both axes (seeded aligned problems)
+    cu_calls["czt L"] = [dense_cg_call(torch, 1, n, m, 4) + (True,)
+                         for n, m in CZT_COVER]
+    cu_czt["czt L"] = 4
     e_cu, cu_rows = 0.0, {}
     for label, calls in cu_calls.items():
         e, r = check_cg_unwrap(cg_mod, calls, label, czt=cu_czt[label])

@@ -33,7 +33,8 @@
 //     dct_kernel's Stockham pass (shared with dct.cu and cg.cu; 7 sides x
 //     4 passes), at another even side czt_kernel's chirp-z pass
 //     (cg_unwrap_czt.cu: Makhoul's frame around an L-point convolution,
-//     L = 256 ... 4096; 5 lengths x 4 passes). Every pass's grid has the
+//     L = 256 ... 4096, its two FFT_Ls four-step in registers; 5 lengths
+//     x 4 passes). Every pass's grid has the
 //     plane on y, so a lane pass's last block of a plane may be ragged
 //     (e.g. 4086 rows under a 4096-point lane pass).
 //   Other sides (odd, under 128, or past 4094 and not a power of two):
@@ -62,7 +63,8 @@
 // 20 passes of a plane pair (134 MB each): 9 through the four DCT passes,
 // 5 in step_p, 6 in step_x; ~0.8 ms at 3.35 TB/s. A chirp-z pass moves the
 // same bytes as a Stockham pass but does two L-point FFTs of a line's N =
-// n / 2 points (L ~ 2N), about four times the shared-memory work.
+// n / 2 points (L ~ 2N), held in registers between four shared-memory
+// exchanges a line.
 #include <cuda_runtime.h>
 #include <math.h>
 

@@ -155,7 +155,7 @@ struct EpiDotLive {
 };
 
 // sides whose lines the chirp-z pass takes: even, 130 ... 4094, not a
-// power of two (L = 256 ... 4096, the Stockham plans of dct_fft.cuh)
+// power of two (L = 256 ... 4096, cg_unwrap_czt.cu's CztSplit)
 inline bool czt_side(int s) {
   return s > 128 && s < 4096 && s % 2 == 0 && (s & (s - 1)) != 0;
 }

@@ -2,9 +2,8 @@
 // pass machinery shared by the DCT kernels (dct.cu), the multigrid CG's
 // preconditioner (cg.cu) and the early-stopping CG's (cg_unwrap.cu). The
 // method, the layouts and the tables are described in dct.cu; the tables
-// come from ops/dct.py kernel_tables. czt_kernel, at the end, takes the
-// even lengths whose half has no Stockham plan (ops/dct.py
-// bluestein_tables).
+// come from ops/dct.py kernel_tables. cg_unwrap_czt.cu's chirp-z pass
+// reuses the in-register DFTs and the complex helpers.
 //
 // dct_kernel<N, C, SUB, INV, Epi> transforms lines of n = 2N points:
 // C lines per block, C * N / 32 threads, each holding 32 complex values
@@ -372,201 +371,6 @@ __global__ void __launch_bounds__(C * N / 32) dct_kernel(
       const int l = line0 + threadIdx.x;
       e.put(y, base + goff(K, threadIdx.x), P1.x, K, l);
       e.put(y, base + goff(n - K, threadIdx.x), -P1.y, n - K, l);
-    }
-  }
-  if constexpr (Epi::REDUCES) {
-    __syncthreads();
-    e.done(zf);
-  }
-}
-
-// ---- the chirp-z pass: lines of an even n = 2N whose N has no plan
-//
-// Makhoul's frame as dct_kernel's (the permuted load and the split store
-// with w and A; the inverse's pack and permuted store), the N-point FFT
-// as Bluestein's chirp-z on L points, L the power of two >= 2N - 1:
-//   Z_k = c_k sum_m (z_m c_m) b_(k-m), c_m = e^(-+ i pi m^2 / N),
-//   b = conj(c), a circular convolution of length L:
-//   a = z c, zero-padded to L            (a sweep over the lines),
-//   Y = FFT_L(a), Y' = conj(Y Bh)        (a sweep; Bh = FFT_L(b) / L),
-//   Z_k = c_k conj(FFT_L(Y')_k)          (read by the store),
-// both FFT_Ls forward Stockham passes of Plan<L> on tw_L (the inverse FFT
-// as a conjugated forward one, so one twiddle table), the sweep and the
-// three passes one loop body run twice. What bounds it on an H100: shared
-// memory. A line of n moves 8n bytes from and to device memory, as a
-// Stockham pass's does, but makes eight round trips of L ~ n complex
-// values through shared memory (the sweeps and six passes) where the
-// Stockham pass of the same n makes four of n / 2: about four times the
-// shared-memory work, at the Stockham passes' rate per value. The tables,
-// one per (n, direction), are ops/dct.py bluestein_tables: tw_L (L), c
-// (N), Bh (L), w (N + 1), A (N / 2 + 1), float32 pairs; tw_L is copied to
-// shared memory, the rest is read through L1 (every line of the block
-// reads the same entries). N is odd or even: the pairs (k, N - k) run
-// over k <= N / 2, and k = N - k (even N's middle) packs and stores once.
-// Lines: the lane form is a row of blocks a plane (grid y the plane,
-// `lines` rows a plane) and the sub form a row of blocks a plane's
-// columns, both as dct_kernel's; C lines a block. A lane row of n floats lies on the
-// 8-byte grid, not the 16-byte one, so the lane load and the inverse's
-// store move 8 bytes a thread (x_2t, x_2t+1 are v_t and v_(n-1-t); the
-// epilogue's put2); the sub form moves 4.
-
-// dynamic shared memory of czt_kernel<L, C, ...>: the padded lines and
-// tw_L
-template <int L, int C>
-constexpr size_t czt_smem_bytes() {
-  return (size_t)(C * L + C * L / 16 + L) * sizeof(float2);
-}
-
-template <int L, int C, bool SUB, bool INV, class Epi>
-__global__ void __launch_bounds__(C * L / 32) czt_kernel(
-    const float* __restrict__ x, float* __restrict__ y,
-    const float2* __restrict__ tab, int N, int lines, Epi epi) {
-  constexpr int T = C * L / 32;
-  constexpr int DATA = C * L + C * L / 16;  // padded complex slots
-  const int n = 2 * N;
-  if constexpr (epi_skips<Epi>::value) {
-    if (epi.skip()) return;
-  }
-  extern __shared__ float2 sm[];
-  float2* z = sm;
-  float* zf = reinterpret_cast<float*>(sm);
-  float2* tw = sm + DATA;  // [L]
-  for (int i = threadIdx.x; i < L; i += T) tw[i] = tab[i];
-  const float2* ch = tab + L;     // [N]
-  const float2* bh = ch + N;      // [L]
-  const float2* wt = bh + L;      // [N + 1]
-  const float2* At = wt + N + 1;  // [N / 2 + 1]
-
-  const int line0 = blockIdx.x * C;
-  const size_t base = SUB ? (size_t)blockIdx.y * n * lines + line0
-                          : ((size_t)blockIdx.y * lines + line0) * n;
-  auto goff = [&](int j, int c) -> size_t {
-    return SUB ? (size_t)j * lines + c : (size_t)c * n + j;
-  };
-  auto live = [&](int c) { return line0 + c < lines; };
-  // item i of C * K -> (line c, index k), as item() with K at run time
-  auto at = [&](int i, int K, int& c, int& k) {
-    if (SUB) {
-      c = i % C;
-      k = i / C;
-    } else {
-      c = i / K;
-      k = i - c * K;
-    }
-  };
-  // v_p holds x_j
-  auto perm = [&](int j) { return (j & 1) ? n - 1 - (j >> 1) : (j >> 1); };
-  // v_p of line c after the second FFT: a part of Z_(p/2)
-  auto V = [&](int p, int c) {
-    const float2 v = cmul(__ldg(ch + (p >> 1)),
-                          conjg(z[slot<L, C, SUB>(p >> 1, c)]));
-    return (p & 1) ? v.y : v.x;
-  };
-  const int KP = N / 2 + 1;  // pairs (k, N - k) a line
-
-  if constexpr (INV) {
-    // ---- load: pack the Hermitian F into Z' pair by pair
-    auto Y = [&](int p, int c) {
-      return live(c) ? x[base + goff(p, c)] : 0.f;
-    };
-    for (int i = threadIdx.x; i < C * KP; i += T) {
-      int c, k;
-      at(i, KP, c, k);
-      const float ynk = k ? Y(n - k, c) : 0.f;
-      const float2 F1 = cmul(make_float2(Y(k, c), -ynk), __ldg(wt + k));
-      const float2 F2 = cmul(make_float2(Y(N - k, c), -Y(N + k, c)),
-                             __ldg(wt + N - k));
-      const float2 S = cadd(F1, conjg(F2));
-      const float2 itD = times_i(cmul(__ldg(At + k), csub(F1, conjg(F2))));
-      z[slot<L, C, SUB>(k, c)] = cadd(S, itD);
-      if (k && 2 * k != N) z[slot<L, C, SUB>(N - k, c)] = conjg(csub(S, itD));
-    }
-  } else if constexpr (SUB) {
-    // ---- load: permute x into v, a strip row (C columns) at a time
-    for (int i = threadIdx.x; i < C * n; i += T) {
-      int c, j;
-      at(i, n, c, j);
-      const float v = live(c) ? x[base + goff(j, c)] : 0.f;
-      zf[vpos<L, C, SUB>(perm(j), c)] = v;
-    }
-  } else {
-    // ---- load: 8 bytes x_2t, x_2t+1 at a time, into v_t and v_(n-1-t)
-    for (int i = threadIdx.x; i < C * N; i += T) {
-      int c, t;
-      at(i, N, c, t);
-      const float2 v =
-          live(c) ? reinterpret_cast<const float2*>(x + base)[i]
-                  : make_float2(0.f, 0.f);
-      zf[vpos<L, C, SUB>(t, c)] = v.x;
-      zf[vpos<L, C, SUB>(n - 1 - t, c)] = v.y;
-    }
-  }
-  __syncthreads();
-
-  // ---- the chirp-z: a = z c (zero past N), two L-point FFTs around
-  // conj(Y Bh), as one loop body run twice (not unrolled, so the second
-  // FFT recomputes its slot offsets instead of holding the first's)
-  using P = Plan<L>;
-#pragma unroll 1
-  for (int round = 0; round < 2; ++round) {
-    for (int i = threadIdx.x; i < C * L; i += T) {
-      int c, m;
-      item<C, L, SUB>(i, c, m);
-      float2& v = z[slot<L, C, SUB>(m, c)];
-      if (round)
-        v = conjg(cmul(v, __ldg(bh + m)));
-      else
-        v = m < N ? cmul(v, __ldg(ch + m)) : make_float2(0.f, 0.f);
-    }
-    __syncthreads();
-    fft_pass<L, C, SUB, false, T, P::R0, 1>(z, tw);
-    fft_pass<L, C, SUB, false, T, P::R1, P::R0>(z, tw);
-    if constexpr (P::R2 > 1)
-      fft_pass<L, C, SUB, false, T, P::R2, P::R0 * P::R1>(z, tw);
-  }
-
-  Epi e = epi;
-  if constexpr (INV && SUB) {
-    // ---- store: undo the permutation
-    for (int i = threadIdx.x; i < C * n; i += T) {
-      int c, j;
-      at(i, n, c, j);
-      if (live(c))
-        e.put(y, base + goff(j, c), V(perm(j), c), j, line0 + c);
-    }
-  } else if constexpr (INV) {
-    // ---- store: the lane load's mirror, 8 bytes at a time
-    for (int i = threadIdx.x; i < C * N; i += T) {
-      int c, t;
-      at(i, N, c, t);
-      if (live(c))
-        e.put2(y, base, i, make_float2(V(t, c), V(n - 1 - t, c)));
-    }
-  } else {
-    // ---- split Z_k, Z_(N-k) into V_k, V_(N-k), post-twiddle, store
-    auto Z = [&](int k, int c) {
-      return cmul(__ldg(ch + k), conjg(z[slot<L, C, SUB>(k, c)]));
-    };
-    for (int i = threadIdx.x; i < C * KP; i += T) {
-      int c, k;
-      at(i, KP, c, k);
-      if (!live(c)) continue;
-      const float2 Zk = Z(k, c), Zm = Z(k ? N - k : 0, c);
-      const float2 E2 = cadd(Zk, conjg(Zm));
-      const float2 iAO = times_i(cmul(__ldg(At + k), csub(Zk, conjg(Zm))));
-      const float2 P1 = cmul(__ldg(wt + k), csub(E2, iAO));
-      const float2 P2 = cmul(__ldg(wt + N - k), conjg(cadd(E2, iAO)));
-      const int l = line0 + c;
-      e.put(y, base + goff(k, c), P1.x, k, l);
-      if (k) {
-        e.put(y, base + goff(n - k, c), -P1.y, n - k, l);
-        if (2 * k != N) {
-          e.put(y, base + goff(N - k, c), P2.x, N - k, l);
-          e.put(y, base + goff(N + k, c), -P2.y, N + k, l);
-        }
-      } else {
-        e.put(y, base + goff(N, c), P2.x, N, l);  // y_(N+0) is y_N
-      }
     }
   }
   if constexpr (Epi::REDUCES) {

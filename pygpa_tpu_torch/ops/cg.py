@@ -44,11 +44,12 @@ row-sharded solver's ``precond``/``rows`` and on the CPU). The kernel
 takes float32 sides 2 ... 8192 (:func:`unwrap_supported`). Where each
 side has a DCT pass of its own (:func:`unwrap_pass_side`: a power of two
 from 128 to 8192, a Stockham pass; an even side from 130 to 4094, a
-chirp-z pass on a Stockham plan of L = 256 ... 4096 points), the FFT
-route (:func:`unwrap_fft_route`) runs each iteration as six launches
-(the four DCT passes of ``dct_fft.cuh`` with the eigenvalue division and
-the r.z partials in their stores, then the p/stencil and the phi/r/stop
-kernels): the exact path's 4086^2 (the 5 px trim of ``iterate_GPA``),
+chirp-z pass of two four-step FFTs of L = 256 ... 4096 points in
+registers, ``cg_unwrap_czt.cu``), the FFT route
+(:func:`unwrap_fft_route`) runs each iteration as six launches (the
+four DCT passes, with the eigenvalue division and the r.z partials in
+their stores, then the p/stencil and the phi/r/stop kernels): the exact
+path's 4086^2 (the 5 px trim of ``iterate_GPA``),
 500^2 or 4096 x 4086. Other sides (odd, under 128, past 4094 and not a
 power of two) keep core.fourier's DCT pair and add three launches an
 iteration. Scalars, done flags and counts stay on the device; a done
@@ -188,7 +189,7 @@ UNWRAP_MAX_PLANES = 65535
 # sides of the Stockham DCT passes inside the solve: powers of two
 UNWRAP_FFT_SIDES = tuple(2 * N for N in sorted(_dct.RADICES))
 # the largest side of the chirp-z passes: its L, 4096, is the largest
-# length with a Stockham plan
+# of the chirp-z split (ops/dct.py CZT_SPLIT)
 UNWRAP_CZT_MAX = 4094
 _UNWRAP_TILE = 256 * 16   # elements per block of its elementwise kernels
 

@@ -11,7 +11,8 @@ early-stopping kernel's solves off its FFT sides. The early-stopping
 kernel's FFT route (csrc/cg_unwrap.cu) runs the same passes inside its
 own launches, so the eager paths launch no dct_lane or dct_sub; at its
 even sides that are not powers of two it runs a chirp-z pass of the same
-frame (``csrc/dct_fft.cuh`` czt_kernel, tables :func:`bluestein_tables`).
+frame (``csrc/cg_unwrap_czt.cu`` czt_kernel, tables
+:func:`bluestein_tables`).
 
 Method (``csrc/dct.cu``): Makhoul's DCT through a real FFT of the
 permuted line, done as a complex FFT of n/2 points in shared memory
@@ -113,37 +114,54 @@ def czt_length(n):
     return 1 << (n - 2).bit_length()
 
 
+# L = L1 x L2 of the chirp-z pass's four-step FFT_L (csrc/cg_unwrap_czt.cu
+# CztSplit): L2 threads a line, each holding up to L1 complex values
+CZT_SPLIT = {256: (16, 16), 512: (32, 16), 1024: (32, 32), 2048: (64, 32),
+             4096: (64, 64)}
+
+
 def bluestein_tables(n, inverse):
     """The chirp-z pass's complex128 tables for a line of even n whose
-    N = n/2 has no Stockham plan (csrc/dct_fft.cuh czt_kernel), s = -1
-    forward and +1 inverse, L = czt_length(n): tw[m] = e^(-2 pi i m / L)
-    (m < L, both directions: the kernel's inverse FFT_L is a conjugated
-    forward one), the chirp c[m] = e^(i pi s m^2 / N) (m < N), Bh =
-    FFT_L(b) / L of b = conj(c) laid out circularly (b_j at j and L - j,
-    zero between N and L - N), and kernel_tables' w (N + 1) and A
-    (N/2 + 1). Angles come from integers before the float64 cos/sin (m^2
-    reduced mod 2N for the chirp); Bh is a float64 FFT of that chirp."""
+    N = n/2 has no Stockham plan (csrc/cg_unwrap_czt.cu czt_kernel), s =
+    -1 forward and +1 inverse, L = czt_length(n) = L1 L2 (CZT_SPLIT), in
+    the order the kernel reads them: the four-step FFT_L's twiddles twA
+    [k1 L2 + m2] = e^(-2 pi i k1 m2 / L) (k1 < L1, m2 < L2) and twC[j2 L1
+    + k1] = e^(-2 pi i j2 k1 / L) (j2 < L2; both directions: the kernel's
+    inverse FFT_L is a conjugated forward one), Bh = FFT_L(b) / L of b =
+    conj(c) laid out circularly (b_j at j and L - j, zero between N and
+    L - N; natural order, read at k1 + L1 k2), the chirp c[m] = e^(i pi s
+    m^2 / N) (m < N), and kernel_tables' w (N + 1) and A (N/2 + 1).
+    Angles come from integers before the float64 cos/sin (products
+    reduced mod L, m^2 mod 2N for the chirp); Bh is a float64 FFT of that
+    chirp."""
     N = n // 2
     L = czt_length(n)
+    L1, L2 = CZT_SPLIT[L]
     s = 1.0 if inverse else -1.0
-    m = np.arange(L, dtype=np.int64)
-    ang = m.astype(np.float64) * (2 * np.pi / L)
-    tw = np.cos(ang) - 1j * np.sin(ang)
-    M = (m[:N] * m[:N]) % (2 * N)
-    ang = M.astype(np.float64) * (np.pi / N)
+
+    def root(M):
+        ang = (M % L).astype(np.float64) * (2 * np.pi / L)
+        return np.cos(ang) - 1j * np.sin(ang)
+
+    k1 = np.arange(L1, dtype=np.int64)
+    twA = root(np.outer(k1, np.arange(L2))).ravel()
+    twC = root(np.outer(np.arange(L2), k1)).ravel()
+    m = np.arange(N, dtype=np.int64)
+    ang = ((m * m) % (2 * N)).astype(np.float64) * (np.pi / N)
     c = np.cos(ang) + 1j * s * np.sin(ang)
     b = np.zeros(L, complex)
     b[:N] = np.conj(c)
     b[L - N + 1:] = np.conj(c[1:])[::-1]
     _, w, A = kernel_tables(n, inverse)
-    return tw, c, np.fft.fft(b) / L, w, A
+    return twA, twC, np.fft.fft(b) / L, c, w, A
 
 
 @functools.lru_cache(maxsize=32)
 def _device_table(n, inverse, device):
     """The kernels' table at n as interleaved (re, im) float32 on
     `device`: kernel_tables' tw, w and A one after the other where n / 2
-    has a Stockham plan, else bluestein_tables' tw_L, c, Bh, w and A."""
+    has a Stockham plan, else bluestein_tables' twA, twC, Bh, c, w and
+    A."""
     tables = kernel_tables if n // 2 in RADICES else bluestein_tables
     t = np.concatenate(tables(n, inverse))
     ri = np.stack([t.real, t.imag], -1).astype(np.float32)

@@ -10,10 +10,13 @@ fits of (3, 4086^2) phase stacks in ``refine_ks`` and ``iterate_GPA``
 (``gpa.reconstruct.fit_delta_k``).
 
 :func:`fit_plane_irls` launches the kernel ``iters + 1`` times on the
-caller's stream: each launch reads the stack once, forms the nine
-normal-equation sums of every plane (float32 a thread, float64 across
-threads and blocks, in a fixed order), and the plane's last block solves
-the system in float64 and stores the next coefficients on the device;
+caller's stream: each launch reads the stack once (16-byte loads, a few
+blocks an SM looping over each plane: :func:`fit_grid`), forms the nine
+normal-equation sums of every plane (float32 a thread over a tile of
+16 pixels, the three w v sums with Kahan's compensation, float64 across
+tiles, threads and blocks, in a fixed order),
+and the plane's last block solves the system in float64 and stores the
+next coefficients on the device;
 the last launch moves the offset back from the grid's centre. No host
 sync and no solver library, and a fit repeats bit for bit.
 :func:`fit_plane_irls_plain` is its twin in torch (batched
@@ -21,6 +24,7 @@ sync and no solver library, and a fit repeats bit for bit.
 ``core.mathtools``' fits take: the kernel where :func:`fit_kernel_ok`
 holds, the twin otherwise (float64, the CPU).
 """
+import functools
 import math
 
 import torch
@@ -30,9 +34,22 @@ from . import _build
 # the kernel's grid: planes on grid y, in-plane pixel counts below 2^31
 FIT_MAX_PLANES = 65535
 FIT_MAX_PIXELS = 2 ** 31 - 1
-# threads a block and pixels a thread (csrc/fit_plane.cu NT, EPT)
-NT, EPT = 256, 16
-TILE = NT * EPT
+# threads a block, float4 loads a thread a tile, pixels a tile and the
+# blocks an SM the grid is sized for (csrc/fit_plane.cu NT, LPT and its
+# __launch_bounds__)
+NT, LPT = 256, 4
+TILE = 4 * NT * LPT
+BLOCKS_PER_SM = 3
+
+
+def fit_grid(B, n, m, sms):
+    """G, the kernel's blocks a plane: BLOCKS_PER_SM blocks an SM of a
+    card with `sms` SMs over the B planes, at most one a TILE of a
+    plane's pixels (at least one). Each block loops over the plane's
+    tiles g, g + G, ...; the plane's G partials are added in a fixed
+    order, so a fit repeats bit for bit on one card."""
+    tiles = -(-n * m // TILE)
+    return max(1, min(tiles, -(-BLOCKS_PER_SM * sms // B)))
 
 
 def fit_kernel_ok(shape, dtype, device):
@@ -111,6 +128,11 @@ def _mask_planes(mask, shape):
             .view(torch.uint8), n * m)
 
 
+@functools.lru_cache(maxsize=8)
+def _sm_count(device):
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def fit_plane_irls(image, mask, f_scale, iters):
     """The Huber IRLS plane fit (module docstring) of `image` (..., n, m)
     over the pixels where the boolean `mask` holds (broadcast against
@@ -135,19 +157,19 @@ def fit_plane_irls(image, mask, f_scale, iters):
     if mask is not None:
         planes, mask_plane = _mask_planes(mask.to(dev), image.shape)
         mask_ptr = planes.data_ptr()
-    nb = -(-n * m // TILE)
     p = torch.empty((B, 3), dtype=torch.float32, device=dev)
     out = torch.empty_like(p)
-    part = torch.empty(B * 9 * nb, dtype=torch.float64, device=dev)
     count = torch.empty(B, dtype=torch.int32, device=dev)
     iters = int(iters)
     with torch.cuda.device(dev):
+        G = fit_grid(B, n, m, _sm_count(dev))
+        part = torch.empty(B * 9 * G, dtype=torch.float64, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
-        step = _build.bind("fit_plane_step", "ppippppiiifiip")
+        step = _build.bind("fit_plane_step", "ppippppiiiifiip")
         for it in range(iters + 1):
             code = step(img.data_ptr(), mask_ptr, mask_plane, p.data_ptr(),
                         part.data_ptr(), count.data_ptr(), out.data_ptr(),
-                        B, n, m, float(f_scale), int(it == 0),
+                        G, B, n, m, float(f_scale), int(it == 0),
                         int(it == iters), stream)
             _build.check(code, "fit_plane")
             _build.launches["fit_plane"] += 1

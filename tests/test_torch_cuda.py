@@ -584,13 +584,20 @@ def _check_unwrap(rk, WWx, WWy, kmax, aligned, czt):
     (1, 128, 4096, True, 3, 0), (2, 250, 374, False, 10, 4),
     (2, 250, 374, True, 6, 4), (2, 4086, 4086, False, 3, 4),
     (2, 4096, 4086, False, 3, 2), (2, 4086, 4096, True, 3, 2),
+    (2, 130, 252, False, 6, 4), (2, 252, 130, True, 6, 4),
+    (2, 1000, 1022, False, 6, 4), (1, 1022, 1000, True, 4, 4),
+    (1, 1500, 2046, False, 4, 4), (1, 2046, 1500, True, 4, 4),
+    (1, 3000, 4092, False, 3, 4), (1, 4094, 3000, True, 3, 4),
     (2, 64, 96, True, 6, None)])
 def test_cg_unwrap_kernel(dev, B, n, m, aligned, kmax, czt):
     """The early-stopping kernel on the FFT route (powers of two from 128
-    to 4096, both layouts; the chirp-z passes at 250 x 374 and 4086^2 and
-    beside a 4096-point pass at 4096 x 4086 and 4086 x 4096) and
-    elsewhere (64 x 96): `czt` is the chirp-z passes an iteration the
-    case must run, None for the other sides."""
+    to 4096, both layouts; the chirp-z passes at 250 x 374 and 4086^2,
+    beside a 4096-point pass at 4096 x 4086 and 4086 x 4096, and at every
+    chirp-z length L = 256 ... 4096 with N = side / 2 odd and even on
+    both axes: 130 x 252 and 252 x 130 (L = 256), 1000 x 1022 (1024),
+    1500 x 2046 (2048), 3000 x 4092 and 4094 x 3000 (4096); 374 and 500
+    are L = 512's) and elsewhere (64 x 96): `czt` is the chirp-z passes
+    an iteration the case must run, None for the other sides."""
     rk, WWx, WWy = _unwrap_problem((B,), n, m, aligned, 95, dev)
     _check_unwrap(rk, WWx, WWy, kmax, aligned, czt)
 
@@ -1784,10 +1791,30 @@ def _fit_stack(B, n, m, seed, outliers):
     return out
 
 
+def _flat_stack(B, n, m):
+    """B planes of an order-one field odd about the grid's centre in both
+    axes (its own fit is zero), plus slopes of ~1e-9 rad/px and offsets
+    of a few 1e-5 rad, float32: the w v sums cancel to 1e-5 of their
+    terms, where float32 partials of 16 pixels would miss the offset by
+    more than 1e-5 of it."""
+    x = np.arange(n)[:, None] - (n - 1) / 2
+    y = np.arange(m)[None, :] - (m - 1) / 2
+    field = np.sin(2 * np.pi * x / 1531) * np.sin(2 * np.pi * y / 977)
+    out = np.empty((B, n, m), np.float32)
+    for b, (a0, a1, c) in enumerate(((2e-9, -1e-9, 3e-5), (-3e-9, 2e-9, -5e-5),
+                                     (1e-9, 1e-9, 1.5e-5))[:B]):
+        out[b] = field + a0 * x + a1 * y + c
+    return out
+
+
 @pytest.mark.parametrize("case", ["1x48x40", "3x4086x4086",
                                   "2x500x374 shared mask",
                                   "2x500x374 per-image mask", "16x512x512",
-                                  "2x256x320 20% outliers"])
+                                  "2x256x320 20% outliers", "3x37x41",
+                                  "3x4086x4086 from 1",
+                                  "3x333x517 per-image mask",
+                                  "3x1001x999 per-image mask from 3",
+                                  "3x4086x4086 near-zero offset"])
 def test_fit_plane_kernel(dev, case):
     """The plane fit's kernel (ops.fit, csrc/fit_plane.cu) against its
     twin's fit of a float64 copy: the slopes within 1e-5 of the larger
@@ -1797,19 +1824,34 @@ def test_fit_plane_kernel(dev, case):
     radians and a slope ~1e-2 rad/px); a second call bit for bit; finite;
     exactly iters + 1 launches, counted by the wrapper and in the call's
     captured graph (ops._build.graph_kernels), with no other kernel (no
-    solver library) in the fit."""
+    solver library) in the fit. Planes off the 16-byte grid: n m not a
+    multiple of 4 (37 x 41, 333 x 517, 1001 x 999: every plane past the
+    first starts off it) and "from s", a stack that starts s floats past
+    it; "per-image mask": a mask a plane. "near-zero offset": phases of
+    order one whose plane is nearly flat with an offset ~1e-5 of them, as
+    refine_ks's last fits see them (the sums of w v cancel)."""
     from pygpa_tpu_torch.ops import fit as tfit
     dims, *rest = case.split(" ")
     B, n, m = (int(s) for s in dims.split("x"))
-    img = torch.from_numpy(_fit_stack(
-        B, n, m, B * n + m, 0.2 if "20%" in case else 0.05)).to(dev)
+    if "near-zero" in case:
+        img = torch.from_numpy(_flat_stack(B, n, m)).to(dev)
+    else:
+        img = torch.from_numpy(_fit_stack(
+            B, n, m, B * n + m, 0.2 if "20%" in case else 0.05)).to(dev)
+    if "from" in case:
+        start = int(case.split("from ")[1])
+        buf = torch.empty(B * n * m + start, device=dev)
+        buf[start:] = img.flatten()
+        img = buf[start:].view(B, n, m)
+        assert img.data_ptr() % 16 == 4 * start
     mask = None
     if "mask" in case:
         g = np.random.default_rng(n)
         mk = g.uniform(size=(n, m)) > 0.3
         mk[n // 4:n // 2, m // 3:m // 2] = False
-        mask = torch.from_numpy(mk if "shared" in case
-                                else np.stack([mk, mk[::-1]])).to(dev)
+        mask = torch.from_numpy(
+            mk if "shared" in case
+            else np.stack([mk, mk[::-1], mk[:, ::-1]][:B])).to(dev)
     iters = 60
     before = _build.launches["fit_plane"]
     got = tfit.fit_plane_irls(img, mask, 1.0, iters)

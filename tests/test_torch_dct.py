@@ -111,15 +111,51 @@ def _vpos(n):
     return np.where(j % 2 == 0, j // 2, n - 1 - (j - 1) // 2)
 
 
-def _czt(z, tw, c, bh):
-    """csrc/dct_fft.cuh czt_kernel's N-point FFT of the last axis (the
-    direction is the tables'): the chirp, zero padding to L, the L-point
-    Stockham passes, conj(Y Bh), the passes again, c conj(.)."""
-    L, N = tw.size, c.size
-    a = np.zeros(z.shape[:-1] + (L,), complex)
+def _lowhalf(x, R):
+    """csrc/cg_unwrap_czt.cu dft_lowhalf along axis 0: the R-point DFT of
+    x (R / 2 entries; the upper half zero) as the half DFTs of x (even
+    outputs) and of x_m W_R^m (odd outputs)."""
+    m = np.arange(R // 2).reshape((-1,) + (1,) * (x.ndim - 1))
+    X = np.empty((R,) + x.shape[1:], complex)
+    X[0::2] = _dft(x, False)
+    X[1::2] = _dft(x * np.exp(-2j * np.pi * m / R), False)
+    return X
+
+
+def _firsthalf(x, R):
+    """csrc/cg_unwrap_czt.cu dft_firsthalf along axis 0: outputs j < R / 2
+    of the R-point DFT, E_j + W_R^j O_j from the half DFTs of the even
+    and odd entries."""
+    j = np.arange(R // 2).reshape((-1,) + (1,) * (x.ndim - 1))
+    return (_dft(x[0::2], False)
+            + np.exp(-2j * np.pi * j / R) * _dft(x[1::2], False))
+
+
+def _czt(z, twA, twC, bh, c):
+    """csrc/cg_unwrap_czt.cu czt_kernel's N-point FFT of the last axis of
+    z (the direction is the chirp's), the four-step FFT_L at L = L1 L2
+    (TD.CZT_SPLIT) twice, with the tables in the kernel's order: A, per
+    m2, a_(L2 m1 + m2) = z c (m1 < L1 / 2, zero from N) through the
+    pruned L1-point DFT, times twA[k1 L2 + m2]; B, per k1, the L2-point
+    DFT over m2 (Y_(k1 + L1 k2)), Y' = conj(Y Bh); C, the L2-point DFT
+    over k2, times twC[j2 L1 + k1]; D, per j2, the L1-point DFT over k1
+    pruned to j1 < L1 / 2: R_(j2 + L2 j1); Z = c conj(R) for j < N."""
+    N = c.size
+    L = bh.size
+    L1, L2 = TD.CZT_SPLIT[L]
+    lead = z.shape[:-1]
+    a = np.zeros(lead + (L,), complex)
     a[..., :N] = z * c
-    r = _fft(np.conj(_fft(a, tw, False) * bh), tw, False)
-    return c * np.conj(r[..., :N])
+    # (m1, ..., m2), m1 < L1 / 2
+    a = np.moveaxis(a.reshape(lead + (L1, L2)), -2, 0)[:L1 // 2]
+    X = _lowhalf(a, L1) * twA.reshape((L1,) + (1,) * len(lead) + (L2,))
+    Y = _dft(np.moveaxis(X, -1, 0), False)          # (k2, k1, ...)
+    k = np.arange(L1)[None, :] + L1 * np.arange(L2)[:, None]
+    Y = np.conj(Y * bh[k].reshape((L2, L1) + (1,) * len(lead)))
+    Cj = _dft(Y, False) * twC.reshape((L2, L1) + (1,) * len(lead))
+    R = _firsthalf(np.moveaxis(Cj, 1, 0), L1)        # (j1, j2, ...)
+    R = np.moveaxis(R.reshape((L1 // 2 * L2,) + lead), 0, -1)
+    return c * np.conj(R[..., :N])
 
 
 def _kernel_form(x, n, inverse, czt=False):
@@ -132,10 +168,10 @@ def _kernel_form(x, n, inverse, czt=False):
     frame (N odd or even) around the chirp-z (TD.bluestein_tables)."""
     N = n // 2
     if czt:
-        tw, c, bh, w, A = TD.bluestein_tables(n, inverse)
+        twA, twC, bh, c, w, A = TD.bluestein_tables(n, inverse)
 
         def fft(z, inv):
-            return _czt(z, tw, c, bh)
+            return _czt(z, twA, twC, bh, c)
     else:
         tw, w, A = TD.kernel_tables(n, inverse)
 
@@ -227,18 +263,25 @@ def test_kernel_tables_are_exact_roots(n):
     np.testing.assert_allclose(dev[:, 1], flat.imag, atol=6e-8)
 
 
-# even lengths whose half has no Stockham plan, as the early-stopping
-# CG meets them: 250 x 374, config 1's 500^2, iterate_GPA's 4086^2, and
-# the ends of L = 256 (130) and L = 1024 (1022); N odd and even
-CZT_SIZES = [130, 250, 374, 500, 1022, 4086]
+# even lengths whose half has no Stockham plan: at each L = 256 ... 4096
+# one with N odd and one with N even, among them those the early-stopping
+# CG meets (250 x 374, config 1's 500^2, iterate_GPA's 4086^2) and the
+# ends of L = 256 (130) and L = 1024 (1022)
+CZT_SIZES = [130, 250, 252, 374, 500, 1000, 1022, 1500, 2046, 3000, 4086]
+
+
+def test_czt_sizes_cover_every_length_and_parity():
+    """CZT_SIZES holds an odd and an even N at each chirp-z length."""
+    seen = {(TD.czt_length(n), n // 2 % 2) for n in CZT_SIZES}
+    assert seen == {(L, p) for L in TD.CZT_SPLIT for p in (0, 1)}
 
 
 @pytest.mark.parametrize("n", CZT_SIZES)
 def test_bluestein_tables_reproduce_scipy(n):
     """czt_kernel's arithmetic in float64 with the wrapper's chirp-z
-    tables (Makhoul's frame; the chirp, the L-point Stockham passes of
-    the plan, conj(Y Bh), the passes again) reproduces scipy's DCT-II
-    and its inverse to 1e-12."""
+    tables (Makhoul's frame; the chirp, the pruned four-step FFT_L,
+    conj(Y Bh) between its steps B and C, the pruned output) reproduces
+    scipy's DCT-II and its inverse to 1e-12."""
     assert n // 2 not in TD.RADICES
     x = np.random.default_rng(n).normal(size=(2, n))
     for inverse, ref in ((False, sdct(x, type=2, axis=-1)),
@@ -249,20 +292,31 @@ def test_bluestein_tables_reproduce_scipy(n):
 
 @pytest.mark.parametrize("n", CZT_SIZES)
 def test_bluestein_tables_are_exact(n):
-    """L is the power of two >= 2N - 1 and has a plan; tw_L holds the L-th
-    roots, the chirp e^(-+ i pi m^2 / N) (the inverse's conjugates the
-    forward's), Bh = FFT_L(conj chirp, laid out circularly) / L, so it is
-    even (Bh_k = Bh_(L-k)); w and A are kernel_tables'; the float32
-    device table (tw_L, c, Bh, w, A) lies within 1 ulp of the float64
-    one."""
+    """L is the power of two >= 2N - 1 and splits as L1 x L2 (L1 = L2 or
+    2 L2, at most 64, so the kernel's in-register DFTs take them); N <= L
+    / 2, so the pruned halves hold every input and output; twA and twC
+    hold the roots W_L^(k1 m2) and W_L^(j2 k1) in the kernel's order (the
+    same in both directions); the chirp e^(-+ i pi m^2 / N) (the
+    inverse's conjugates the forward's); Bh = FFT_L(conj chirp, laid out
+    circularly) / L, so it is even (Bh_k = Bh_(L-k)); w and A are
+    kernel_tables'; the float32 device table (twA, twC, Bh, c, w, A) lies
+    within 1 ulp of the float64 one."""
     N = n // 2
     L = TD.czt_length(n)
+    L1, L2 = TD.CZT_SPLIT[L]
     assert L in TD.RADICES and L >= 2 * N - 1 and L // 2 < 2 * N - 1
-    tw, c, bh, w, A = TD.bluestein_tables(n, False)
-    itw, ic, ibh, iw, iA = TD.bluestein_tables(n, True)
-    assert (tw.shape, c.shape, bh.shape) == ((L,), (N,), (L,))
-    np.testing.assert_allclose(tw ** L, 1, atol=1e-9)
-    np.testing.assert_array_equal(itw, tw)
+    assert L1 * L2 == L and L1 in (L2, 2 * L2) and L1 <= 64 and 2 * N <= L
+    twA, twC, bh, c, w, A = TD.bluestein_tables(n, False)
+    itwA, itwC, ibh, ic, iw, iA = TD.bluestein_tables(n, True)
+    assert (twA.shape, twC.shape, bh.shape, c.shape) == ((L,), (L,), (L,),
+                                                         (N,))
+    k1, m2 = np.meshgrid(np.arange(L1), np.arange(L2), indexing="ij")
+    np.testing.assert_allclose(
+        twA, np.exp(-2j * np.pi * (k1 * m2).ravel() / L), atol=1e-15)
+    np.testing.assert_allclose(
+        twC, np.exp(-2j * np.pi * (k1 * m2).T.ravel() / L), atol=1e-15)
+    np.testing.assert_array_equal(itwA, twA)
+    np.testing.assert_array_equal(itwC, twC)
     m = np.arange(N, dtype=np.float64)
     np.testing.assert_allclose(c, np.exp(-1j * np.pi * m * m / N),
                                atol=1e-9)

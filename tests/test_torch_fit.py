@@ -1,8 +1,9 @@
 """The robust plane fit's kernel route (ops.fit, csrc/fit_plane.cu) on
-the CPU: the kernel's step emulated in float64 numpy (its block partials
-in the kernel's fixed order, the nine normal-equation sums, the float64
-3x3 solve with partial pivoting and the final offset shift) against the
-plain twin fit_plane_irls_plain in float64; the route gate's truth table;
+the CPU: the kernel's step emulated in float64 numpy (its grid of G
+blocks a plane over tiles, the head and tail off the 16-byte grid, its
+block partials in the kernel's fixed order, the nine normal-equation
+sums, the float64 3x3 solve with partial pivoting and the final offset
+shift) against the plain twin fit_plane_irls_plain in float64; the route gate's truth table;
 core.mathtools' routing between kernel and twin; the mask's plane layout.
 The kernel itself runs in tests/test_torch_cuda.py on the card; the twin
 against pygpa_tpu's fit is tests/test_torch_lockin.py's
@@ -56,26 +57,48 @@ def _solve3(t):
     return q
 
 
-def _emulate(img, mask, f_scale=1.0, iters=60):
-    """The kernel's fit of img (B, n, m) in float64: iters + 1 launches;
-    in each, block b's thread t adds pixels b TILE + k NT + t, k < EPT,
-    in order, the block adds its threads (_block_sums), and the plane's
-    last block adds the partials, thread t those of blocks t, t + NT,
-    ..., in order, then the threads, and solves. mask: None, one (n, m)
-    plane for all or (B, n, m)."""
+def _owners(nm, start, G):
+    """csrc/fit_plane.cu's split of a plane of nm pixels that starts
+    `start` floats past the 16-byte grid among its G blocks: (block of
+    each pixel, its thread, its tile of that block). The vector part
+    (float4s from pixel h, the first on the grid) in tiles of NT LPT
+    float4s, block g taking tiles g, g + G, ..., thread t float4s t, t +
+    NT, ... of a tile; the head (e < h) and the tail past the last whole
+    float4 are block 0's first tile (tile -1 here), a pixel a thread."""
+    h = (-start) % 4
+    nv = (nm - h) // 4 if nm > h else 0
+    e = np.arange(nm)
+    f = (e - h) // 4
+    vec = (e >= h) & (f < nv)
+    tile = np.where(vec, f // (tfit.NT * tfit.LPT), -1)
+    block = np.where(vec, tile % G, 0)
+    edge = np.cumsum(~vec) - 1
+    thread = np.where(vec, f % tfit.NT, edge)
+    return block, thread, np.where(vec, tile // G, -1)
+
+
+def _emulate(img, mask, G, start=0, f_scale=1.0, iters=60):
+    """The kernel's fit of img (B, n, m) in float64 on a grid of G blocks a
+    plane, plane b starting start + b n m floats past the 16-byte grid:
+    iters + 1 launches; in each, every pixel goes to the float32 sum of
+    its (block, thread, tile) (_owners), each thread adds its tiles in
+    order, the block adds its threads (_block_sums), and the plane's last
+    block adds the G partials, thread t those of blocks t, t + NT, ...,
+    then the threads, and solves. mask: None, one (n, m) plane for all or
+    (B, n, m)."""
     B, n, m = img.shape
     nm = n * m
-    nb = -(-nm // tfit.TILE)
-    v = np.zeros((B, nb * tfit.TILE))
-    v[:, :nm] = img.reshape(B, nm)
-    inside = np.zeros((B, nb * tfit.TILE), bool)
-    inside[:, :nm] = True if mask is None else np.broadcast_to(
+    v = img.reshape(B, nm)
+    inside = np.ones((B, nm), bool) if mask is None else np.broadcast_to(
         mask, img.shape).reshape(B, nm)
-    e = np.arange(nb * tfit.TILE)
+    e = np.arange(nm)
     cx, cy = (n - 1) / 2, (m - 1) / 2
     x, y = e // m - cx, e % m - cy
+    owners = [_owners(nm, start + b * nm, G) for b in range(B)]
+    for blk, _, _ in owners:        # every pixel once, the tail a thread each
+        assert blk.shape == (nm,) and blk.min() >= 0 and blk.max() < G
+    ns = -(-G // tfit.NT)
     p = np.zeros((B, 3))
-    ns = -(-nb // tfit.NT)
     for step in range(iters + 1):
         if step == 0:
             w = np.ones_like(v)
@@ -86,17 +109,25 @@ def _emulate(img, mask, f_scale=1.0, iters=60):
         w = np.where(inside, w, 0.0)
         terms = np.stack([w, w * x, w * y, w * x * x, w * x * y, w * y * y,
                           w * v, w * v * x, w * v * y], 1)
-        terms = terms.reshape(B, 9, nb, tfit.EPT, tfit.NT)
-        thr = terms[..., 0, :]
-        for k in range(1, tfit.EPT):
-            thr = thr + terms[..., k, :]
-        part = np.zeros((B, 9, ns * tfit.NT))
-        part[..., :nb] = _block_sums(thr)
-        part = part.reshape(B, 9, ns, tfit.NT)
-        acc = part[..., 0, :]
-        for s in range(1, ns):
-            acc = acc + part[..., s, :]
-        tot = _block_sums(acc)
+        tot = np.empty((B, 9))
+        for b, (blk, thr, til) in enumerate(owners):
+            ntile = til.max() + 2
+            # (tile + 1, block, thread) float32 sums
+            key = ((til + 1) * G + blk) * tfit.NT + thr
+            sums = np.stack([np.bincount(key, terms[b, k],
+                                         ntile * G * tfit.NT)
+                             for k in range(9)])
+            sums = sums.reshape(9, ntile, G, tfit.NT)
+            thr_sum = sums[:, 0]
+            for t in range(1, ntile):
+                thr_sum = thr_sum + sums[:, t]
+            part = np.zeros((9, ns * tfit.NT))
+            part[:, :G] = _block_sums(thr_sum)
+            part = part.reshape(9, ns, tfit.NT)
+            acc = part[:, 0]
+            for s in range(1, ns):
+                acc = acc + part[:, s]
+            tot[b] = _block_sums(acc)
         p = np.array([_solve3(tot[b]) for b in range(B)])
     return np.stack([p[:, 0], p[:, 1],
                      p[:, 2] - p[:, 0] * cx - p[:, 1] * cy], -1)
@@ -116,26 +147,87 @@ def _masked_planes():
     return planes, mask
 
 
+def _ragged_planes():
+    """Three 37 x 41 planes (n m = 1517, not a multiple of 4, so planes 1
+    and 2 start off the 16-byte grid) with noise and outliers, and a mask
+    a plane."""
+    rng = np.random.default_rng(37)
+    xx, yy = np.meshgrid(np.arange(37), np.arange(41), indexing="ij")
+    planes = np.stack([a * xx + b * yy + c for a, b, c in
+                       ((0.03, -0.01, 2.0), (-0.02, 0.04, -6.0),
+                        (0.005, 0.011, 9.5))])
+    planes = planes + 0.2 * rng.normal(size=planes.shape)
+    planes[:, 5:9, 20:30] -= 15.0
+    return planes, rng.uniform(size=planes.shape) > 0.2
+
+
 @pytest.mark.parametrize("case", ["48x40", "48x40 shared mask",
-                                  "64x96 shared mask", "64x96 per image"])
+                                  "64x96 shared mask", "64x96 per image",
+                                  "48x40 one block", "37x41",
+                                  "37x41 per image", "37x41 from 3",
+                                  "37x41 per image from 1",
+                                  "37x41 from 3 one block"])
 def test_kernel_step_emulation_matches_twin(case):
-    """The kernel's arithmetic in float64 reproduces the twin's float64
-    fit within 1e-10 of the largest coefficient (the summation orders
-    differ; the fit is the same)."""
+    """The kernel's arithmetic in float64 (its grid of G blocks a plane,
+    3 or "one block", the head, vector part and tail of each plane)
+    reproduces the twin's float64 fit within 1e-10 of the largest
+    coefficient (the summation orders differ; the fit is the same);
+    "from s": the stack starts s floats past the 16-byte grid."""
+    G = 1 if "one block" in case else 3
+    start = int(case.split("from ")[1].split()[0]) if "from" in case else 0
     if case.startswith("48x40"):
         planes = _planes(np.float64)
         mask = (np.random.default_rng(9).uniform(size=planes.shape[1:]) > 0.3
                 if "mask" in case else None)
+    elif case.startswith("37x41"):
+        planes, mask = _ragged_planes()
+        mask = mask if "per image" in case else None
     else:
         planes, mask = _masked_planes()
         if case.endswith("per image"):
             mask = np.stack([mask, mask[::-1]])
-    got = _emulate(planes, mask)
+    got = _emulate(planes, mask, G, start)
     t = torch.from_numpy(planes)
     tm = None if mask is None else torch.from_numpy(mask)
     want = tfit.fit_plane_irls_plain(t, tm, 1.0, 60).numpy()
     np.testing.assert_allclose(got, want, rtol=0,
                                atol=1e-10 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("nm,start,G", [(1517, 0, 1), (1517, 1, 1),
+                                        (1517, 3, 2), (1001 * 999, 2, 37),
+                                        (3, 1, 1), (5, 0, 1)])
+def test_kernel_split_covers_each_pixel_once(nm, start, G):
+    """_owners: each pixel in exactly one slot (block, thread, tile, load,
+    lane),
+    whole float4s on the grid in the vector part, at most 3 head and 3
+    tail pixels (block 0's first tile, a thread each), and the tiles of
+    block g those congruent to g mod G."""
+    blk, thr, til = _owners(nm, start, G)
+    h = (-start) % 4
+    edge = til < 0
+    assert edge.sum() <= 6 and (blk[edge] == 0).all()
+    assert sorted(thr[edge]) == list(range(int(edge.sum())))
+    e = np.flatnonzero(~edge)
+    assert ((start + e[::4]) % 4 == 0).all() and e.size % 4 == 0
+    if nm > h + 3:
+        assert (e[0] == h) and edge[:h].all()
+    # (block, thread, tile, load of the tile, lane of the float4)
+    f = (np.arange(nm) - h) // 4
+    key = np.stack([blk, thr, til, f // tfit.NT % tfit.LPT,
+                    (np.arange(nm) - h) % 4])[:, ~edge]
+    assert np.unique(key, axis=1).shape[1] == e.size
+    assert (blk[~edge] == (f[~edge] // (tfit.NT * tfit.LPT)) % G).all()
+
+
+def test_fit_grid():
+    """G: three blocks an SM of the card over the planes, at most one a
+    tile of 4096 pixels, at least one."""
+    assert tfit.fit_grid(3, 4086, 4086, 132) == 132
+    assert tfit.fit_grid(1, 4086, 4086, 132) == 396
+    assert tfit.fit_grid(2, 64, 64, 132) == 1
+    assert tfit.fit_grid(2, 100, 100, 132) == 3
+    assert tfit.fit_grid(5000, 4086, 4086, 132) == 1
 
 
 @pytest.mark.parametrize("shape,dtype,device,ok", [
